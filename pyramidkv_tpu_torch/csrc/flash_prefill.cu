@@ -1,0 +1,262 @@
+// Causal GQA flash-attention prefill over a left-padded buffer (sm_90a).
+//
+// Replaces: pyramidkv_tpu/kernels/flash_prefill.py::flash_causal_attention
+// (Pallas TPU, body `_kernel`), in its default schedule: two_pass=False,
+// sub_k=1, q_start=0, no softcap.
+//
+// What it computes, per batch row b with pad = N - true_len[b]:
+//   out[b,h,r] = softmax_c(scale * q[b,h,r] . k[b,h/G,c]) @ v[b,h/G,c]
+// over the visible keys c <= r, c >= pad (and r - c < window when a sliding
+// window is set).  A row with no visible key (every row < pad) writes 0, as
+// the TPU kernel's `l == 0` guard does.
+//
+// What bounds it on the H100: operations.  At the prefill shapes of the main
+// path (N = 8192, D = 128) attention does ~N/2 multiply-adds per byte of
+// q/k/v, far above the card's ~295 flop/byte bf16 ridge, so the bound is the
+// tensor-core rate, not HBM.
+//
+// What the design does about it:
+// - The products run on the tensor cores with warp-level mma.sync
+//   (m16n8k16, bf16 operands, f32 accumulation); q fragments stay in
+//   registers for the whole key loop and the S -> P fragments are reused as
+//   the A operand of P @ V without a trip through shared memory.
+// - The triangular walk of the TPU kernel becomes the key-tile loop bounds:
+//   a block only visits k-tiles between the pad/window edge and its causal
+//   edge, so causally dead tiles are never loaded or multiplied.
+// - The heaviest q-tiles (last rows, longest key range) are scheduled first.
+// - Online softmax in the exp2 domain with log2(e) folded into the q scaling,
+//   q rounded to bf16 after scaling exactly as the TPU wrapper does.
+// Left for later: TMA/wgmma, a multi-stage copy pipeline and warp
+// specialisation (tiles are loaded synchronously here).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int D = 128;        // head dim (the only one the kernel takes)
+constexpr int BQ = 64;        // q rows per block: 4 warps x 16 rows
+constexpr int BK = 64;        // keys per k-tile
+constexpr int NTHREADS = 128;
+constexpr int LDS = D + 8;    // padded smem row (bf16): conflict-free fragments
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
+                                             __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// two consecutive bf16 of q, times `scale`, rounded back to bf16
+__device__ __forceinline__ uint32_t load_q2(const __nv_bfloat16* p,
+                                            float scale) {
+  __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(p);
+  float2 f = __bfloat1622float2(x);
+  return pack_bf16(f.x * scale, f.y * scale);
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, N, D]
+                     const __nv_bfloat16* __restrict__ k,   // [B*Hk, N, D]
+                     const __nv_bfloat16* __restrict__ v,   // [B*Hk, N, D]
+                     const int* __restrict__ true_len,      // [B]
+                     __nv_bfloat16* __restrict__ out,       // [B*H, N, D]
+                     int H, int Hk, int N, int window, float scale_log2) {
+  __shared__ __align__(16) __nv_bfloat16 ks[BK * LDS];
+  __shared__ __align__(16) __nv_bfloat16 vs[BK * LDS];
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest q-tiles first
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int kv_row = b * Hk + h / (H / Hk);
+  const int pad = N - true_len[b];
+  const int q0 = qt * BQ;
+  const int last_row = q0 + BQ - 1;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;  // fragment row group
+  const int tig = lane & 3;   // thread in group
+
+  const __nv_bfloat16* qb = q + (size_t)bh * N * D;
+  const __nv_bfloat16* kb = k + (size_t)kv_row * N * D;
+  const __nv_bfloat16* vb = v + (size_t)kv_row * N * D;
+  __nv_bfloat16* ob = out + (size_t)bh * N * D;
+
+  if (last_row < pad) {  // every row is padding: no visible key
+    const uint4 z = make_uint4(0, 0, 0, 0);
+    for (int i = tid; i < BQ * D / 8; i += NTHREADS) {
+      int r = i / (D / 8), c = (i % (D / 8)) * 8;
+      *reinterpret_cast<uint4*>(ob + (size_t)(q0 + r) * D + c) = z;
+    }
+    return;
+  }
+
+  // rows of this thread's accumulator fragments: r0 and r0 + 8
+  const int r0 = q0 + warp * 16 + gid;
+
+  // q fragments (A operand, row-major 16x16 per k-step), scaled once
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk * 16 + tig * 2;
+    qf[kk][0] = load_q2(qb + (size_t)r0 * D + c, scale_log2);
+    qf[kk][1] = load_q2(qb + (size_t)(r0 + 8) * D + c, scale_log2);
+    qf[kk][2] = load_q2(qb + (size_t)r0 * D + c + 8, scale_log2);
+    qf[kk][3] = load_q2(qb + (size_t)(r0 + 8) * D + c + 8, scale_log2);
+  }
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  }
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // per-thread partial row sums
+
+  int lo = pad;
+  if (window > 0) lo = max(lo, q0 - window + 1);
+  const int kt_begin = lo / BK;
+  const int kt_end = last_row / BK;
+
+  for (int kt = kt_begin; kt <= kt_end; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile is consumed
+#pragma unroll
+    for (int i = 0; i < BK * D / 8 / NTHREADS; ++i) {
+      const int idx = tid + i * NTHREADS;
+      const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
+      *reinterpret_cast<uint4*>(&ks[r * LDS + c]) =
+          *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * D + c);
+      *reinterpret_cast<uint4*>(&vs[r * LDS + c]) =
+          *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * D + c);
+    }
+    __syncthreads();
+
+    // S = (q * scale * log2 e) K^T : 16 rows x 64 keys per warp
+    float s[BK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        const __nv_bfloat16* kp = &ks[(nt * 8 + gid) * LDS + kk * 16 + tig * 2];
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kp);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kp + 8);
+        mma_bf16(s[nt], qf[kk], b0, b1);
+      }
+    }
+
+    // mask: causal, left padding, sliding window
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + ((e >> 1) << 3);
+        const int col = k0 + nt * 8 + tig * 2 + (e & 1);
+        bool ok = col <= row && col >= pad;
+        if (window > 0) ok = ok && (row - col < window);
+        if (!ok) s[nt][e] = -INFINITY;
+      }
+    }
+
+    // online softmax, one update per fragment row (i = 0: r0, i = 1: r0+8)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        mx = fmaxf(mx, fmaxf(s[nt][2 * i], s[nt][2 * i + 1]));
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      // a row with nothing visible yet keeps p == 0 and alpha == 0
+      const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
+      const float alpha = exp2f(m[i] - m_use);
+      float rs = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        const float p0 = exp2f(s[nt][2 * i] - m_use);
+        const float p1 = exp2f(s[nt][2 * i + 1] - m_use);
+        s[nt][2 * i] = p0;
+        s[nt][2 * i + 1] = p1;
+        rs += p0 + p1;
+      }
+      l[i] = l[i] * alpha + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        o[dt][2 * i] *= alpha;
+        o[dt][2 * i + 1] *= alpha;
+      }
+    }
+
+    // O += P V, P rounded to bf16 (the TPU kernel's p.astype(v.dtype))
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        const __nv_bfloat16* vp = &vs[(kk * 16 + tig * 2) * LDS + dt * 8 + gid];
+        const uint32_t b0 = pack_raw(vp[0], vp[LDS]);
+        const uint32_t b1 = pack_raw(vp[8 * LDS], vp[9 * LDS]);
+        mma_bf16(o[dt], a, b0, b1);
+      }
+    }
+  }
+
+  // finalize: full row sums across the 4 threads of a row group
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  const float inv0 = l[0] > 0.f ? 1.f / l[0] : 0.f;
+  const float inv1 = l[1] > 0.f ? 1.f / l[1] : 0.f;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    const int c = dt * 8 + tig * 2;
+    *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * D + c) =
+        pack_bf16(o[dt][0] * inv0, o[dt][1] * inv0);
+    *reinterpret_cast<uint32_t*>(ob + (size_t)(r0 + 8) * D + c) =
+        pack_bf16(o[dt][2] * inv1, o[dt][3] * inv1);
+  }
+}
+
+}  // namespace
+
+extern "C" int pkv_flash_prefill(const void* q, const void* k, const void* v,
+                                 const void* true_len, void* out, int B, int H,
+                                 int Hk, int N, int window, float scale,
+                                 void* stream) {
+  dim3 grid(N / BQ, B * H);
+  flash_prefill_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const int*)true_len, (__nv_bfloat16*)out, H,
+      Hk, N, window, scale * LOG2E);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,199 @@
+"""Generation engine (counterpart of ``pyramidkv_tpu/engine.py``):
+bucketed prefill with compression, then greedy decode over the compressed
+cache.
+
+Prompts are left-padded to the smallest bucket that fits; the whole batch
+runs one monolithic prefill (``models.llama.prefill``) and a Python decode
+loop of ``models.llama.decode_step`` with the JAX loop's ``done`` / ``-1`` /
+EOS semantics.  The loop reads ``done`` back each step (one host sync per
+token); capturing the step in a CUDA graph is later work (ROADMAP).
+
+Ported: greedy decoding, ``fullkv`` / ``snapkv`` / ``pyramidkv``.  Sampling,
+``prefix`` handles, chunked prefill and speculative decoding raise
+``NotImplementedError`` (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .cache import cache_memory_bytes
+from .config import CompressionSpec, EngineSpec, ModelSpec
+from .models import llama
+from .policy import PolicyPlan, make_plan
+
+
+@dataclass
+class GenerationOutput:
+    #: [B] generated token-id lists (EOS excluded).
+    tokens: "list[list[int]]"
+    prefill_seconds: float
+    decode_seconds: float
+    decode_steps: int
+    kv_cache_bytes: int
+
+
+@dataclass
+class EngineStats:
+    """Cumulative engine counters."""
+
+    requests: int = 0
+    prompt_tokens: int = 0
+    generated_tokens: int = 0
+    prefill_seconds: float = 0.0
+    decode_seconds: float = 0.0
+    kv_cache_bytes_last: int = 0
+
+    def decode_tokens_per_second(self) -> float:
+        return (self.generated_tokens / self.decode_seconds
+                if self.decode_seconds else 0.0)
+
+    def prefill_tokens_per_second(self) -> float:
+        return (self.prompt_tokens / self.prefill_seconds
+                if self.prefill_seconds else 0.0)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+class Engine:
+    """Single-model generation engine with KV compression.
+
+    ``device=None`` means the CUDA card, and raises when there is none;
+    pass ``device="cpu"`` to run the plain CPU path.  ``params`` (the JAX
+    layout, ``models/convert.py``) are moved to ``device`` if needed.
+    """
+
+    def __init__(
+        self,
+        model_spec: ModelSpec,
+        comp_spec: CompressionSpec,
+        engine_spec: EngineSpec,
+        params: dict,
+        *,
+        device=None,
+    ):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Engine: no CUDA device; pass device='cpu' for the CPU")
+            device = "cuda"
+        es = engine_spec
+        if not es.greedy or es.prefill_chunk is not None or es.speculative:
+            raise NotImplementedError(
+                "sampling, chunked prefill and speculative decoding are not "
+                "ported yet (ROADMAP queue 1)")
+        llama.check_ported(model_spec)
+        self.device = torch.device(device)
+        self.model_spec = model_spec
+        self.comp_spec = comp_spec
+        self.engine_spec = engine_spec
+        self.params = _to_device(params, self.device)
+        #: "kernel": the CUDA kernels (plain versions for CPU tensors)
+        self.attention_impl = "kernel" if es.use_pallas else "plain"
+        self.stats = EngineStats()
+        self.plan_for(es.prefill_buckets[0])  # unported methods raise here
+
+    def plan_for(self, bucket: int) -> PolicyPlan:
+        return make_plan(self.comp_spec, self.model_spec.num_hidden_layers,
+                         bucket, self.engine_spec.max_new_tokens)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.inference_mode()
+    def generate(
+        self,
+        prompt_ids: Sequence[Sequence[int]],
+        *,
+        max_new_tokens: Optional[int] = None,
+        eos_token_ids: Sequence[int] = (),
+        prefix=None,
+    ) -> GenerationOutput:
+        """Greedy generation for a batch of prompts (token ids).
+
+        ``max_new_tokens`` must be <= ``engine_spec.max_new_tokens`` (the
+        decode-slot allocation).  EOS is suppressed for the first token."""
+        if prefix is not None:
+            raise NotImplementedError(
+                "prefix handles are not ported yet (ROADMAP queue 1)")
+        es = self.engine_spec
+        max_new = max_new_tokens or es.max_new_tokens
+        assert max_new <= es.max_new_tokens
+        dev = self.device
+        b = len(prompt_ids)
+        lens = [len(p) for p in prompt_ids]
+        bucket = es.bucket_for(max(lens))
+        plan = self.plan_for(bucket)
+        tokens = np.zeros((b, bucket), dtype=np.int64)
+        for i, p in enumerate(prompt_ids):
+            tokens[i, bucket - len(p):] = np.asarray(p, dtype=np.int64)
+        tokens = torch.from_numpy(tokens).to(dev)
+        true_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+        t0 = time.perf_counter()
+        logits, cache = llama.prefill(self.params, self.model_spec, plan,
+                                      tokens, true_len,
+                                      attention_impl=self.attention_impl)
+        if eos_token_ids:
+            # min_length = context + 1: at least one real token
+            logits[:, list(eos_token_ids)] = float("-inf")
+        first = logits.argmax(dim=-1)
+        self._sync()
+        t1 = time.perf_counter()
+
+        eos = torch.tensor(list(eos_token_ids) or [-1], device=dev)
+        out = torch.zeros((b, es.max_new_tokens), dtype=torch.int64,
+                          device=dev)
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        limit = min(max_new - 1, es.max_new_tokens)
+        token, steps = first, 0
+        while steps < limit and not bool(done.all()):
+            logits, cache = llama.decode_step(
+                self.params, self.model_spec, plan, cache, token,
+                attention_impl=self.attention_impl)
+            nxt = logits.argmax(dim=-1)
+            is_eos = (nxt[:, None] == eos[None, :]).any(dim=-1)
+            # after EOS keep feeding the last token; its output slot is -1
+            nxt = torch.where(done, token, nxt)
+            out[:, steps] = torch.where(done, -1, nxt)
+            done = done | is_eos
+            token = nxt
+            steps += 1
+        out = out.cpu().numpy()
+        first_np = first.cpu().numpy()
+        self._sync()
+        t2 = time.perf_counter()
+
+        results = []
+        eos_set = set(int(e) for e in eos_token_ids)
+        for i in range(b):
+            seq = [int(first_np[i])]
+            if seq[0] in eos_set:
+                seq = []
+            else:
+                for t in out[i, : max_new - 1]:
+                    t = int(t)
+                    if t < 0 or t in eos_set:
+                        break
+                    seq.append(t)
+            results.append(seq[:max_new])
+        kv_bytes = cache_memory_bytes(cache)
+        self.stats.requests += b
+        self.stats.prompt_tokens += sum(lens)
+        self.stats.generated_tokens += sum(len(r) for r in results)
+        self.stats.prefill_seconds += t1 - t0
+        self.stats.decode_seconds += t2 - t1
+        self.stats.kv_cache_bytes_last = kv_bytes
+        return GenerationOutput(tokens=results, prefill_seconds=t1 - t0,
+                                decode_seconds=t2 - t1, decode_steps=steps,
+                                kv_cache_bytes=kv_bytes)

@@ -1,0 +1,80 @@
+"""The weight bridge between the JAX param tree and the port's params.
+
+The port keeps the JAX package's layout (``pyramidkv_tpu/models/llama.py::
+init_params``): a dict with ``embed`` [V, Dm], ``final_norm`` [Dm],
+``lm_head`` [Dm, V] (absent when embeddings are tied) and ``layers``, whose
+leaves are stacked along a leading layer axis with matmul weights as
+``[L, in, out]`` used as ``x @ w``.  Keeping the layout makes the bridge an
+identity on names and shapes, and a layer's weights are views
+(``w[i]``), never copies.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..config import ModelSpec
+
+
+def params_from_numpy(tree: dict, *, device="cpu",
+                      dtype: torch.dtype = None) -> dict:
+    """JAX param tree as numpy arrays (``jax.tree_util.tree_map(np.asarray,
+    params)``) -> the port's params on ``device``.  ``dtype`` casts every
+    leaf (None keeps each leaf's dtype; bf16 numpy leaves from ml_dtypes go
+    through float32 exactly)."""
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        a = np.asarray(x)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))  # a writable copy
+        return t.to(device=device, dtype=dtype or t.dtype)
+
+    return conv(tree)
+
+
+def init_params(spec: ModelSpec, generator: torch.Generator, device,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Random-normal params of the JAX ``init_params`` distribution (not its
+    bits): matmul weights ~ N(0, 1/fan_in), embed and lm_head ~ N(0, 0.02^2),
+    norms at 1.  Drawn in f32 one layer at a time on ``device`` (the
+    generator's device), then cast, so the f32 transient is one layer."""
+    from .llama import check_ported
+
+    check_ported(spec)
+    L, Dm, I = spec.num_hidden_layers, spec.hidden_size, spec.intermediate_size
+    H, KV, Dh, V = (spec.num_attention_heads, spec.num_key_value_heads,
+                    spec.head_dim, spec.vocab_size)
+
+    def normal(shape, scale):
+        x = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return (x * scale).to(dtype)
+
+    shapes = {
+        "wq": (Dm, H * Dh), "wk": (Dm, KV * Dh), "wv": (Dm, KV * Dh),
+        "wo": (H * Dh, Dm), "w_gate": (Dm, I), "w_up": (Dm, I),
+        "w_down": (I, Dm),
+    }
+    layers = {}
+    for name, shape in shapes.items():
+        w = torch.empty((L, *shape), dtype=dtype, device=device)
+        for i in range(L):
+            w[i] = normal(shape, 1.0 / math.sqrt(shape[0]))
+        layers[name] = w
+    layers["attn_norm"] = torch.ones((L, Dm), dtype=dtype, device=device)
+    layers["mlp_norm"] = torch.ones((L, Dm), dtype=dtype, device=device)
+    params = {
+        "embed": normal((V, Dm), 0.02),
+        "final_norm": torch.ones((Dm,), dtype=dtype, device=device),
+        "layers": layers,
+    }
+    if not spec.tie_word_embeddings:
+        params["lm_head"] = normal((Dm, V), 0.02)
+    return params

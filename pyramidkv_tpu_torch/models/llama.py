@@ -1,0 +1,267 @@
+"""Llama-family decoder in PyTorch (counterpart of
+``pyramidkv_tpu/models/llama.py``): GQA + RoPE (with llama3 frequency
+scaling) + RMSNorm + SwiGLU, dense, with the compression step at the end of
+each layer's prefill.
+
+Params use the JAX layout (``models/convert.py``); the layer loop is a
+Python loop over views of the stacked weights.  Prompts are left-padded to
+the plan's bucket; real tokens occupy the trailing ``true_len`` columns.
+
+``attention_impl`` selects the attention explicitly, like the JAX
+package's argument of the same name: ``"kernel"`` calls the kernel wrappers
+(the CUDA kernels on CUDA tensors, their plain versions on CPU tensors),
+``"plain"`` calls the plain PyTorch functions.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..cache import KVCache, LayerCacheView
+from ..config import ModelSpec
+from ..kernels import decode_attention, flash_causal_attention
+from ..ops import attention as plain
+from ..policy import PolicyPlan, compress_layer, layer_contexts, stores_kv_heads
+
+IMPLS = ("kernel", "plain")
+
+
+def check_ported(spec: ModelSpec) -> None:
+    """Raise for the model features the port does not run yet."""
+    if (spec.num_local_experts or spec.attention_bias or spec.post_block_norms
+            or spec.rmsnorm_unit_offset or spec.scale_embeddings
+            or spec.sliding_window is not None or spec.hidden_act != "silu"
+            or spec.query_pre_attn_scalar is not None
+            or spec.attn_logit_softcapping is not None
+            or spec.final_logit_softcapping is not None):
+        raise NotImplementedError(
+            f"{spec.name}: MoE, QKV biases, sliding windows and Gemma-2 "
+            "features are not ported yet (ROADMAP queue 1)")
+
+
+# ---------------------------------------------------------------------------
+# RoPE / norms
+# ---------------------------------------------------------------------------
+
+
+def rope_inv_freq(spec: ModelSpec, device=None) -> torch.Tensor:
+    """Inverse frequencies, including Llama-3.1 'llama3' scaling."""
+    d = spec.head_dim
+    inv = 1.0 / (spec.rope_theta ** (
+        torch.arange(0, d, 2, dtype=torch.float32, device=device) / d))
+    if spec.rope_scaling_type == "llama3":
+        factor = spec.rope_scaling_factor
+        low, high = spec.rope_low_freq_factor, spec.rope_high_freq_factor
+        orig = spec.rope_original_max_position
+        low_wl, high_wl = orig / low, orig / high
+        wl = 2 * math.pi / inv
+        smooth = (orig / wl - low) / (high - low)
+        smoothed = (1 - smooth) * inv / factor + smooth * inv
+        inv = torch.where(wl < high_wl, inv,
+                          torch.where(wl > low_wl, inv / factor, smoothed))
+    elif spec.rope_scaling_type == "linear":
+        inv = inv / spec.rope_scaling_factor
+    return inv
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               inv_freq: torch.Tensor) -> torch.Tensor:
+    """HF rotate-half RoPE.  x: [B, H, T, D]; positions: [B, T] (negative
+    positions — padding rows — clamp to 0)."""
+    pos = positions.clamp(min=0).float()
+    ang = pos[:, :, None] * inv_freq[None, None, :]  # [B, T, D/2]
+    cos = torch.cos(ang)[:, None]
+    sin = torch.sin(ang)[:, None]
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2].float(), x[..., d2:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """Llama RMSNorm: normalise in f32, cast back, THEN scale by w."""
+    xf = x.float()
+    normed = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return normed.to(x.dtype) * w
+
+
+def _repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """[B, KV, T, D] -> [B, KV*groups, T, D] (HF repeat_kv order)."""
+    return x if groups == 1 else x.repeat_interleave(groups, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Projections shared by prefill and decode
+# ---------------------------------------------------------------------------
+
+
+def _qkv(x: torch.Tensor, wts: dict, spec: ModelSpec
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: [B, T, Dm] -> q [B, H, T, Dh], k/v [B, KV, T, Dh]."""
+    b, t, _ = x.shape
+    H, KV, Dh = spec.num_attention_heads, spec.num_key_value_heads, spec.head_dim
+    q = (x @ wts["wq"]).reshape(b, t, H, Dh).transpose(1, 2)
+    k = (x @ wts["wk"]).reshape(b, t, KV, Dh).transpose(1, 2)
+    v = (x @ wts["wv"]).reshape(b, t, KV, Dh).transpose(1, 2)
+    return q, k, v
+
+
+def _mlp(x: torch.Tensor, wts: dict) -> torch.Tensor:
+    """SwiGLU; the activation runs in f32 and is cast before the product."""
+    g, u = x @ wts["w_gate"], x @ wts["w_up"]
+    return (F.silu(g.float()).to(x.dtype) * u) @ wts["w_down"]
+
+
+def _logits(hidden: torch.Tensor, params: dict, spec: ModelSpec
+            ) -> torch.Tensor:
+    """f32 logits of the final-normed hidden state.
+
+    JAX asks for f32 output from the bf16 product.  Here the product runs
+    in the weights' dtype: with f32 weights (the CPU tests) it is the same
+    f32 product; with bf16 weights on the card it is a bf16 matmul with f32
+    accumulation whose output is rounded to bf16 (2^-8 relative) before the
+    cast — no f32 copy of the 128256 x 4096 lm_head is ever made."""
+    h = rms_norm(hidden, params["final_norm"], spec.rms_norm_eps)
+    w = params["embed"].T if spec.tie_word_embeddings else params["lm_head"]
+    return (h @ w).float()
+
+
+def _layer(params: dict, i: int) -> dict:
+    return {name: w[i] for name, w in params["layers"].items()}
+
+
+# ---------------------------------------------------------------------------
+# Prefill
+# ---------------------------------------------------------------------------
+
+
+def prefill(
+    params: dict,
+    spec: ModelSpec,
+    plan: PolicyPlan,
+    tokens: torch.Tensor,
+    true_len: torch.Tensor,
+    *,
+    attention_impl: str = "kernel",
+) -> Tuple[torch.Tensor, KVCache]:
+    """Run the prompt through the model, compressing each layer's KV.
+
+    tokens: [B, N] left-padded token ids (N == plan.bucket_len);
+    true_len: [B] real-token counts.  Returns (f32 logits [B, vocab] of the
+    last position, the compressed KVCache).
+    """
+    check_ported(spec)
+    if attention_impl not in IMPLS:
+        raise ValueError(f"attention_impl must be one of {IMPLS}")
+    b, n = tokens.shape
+    assert n == plan.bucket_len, (n, plan.bucket_len)
+    dev = tokens.device
+    true_len = true_len.to(device=dev, dtype=torch.int32)
+    inv_freq = rope_inv_freq(spec, dev)
+    pad = (n - true_len).to(torch.int64)
+    positions = torch.arange(n, device=dev)[None, :] - pad[:, None]  # [B, N]
+    keep = layer_contexts(plan, true_len)  # [L, B]
+    eps = spec.rms_norm_eps
+
+    hidden = params["embed"][tokens.long()]  # [B, N, Dm]
+    seg_stacks = []
+    for start, stop, sub in plan.segment_plans():
+        stack = None  # [L_seg, ...] buffers of this segment's layers
+        for li in range(start, stop):
+            wts = _layer(params, li)
+            x = rms_norm(hidden, wts["attn_norm"], eps)
+            q, k, v = _qkv(x, wts, spec)
+            q = apply_rope(q, positions, inv_freq)
+            k = apply_rope(k, positions, inv_freq)
+            v = v.contiguous()
+            if attention_impl == "kernel":
+                attn = flash_causal_attention(q, k, v, true_len)
+            else:
+                attn = plain.causal_prefill_attention(q, k, v,
+                                                      true_len=true_len)
+            hidden = hidden + attn.transpose(1, 2).reshape(b, n, -1) @ wts["wo"]
+            hidden = hidden + _mlp(rms_norm(hidden, wts["mlp_norm"], eps), wts)
+            ckv = compress_layer(sub, keep[li], q, k, v, true_len=true_len)
+            if stack is None:
+                stack = [t.new_empty((stop - start, *t.shape)) for t in ckv]
+            for buf, t in zip(stack, ckv):
+                buf[li - start] = t
+        seg_stacks.append(stack)
+    logits = _logits(hidden[:, -1, :], params, spec)
+    return logits, assemble_cache(seg_stacks, true_len)
+
+
+def assemble_cache(seg_stacks: list, true_len: torch.Tensor) -> KVCache:
+    """KVCache from per-segment ``[k, v, mask, positions]`` layer stacks."""
+    if len(seg_stacks) == 1:
+        k, v, m, p = seg_stacks[0]
+        return KVCache(k=k, v=v, mask=m, positions=p, true_len=true_len)
+    k, v, m, p = (tuple(s[j] for s in seg_stacks) for j in range(4))
+    return KVCache(k=k, v=v, mask=m, positions=p, true_len=true_len)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def decode_step(
+    params: dict,
+    spec: ModelSpec,
+    plan: PolicyPlan,
+    cache: KVCache,
+    token: torch.Tensor,
+    *,
+    attention_impl: str = "kernel",
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step against the compressed cache.
+
+    token: [B] ids generated at the previous step.  The new K/V row is
+    written IN PLACE into decode slot ``prefill_slots + step`` of every
+    layer (the JAX version returns a new cache; this one advances
+    ``cache.step`` and returns the same buffers).  Returns (f32 logits
+    [B, vocab], cache).
+    """
+    check_ported(spec)
+    if attention_impl not in IMPLS:
+        raise ValueError(f"attention_impl must be one of {IMPLS}")
+    b = token.shape[0]
+    groups = spec.num_query_groups
+    eps = spec.rms_norm_eps
+    inv_freq = rope_inv_freq(spec, token.device)
+    pos = cache.current_position()  # [B]
+    store_kv = stores_kv_heads(plan.spec)
+    attend = (decode_attention if attention_impl == "kernel"
+              else plain.decode_attention)
+
+    hidden = params["embed"][token.long()]  # [B, Dm]
+    segs = plan.segment_plans()
+    for si, (start, stop, sub) in enumerate(segs):
+        if cache.segmented:
+            bufs = (cache.k[si], cache.v[si], cache.mask[si],
+                    cache.positions[si])
+        else:
+            bufs = (cache.k, cache.v, cache.mask, cache.positions)
+        slot = sub.prefill_slots + cache.step
+        for i in range(stop - start):
+            wts = _layer(params, start + i)
+            x = rms_norm(hidden, wts["attn_norm"], eps)[:, None, :]
+            q, k, v = _qkv(x, wts, spec)  # [B, H/KV, 1, Dh]
+            q = apply_rope(q, pos[:, None], inv_freq)[:, :, 0, :].contiguous()
+            k = apply_rope(k, pos[:, None], inv_freq)
+            if not store_kv:  # per-query-head storage
+                k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
+            layer = LayerCacheView(*(t[i] for t in bufs))
+            layer.k[:, :, slot] = k[:, :, 0]
+            layer.v[:, :, slot] = v[:, :, 0]
+            layer.mask[:, :, slot] = True
+            layer.positions[:, :, slot] = pos[:, None].to(torch.int32)
+            attn = attend(q, layer.k, layer.v, layer.mask)
+            hidden = hidden + attn.reshape(b, -1) @ wts["wo"]
+            hidden = hidden + _mlp(rms_norm(hidden, wts["mlp_norm"], eps), wts)
+    cache.step += 1
+    return _logits(hidden, params, spec), cache
