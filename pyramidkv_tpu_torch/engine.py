@@ -8,7 +8,9 @@ loop of ``models.llama.decode_step`` with the JAX loop's ``done`` / ``-1`` /
 EOS semantics.  The loop reads ``done`` back each step (one host sync per
 token); capturing the step in a CUDA graph is later work (ROADMAP).
 
-Ported: greedy decoding, ``fullkv`` / ``snapkv`` / ``pyramidkv``.  Sampling,
+Ported: greedy decoding, ``fullkv`` / ``snapkv`` / ``pyramidkv``, with bf16
+or quantized weights (``models/weights.py``: int8, packed int4 per channel
+or per group, fused or not).  Sampling,
 ``prefix`` handles, chunked prefill and speculative decoding raise
 ``NotImplementedError`` (ROADMAP queue 1).
 """
@@ -25,6 +27,7 @@ import torch
 from .cache import cache_memory_bytes
 from .config import CompressionSpec, EngineSpec, ModelSpec
 from .models import llama
+from .models.weights import QuantW
 from .policy import PolicyPlan, make_plan
 
 
@@ -61,6 +64,8 @@ class EngineStats:
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, QuantW):
+        return QuantW(*(t.to(device) for t in tree))
     return tree.to(device)
 
 

@@ -2,5 +2,7 @@
 
 from .decode_attn import decode_attention
 from .flash_prefill import flash_causal_attention
+from .int4_matmul import int4_matmul, int4_matmul_dma, int8_matmul
 
-__all__ = ["decode_attention", "flash_causal_attention"]
+__all__ = ["decode_attention", "flash_causal_attention", "int4_matmul",
+           "int4_matmul_dma", "int8_matmul"]

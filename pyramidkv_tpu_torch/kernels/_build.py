@@ -26,12 +26,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-#: C signature of each library's entry point: (symbol, argtypes)
+#: C signatures of each library's entry points: [(symbol, argtypes), ...]
 ENTRY_POINTS = {
-    "flash_prefill": ("pkv_flash_prefill",
-                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
-    "decode_attn": ("pkv_decode_attn",
-                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]),
+    "flash_prefill": [("pkv_flash_prefill",
+                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P])],
+    "decode_attn": [("pkv_decode_attn",
+                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P])],
+    "int4_matmul": [
+        ("pkv_int4_matmul", [_P] * 5 + [_I] * 9 + [_P]),
+        ("pkv_int8_matmul", [_P] * 5 + [_I] * 8 + [_P]),
+        ("pkv_int4_matmul_dma", [_P] * 5 + [_I] * 9 + [_P]),
+    ],
 }
 
 _loaded: dict = {}
@@ -93,10 +98,10 @@ def library(name: str) -> ctypes.CDLL:
         if not os.path.exists(path):
             build_all([name])
         lib = ctypes.CDLL(path)
-        symbol, argtypes = ENTRY_POINTS[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for symbol, argtypes in ENTRY_POINTS[name]:
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
 

@@ -17,24 +17,42 @@ import numpy as np
 import torch
 
 from ..config import ModelSpec
+from .weights import QuantW
 
 
-def params_from_numpy(tree: dict, *, device="cpu",
+def params_from_numpy(tree: dict, *, device=None,
                       dtype: torch.dtype = None) -> dict:
     """JAX param tree as numpy arrays (``jax.tree_util.tree_map(np.asarray,
-    params)``) -> the port's params on ``device``.  ``dtype`` casts every
-    leaf (None keeps each leaf's dtype; bf16 numpy leaves from ml_dtypes go
-    through float32 exactly)."""
+    params)``) -> the port's params on ``device``.
 
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
+    ``device=None`` means the CUDA card, and raises when there is none (as
+    ``Engine`` does); pass ``device="cpu"`` for the CPU.  ``dtype`` casts
+    every float leaf (None keeps each leaf's dtype; bf16 numpy leaves from
+    ml_dtypes go through float32 exactly).  Quantized leaves (the JAX
+    ``QuantW`` NamedTuple, recognised by its fields) become the port's
+    :class:`~.weights.QuantW` with int8 codes and f32 scales kept as they
+    are."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("params_from_numpy: no CUDA device; pass "
+                               "device='cpu' for the CPU")
+        device = "cuda"
+
+    def tensor(x, cast):
         a = np.asarray(x)
         if a.dtype.name == "bfloat16":
             t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(a))  # a writable copy
-        return t.to(device=device, dtype=dtype or t.dtype)
+        return t.to(device=device, dtype=cast or t.dtype)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if getattr(x, "_fields", None) == QuantW._fields:
+            return QuantW(codes=tensor(x.codes, None),
+                          scale=tensor(x.scale, None))
+        return tensor(x, dtype)
 
     return conv(tree)
 

@@ -10,7 +10,10 @@ the plan's bucket; real tokens occupy the trailing ``true_len`` columns.
 ``attention_impl`` selects the attention explicitly, like the JAX
 package's argument of the same name: ``"kernel"`` calls the kernel wrappers
 (the CUDA kernels on CUDA tensors, their plain versions on CPU tensors),
-``"plain"`` calls the plain PyTorch functions.
+``"plain"`` calls the plain PyTorch functions — for attention and for the
+decode-sized weight matmuls of quantized params alike (``weights.mm``).
+Quantized params (``models/weights.py``) keep the JAX tree's names, plus the
+fused ``wqkv`` / ``w_gateup`` leaves of ``fuse_packed_matmuls``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from ..config import ModelSpec
 from ..kernels import decode_attention, flash_causal_attention
 from ..ops import attention as plain
 from ..policy import PolicyPlan, compress_layer, layer_contexts, stores_kv_heads
+from .weights import QuantW, dq_codes, embed_lookup, kernel_mm, mm
 
 IMPLS = ("kernel", "plain")
 
@@ -99,39 +103,73 @@ def _repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _qkv(x: torch.Tensor, wts: dict, spec: ModelSpec
+def _qkv(x: torch.Tensor, wts: dict, spec: ModelSpec, impl: str
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: [B, T, Dm] -> q [B, H, T, Dh], k/v [B, KV, T, Dh]."""
+    """x: [B, T, Dm] -> q [B, H, T, Dh], k/v [B, KV, T, Dh].  A fused
+    ``wqkv`` leaf computes all three in one matmul and is split."""
     b, t, _ = x.shape
     H, KV, Dh = spec.num_attention_heads, spec.num_key_value_heads, spec.head_dim
-    q = (x @ wts["wq"]).reshape(b, t, H, Dh).transpose(1, 2)
-    k = (x @ wts["wk"]).reshape(b, t, KV, Dh).transpose(1, 2)
-    v = (x @ wts["wv"]).reshape(b, t, KV, Dh).transpose(1, 2)
+    if "wqkv" in wts:
+        q, k, v = torch.split(mm(x, wts["wqkv"], impl),
+                              [H * Dh, KV * Dh, KV * Dh], dim=-1)
+    else:
+        q, k, v = (mm(x, wts[n], impl) for n in ("wq", "wk", "wv"))
+    q = q.reshape(b, t, H, Dh).transpose(1, 2)
+    k = k.reshape(b, t, KV, Dh).transpose(1, 2)
+    v = v.reshape(b, t, KV, Dh).transpose(1, 2)
     return q, k, v
 
 
-def _mlp(x: torch.Tensor, wts: dict) -> torch.Tensor:
+def _mlp(x: torch.Tensor, wts: dict, impl: str) -> torch.Tensor:
     """SwiGLU; the activation runs in f32 and is cast before the product."""
-    g, u = x @ wts["w_gate"], x @ wts["w_up"]
-    return (F.silu(g.float()).to(x.dtype) * u) @ wts["w_down"]
+    if "w_gateup" in wts:
+        g, u = mm(x, wts["w_gateup"], impl).chunk(2, dim=-1)
+    else:
+        g, u = mm(x, wts["w_gate"], impl), mm(x, wts["w_up"], impl)
+    return mm(F.silu(g.float()).to(x.dtype) * u, wts["w_down"], impl)
 
 
-def _logits(hidden: torch.Tensor, params: dict, spec: ModelSpec
-            ) -> torch.Tensor:
+def _logits(hidden: torch.Tensor, params: dict, spec: ModelSpec,
+            impl: str = "kernel") -> torch.Tensor:
+    """f32 logits, sliced back to the true vocab when the lm_head was padded
+    (``quantize_weights(lm_head_pad_to=...)``; pad channels are all-zero)."""
+    out = _logits_wide(hidden, params, spec, impl)
+    return out[..., :spec.vocab_size] if out.shape[-1] != spec.vocab_size \
+        else out
+
+
+def _logits_wide(hidden: torch.Tensor, params: dict, spec: ModelSpec,
+                 impl: str) -> torch.Tensor:
     """f32 logits of the final-normed hidden state.
 
-    JAX asks for f32 output from the bf16 product.  Here the product runs
-    in the weights' dtype: with f32 weights (the CPU tests) it is the same
-    f32 product; with bf16 weights on the card it is a bf16 matmul with f32
-    accumulation whose output is rounded to bf16 (2^-8 relative) before the
-    cast — no f32 copy of the 128256 x 4096 lm_head is ever made."""
+    Quantized lm_heads follow JAX's ``_logits_wide``: an int4 lm_head
+    (<= 384 rows) and an int8 one (<= 8 rows) go through their streaming
+    kernels with f32 h, so the logits are f32 products; other rows, and a
+    tied int8 embedding (codes [V, Dm], contracted on their last axis),
+    dequantize.  Products outside the kernels run in h's dtype: with f32
+    weights (the CPU tests) that is JAX's f32 product; with bf16 on the card
+    a bf16 matmul with f32 accumulation whose output is rounded to bf16
+    (2^-8 relative) before the cast — no f32 copy of the 128256 x 4096
+    lm_head is ever made."""
     h = rms_norm(hidden, params["final_norm"], spec.rms_norm_eps)
-    w = params["embed"].T if spec.tie_word_embeddings else params["lm_head"]
-    return (h @ w).float()
+    tied = spec.tie_word_embeddings
+    w = params["embed"] if tied else params["lm_head"]
+    if isinstance(w, QuantW):
+        if not tied:
+            y = kernel_mm(h.float(), w, impl)
+            if y is not None:
+                return y
+        codes = w.codes.T.to(h.dtype) if tied else dq_codes(w, h.dtype)
+        return (h @ codes).float() * w.scale.float()
+    return (h @ (w.T if tied else w)).float()
 
 
 def _layer(params: dict, i: int) -> dict:
-    return {name: w[i] for name, w in params["layers"].items()}
+    """Layer ``i``'s weights: views of the stacks (quantized leaves slice
+    codes and scale alike)."""
+    return {name: (QuantW(w.codes[i], w.scale[i]) if isinstance(w, QuantW)
+                   else w[i])
+            for name, w in params["layers"].items()}
 
 
 # ---------------------------------------------------------------------------
@@ -167,14 +205,15 @@ def prefill(
     keep = layer_contexts(plan, true_len)  # [L, B]
     eps = spec.rms_norm_eps
 
-    hidden = params["embed"][tokens.long()]  # [B, N, Dm]
+    hidden = embed_lookup(params["embed"], tokens.long(),
+                          params["final_norm"].dtype)  # [B, N, Dm]
     seg_stacks = []
     for start, stop, sub in plan.segment_plans():
         stack = None  # [L_seg, ...] buffers of this segment's layers
         for li in range(start, stop):
             wts = _layer(params, li)
             x = rms_norm(hidden, wts["attn_norm"], eps)
-            q, k, v = _qkv(x, wts, spec)
+            q, k, v = _qkv(x, wts, spec, attention_impl)
             q = apply_rope(q, positions, inv_freq)
             k = apply_rope(k, positions, inv_freq)
             v = v.contiguous()
@@ -183,15 +222,17 @@ def prefill(
             else:
                 attn = plain.causal_prefill_attention(q, k, v,
                                                       true_len=true_len)
-            hidden = hidden + attn.transpose(1, 2).reshape(b, n, -1) @ wts["wo"]
-            hidden = hidden + _mlp(rms_norm(hidden, wts["mlp_norm"], eps), wts)
+            hidden = hidden + mm(attn.transpose(1, 2).reshape(b, n, -1),
+                                 wts["wo"], attention_impl)
+            hidden = hidden + _mlp(rms_norm(hidden, wts["mlp_norm"], eps),
+                                   wts, attention_impl)
             ckv = compress_layer(sub, keep[li], q, k, v, true_len=true_len)
             if stack is None:
                 stack = [t.new_empty((stop - start, *t.shape)) for t in ckv]
             for buf, t in zip(stack, ckv):
                 buf[li - start] = t
         seg_stacks.append(stack)
-    logits = _logits(hidden[:, -1, :], params, spec)
+    logits = _logits(hidden[:, -1, :], params, spec, attention_impl)
     return logits, assemble_cache(seg_stacks, true_len)
 
 
@@ -238,7 +279,8 @@ def decode_step(
     attend = (decode_attention if attention_impl == "kernel"
               else plain.decode_attention)
 
-    hidden = params["embed"][token.long()]  # [B, Dm]
+    hidden = embed_lookup(params["embed"], token.long(),
+                          params["final_norm"].dtype)  # [B, Dm]
     segs = plan.segment_plans()
     for si, (start, stop, sub) in enumerate(segs):
         if cache.segmented:
@@ -250,7 +292,7 @@ def decode_step(
         for i in range(stop - start):
             wts = _layer(params, start + i)
             x = rms_norm(hidden, wts["attn_norm"], eps)[:, None, :]
-            q, k, v = _qkv(x, wts, spec)  # [B, H/KV, 1, Dh]
+            q, k, v = _qkv(x, wts, spec, attention_impl)  # [B, H/KV, 1, Dh]
             q = apply_rope(q, pos[:, None], inv_freq)[:, :, 0, :].contiguous()
             k = apply_rope(k, pos[:, None], inv_freq)
             if not store_kv:  # per-query-head storage
@@ -261,7 +303,9 @@ def decode_step(
             layer.mask[:, :, slot] = True
             layer.positions[:, :, slot] = pos[:, None].to(torch.int32)
             attn = attend(q, layer.k, layer.v, layer.mask)
-            hidden = hidden + attn.reshape(b, -1) @ wts["wo"]
-            hidden = hidden + _mlp(rms_norm(hidden, wts["mlp_norm"], eps), wts)
+            hidden = hidden + mm(attn.reshape(b, -1), wts["wo"],
+                                 attention_impl)
+            hidden = hidden + _mlp(rms_norm(hidden, wts["mlp_norm"], eps),
+                                   wts, attention_impl)
     cache.step += 1
-    return _logits(hidden, params, spec), cache
+    return _logits(hidden, params, spec, attention_impl), cache

@@ -12,9 +12,11 @@ import jax.numpy as jnp
 from pyramidkv_tpu import config as jcfg
 from pyramidkv_tpu.engine import Engine as JaxEngine
 from pyramidkv_tpu.models import llama as jl
+from pyramidkv_tpu.models import weights as jw
 from pyramidkv_tpu_torch import config as tcfg
 from pyramidkv_tpu_torch.engine import Engine
 from pyramidkv_tpu_torch.models.convert import params_from_numpy
+from pyramidkv_tpu_torch.models.weights import quantize_weights
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_traces.json")
 METHODS = ["fullkv", "snapkv", "pyramidkv"]
@@ -28,7 +30,8 @@ ENG = dict(max_new_tokens=8, prefill_buckets=(64,))
 def params():
     jp = jl.init_params(jcfg.ModelSpec.tiny(), jax.random.PRNGKey(42),
                         dtype=jnp.float32)
-    return jp, params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    return jp, params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                 device="cpu")
 
 
 def _engines(params, method):
@@ -78,3 +81,75 @@ def test_unported_engine_options_raise(params):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(spec, tcfg.CompressionSpec(method="h2o", **COMP),
                tcfg.EngineSpec(**ENG), tp, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# Quantized weights (models/weights.py)
+# ---------------------------------------------------------------------------
+
+#: the golden int-weight traces' configuration (tests/test_golden_traces.py)
+QCOMP = dict(max_capacity_prompt=16, window_size=4)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("snapkv_int8w", dict(nbits=8)),
+    ("snapkv_int4w", dict(nbits=4)),
+    ("snapkv_int4w_g16", dict(nbits=4, group_size=16)),
+])
+def test_quantized_golden_trace(params, name, kw):
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    te = Engine(tcfg.ModelSpec.tiny(),
+                tcfg.CompressionSpec(method="snapkv", **QCOMP),
+                tcfg.EngineSpec(**ENG),
+                quantize_weights(params[1], **kw), device="cpu")
+    assert te.generate([golden["_prompt"]]).tokens[0] == golden[name]
+
+
+#: span-128 widths, so the packed layout and fusion are those of real models
+WIDE = dict(hidden_size=256, intermediate_size=512, num_attention_heads=8,
+            num_key_value_heads=4, head_dim=64, vocab_size=512)
+QUANT = {
+    "int4": dict(nbits=4, lm_head_nbits=4, lm_head_pad_to=384),
+    "int4-g128": dict(nbits=4, group_size=128),
+    "int8": dict(nbits=8),
+}
+
+
+@pytest.fixture(scope="module")
+def wide_params():
+    return jl.init_params(jcfg.ModelSpec.tiny(**WIDE), jax.random.PRNGKey(11),
+                          dtype=jnp.float32)
+
+
+@pytest.mark.parametrize("method", ["fullkv", "snapkv"])
+@pytest.mark.parametrize("quant", list(QUANT))
+def test_quantized_generate_matches_jax_engine(wide_params, quant, method):
+    """The JAX engine with its int4/int8 kernels forced on (interpret mode)
+    against the port's CPU engine on the same quantized tree, fused as the
+    runners fuse it: int4 with a padded int4 lm_head, int4 with 128-row
+    groups and the int8 lm_head, int8."""
+    jq = jw.fuse_packed_matmuls(jw.quantize_weights(wide_params,
+                                                    **QUANT[quant]))
+    tq = params_from_numpy(jax.tree_util.tree_map(np.asarray, jq),
+                           device="cpu")
+    comp = dict(method=method, **COMP)
+    # The int8 kernels round x to bf16 (both packages), so an f32 difference
+    # of ~1e-7 between the two flips a rounding now and then: one activation
+    # moves by 2^-9 and a logit by ~1e-4.  Prompt seed 6 met such a near-tie
+    # (int8, fullkv, row 3, step 4: top-2 gap 6.2e-4, the argmax flipped);
+    # seeds 7, 8 and 9 have none, and 7 is used.
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, 512, size=n).tolist() for n in (60, 37, 12)]
+    jw._FORCE_INT4_KERNEL[0] = jw._FORCE_INT8_KERNEL[0] = True
+    try:
+        want = JaxEngine(jcfg.ModelSpec.tiny(**WIDE),
+                         jcfg.CompressionSpec(**comp), jcfg.EngineSpec(**ENG),
+                         jq).generate(prompts)
+    finally:
+        jw._FORCE_INT4_KERNEL[0] = jw._FORCE_INT8_KERNEL[0] = False
+    te = Engine(tcfg.ModelSpec.tiny(**WIDE), tcfg.CompressionSpec(**comp),
+                tcfg.EngineSpec(**ENG), tq, device="cpu")
+    got = te.generate(prompts)
+    assert got.tokens == want.tokens
+    assert got.kv_cache_bytes == want.kv_cache_bytes

@@ -30,7 +30,8 @@ TRUE_LEN = np.asarray([64, 40, 17], np.int32)
 def params():
     jp = jl.init_params(jcfg.ModelSpec.tiny(), jax.random.PRNGKey(7),
                         dtype=jnp.float32)
-    return jp, params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    return jp, params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                 device="cpu")
 
 
 def _leaves(x):
@@ -105,7 +106,7 @@ def test_bridge_keeps_layout_and_bf16():
     jp = jl.init_params(jcfg.ModelSpec.tiny(), jax.random.PRNGKey(3),
                         dtype=jnp.bfloat16)
     tree = jax.tree_util.tree_map(np.asarray, jp)
-    tp = params_from_numpy(tree)
+    tp = params_from_numpy(tree, device="cpu")
     assert tp["layers"]["wq"].dtype == torch.bfloat16
     for name, t in [("embed", tp["embed"]), ("lm_head", tp["lm_head"]),
                     ("wq", tp["layers"]["wq"]), ("w_down", tp["layers"]["w_down"])]:
