@@ -19,7 +19,8 @@ Phases (any failure exits non-zero):
   5. parity: last-position prefill logits through the kernels against the
      plain path, at depth 2 with the same widths;
   6. profile: where the time goes in one snapkv prefill and 8 decode steps
-     (host wall time, device busy time and top kernels from torch.profiler);
+     (host wall time, device busy time and top kernels from torch.profiler;
+     device operations and host ms per decode step in each span);
   7. mm_kernels: the weight-quantized matmul kernels (int4 per-channel and
      g128, int8, int4 windowed) against their plain versions at every
      Llama-3-8B decode shape, rows 1 and 8, plus flash prefill at 32k and
@@ -32,7 +33,22 @@ Phases (any failure exits non-zero):
   9. parity_quant: depth-2 prefill logits, kernels against plain, for the
      int4 and int4-g128 weights;
  10. profile_quant: the int4 snapkv run's prefill and 8 decode steps, with
-     the matmul kernels' device time per step beside their bound.
+     the matmul kernels' device time per step beside their bound;
+ 11. kv_quant_kernels: the KIVI region kernels (group layout whole and
+     tiled, pa layout) against their plain versions on short ragged regions
+     and at every KIVI run's region shape, timed; each group-layout shape
+     also through the group kernel its route did not pick;
+ 12. engine_kv_quant: ``Engine.generate`` on a KIVI cache: bench.py's 32k
+     fullkv with int4 weights and a kivi4-pa (its baseline) or kivi4 group
+     cache, bench.py's 32k snapkv with a kivi4 group cache, and snapkv
+     kivi4, kivi2 and kivi4-pa on the bf16 8k batch, each
+     with one region-kernel launch per layer per decode step and the
+     kv_cache_bytes its layout implies;
+ 13. parity_kv_quant: depth-2 decode logits on a KIVI cache, kernels
+     against plain (32k fullkv kivi4-pa, 8k snapkv kivi4);
+ 14. profile_kv_quant: two decode steps of the 32k fullkv kivi4-pa run,
+     with the region kernels' device time; then bench_ratio, the port's
+     counterpart of bench.py's snapkv / fullkv-kivi4-pa decode tok/s.
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -96,6 +112,53 @@ LLAMA_MM = {"wqkv": (4096, 6144), "wo": (4096, 4096),
             "lm_head4": (4096, 131072), "wq": (4096, 4096),
             "wkv": (4096, 1024), "w_gate": (4096, 14336),
             "lm_head8": (4096, 128256)}
+
+
+#: the KIVI runs of phase_engine_kv_quant: name -> (weights, method, nbits,
+#: layout, size).  "32k": bench.py's configuration (one 32767-token prompt,
+#: 128 new tokens, cap 128: snapkv keeps 128 slots per query head, one
+#: split, so it takes the whole-region group kernel) with int4 weights;
+#: "8k": the bf16 main path's batch (4 x 8000/6000/3000/1000 tokens, 32 new
+#: tokens), snapkv's default cap 2048 (per-query-head storage, 32 heads;
+#: group regions take the tiled kernel).  q_group_size 64.
+KV_RUNS = {
+    "int4 fullkv kivi4-pa 32k": ("int4", "fullkv", 4, "pa", "32k"),
+    "int4 fullkv kivi4 32k": ("int4", "fullkv", 4, "group", "32k"),
+    "int4 snapkv kivi4 32k": ("int4", "snapkv", 4, "group", "32k"),
+    "bf16 snapkv kivi4 8k": ("bf16", "snapkv", 4, "group", "8k"),
+    "bf16 snapkv kivi2 8k": ("bf16", "snapkv", 2, "group", "8k"),
+    "bf16 snapkv kivi4-pa 8k": ("bf16", "snapkv", 4, "pa", "8k"),
+}
+#: kv_cache_bytes of the 32k fullkv runs, worked out by hand from the layout
+#: (per layer: K and V codes 16,777,216 each, K scale/zero 8,192 (pa) or
+#: 4,194,304, V scale/zero 2,097,152 (pa) or 4,194,304, 128 bf16 decode
+#: slots 524,288; times 32 layers)
+KV_BYTES_32K = {"pa": 1_157_890_048, "group": 1_358_954_496}
+REGION_KERNELS = ("quant_decode_attention", "quant_decode_attention_tiled",
+                  "quant_fused_attention_pa")
+#: region kernels against their plain versions, on normalised outputs
+#: acc / l.  The group-layout kernels are f32 end to end, like their plain
+#: version (f32 dequantization, f32 attention): only the order of the f32
+#: sums differs (~2^-20 relative), so they pass within 2^-10.  The pa kernel
+#: rounds p * vs to bf16 at a running max where the plain version rounds at
+#: the row's final max (2^-9 noise per probability, at random), the noise
+#: the decode kernel's limit (TOL_TEXT) allows for.  m (f32 logits) is held
+#: within 2^-12 max(1, |m|) and l within 2^-10 l for all three.
+REGION_TOL = {"group": (2.0 ** -10, 2.0 ** -10),
+              "pa": (KERNEL_RTOL, KERNEL_ROW_TOL)}
+#: the tail mode's bf16 outputs: the partials' limit on acc / l plus one
+#: bf16 ulp (<= 2^-7 |want|), since kernel and plain version may round
+#: their f32 results to neighbouring bf16 values
+TAIL_TOL = {"group": (2.0 ** -10 + 2.0 ** -7, 2.0 ** -10),
+            "pa": (KERNEL_RTOL + 2.0 ** -7, KERNEL_ROW_TOL)}
+REGION_TOL_TEXT = {
+    "group": "|err| <= 2^-10 |want| + 2^-10 rms(want's row) on acc/l; "
+             "m within 2^-12 max(1,|m|), l within 2^-10 l",
+    "pa": TOL_TEXT + " on acc/l; m within 2^-12 max(1,|m|), l within "
+                     "2^-10 l"}
+TAIL_TOL_TEXT = {
+    "group": "|err| <= (2^-10 + 2^-7) |want| + 2^-10 rms(want's row)",
+    "pa": "|err| <= (2^-6 + 2^-7) |want| + 2^-5 rms(want's row)"}
 
 
 #: a file that receives a copy of every JSON line (--log)
@@ -424,13 +487,14 @@ def phase_mm_kernels(torch, F, dev):
     return ok, entries, flash, decode
 
 
-def qplan(method: str):
-    """The quantized runs' plan for ``method`` (Llama-3-8B, 32k bucket)."""
+def qplan(method: str, **kv):
+    """The quantized runs' plan for ``method`` (Llama-3-8B, 32k bucket);
+    ``kv``: KIVI arguments of CompressionSpec."""
     from pyramidkv_tpu_torch.config import CompressionSpec
     from pyramidkv_tpu_torch.policy import make_plan
 
-    return make_plan(CompressionSpec(method=method, **QCOMP), LAYERS, QN,
-                     QMAX_NEW)
+    return make_plan(CompressionSpec(method=method, **QCOMP, **kv), LAYERS,
+                     QN, QMAX_NEW)
 
 
 def _kernels():
@@ -438,7 +502,7 @@ def _kernels():
 
     return {"flash_causal_attention": kernels.flash_causal_attention,
             "decode_attention": kernels.decode_attention,
-            **{k: getattr(kernels, k) for k in MM_KERNELS}}
+            **{k: getattr(kernels, k) for k in MM_KERNELS + REGION_KERNELS}}
 
 
 def reset_counts():
@@ -540,7 +604,7 @@ def phase_engine_quant(torch, dev, params, vocab):
 
     spec = ModelSpec.preset("llama3-8b")
     prompt = np.random.default_rng(0).integers(0, vocab, size=QTRUE).tolist()
-    ok, counts, qp, have = True, {}, None, None
+    ok, counts, tok_s, qp, have = True, {}, {}, None, None
     for wname, method, dma in QRUNS:
         if wname != have:
             qp = None
@@ -559,6 +623,7 @@ def phase_engine_quant(torch, dev, params, vocab):
         weights._INT4_KERNEL_DMA[0] = False
         run = f"{wname}{'-dma' if dma else ''} {method}"
         counts[run] = c
+        tok_s[run] = out.decode_steps / out.decode_seconds
         toks = out.tokens[0]
         good = (c["flash_causal_attention"] == LAYERS
                 and c["decode_attention"] == LAYERS * out.decode_steps
@@ -580,7 +645,7 @@ def phase_engine_quant(torch, dev, params, vocab):
         del eng, out
     del qp
     torch.cuda.empty_cache()
-    return ok, counts
+    return ok, counts, tok_s
 
 
 def tree_gib(tree) -> float:
@@ -633,25 +698,43 @@ def phase_parity(torch, dev, params, vocab, weights=None):
 
 
 def phase_profile(torch, dev, params, vocab, method="snapkv", steps=8,
-                  weights="bf16"):
+                  weights="bf16", kv=None):
     """Where the time goes in one prefill and in ``steps`` decode steps:
     host wall time of an unprofiled run, device busy time and the top
     kernels from a torch.profiler trace of a second run (device-side events
     only, so an op and its kernels are not counted twice).  With quantized
     ``params`` (bench.py's shape: one 32767-token prompt) the decode part
     also reports the matmul kernels' device ms per step against the least
-    time their code bytes take."""
+    time their code bytes take.  ``kv``: KIVI arguments of CompressionSpec
+    (the region kernels' device ms per step is reported too).  Each decode
+    record also counts the device operations per step and the host ms per
+    step spent inside the step's spans (matmuls, attention, and a KIVI
+    layer's region kernel, bf16-tail partials and merge), from a third,
+    unprofiled run with a timer around each."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from pyramidkv_tpu_torch.config import CompressionSpec, ModelSpec
     from pyramidkv_tpu_torch.models import llama
+    from pyramidkv_tpu_torch.ops import attention
     from pyramidkv_tpu_torch.policy import make_plan
 
+    #: host spans of the decode step: label -> (module, attribute)
+    HOST_SPANS = {
+        "matmuls": (llama, "mm"),
+        "bf16 decode kernel": (llama, "decode_attention"),
+        "region_attention": (llama, "_region_attention"),
+        "region kernel": (llama, "quant_fused_attention_pa"),
+        "region kernel (group)": (llama, "quant_decode_attention"),
+        "region kernel (group, tiled)": (llama,
+                                         "quant_decode_attention_tiled"),
+        "tail partials": (attention, "decode_attention_partials"),
+        "merge": (attention, "merge_attention_partials"),
+    }
     spec = ModelSpec.preset("llama3-8b")
     quant = weights != "bf16"
     if quant:
-        plan, b, n, true_len = qplan(method), 1, QN, (QTRUE,)
+        plan, b, n, true_len = qplan(method, **(kv or {})), 1, QN, (QTRUE,)
     else:
         plan = make_plan(CompressionSpec(method=method),
                          spec.num_hidden_layers, N, MAX_NEW)
@@ -688,9 +771,36 @@ def phase_profile(torch, dev, params, vocab, method="snapkv", steps=8,
         top = sorted(ev, key=lambda x: -x[1])[:10]
         mm_us = sum(t for k, t, _ in ev
                     if "mm_kernel" in k or "finish_kernel" in k)
+        region_us = sum(t for k, t, _ in ev if "pkvq::" in k)
         return sum(t for _, t, _ in ev) / 1e6, [
             {"kernel": k[:90], "device_ms": t / 1e3, "calls": c}
-            for k, t, c in top], mm_us / 1e3
+            for k, t, c in top], mm_us / 1e3, region_us / 1e3, sum(
+                c for _, _, c in ev)
+
+    def host_spans(fn, *a):
+        """Host ms spent inside each of HOST_SPANS while fn(*a) runs, with
+        no synchronisation inside a span: the decode loop is host-bound, so
+        a span's host time is its share of the step's wall time."""
+        spent = {}
+        saved = []
+        for label, (mod, name) in HOST_SPANS.items():
+            orig = getattr(mod, name)
+            saved.append((mod, name, orig))
+
+            def timed(*args, _f=orig, _label=label, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _f(*args, **kw)
+                finally:
+                    spent[_label] = (spent.get(_label, 0.0)
+                                     + time.perf_counter() - t0)
+            setattr(mod, name, timed)
+        try:
+            wall(fn, *a)
+        finally:
+            for mod, name, orig in saved:
+                setattr(mod, name, orig)
+        return {k: v * 1e3 for k, v in spent.items()}
 
     with torch.inference_mode():
         prefill()  # warm-up
@@ -700,11 +810,15 @@ def phase_profile(torch, dev, params, vocab, method="snapkv", steps=8,
         cache.step = 0
         _, dec_wall = wall(decode, cache, tok)
         cache.step = 0
-        pre_busy, pre_top, _ = device_profile(prefill)
-        dec_busy, dec_top, dec_mm = device_profile(decode, cache, tok)
+        host = host_spans(decode, cache, tok)
+        cache.step = 0
+        pre_busy, pre_top, _, _, _ = device_profile(prefill)
+        dec_busy, dec_top, dec_mm, dec_region, dec_ops = device_profile(
+            decode, cache, tok)
     for part, w, busy, top in (("prefill", pre_wall, pre_busy, pre_top),
                                ("decode", dec_wall, dec_busy, dec_top)):
         rec = {"phase": "profile", "method": method, "weights": weights,
+               "kv": kv,
                "part": part, "steps": steps if part == "decode" else None,
                "wall_s": w, "device_busy_s": busy,
                "idle_share": max(0.0, 1 - busy / w), "top": top}
@@ -714,8 +828,332 @@ def phase_profile(torch, dev, params, vocab, method="snapkv", steps=8,
                 if isinstance(v, tuple)) * LAYERS + params["lm_head"][0].numel()
             rec["mm_device_ms_per_step"] = dec_mm / steps
             rec["mm_bound_ms_per_step"] = code_bytes / PEAK_BYTES * 1e3
+        if part == "decode":
+            # device operations (kernels, copies, fills) per step, and the
+            # host ms per step inside each span (spans nest: the region
+            # kernel, tail partials and merge lie inside region_attention)
+            rec["device_ops_per_step"] = dec_ops / steps
+            rec["host_ms_per_step"] = {k: v / steps for k, v in host.items()}
+        if kv and part == "decode":
+            rec["region_device_ms_per_step"] = dec_region / steps
         log(rec)
     return True
+
+
+def kv_spec(method, nbits, layout, size):
+    """CompressionSpec of a KIVI run (KV_RUNS) and its (bucket, max_new)."""
+    from pyramidkv_tpu_torch.config import CompressionSpec
+
+    comp = QCOMP if size == "32k" else {}
+    return (CompressionSpec(method=method, quant_method="kivi", nbits=nbits,
+                            q_layout=layout, **comp),
+            (QN, QMAX_NEW) if size == "32k" else (N, MAX_NEW))
+
+
+def kv_shape(run):
+    """(kernel, B, stored heads, G, prefill slots, nbits, S_pad) of a KIVI
+    run's region, from its plan."""
+    import torch
+
+    from pyramidkv_tpu_torch.models.llama import region_route
+    from pyramidkv_tpu_torch.policy import make_plan, stores_kv_heads
+
+    _, method, nbits, layout, size = KV_RUNS[run]
+    cs, (bucket, max_new) = kv_spec(method, nbits, layout, size)
+    plan = make_plan(cs, LAYERS, bucket, max_new)
+    hm = HK if stores_kv_heads(cs) else H
+    per = 8 // nbits
+    s_pad = -(-plan.prefill_slots // (64 * per)) * 64 * per
+    b = 1 if size == "32k" else B
+    route = region_route(cs, b * hm, s_pad // per, torch.device("cuda", 0))
+    return (route.__name__, b, hm, H // hm,
+            plan.prefill_slots, nbits, s_pad)
+
+
+def kv_cache_bytes(run) -> int:
+    """kv_cache_bytes a KIVI run must report, from its layout: the region's
+    codes, scales and zeros plus the bf16 decode slots, 32 layers."""
+    _, method, nbits, layout, size = KV_RUNS[run]
+    _, b, hm, _, _, _, s_pad = kv_shape(run)
+    per, g = 8 // nbits, 64
+    ds = QMAX_NEW if size == "32k" else MAX_NEW
+    pa = layout == "pa"
+    per_layer = (2 * b * hm * (s_pad // per) * D                      # codes
+                 + 2 * b * hm * D * (1 if pa else s_pad // g) * 4     # K s/z
+                 + 2 * b * hm * s_pad * (1 if pa else D // g) * 4     # V s/z
+                 + 2 * b * hm * ds * D * 2)                           # bf16
+    return LAYERS * per_layer
+
+
+def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
+                 label, t_len, valid=0.9):
+    """One KIVI region kernel against its plain version on a region that
+    the port's quantize_kv_region makes from random bf16 K (channel-scaled,
+    as KIVI's keys are) and V, in both of its modes: the region's partials
+    (the TPU kernel's function) and, with a bf16 tail of ``t_len`` decode
+    slots, the layer's attention output (what the decode step launches).
+    The masks are views of one longer array, as the engine passes them:
+    region row (0, 0) all masked; tail slot 0 always visible, as the step's
+    own slot is.  Times are the tail mode's; ``partials_ms`` the other."""
+    from pyramidkv_tpu_torch import kernels
+    from pyramidkv_tpu_torch.ops import quant
+
+    layout = "pa" if kind == "quant_fused_attention_pa" else "group"
+    kern = getattr(kernels, kind)
+    region_plain = (quant.quant_region_attention_fused if layout == "pa"
+                    else quant.quant_decode_attention_plain)
+
+    def plain(q, reg, mask, nbits, tail=None):
+        return quant.merge_tail(region_plain(q, reg, mask, nbits=nbits), q,
+                                tail)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = hk * grp
+    q = torch.randn((b, h, D), generator=g, device=dev).to(torch.bfloat16)
+    chan = torch.randn((D,), generator=g, device=dev).exp()
+    k = (torch.randn((b, hk, s, D), generator=g, device=dev) * chan).to(
+        torch.bfloat16)
+    v = torch.randn((b, hk, s, D), generator=g, device=dev).to(torch.bfloat16)
+    reg = quant.quantize_kv_region(k, v, nbits=nbits, group_size=gs,
+                                   layout=layout)
+    del k, v
+    tk, tv = (torch.randn((b, hk, t_len, D), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    full = torch.rand((b, hk, s + t_len + 40), generator=g, device=dev) < valid
+    mask, tmask = full[:, :, :s], full[:, :, s:s + t_len]
+    mask[0, 0] = False
+    tmask[:, :, 0] = True
+    tail = (tk, tv, tmask)
+    got = kern(q, reg, mask, nbits=nbits)
+    want = plain(q, reg, mask, nbits)
+    got_o = kern(q, reg, mask, nbits=nbits, tail=tail).float()
+    want_o = plain(q, reg, mask, nbits, tail).float()
+    torch.cuda.synchronize()
+
+    def norm(p):
+        return p[0] / p[2].clamp_min(1e-30)[..., None]
+
+    og, ow = norm(got), norm(want)
+    m_ratio = float(((got[1] - want[1]).abs()
+                     / (2.0 ** -12 * want[1].abs().clamp_min(1.0))).max())
+    l_ratio = float(((got[2] - want[2]).abs()
+                     / (2.0 ** -10 * want[2]).clamp_min(1e-30)).max())
+    tail_ratio = err_over_tol(got_o, want_o, *TAIL_TOL[layout])
+    ratio = max(err_over_tol(og, ow, *REGION_TOL[layout]), m_ratio, l_ratio,
+                tail_ratio)
+    w, s_pad, _, _ = quant.region_geometry(reg, nbits)
+    rec = {"check": kind, "case": label, "B": b, "Hk": hk, "G": grp, "S": s,
+           "S_pad": s_pad, "plane_width": w, "nbits": nbits,
+           "group_size": gs, "layout": layout, "tail": t_len,
+           "max_abs_err": float((og - ow).abs().max()),
+           "m_err": float((got[1] - want[1]).abs().max()),
+           "l_rel_err": float(((got[2] - want[2]).abs()
+                               / want[2].clamp_min(1e-30)).max()),
+           "tail_max_abs_err": float((got_o - want_o).abs().max()),
+           "tail_err_over_tol": tail_ratio,
+           "tail_tol": TAIL_TOL_TEXT[layout],
+           "err_over_tol": ratio, "tol": REGION_TOL_TEXT[layout],
+           "rms": float(ow.square().mean().sqrt()),
+           "all_masked_row": [float(got[1][0, 0]), float(got[2][0, 0])]}
+    if timed:
+        rec["ms"] = graph_ms(
+            torch, lambda: kern(q, reg, mask, nbits=nbits, tail=tail),
+            reps=50)
+        rec["host_ms"] = time_ms(
+            torch, lambda: kern(q, reg, mask, nbits=nbits, tail=tail),
+            reps=50)
+        rec["partials_ms"] = graph_ms(
+            torch, lambda: kern(q, reg, mask, nbits=nbits), reps=50)
+        rec["plain_ms"] = graph_ms(
+            torch, lambda: plain(q, reg, mask, nbits, tail), reps=3)
+        # library yardstick: SDPA over the region dequantized to bf16
+        # outside the timed call (it reads 4x-8x the code bytes), with the
+        # tail appended
+        kh, vh = quant.dequantize_kv_region(reg, num_slots=s, head_dim=D,
+                                            nbits=nbits, dtype=torch.bfloat16)
+        kr = torch.cat([kh, tk], dim=2).repeat_interleave(grp, dim=1)
+        vr = torch.cat([vh, tv], dim=2).repeat_interleave(grp, dim=1)
+        mr = torch.cat([mask, tmask], dim=2).repeat_interleave(
+            grp, dim=1)[:, :, None, :]
+        q4 = q[:, :, None, :]
+        rec["library_ms"] = graph_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q4, kr, vr, attn_mask=mr), reps=50)
+        del kh, vh, kr, vr, mr
+        nbytes = (sum(t.numel() * t.element_size()
+                      for t in quant.region_leaves(reg))
+                  + mask.numel() + q.numel() * 2
+                  + 2 * tk.numel() * 2 + tmask.numel() + q.numel() * 2)
+        # f32 FMAs per element of K and of V: G dot products, plus the
+        # dequantization (group layout); the tail's dot products
+        flops = (2.0 * b * hk * s_pad * D * (2 * grp + (0 if layout == "pa"
+                                                        else 2))
+                 + 2.0 * b * h * t_len * D * 2)
+        rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes,
+                                                 PEAK_F32_FLOPS)
+    log(rec)
+    ok = (ratio <= 1 and bool(torch.isfinite(og).all())
+          and bool(torch.isfinite(got_o).all())
+          and rec["all_masked_row"] == [float(torch.finfo(torch.float32).min),
+                                        0.0])
+    return ok, rec
+
+
+def phase_kv_quant_kernels(torch, F, dev):
+    """The three KIVI region kernels against their plain versions: short
+    ragged regions first (a plane width that is no multiple of the 32-row
+    chunk, K groups of 12 slots straddling chunks, a last split shorter than
+    the others, an odd plane width with odd V rows), then each KIVI run's
+    region shape, timed.  Returns (ok, {kernel: [timed recs]})."""
+    ok = True
+    # (kernel, B, Hk, G, slots, nbits, group size, tail slots): tails of 1
+    # (the first decode step) to 37 slots, some not a multiple of 4 warps
+    short = (("quant_decode_attention", 2, 3, 2, 1000, 4, 12, 1),
+             ("quant_decode_attention", 1, 4, 8, 40, 2, 16, 37),
+             ("quant_decode_attention_tiled", 1, 8, 4, 4900, 4, 64, 6),
+             ("quant_decode_attention_tiled", 2, 2, 1, 300, 8, 32, 2),
+             ("quant_fused_attention_pa", 2, 2, 4, 1001, 8, 5, 13),
+             ("quant_fused_attention_pa", 1, 3, 2, 777, 2, 64, 1))
+    seed = 300
+    for kind, b, hk, grp, s, nbits, gs, t_len in short:
+        r, _ = check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs,
+                            False, seed, "short", t_len)
+        ok &= r
+        seed += 1
+    recs = {k: [] for k in REGION_KERNELS}
+    for run, (_, _, _, layout, size) in KV_RUNS.items():
+        kind, b, hm, grp, sp, nbits, _ = kv_shape(run)
+        # the decode slots of the run: its tail at its last step
+        t_len = QMAX_NEW if size == "32k" else MAX_NEW
+        r, rec = check_region(torch, F, dev, kind, b, hm, grp, sp, nbits, 64,
+                              True, seed, run, t_len)
+        # launches per generate: one per layer per decode step
+        rec["layers"] = LAYERS * (t_len - 1)
+        recs[kind].append(rec)
+        ok &= r
+        if layout == "group":
+            # the group kernel the route did not pick, timed at the same
+            # shape: the evidence for the route (kept out of the kernels line)
+            other = REGION_KERNELS[1 - REGION_KERNELS.index(kind)]
+            r, _ = check_region(torch, F, dev, other, b, hm, grp, sp, nbits,
+                                64, True, seed, run + " (other route)", t_len)
+            ok &= r
+        seed += 1
+        torch.cuda.empty_cache()
+    return ok, recs
+
+
+def phase_engine_kv_quant(torch, dev, params, q4, vocab):
+    """``Engine.generate`` on a KIVI cache for each KV_RUNS configuration:
+    every decode step sends each layer's region through exactly one region
+    kernel (the route its layout and size call for) and nothing through the
+    bf16 decode kernel; kv_cache_bytes equals the layout's.  Returns (ok,
+    {run: counts}, {run: decode tok/s})."""
+    from pyramidkv_tpu_torch.config import EngineSpec, ModelSpec
+    from pyramidkv_tpu_torch.engine import Engine
+
+    spec = ModelSpec.preset("llama3-8b")
+    p32 = [np.random.default_rng(0).integers(0, vocab, size=QTRUE).tolist()]
+    rng = np.random.default_rng(0)
+    p8 = [rng.integers(0, vocab, size=t).tolist() for t in TRUE_LEN]
+    ok, counts, tok_s = True, {}, {}
+    for run, (wname, method, nbits, layout, size) in KV_RUNS.items():
+        cs, (bucket, max_new) = kv_spec(method, nbits, layout, size)
+        prompts = p32 if size == "32k" else p8
+        eng = Engine(spec, cs, EngineSpec(max_new_tokens=max_new,
+                                          prefill_buckets=(bucket,)),
+                     q4 if wname == "int4" else params, device=dev)
+        eng.generate(prompts, max_new_tokens=2)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        out = eng.generate(prompts)
+        c = read_counts()
+        counts[run] = c
+        tok_s[run] = out.decode_steps * len(prompts) / out.decode_seconds
+        route = kv_shape(run)[0]
+        want_bytes = kv_cache_bytes(run)
+        toks = [t for seq in out.tokens for t in seq]
+        good = (c[route] == LAYERS * out.decode_steps
+                and not any(c[k] for k in REGION_KERNELS if k != route)
+                and c["decode_attention"] == 0
+                and c["flash_causal_attention"] == LAYERS
+                and out.decode_steps == max_new - 1
+                and out.kv_cache_bytes == want_bytes
+                and (size != "32k" or method != "fullkv"
+                     or want_bytes == KV_BYTES_32K[layout])
+                and eng.plan_for(bucket).segments == (
+                    (0, LAYERS, eng.plan_for(bucket).width),)
+                and all(0 <= t < vocab for t in toks)
+                and all(len(seq) == max_new for seq in out.tokens))
+        log({"phase": "engine_kv_quant", "run": run, "weights": wname,
+             "method": method, "nbits": nbits, "layout": layout,
+             "route": route, "prefill_s": out.prefill_seconds,
+             "decode_s": out.decode_seconds,
+             "decode_steps": out.decode_steps,
+             "decode_tok_per_s": tok_s[run],
+             "kv_cache_bytes": out.kv_cache_bytes,
+             "expected_kv_cache_bytes": want_bytes, "launches": c,
+             "first_tokens": out.tokens[0][:8], "ok": good})
+        ok &= good
+        del eng, out
+        torch.cuda.empty_cache()
+    return ok, counts, tok_s
+
+
+def phase_parity_kv_quant(torch, dev, params, vocab, steps=4):
+    """Depth-2 decode logits on a KIVI cache, kernels against plain: one
+    prefill through the kernels, then ``steps`` decode steps of each path
+    on its own copy of the cache, fed the same tokens, for bench.py's
+    fullkv kivi4-pa at 32k (int4 weights) and snapkv kivi4 on the 8k batch
+    (bf16 weights).  Limit: 2^-5 of the largest logit, as phase_parity."""
+    from pyramidkv_tpu_torch.cache import KVCache
+    from pyramidkv_tpu_torch.config import ModelSpec
+    from pyramidkv_tpu_torch.models import llama
+    from pyramidkv_tpu_torch.policy import make_plan
+
+    spec = ModelSpec.preset("llama3-8b", num_hidden_layers=2)
+    ok = True
+    for run in ("int4 fullkv kivi4-pa 32k", "bf16 snapkv kivi4 8k"):
+        wname, method, nbits, layout, size = KV_RUNS[run]
+        cs, (bucket, max_new) = kv_spec(method, nbits, layout, size)
+        p2 = dict(params, layers={k: v[:2]
+                                  for k, v in params["layers"].items()})
+        if wname == "int4":
+            p2 = quantized(p2, "int4")
+        plan = make_plan(cs, 2, bucket, max_new)
+        rng = np.random.default_rng(1)
+        b, tl = (1, (QTRUE,)) if size == "32k" else (B, TRUE_LEN)
+        tokens = torch.from_numpy(
+            rng.integers(0, vocab, size=(b, bucket)).astype(np.int64)).to(dev)
+        tl = torch.tensor(tl, dtype=torch.int32, device=dev)
+        err = top = 0.0
+        same = True
+        with torch.inference_mode():
+            logits, ck = llama.prefill(p2, spec, plan, tokens, tl)
+            cp = KVCache(k=ck.k.clone(), v=ck.v.clone(), mask=ck.mask.clone(),
+                         positions=ck.positions.clone(), true_len=ck.true_len,
+                         quant=ck.quant)
+            tok = logits.argmax(-1)
+            for _ in range(steps):
+                lk, ck = llama.decode_step(p2, spec, plan, ck, tok,
+                                           attention_impl="kernel")
+                lp, cp = llama.decode_step(p2, spec, plan, cp, tok,
+                                           attention_impl="plain")
+                err = max(err, float((lk - lp).abs().max()))
+                top = max(top, float(lp.abs().max()))
+                same &= bool((lk.argmax(-1) == lp.argmax(-1)).all())
+                ok &= bool(torch.isfinite(lk).all())
+                tok = lp.argmax(-1)
+        torch.cuda.synchronize()
+        tol = 2.0 ** -5 * top
+        good = err <= tol
+        log({"phase": "parity_kv_quant", "run": run, "depth": 2,
+             "decode_steps": steps, "max_abs_err": err, "tol": tol,
+             "same_argmax": same, "ok": good})
+        ok &= good
+        del p2, ck, cp
+        torch.cuda.empty_cache()
+    return ok
 
 
 def kernel_entry(name, source, replaces, launches, recs):
@@ -739,8 +1177,9 @@ def kernel_entry(name, source, replaces, launches, recs):
            "library_ms": mean("library_ms")}
     if len(recs) > 1:
         ent["shapes"] = [{k: r[k] for k in (
-            "S", "case", "x", "layers", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "library_ms") if k in r} for r in recs]
+            "S", "case", "x", "layers", "tail", "max_abs_err", "ms",
+            "partials_ms", "plain_ms", "bound_ms", "library_ms") if k in r}
+            for r in recs]
     return ent
 
 
@@ -785,6 +1224,8 @@ def main() -> int:
     ok, recs = phase_kernels(torch, F, dev)
     r, mm_recs, qflash, qdecode = phase_mm_kernels(torch, F, dev)
     ok &= r
+    r, kv_recs = phase_kv_quant_kernels(torch, F, dev)
+    ok &= r
 
     spec = ModelSpec.preset("llama3-8b")
     t0 = time.perf_counter()
@@ -799,13 +1240,27 @@ def main() -> int:
     ok &= r
     ok &= phase_parity(torch, dev, params, spec.vocab_size)
     ok &= phase_profile(torch, dev, params, spec.vocab_size)
-    r, qcounts = phase_engine_quant(torch, dev, params, spec.vocab_size)
+    r, qcounts, qtok_s = phase_engine_quant(torch, dev, params,
+                                            spec.vocab_size)
     ok &= r
     for weights in ("int4", "int4-g128"):
         ok &= phase_parity(torch, dev, params, spec.vocab_size, weights)
     q4 = quantized(params, "int4")
     ok &= phase_profile(torch, dev, q4, spec.vocab_size, weights="int4")
+    r, kvcounts, kvtok_s = phase_engine_kv_quant(torch, dev, params, q4,
+                                                 spec.vocab_size)
+    ok &= r
+    ok &= phase_parity_kv_quant(torch, dev, params, spec.vocab_size)
+    ok &= phase_profile(torch, dev, q4, spec.vocab_size, method="fullkv",
+                        steps=2, weights="int4",
+                        kv=dict(quant_method="kivi", nbits=4, q_layout="pa"))
     del q4
+    # the port's counterpart of bench.py's number (information only: decode
+    # is host-bound, see the profile phases)
+    base = kvtok_s["int4 fullkv kivi4-pa 32k"]
+    log({"phase": "bench_ratio", "snapkv_int4_tok_per_s":
+         qtok_s["int4 snapkv"], "fullkv_int4_kivi4pa_tok_per_s": base,
+         "ratio": qtok_s["int4 snapkv"] / base})
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
@@ -850,6 +1305,16 @@ def main() -> int:
         kernels.append(kernel_entry(
             name, src + "int4_matmul.cu", tpu + str(line),
             qsum(kernel, runs), mm_recs[name]))
+    kv_tpu = {"quant_decode_attention": "quant_decode.py:158",
+              "quant_decode_attention_tiled": "quant_decode.py:437",
+              "quant_fused_attention_pa": "quant_fused_decode.py:145"}
+    for kind in REGION_KERNELS:
+        src_file = ("quant_fused_decode.cu" if kind.endswith("_pa")
+                    else "quant_decode.cu")
+        kernels.append(kernel_entry(
+            f"{kind} ({', '.join(r['case'] for r in kv_recs[kind])})",
+            src + src_file, "pyramidkv_tpu/kernels/" + kv_tpu[kind],
+            sum(c[kind] for c in kvcounts.values()), kv_recs[kind]))
     for k in kernels:  # one line per kernel
         log({"kernel": k["name"], **k})
     log({"kernels": kernels})

@@ -10,16 +10,20 @@ mask, not through ragged shapes.
 Unlike the JAX cache, which is an immutable pytree threaded through the
 decode loop, this one is updated IN PLACE: the decode append writes one
 slot of each layer's buffers, and :func:`decode_step` returns the same
-buffers with ``step`` advanced.  The quantized-region and ThinK fields of
-the JAX cache are not ported yet (ROADMAP queue 1).
+buffers with ``step`` advanced.  With a KIVI cache the prefill slots live
+in ``quant`` (one quantized region per layer, leaves stacked) and ``k``/``v``
+hold only the bf16 decode slots.  The ThinK field of the JAX cache is not
+ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
+
+from .ops.quant import QuantizedKVRegion, region_leaves
 
 Stack = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
@@ -39,6 +43,10 @@ class KVCache:
     positions: Stack  #: [L, B, H, S] int32 — token position (-1 invalid)
     true_len: torch.Tensor  #: [B] int32 — true prompt length
     step: int = 0     #: decode steps taken so far
+    #: KIVI: the prefill region of every layer (leaves stacked [L, ...]);
+    #: ``k``/``v`` then hold only the decode slots, while ``mask``/
+    #: ``positions`` stay full length (prefill slots, then decode slots)
+    quant: Optional[QuantizedKVRegion] = None
 
     @property
     def segmented(self) -> bool:
@@ -63,10 +71,11 @@ def _leaves(x: Stack):
 
 
 def cache_memory_bytes(cache: KVCache) -> int:
-    """Device bytes of the K/V buffers (mask and positions excluded, as in
-    the JAX package)."""
+    """Device bytes of the K/V buffers and the quantized region's codes,
+    scales and zeros (mask and positions excluded, as in the JAX package)."""
     return sum(t.numel() * t.element_size()
-               for t in _leaves(cache.k) + _leaves(cache.v))
+               for t in _leaves(cache.k) + _leaves(cache.v)
+               + region_leaves(cache.quant))
 
 
 def used_kv_tokens(cache: KVCache) -> int:

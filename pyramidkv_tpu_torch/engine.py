@@ -10,7 +10,8 @@ token); capturing the step in a CUDA graph is later work (ROADMAP).
 
 Ported: greedy decoding, ``fullkv`` / ``snapkv`` / ``pyramidkv``, with bf16
 or quantized weights (``models/weights.py``: int8, packed int4 per channel
-or per group, fused or not).  Sampling,
+or per group, fused or not) and a bf16 or KIVI cache (``quant_method=
+"kivi"``: 8/4/2 bits, group or pa layout; KVQuant raises).  Sampling,
 ``prefix`` handles, chunked prefill and speculative decoding raise
 ``NotImplementedError`` (ROADMAP queue 1).
 """
@@ -96,6 +97,16 @@ class Engine:
             raise NotImplementedError(
                 "sampling, chunked prefill and speculative decoding are not "
                 "ported yet (ROADMAP queue 1)")
+        if comp_spec.quant_method is not None and (
+                es.use_quant_scan
+                or (es.use_quant_fused and comp_spec.q_layout == "group")):
+            # the port's KIVI decode always runs its region kernels
+            # (use_quant_kernel / use_quant_tiled / use_quant_fused_kernel
+            # name what it does anyway)
+            raise NotImplementedError(
+                "the XLA dequantization paths (use_quant_scan, and "
+                "use_quant_fused on a group layout) are not ported "
+                "(ROADMAP queue 1 #11)")
         llama.check_ported(model_spec)
         self.device = torch.device(device)
         self.model_spec = model_spec

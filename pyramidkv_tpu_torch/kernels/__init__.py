@@ -3,6 +3,9 @@
 from .decode_attn import decode_attention
 from .flash_prefill import flash_causal_attention
 from .int4_matmul import int4_matmul, int4_matmul_dma, int8_matmul
+from .quant_decode import quant_decode_attention, quant_decode_attention_tiled
+from .quant_fused_decode import quant_fused_attention_pa
 
 __all__ = ["decode_attention", "flash_causal_attention", "int4_matmul",
-           "int4_matmul_dma", "int8_matmul"]
+           "int4_matmul_dma", "int8_matmul", "quant_decode_attention",
+           "quant_decode_attention_tiled", "quant_fused_attention_pa"]

@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, loaded with :mod:`ctypes`.  The
-build runs at first use, keyed on a hash of the sources and flags, into
+Each ``csrc/<name>.cu`` (with the ``.cuh`` headers beside it) compiles
+with ``nvcc`` for ``sm_90a`` into its own shared library with a plain C
+interface, loaded with :mod:`ctypes`.  The build runs at first use, keyed on a hash of the sources and flags, into
 ``pyramidkv_tpu_torch/_build/<hash>/`` (ignored by git), so a fresh
 checkout builds itself.  :func:`build_all` starts one ``nvcc`` per source,
 all at once.
@@ -26,6 +26,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+#: the KIVI region kernels' shared signature (PKVQ_PARAMS in
+#: csrc/quant_region.cuh)
+_REGION = [_P] * 14 + [_I] * 12 + [_F] + [_P] * 3 + [_I] * 2 + [_P] * 2
 #: C signatures of each library's entry points: [(symbol, argtypes), ...]
 ENTRY_POINTS = {
     "flash_prefill": [("pkv_flash_prefill",
@@ -37,6 +40,9 @@ ENTRY_POINTS = {
         ("pkv_int8_matmul", [_P] * 5 + [_I] * 8 + [_P]),
         ("pkv_int4_matmul_dma", [_P] * 5 + [_I] * 9 + [_P]),
     ],
+    "quant_decode": [("pkv_quant_decode", _REGION),
+                     ("pkv_quant_decode_tiled", _REGION)],
+    "quant_fused_decode": [("pkv_quant_fused_pa", _REGION)],
 }
 
 _loaded: dict = {}

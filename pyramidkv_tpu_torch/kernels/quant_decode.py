@@ -1,0 +1,198 @@
+"""Decode attention over a group-layout KIVI region: wrappers of
+``csrc/quant_decode.cu``.
+
+Counterparts of ``pyramidkv_tpu/kernels/quant_decode.py``'s
+``quant_decode_attention`` (one block per region) and
+``quant_decode_attention_tiled`` (the slots split across blocks, a finish
+pass merging the splits); :func:`split_plan` says which a region takes.  Both return the region's e-domain partials (acc [B, H, D],
+m [B, H], l [B, H], f32), which the decode step merges with its bf16 tail.
+On a CUDA tensor they launch the hand-written sm_90a kernels; on a CPU
+tensor they run the plain version (``ops.quant.quant_decode_attention_plain``:
+f32 dequantization, then f32 partials).
+
+The region is one layer's ``QuantizedKVRegion`` (``ops/quant.py``); its
+slot-major K codes are read as they lie.  ``mask`` is the region's
+visibility ``[B, Hk, n]`` (n <= S_pad), a prefix view of the cache's
+full-length mask: slots at or past n are padding.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from ..ops.quant import (QuantizedKVRegion, merge_tail,
+                         quant_decode_attention_plain, region_geometry)
+from . import _build
+
+HEAD_DIM = 128
+GROUPS = (1, 2, 4, 8)
+NBITS = (2, 4, 8)
+#: an H100's SM count: split plans made for CPU tensors (where the wrappers
+#: run their plain versions) are the card's
+H100_SMS = 132
+#: byte-rows per warp iteration in the kernels
+_CHUNK = 32
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    if device.type != "cuda":
+        return H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_plan(device: torch.device, bhk: int, w: int):
+    """(nsplit, byte-rows per split) for ``bhk`` regions of ``w`` byte-rows
+    on ``device``: about 4 blocks per SM, and at least one 32-row chunk per
+    warp (8 warps) in each split.  One split means the whole-region kernel
+    fills the card as well as the tiled one, without its finish pass."""
+    chunks = -(-w // _CHUNK)
+    want = max(1, min(chunks // 8, -(-4 * _sm_count(device) // bhk)))
+    rows = _CHUNK * -(-chunks // want)
+    return -(-w // rows), rows
+
+
+def check_unsupported(scale, softcap) -> None:
+    if scale is not None or softcap is not None:
+        raise NotImplementedError(
+            "a custom attention scale or a softcap over a KIVI region is not "
+            "ported yet (Gemma-2, ROADMAP queue 1 #10)")
+
+
+def _check_tail(tail, q: torch.Tensor, hk: int):
+    """The step's bf16 decode tail (k, v, mask): k/v contiguous
+    [B, Hk, T >= 1, D] in q's dtype, mask a bool [B, Hk, T] prefix-of-row
+    view.  Returns (k, v, mask, T)."""
+    k, v, mask = tail
+    b, _, d = q.shape
+    t = k.shape[2]
+    for name, x in (("k", k), ("v", v)):
+        if (x.dtype != q.dtype or tuple(x.shape) != (b, hk, t, d) or t < 1
+                or not x.is_contiguous() or x.device != q.device):
+            raise ValueError(f"tail {name}: want contiguous {q.dtype} "
+                             f"{(b, hk, t, d)} (T >= 1) on {q.device}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+    if (mask.dtype != torch.bool or mask.device != q.device
+            or tuple(mask.shape) != (b, hk, t) or mask.stride(-1) != 1
+            or mask.stride(0) != hk * mask.stride(1)):
+        raise ValueError(f"tail mask must be a bool {(b, hk, t)} view of "
+                         f"rows of a contiguous array, got {tuple(mask.shape)}"
+                         f" strides {mask.stride()}")
+    return k, v, mask, t
+
+
+def launch_region(symbol: str, lib: str, q: torch.Tensor,
+                  reg: QuantizedKVRegion, mask: torch.Tensor, nbits: int,
+                  split: bool, tail=None):
+    """Check the shapes, allocate the outputs (and the workspace) and
+    launch ``symbol`` of ``csrc/<lib>.cu``.  Returns (acc, m, l), or with
+    ``tail`` the attention output over region and tail, [B, H, D] in q's
+    dtype."""
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    b, h, d = q.shape
+    kc, vc = reg.k.codes, reg.v.codes
+    hk = kc.shape[1]
+    w, s_pad, _, vg = region_geometry(reg, nbits)
+    ng, ngv, dp = reg.k.scale.shape[-2], reg.v.scale.shape[-2], vc.shape[-1]
+    want = {"k.codes": (kc, torch.int8, (b, hk, w, d)),
+            "k.scale": (reg.k.scale, torch.float32, (b, hk, d, ng, 1)),
+            "k.zero": (reg.k.zero, torch.float32, (b, hk, d, ng, 1)),
+            "v.codes": (vc, torch.int8, (b, hk, w, dp)),
+            "v.scale": (reg.v.scale, torch.float32, (b, hk, s_pad, ngv, 1)),
+            "v.zero": (reg.v.zero, torch.float32, (b, hk, s_pad, ngv, 1))}
+    if q.dtype != torch.bfloat16 or not q.is_contiguous():
+        raise ValueError("q must be contiguous bfloat16")
+    for name, (t, dt, shape) in want.items():
+        if (t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.device != q.device):
+            raise ValueError(f"region {name}: want contiguous {dt} {shape} on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)}")
+    n = mask.shape[-1]
+    if (mask.dtype != torch.bool or mask.device != q.device
+            or tuple(mask.shape[:2]) != (b, hk) or n > s_pad
+            or mask.stride(-1) != 1 or mask.stride(0) != hk * mask.stride(1)):
+        raise ValueError("mask must be a bool [B, Hk, n <= S_pad] prefix view "
+                         f"of a contiguous array, got {tuple(mask.shape)} "
+                         f"strides {mask.stride()}")
+    pa = ng == ngv == 1
+    if (d != HEAD_DIM or h % hk or h // hk not in GROUPS or nbits not in NBITS
+            or (vg % 4 and not pa)):
+        raise ValueError(f"kernel takes D == {HEAD_DIM}, H/Hk in {GROUPS}, "
+                         f"nbits in {NBITS}, V groups of a multiple of 4 "
+                         f"channels; got D={d} H/Hk={h / hk} nbits={nbits} "
+                         f"V group {vg}")
+    g = h // hk
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if tail is None:
+        res = (torch.empty((b, h, d), **f32), torch.empty((b, h), **f32),
+               torch.empty((b, h), **f32))
+        outs = tuple(x.data_ptr() for x in res) + (None,)
+        tk = tv = tm = None
+        t_len = t_stride = 0
+    else:
+        tk, tv, tm, t_len = _check_tail(tail, q, hk)
+        t_stride = tm.stride(1)
+        res = torch.empty_like(q)
+        outs = (None, None, None, res.data_ptr())
+    nsplit, rows = split_plan(q.device, b * hk, w) if split else (1, w)
+    if split or tail is not None:
+        ws = (torch.empty((b * hk * nsplit, g, d), **f32),
+              torch.empty((b * hk * nsplit, g), **f32),
+              torch.empty((b * hk * nsplit, g), **f32))
+        ws_ptrs = tuple(x.data_ptr() for x in ws)
+    else:
+        ws_ptrs = (None, None, None)
+    err = getattr(_build.library(lib), symbol)(
+        q.data_ptr(), kc.data_ptr(), reg.k.scale.data_ptr(),
+        reg.k.zero.data_ptr(), vc.data_ptr(), reg.v.scale.data_ptr(),
+        reg.v.zero.data_ptr(), mask.data_ptr(), *outs[:3], *ws_ptrs, b * hk,
+        g, nbits, w, s_pad, ng, dp, ngv, mask.stride(1), n, nsplit, rows,
+        1.0 / math.sqrt(d), tk.data_ptr() if tk is not None else None,
+        tv.data_ptr() if tv is not None else None,
+        tm.data_ptr() if tm is not None else None, t_len, t_stride, outs[3],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, symbol)
+    return res
+
+
+def quant_decode_attention(q: torch.Tensor, reg: QuantizedKVRegion,
+                           mask: torch.Tensor, *, nbits: int, tail=None,
+                           scale=None, softcap=None):
+    """Whole-region kernel: one block per (batch row, KV head) covers the G
+    query heads of the KV head.  q: [B, H, D] -> (acc, m, l); with ``tail``,
+    the step's bf16 decode slots (k, v [B, Hk, T, D], mask [B, Hk, T]), the
+    layer's attention output over region and tail, [B, H, D] in q's dtype
+    (a finish pass attends over the tail and merges)."""
+    check_unsupported(scale, softcap)
+    if q.device.type == "cpu":
+        return merge_tail(quant_decode_attention_plain(q, reg, mask,
+                                                       nbits=nbits), q, tail)
+    out = launch_region("pkv_quant_decode", "quant_decode", q, reg, mask,
+                        nbits, split=False, tail=tail)
+    quant_decode_attention.launches += 1
+    return out
+
+
+def quant_decode_attention_tiled(q: torch.Tensor, reg: QuantizedKVRegion,
+                                 mask: torch.Tensor, *, nbits: int, tail=None,
+                                 scale=None, softcap=None):
+    """The same function with the slots split across blocks (long regions)
+    and a finish pass merging the splits (and the tail).  Arguments and
+    results as :func:`quant_decode_attention`."""
+    check_unsupported(scale, softcap)
+    if q.device.type == "cpu":
+        return merge_tail(quant_decode_attention_plain(q, reg, mask,
+                                                       nbits=nbits), q, tail)
+    out = launch_region("pkv_quant_decode_tiled", "quant_decode", q, reg,
+                        mask, nbits, split=True, tail=tail)
+    quant_decode_attention_tiled.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (CPU calls do not count)
+quant_decode_attention.launches = 0
+quant_decode_attention_tiled.launches = 0

@@ -1,0 +1,45 @@
+"""Decode attention over a pa-layout KIVI region: wrapper of
+``csrc/quant_fused_decode.cu``.
+
+Counterpart of ``pyramidkv_tpu/kernels/quant_fused_decode.py``'s
+``quant_fused_attention_pa`` with its adapter
+``region_attention_fused_kernel``: the affine dequantization folds through
+the attention algebra (K scale into the bf16 query, K zero into a logit
+bias, V scale into the bf16 probabilities, V zero into a per-row scalar), so
+no dequantized copy exists.  On a CUDA tensor it launches the hand-written
+sm_90a kernel (slots split across blocks, a finish pass merging them); on a
+CPU tensor it runs the plain version
+(``ops.quant.quant_region_attention_fused``).  Arguments and results as
+``kernels/quant_decode.py``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.quant import (QuantizedKVRegion, merge_tail,
+                         quant_region_attention_fused)
+from .quant_decode import check_unsupported, launch_region
+
+
+def quant_fused_attention_pa(q: torch.Tensor, reg: QuantizedKVRegion,
+                             mask: torch.Tensor, *, nbits: int, tail=None,
+                             scale=None, softcap=None):
+    """q: [B, H, D]; ``reg`` one layer's pa-layout region; mask
+    [B, Hk, n <= S_pad] -> (acc [B, H, D], m [B, H], l [B, H]) f32; with
+    ``tail`` the layer's attention output over region and tail, [B, H, D]
+    in q's dtype (see ``quant_decode_attention``)."""
+    check_unsupported(scale, softcap)
+    if reg.k.scale.shape[-2] != 1 or reg.v.scale.shape[-2] != 1:
+        raise ValueError("quant_fused_attention_pa takes the pa layout")
+    if q.device.type == "cpu":
+        return merge_tail(quant_region_attention_fused(q, reg, mask,
+                                                       nbits=nbits), q, tail)
+    out = launch_region("pkv_quant_fused_pa", "quant_fused_decode", q, reg,
+                        mask, nbits, split=True, tail=tail)
+    quant_fused_attention_pa.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (CPU calls do not count)
+quant_fused_attention_pa.launches = 0

@@ -17,7 +17,19 @@ import numpy as np
 import torch
 
 from ..config import ModelSpec
+from ..ops.quant import QuantizedKVRegion, QuantizedTensor
 from .weights import QuantW
+
+
+def _device(device, what: str):
+    """``device=None`` means the CUDA card, and raises when there is none
+    (as ``Engine`` does)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{what}: no CUDA device; pass device='cpu' "
+                               "for the CPU")
+        device = "cuda"
+    return device
 
 
 def params_from_numpy(tree: dict, *, device=None,
@@ -32,11 +44,7 @@ def params_from_numpy(tree: dict, *, device=None,
     ``QuantW`` NamedTuple, recognised by its fields) become the port's
     :class:`~.weights.QuantW` with int8 codes and f32 scales kept as they
     are."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("params_from_numpy: no CUDA device; pass "
-                               "device='cpu' for the CPU")
-        device = "cuda"
+    device = _device(device, "params_from_numpy")
 
     def tensor(x, cast):
         a = np.asarray(x)
@@ -55,6 +63,24 @@ def params_from_numpy(tree: dict, *, device=None,
         return tensor(x, dtype)
 
     return conv(tree)
+
+
+def region_from_numpy(reg, *, device=None) -> QuantizedKVRegion:
+    """A JAX KIVI ``QuantizedKVRegion`` (leaves as numpy arrays, e.g.
+    ``jax.tree_util.tree_map(np.asarray, reg)``) -> the port's on
+    ``device``, leaves unchanged (int8 codes, f32 scales and zeros, the JAX
+    shapes).  ``device`` as :func:`params_from_numpy`.  Outlier sidecars
+    (KVQuant) are not ported and must be None."""
+    if reg.k_out_idx is not None or reg.v_out_idx is not None:
+        raise NotImplementedError(
+            "KVQuant outlier sidecars are not ported yet (ROADMAP queue 1 #11)")
+    device = _device(device, "region_from_numpy")
+
+    def part(qt):
+        return QuantizedTensor(*(torch.from_numpy(np.array(x)).to(device)
+                                 for x in (qt.codes, qt.scale, qt.zero)))
+
+    return QuantizedKVRegion(k=part(reg.k), v=part(reg.v))
 
 
 def init_params(spec: ModelSpec, generator: torch.Generator, device,

@@ -26,8 +26,12 @@ import torch.nn.functional as F
 
 from ..cache import KVCache, LayerCacheView
 from ..config import ModelSpec
-from ..kernels import decode_attention, flash_causal_attention
+from ..kernels import (decode_attention, flash_causal_attention,
+                       quant_decode_attention, quant_decode_attention_tiled,
+                       quant_fused_attention_pa)
+from ..kernels.quant_decode import split_plan
 from ..ops import attention as plain
+from ..ops import quant
 from ..policy import PolicyPlan, compress_layer, layer_contexts, stores_kv_heads
 from .weights import QuantW, dq_codes, embed_lookup, kernel_mm, mm
 
@@ -207,6 +211,8 @@ def prefill(
 
     hidden = embed_lookup(params["embed"], tokens.long(),
                           params["final_norm"].dtype)  # [B, N, Dm]
+    cs = plan.spec
+    regions = []  # KIVI: each layer's quantized prefill region
     seg_stacks = []
     for start, stop, sub in plan.segment_plans():
         stack = None  # [L_seg, ...] buffers of this segment's layers
@@ -227,20 +233,34 @@ def prefill(
             hidden = hidden + _mlp(rms_norm(hidden, wts["mlp_norm"], eps),
                                    wts, attention_impl)
             ckv = compress_layer(sub, keep[li], q, k, v, true_len=true_len)
+            if cs.quant_method is not None:
+                # quantize the (immutable) compacted prefill slots now, so
+                # one layer's bf16 region is live at a time; the stack keeps
+                # only the bf16 decode slots
+                sp = sub.prefill_slots
+                regions.append(quant.quantize_kv_region(
+                    ckv.k[:, :, :sp], ckv.v[:, :, :sp], nbits=cs.nbits,
+                    group_size=cs.q_group_size, layout=cs.q_layout))
+                ckv = ckv._replace(k=ckv.k[:, :, sp:], v=ckv.v[:, :, sp:])
             if stack is None:
                 stack = [t.new_empty((stop - start, *t.shape)) for t in ckv]
             for buf, t in zip(stack, ckv):
                 buf[li - start] = t
         seg_stacks.append(stack)
     logits = _logits(hidden[:, -1, :], params, spec, attention_impl)
-    return logits, assemble_cache(seg_stacks, true_len)
+    return logits, assemble_cache(seg_stacks, true_len, regions)
 
 
-def assemble_cache(seg_stacks: list, true_len: torch.Tensor) -> KVCache:
-    """KVCache from per-segment ``[k, v, mask, positions]`` layer stacks."""
+def assemble_cache(seg_stacks: list, true_len: torch.Tensor,
+                   regions: list = ()) -> KVCache:
+    """KVCache from per-segment ``[k, v, mask, positions]`` layer stacks
+    (and, for KIVI, the per-layer regions, stacked; quantized plans are
+    uniform)."""
     if len(seg_stacks) == 1:
         k, v, m, p = seg_stacks[0]
-        return KVCache(k=k, v=v, mask=m, positions=p, true_len=true_len)
+        return KVCache(k=k, v=v, mask=m, positions=p, true_len=true_len,
+                       quant=quant.stack_regions(regions) if regions
+                       else None)
     k, v, m, p = (tuple(s[j] for s in seg_stacks) for j in range(4))
     return KVCache(k=k, v=v, mask=m, positions=p, true_len=true_len)
 
@@ -248,6 +268,38 @@ def assemble_cache(seg_stacks: list, true_len: torch.Tensor) -> KVCache:
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
+
+
+def region_route(cs, bhk: int, w: int, device: torch.device):
+    """The region kernel a KIVI layer of ``bhk`` regions of ``w`` byte-rows
+    decodes through on ``device``: pa regions through
+    ``quant_fused_attention_pa``; group regions through
+    ``quant_decode_attention`` where the split plan gives them one split,
+    else through ``quant_decode_attention_tiled``."""
+    if cs.q_layout == "pa":
+        return quant_fused_attention_pa
+    return (quant_decode_attention if split_plan(device, bhk, w)[0] == 1
+            else quant_decode_attention_tiled)
+
+
+def _region_attention(q: torch.Tensor, reg, layer: LayerCacheView,
+                      plan: PolicyPlan, impl: str) -> torch.Tensor:
+    """One KIVI layer's decode attention over the quantized prefill region
+    and the bf16 decode slots (the tail): one region-kernel call, whose
+    finish pass attends over the tail and merges, or its plain version
+    (region partials, tail partials in plain torch as the JAX package
+    leaves them to XLA, merged).  Returns [B, H, D] in q's dtype."""
+    cs, sp = plan.spec, plan.prefill_slots
+    visible = layer.mask
+    tail = (layer.k, layer.v, visible[:, :, sp:])
+    if impl == "kernel":
+        b, hk, w = reg.k.codes.shape[:3]
+        return region_route(cs, b * hk, w, q.device)(
+            q, reg, visible[:, :, :sp], nbits=cs.nbits, tail=tail)
+    plain_region = (quant.quant_region_attention_fused if cs.q_layout == "pa"
+                    else quant.quant_decode_attention_plain)
+    return quant.merge_tail(
+        plain_region(q, reg, visible[:, :, :sp], nbits=cs.nbits), q, tail)
 
 
 def decode_step(
@@ -264,8 +316,9 @@ def decode_step(
     token: [B] ids generated at the previous step.  The new K/V row is
     written IN PLACE into decode slot ``prefill_slots + step`` of every
     layer (the JAX version returns a new cache; this one advances
-    ``cache.step`` and returns the same buffers).  Returns (f32 logits
-    [B, vocab], cache).
+    ``cache.step`` and returns the same buffers); with a KIVI cache, whose
+    k/v buffers hold only the decode slots, into k/v slot ``step``.
+    Returns (f32 logits [B, vocab], cache).
     """
     check_ported(spec)
     if attention_impl not in IMPLS:
@@ -276,6 +329,7 @@ def decode_step(
     inv_freq = rope_inv_freq(spec, token.device)
     pos = cache.current_position()  # [B]
     store_kv = stores_kv_heads(plan.spec)
+    quantized = cache.quant is not None
     attend = (decode_attention if attention_impl == "kernel"
               else plain.decode_attention)
 
@@ -288,7 +342,9 @@ def decode_step(
                     cache.positions[si])
         else:
             bufs = (cache.k, cache.v, cache.mask, cache.positions)
-        slot = sub.prefill_slots + cache.step
+        slot = sub.prefill_slots + cache.step  # mask / positions
+        # a KIVI cache's k/v buffers hold only the decode slots
+        kv_slot = cache.step if quantized else slot
         for i in range(stop - start):
             wts = _layer(params, start + i)
             x = rms_norm(hidden, wts["attn_norm"], eps)[:, None, :]
@@ -298,11 +354,16 @@ def decode_step(
             if not store_kv:  # per-query-head storage
                 k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
             layer = LayerCacheView(*(t[i] for t in bufs))
-            layer.k[:, :, slot] = k[:, :, 0]
-            layer.v[:, :, slot] = v[:, :, 0]
+            layer.k[:, :, kv_slot] = k[:, :, 0]
+            layer.v[:, :, kv_slot] = v[:, :, 0]
             layer.mask[:, :, slot] = True
             layer.positions[:, :, slot] = pos[:, None].to(torch.int32)
-            attn = attend(q, layer.k, layer.v, layer.mask)
+            if quantized:
+                attn = _region_attention(
+                    q, quant.layer_region(cache.quant, start + i), layer,
+                    sub, attention_impl)
+            else:
+                attn = attend(q, layer.k, layer.v, layer.mask)
             hidden = hidden + mm(attn.reshape(b, -1), wts["wo"],
                                  attention_impl)
             hidden = hidden + _mlp(rms_norm(hidden, wts["mlp_norm"], eps),

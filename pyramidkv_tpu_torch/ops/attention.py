@@ -97,3 +97,38 @@ def decode_attention(
     probs = torch.softmax(logits, dim=-1).to(v_cache.dtype).float()
     out = torch.matmul(probs, v_cache.float())  # [B, Hk, G, D]
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention_partials(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, mask: torch.Tensor):
+    """Online-softmax partials of single-token attention, in f32: (acc
+    [B, H, D], m [B, H], l [B, H]) with out = acc / l after merging.
+    Shapes as :func:`decode_attention`.  ``m`` is the true max logit
+    (float32.min when every slot is masked, and then l = 0)."""
+    b, h, d = q.shape
+    hk = k_cache.shape[1]
+    qg = q.float().reshape(b, hk, h // hk, d)
+    logits = torch.matmul(qg, k_cache.float().transpose(-1, -2)) * (
+        1.0 / math.sqrt(d))
+    valid = mask[:, :, None, :]
+    logits = logits.masked_fill(~valid, _NEG_INF)
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m.clamp_min(_NEG_INF / 2)[..., None]).masked_fill(
+        ~valid, 0.0)
+    acc = torch.matmul(p, v_cache.float())
+    return acc.reshape(b, h, d), m.reshape(b, h), p.sum(-1).reshape(b, h)
+
+
+def merge_attention_partials(parts) -> torch.Tensor:
+    """Combine flash partials [(acc, m, l), ...] -> [B, H, D] f32.  A part
+    whose m <= float32.min / 2 (every slot masked) gets weight 0."""
+    m_all = parts[0][1]
+    for _, m, _ in parts[1:]:
+        m_all = torch.maximum(m_all, m)
+    num = den = 0.0
+    for acc, m, l in parts:
+        w = torch.exp((m - m_all).clamp_max(0.0)).masked_fill(
+            m <= _NEG_INF / 2, 0.0)
+        num = num + acc * w[..., None]
+        den = den + l * w
+    return num / den.clamp_min(1e-30)[..., None]

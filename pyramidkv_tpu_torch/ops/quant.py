@@ -1,0 +1,259 @@
+"""KIVI KV-cache quantization in PyTorch (counterpart of
+``pyramidkv_tpu/ops/quant.py``).
+
+Asymmetric min/max affine quantization (HQQ's scheme: code =
+round((x - min) / scale), x_hat = code * scale + min) of the compacted
+prefill region, with int4/int2 codes PLANAR-packed into int8 along the slot
+axis: byte j holds slots ``{j + p * W}`` in bit-plane p (W = plane width),
+not adjacent slots.  Keys are grouped along slots (per-channel scales), values
+along channels (per-token scales); ``layout="pa"`` widens each group to its
+whole axis.
+
+Also here: the plain versions of the port's three region kernels
+(``kernels/quant_decode.py``, ``kernels/quant_fused_decode.py``) —
+:func:`quant_decode_attention_plain` (f32 dequantization, then f32
+attention partials, as the JAX package's tests define the reference of its
+group-layout kernels) and :func:`quant_region_attention_fused` (the factored
+dequantization of the pa layout, per bit-plane, with the JAX function's bf16
+roundings).
+
+Not ported yet (ROADMAP queue 1 #11): KVQuant's outlier sidecar and the
+chunked dequantization scan ``quant_region_attention_partials``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from .attention import decode_attention_partials, merge_attention_partials
+
+_NEG_INF = torch.finfo(torch.float32).min
+
+
+class QuantizedTensor(NamedTuple):
+    #: packed codes, int8 with uint8 meaning; for 4/2 bits the packed axis is
+    #: divided by 8 // nbits
+    codes: torch.Tensor
+    scale: torch.Tensor  #: [..., groups, 1] float32
+    zero: torch.Tensor   #: [..., groups, 1] float32
+
+
+class QuantizedKVRegion(NamedTuple):
+    """The post-compaction prefill slots of one layer (or, in a cache, the
+    layers stacked on a leading axis) in KIVI form.
+
+    k: codes slot-major ``[B, H, S_pad/per, D]``, scale/zero
+    ``[B, H, D, S_pad/g, 1]`` (groups along slots); v: codes
+    ``[B, H, S_pad/per, Dp]``, scale/zero ``[B, H, S_pad, Dp/g, 1]`` (groups
+    along channels, ``Dp = round_up(D, g)``).  ``S_pad = round_up(S, g *
+    per)``; "pa" has g = S_pad for K and g = Dp for V."""
+
+    k: QuantizedTensor
+    v: QuantizedTensor
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _pack(vals: torch.Tensor, nbits: int, axis: int = -1) -> torch.Tensor:
+    """Unsigned ints < 2^nbits -> int8, planar along ``axis``: byte j holds
+    positions ``{j + p * (n / per)}`` in bit-plane p."""
+    if nbits == 8:
+        return vals.to(torch.uint8).view(torch.int8)
+    per = 8 // nbits
+    n = vals.shape[axis]
+    assert n % per == 0, (n, per)
+    u = vals.to(torch.uint8)
+    planes = torch.chunk(u, per, dim=axis)
+    packed = planes[0].clone()
+    for p in range(1, per):
+        packed |= planes[p] << (p * nbits)
+    return packed.view(torch.int8)
+
+
+def _unpack(codes: torch.Tensor, nbits: int, axis: int = -1) -> torch.Tensor:
+    """Planar int8 codes -> int32 values, the planes concatenated along
+    ``axis``."""
+    u = codes.view(torch.uint8).to(torch.int32)
+    if nbits == 8:
+        return u
+    mask = (1 << nbits) - 1
+    return torch.cat([(u >> (p * nbits)) & mask for p in range(8 // nbits)],
+                     dim=axis)
+
+
+def quantize(x: torch.Tensor, *, nbits: int, group_size: int = 64,
+             pack_axis: int = -1) -> QuantizedTensor:
+    """Asymmetric per-group min/max quantization along the last axis."""
+    xf = x.float()
+    *lead, n = xf.shape
+    assert n % group_size == 0, (n, group_size)
+    g = xf.reshape(*lead, n // group_size, group_size)
+    mn = g.amin(dim=-1, keepdim=True)
+    mx = g.amax(dim=-1, keepdim=True)
+    qmax = float(2 ** nbits - 1)
+    scale = ((mx - mn) / qmax).clamp_min(1e-8)
+    codes = torch.clamp(torch.round((g - mn) / scale), 0, qmax)
+    codes = codes.reshape(*lead, n).to(torch.int32)
+    return QuantizedTensor(codes=_pack(codes, nbits, axis=pack_axis),
+                           scale=scale, zero=mn)
+
+
+def dequantize(qt: QuantizedTensor, *, nbits: int, group_size: int,
+               pack_axis: int = -1) -> torch.Tensor:
+    """f32 values of ``quantize``'s output: code * scale + zero."""
+    codes = _unpack(qt.codes, nbits, axis=pack_axis)
+    *lead, n = codes.shape
+    g = codes.reshape(*lead, n // group_size, group_size).float()
+    return (g * qt.scale + qt.zero).reshape(*lead, n)
+
+
+def quantize_kv_region(k: torch.Tensor, v: torch.Tensor, *, nbits: int,
+                       group_size: int = 64, layout: str = "group"
+                       ) -> QuantizedKVRegion:
+    """Quantize a compacted ``[B, H, S, D]`` prefill region once (its slots
+    never change after compaction).  The K grid is computed in the
+    ``[B, H, D, S_pad]`` orientation and the codes stored slot-major."""
+    if layout not in ("group", "pa"):
+        raise ValueError(f"layout must be group|pa, got {layout!r}")
+    s, d = k.shape[2], k.shape[3]
+    per = 8 // nbits
+    s_pad = _round_up(s, group_size * per)
+    kt = torch.nn.functional.pad(k.float().transpose(2, 3), (0, s_pad - s))
+    kq = quantize(kt, nbits=nbits,
+                  group_size=s_pad if layout == "pa" else group_size)
+    kq = kq._replace(codes=kq.codes.transpose(-1, -2).contiguous())
+    d_pad = _round_up(d, group_size)
+    vp = torch.nn.functional.pad(v.float(), (0, d_pad - d, 0, s_pad - s))
+    vq = quantize(vp, nbits=nbits,
+                  group_size=d_pad if layout == "pa" else group_size,
+                  pack_axis=-2)
+    return QuantizedKVRegion(k=kq, v=vq)
+
+
+def region_geometry(reg: QuantizedKVRegion, nbits: int):
+    """(plane width W, S_pad, K slots per group, V channels per group) of a
+    one-layer region, read from its shapes (both layouts)."""
+    w = reg.k.codes.shape[-2]
+    s_pad = w * (8 // nbits)
+    return (w, s_pad, s_pad // reg.k.scale.shape[-2],
+            reg.v.codes.shape[-1] // reg.v.scale.shape[-2])
+
+
+def dequantize_kv_region(reg: QuantizedKVRegion, *, num_slots: int,
+                         head_dim: int, nbits: int, dtype=torch.float32):
+    """-> (k, v) ``[B, H, num_slots, head_dim]``; group sizes are read from
+    the scale shapes, so both layouts round-trip."""
+    _, _, kg, vg = region_geometry(reg, nbits)
+    kcm = reg.k._replace(codes=reg.k.codes.transpose(-1, -2))
+    k = dequantize(kcm, nbits=nbits, group_size=kg).transpose(2, 3)
+    v = dequantize(reg.v, nbits=nbits, group_size=vg, pack_axis=-2)
+    return (k[:, :, :num_slots, :].to(dtype),
+            v[:, :, :num_slots, :head_dim].to(dtype))
+
+
+def _pad_mask(mask: torch.Tensor, s_pad: int) -> torch.Tensor:
+    return torch.nn.functional.pad(mask, (0, s_pad - mask.shape[-1]))
+
+
+def quant_decode_attention_plain(q: torch.Tensor, reg: QuantizedKVRegion,
+                                 mask: torch.Tensor, *, nbits: int):
+    """Plain version of the group-layout region kernels: f32
+    dequantization of the whole region, then f32 attention partials.
+
+    q: [B, H, D]; ``reg`` one layer's region; mask: [B, Hk, n] (n <= S_pad;
+    slots beyond it are padding).  Returns (acc [B, H, D], m [B, H],
+    l [B, H]) f32 with out = acc / l after merging."""
+    d = q.shape[-1]
+    _, s_pad, _, _ = region_geometry(reg, nbits)
+    k, v = dequantize_kv_region(reg, num_slots=s_pad, head_dim=d,
+                                nbits=nbits)
+    return decode_attention_partials(q.float(), k, v, _pad_mask(mask, s_pad))
+
+
+def quant_region_attention_fused(q: torch.Tensor, reg: QuantizedKVRegion,
+                                 visible: torch.Tensor, *, nbits: int):
+    """Attention partials over a pa-layout region without a dequantized
+    copy (plain version of ``kernels/quant_fused_decode.py``).
+
+    The affine dequantization folds through the attention algebra: the K
+    per-channel scale into the query (rounded to bf16, as the JAX function
+    feeds its bf16 dot), the K zero into a logit bias q . kz; the V per-token
+    scale into the probabilities (rounded to bf16), the V zero into the
+    scalar sum_t p_t vz_t added to every channel.  Bit-planes are separate
+    slot spans whose logits concatenate in planar slot order.
+
+    q: [B, H, D]; visible: [B, Hk, n] (n <= S_pad).  Returns (acc [B, H, D],
+    m [B, H], l [B, H]) f32."""
+    b, h, d = q.shape
+    hk = reg.k.codes.shape[1]
+    g = h // hk
+    per = 8 // nbits
+    w, s_pad, _, _ = region_geometry(reg, nbits)
+    if reg.k.scale.shape[-2] != 1 or reg.v.scale.shape[-2] != 1:
+        raise ValueError("quant_region_attention_fused takes the pa layout")
+    mask = _pad_mask(visible, s_pad)
+    qg = q.float().reshape(b, hk, g, d) * (1.0 / math.sqrt(d))
+    ku = reg.k.codes.view(torch.uint8)
+    vu = reg.v.codes.view(torch.uint8)
+    mb = (1 << nbits) - 1
+    ks, kz = reg.k.scale[..., 0, 0], reg.k.zero[..., 0, 0]  # [B, Hk, D]
+    vs, vz = reg.v.scale[..., 0, 0], reg.v.zero[..., 0, 0]  # [B, Hk, S_pad]
+    qs = (qg * ks[:, :, None, :]).to(torch.bfloat16).float()
+    z = torch.einsum("bkqd,bkd->bkq", qg, kz)
+    s = torch.cat([
+        torch.einsum("bkqd,bkwd->bkqw", qs, ((ku >> (p * nbits)) & mb).float())
+        + z[..., None] for p in range(per)], dim=-1)
+    valid = mask[:, :, None, :]
+    s = s.masked_fill(~valid, _NEG_INF)
+    m = s.amax(dim=-1)
+    pe = torch.exp(s - m.clamp_min(_NEG_INF / 2)[..., None]).masked_fill(
+        ~valid, 0.0)
+    l = pe.sum(-1)
+    acc = torch.zeros((b, hk, g, reg.v.codes.shape[-1]), dtype=torch.float32,
+                      device=q.device)
+    for p in range(per):
+        pe_p = pe[..., p * w:(p + 1) * w]
+        vp = ((vu >> (p * nbits)) & mb).float()
+        ps = (pe_p * vs[:, :, None, p * w:(p + 1) * w]).to(
+            torch.bfloat16).float()
+        acc += torch.einsum("bkqw,bkwe->bkqe", ps, vp)
+        acc += torch.einsum("bkqw,bkw->bkq", pe_p,
+                            vz[:, :, p * w:(p + 1) * w])[..., None]
+    return (acc[..., :d].reshape(b, h, d), m.reshape(b, h), l.reshape(b, h))
+
+
+def merge_tail(part, q: torch.Tensor, tail):
+    """A KIVI layer's decode attention from its region's partials ``part``
+    and the step's bf16 decode tail ``(k, v, mask)`` (k/v [B, Hk, T, D],
+    mask [B, Hk, T]): the tail's partials merged after the region's,
+    [B, H, D] in q's dtype.  The plain version of the region kernels' tail
+    pass; ``tail=None`` returns ``part`` as it is."""
+    if tail is None:
+        return part
+    k, v, mask = tail
+    return merge_attention_partials(
+        [part, decode_attention_partials(q, k, v, mask)]).to(q.dtype)
+
+
+def stack_regions(regions) -> QuantizedKVRegion:
+    """Per-layer regions -> one region whose leaves are stacked [L, ...]."""
+    def st(field, part):
+        return torch.stack([getattr(getattr(r, part), field) for r in regions])
+    return QuantizedKVRegion(
+        *(QuantizedTensor(*(st(f, part) for f in QuantizedTensor._fields))
+          for part in ("k", "v")))
+
+
+def layer_region(reg: QuantizedKVRegion, i: int) -> QuantizedKVRegion:
+    """Layer ``i`` of a stacked region (views)."""
+    return QuantizedKVRegion(*(QuantizedTensor(*(t[i] for t in part))
+                               for part in reg))
+
+
+def region_leaves(reg: Optional[QuantizedKVRegion]):
+    return [] if reg is None else [t for part in reg for t in part]

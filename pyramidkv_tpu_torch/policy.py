@@ -1,8 +1,9 @@
 """Per-layer KV-compression policy: scoring -> selection -> compaction
 (counterpart of ``pyramidkv_tpu/policy.py``).
 
-Ported methods: ``fullkv``, ``snapkv`` and ``pyramidkv``.  The others raise
-``NotImplementedError`` (ROADMAP queue 1).
+Ported methods: ``fullkv``, ``snapkv`` and ``pyramidkv``, each with a bf16
+cache or a KIVI-quantized one (``quant_method="kivi"``, 8/4/2 bits, group
+or pa layout).  The others raise ``NotImplementedError`` (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -28,11 +29,15 @@ def _check_ported(spec: CompressionSpec) -> None:
         raise NotImplementedError(
             f"method {spec.method!r} is not ported yet (ROADMAP queue 1); "
             f"ported: {PORTED_METHODS}")
-    if (spec.quant_method is not None or spec.gqa_aggregate or spec.merge
-            or spec.layer_capacity is not None):
+    if spec.quant_method not in (None, "kivi") or (
+            spec.quant_method is not None and spec.nbits not in (2, 4, 8)):
         raise NotImplementedError(
-            "KV quantization, gqa_aggregate, merging and per-layer "
-            "capacities are not ported yet (ROADMAP queue 1)")
+            "KVQuant's outlier sidecar and 1- or 3-bit KIVI are not ported "
+            "yet (ROADMAP queue 1 #11)")
+    if spec.gqa_aggregate or spec.merge or spec.layer_capacity is not None:
+        raise NotImplementedError(
+            "gqa_aggregate, merging and per-layer capacities are not ported "
+            "yet (ROADMAP queue 1)")
 
 
 @dataclass(frozen=True)
@@ -136,7 +141,9 @@ def make_plan(
     width = min(width, bucket_len)
 
     segments = ()
-    bounds = _per_layer_width_bounds(spec, num_layers, bucket_len)
+    # a quantized cache keeps one stacked region: uniform plans only
+    bounds = (_per_layer_width_bounds(spec, num_layers, bucket_len)
+              if spec.quant_method is None else None)
     if bounds is not None:
         # round slot widths up to 8, clamp at the uniform bound
         bounds = [min(((b + 7) // 8) * 8, width) for b in bounds]

@@ -153,3 +153,78 @@ def test_quantized_generate_matches_jax_engine(wide_params, quant, method):
     got = te.generate(prompts)
     assert got.tokens == want.tokens
     assert got.kv_cache_bytes == want.kv_cache_bytes
+
+
+# ---------------------------------------------------------------------------
+# KIVI-quantized KV cache (ops/quant.py and the region kernels)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,nbits", [("snapkv_kivi4", 4),
+                                        ("snapkv_kivi2", 2)])
+def test_kivi_golden_trace(params, name, nbits):
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    te = Engine(tcfg.ModelSpec.tiny(),
+                tcfg.CompressionSpec(method="snapkv", quant_method="kivi",
+                                     nbits=nbits, **QCOMP),
+                tcfg.EngineSpec(**ENG), params[1], device="cpu")
+    assert te.generate([golden["_prompt"]]).tokens[0] == golden[name]
+
+
+#: KIVI formats: (nbits, layout).  pa runs at bucket 256 (snapkv cap 200),
+#: where the JAX pa kernel's plane widths are multiples of 128
+#: (tests/test_quant_fused_kernel.py:94-123), so its Pallas kernel runs.
+KIVI = {"kivi4": (4, "group"), "kivi2": (2, "group"),
+        "kivi8-pa": (8, "pa"), "kivi4-pa": (4, "pa")}
+
+
+@pytest.mark.parametrize("method", ["fullkv", "snapkv"])
+@pytest.mark.parametrize("fmt", list(KIVI))
+def test_kivi_generate_matches_jax_engine(params, fmt, method):
+    """The JAX engine with its region kernels forced on (interpret mode:
+    ``_FORCE_QUANT_KERNEL`` for group regions, ``_FORCE_QUANT_FUSED_KERNEL``
+    for pa) against the port's CPU engine: tokens, decode steps and cache
+    bytes (region codes, scales and zeros plus the bf16 decode slots)."""
+    jp, tp = params
+    nbits, layout = KIVI[fmt]
+    pa = layout == "pa"
+    comp = dict(method=method, quant_method="kivi", nbits=nbits,
+                q_layout=layout, max_capacity_prompt=200 if pa else 16,
+                window_size=8 if pa else 4)
+    eng = dict(max_new_tokens=8, prefill_buckets=(256,) if pa else (64,))
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, 256, size=n).tolist()
+               for n in ((250, 211, 40) if pa else (60, 37, 12))]
+    force = jl._FORCE_QUANT_FUSED_KERNEL if pa else jl._FORCE_QUANT_KERNEL
+    force[0] = True
+    try:
+        want = JaxEngine(jcfg.ModelSpec.tiny(), jcfg.CompressionSpec(**comp),
+                         jcfg.EngineSpec(**eng), jp).generate(prompts)
+    finally:
+        force[0] = False
+    got = Engine(tcfg.ModelSpec.tiny(), tcfg.CompressionSpec(**comp),
+                 tcfg.EngineSpec(**eng), tp, device="cpu").generate(prompts)
+    assert got.tokens == want.tokens
+    assert got.decode_steps == want.decode_steps
+    assert got.kv_cache_bytes == want.kv_cache_bytes
+
+
+def test_kivi_counterfactual_knobs_raise(params):
+    spec = tcfg.ModelSpec.tiny()
+    kivi = dict(method="snapkv", quant_method="kivi", nbits=4, **QCOMP)
+    for layout, es in (("group", dict(use_quant_scan=True)),
+                       ("pa", dict(use_quant_scan=True)),
+                       ("group", dict(use_quant_fused=True))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Engine(spec, tcfg.CompressionSpec(q_layout=layout, **kivi),
+                   tcfg.EngineSpec(**es, **ENG), params[1], device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(spec, tcfg.CompressionSpec(
+            method="snapkv", quant_method="kvquant", **QCOMP),
+            tcfg.EngineSpec(**ENG), params[1], device="cpu")
+    # the knobs that name what the port always does are accepted
+    Engine(spec, tcfg.CompressionSpec(q_layout="pa", **kivi),
+           tcfg.EngineSpec(use_quant_kernel=True, use_quant_tiled=True,
+                           use_quant_fused=True, use_quant_fused_kernel=True,
+                           **ENG), params[1], device="cpu")
