@@ -160,6 +160,47 @@ TAIL_TOL_TEXT = {
     "group": "|err| <= (2^-10 + 2^-7) |want| + 2^-10 rms(want's row)",
     "pa": "|err| <= (2^-6 + 2^-7) |want| + 2^-5 rms(want's row)"}
 
+#: MInference's block-sparse prefill kernels.  Their partials are held as
+#: the pa region kernel's: acc / l within TOL_TEXT (kernel and plain version
+#: round p to bf16 at different running maxima: 64-key sub-tiles against
+#: the plain version's 256-key tiles or one-shot row), m within
+#: 2^-12 max(1, |m|) and l within 2^-10 l (f32 dots and sums in other
+#: orders).
+SPARSE_KERNELS = ("vertical_attention_partials", "slash_tile_attention",
+                  "slash_tile_attention_db")
+SPARSE_TOL_TEXT = (TOL_TEXT + " on acc/l; m within 2^-12 max(1,|m|), l "
+                   "within 2^-10 l")
+#: the synthetic per-head pattern config (32 layers x 32 heads)
+PCFG_PATH = "configs/minference/llama3_8b_synthetic.json"
+#: kernel checks: case -> (B, H, Hk, N, true_len, budgets, q_block, k_tile,
+#: tile_budget, timed).  budgets: "default" (CompressionSpec's 1000 / 200),
+#: "pcfg" (layer 0 of PCFG_PATH, the config-wide maxima 3500 / 6096 setting
+#: the top-k widths: Vs 3584) or (vertical, slash).  The short cases come
+#: first: a prompt shorter than last_q beside a full one, and G=1 with
+#: 128-row q-blocks of 64-key tiles.
+SPARSE_CASES = {
+    "short ragged": (2, 8, 2, 1024, (1024, 37), (100, 50), 512, 256, 2,
+                     False),
+    "short tiles": (1, 4, 4, 640, (600,), (60, 30), 128, 64, 3, False),
+    "32k": (1, H, HK, QN, (QTRUE,), "default", 512, 256, 8, True),
+    "32k pcfg": (1, H, HK, QN, (QTRUE,), "pcfg", 512, 256, 8, True),
+    "8k": (B, H, HK, N, TRUE_LEN, "default", 512, 256, 8, True),
+}
+#: the minference engine runs: name -> (weights, CompressionSpec arguments
+#: or "pcfg", the SPARSE_CASES shape its kernels run at).  32k: bench.py's
+#: prompt (bucket 32768 = minference_dense_below: the sparse path); 8k: the
+#: bf16 batch with minference_dense_below=0.
+MINF_RUNS = {
+    "int4 minference 32k": ("int4", {}, "32k"),
+    "int4 minference-db 32k": ("int4", dict(minference_slash_impl="db"),
+                               "32k"),
+    "int4 minference-pcfg 32k": ("int4", "pcfg", "32k pcfg"),
+    "bf16 minference 8k": ("bf16", dict(minference_dense_below=0), "8k"),
+}
+#: kv_cache_bytes of bench.py's 32k fullkv (and minference) cache: K and V,
+#: 32 layers x 8 KV heads x 32896 slots x 128 x 2 bytes
+KV_BYTES_FULLKV_32K = 4_311_744_512
+
 
 #: a file that receives a copy of every JSON line (--log)
 LOG_FILE = []
@@ -502,7 +543,8 @@ def _kernels():
 
     return {"flash_causal_attention": kernels.flash_causal_attention,
             "decode_attention": kernels.decode_attention,
-            **{k: getattr(kernels, k) for k in MM_KERNELS + REGION_KERNELS}}
+            **{k: getattr(kernels, k)
+               for k in MM_KERNELS + REGION_KERNELS + SPARSE_KERNELS}}
 
 
 def reset_counts():
@@ -604,7 +646,7 @@ def phase_engine_quant(torch, dev, params, vocab):
 
     spec = ModelSpec.preset("llama3-8b")
     prompt = np.random.default_rng(0).integers(0, vocab, size=QTRUE).tolist()
-    ok, counts, tok_s, qp, have = True, {}, {}, None, None
+    ok, counts, tok_s, prefill_s, qp, have = True, {}, {}, {}, None, None
     for wname, method, dma in QRUNS:
         if wname != have:
             qp = None
@@ -624,6 +666,7 @@ def phase_engine_quant(torch, dev, params, vocab):
         run = f"{wname}{'-dma' if dma else ''} {method}"
         counts[run] = c
         tok_s[run] = out.decode_steps / out.decode_seconds
+        prefill_s[run] = out.prefill_seconds
         toks = out.tokens[0]
         good = (c["flash_causal_attention"] == LAYERS
                 and c["decode_attention"] == LAYERS * out.decode_steps
@@ -645,7 +688,7 @@ def phase_engine_quant(torch, dev, params, vocab):
         del eng, out
     del qp
     torch.cuda.empty_cache()
-    return ok, counts, tok_s
+    return ok, counts, tok_s, prefill_s
 
 
 def tree_gib(tree) -> float:
@@ -1156,6 +1199,410 @@ def phase_parity_kv_quant(torch, dev, params, vocab, steps=4):
     return ok
 
 
+def load_pcfg():
+    """PCFG_PATH as CompressionSpec.minference_pattern_config (32 x 32)."""
+    import os
+
+    from pyramidkv_tpu_torch.config import load_minference_pattern_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    return load_minference_pattern_config(os.path.join(root, PCFG_PATH),
+                                          LAYERS, H)
+
+
+def sparse_budgets(torch, dev, budgets) -> dict:
+    """estimate_vertical_slash's budget arguments of a SPARSE_CASES entry."""
+    from pyramidkv_tpu_torch.config import CompressionSpec
+
+    if budgets == "default":
+        cs = CompressionSpec(method="minference")
+        return dict(vertical_size=cs.minference_vertical_size,
+                    slash_size=cs.minference_slash_size)
+    if budgets == "pcfg":
+        cfg = load_pcfg()
+        return dict(
+            vertical_size=torch.tensor([v for v, _ in cfg[0]],
+                                       dtype=torch.int32, device=dev),
+            slash_size=torch.tensor([s for _, s in cfg[0]],
+                                    dtype=torch.int32, device=dev),
+            max_vertical=max(v for layer in cfg for v, _ in layer),
+            max_slash=max(s for layer in cfg for _, s in layer))
+    return dict(vertical_size=budgets[0], slash_size=budgets[1])
+
+
+def partials_ratio(got, want) -> tuple:
+    """(largest error over its limit, max |acc/l error|, max |m error|, max
+    l relative error) of a partials triple against another: acc / l within
+    TOL_TEXT, m within 2^-12 max(1, |m|), l within 2^-10 l."""
+    og = got[0] / got[2].clamp_min(1e-30)[..., None]
+    ow = want[0] / want[2].clamp_min(1e-30)[..., None]
+    dm = (got[1] - want[1]).abs()
+    dl = (got[2] - want[2]).abs()
+    ratio = max(err_over_tol(og, ow),
+                float((dm / (2.0 ** -12 * want[1].abs().clamp_min(1.0))).max()),
+                float((dl / (2.0 ** -10 * want[2]).clamp_min(1e-30)).max()))
+    return (ratio, float((og - ow).abs().max()), float(dm.max()),
+            float((dl / want[2].clamp_min(1e-30)).max()))
+
+
+def slash_library_inputs(torch, q, k, v, ti, tv, vert, tl, qb, kt):
+    """The slash partials' function as one masked SDPA call: q as
+    [B*H*nq, 1, q_block, D] against its listed tiles gathered to
+    [B*H*nq, 1, T*k_tile, D], with a [B*H*nq, 1, q_block, T*k_tile] mask."""
+    b, h, n, d = q.shape
+    g = h // k.shape[1]
+    nq, t = n // qb, ti.shape[-1]
+    dev = q.device
+    cols = (ti.long()[..., None] * kt
+            + torch.arange(kt, device=dev)).reshape(b, h, nq, t * kt)
+    bi = torch.arange(b, device=dev)[:, None, None]
+    hi = torch.arange(h, device=dev)[None, :, None]
+    kh = k[bi, hi // g, cols.reshape(b, h, -1)].reshape(b * h * nq, 1,
+                                                        t * kt, d)
+    vh = v[bi, hi // g, cols.reshape(b, h, -1)].reshape(b * h * nq, 1,
+                                                        t * kt, d)
+    pad = (n - tl.long())[:, None, None, None]
+    colv = ((cols >= pad)
+            & ~vert[bi, hi, cols.reshape(b, h, -1)].reshape(cols.shape)
+            & tv.repeat_interleave(kt, dim=-1))
+    rows = torch.arange(n, device=dev).reshape(nq, qb)[None, None, :, :,
+                                                       None]
+    mask = (cols[..., None, :] <= rows) & colv[..., None, :]
+    return (q.reshape(b * h * nq, 1, qb, d), kh, vh,
+            mask.reshape(b * h * nq, 1, qb, t * kt))
+
+
+def slash_pairs(torch, ti, tv, vert, tl, qb, kt) -> float:
+    """Visible (row, column) pairs of the slash partials: per listed valid
+    tile, the columns right of the pad and not vertical, each against the
+    rows of the q-block at or below it."""
+    b, h, nq, t = ti.shape
+    dev = ti.device
+    n = vert.shape[-1]
+    cols = ti.long()[..., None] * kt + torch.arange(kt, device=dev)
+    bi = torch.arange(b, device=dev)[:, None, None, None, None]
+    hi = torch.arange(h, device=dev)[None, :, None, None, None]
+    pad = (n - tl.long())[:, None, None, None, None]
+    live = (tv[..., None] & (cols >= pad)
+            & ~vert[bi, hi, cols])
+    q0 = (torch.arange(nq, device=dev) * qb)[None, None, :, None, None]
+    rows = (q0 + qb - torch.maximum(cols, q0)).clamp(0, qb)
+    return float((rows * live).sum())
+
+
+def check_sparse(torch, F, dev, case, seed):
+    """The three block-sparse kernels against their plain versions on one
+    SPARSE_CASES shape, on a pattern that the port's estimate_vertical_slash
+    makes from seeded random bf16 q/k (the same pattern for both sides);
+    the two slash kernels also against each other.  Timed cases add each
+    kernel's time (a CUDA graph of repeated calls), its plain version's, one
+    masked SDPA call's (the yardstick) and the bound.  Returns (ok,
+    {kernel: rec})."""
+    from pyramidkv_tpu_torch import kernels
+    from pyramidkv_tpu_torch.ops import sparse_prefill as sp
+
+    b, h, hk, n, true_len, budgets, qb, kt, budget, timed = SPARSE_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, h, n, D), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, hk, n, D), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, hk, n, D), generator=g, device=dev).to(torch.bfloat16)
+    tl = torch.tensor(true_len, dtype=torch.int32, device=dev)
+    pat = sp.estimate_vertical_slash(q, k, true_len=tl,
+                                     **sparse_budgets(torch, dev, budgets))
+    ti, tv = sp._slash_tile_selection(pat, n, qb, kt, budget)
+    k_vert, v_vert = sp.gather_vertical_kv(k, v, pat.vert_idx)
+    vs, t = k_vert.shape[2], ti.shape[-1]
+    vargs = (q, k_vert, v_vert, pat.vert_idx, pat.vert_valid, tl)
+    sargs = (q, k, v, ti, tv, pat.vert, tl)
+    skw = dict(q_block=qb, k_tile=kt)
+    want_v = sp.vertical_attention_partials_plain(*vargs)
+    want_s = sp.slash_tile_attention_plain(*sargs, **skw)
+    calls = {"vertical_attention_partials": (
+                 kernels.vertical_attention_partials,
+                 sp.vertical_attention_partials_plain, vargs, {}, want_v),
+             "slash_tile_attention": (
+                 kernels.slash_tile_attention, sp.slash_tile_attention_plain,
+                 sargs, skw, want_s),
+             "slash_tile_attention_db": (
+                 kernels.slash_tile_attention_db,
+                 sp.slash_tile_attention_plain, sargs, skw, want_s)}
+    ok, recs, outs = True, {}, {}
+    shape = {"case": case, "B": b, "H": h, "Hk": hk, "N": n,
+             "true_len": list(true_len), "Vs": vs, "T": t, "q_block": qb,
+             "k_tile": kt,
+             "valid_vertical": int(pat.vert_valid.sum()),
+             "valid_tiles": int(tv.sum())}
+    for name, (kern, plain, args, kw, want) in calls.items():
+        got = kern(*args, **kw)
+        torch.cuda.synchronize()
+        outs[name] = got
+        ratio, err, m_err, l_err = partials_ratio(got, want)
+        rec = {"check": name, **shape, "max_abs_err": err, "m_err": m_err,
+               "l_rel_err": l_err, "err_over_tol": ratio,
+               "tol": SPARSE_TOL_TEXT,
+               "rms": float((want[0] / want[2].clamp_min(1e-30)[..., None])
+                            .square().mean().sqrt())}
+        if timed:
+            rec["ms"] = graph_ms(torch, lambda: kern(*args, **kw), reps=10)
+            rec["plain_ms"] = time_ms(torch, lambda: plain(*args, **kw),
+                                      reps=1, warmup=0)
+            if name.startswith("vertical"):
+                rows = torch.arange(n, device=dev)[None, None, :, None]
+                mask = ((pat.vert_idx[:, :, None, :] <= rows)
+                        & pat.vert_valid[:, :, None, :])
+                lib = (q, k_vert, v_vert)
+                pairs = float(((n - pat.vert_idx.long())
+                               * pat.vert_valid).sum())
+                nbytes = (q.numel() * 2 + 2 * k_vert.numel() * 2
+                          + vs * b * h * 5)
+            else:
+                *lib, mask = slash_library_inputs(torch, q, k, v, ti, tv,
+                                                  pat.vert, tl, qb, kt)
+                pairs = slash_pairs(torch, ti, tv, pat.vert, tl, qb, kt)
+                nbytes = (q.numel() * 2 + 2 * k.numel() * 2 + ti.numel() * 5
+                          + b * h * n + b * 4)
+            rec["library_ms"] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    *lib, attn_mask=mask), reps=3)
+            del lib, mask
+            nbytes += b * h * n * (D + 2) * 4  # acc, m, l written
+            rec["visible_pairs"] = pairs
+            rec["bound_ms"], rec["bound_by"] = bound(4.0 * D * pairs, nbytes)
+        log(rec)
+        ok &= (ratio <= 1 and all(bool(torch.isfinite(x).all()) for x in got)
+               and tuple(got[0].shape) == (b, h, n, D))
+        recs[name] = rec
+        torch.cuda.empty_cache()
+    # the two slash kernels visit the same live sub-tiles in the same order
+    ratio, err, _, _ = partials_ratio(outs["slash_tile_attention_db"],
+                                      outs["slash_tile_attention"])
+    same = all(torch.equal(a, b_) for a, b_ in zip(
+        outs["slash_tile_attention_db"], outs["slash_tile_attention"]))
+    log({"check": "slash_tile_attention_db vs slash_tile_attention",
+         "case": case, "max_abs_err": err, "err_over_tol": ratio,
+         "bitwise_equal": same, "tol": SPARSE_TOL_TEXT})
+    ok &= ratio <= 1
+    return ok, recs
+
+
+def phase_minference_kernels(torch, F, dev):
+    """Every SPARSE_CASES shape, short ones first.  Returns (ok, {kernel:
+    [timed rec per main shape]})."""
+    ok, recs = True, {k: [] for k in SPARSE_KERNELS}
+    for seed, case in enumerate(SPARSE_CASES, start=400):
+        r, got = check_sparse(torch, F, dev, case, seed)
+        ok &= r
+        if SPARSE_CASES[case][-1]:
+            for name, rec in got.items():
+                recs[name].append(rec)
+        torch.cuda.empty_cache()
+    return ok, recs
+
+
+def minf_spec(run):
+    """CompressionSpec of a MINF_RUNS run and its (bucket, max_new)."""
+    from pyramidkv_tpu_torch.config import CompressionSpec
+
+    _, extra, case = MINF_RUNS[run]
+    if extra == "pcfg":
+        extra = dict(minference_pattern_config=load_pcfg())
+    return (CompressionSpec(method="minference", **extra),
+            (QN, QMAX_NEW) if case.startswith("32k") else (N, MAX_NEW))
+
+
+def phase_engine_minference(torch, dev, params, q4, vocab, fullkv_prefill_s):
+    """``Engine.generate`` with minference for each MINF_RUNS run: the
+    prefill goes through exactly one vertical and one slash kernel a layer
+    (the slash kernel minference_slash_impl names) and no flash kernel;
+    decode runs fullkv's bf16 decode kernel (G=4) once a layer a step; the
+    cache is fullkv's.  Returns (ok, {run: counts})."""
+    from pyramidkv_tpu_torch.config import EngineSpec, ModelSpec
+    from pyramidkv_tpu_torch.engine import Engine
+
+    spec = ModelSpec.preset("llama3-8b")
+    p32 = [np.random.default_rng(0).integers(0, vocab, size=QTRUE).tolist()]
+    rng = np.random.default_rng(0)
+    p8 = [rng.integers(0, vocab, size=t).tolist() for t in TRUE_LEN]
+    ok, counts = True, {}
+    for run, (wname, _, case) in MINF_RUNS.items():
+        cs, (bucket, max_new) = minf_spec(run)
+        prompts = p32 if case.startswith("32k") else p8
+        qp = q4 if wname == "int4" else params
+        eng = Engine(spec, cs, EngineSpec(max_new_tokens=max_new,
+                                          prefill_buckets=(bucket,)),
+                     qp, device=dev)
+        eng.generate(prompts, max_new_tokens=2)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        out = eng.generate(prompts)
+        c = read_counts()
+        counts[run] = c
+        slash = ("slash_tile_attention_db" if cs.minference_slash_impl == "db"
+                 else "slash_tile_attention")
+        b = len(prompts)
+        want_bytes = LAYERS * 2 * b * HK * (bucket + max_new) * D * 2
+        want_mm = (expected_launches(qp, out.decode_steps, b, bucket)
+                   if wname == "int4" else dict.fromkeys(MM_KERNELS, 0))
+        toks = [t for seq in out.tokens for t in seq]
+        good = (c["vertical_attention_partials"] == LAYERS
+                and c[slash] == LAYERS
+                and all(c[k] == 0 for k in SPARSE_KERNELS[1:] if k != slash)
+                and c["flash_causal_attention"] == 0
+                and c["decode_attention"] == LAYERS * out.decode_steps
+                and all(c[k] == want_mm[k] for k in MM_KERNELS)
+                and not any(c[k] for k in REGION_KERNELS)
+                and out.decode_steps == max_new - 1
+                and out.kv_cache_bytes == want_bytes
+                and (b > 1 or want_bytes == KV_BYTES_FULLKV_32K)
+                and all(0 <= t < vocab for t in toks)
+                and all(len(seq) == max_new for seq in out.tokens))
+        log({"phase": "engine_minference", "run": run, "weights": wname,
+             "slash_impl": cs.minference_slash_impl,
+             "pattern_config": cs.minference_pattern_config is not None,
+             "bucket": bucket, "G": H // HK,
+             "prefill_s": out.prefill_seconds,
+             "int4_fullkv_prefill_s": fullkv_prefill_s
+             if case.startswith("32k") else None,
+             "decode_s": out.decode_seconds,
+             "decode_steps": out.decode_steps,
+             "decode_tok_per_s": out.decode_steps * b / out.decode_seconds,
+             "kv_cache_bytes": out.kv_cache_bytes,
+             "expected_kv_cache_bytes": want_bytes, "launches": c,
+             "first_tokens": out.tokens[0][:8], "ok": good})
+        ok &= good
+        del eng, out
+        torch.cuda.empty_cache()
+    return ok, counts
+
+
+def phase_parity_minference(torch, dev, params, vocab):
+    """Depth-2 last-position prefill logits at full width on bench.py's 32k
+    prompt: the sparse path through the kernels against its plain versions
+    (the limit of phase_parity: 2^-5 of the largest logit); beside it, for
+    information, how far the sparse logits lie from dense fullkv's."""
+    from pyramidkv_tpu_torch.config import CompressionSpec, ModelSpec
+    from pyramidkv_tpu_torch.models import llama
+    from pyramidkv_tpu_torch.policy import make_plan
+
+    spec = ModelSpec.preset("llama3-8b", num_hidden_layers=2)
+    p2 = dict(params, layers={k: v[:2] for k, v in params["layers"].items()})
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(
+        rng.integers(0, vocab, size=(1, QN)).astype(np.int64)).to(dev)
+    tl = torch.tensor((QTRUE,), dtype=torch.int32, device=dev)
+    plan = make_plan(CompressionSpec(method="minference"), 2, QN, QMAX_NEW)
+    fplan = make_plan(CompressionSpec(method="fullkv"), 2, QN, QMAX_NEW)
+    with torch.inference_mode():
+        reset_counts()
+        lk, _ = llama.prefill(p2, spec, plan, tokens, tl,
+                              attention_impl="kernel")
+        c = read_counts()
+        lp, _ = llama.prefill(p2, spec, plan, tokens, tl,
+                              attention_impl="plain")
+        ld, _ = llama.prefill(p2, spec, fplan, tokens, tl,
+                              attention_impl="kernel")
+    torch.cuda.synchronize()
+    err = float((lk - lp).abs().max())
+    tol = 2.0 ** -5 * float(lp.abs().max())
+    ok = (err <= tol and bool(torch.isfinite(lk).all())
+          and tuple(lk.shape) == (1, vocab)
+          and c["vertical_attention_partials"] == 2
+          and c["slash_tile_attention"] == 2
+          and c["flash_causal_attention"] == 0)
+    log({"phase": "parity_minference", "depth": 2, "N": QN,
+         "max_abs_err": err, "tol": tol,
+         "same_argmax": bool((lk.argmax(-1) == lp.argmax(-1)).all()),
+         "launches": {k: c[k] for k in SPARSE_KERNELS},
+         "vs_dense_fullkv_max_abs": float((lk - ld).abs().max()),
+         "dense_max_abs_logit": float(ld.abs().max()),
+         "same_argmax_as_dense": bool((lk.argmax(-1) == ld.argmax(-1)).all()),
+         "ok": ok})
+    del p2
+    torch.cuda.empty_cache()
+    return ok
+
+
+def phase_profile_minference(torch, dev, q4, vocab):
+    """Where the time goes in one 32k minference prefill (int4 weights,
+    bench.py's prompt) beside int4 fullkv's: CUDA events recorded around
+    each stage (estimation, tile selection, gather, each kernel, merge; for
+    fullkv the flash kernel) give the stream time each takes, which is its
+    device time while the device runs without gaps; "rest" is the prefill's
+    stream time less those stages.  Wall times from unpatched runs."""
+    from pyramidkv_tpu_torch.config import CompressionSpec, ModelSpec
+    from pyramidkv_tpu_torch.models import llama
+    from pyramidkv_tpu_torch.ops import sparse_prefill as sp
+    from pyramidkv_tpu_torch.policy import make_plan
+
+    spec = ModelSpec.preset("llama3-8b")
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(
+        rng.integers(0, vocab, size=(1, QN)).astype(np.int64)).to(dev)
+    tl = torch.tensor((QTRUE,), dtype=torch.int32, device=dev)
+    spans = {}
+
+    def timed(label, fn):
+        def run(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            res = fn(*a, **kw)
+            e1.record()
+            spans.setdefault(label, []).append((e0, e1))
+            return res
+        return run
+
+    orig_fns = sp._partials_fns
+
+    def partials_fns(impl, slash_impl):
+        vert, slash = orig_fns(impl, slash_impl)
+        return (timed("vertical kernel", vert),
+                timed("slash kernel", slash))
+
+    patches = [(sp, "estimate_vertical_slash", "estimation"),
+               (sp, "_slash_tile_selection", "tile selection"),
+               (sp, "gather_vertical_kv", "gather"),
+               (sp, "merge_partials", "merge"),
+               (llama, "flash_causal_attention", "flash kernel")]
+    out = {}
+    with torch.inference_mode():
+        for method in ("minference", "fullkv"):
+            plan = make_plan(CompressionSpec(method=method), LAYERS, QN,
+                             QMAX_NEW)
+            llama.prefill(q4, spec, plan, tokens, tl)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            llama.prefill(q4, spec, plan, tokens, tl)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            saved = [(m, a, getattr(m, a)) for m, a, _ in patches]
+            saved.append((sp, "_partials_fns", orig_fns))
+            spans.clear()
+            try:
+                for m, a, label in patches:
+                    setattr(m, a, timed(label, getattr(m, a)))
+                sp._partials_fns = partials_fns
+                total = timed("prefill", llama.prefill)
+                total(q4, spec, plan, tokens, tl)
+                torch.cuda.synchronize()
+            finally:
+                for m, a, fn in saved:
+                    setattr(m, a, fn)
+            ms = {k: sum(e0.elapsed_time(e1) for e0, e1 in v)
+                  for k, v in spans.items()}
+            stream_ms = ms.pop("prefill")
+            out[method] = {"wall_s": wall, "stream_ms": stream_ms,
+                           "stages_ms": ms,
+                           "rest_ms": stream_ms - sum(ms.values()),
+                           "stage_calls": {k: len(v) for k, v in
+                                           spans.items() if k != "prefill"}}
+            torch.cuda.empty_cache()
+    log({"phase": "profile_minference", "weights": "int4", "N": QN,
+         "minference": out["minference"], "int4_fullkv": out["fullkv"]})
+    return (out["minference"]["stage_calls"].get("vertical kernel") == LAYERS
+            and out["fullkv"]["stage_calls"].get("flash kernel") == LAYERS)
+
+
 def kernel_entry(name, source, replaces, launches, recs):
     """One entry of the kernels line.  ``recs`` holds one timed check per
     shape the kernel runs at in these launches (pyramidkv: one per
@@ -1177,7 +1624,8 @@ def kernel_entry(name, source, replaces, launches, recs):
            "library_ms": mean("library_ms")}
     if len(recs) > 1:
         ent["shapes"] = [{k: r[k] for k in (
-            "S", "case", "x", "layers", "tail", "max_abs_err", "ms",
+            "S", "case", "x", "layers", "tail", "Vs", "T", "max_abs_err",
+            "visible_pairs", "ms",
             "partials_ms", "plain_ms", "bound_ms", "library_ms") if k in r}
             for r in recs]
     return ent
@@ -1226,6 +1674,8 @@ def main() -> int:
     ok &= r
     r, kv_recs = phase_kv_quant_kernels(torch, F, dev)
     ok &= r
+    r, sparse_recs = phase_minference_kernels(torch, F, dev)
+    ok &= r
 
     spec = ModelSpec.preset("llama3-8b")
     t0 = time.perf_counter()
@@ -1240,8 +1690,8 @@ def main() -> int:
     ok &= r
     ok &= phase_parity(torch, dev, params, spec.vocab_size)
     ok &= phase_profile(torch, dev, params, spec.vocab_size)
-    r, qcounts, qtok_s = phase_engine_quant(torch, dev, params,
-                                            spec.vocab_size)
+    r, qcounts, qtok_s, qprefill_s = phase_engine_quant(torch, dev, params,
+                                                        spec.vocab_size)
     ok &= r
     for weights in ("int4", "int4-g128"):
         ok &= phase_parity(torch, dev, params, spec.vocab_size, weights)
@@ -1254,6 +1704,12 @@ def main() -> int:
     ok &= phase_profile(torch, dev, q4, spec.vocab_size, method="fullkv",
                         steps=2, weights="int4",
                         kv=dict(quant_method="kivi", nbits=4, q_layout="pa"))
+    r, mcounts = phase_engine_minference(torch, dev, params, q4,
+                                         spec.vocab_size,
+                                         qprefill_s["int4 fullkv"])
+    ok &= r
+    ok &= phase_parity_minference(torch, dev, params, spec.vocab_size)
+    ok &= phase_profile_minference(torch, dev, q4, spec.vocab_size)
     del q4
     # the port's counterpart of bench.py's number (information only: decode
     # is host-bound, see the profile phases)
@@ -1315,6 +1771,19 @@ def main() -> int:
             f"{kind} ({', '.join(r['case'] for r in kv_recs[kind])})",
             src + src_file, "pyramidkv_tpu/kernels/" + kv_tpu[kind],
             sum(c[kind] for c in kvcounts.values()), kv_recs[kind]))
+    # launches of each block-sparse kernel per generate at each checked
+    # shape: the shapes' weights in the kernels line
+    for kind in SPARSE_KERNELS:
+        for rec in sparse_recs[kind]:
+            rec["layers"] = sum(c[kind] for run, c in mcounts.items()
+                                if MINF_RUNS[run][2] == rec["case"])
+    bsp_tpu = "pyramidkv_tpu/kernels/block_sparse_prefill.py:"
+    for kind, line in (("slash_tile_attention", 120),
+                       ("slash_tile_attention_db", 376),
+                       ("vertical_attention_partials", 527)):
+        kernels.append(kernel_entry(
+            kind, src + "block_sparse_prefill.cu", bsp_tpu + str(line),
+            sum(c[kind] for c in mcounts.values()), sparse_recs[kind]))
     for k in kernels:  # one line per kernel
         log({"kernel": k["name"], **k})
     log({"kernels": kernels})

@@ -8,7 +8,8 @@ loop of ``models.llama.decode_step`` with the JAX loop's ``done`` / ``-1`` /
 EOS semantics.  The loop reads ``done`` back each step (one host sync per
 token); capturing the step in a CUDA graph is later work (ROADMAP).
 
-Ported: greedy decoding, ``fullkv`` / ``snapkv`` / ``pyramidkv``, with bf16
+Ported: greedy decoding, ``fullkv`` / ``snapkv`` / ``pyramidkv`` /
+``minference`` (vertical-and-slash sparse prefill, fullkv cache), with bf16
 or quantized weights (``models/weights.py``: int8, packed int4 per channel
 or per group, fused or not) and a bf16 or KIVI cache (``quant_method=
 "kivi"``: 8/4/2 bits, group or pa layout; KVQuant raises).  Sampling,

@@ -1,5 +1,8 @@
 """Hand-written Hopper kernels (CUDA C++ for sm_90a) and their wrappers."""
 
+from .block_sparse_prefill import (slash_tile_attention,
+                                   slash_tile_attention_db,
+                                   vertical_attention_partials)
 from .decode_attn import decode_attention
 from .flash_prefill import flash_causal_attention
 from .int4_matmul import int4_matmul, int4_matmul_dma, int8_matmul
@@ -8,4 +11,6 @@ from .quant_fused_decode import quant_fused_attention_pa
 
 __all__ = ["decode_attention", "flash_causal_attention", "int4_matmul",
            "int4_matmul_dma", "int8_matmul", "quant_decode_attention",
-           "quant_decode_attention_tiled", "quant_fused_attention_pa"]
+           "quant_decode_attention_tiled", "quant_fused_attention_pa",
+           "slash_tile_attention", "slash_tile_attention_db",
+           "vertical_attention_partials"]

@@ -43,6 +43,11 @@ ENTRY_POINTS = {
     "quant_decode": [("pkv_quant_decode", _REGION),
                      ("pkv_quant_decode_tiled", _REGION)],
     "quant_fused_decode": [("pkv_quant_fused_pa", _REGION)],
+    "block_sparse_prefill": [
+        ("pkv_slash_tiles", [_P] * 10 + [_I] * 7 + [_F, _P]),
+        ("pkv_slash_tiles_db", [_P] * 10 + [_I] * 7 + [_F, _P]),
+        ("pkv_vertical_partials", [_P] * 8 + [_I] * 4 + [_F, _P]),
+    ],
 }
 
 _loaded: dict = {}

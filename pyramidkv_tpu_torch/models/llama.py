@@ -12,6 +12,10 @@ package's argument of the same name: ``"kernel"`` calls the kernel wrappers
 (the CUDA kernels on CUDA tensors, their plain versions on CPU tensors),
 ``"plain"`` calls the plain PyTorch functions — for attention and for the
 decode-sized weight matmuls of quantized params alike (``weights.mm``).
+With ``method="minference"`` and a bucket of at least
+``minference_dense_below`` tokens, each layer's prefill attention is the
+vertical-and-slash sparse attention of ``ops/sparse_prefill.py`` (its three
+block-sparse kernels) instead of the dense flash kernel.
 Quantized params (``models/weights.py``) keep the JAX tree's names, plus the
 fused ``wqkv`` / ``w_gateup`` leaves of ``fuse_packed_matmuls``.
 """
@@ -32,6 +36,7 @@ from ..kernels import (decode_attention, flash_causal_attention,
 from ..kernels.quant_decode import split_plan
 from ..ops import attention as plain
 from ..ops import quant
+from ..ops import sparse_prefill as sp
 from ..policy import PolicyPlan, compress_layer, layer_contexts, stores_kv_heads
 from .weights import QuantW, dq_codes, embed_lookup, kernel_mm, mm
 
@@ -212,6 +217,8 @@ def prefill(
     hidden = embed_lookup(params["embed"], tokens.long(),
                           params["final_norm"].dtype)  # [B, N, Dm]
     cs = plan.spec
+    sparse = cs.method == "minference" and n >= cs.minference_dense_below
+    budgets = _minference_budgets(cs, dev) if sparse else None
     regions = []  # KIVI: each layer's quantized prefill region
     seg_stacks = []
     for start, stop, sub in plan.segment_plans():
@@ -223,7 +230,10 @@ def prefill(
             q = apply_rope(q, positions, inv_freq)
             k = apply_rope(k, positions, inv_freq)
             v = v.contiguous()
-            if attention_impl == "kernel":
+            if sparse:
+                attn = _sparse_attention(q, k, v, true_len, cs, budgets, li,
+                                         attention_impl)
+            elif attention_impl == "kernel":
                 attn = flash_causal_attention(q, k, v, true_len)
             else:
                 attn = plain.causal_prefill_attention(q, k, v,
@@ -249,6 +259,40 @@ def prefill(
         seg_stacks.append(stack)
     logits = _logits(hidden[:, -1, :], params, spec, attention_impl)
     return logits, assemble_cache(seg_stacks, true_len, regions)
+
+
+def _minference_budgets(cs, device):
+    """The pattern budgets of a minference prefill: (None, None, None) for
+    the uniform ``minference_vertical_size`` / ``minference_slash_size``, or
+    ``minference_pattern_config`` as an [L, H, 2] tensor with the
+    config-wide (max vertical, max slash) that set the static top-k
+    widths."""
+    pcfg = cs.minference_pattern_config
+    if pcfg is None:
+        return None, None, None
+    return (torch.tensor(pcfg, dtype=torch.int32, device=device),
+            max(v for layer in pcfg for v, _ in layer),
+            max(s for layer in pcfg for _, s in layer))
+
+
+def _sparse_attention(q, k, v, true_len, cs, budgets, li: int,
+                      impl: str) -> torch.Tensor:
+    """Layer ``li``'s MInference prefill attention: estimate the
+    vertical-and-slash pattern from the post-RoPE q/k, then attend over it
+    (the block-sparse kernels under ``impl="kernel"``, their plain versions
+    under ``"plain"``)."""
+    cfg, mv, ms = budgets
+    if cfg is None:
+        vsz, ssz = cs.minference_vertical_size, cs.minference_slash_size
+    else:
+        vsz, ssz = cfg[li, :, 0], cfg[li, :, 1]
+    pattern = sp.estimate_vertical_slash(
+        q, k, true_len=true_len, vertical_size=vsz, slash_size=ssz,
+        last_q=cs.minference_last_q, max_vertical=mv, max_slash=ms)
+    return sp.sparse_prefill_attention(
+        q, k, v, pattern, true_len=true_len,
+        tile_budget=cs.minference_tile_budget,
+        slash_impl=cs.minference_slash_impl, impl=impl)
 
 
 def assemble_cache(seg_stacks: list, true_len: torch.Tensor,

@@ -64,7 +64,7 @@ def static_selection_width(
     """The static top-k width: an upper bound on any layer's keep count."""
     cap, w = spec.max_capacity_prompt, spec.window_size
     m = spec.method
-    if m == "fullkv":
+    if m in ("fullkv", "minference"):  # minference compresses nothing
         return bucket_len
     if m == "pyramidkv":
         capw = cap - w

@@ -1,9 +1,11 @@
 """Per-layer KV-compression policy: scoring -> selection -> compaction
 (counterpart of ``pyramidkv_tpu/policy.py``).
 
-Ported methods: ``fullkv``, ``snapkv`` and ``pyramidkv``, each with a bf16
-cache or a KIVI-quantized one (``quant_method="kivi"``, 8/4/2 bits, group
-or pa layout).  The others raise ``NotImplementedError`` (ROADMAP queue 1).
+Ported methods: ``fullkv``, ``snapkv``, ``pyramidkv`` and ``minference``,
+each with a bf16 cache or a KIVI-quantized one (``quant_method="kivi"``,
+8/4/2 bits, group or pa layout).  MInference sparsifies prefill attention
+only (``models/llama.py``); its cache is fullkv's.  The others raise
+``NotImplementedError`` (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from .ops.selection import (CompactedKV, compact_kv, pyramid_keep_counts,
                             selection_window, static_selection_width,
                             topk_select, uniform_keep_counts)
 
-PORTED_METHODS = ("fullkv", "snapkv", "pyramidkv")
+PORTED_METHODS = ("fullkv", "snapkv", "pyramidkv", "minference")
 
 
 def _check_ported(spec: CompressionSpec) -> None:
@@ -135,7 +137,7 @@ def make_plan(
     _check_ported(spec)
     window = min(selection_window(spec), bucket_len)
     width = static_selection_width(spec, num_layers, bucket_len)
-    if spec.method == "fullkv":
+    if spec.method in ("fullkv", "minference"):
         window = 0
         width = bucket_len
     width = min(width, bucket_len)
@@ -169,7 +171,8 @@ def layer_contexts(plan: PolicyPlan, true_len: torch.Tensor) -> torch.Tensor:
     if spec.method == "snapkv":
         return uniform_keep_counts(spec, true_len, spec.window_size)[
             None].expand(num_layers, -1)
-    return true_len[None].expand(num_layers, -1)  # fullkv keeps everything
+    # fullkv and minference keep everything
+    return true_len[None].expand(num_layers, -1)
 
 
 def stores_kv_heads(spec: CompressionSpec) -> bool:
@@ -195,8 +198,10 @@ def compress_layer(
     spec = plan.spec
     b, h, n, d = q.shape
     w = plan.window
-    if spec.method == "fullkv":
+    if spec.method in ("fullkv", "minference"):
         # the buffer IS the compacted layout: mask the padding, add slots
+        # (minference sparsifies prefill attention only; decode runs dense
+        # over the full cache)
         hs = k.shape[1]
         col = torch.arange(n, device=k.device)
         pad = (n - true_len).to(torch.int64)[:, None, None]

@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Mutation check of the port's KIVI region kernels, on a CUDA card.
+"""Mutation check of the port's KIVI region kernels and MInference's
+block-sparse prefill kernels, on a CUDA card.
 
     python3 scripts/port_mutation_check.py [--log FILE]
 
-Copies ``pyramidkv_tpu_torch`` and ``chip_smoke.py`` into a temporary
-directory once per mutant, breaks ``csrc/quant_region.cuh`` there, and runs
-``chip_smoke.phase_kv_quant_kernels`` against the broken kernels (each copy
-builds its own libraries).  A mutant is caught when it fails the tolerance
-at every main shape (the timed checks); the script prints, per mutant, the
-smallest ``err_over_tol`` over those and over the short checks (where a
-mutant may not bite: a region too short for warp 1), and exits non-zero if
-a mutant was not caught.  Mutants:
+Copies ``pyramidkv_tpu_torch``, ``chip_smoke.py`` and
+``configs/minference`` into a temporary directory once per mutant, breaks one CUDA source there, and runs the
+``chip_smoke`` phase that checks it against the broken kernels (each copy
+builds its own libraries; the minference checks run untimed).  A mutant is
+caught when it fails the tolerance at every main shape (the checks whose
+case is not a short one) of the checks it targets; the script prints, per
+mutant, the smallest ``err_over_tol`` over those and over the short checks
+(where a mutant may not bite: a region too short for warp 1), and exits
+non-zero if a mutant was not caught.  Mutants:
 
-- ``drop_plane``: the last bit-plane's V codes read as 0 (with 8-bit codes,
-  the only plane);
-- ``drop_chunk``: warp 1 skips its first 32-row chunk of every block's slot
-  range (a slot tile never attended).
+- ``drop_plane`` (``csrc/quant_region.cuh``): the last bit-plane's V codes
+  read as 0 (with 8-bit codes, the only plane);
+- ``drop_chunk`` (``csrc/quant_region.cuh``): warp 1 skips its first 32-row
+  chunk of every block's slot range (a slot tile never attended);
+- ``slash_drop_last_tile`` (``csrc/block_sparse_prefill.cu``): the grid
+  slash kernel skips the last valid entry of every tile list (targets its
+  own checks and the db-against-grid check);
+- ``vertical_drop_last_chunk`` (``csrc/block_sparse_prefill.cu``): the
+  vertical kernel stops before the last 64-column chunk that holds a valid
+  column.
 """
 
 from __future__ import annotations
@@ -29,23 +37,39 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-HEADER = os.path.join("pyramidkv_tpu_torch", "csrc", "quant_region.cuh")
+CSRC = os.path.join("pyramidkv_tpu_torch", "csrc")
+KIVI = ("quant_region.cuh", "phase_kv_quant_kernels", None)
+#: name -> (source, chip_smoke phase, targeted checks (None: all), old, new)
 MUTANTS = {
-    "drop_plane": (
+    "drop_plane": (*KIVI,
         "const float c = (float)((vw >> (8 * k + p * NBITS)) & MASK);",
         "const float c = p == PER - 1 ? 0.f : (float)((vw >> (8 * k + p "
         "* NBITS)) & MASK);"),
-    "drop_chunk": (
+    "drop_chunk": (*KIVI,
         "for (int j0 = row0 + warp * CHUNK; j0 < row1; j0 += NWARPS * CHUNK) {",
         "for (int j0 = row0 + warp * CHUNK + (warp == 1 ? NWARPS * CHUNK : 0);"
         " j0 < row1; j0 += NWARPS * CHUNK) {"),
+    "slash_drop_last_tile": (
+        "block_sparse_prefill.cu", "phase_minference_kernels",
+        ("slash_tile_attention",
+         "slash_tile_attention_db vs slash_tile_attention"),
+        "    if (!valid[t]) continue;",
+        "    if (!valid[t] || t + 1 == a.T || !valid[t + 1]) continue;"),
+    "vertical_drop_last_chunk": (
+        "block_sparse_prefill.cu", "phase_minference_kernels",
+        ("vertical_attention_partials",),
+        "  for (int c0 = 0; c0 < Vs; c0 += BK) {",
+        "  int vlast = 0;\n"
+        "  for (int c = 0; c < Vs; ++c) if (vvalid[col_base + c]) vlast = c;\n"
+        "  for (int c0 = 0; c0 < vlast / BK * BK; c0 += BK) {"),
 }
 _RUN = """
 import json, sys, torch, torch.nn.functional as F
 import chip_smoke as cs
 recs = []
 cs.log = recs.append
-cs.phase_kv_quant_kernels(torch, F, torch.device("cuda", 0))
+cs.SPARSE_CASES = {k: v[:-1] + (False,) for k, v in cs.SPARSE_CASES.items()}
+getattr(cs, sys.argv[1])(torch, F, torch.device("cuda", 0))
 print(json.dumps([{k: r.get(k) for k in ("check", "case", "err_over_tol")}
                   for r in recs]))
 """
@@ -56,29 +80,36 @@ def main() -> int:
     ap.add_argument("--log", help="append the JSON result lines to this file")
     args = ap.parse_args()
     failed = False
-    for name, (old, new) in MUTANTS.items():
+    for name, (source, phase, targets, old, new) in MUTANTS.items():
         with tempfile.TemporaryDirectory() as tmp:
             shutil.copytree(os.path.join(ROOT, "pyramidkv_tpu_torch"),
                             os.path.join(tmp, "pyramidkv_tpu_torch"),
                             ignore=shutil.ignore_patterns("_build"))
             shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp)
-            path = os.path.join(tmp, HEADER)
+            # the minference checks read the per-head pattern config
+            shutil.copytree(os.path.join(ROOT, "configs", "minference"),
+                            os.path.join(tmp, "configs", "minference"))
+            path = os.path.join(tmp, CSRC, source)
             with open(path) as f:
                 src = f.read()
             assert src.count(old) == 1, name
             with open(path, "w") as f:
                 f.write(src.replace(old, new))
-            res = subprocess.run([sys.executable, "-c", _RUN], cwd=tmp,
-                                 capture_output=True, text=True)
+            res = subprocess.run([sys.executable, "-c", _RUN, phase],
+                                 cwd=tmp, capture_output=True, text=True)
         if res.returncode != 0:
             print(res.stderr[-3000:], file=sys.stderr)
             return 1
         recs = json.loads(res.stdout.strip().splitlines()[-1])
-        main_r = [r["err_over_tol"] for r in recs if r["case"] != "short"]
-        short_r = [r["err_over_tol"] for r in recs if r["case"] == "short"]
-        caught = min(main_r) > 1
+        hit = [r for r in recs if targets is None or r["check"] in targets]
+        main_r = [r["err_over_tol"] for r in hit
+                  if not r["case"].startswith("short")]
+        short_r = [r["err_over_tol"] for r in hit
+                   if r["case"].startswith("short")]
+        caught = bool(main_r) and min(main_r) > 1
         failed |= not caught
-        line = json.dumps({"mutant": name, "caught": caught,
+        line = json.dumps({"mutant": name, "source": source,
+                           "caught": caught,
                            "min_err_over_tol_main": min(main_r),
                            "min_err_over_tol_short": min(short_r),
                            "checks": recs})
