@@ -48,7 +48,25 @@ Phases (any failure exits non-zero):
      against plain (32k fullkv kivi4-pa, 8k snapkv kivi4);
  14. profile_kv_quant: two decode steps of the 32k fullkv kivi4-pa run,
      with the region kernels' device time; then bench_ratio, the port's
-     counterpart of bench.py's snapkv / fullkv-kivi4-pa decode tok/s.
+     counterpart of bench.py's snapkv / fullkv-kivi4-pa decode tok/s;
+ 15. minference_kernels, engine_minference, parity_minference,
+     profile_minference: MInference's three block-sparse kernels against
+     their plain versions, four sparse-prefill generate runs, depth-2
+     parity and CUDA-event stage times of a 32k sparse prefill;
+ 16. h2o_chunk_kernels: the two H2O kernels (stats, colsum) against their
+     plain versions at the 8k batch and bench.py's 32k prompt, flash with
+     q_start at every chunk of the 8k batch, flash_attention_partials on the
+     self and history tiles of the 32k and 8k chunk carries, and the pa
+     region kernel with one K group per chunk, timed;
+ 17. engine_h2o_chunked: ``Engine.generate`` for H2O (8k batch, bf16; 32k,
+     int4) and with ``prefill_chunk`` (snapkv and H2O on the 8k batch; the
+     quantized carry: fullkv kivi4-pa at 32k, kivi4 group on the 8k batch),
+     each launch count and kv_cache_bytes held to the plan's, the chunked
+     runs beside their monolithic ones (information);
+ 18. parity_h2o_chunked and profile_h2o_chunked: depth-2 logits, kernels
+     against plain, for H2O, chunked snapkv and chunked kivi4-pa; CUDA-event
+     stage times of the H2O 32k, chunked H2O 8k and chunked kivi4-pa 32k
+     prefills.
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -544,7 +562,8 @@ def _kernels():
     return {"flash_causal_attention": kernels.flash_causal_attention,
             "decode_attention": kernels.decode_attention,
             **{k: getattr(kernels, k)
-               for k in MM_KERNELS + REGION_KERNELS + SPARSE_KERNELS}}
+               for k in MM_KERNELS + REGION_KERNELS + SPARSE_KERNELS
+               + CHUNK_KERNELS}}
 
 
 def reset_counts():
@@ -612,11 +631,12 @@ def quantized(params, weights: str):
     return fuse_packed_matmuls(q) if QUANT[weights]["nbits"] == 4 else q
 
 
-def expected_launches(qp, steps: int, b: int, n: int) -> dict:
+def expected_launches(qp, steps: int, b: int, n: int, chunks: int = 1
+                      ) -> dict:
     """Matmul kernel launches one generate implies, from the plan: the
-    routing rule of each quantized leaf at the prefill's b*n rows (layers)
-    and b rows (the last position's lm_head), then at b rows in each decode
-    step."""
+    routing rule of each quantized leaf at the prefill's b*n rows (layers,
+    once per prefill chunk of n tokens) and b rows (the last position's
+    lm_head), then at b rows in each decode step."""
     from pyramidkv_tpu_torch.models.weights import QuantW, kernel_route
 
     counts = dict.fromkeys(MM_KERNELS, 0)
@@ -629,7 +649,7 @@ def expected_launches(qp, steps: int, b: int, n: int) -> dict:
     for w in qp["layers"].values():
         if isinstance(w, QuantW):
             w0 = QuantW(w.codes[0], w.scale[0])
-            add(w0, b * n, LAYERS)
+            add(w0, b * n, LAYERS * chunks)
             add(w0, b, LAYERS * steps)
     add(qp["lm_head"], b, 1 + steps)
     return counts
@@ -929,7 +949,7 @@ def kv_cache_bytes(run) -> int:
 
 
 def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
-                 label, t_len, valid=0.9):
+                 label, t_len, valid=0.9, k_chunk=None):
     """One KIVI region kernel against its plain version on a region that
     the port's quantize_kv_region makes from random bf16 K (channel-scaled,
     as KIVI's keys are) and V, in both of its modes: the region's partials
@@ -937,7 +957,9 @@ def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
     slots, the layer's attention output (what the decode step launches).
     The masks are views of one longer array, as the engine passes them:
     region row (0, 0) all masked; tail slot 0 always visible, as the step's
-    own slot is.  Times are the tail mode's; ``partials_ms`` the other."""
+    own slot is.  Times are the tail mode's; ``partials_ms`` the other.
+    ``k_chunk`` (pa): K scale groups of that many slots, as the chunked
+    prefill's carry quantizes them (one per chunk)."""
     from pyramidkv_tpu_torch import kernels
     from pyramidkv_tpu_torch.ops import quant
 
@@ -959,6 +981,11 @@ def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
     v = torch.randn((b, hk, s, D), generator=g, device=dev).to(torch.bfloat16)
     reg = quant.quantize_kv_region(k, v, nbits=nbits, group_size=gs,
                                    layout=layout)
+    if k_chunk:
+        kq = quant.quantize(k.float().transpose(2, 3), nbits=nbits,
+                            group_size=k_chunk)
+        reg = reg._replace(k=kq._replace(
+            codes=kq.codes.transpose(-1, -2).contiguous()))
     del k, v
     tk, tv = (torch.randn((b, hk, t_len, D), generator=g, device=dev).to(
         torch.bfloat16) for _ in range(2))
@@ -988,6 +1015,7 @@ def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
     rec = {"check": kind, "case": label, "B": b, "Hk": hk, "G": grp, "S": s,
            "S_pad": s_pad, "plane_width": w, "nbits": nbits,
            "group_size": gs, "layout": layout, "tail": t_len,
+           "k_groups": reg.k.scale.shape[-2],
            "max_abs_err": float((og - ow).abs().max()),
            "m_err": float((got[1] - want[1]).abs().max()),
            "l_rel_err": float(((got[2] - want[2]).abs()
@@ -1603,6 +1631,698 @@ def phase_profile_minference(torch, dev, q4, vocab):
             and out["fullkv"]["stage_calls"].get("flash kernel") == LAYERS)
 
 
+# ---------------------------------------------------------------------------
+# H2O and chunked prefill
+# ---------------------------------------------------------------------------
+
+CHUNK_KERNELS = ("h2o_row_stats", "h2o_colsum", "flash_attention_partials")
+#: prefill chunks: the 8k batch's, and bench.py's 32k prompt's (the JAX
+#: scripts' ``--prefill_chunk 8192``)
+C8K, C32K = 2048, 8192
+#: exp2 results a second: 16 a clock per SM (the MUFU throughput of compute
+#: capability 9.0 in the CUDA C Programming Guide's arithmetic-instruction
+#: table) x 132 SMs x 1.98 GHz (the H100 SXM's boost clock)
+PEAK_EXP2 = 16 * 132 * 1.98e9
+#: H2O scores (sums of up to N probabilities, f32) against the plain
+#: version: the attention limit over each (b, h) row of N - W columns.  The
+#: kernel's logits use q * log2(e)/sqrt(D) rounded to bf16 (the TPU
+#: kernel's fold), the plain version's the unrounded q: each probability
+#: moves by up to ~2^-9 relative, at random over the rows summed.
+H2O_TOL_TEXT = TOL_TEXT + " over each (b, h) row's N - W scores"
+#: the colsum kernel against its plain version fed the same (m, l): both
+#: exponentiate logits that are exact f32 products of the same bf16 values
+#: (the scaled q rounded alike) and sum in f32 in other orders (~2^-20
+#: relative, chip run 2), so they are held as the f32-output matmuls are
+#: (MM_TOL), plus 2^-14 |want|
+COLSUM_TOL = (2.0 ** -14, 2.0 ** -14)
+COLSUM_TOL_TEXT = "|err| <= 2^-14 |want| + 2^-14 rms(want's row)"
+STATS_TOL_TEXT = ("m within 2^-12 max(1,|m|), l within 2^-10 l (rows past "
+                  "the pad)")
+#: H2O kernel checks: case -> (B, H, Hk, N, true_len, the engine's top-k
+#: width there, timed)
+H2O_CASES = {
+    "short ragged": (2, 8, 2, 384, (384, 150), 100, False),
+    "8k": (B, H, HK, N, TRUE_LEN, 2040, True),
+    "32k": (1, H, HK, QN, (QTRUE,), 120, True),
+}
+#: the H2O / chunked-prefill engine runs: name -> (weights, CompressionSpec
+#: arguments, size, prefill_chunk)
+CHUNK_RUNS = {
+    "(a) bf16 h2o 8k": ("bf16", dict(method="h2o"), "8k", None),
+    "(b) int4 h2o 32k": ("int4", dict(method="h2o", **QCOMP), "32k", None),
+    "(c) bf16 snapkv 8k chunk 2048": ("bf16", dict(method="snapkv"), "8k",
+                                      C8K),
+    "(d) bf16 h2o 8k chunk 2048": ("bf16", dict(method="h2o"), "8k", C8K),
+    "(e) int4 fullkv kivi4-pa 32k chunk 8192": (
+        "int4", dict(method="fullkv", quant_method="kivi", nbits=4,
+                     q_layout="pa", **QCOMP), "32k", C32K),
+    "(f) bf16 fullkv kivi4 8k chunk 2048": (
+        "bf16", dict(method="fullkv", quant_method="kivi", nbits=4), "8k",
+        C8K),
+}
+#: kv_cache_bytes of run (e), by hand from init_quant_state's shapes: per
+#: layer K and V codes 16,777,216 each, K scale/zero 2 x 8 x 128 x 4 groups
+#: x 4 bytes = 32,768, V scale/zero 2,097,152, 128 bf16 decode slots
+#: 524,288; times 32 layers (PR 3's monolithic 1,157,890,048 plus 786,432
+#: for three more K groups)
+KV_BYTES_32K_CHUNKED_PA = 1_158_676_480
+#: kv_cache_bytes of bench.py's 32k snapkv (cap 128): 32 layers x 32 heads x
+#: 256 slots x 128 x 2 (K, V) x 2 bytes
+KV_BYTES_SNAPKV_32K = 134_217_728
+
+
+def _rand_bf16(torch, g, dev, *shape):
+    return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+
+def h2o_pairs(n, true_len, h, w):
+    """Visible (row, column) pairs of the H2O statistic: every valid row
+    sees every valid column but the causal half of the W x W block."""
+    return float(sum(h * (t * t - min(t, w) * (min(t, w) - 1) // 2)
+                     for t in true_len))
+
+
+def h2o_bound(pairs, nbytes):
+    """(least ms, "operations" or "bytes", unit) of one H2O pass: its QK^T
+    products on the tensor cores (2 D flops a pair), its one exp2 a pair
+    on the MUFU, its bytes."""
+    t = {"tensor cores": 2.0 * D * pairs / PEAK_BF16_FLOPS * 1e3,
+         "MUFU exp2": pairs / PEAK_EXP2 * 1e3,
+         "bytes": nbytes / PEAK_BYTES * 1e3}
+    unit = max(t, key=t.get)
+    return t[unit], ("bytes" if unit == "bytes" else "operations"), unit
+
+
+def check_h2o(torch, dev, case, seed):
+    """The two H2O kernels against their plain versions on one H2O_CASES
+    shape: the stats kernel's (m, l) against ``ops.scoring.h2o_row_stats``,
+    the colsum kernel (fed the kernel's m, l) against
+    ``ops.scoring.h2o_colsum`` on the same m, l, and the two together
+    (``kernels.h2o_scores``) against the plain score the engine's plain path
+    takes (``ops.scoring.h2o_scores``), with the overlap of their top-k at
+    the engine's width.  Returns (ok, {"stats": rec, "colsum": rec})."""
+    from pyramidkv_tpu_torch import kernels
+    from pyramidkv_tpu_torch.ops import scoring
+
+    b, h, hk, n, true_len, width, timed = H2O_CASES[case]
+    w = 8
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k = _rand_bf16(torch, g, dev, b, h, n, D), _rand_bf16(
+        torch, g, dev, b, hk, n, D)
+    tl = torch.tensor(true_len, dtype=torch.int32, device=dev)
+    kw = dict(window_size=w, true_len=tl)
+    m, l = kernels.h2o_row_stats(q, k, **kw)
+    pm, pl = scoring.h2o_row_stats(q, k, **kw)
+    cs = kernels.h2o_colsum(q, k, m, l, **kw)
+    pcs = scoring.h2o_colsum(q, k, m, l, **kw)
+    got = kernels.h2o_scores(q, k, **kw)
+    want = scoring.h2o_scores(q, k, **kw)
+    torch.cuda.synchronize()
+    rows = (torch.arange(n, device=dev)[None, :]
+            >= (n - tl.long())[:, None])[:, None].expand(b, h, n)
+    m_ratio = float(((m - pm).abs() / (2.0 ** -12 * pm.abs().clamp_min(1.0))
+                     )[rows].max())
+    l_ratio = float(((l - pl).abs() / (2.0 ** -10 * pl))[rows].max())
+
+    def score_ratio(x, y, rtol, row_tol):
+        fin = torch.isfinite(y)
+        if not bool(fin.any()):
+            return 0.0, 0.0
+        y0, x0 = y.masked_fill(~fin, 0.0), x.masked_fill(~fin, 0.0)
+        rms = (y0.square().sum(-1, keepdim=True)
+               / fin.sum(-1, keepdim=True).clamp_min(1)).sqrt()
+        lim = (rtol * y0.abs() + row_tol * rms).clamp_min(1e-30)
+        return (float(((x0 - y0).abs() / lim).max()),
+                float((x0 - y0).abs().max()))
+
+    cs_ratio, cs_err = score_ratio(cs, pcs, *COLSUM_TOL)
+    sc_ratio, sc_err = score_ratio(got, want, KERNEL_RTOL, KERNEL_ROW_TOL)
+    same_inf = torch.equal(torch.isinf(got), torch.isinf(want)) and \
+        torch.equal(torch.isinf(cs), torch.isinf(pcs))
+    kk = min(width, n - w)
+    top_g = torch.topk(got, kk, dim=-1).indices.sort(-1).values
+    top_w = torch.topk(want, kk, dim=-1).indices.sort(-1).values
+    overlap = float(sum(len(np.intersect1d(a, c)) for a, c in zip(
+        top_g.reshape(-1, kk).cpu().numpy(),
+        top_w.reshape(-1, kk).cpu().numpy())) / top_g.numel())
+    shape = {"case": case, "B": b, "H": h, "Hk": hk, "N": n, "W": w,
+             "true_len": list(true_len)}
+    stats = {"check": "h2o_row_stats", **shape,
+             "max_abs_err": float((m - pm).abs()[rows].max()),
+             "l_rel_err": float(((l - pl).abs() / pl)[rows].max()),
+             "err_over_tol": max(m_ratio, l_ratio), "tol": STATS_TOL_TEXT}
+    colsum = {"check": "h2o_colsum", **shape, "max_abs_err": cs_err,
+              "err_over_tol": cs_ratio, "tol": COLSUM_TOL_TEXT,
+              "scores_max_abs_err": sc_err, "scores_err_over_tol": sc_ratio,
+              "scores_tol": H2O_TOL_TEXT,
+              "topk_width": kk, "topk_overlap": overlap,
+              "rms": float(want[torch.isfinite(want)].square().mean().sqrt())
+              if bool(torch.isfinite(want).any()) else 0.0}
+    if timed:
+        pairs = h2o_pairs(n, true_len, h, w)
+        qk_bytes = q.numel() * 2 + k.numel() * 2
+        for rec, fn, pfn, extra in (
+                (stats, lambda: kernels.h2o_row_stats(q, k, **kw),
+                 lambda: scoring.h2o_row_stats(q, k, **kw), 2 * b * h * n * 4),
+                (colsum, lambda: kernels.h2o_colsum(q, k, m, l, **kw),
+                 lambda: scoring.h2o_colsum(q, k, m, l, **kw),
+                 2 * b * h * n * 4 + b * h * (n - w) * 4)):
+            rec["ms"] = time_ms(torch, fn, reps=3)
+            rec["plain_ms"] = time_ms(torch, pfn, reps=1, warmup=0)
+            # no single PyTorch call computes softmax column sums
+            rec["library_ms"] = None
+            rec["visible_pairs"] = pairs
+            rec["bound_ms"], rec["bound_by"], rec["bound_unit"] = h2o_bound(
+                pairs, qk_bytes + extra)
+        colsum["plain_scores_ms"] = time_ms(
+            torch, lambda: scoring.h2o_scores(q, k, **kw), reps=1, warmup=0)
+    log(stats)
+    log(colsum)
+    ok = (max(m_ratio, l_ratio, cs_ratio, sc_ratio) <= 1 and same_inf
+          and tuple(got.shape) == (b, h, n - w))
+    return ok, {"stats": stats, "colsum": colsum}
+
+
+def partials_ratio_exp2(torch, got, want):
+    """(err_over_tol, max |acc/l| err, m err, l rel err, dead rows exact) of
+    base-2 partials: acc / l within TOL_TEXT, m within 2^-12 max(1, |m|),
+    l within 2^-10 l over the rows with a visible key; rows without one
+    exactly m = float32.min, l = 0, acc = 0 on both sides."""
+    ga, gm, gl = got
+    wa, wm, wl = want
+    live = wl > 0
+    neg = torch.finfo(torch.float32).min
+    dead_ok = (torch.equal(live, gl > 0)
+               and bool((gm[~live] == neg).all() and (wm[~live] == neg).all())
+               and bool((ga[~live] == 0).all()))
+    if not bool(live.any()):
+        return 0.0, 0.0, 0.0, 0.0, dead_ok
+    og = (ga / gl.clamp_min(1e-30)[..., None])[live]
+    ow = (wa / wl.clamp_min(1e-30)[..., None])[live]
+    m_ratio = float(((gm - wm).abs() / (2.0 ** -12 * wm.abs().clamp_min(1.0))
+                     )[live].max())
+    l_ratio = float(((gl - wl).abs() / (2.0 ** -10 * wl))[live].max())
+    return (max(err_over_tol(og, ow), m_ratio, l_ratio),
+            float((og - ow).abs().max()), float((gm - wm)[live].abs().max()),
+            float(((gl - wl).abs() / wl)[live].max()), dead_ok)
+
+
+def masked_sdpa_inputs(torch, q, k, v, true_len, q_start):
+    """SDPA's arguments for the same function (the yardstick): K/V
+    repeated to the query heads and the boolean mask, built outside the
+    timed call."""
+    b, h, nq, _ = q.shape
+    hk, n = k.shape[1], k.shape[2]
+    rows = q_start + torch.arange(nq, device=q.device)
+    col = torch.arange(n, device=q.device)
+    pad = (n - true_len.long())[:, None, None, None]
+    mask = (col[None, None, None, :] <= rows[None, None, :, None]) \
+        & (col[None, None, None, :] >= pad)
+    return (q, k.repeat_interleave(h // hk, dim=1),
+            v.repeat_interleave(h // hk, dim=1), mask)
+
+
+def visible_pairs(true_len, n, nq, q_start, h):
+    """(query, key) pairs the attention reads: key c >= pad = n - t and
+    c <= q_start + r, summed over rows and heads."""
+    tot = 0
+    for t in true_len:
+        pad = n - int(t)
+        for_rows = np.arange(q_start, q_start + nq)
+        tot += int(np.clip(np.minimum(for_rows, n - 1) - pad + 1, 0, None
+                           ).sum())
+    return float(h * tot)
+
+
+def check_flash_chunk(torch, F, dev, b, hk, n, true_len, chunk, i, seed,
+                      buf):
+    """flash_causal_attention with q_start = i * chunk on chunk i of a
+    prefill, its keys read in place from the bucket-long carry ``buf`` (k,
+    v [B, Hk, n, D]), against the plain version; rows past the pad."""
+    from pyramidkv_tpu_torch.kernels import flash_causal_attention
+    from pyramidkv_tpu_torch.ops.attention import causal_prefill_attention
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = _rand_bf16(torch, g, dev, b, H, chunk, D)
+    e = (i + 1) * chunk
+    kh, vh = buf[0][:, :, :e], buf[1][:, :, :e]
+    tl = torch.tensor(true_len, dtype=torch.int32, device=dev) - (n - e)
+    got = flash_causal_attention(q, kh, vh, tl, q_start=i * chunk)
+    want = causal_prefill_attention(q, kh, vh, true_len=tl, q_start=i * chunk)
+    torch.cuda.synchronize()
+    ratio = err = 0.0
+    for bi, t in enumerate(true_len):
+        r0 = max(0, n - t - i * chunk)  # local rows past the pad
+        if r0 >= chunk:
+            continue
+        gb, wb = got[bi, :, r0:], want[bi, :, r0:]
+        err = max(err, float((gb.float() - wb.float()).abs().max()))
+        ratio = max(ratio, err_over_tol(gb, wb))
+    rec = {"check": "flash_causal_attention (q_start)",
+           "case": f"8k batch chunk {i}", "B": b, "H": H, "Hk": hk,
+           "N": e, "Nq": chunk, "q_start": i * chunk,
+           "true_len": list(true_len), "max_abs_err": err,
+           "err_over_tol": ratio, "tol": TOL_TEXT}
+    rec["ms"] = time_ms(torch, lambda: flash_causal_attention(
+        q, kh, vh, tl, q_start=i * chunk), reps=5)
+    rec["plain_ms"] = time_ms(torch, lambda: causal_prefill_attention(
+        q, kh, vh, true_len=tl, q_start=i * chunk), reps=1, warmup=0)
+    lib = masked_sdpa_inputs(torch, q, kh, vh, tl, i * chunk)
+    rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        *lib[:3], attn_mask=lib[3]), reps=3)
+    del lib
+    pairs = visible_pairs(true_len, n, chunk, i * chunk, H)
+    nbytes = (q.numel() * 2 * 2 + 2 * b * hk * e * D * 2 + b * 4)
+    rec["visible_pairs"] = pairs
+    rec["bound_ms"], rec["bound_by"] = bound(4.0 * D * pairs, nbytes)
+    log(rec)
+    return ratio <= 1 and bool(torch.isfinite(got).all()), rec
+
+
+def check_partials(torch, F, dev, case, b, hk, c, tile_len, q_start, seed):
+    """flash_attention_partials on one tile of a quantized-carry chunk:
+    ``q_start == 0`` the causal self tile, ``q_start == c`` a history tile
+    (every key visible); ``tile_len`` [B] the tile's valid keys."""
+    from pyramidkv_tpu_torch.kernels import flash_attention_partials
+    from pyramidkv_tpu_torch.ops.attention import flash_partials_plain
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (_rand_bf16(torch, g, dev, b, n_h, c, D)
+               for n_h in (H, hk, hk))
+    tl = torch.tensor(tile_len, dtype=torch.int32, device=dev)
+    got = flash_attention_partials(q, k, v, tl, q_start=q_start)
+    want = flash_partials_plain(q, k, v, tl, q_start=q_start)
+    torch.cuda.synchronize()
+    ratio, err, m_err, l_err, dead_ok = partials_ratio_exp2(torch, got, want)
+    rec = {"check": "flash_attention_partials", "case": case, "B": b,
+           "H": H, "Hk": hk, "C": c, "q_start": q_start,
+           "tile_len": list(tile_len), "max_abs_err": err, "m_err": m_err,
+           "l_rel_err": l_err, "err_over_tol": ratio,
+           "dead_rows": int((want[2] == 0).sum()), "dead_rows_exact": dead_ok,
+           "tol": SPARSE_TOL_TEXT + "; rows with no visible key exact"}
+    rec["ms"] = time_ms(torch, lambda: flash_attention_partials(
+        q, k, v, tl, q_start=q_start), reps=5)
+    rec["plain_ms"] = time_ms(torch, lambda: flash_partials_plain(
+        q, k, v, tl, q_start=q_start), reps=1, warmup=0)
+    lib = masked_sdpa_inputs(torch, q, k, v, tl, q_start)
+    rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        *lib[:3], attn_mask=lib[3]), reps=3)
+    del lib
+    pairs = visible_pairs(tile_len, c, c, q_start, H)
+    nbytes = (q.numel() * 2 + 2 * k.numel() * 2 + b * H * c * (D + 2) * 4)
+    rec["visible_pairs"] = pairs
+    rec["bound_ms"], rec["bound_by"] = bound(4.0 * D * pairs, nbytes)
+    log(rec)
+    return (ratio <= 1 and dead_ok
+            and all(bool(torch.isfinite(x).all()) for x in got)), rec
+
+
+def tile_len(true_len, n, c, start):
+    """Valid keys of the c-key tile at column ``start`` of a bucket of n."""
+    return tuple(c - min(max(n - t - start, 0), c) for t in true_len)
+
+
+def phase_h2o_chunk_kernels(torch, F, dev):
+    """The new kernels against their plain versions at the engine's shapes:
+    H2O (H2O_CASES), flash with q_start at every chunk of the 8k batch
+    (C=2048, keys read in place from the carry), flash_attention_partials
+    on self and history tiles of the 32k carry (C=8192) and the 8k batch
+    (C=2048: a pad crossing the tiles, rows with no visible key), and the
+    pa region kernel with one K group per chunk at run (e)'s shape.
+    Returns (ok, {kernel: [timed recs]})."""
+    ok = True
+    recs = {"h2o_row_stats": [], "h2o_colsum": [], "q_start": [],
+            "flash_attention_partials": [], "pa_chunked": []}
+    for seed, case in enumerate(H2O_CASES, start=500):
+        r, got = check_h2o(torch, dev, case, seed)
+        ok &= r
+        if H2O_CASES[case][-1]:
+            recs["h2o_row_stats"].append(got["stats"])
+            recs["h2o_colsum"].append(got["colsum"])
+        torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(510)
+    buf = (_rand_bf16(torch, g, dev, B, HK, N, D),
+           _rand_bf16(torch, g, dev, B, HK, N, D))
+    for i in range(N // C8K):
+        r, rec = check_flash_chunk(torch, F, dev, B, HK, N, TRUE_LEN, C8K, i,
+                                   520 + i, buf)
+        ok &= r
+        recs["q_start"].append(rec)
+    del buf
+    torch.cuda.empty_cache()
+    for seed, (case, b, n, tls, c, start, q_start) in enumerate((
+            ("32k self tile (chunk 0)", 1, QN, (QTRUE,), C32K, 0, 0),
+            ("32k history tile 0", 1, QN, (QTRUE,), C32K, 0, C32K),
+            ("8k self tile (chunk 2)", B, N, TRUE_LEN, C8K, 2 * C8K, 0),
+            ("8k history tile 1", B, N, TRUE_LEN, C8K, C8K, C8K)), start=530):
+        r, rec = check_partials(torch, F, dev, case, b, HK, c,
+                                tile_len(tls, n, c, start), q_start, seed)
+        ok &= r
+        recs["flash_attention_partials"].append(rec)
+        torch.cuda.empty_cache()
+    # run (e)'s region: 32768 slots, kivi4-pa, K groups of 8192 (4)
+    r, rec = check_region(torch, F, dev, "quant_fused_attention_pa", 1, HK,
+                          H // HK, QN, 4, 64, True, 540,
+                          "32k fullkv kivi4-pa chunk 8192", QMAX_NEW,
+                          k_chunk=C32K)
+    ok &= r and rec["k_groups"] == QN // C32K
+    recs["pa_chunked"].append(rec)
+    torch.cuda.empty_cache()
+    return ok, recs
+
+
+def chunk_run_spec(run):
+    """(CompressionSpec, bucket, max_new, chunk) of a CHUNK_RUNS run."""
+    from pyramidkv_tpu_torch.config import CompressionSpec
+
+    _, comp, size, chunk = CHUNK_RUNS[run]
+    bucket, max_new = (QN, QMAX_NEW) if size == "32k" else (N, MAX_NEW)
+    return CompressionSpec(**comp), bucket, max_new, chunk
+
+
+def chunk_expected(run, plan, qp, steps, b):
+    """Kernel launches one generate of a CHUNK_RUNS run implies."""
+    import torch
+
+    from pyramidkv_tpu_torch.models import chunked_prefill as cp
+    from pyramidkv_tpu_torch.models.llama import region_route
+
+    cs, bucket, _, chunk = chunk_run_spec(run)
+    want = dict.fromkeys(_kernels(), 0)
+    nc = bucket // chunk if chunk else 1
+    quant_carry = bool(chunk) and cp.supports_chunked_quant(plan, chunk)
+    h2o = cs.method == "h2o"
+    if quant_carry:
+        want["flash_attention_partials"] = LAYERS * (nc + nc * (nc - 1) // 2)
+    else:
+        want["flash_causal_attention"] = LAYERS * nc * (2 if h2o and chunk
+                                                        else 1)
+    if h2o and not chunk:
+        want["h2o_row_stats"] = want["h2o_colsum"] = LAYERS
+    if cs.quant_method is None:
+        want["decode_attention"] = LAYERS * steps
+    else:
+        hk = HK if cs.method == "fullkv" else H
+        per = 8 // cs.nbits
+        want[region_route(cs, b * hk, bucket // per,
+                          torch.device("cuda", 0)).__name__] = LAYERS * steps
+    if qp is not None:
+        want.update(expected_launches(qp, steps, b, chunk or bucket, nc))
+    return want
+
+
+def chunk_kv_bytes(run, b):
+    """kv_cache_bytes of a chunked fullkv KIVI run, from
+    ``chunked_prefill.init_quant_state``'s shapes (K groups of the chunk
+    under pa, of 64 slots under group; V per token under pa) plus the bf16
+    decode slots, 32 layers."""
+    cs, n, max_new, chunk = chunk_run_spec(run)
+    per = 8 // cs.nbits
+    kg, vg = (chunk, D) if cs.q_layout == "pa" else (64, 64)
+    return LAYERS * (2 * b * HK * (n // per) * D
+                     + 2 * b * HK * D * (n // kg) * 4
+                     + 2 * b * HK * n * (D // vg) * 4
+                     + 2 * b * HK * max_new * D * 2)
+
+
+def bucket_tokens(torch, dev, prompts, bucket):
+    toks = np.zeros((len(prompts), bucket), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, bucket - len(p):] = p
+    return (torch.from_numpy(toks).to(dev),
+            torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                         device=dev))
+
+
+def prefill_with(eng, bucket, tokens, tl, impl):
+    """The prefill ``generate`` takes (chunked where the engine supports
+    it), through the kernels or the plain path: (logits, cache)."""
+    from pyramidkv_tpu_torch.models import llama
+
+    eng.attention_impl = impl
+    try:
+        if eng.chunked_prefill_supported(bucket):
+            return eng._run_chunked_prefill(bucket, tokens, tl)
+        return llama.prefill(eng.params, eng.model_spec, eng.plan_for(bucket),
+                             tokens, tl, attention_impl=impl)
+    finally:
+        eng.attention_impl = "kernel"
+
+
+def phase_engine_h2o_chunked(torch, dev, params, q4, vocab):
+    """``Engine.generate`` for each CHUNK_RUNS run (32 layers), with the
+    launches of every kernel held to what the plan implies and
+    kv_cache_bytes to the layout's.  For the chunked runs the chunked
+    prefill's first-token logits and the run's tokens are printed beside
+    the monolithic run's of the same configuration (information only: on
+    the card cuBLAS may sum [C, .] and [N, .] rows in other orders).
+    Returns (ok, {run: counts}, {run: prefill s})."""
+    from pyramidkv_tpu_torch.config import EngineSpec, ModelSpec
+    from pyramidkv_tpu_torch.engine import Engine
+    from pyramidkv_tpu_torch.models import llama
+
+    spec = ModelSpec.preset("llama3-8b")
+    p32 = [np.random.default_rng(0).integers(0, vocab, size=QTRUE).tolist()]
+    rng = np.random.default_rng(0)
+    p8 = [rng.integers(0, vocab, size=t).tolist() for t in TRUE_LEN]
+    ok, counts, prefill_s = True, {}, {}
+    for run, (wname, _, size, _) in CHUNK_RUNS.items():
+        cs, bucket, max_new, chunk = chunk_run_spec(run)
+        prompts = p32 if size == "32k" else p8
+        qp = q4 if wname == "int4" else None
+        wts = qp if qp is not None else params
+        eng = Engine(spec, cs, EngineSpec(max_new_tokens=max_new,
+                                          prefill_buckets=(bucket,),
+                                          prefill_chunk=chunk),
+                     wts, device=dev)
+        # every kernel and cuBLAS shape already ran in earlier phases: no
+        # warm-up generate
+        torch.cuda.synchronize()
+        reset_counts()
+        out = eng.generate(prompts)
+        c = read_counts()
+        counts[run] = c
+        prefill_s[run] = out.prefill_seconds
+        plan = eng.plan_for(bucket)
+        want = chunk_expected(run, plan, qp, out.decode_steps, len(prompts))
+        want_bytes = (chunk_kv_bytes(run, len(prompts))
+                      if cs.quant_method else None)
+        toks = [t for seq in out.tokens for t in seq]
+        good = (c == want and out.decode_steps == max_new - 1
+                and eng.chunked_prefill_supported(bucket) == bool(chunk)
+                and all(0 <= t < vocab for t in toks)
+                and all(len(seq) >= 1 for seq in out.tokens))
+        if want_bytes is not None:
+            good &= out.kv_cache_bytes == want_bytes
+        if run.startswith("(e)"):
+            good &= out.kv_cache_bytes == KV_BYTES_32K_CHUNKED_PA
+        if run.startswith("(b)"):
+            good &= out.kv_cache_bytes == KV_BYTES_SNAPKV_32K
+        rec = {"phase": "engine_h2o_chunked", "run": run, "weights": wname,
+               "method": cs.method, "prefill_chunk": chunk,
+               "prefill_s": out.prefill_seconds,
+               "decode_s": out.decode_seconds,
+               "decode_steps": out.decode_steps,
+               "decode_tok_per_s": (out.decode_steps * len(prompts)
+                                    / out.decode_seconds),
+               "kv_cache_bytes": out.kv_cache_bytes,
+               "expected_kv_cache_bytes": want_bytes,
+               "launches": {k: v for k, v in c.items() if v},
+               "expected_launches": {k: v for k, v in want.items() if v},
+               "first_tokens": out.tokens[0][:8]}
+        if chunk:
+            # information: the monolithic run of the same configuration
+            tokens, tl = bucket_tokens(torch, dev, prompts, bucket)
+            with torch.inference_mode():
+                lc, _ = prefill_with(eng, bucket, tokens, tl, "kernel")
+                lm, _ = llama.prefill(wts, spec, plan, tokens, tl)
+            mono = Engine(spec, cs, EngineSpec(max_new_tokens=max_new,
+                                               prefill_buckets=(bucket,)),
+                          wts, device=dev).generate(prompts)
+            same = [sum(a == b_ for a, b_ in zip(x, y)) for x, y in
+                    zip(out.tokens, mono.tokens)]
+            rec["vs_monolithic"] = {
+                "first_logits_max_abs_diff": float((lc - lm).abs().max()),
+                "largest_logit": float(lm.abs().max()),
+                "same_first_token": bool((lc.argmax(-1)
+                                          == lm.argmax(-1)).all()),
+                "tokens_equal_per_request": same,
+                "tokens_per_request": [len(t) for t in out.tokens],
+                "monolithic_prefill_s": mono.prefill_seconds,
+                "monolithic_first_tokens": mono.tokens[0][:8]}
+            del lc, lm, mono
+        rec["ok"] = good
+        log(rec)
+        ok &= good
+        del eng, out
+        torch.cuda.empty_cache()
+    return ok, counts, prefill_s
+
+
+def phase_parity_h2o_chunked(torch, dev, params, vocab, steps=4):
+    """Depth-2 logits, kernels against plain, for h2o on the 8k batch
+    (monolithic), chunked snapkv on the 8k batch and chunked fullkv
+    kivi4-pa at 32k (int4 weights): the last-position logits of each
+    path's prefill, then ``steps`` decode steps of each path on its own
+    copy of the kernel path's cache, fed the same tokens (as
+    phase_parity_kv_quant).  Limit: 2^-5 of the largest logit, as
+    phase_parity.  Printed beside it: the share of cache slots whose
+    positions the plain path's own prefill kept alike (the two paths'
+    H2O scores differ by bf16 noise, which flips near-ties at the top-k
+    boundary)."""
+    from pyramidkv_tpu_torch.cache import KVCache
+    from pyramidkv_tpu_torch.config import EngineSpec, ModelSpec
+    from pyramidkv_tpu_torch.engine import Engine
+    from pyramidkv_tpu_torch.models import llama
+
+    spec = ModelSpec.preset("llama3-8b", num_hidden_layers=2)
+    p2 = dict(params, layers={k: v[:2] for k, v in params["layers"].items()})
+    ok = True
+    for run in ("(a) bf16 h2o 8k", "(c) bf16 snapkv 8k chunk 2048",
+                "(e) int4 fullkv kivi4-pa 32k chunk 8192"):
+        wname, _, size, _ = CHUNK_RUNS[run]
+        cs, bucket, max_new, chunk = chunk_run_spec(run)
+        wts = quantized(p2, "int4") if wname == "int4" else p2
+        eng = Engine(spec, cs, EngineSpec(max_new_tokens=max_new,
+                                          prefill_buckets=(bucket,),
+                                          prefill_chunk=chunk),
+                     wts, device=dev)
+        rng = np.random.default_rng(1)
+        b, tls = (1, (QTRUE,)) if size == "32k" else (B, TRUE_LEN)
+        tokens = torch.from_numpy(
+            rng.integers(0, vocab, size=(b, bucket)).astype(np.int64)).to(dev)
+        tl = torch.tensor(tls, dtype=torch.int32, device=dev)
+        plan = eng.plan_for(bucket)
+        with torch.inference_mode():
+            lk, ck = prefill_with(eng, bucket, tokens, tl, "kernel")
+            lp, cp_ = prefill_with(eng, bucket, tokens, tl, "plain")
+            prefill_err = float((lk - lp).abs().max())
+            same_slots = float((ck.positions == cp_.positions).float().mean())
+            err, top = prefill_err, float(lp.abs().max())
+            same = bool((lk.argmax(-1) == lp.argmax(-1)).all())
+            cp_ = KVCache(k=ck.k.clone(), v=ck.v.clone(),
+                          mask=ck.mask.clone(),
+                          positions=ck.positions.clone(),
+                          true_len=ck.true_len, quant=ck.quant)
+            tok = lp.argmax(-1)
+            for _ in range(steps):
+                lk, ck = llama.decode_step(wts, spec, plan, ck, tok,
+                                           attention_impl="kernel")
+                lp, cp_ = llama.decode_step(wts, spec, plan, cp_, tok,
+                                            attention_impl="plain")
+                err = max(err, float((lk - lp).abs().max()))
+                top = max(top, float(lp.abs().max()))
+                same &= bool((lk.argmax(-1) == lp.argmax(-1)).all())
+                ok &= bool(torch.isfinite(lk).all())
+                tok = lp.argmax(-1)
+        torch.cuda.synchronize()
+        tol = 2.0 ** -5 * top
+        good = err <= tol
+        log({"phase": "parity_h2o_chunked", "run": run, "depth": 2,
+             "decode_steps": steps, "prefill_max_abs_err": prefill_err,
+             "max_abs_err": err, "tol": tol, "same_argmax": same,
+             "plain_prefill_same_slot_share": same_slots, "ok": good})
+        ok &= good
+        del eng, ck, cp_, wts
+        torch.cuda.empty_cache()
+    return ok
+
+
+def phase_profile_h2o_chunked(torch, dev, params, q4, vocab):
+    """Where the time goes in three prefills: run (b)'s monolithic H2O at
+    32k, run (d)'s chunked H2O on the 8k batch and run (e)'s chunked
+    kivi4-pa at 32k.  CUDA events recorded around each stage give its
+    stream time (its device time while the device runs without gaps);
+    "rest" is the prefill's stream time less the stages.  Wall times from
+    unpatched runs."""
+    import importlib
+
+    from pyramidkv_tpu_torch.config import EngineSpec, ModelSpec
+    from pyramidkv_tpu_torch.engine import Engine
+    from pyramidkv_tpu_torch.models import chunked_prefill as cp
+    from pyramidkv_tpu_torch.models import llama
+
+    h2o_mod = importlib.import_module("pyramidkv_tpu_torch.kernels.h2o_scores")
+    spec = ModelSpec.preset("llama3-8b")
+    spans = {}
+
+    def timed(label, fn):
+        def run(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            res = fn(*a, **kw)
+            e1.record()
+            spans.setdefault(label, []).append((e0, e1))
+            return res
+        # a kernel wrapper counts its launches on the name it is called
+        # by, which the patch rebinds to this function
+        run.launches = getattr(fn, "launches", 0)
+        return run
+
+    stages = {
+        "(b) int4 h2o 32k": [(h2o_mod, "h2o_row_stats", "h2o stats kernel"),
+                             (h2o_mod, "h2o_colsum", "h2o colsum kernel"),
+                             (llama, "flash_causal_attention",
+                              "flash kernel")],
+        "(d) bf16 h2o 8k chunk 2048": [
+            (cp, "flash_causal_attention", "flash kernel (q_start)"),
+            (cp, "h2o_partial_scores", "h2o pass-2 scores (plain torch)"),
+            (cp, "prefill_finish", "finish (compression)")],
+        "(e) int4 fullkv kivi4-pa 32k chunk 8192": [
+            (cp, "flash_attention_partials", "partials kernel"),
+            (cp, "_history_tile", "history tile dequantization"),
+            (cp, "merge_exp2", "merge"),
+            (cp, "quantize", "chunk quantization"),
+            (cp, "prefill_finish_quant", "finish (repack)")],
+    }
+    out, ok = {}, True
+    with torch.inference_mode():
+        for run, patches in stages.items():
+            wname, _, size, _ = CHUNK_RUNS[run]
+            cs, bucket, max_new, chunk = chunk_run_spec(run)
+            eng = Engine(spec, cs, EngineSpec(max_new_tokens=max_new,
+                                              prefill_buckets=(bucket,),
+                                              prefill_chunk=chunk),
+                         q4 if wname == "int4" else params, device=dev)
+            rng = np.random.default_rng(2)
+            b, tls = (1, (QTRUE,)) if size == "32k" else (B, TRUE_LEN)
+            tokens = torch.from_numpy(rng.integers(
+                0, vocab, size=(b, bucket)).astype(np.int64)).to(dev)
+            tl = torch.tensor(tls, dtype=torch.int32, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill_with(eng, bucket, tokens, tl, "kernel")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            saved = [(m, a, getattr(m, a)) for m, a, _ in patches]
+            spans.clear()
+            try:
+                for m, a, label in patches:
+                    setattr(m, a, timed(label, getattr(m, a)))
+                timed("prefill", prefill_with)(eng, bucket, tokens, tl,
+                                               "kernel")
+                torch.cuda.synchronize()
+            finally:
+                for m, a, fn in saved:
+                    setattr(m, a, fn)
+            ms = {k: sum(e0.elapsed_time(e1) for e0, e1 in v)
+                  for k, v in spans.items()}
+            stream_ms = ms.pop("prefill")
+            # the finish contains the compression's own h2o kernels (none
+            # in these runs) and the lm_head: it is one stage
+            out[run] = {"wall_s": wall, "stream_ms": stream_ms,
+                        "stages_ms": ms,
+                        "rest_ms": stream_ms - sum(ms.values()),
+                        "stage_calls": {k: len(v) for k, v in spans.items()
+                                        if k != "prefill"}}
+            ok &= all(len(v) > 0 for k, v in spans.items())
+            del eng
+            torch.cuda.empty_cache()
+    log({"phase": "profile_h2o_chunked", **out})
+    return ok
+
+
 def kernel_entry(name, source, replaces, launches, recs):
     """One entry of the kernels line.  ``recs`` holds one timed check per
     shape the kernel runs at in these launches (pyramidkv: one per
@@ -1621,11 +2341,15 @@ def kernel_entry(name, source, replaces, launches, recs):
            # what bounds the shape that contributes most to the bound
            "bound_by": max(zip(w, recs), key=lambda x: x[0] * x[1][
                "bound_ms"])[1]["bound_by"],
-           "library_ms": mean("library_ms")}
+           # None where no single PyTorch call computes the function
+           "library_ms": (None if any(r["library_ms"] is None for r in recs)
+                          else mean("library_ms"))}
+    if "bound_unit" in recs[0]:
+        ent["bound_unit"] = recs[0]["bound_unit"]
     if len(recs) > 1:
         ent["shapes"] = [{k: r[k] for k in (
             "S", "case", "x", "layers", "tail", "Vs", "T", "max_abs_err",
-            "visible_pairs", "ms",
+            "visible_pairs", "ms", "bound_unit",
             "partials_ms", "plain_ms", "bound_ms", "library_ms") if k in r}
             for r in recs]
     return ent
@@ -1676,6 +2400,8 @@ def main() -> int:
     ok &= r
     r, sparse_recs = phase_minference_kernels(torch, F, dev)
     ok &= r
+    r, chunk_recs = phase_h2o_chunk_kernels(torch, F, dev)
+    ok &= r
 
     spec = ModelSpec.preset("llama3-8b")
     t0 = time.perf_counter()
@@ -1710,6 +2436,11 @@ def main() -> int:
     ok &= r
     ok &= phase_parity_minference(torch, dev, params, spec.vocab_size)
     ok &= phase_profile_minference(torch, dev, q4, spec.vocab_size)
+    r, ccounts, _ = phase_engine_h2o_chunked(torch, dev, params, q4,
+                                             spec.vocab_size)
+    ok &= r
+    ok &= phase_parity_h2o_chunked(torch, dev, params, spec.vocab_size)
+    ok &= phase_profile_h2o_chunked(torch, dev, params, q4, spec.vocab_size)
     del q4
     # the port's counterpart of bench.py's number (information only: decode
     # is host-bound, see the profile phases)
@@ -1784,6 +2515,52 @@ def main() -> int:
         kernels.append(kernel_entry(
             kind, src + "block_sparse_prefill.cu", bsp_tpu + str(line),
             sum(c[kind] for c in mcounts.values()), sparse_recs[kind]))
+    # H2O and the chunked prefill: each checked shape weighted by the
+    # launches the engine runs made there
+    def csum(kernel, runs):
+        return sum(ccounts[r][kernel] for r in runs)
+
+    h2o_runs = {"8k": ["(a) bf16 h2o 8k"], "32k": ["(b) int4 h2o 32k"]}
+    for kind in ("h2o_row_stats", "h2o_colsum"):
+        for rec in chunk_recs[kind]:
+            rec["layers"] = csum(kind, h2o_runs[rec["case"]])
+    q_runs = ["(c) bf16 snapkv 8k chunk 2048", "(d) bf16 h2o 8k chunk 2048"]
+    for rec in chunk_recs["q_start"]:  # each chunk index equally often
+        rec["layers"] = csum("flash_causal_attention", q_runs) // (N // C8K)
+    part_runs = {"32k": "(e) int4 fullkv kivi4-pa 32k chunk 8192",
+                 "8k": "(f) bf16 fullkv kivi4 8k chunk 2048"}
+    for rec in chunk_recs["flash_attention_partials"]:
+        size = rec["case"].split()[0]
+        n_self = LAYERS * (QN // C32K if size == "32k" else N // C8K)
+        total = ccounts[part_runs[size]]["flash_attention_partials"]
+        rec["layers"] = (n_self if "self" in rec["case"]
+                         else total - n_self)
+    h2o_tpu = "pyramidkv_tpu/kernels/h2o_scores.py:"
+    kernels += [
+        kernel_entry("h2o_scores (stats)", src + "h2o_scores.cu",
+                     h2o_tpu + "35", csum("h2o_row_stats", sum(
+                         h2o_runs.values(), [])), chunk_recs["h2o_row_stats"]),
+        kernel_entry("h2o_scores (colsum)", src + "h2o_scores.cu",
+                     h2o_tpu + "96", csum("h2o_colsum", sum(
+                         h2o_runs.values(), [])), chunk_recs["h2o_colsum"]),
+        kernel_entry("flash_attention_partials", src + "flash_prefill.cu",
+                     "pyramidkv_tpu/kernels/flash_prefill.py:601",
+                     csum("flash_attention_partials", list(ccounts)),
+                     chunk_recs["flash_attention_partials"]),
+        kernel_entry("flash_causal_attention (q_start, 8k batch, C=2048)",
+                     src + "flash_prefill.cu",
+                     "pyramidkv_tpu/kernels/flash_prefill.py:420",
+                     csum("flash_causal_attention", q_runs),
+                     chunk_recs["q_start"]),
+        kernel_entry("quant_fused_attention_pa (Gk=4, 32k kivi4-pa chunk "
+                     "8192)", src + "quant_fused_decode.cu",
+                     "pyramidkv_tpu/kernels/quant_fused_decode.py:145",
+                     ccounts["(e) int4 fullkv kivi4-pa 32k chunk 8192"][
+                         "quant_fused_attention_pa"],
+                     chunk_recs["pa_chunked"])]
+    for ent in kernels[-5:-3]:
+        ent["library_note"] = ("none: no single PyTorch call computes the "
+                               "column sums of a softmax")
     for k in kernels:  # one line per kernel
         log({"kernel": k["name"], **k})
     log({"kernels": kernels})

@@ -1,14 +1,23 @@
-// Causal GQA flash-attention prefill over a left-padded buffer (sm_90a).
+// Causal GQA flash-attention prefill over a left-padded buffer (sm_90a),
+// normalised or as online-softmax partials.
 //
 // Replaces: pyramidkv_tpu/kernels/flash_prefill.py::flash_causal_attention
-// (Pallas TPU, body `_kernel`), in its default schedule: two_pass=False,
-// sub_k=1, q_start=0, no softcap.
+// (Pallas TPU, body `_kernel`) in its default schedule (two_pass=False,
+// sub_k=1, no softcap), with any `q_start`; and
+// flash_prefill.py::flash_attention_partials (body `_kernel_partials`).
 //
-// What it computes, per batch row b with pad = N - true_len[b]:
+// What it computes, per batch row b with pad = N - true_len[b]: the Nq
+// queries sit at global columns [q_start, q_start + Nq) of the N keys, and
 //   out[b,h,r] = softmax_c(scale * q[b,h,r] . k[b,h/G,c]) @ v[b,h/G,c]
-// over the visible keys c <= r, c >= pad (and r - c < window when a sliding
-// window is set).  A row with no visible key (every row < pad) writes 0, as
-// the TPU kernel's `l == 0` guard does.
+// over the visible keys c <= q_start + r, c >= pad (and q_start + r - c <
+// window when a sliding window is set).  `flash_prefill_kernel` with
+// q_start = 0 is the monolithic prefill, with q_start = N - Nq a prefill
+// chunk; a row with no visible key writes 0, as the TPU kernel's `l == 0`
+// guard does.  The partials entry writes instead the unnormalised f32
+// accumulator and the base-2 statistics (m = max of the log2(e)-scaled
+// logits, l = sum of exp2(s - m)); a row with no visible key gets m =
+// float32.min, l = 0, acc = 0.  Its q_start is 0 (the causal self tile) or
+// >= N (every key precedes every query: no causal edge).
 //
 // What bounds it on the H100: operations.  At the prefill shapes of the main
 // path (N = 8192, D = 128) attention does ~N/2 multiply-adds per byte of
@@ -22,7 +31,8 @@
 //   the A operand of P @ V without a trip through shared memory.
 // - The triangular walk of the TPU kernel becomes the key-tile loop bounds:
 //   a block only visits k-tiles between the pad/window edge and its causal
-//   edge, so causally dead tiles are never loaded or multiplied.
+//   edge (global row q_start + r), so causally dead tiles are never loaded
+//   or multiplied.
 // - The heaviest q-tiles (last rows, longest key range) are scheduled first.
 // - Online softmax in the exp2 domain with log2(e) folded into the q scaling,
 //   q rounded to bf16 after scaling exactly as the TPU wrapper does.
@@ -30,6 +40,7 @@
 // specialisation (tiles are loaded synchronously here).
 
 #include <cuda_bf16.h>
+#include <cfloat>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -70,13 +81,19 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// PARTIALS: write (acc, m, l) f32 instead of the normalised bf16 output.
+template <bool PARTIALS>
 __global__ void __launch_bounds__(NTHREADS)
-flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, N, D]
-                     const __nv_bfloat16* __restrict__ k,   // [B*Hk, N, D]
-                     const __nv_bfloat16* __restrict__ v,   // [B*Hk, N, D]
+flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, Nq, D]
+                     const __nv_bfloat16* __restrict__ k,   // [B*Hk, ldk, D]
+                     const __nv_bfloat16* __restrict__ v,   // [B*Hk, ldk, D]
                      const int* __restrict__ true_len,      // [B]
-                     __nv_bfloat16* __restrict__ out,       // [B*H, N, D]
-                     int H, int Hk, int N, int window, float scale_log2) {
+                     __nv_bfloat16* __restrict__ out,       // [B*H, Nq, D]
+                     float* __restrict__ acc_out,           // [B*H, Nq, D]
+                     float* __restrict__ m_out,             // [B*H, Nq]
+                     float* __restrict__ l_out,             // [B*H, Nq]
+                     int H, int Hk, int N, int ldk, int Nq, int q_start,
+                     int window, float scale_log2) {
   __shared__ __align__(16) __nv_bfloat16 ks[BK * LDS];
   __shared__ __align__(16) __nv_bfloat16 vs[BK * LDS];
 
@@ -86,30 +103,43 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, N, D]
   const int h = bh % H;
   const int kv_row = b * Hk + h / (H / Hk);
   const int pad = N - true_len[b];
-  const int q0 = qt * BQ;
-  const int last_row = q0 + BQ - 1;
+  const int q0 = qt * BQ;                  // local row of the tile's first
+  const int g0 = q_start + q0;             // its global row
+  const int last_row = g0 + BQ - 1;        // global
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int gid = lane >> 2;  // fragment row group
   const int tig = lane & 3;   // thread in group
 
-  const __nv_bfloat16* qb = q + (size_t)bh * N * D;
-  const __nv_bfloat16* kb = k + (size_t)kv_row * N * D;
-  const __nv_bfloat16* vb = v + (size_t)kv_row * N * D;
-  __nv_bfloat16* ob = out + (size_t)bh * N * D;
+  const __nv_bfloat16* qb = q + (size_t)bh * Nq * D;
+  // keys [0, N) of a buffer of ldk rows per head (a prefill chunk reads the
+  // first N rows of the bucket-long carry in place)
+  const __nv_bfloat16* kb = k + (size_t)kv_row * ldk * D;
+  const __nv_bfloat16* vb = v + (size_t)kv_row * ldk * D;
 
   if (last_row < pad) {  // every row is padding: no visible key
-    const uint4 z = make_uint4(0, 0, 0, 0);
-    for (int i = tid; i < BQ * D / 8; i += NTHREADS) {
-      int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      *reinterpret_cast<uint4*>(ob + (size_t)(q0 + r) * D + c) = z;
+    if (PARTIALS) {
+      float* ab = acc_out + ((size_t)bh * Nq + q0) * D;
+      for (int i = tid; i < BQ * D; i += NTHREADS) ab[i] = 0.f;
+      if (tid < BQ) {
+        m_out[(size_t)bh * Nq + q0 + tid] = -FLT_MAX;
+        l_out[(size_t)bh * Nq + q0 + tid] = 0.f;
+      }
+    } else {
+      const uint4 z = make_uint4(0, 0, 0, 0);
+      __nv_bfloat16* ob = out + ((size_t)bh * Nq + q0) * D;
+      for (int i = tid; i < BQ * D / 8; i += NTHREADS) {
+        int r = i / (D / 8), c = (i % (D / 8)) * 8;
+        *reinterpret_cast<uint4*>(ob + (size_t)r * D + c) = z;
+      }
     }
     return;
   }
 
-  // rows of this thread's accumulator fragments: r0 and r0 + 8
+  // local rows of this thread's accumulator fragments: r0 and r0 + 8
   const int r0 = q0 + warp * 16 + gid;
+  const int gr0 = q_start + r0;  // global
 
   // q fragments (A operand, row-major 16x16 per k-step), scaled once
   uint32_t qf[D / 16][4];
@@ -131,9 +161,9 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, N, D]
   float l[2] = {0.f, 0.f};  // per-thread partial row sums
 
   int lo = pad;
-  if (window > 0) lo = max(lo, q0 - window + 1);
+  if (window > 0) lo = max(lo, g0 - window + 1);
   const int kt_begin = lo / BK;
-  const int kt_end = last_row / BK;
+  const int kt_end = min(last_row, N - 1) / BK;
 
   for (int kt = kt_begin; kt <= kt_end; ++kt) {
     const int k0 = kt * BK;
@@ -171,7 +201,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, N, D]
     for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int row = r0 + ((e >> 1) << 3);
+        const int row = gr0 + ((e >> 1) << 3);
         const int col = k0 + nt * 8 + tig * 2 + (e & 1);
         bool ok = col <= row && col >= pad;
         if (window > 0) ok = ok && (row - col < window);
@@ -235,6 +265,27 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, N, D]
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
+  if (PARTIALS) {
+    float* ab = acc_out + (size_t)bh * Nq * D;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      const int c = dt * 8 + tig * 2;
+      *reinterpret_cast<float2*>(ab + (size_t)r0 * D + c) =
+          make_float2(o[dt][0], o[dt][1]);
+      *reinterpret_cast<float2*>(ab + (size_t)(r0 + 8) * D + c) =
+          make_float2(o[dt][2], o[dt][3]);
+    }
+    if (tig == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const size_t row = (size_t)bh * Nq + r0 + 8 * i;
+        m_out[row] = m[i] == -INFINITY ? -FLT_MAX : m[i];
+        l_out[row] = l[i];
+      }
+    }
+    return;
+  }
+  __nv_bfloat16* ob = out + (size_t)bh * Nq * D;
   const float inv0 = l[0] > 0.f ? 1.f / l[0] : 0.f;
   const float inv1 = l[1] > 0.f ? 1.f / l[1] : 0.f;
 #pragma unroll
@@ -251,12 +302,27 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, N, D]
 
 extern "C" int pkv_flash_prefill(const void* q, const void* k, const void* v,
                                  const void* true_len, void* out, int B, int H,
-                                 int Hk, int N, int window, float scale,
-                                 void* stream) {
-  dim3 grid(N / BQ, B * H);
-  flash_prefill_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+                                 int Hk, int N, int ldk, int Nq, int q_start,
+                                 int window, float scale, void* stream) {
+  dim3 grid(Nq / BQ, B * H);
+  flash_prefill_kernel<false><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const int*)true_len, (__nv_bfloat16*)out, H,
-      Hk, N, window, scale * LOG2E);
+      (const __nv_bfloat16*)v, (const int*)true_len, (__nv_bfloat16*)out,
+      nullptr, nullptr, nullptr, H, Hk, N, ldk, Nq, q_start, window,
+      scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+// acc [B*H, Nq, D], m, l [B*H, Nq] f32; q_start 0 (causal self tile,
+// Nq == N) or >= N (all keys visible).
+extern "C" int pkv_flash_partials(const void* q, const void* k, const void* v,
+                                  const void* true_len, void* acc, void* m,
+                                  void* l, int B, int H, int Hk, int N, int Nq,
+                                  int q_start, float scale, void* stream) {
+  dim3 grid(Nq / BQ, B * H);
+  flash_prefill_kernel<true><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const int*)true_len, nullptr, (float*)acc,
+      (float*)m, (float*)l, H, Hk, N, N, Nq, q_start, 0, scale * LOG2E);
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,8 @@
 // `region_attention_fused_kernel`.
 //
 // What it computes: the (acc, m, l) partials of one-token attention over a
-// per-axis region (one K scale/zero per channel, one V scale/zero per slot)
+// per-axis region (one K scale/zero per channel, or per channel and chunk
+// after a chunked prefill; one V scale/zero per slot)
 // without dequantizing it: the K scale folds into the query (q * scale * ks,
 // rounded to bf16, as the TPU kernel's bf16 dot operand), the K zero into
 // a logit bias scale * (q . kz); the V scale folds into the probabilities
@@ -31,9 +32,13 @@
 
 #include "quant_region.cuh"
 
-// C signature: PKVQ_PARAMS (quant_region.cuh), with NG = NGV = 1.
+// C signature: PKVQ_PARAMS (quant_region.cuh), with NGV = 1 and NG = 1 or
+// K groups tiling each plane, each split inside one group.
 extern "C" int pkv_quant_fused_pa(PKVQ_PARAMS) {
-  if (NG != 1 || NGV != 1) return (int)cudaErrorInvalidValue;
+  if (NGV != 1) return (int)cudaErrorInvalidValue;
+  if (NG > 1 && (W % (S_pad / NG) || (S_pad / NG) % rows_per_split ||
+                 G * (8 / nbits) > 16))
+    return (int)cudaErrorInvalidValue;
   const pkvq::Args a = pkvq::make_args(q, kc, ks, kz, vc, vs, vz, mask, acc,
                                        m, l, W, S_pad, NG, Dp, NGV, mstride,
                                        n_valid, rows_per_split, scale);

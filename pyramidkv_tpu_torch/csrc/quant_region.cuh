@@ -10,7 +10,11 @@
 //   vc [W, Dp]       int8, V codes packed along slots;
 //   vs, vz [S_pad, NGV] f32, V channel-group scale/zero (channel e: e / vg);
 //   mask             bool, slot s visible iff s < n_valid and mask[s].
-// The pa layout is NG = NGV = 1 (kg = S_pad, vg = Dp).
+// The pa layout is NGV = 1 (vg = Dp) and NG = 1 (kg = S_pad), or NG > 1 K
+// slot groups that tile each bit-plane (W % kg == 0: the chunked prefill's
+// carry, one group per chunk); a split then lies inside one group's
+// byte-rows (rows_per_split divides kg), and plane p's slots fold the
+// query of group p * W / kg + row0 / kg.
 //
 // Output: e-domain online-softmax partials (acc [G, D], m [G], l [G]) of the
 // G query heads of the KV head, out = acc / l after merging with other
@@ -82,13 +86,22 @@ __device__ __forceinline__ float bf16_round(float x) {
 // probabilities, V zero a separately rescaled scalar), as
 // ops/quant.py::quant_region_attention_fused; else f32 dequantization of
 // every element, as ops/quant.py::quant_decode_attention_plain.
+// Folded query copies of the pa kernel: one per bit-plane, where they fit
+// the 48 KB of static shared memory beside wacc (every shape but G = 8 with
+// 2-bit codes); else one, and the wrappers refuse NG > 1.
+template <int G, int NBITS, bool PA>
+__host__ __device__ constexpr int q_copies() {
+  return PA && G * (8 / NBITS) <= 16 ? 8 / NBITS : 1;
+}
+
 template <int G, int NBITS, bool PA>
 __device__ void region_partials(const Args& a, int bk, int row0, int row1,
                                 int out) {
   constexpr int PER = 8 / NBITS;
+  constexpr int QP = q_copies<G, NBITS, PA>();
   constexpr uint32_t MASK = (1u << NBITS) - 1u;
-  __shared__ __align__(16) float qs[G][D];
-  __shared__ float zb[G];
+  __shared__ __align__(16) float qs[QP][G][D];
+  __shared__ float zb[QP][G];
   __shared__ float wm[NWARPS][G];
   __shared__ float wl[NWARPS][G];
   __shared__ float wz[NWARPS][G];
@@ -101,19 +114,26 @@ __device__ void region_partials(const Args& a, int bk, int row0, int row1,
   const __nv_bfloat16* qg = a.q + (size_t)bk * G * D;
   const float* ksb = a.ks + (size_t)bk * D * a.NG;
   const float* kzb = a.kz + (size_t)bk * D * a.NG;
-  for (int i = tid; i < G * D; i += NWARPS * 32) {
-    const float x = __bfloat162float(qg[i]);
+  // pa: the K group of plane p's slots in this block's byte-rows
+  const int gpl = a.W / a.kg, grow = row0 / a.kg;
+  for (int i = tid; i < QP * G * D; i += NWARPS * 32) {
+    const int p = i / (G * D), g = (i / D) % G, d = i % D;
+    const float x = __bfloat162float(qg[g * D + d]);
     // group: the raw query (logits = (q . k) * scale, as the plain version);
     // pa: q * scale * ks rounded to bf16, as the plain version's bf16 dot
-    qs[i / D][i % D] = PA ? bf16_round(x * a.scale * ksb[i % D]) : x;
+    qs[p][g][d] =
+        PA ? bf16_round(x * a.scale * ksb[(size_t)d * a.NG + p * gpl + grow]) : x;
   }
-  if (PA && warp < G) {  // K zero term: scale * (q . kz), f32
+  for (int t = warp; PA && t < QP * G; t += NWARPS) {
+    // K zero term of (plane copy t / G, head t % G): scale * (q . kz), f32
+    const int p = t / G, g = t % G;
     float z = 0.f;
     for (int d = lane; d < D; d += 32) {
-      z = fmaf(__bfloat162float(qg[warp * D + d]) * a.scale, kzb[d], z);
+      z = fmaf(__bfloat162float(qg[g * D + d]) * a.scale,
+               kzb[(size_t)d * a.NG + p * gpl + grow], z);
     }
     z = warp_sum(z);
-    if (lane == 0) zb[warp] = z;
+    if (lane == 0) zb[p][g] = z;
   }
   __syncthreads();
 
@@ -163,7 +183,8 @@ __device__ void region_partials(const Args& a, int bk, int row0, int row1,
                 kv = fmaf(kv, __ldg(ksb + o), __ldg(kzb + o));
               }
 #pragma unroll
-              for (int g = 0; g < G; ++g) dot[p][g] = fmaf(qs[g][d], kv, dot[p][g]);
+              for (int g = 0; g < G; ++g)
+                dot[p][g] = fmaf(qs[QP == 1 ? 0 : p][g][d], kv, dot[p][g]);
             }
           }
         }
@@ -174,7 +195,9 @@ __device__ void region_partials(const Args& a, int bk, int row0, int row1,
         const bool valid = slot < a.n_valid && mb[slot] != 0;
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          s[p][g] = !valid ? NEG : (PA ? dot[p][g] + zb[g] : dot[p][g] * a.scale);
+          s[p][g] = !valid ? NEG
+                           : (PA ? dot[p][g] + zb[QP == 1 ? 0 : p][g]
+                                 : dot[p][g] * a.scale);
         }
       }
     } else {

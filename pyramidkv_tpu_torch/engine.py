@@ -3,18 +3,21 @@ bucketed prefill with compression, then greedy decode over the compressed
 cache.
 
 Prompts are left-padded to the smallest bucket that fits; the whole batch
-runs one monolithic prefill (``models.llama.prefill``) and a Python decode
-loop of ``models.llama.decode_step`` with the JAX loop's ``done`` / ``-1`` /
-EOS semantics.  The loop reads ``done`` back each step (one host sync per
-token); capturing the step in a CUDA graph is later work (ROADMAP).
+runs one monolithic prefill (``models.llama.prefill``), or with
+``EngineSpec.prefill_chunk`` a chunked one (``models/chunked_prefill.py``,
+a Python loop over the chunks, H2O's run twice) where the plan supports
+it, and a Python decode loop of ``models.llama.decode_step`` with the JAX
+loop's ``done`` / ``-1`` / EOS semantics.  The loop reads ``done`` back
+each step (one host sync per token); capturing the step in a CUDA graph is
+later work (ROADMAP).
 
-Ported: greedy decoding, ``fullkv`` / ``snapkv`` / ``pyramidkv`` /
+Ported: greedy decoding, ``fullkv`` / ``snapkv`` / ``pyramidkv`` / ``h2o`` /
 ``minference`` (vertical-and-slash sparse prefill, fullkv cache), with bf16
 or quantized weights (``models/weights.py``: int8, packed int4 per channel
-or per group, fused or not) and a bf16 or KIVI cache (``quant_method=
-"kivi"``: 8/4/2 bits, group or pa layout; KVQuant raises).  Sampling,
-``prefix`` handles, chunked prefill and speculative decoding raise
-``NotImplementedError`` (ROADMAP queue 1).
+or per group, fused or not), a bf16 or KIVI cache (``quant_method=
+"kivi"``: 8/4/2 bits, group or pa layout; KVQuant raises), monolithic or
+chunked prefill.  Sampling, ``prefix`` handles and speculative decoding
+raise ``NotImplementedError`` (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from .cache import cache_memory_bytes
 from .config import CompressionSpec, EngineSpec, ModelSpec
+from .models import chunked_prefill as cp
 from .models import llama
 from .models.weights import QuantW
 from .policy import PolicyPlan, make_plan
@@ -94,10 +98,10 @@ class Engine:
                     "Engine: no CUDA device; pass device='cpu' for the CPU")
             device = "cuda"
         es = engine_spec
-        if not es.greedy or es.prefill_chunk is not None or es.speculative:
+        if not es.greedy or es.speculative:
             raise NotImplementedError(
-                "sampling, chunked prefill and speculative decoding are not "
-                "ported yet (ROADMAP queue 1)")
+                "sampling and speculative decoding are not ported yet "
+                "(ROADMAP queue 1)")
         if comp_spec.quant_method is not None and (
                 es.use_quant_scan
                 or (es.use_quant_fused and comp_spec.q_layout == "group")):
@@ -122,6 +126,49 @@ class Engine:
     def plan_for(self, bucket: int) -> PolicyPlan:
         return make_plan(self.comp_spec, self.model_spec.num_hidden_layers,
                          bucket, self.engine_spec.max_new_tokens)
+
+    def chunked_prefill_supported(self, bucket: int) -> bool:
+        """True when ``generate`` prefills this bucket in chunks: a
+        ``prefill_chunk`` dividing the bucket, no wider window than the
+        chunk, and a plan one of the two carries takes."""
+        c = self.engine_spec.prefill_chunk
+        if c is None or bucket % c != 0:
+            return False
+        plan = self.plan_for(bucket)
+        return plan.window <= c and (cp.supports_chunked(plan)
+                                     or cp.supports_chunked_quant(plan, c))
+
+    def _run_chunked_prefill(self, bucket: int, tokens: torch.Tensor,
+                             true_len: torch.Tensor):
+        """Every chunk of the bucket, then the finish: (logits, cache).  H2O
+        runs the chunks twice (the second pass accumulates its scores)."""
+        plan = self.plan_for(bucket)
+        c = self.engine_spec.prefill_chunk
+        b = tokens.shape[0]
+        spec, p, impl = self.model_spec, self.params, self.attention_impl
+        chunks = range(bucket // c)
+        if cp.supports_chunked_quant(plan, c):
+            state = cp.init_quant_state(spec, plan, b, c, self.device)
+            for i in chunks:
+                hidden = cp.prefill_chunk_quant(
+                    p, spec, plan, state, tokens[:, i * c:(i + 1) * c],
+                    true_len, i * c, attention_impl=impl)
+            return cp.prefill_finish_quant(p, spec, plan, state, hidden,
+                                           true_len, c, attention_impl=impl)
+        state = cp.init_state(spec, plan, b, p["final_norm"].dtype,
+                              self.device)
+        acc = (cp.init_h2o_scores(spec, plan, b, self.device)
+               if cp.needs_score_pass(plan) else None)
+        passes = [None] if acc is None else [None, acc]
+        for score_acc in passes:
+            for i in chunks:
+                window_q, hidden = cp.prefill_chunk(
+                    p, spec, plan, state, tokens[:, i * c:(i + 1) * c],
+                    true_len, chunk_start=i * c, attention_impl=impl,
+                    score_acc=score_acc)
+        return cp.prefill_finish(p, spec, plan, state, window_q, hidden,
+                                 true_len, attention_impl=impl,
+                                 h2o_raw_scores=acc)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -158,9 +205,13 @@ class Engine:
         true_len = torch.tensor(lens, dtype=torch.int32, device=dev)
 
         t0 = time.perf_counter()
-        logits, cache = llama.prefill(self.params, self.model_spec, plan,
-                                      tokens, true_len,
-                                      attention_impl=self.attention_impl)
+        if self.chunked_prefill_supported(bucket):
+            logits, cache = self._run_chunked_prefill(bucket, tokens,
+                                                      true_len)
+        else:
+            logits, cache = llama.prefill(self.params, self.model_spec, plan,
+                                          tokens, true_len,
+                                          attention_impl=self.attention_impl)
         if eos_token_ids:
             # min_length = context + 1: at least one real token
             logits[:, list(eos_token_ids)] = float("-inf")

@@ -4,12 +4,15 @@ from .block_sparse_prefill import (slash_tile_attention,
                                    slash_tile_attention_db,
                                    vertical_attention_partials)
 from .decode_attn import decode_attention
-from .flash_prefill import flash_causal_attention
+from .flash_prefill import flash_attention_partials, flash_causal_attention
+from .h2o_scores import h2o_colsum, h2o_row_stats, h2o_scores
 from .int4_matmul import int4_matmul, int4_matmul_dma, int8_matmul
 from .quant_decode import quant_decode_attention, quant_decode_attention_tiled
 from .quant_fused_decode import quant_fused_attention_pa
 
-__all__ = ["decode_attention", "flash_causal_attention", "int4_matmul",
+__all__ = ["decode_attention", "flash_attention_partials",
+           "flash_causal_attention", "h2o_colsum", "h2o_row_stats",
+           "h2o_scores", "int4_matmul",
            "int4_matmul_dma", "int8_matmul", "quant_decode_attention",
            "quant_decode_attention_tiled", "quant_fused_attention_pa",
            "slash_tile_attention", "slash_tile_attention_db",

@@ -31,8 +31,14 @@ _F = ctypes.c_float
 _REGION = [_P] * 14 + [_I] * 12 + [_F] + [_P] * 3 + [_I] * 2 + [_P] * 2
 #: C signatures of each library's entry points: [(symbol, argtypes), ...]
 ENTRY_POINTS = {
-    "flash_prefill": [("pkv_flash_prefill",
-                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P])],
+    "flash_prefill": [
+        ("pkv_flash_prefill", [_P] * 5 + [_I] * 8 + [_F, _P]),
+        ("pkv_flash_partials", [_P] * 7 + [_I] * 6 + [_F, _P]),
+    ],
+    "h2o_scores": [
+        ("pkv_h2o_stats", [_P] * 5 + [_I] * 5 + [_F, _P]),
+        ("pkv_h2o_colsum", [_P] * 6 + [_I] * 5 + [_F, _P]),
+    ],
     "decode_attn": [("pkv_decode_attn",
                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P])],
     "int4_matmul": [

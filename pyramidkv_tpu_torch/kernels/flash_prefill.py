@@ -1,10 +1,11 @@
-"""Causal flash-attention prefill: wrapper of ``csrc/flash_prefill.cu``.
+"""Causal flash-attention prefill: wrappers of ``csrc/flash_prefill.cu``.
 
-Counterpart of ``pyramidkv_tpu/kernels/flash_prefill.py::
-flash_causal_attention`` in its default schedule (one pass, ``sub_k=1``,
-``q_start=0``).  On a CUDA tensor it launches the hand-written sm_90a
-kernel; on a CPU tensor it runs the plain version
-(``ops.attention.causal_prefill_attention``).
+Counterparts of ``pyramidkv_tpu/kernels/flash_prefill.py``'s
+``flash_causal_attention`` in its default schedule (one pass, ``sub_k=1``,
+any ``q_start``) and ``flash_attention_partials``.  On a CUDA tensor each
+launches the hand-written sm_90a kernel; on a CPU tensor it runs the plain
+version (``ops.attention.causal_prefill_attention``,
+``ops.attention.flash_partials_plain``).
 """
 
 from __future__ import annotations
@@ -14,12 +15,43 @@ from typing import Optional
 
 import torch
 
-from ..ops.attention import causal_prefill_attention
+from ..ops.attention import causal_prefill_attention, flash_partials_plain
 from . import _build
 
 #: q rows per block and keys per tile of the CUDA kernel
 TILE = 64
 HEAD_DIM = 128
+
+
+def _check(q, k, v, true_len, nq_ok: bool, ldk: int):
+    """Shape/dtype/device checks shared by both wrappers; returns the
+    true_len tensor the kernel reads.  k and v may be the first N rows of
+    a buffer of ``ldk`` rows per head."""
+    b, h, nq, d = q.shape
+    hk, n = k.shape[1], k.shape[2]
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name} must be bfloat16")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    want = (hk * ldk * d, ldk * d, d, 1)
+    if not q.is_contiguous() or ldk < n or any(
+            st != w for t in (k, v)
+            for size, st, w in zip(t.shape, t.stride(), want) if size > 1):
+        raise ValueError("q must be contiguous, k and v [B, Hk, N, D] views "
+                         "of contiguous [B, Hk, >= N, D] buffers")
+    if k.shape != (b, hk, n, d) or v.shape != k.shape or h % hk or not nq_ok:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if d != HEAD_DIM or n % TILE or nq % TILE:
+        raise ValueError(f"kernel takes D == {HEAD_DIM} and N, Nq % {TILE} "
+                         f"== 0, got D={d} N={n} Nq={nq}")
+    tl = true_len.to(device=q.device, dtype=torch.int32).contiguous()
+    if tl.shape != (b,):
+        raise ValueError(f"true_len must be [{b}], got {tuple(tl.shape)}")
+    return tl
 
 
 def flash_causal_attention(
@@ -35,46 +67,75 @@ def flash_causal_attention(
 ) -> torch.Tensor:
     """Causal GQA attention over a left-padded buffer.
 
-    q: [B, H, N, D]; k, v: [B, Hk, N, D]; true_len: [B] int.
-    Returns [B, H, N, D]; rows below the left pad are 0 on the card (no
+    q: [B, H, Nq, D]; k, v: [B, Hk, N, D] (on the card: contiguous, or the
+    first N rows of a contiguous [B, Hk, >= N, D] buffer, as a prefill chunk
+    reads its carry); true_len: [B] int.  The queries sit at global columns
+    [q_start, q_start + Nq) of the keys (a prefill chunk: q_start + Nq == N;
+    the monolithic prefill: q_start = 0, Nq == N).
+    Returns [B, H, Nq, D]; rows below the left pad are 0 on the card (no
     visible key) and unspecified on the CPU path — callers never read them.
     """
-    if softcap is not None or q_start != 0:
+    if softcap is not None:
         raise NotImplementedError(
-            "softcap and q_start are not ported yet (ROADMAP queue 2)")
+            "softcap is not ported yet (Gemma-2, ROADMAP queue 1 #10)")
     if q.device.type == "cpu":
         return causal_prefill_attention(
             q, k, v, true_len=true_len, sliding_window=sliding_window,
-            scale=scale)
-    b, h, n, d = q.shape
-    hk = k.shape[1]
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous bfloat16")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    if k.shape != (b, hk, n, d) or v.shape != k.shape or h % hk:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
-    if d != HEAD_DIM or n % TILE:
-        raise ValueError(f"kernel takes D == {HEAD_DIM} and N % {TILE} == 0, "
-                         f"got D={d} N={n}")
-    tl = true_len.to(device=q.device, dtype=torch.int32).contiguous()
-    if tl.shape != (b,):
-        raise ValueError(f"true_len must be [{b}], got {tuple(tl.shape)}")
+            scale=scale, q_start=q_start)
+    b, h, nq, d = q.shape
+    hk, n = k.shape[1], k.shape[2]
+    # rows per head of the buffer k and v view (size-1 dims carry no stride)
+    ldk = (k.stride(1) // d if hk > 1 else k.stride(0) // d if b > 1 else n)
+    tl = _check(q, k, v, true_len,
+                q_start + nq == n or (q_start == 0 and nq == n), ldk)
     out = torch.empty_like(q)
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
     lib = _build.library("flash_prefill")
     err = lib.pkv_flash_prefill(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), tl.data_ptr(),
-        out.data_ptr(), b, h, hk, n, int(sliding_window or 0), float(sc),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), b, h, hk, n, ldk, nq, q_start,
+        int(sliding_window or 0),
+        float(sc), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_prefill")
     flash_causal_attention.launches += 1
     return out
 
 
+def flash_attention_partials(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    true_len: torch.Tensor,
+    *,
+    q_start: int = 0,
+):
+    """Online-softmax partials of causal GQA attention, statistics in the
+    BASE-2 domain (see ``ops.attention.flash_partials_plain``).
+
+    q: [B, H, Nq, D]; k, v: [B, Hk, N, D]; true_len: [B] valid keys (at the
+    right end of the tile).  ``q_start == 0`` (Nq == N): the causal self
+    tile; ``q_start >= N``: every key precedes every query.  Returns (acc
+    [B, H, Nq, D], m [B, H, Nq], l [B, H, Nq]) f32."""
+    if q.device.type == "cpu":
+        return flash_partials_plain(q, k, v, true_len, q_start=q_start)
+    b, h, nq, d = q.shape
+    hk, n = k.shape[1], k.shape[2]
+    tl = _check(q, k, v, true_len,
+                (q_start == 0 and nq == n) or q_start >= n, n)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.empty((b, h, nq, d), **f32)
+    m = torch.empty((b, h, nq), **f32)
+    l = torch.empty((b, h, nq), **f32)
+    lib = _build.library("flash_prefill")
+    err = lib.pkv_flash_partials(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), tl.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, hk, n, nq, q_start,
+        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_partials")
+    flash_attention_partials.launches += 1
+    return acc, m, l
+
+
 #: kernel launches since the last reset (CPU calls do not count)
 flash_causal_attention.launches = 0
+flash_attention_partials.launches = 0

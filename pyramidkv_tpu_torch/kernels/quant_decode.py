@@ -86,11 +86,12 @@ def _check_tail(tail, q: torch.Tensor, hk: int):
 
 def launch_region(symbol: str, lib: str, q: torch.Tensor,
                   reg: QuantizedKVRegion, mask: torch.Tensor, nbits: int,
-                  split: bool, tail=None):
+                  split: bool, tail=None, split_within: int = 0):
     """Check the shapes, allocate the outputs (and the workspace) and
     launch ``symbol`` of ``csrc/<lib>.cu``.  Returns (acc, m, l), or with
     ``tail`` the attention output over region and tail, [B, H, D] in q's
-    dtype."""
+    dtype.  ``split_within``: a byte-row count each split's rows must lie
+    inside (their count divides it)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, h, d = q.shape
@@ -139,6 +140,9 @@ def launch_region(symbol: str, lib: str, q: torch.Tensor,
         res = torch.empty_like(q)
         outs = (None, None, None, res.data_ptr())
     nsplit, rows = split_plan(q.device, b * hk, w) if split else (1, w)
+    if split_within:
+        rows = math.gcd(rows, split_within)
+        nsplit = -(-w // rows)
     if split or tail is not None:
         ws = (torch.empty((b * hk * nsplit, g, d), **f32),
               torch.empty((b * hk * nsplit, g), **f32),

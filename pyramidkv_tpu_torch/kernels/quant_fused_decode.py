@@ -6,11 +6,12 @@ Counterpart of ``pyramidkv_tpu/kernels/quant_fused_decode.py``'s
 ``region_attention_fused_kernel``: the affine dequantization folds through
 the attention algebra (K scale into the bf16 query, K zero into a logit
 bias, V scale into the bf16 probabilities, V zero into a per-row scalar), so
-no dequantized copy exists.  On a CUDA tensor it launches the hand-written
-sm_90a kernel (slots split across blocks, a finish pass merging them); on a
-CPU tensor it runs the plain version
-(``ops.quant.quant_region_attention_fused``).  Arguments and results as
-``kernels/quant_decode.py``.
+no dequantized copy exists.  K may carry one scale group per chunk (the
+chunked prefill's region): the query then folds once per group.  On a CUDA
+tensor it launches the hand-written sm_90a kernel (slots split across
+blocks, a finish pass merging them); on a CPU tensor it runs the plain
+version (``ops.quant.quant_region_attention_fused``).  Arguments and
+results as ``kernels/quant_decode.py``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.quant import (QuantizedKVRegion, merge_tail,
-                         quant_region_attention_fused)
+                         quant_region_attention_fused, region_geometry)
 from .quant_decode import check_unsupported, launch_region
 
 
@@ -30,13 +31,21 @@ def quant_fused_attention_pa(q: torch.Tensor, reg: QuantizedKVRegion,
     ``tail`` the layer's attention output over region and tail, [B, H, D]
     in q's dtype (see ``quant_decode_attention``)."""
     check_unsupported(scale, softcap)
-    if reg.k.scale.shape[-2] != 1 or reg.v.scale.shape[-2] != 1:
-        raise ValueError("quant_fused_attention_pa takes the pa layout")
+    w, _, kg, _ = region_geometry(reg, nbits)
+    gk = reg.k.scale.shape[-2]
+    if reg.v.scale.shape[-2] != 1 or (gk > 1 and w % kg):
+        raise ValueError("quant_fused_attention_pa takes the pa layout: one "
+                         "V group, K groups that tile each bit-plane")
     if q.device.type == "cpu":
         return merge_tail(quant_region_attention_fused(q, reg, mask,
                                                        nbits=nbits), q, tail)
+    if gk > 1 and q.shape[1] // reg.k.codes.shape[1] * (8 // nbits) > 16:
+        raise ValueError("the pa kernel folds K groups for G * 8 / nbits <= "
+                         "16 (one query copy per bit-plane in shared memory)")
+    # with K groups, each split stays inside one group's byte-rows
     out = launch_region("pkv_quant_fused_pa", "quant_fused_decode", q, reg,
-                        mask, nbits, split=True, tail=tail)
+                        mask, nbits, split=True, tail=tail,
+                        split_within=kg if gk > 1 else 0)
     quant_fused_attention_pa.launches += 1
     return out
 

@@ -12,6 +12,7 @@ package's argument of the same name: ``"kernel"`` calls the kernel wrappers
 (the CUDA kernels on CUDA tensors, their plain versions on CPU tensors),
 ``"plain"`` calls the plain PyTorch functions — for attention and for the
 decode-sized weight matmuls of quantized params alike (``weights.mm``).
+``attention_impl`` also picks H2O's scores (``policy.compress_layer``).
 With ``method="minference"`` and a bucket of at least
 ``minference_dense_below`` tokens, each layer's prefill attention is the
 vertical-and-slash sparse attention of ``ops/sparse_prefill.py`` (its three
@@ -242,20 +243,10 @@ def prefill(
                                  wts["wo"], attention_impl)
             hidden = hidden + _mlp(rms_norm(hidden, wts["mlp_norm"], eps),
                                    wts, attention_impl)
-            ckv = compress_layer(sub, keep[li], q, k, v, true_len=true_len)
-            if cs.quant_method is not None:
-                # quantize the (immutable) compacted prefill slots now, so
-                # one layer's bf16 region is live at a time; the stack keeps
-                # only the bf16 decode slots
-                sp = sub.prefill_slots
-                regions.append(quant.quantize_kv_region(
-                    ckv.k[:, :, :sp], ckv.v[:, :, :sp], nbits=cs.nbits,
-                    group_size=cs.q_group_size, layout=cs.q_layout))
-                ckv = ckv._replace(k=ckv.k[:, :, sp:], v=ckv.v[:, :, sp:])
-            if stack is None:
-                stack = [t.new_empty((stop - start, *t.shape)) for t in ckv]
-            for buf, t in zip(stack, ckv):
-                buf[li - start] = t
+            ckv = compress_layer(sub, keep[li], q, k, v, true_len=true_len,
+                                 attention_impl=attention_impl)
+            stack = stack_layer(stack, ckv, li - start, stop - start, sub,
+                                regions)
         seg_stacks.append(stack)
     logits = _logits(hidden[:, -1, :], params, spec, attention_impl)
     return logits, assemble_cache(seg_stacks, true_len, regions)
@@ -293,6 +284,27 @@ def _sparse_attention(q, k, v, true_len, cs, budgets, li: int,
         q, k, v, pattern, true_len=true_len,
         tile_budget=cs.minference_tile_budget,
         slash_impl=cs.minference_slash_impl, impl=impl)
+
+
+def stack_layer(stack, ckv, i: int, layers: int, plan: PolicyPlan,
+                regions: list):
+    """Write one layer's compacted KV into slot ``i`` of its segment's
+    ``[layers, ...]`` stack (allocated at the first layer).  With a KIVI
+    plan the (immutable) compacted prefill slots are quantized now, so one
+    layer's bf16 region is live at a time: the region goes to ``regions``
+    and the stack keeps only the bf16 decode slots."""
+    cs = plan.spec
+    if cs.quant_method is not None:
+        sp = plan.prefill_slots
+        regions.append(quant.quantize_kv_region(
+            ckv.k[:, :, :sp], ckv.v[:, :, :sp], nbits=cs.nbits,
+            group_size=cs.q_group_size, layout=cs.q_layout))
+        ckv = ckv._replace(k=ckv.k[:, :, sp:], v=ckv.v[:, :, sp:])
+    if stack is None:
+        stack = [t.new_empty((layers, *t.shape)) for t in ckv]
+    for buf, t in zip(stack, ckv):
+        buf[i] = t
+    return stack
 
 
 def assemble_cache(seg_stacks: list, true_len: torch.Tensor,

@@ -1,9 +1,11 @@
 """Plain PyTorch attention: blockwise causal prefill and masked decode.
 
-These are the plain versions of the port's two CUDA kernels
+These are the plain versions of the port's flash and decode kernels
 (``kernels/flash_prefill.py``, ``kernels/decode_attn.py``) and the
 counterparts of ``pyramidkv_tpu/ops/attention.py``'s
-``causal_prefill_attention`` and ``decode_attention``.  The CPU path runs
+``causal_prefill_attention``, ``decode_attention``, ``tile_attention_partials``
+and ``merge_partials_pair``; :func:`flash_partials_plain` is the plain
+version of ``flash_attention_partials`` (base-2 statistics).  The CPU path runs
 them; on the card they are the references the kernels are held against.
 
 Numerics follow the JAX versions: operands in the storage dtype with f32
@@ -31,34 +33,36 @@ def causal_prefill_attention(
     block: int = 512,
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
+    q_start: int = 0,
 ) -> torch.Tensor:
     """Blockwise causal self-attention over a left-padded buffer.
 
-    q: [B, H, N, D]; k, v: [B, Hk, N, D] with H % Hk == 0 (each group of
+    q: [B, H, Nq, D]; k, v: [B, Hk, N, D] with H % Hk == 0 (each group of
     H/Hk query heads shares a KV head; no repeat_kv copy is made).
-    true_len: [B] — real tokens occupy columns [N - true_len, N).
+    true_len: [B] — real tokens occupy columns [N - true_len, N) of the key
+    buffer.  ``q_start`` places the queries at global columns [q_start,
+    q_start + Nq) (chunked prefill: q_start + Nq == N); the default 0 with
+    Nq == N is plain causal self-attention.
     The query-block loop bounds the f32 logits at [B, H, block, N]: N x N
-    logits are never held.  Returns [B, H, N, D] in q's dtype (padding rows
+    logits are never held.  Returns [B, H, Nq, D] in q's dtype (padding rows
     hold values the callers never read).
     """
-    b, h, n, d = q.shape
+    b, h, nq, d = q.shape
     hk = k.shape[1]
+    n = k.shape[2]
+    assert q_start + nq == n or (q_start == 0 and nq == n), (q_start, nq, n)
     g = h // hk
-    # cap the transient [B, H, block, N] f32 logits at ~256 MB, as JAX does
-    budget = (1 << 26) // max(b * h * n, 1)
-    block = max(min(block, budget), 8)
-    if n % block != 0:
-        block = math.gcd(n, block) or n
+    block = _row_block(block, b * h * n, nq)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     pad = (n - true_len).to(torch.int64)
     col = torch.arange(n, device=q.device)
     colv = col[None, :] >= pad[:, None]  # [B, N]
     kf = k.float().transpose(-1, -2)     # [B, Hk, D, N]
     vf = v.float()
-    qg = q.reshape(b, hk, g, n, d)
-    out = torch.empty((b, hk, g, n, d), dtype=q.dtype, device=q.device)
-    for r0 in range(0, n, block):
-        rows = r0 + torch.arange(block, device=q.device)
+    qg = q.reshape(b, hk, g, nq, d)
+    out = torch.empty((b, hk, g, nq, d), dtype=q.dtype, device=q.device)
+    for r0 in range(0, nq, block):
+        rows = q_start + r0 + torch.arange(block, device=q.device)
         causal = col[None, :] <= rows[:, None]  # [block, N]
         if sliding_window is not None:
             causal &= (rows[:, None] - col[None, :]) < sliding_window
@@ -69,7 +73,131 @@ def causal_prefill_attention(
         probs = torch.softmax(logits, dim=-1).to(v.dtype).float()
         ob = torch.matmul(probs.reshape(b, hk, g * block, n), vf)
         out[:, :, :, r0:r0 + block] = ob.reshape(b, hk, g, block, d).to(q.dtype)
-    return out.reshape(b, h, n, d)
+    return out.reshape(b, h, nq, d)
+
+
+def _row_block(block: int, row_elems: int, rows: int) -> int:
+    """A query-row block that divides ``rows`` and caps the transient
+    [rows_in_block, row_elems] f32 logits at ~256 MB, as JAX does."""
+    block = max(min(block, (1 << 26) // max(row_elems, 1)), 8)
+    if rows % block != 0:
+        block = math.gcd(rows, block) or rows
+    return block
+
+
+def flash_partials_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    true_len: torch.Tensor,
+    *,
+    q_start: int = 0,
+    block: int = 512,
+):
+    """Plain version of ``kernels/flash_prefill.py::flash_attention_partials``:
+    the online-softmax partials of causal GQA attention, with the statistics
+    in the BASE-2 domain, as the JAX kernel returns them.
+
+    q: [B, H, Nq, D]; k, v: [B, Hk, N, D]; true_len: [B] (keys at columns
+    < N - true_len are padding).  Queries sit at global columns [q_start,
+    q_start + Nq): ``q_start == 0`` with Nq == N is the causal self tile,
+    ``q_start >= N`` an all-visible rectangle (every key precedes every
+    query).  q is scaled by log2(e)/sqrt(D) and rounded to q's dtype (the
+    JAX wrapper's fold), so logits s are base-2 and
+    ``m = max s``, ``l = sum exp2(s - m)``, ``acc = sum p v`` with p rounded
+    to v's dtype.  A row with no visible key has m = float32.min, l = 0,
+    acc = 0.  Returns (acc [B, H, Nq, D], m [B, H, Nq], l [B, H, Nq]) f32;
+    merge in base 2 (``models/chunked_prefill.py::merge_exp2``).
+    """
+    b, h, nq, d = q.shape
+    hk, n = k.shape[1], k.shape[2]
+    assert q_start + nq >= n and (q_start == 0 or q_start >= n), (
+        q_start, nq, n)
+    g = h // hk
+    block = _row_block(block, b * h * n, nq)
+    sc = math.log2(math.e) / math.sqrt(d)
+    qr = (q.float() * sc).to(q.dtype).float().reshape(b, hk, g, nq, d)
+    pad = (n - true_len).to(torch.int64)
+    col = torch.arange(n, device=q.device)
+    colv = col[None, :] >= pad[:, None]  # [B, N]
+    kf = k.float().transpose(-1, -2)
+    vf = v.float()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.empty((b, hk, g, nq, d), **f32)
+    m = torch.empty((b, hk, g, nq), **f32)
+    l = torch.empty((b, hk, g, nq), **f32)
+    for r0 in range(0, nq, block):
+        rows = q_start + r0 + torch.arange(block, device=q.device)
+        mask = (col[None, :] <= rows[:, None])[None] & colv[:, None, :]
+        s = torch.matmul(qr[:, :, :, r0:r0 + block].reshape(
+            b, hk, g * block, d), kf).reshape(b, hk, g, block, n)
+        s = s.masked_fill(~mask[:, None, None], _NEG_INF)
+        mb = s.amax(dim=-1)
+        p = torch.exp2(s - mb.clamp_min(_NEG_INF / 2)[..., None])
+        l[..., r0:r0 + block] = p.sum(-1)
+        acc[..., r0:r0 + block, :] = torch.matmul(
+            p.to(v.dtype).float().reshape(b, hk, g * block, n), vf).reshape(
+                b, hk, g, block, d)
+        m[..., r0:r0 + block] = mb
+    return (acc.reshape(b, h, nq, d), m.reshape(b, h, nq),
+            l.reshape(b, h, nq))
+
+
+def tile_attention_partials(
+    q: torch.Tensor,
+    k_tile: torch.Tensor,
+    v_tile: torch.Tensor,
+    mask: torch.Tensor,
+    *,
+    q_block: int = 1024,
+):
+    """Natural-log online-softmax partials of a multi-row query block
+    against one K/V tile (JAX ``ops/attention.py::tile_attention_partials``).
+
+    q: [B, H, T, D]; k_tile, v_tile: [B, Hk, S, D]; mask: [B, T, S] or
+    [B, 1, S] visibility (causality and padding are the caller's).
+    Returns (acc [B, H, T, D], m [B, H, T], l [B, H, T]) f32; merge with
+    :func:`merge_partials_pair`."""
+    b, h, t, d = q.shape
+    hk, s_len = k_tile.shape[1], k_tile.shape[2]
+    g = h // hk
+    sc = 1.0 / math.sqrt(d)
+    mask = mask.expand(b, t, s_len)
+    kf = k_tile.float().transpose(-1, -2)
+    vf = v_tile.float()
+    qf = q.float().reshape(b, hk, g, t, d)
+    tb = t if t <= q_block or t % q_block else q_block
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.empty((b, hk, g, t, d), **f32)
+    m = torch.empty((b, hk, g, t), **f32)
+    l = torch.empty((b, hk, g, t), **f32)
+    for r0 in range(0, t, tb):
+        mb = mask[:, None, None, r0:r0 + tb]
+        logits = torch.matmul(qf[:, :, :, r0:r0 + tb].reshape(
+            b, hk, g * tb, d), kf).reshape(b, hk, g, tb, s_len) * sc
+        logits = logits.masked_fill(~mb, _NEG_INF)
+        mx = logits.amax(dim=-1)
+        p = torch.exp(logits - mx.clamp_min(_NEG_INF / 2)[..., None])
+        p = p.masked_fill(~mb, 0.0)
+        l[..., r0:r0 + tb] = p.sum(-1)
+        acc[..., r0:r0 + tb, :] = torch.matmul(
+            p.to(v_tile.dtype).float().reshape(b, hk, g * tb, s_len),
+            vf).reshape(b, hk, g, tb, d)
+        m[..., r0:r0 + tb] = mx
+    return (acc.reshape(b, h, t, d), m.reshape(b, h, t), l.reshape(b, h, t))
+
+
+def merge_partials_pair(a, b):
+    """Online-merge two natural-log partial triples (acc, m, l); a source
+    whose m <= float32.min / 2 (nothing visible) gets weight 0."""
+    acc1, m1, l1 = a
+    acc2, m2, l2 = b
+    m = torch.maximum(m1, m2)
+    w1 = torch.exp((m1 - m).clamp_max(0.0)).masked_fill(m1 <= _NEG_INF / 2,
+                                                        0.0)
+    w2 = torch.exp((m2 - m).clamp_max(0.0)).masked_fill(m2 <= _NEG_INF / 2,
+                                                        0.0)
+    return (acc1 * w1[..., None] + acc2 * w2[..., None], m, l1 * w1 + l2 * w2)
 
 
 def decode_attention(

@@ -185,7 +185,10 @@ def quant_region_attention_fused(q: torch.Tensor, reg: QuantizedKVRegion,
     feeds its bf16 dot), the K zero into a logit bias q . kz; the V per-token
     scale into the probabilities (rounded to bf16), the V zero into the
     scalar sum_t p_t vz_t added to every channel.  Bit-planes are separate
-    slot spans whose logits concatenate in planar slot order.
+    slot spans whose logits concatenate in planar slot order.  K may have
+    Gk > 1 slot groups (the chunked prefill's carry: one group per chunk),
+    each plane holding whole groups: the query then folds once per group,
+    and the zero term is a per-group bias.
 
     q: [B, H, D]; visible: [B, Hk, n] (n <= S_pad).  Returns (acc [B, H, D],
     m [B, H], l [B, H]) f32."""
@@ -193,21 +196,36 @@ def quant_region_attention_fused(q: torch.Tensor, reg: QuantizedKVRegion,
     hk = reg.k.codes.shape[1]
     g = h // hk
     per = 8 // nbits
-    w, s_pad, _, _ = region_geometry(reg, nbits)
-    if reg.k.scale.shape[-2] != 1 or reg.v.scale.shape[-2] != 1:
-        raise ValueError("quant_region_attention_fused takes the pa layout")
+    w, s_pad, kg_sz, _ = region_geometry(reg, nbits)
+    gk = reg.k.scale.shape[-2]
+    if reg.v.scale.shape[-2] != 1 or (gk > 1 and w % kg_sz):
+        raise ValueError("quant_region_attention_fused takes the pa layout: "
+                         "one V group, K groups that tile each bit-plane")
     mask = _pad_mask(visible, s_pad)
     qg = q.float().reshape(b, hk, g, d) * (1.0 / math.sqrt(d))
     ku = reg.k.codes.view(torch.uint8)
     vu = reg.v.codes.view(torch.uint8)
     mb = (1 << nbits) - 1
-    ks, kz = reg.k.scale[..., 0, 0], reg.k.zero[..., 0, 0]  # [B, Hk, D]
+    ks, kz = reg.k.scale[..., 0], reg.k.zero[..., 0]        # [B, Hk, D, Gk]
     vs, vz = reg.v.scale[..., 0, 0], reg.v.zero[..., 0, 0]  # [B, Hk, S_pad]
-    qs = (qg * ks[:, :, None, :]).to(torch.bfloat16).float()
-    z = torch.einsum("bkqd,bkd->bkq", qg, kz)
-    s = torch.cat([
-        torch.einsum("bkqd,bkwd->bkqw", qs, ((ku >> (p * nbits)) & mb).float())
-        + z[..., None] for p in range(per)], dim=-1)
+    planes = []
+    for p in range(per):
+        cp = ((ku >> (p * nbits)) & mb).float()             # [B, Hk, W, D]
+        if gk == 1:
+            qs = (qg * ks[:, :, None, :, 0]).to(torch.bfloat16).float()
+            z = torch.einsum("bkqd,bkd->bkq", qg, kz[..., 0])
+            planes.append(torch.einsum("bkqd,bkwd->bkqw", qs, cp)
+                          + z[..., None])
+            continue
+        gpl = w // kg_sz  # K groups per plane, plane p holds [p*gpl, ...)
+        grp = slice(p * gpl, (p + 1) * gpl)
+        qs = (qg[..., None] * ks[:, :, None, :, grp]).to(
+            torch.bfloat16).float()                          # [B,Hk,G,D,gpl]
+        z = torch.einsum("bkqd,bkdg->bkqg", qg, kz[..., grp])
+        s5 = torch.einsum("bkqdg,bkgtd->bkqgt", qs,
+                          cp.reshape(b, hk, gpl, kg_sz, d))
+        planes.append((s5 + z[..., None]).reshape(b, hk, g, w))
+    s = torch.cat(planes, dim=-1)
     valid = mask[:, :, None, :]
     s = s.masked_fill(~valid, _NEG_INF)
     m = s.amax(dim=-1)

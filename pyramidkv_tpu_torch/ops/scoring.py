@@ -1,12 +1,14 @@
-"""Observation-window key scoring (counterpart of
-``pyramidkv_tpu/ops/scoring.py``'s ``window_scores``).
+"""Key scoring (counterparts of ``pyramidkv_tpu/ops/scoring.py``'s
+``window_scores``, ``h2o_scores`` and ``h2o_partial_scores``).
 
 Scorers take post-RoPE projections in a left-padded buffer of length N
 (real tokens at ``[N - true_len, N)``) and return one score per non-window
 column, ``[B, H, N - W]``, with -inf at padding columns so selection is one
 fixed-width top-k.  The last W queries attend every key with the causal
 mask applied ONLY inside the trailing W x W block (the reference's quirk),
-softmax in f32, summed over the W rows, then pooled.
+softmax in f32, summed over the W rows, then pooled.  H2O sums the same
+softmax over ALL query rows, unpooled; :func:`h2o_scores` is the plain
+version of ``kernels/h2o_scores.py``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import math
 
 import torch
 
+from .attention import _row_block
 from .pooling import pool1d
 
 _NEG_INF = float("-inf")
@@ -67,3 +70,134 @@ def window_scores(
     s = s.masked_fill(~past_valid, 0.0)  # zero padding so pooling edges match
     s = pool1d(s, kernel_size, pooling)
     return s.masked_fill(~past_valid, _NEG_INF)
+
+
+def h2o_partial_scores(
+    q_rows: torch.Tensor,
+    k: torch.Tensor,
+    *,
+    row_start: int,
+    window_size: int,
+    true_len: torch.Tensor,
+    block: int = 512,
+) -> torch.Tensor:
+    """Column-sum contribution of the query rows [row_start, row_start + C)
+    to the H2O statistic, given the FULL key buffer.
+
+    Every row's softmax normalises over all n columns (the reference's
+    non-causal quirk: the causal mask only inside the trailing W x W block),
+    so a row's contribution is final once the whole K buffer exists; the
+    chunked prefill's second pass adds these per chunk.  q_rows: [B, H, C,
+    D]; k: [B, Hk, n, D] (the grouped product: no repeat_kv copy).  Logits
+    are f32 products of the operands (bf16 x bf16 is exact in f32).
+    Returns the UNMASKED [B, H, n - W] f32 accumulator (padding rows add
+    nothing; callers mask the padding columns once)."""
+    b, h, c, d = q_rows.shape
+    hk, n = k.shape[1], k.shape[2]
+    g = h // hk
+    w = window_size
+    block = _row_block(block, b * h * n, c)
+    colv = _column_valid(n, true_len)  # [B, n]
+    pad = (n - true_len).to(torch.int64)
+    kf = k.float().transpose(-1, -2)
+    qg = q_rows.reshape(b, hk, g, c, d)
+    col = torch.arange(n, device=k.device)
+    acc = torch.zeros((b, hk, g, n - w), dtype=torch.float32, device=k.device)
+    for r0 in range(0, c, block):
+        r = row_start + r0 + torch.arange(block, device=k.device)
+        logits = torch.matmul(
+            qg[:, :, :, r0:r0 + block].float().reshape(b, hk, g * block, d),
+            kf).reshape(b, hk, g, block, n) * (1.0 / math.sqrt(d))
+        # causal only where both row and column lie in the last W block
+        in_blk = (r[:, None] >= n - w) & (col[None, :] >= n - w)
+        hide = (in_blk & (col[None, :] > r[:, None]))[None] | ~colv[:, None]
+        logits = logits.masked_fill(hide[:, None, None], _NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        row_valid = (r[None, :] >= pad[:, None]).float()  # [B, block]
+        acc += (probs[..., :n - w]
+                * row_valid[:, None, None, :, None]).sum(dim=3)
+    return acc.reshape(b, h, n - w)
+
+
+def h2o_scores(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    *,
+    window_size: int,
+    true_len: torch.Tensor,
+    block: int = 512,
+) -> torch.Tensor:
+    """H2O heavy-hitter score, ``[B, H, N - W]`` f32, -inf at padding
+    columns: the softmax of ALL query rows (causal only inside the trailing
+    W x W block, padding rows and columns masked) summed down each
+    non-window column, unpooled.  q: [B, H, N, D]; k: [B, Hk, N, D]."""
+    n = q.shape[2]
+    acc = h2o_partial_scores(q, k, row_start=0, window_size=window_size,
+                             true_len=true_len, block=block)
+    past_valid = _column_valid(n, true_len)[:, None, :n - window_size]
+    return acc.masked_fill(~past_valid, _NEG_INF)
+
+
+def _h2o_logits2(q, k, r0: int, rows: int):
+    """Base-2 logits of query rows [r0, r0 + rows) against every key, as
+    the H2O kernels form them: q times log2(e)/sqrt(D) rounded to q's
+    dtype, f32 products.  -> [B, H, rows, N]."""
+    b, h, _, d = q.shape
+    hk, n = k.shape[1], k.shape[2]
+    g = h // hk
+    qs = (q[:, :, r0:r0 + rows].float() * (math.log2(math.e) / math.sqrt(d))
+          ).to(q.dtype).float().reshape(b, hk, g * rows, d)
+    return torch.matmul(qs, k.float().transpose(-1, -2)).reshape(
+        b, h, rows, n)
+
+
+def _h2o_hidden(r0: int, rows: int, n: int, w: int, colv: torch.Tensor):
+    """[B, rows, N] bool: key hidden from the row (padding column, or the
+    causal part of the trailing W x W block)."""
+    r = r0 + torch.arange(rows, device=colv.device)
+    col = torch.arange(n, device=colv.device)
+    blk = ((r[:, None] >= n - w) & (col[None, :] >= n - w)
+           & (col[None, :] > r[:, None]))
+    return blk[None] | ~colv[:, None, :]
+
+
+def h2o_row_stats(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
+                  true_len: torch.Tensor, block: int = 512):
+    """Plain version of the H2O stats kernel (``kernels/h2o_scores.py``):
+    per query row, m = max and l = sum of exp2(s - m) of its base-2 logits
+    over the visible keys.  -> (m, l) [B, H, N] f32."""
+    b, h, n, _ = q.shape
+    block = _row_block(block, b * h * n, n)
+    colv = _column_valid(n, true_len)
+    m = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    for r0 in range(0, n, block):
+        s = _h2o_logits2(q, k, r0, block).masked_fill(
+            _h2o_hidden(r0, block, n, window_size, colv)[:, None],
+            _NEG_INF)
+        mb = s.amax(dim=-1)
+        m[..., r0:r0 + block] = mb
+        l[..., r0:r0 + block] = torch.exp2(s - mb[..., None]).sum(-1)
+    return m, l
+
+
+def h2o_colsum(q: torch.Tensor, k: torch.Tensor, m: torch.Tensor,
+               l: torch.Tensor, *, window_size: int, true_len: torch.Tensor,
+               block: int = 512) -> torch.Tensor:
+    """Plain version of the H2O colsum kernel: given the row statistics
+    (m, l) [B, H, N], sum exp2(s - m) / max(l, 1e-30) down the valid rows
+    of each non-window column.  -> [B, H, N - W] f32, -inf at padding
+    columns.  (Columns < N - W never lie in the W x W block.)"""
+    b, h, n, _ = q.shape
+    w = window_size
+    block = _row_block(block, b * h * n, n)
+    colv = _column_valid(n, true_len)
+    acc = torch.zeros((b, h, n - w), dtype=torch.float32, device=q.device)
+    for r0 in range(0, n, block):
+        s = _h2o_logits2(q, k, r0, block)[..., :n - w]
+        mr = m[..., r0:r0 + block, None].clamp_min(-3.4e38 / 2)
+        inv = 1.0 / l[..., r0:r0 + block, None].clamp_min(1e-30)
+        p = torch.exp2(s - mr) * inv
+        row_valid = colv[:, None, r0:r0 + block, None]  # padding rows
+        acc += p.masked_fill(~row_valid, 0.0).sum(dim=2)
+    return acc.masked_fill(~colv[:, None, :n - w], _NEG_INF)

@@ -70,7 +70,7 @@ def static_selection_width(
         capw = cap - w
         max0 = capw * 2 - capw // spec.beta
         return min(max0, max(bucket_len - w, 1))
-    if m == "snapkv":
+    if m in ("snapkv", "h2o"):
         return min(cap - w, max(bucket_len - w, 1))
     raise NotImplementedError(
         f"method {m!r} is not ported yet (ROADMAP queue 1)")

@@ -1,10 +1,12 @@
 """Per-layer KV-compression policy: scoring -> selection -> compaction
 (counterpart of ``pyramidkv_tpu/policy.py``).
 
-Ported methods: ``fullkv``, ``snapkv``, ``pyramidkv`` and ``minference``,
-each with a bf16 cache or a KIVI-quantized one (``quant_method="kivi"``,
-8/4/2 bits, group or pa layout).  MInference sparsifies prefill attention
-only (``models/llama.py``); its cache is fullkv's.  The others raise
+Ported methods: ``fullkv``, ``snapkv``, ``pyramidkv``, ``h2o`` and
+``minference``, each with a bf16 cache or a KIVI-quantized one
+(``quant_method="kivi"``, 8/4/2 bits, group or pa layout).  MInference
+sparsifies prefill attention only (``models/llama.py``); its cache is
+fullkv's.  H2O scores every key by the column sums of the full prefill
+softmax (``kernels/h2o_scores.py``).  The others raise
 ``NotImplementedError`` (ROADMAP queue 1).
 """
 
@@ -12,18 +14,19 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .config import CompressionSpec
-from .ops.scoring import window_scores
+from .kernels.h2o_scores import h2o_scores as h2o_kernel
+from .ops.scoring import _column_valid, h2o_scores, window_scores
 from .ops.selection import (CompactedKV, compact_kv, pyramid_keep_counts,
                             selection_window, static_selection_width,
                             topk_select, uniform_keep_counts)
 
-PORTED_METHODS = ("fullkv", "snapkv", "pyramidkv", "minference")
+PORTED_METHODS = ("fullkv", "snapkv", "pyramidkv", "h2o", "minference")
 
 
 def _check_ported(spec: CompressionSpec) -> None:
@@ -168,7 +171,7 @@ def layer_contexts(plan: PolicyPlan, true_len: torch.Tensor) -> torch.Tensor:
     num_layers = plan.num_layers
     if spec.method == "pyramidkv":
         return pyramid_keep_counts(spec, num_layers, true_len)
-    if spec.method == "snapkv":
+    if spec.method in ("snapkv", "h2o"):
         return uniform_keep_counts(spec, true_len, spec.window_size)[
             None].expand(num_layers, -1)
     # fullkv and minference keep everything
@@ -189,11 +192,17 @@ def compress_layer(
     v: torch.Tensor,
     *,
     true_len: torch.Tensor,
+    attention_impl: str = "kernel",
+    h2o_raw_scores: Optional[torch.Tensor] = None,
 ) -> CompactedKV:
     """Compress one layer's prefill KV into the static slot layout.
 
     q: [B, H, N, D]; k, v: [B, Hk, N, D] post-RoPE, left-padded.
     keep_counts: [B] this layer's past-token keep counts.
+    ``attention_impl``: H2O's scores through the kernel wrapper
+    (``"kernel"``) or the plain function (``"plain"``).
+    ``h2o_raw_scores``: [B, H, N - W] column sums accumulated by the
+    chunked prefill's second pass; they replace H2O's (q, k) scoring.
     """
     spec = plan.spec
     b, h, n, d = q.shape
@@ -218,8 +227,18 @@ def compress_layer(
                 [pos, pos.new_zeros((b, hs, ds))], dim=2).to(torch.int32),
         )
     _check_ported(spec)
-    scores = window_scores(q, k, window_size=w, true_len=true_len,
-                           kernel_size=spec.kernel_size, pooling=spec.pooling)
+    if spec.method == "h2o":
+        if h2o_raw_scores is not None:
+            past_valid = _column_valid(n, true_len)[:, None, :n - w]
+            scores = h2o_raw_scores.masked_fill(~past_valid, float("-inf"))
+        else:
+            score_fn = (h2o_kernel if attention_impl == "kernel"
+                        else h2o_scores)
+            scores = score_fn(q, k, window_size=w, true_len=true_len)
+    else:
+        scores = window_scores(q, k, window_size=w, true_len=true_len,
+                               kernel_size=spec.kernel_size,
+                               pooling=spec.pooling)
     sel = topk_select(scores, plan.width, keep_counts)
     return compact_kv(k, v, sel, window_size=w,
                       decode_slots=plan.decode_slots, true_len=true_len)

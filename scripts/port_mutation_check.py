@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Mutation check of the port's KIVI region kernels and MInference's
-block-sparse prefill kernels, on a CUDA card.
+"""Mutation check of the port's KIVI region kernels, MInference's
+block-sparse prefill kernels, the H2O kernels and the chunked prefill's
+flash kernels, on a CUDA card.
 
     python3 scripts/port_mutation_check.py [--log FILE]
 
@@ -23,7 +24,15 @@ non-zero if a mutant was not caught.  Mutants:
   own checks and the db-against-grid check);
 - ``vertical_drop_last_chunk`` (``csrc/block_sparse_prefill.cu``): the
   vertical kernel stops before the last 64-column chunk that holds a valid
-  column.
+  column;
+- ``h2o_colsum_skip_last_q_tile`` (``csrc/h2o_scores.cu``): the colsum
+  kernel stops before the last 64-row query tile;
+- ``partials_drop_last_k_tile`` (``csrc/flash_prefill.cu``): the partials
+  entry skips the last key tile of every block (the self tile's diagonal,
+  a history tile's last 64 keys);
+- ``flash_q_start_edge`` (``csrc/flash_prefill.cu``): the key-tile loop's
+  causal edge one tile early (the global row of a block's first query
+  taken as q_start + q0 - 64), at every q_start.
 """
 
 from __future__ import annotations
@@ -62,6 +71,20 @@ MUTANTS = {
         "  int vlast = 0;\n"
         "  for (int c = 0; c < Vs; ++c) if (vvalid[col_base + c]) vlast = c;\n"
         "  for (int c0 = 0; c0 < vlast / BK * BK; c0 += BK) {"),
+    "h2o_colsum_skip_last_q_tile": (
+        "h2o_scores.cu", "phase_h2o_chunk_kernels", ("h2o_colsum",),
+        "  for (int qt = pad / BT; qt < N / BT; ++qt) {",
+        "  for (int qt = pad / BT; qt < N / BT - 1; ++qt) {"),
+    "partials_drop_last_k_tile": (
+        "flash_prefill.cu", "phase_h2o_chunk_kernels",
+        ("flash_attention_partials",),
+        "  const int kt_end = min(last_row, N - 1) / BK;",
+        "  const int kt_end = min(last_row, N - 1) / BK - (PARTIALS ? 1 : 0);"),
+    "flash_q_start_edge": (
+        "flash_prefill.cu", "phase_h2o_chunk_kernels",
+        ("flash_causal_attention (q_start)",),
+        "  const int g0 = q_start + q0;             // its global row",
+        "  const int g0 = q_start + q0 - BQ;"),
 }
 _RUN = """
 import json, sys, torch, torch.nn.functional as F
@@ -111,7 +134,8 @@ def main() -> int:
         line = json.dumps({"mutant": name, "source": source,
                            "caught": caught,
                            "min_err_over_tol_main": min(main_r),
-                           "min_err_over_tol_short": min(short_r),
+                           "min_err_over_tol_short": (min(short_r)
+                                                      if short_r else None),
                            "checks": recs})
         print(line, flush=True)
         if args.log:

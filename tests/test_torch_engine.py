@@ -74,13 +74,16 @@ def test_unported_engine_options_raise(params):
     spec = tcfg.ModelSpec.tiny()
     comp = tcfg.CompressionSpec(method="snapkv", **COMP)
     for es in (tcfg.EngineSpec(greedy=False, **ENG),
-               tcfg.EngineSpec(prefill_chunk=16, **ENG),
                tcfg.EngineSpec(speculative="ngram", **ENG)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(spec, comp, es, tp, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(spec, tcfg.CompressionSpec(method="h2o", **COMP),
+        Engine(spec, tcfg.CompressionSpec(method="cam", **COMP),
                tcfg.EngineSpec(**ENG), tp, device="cpu")
+    eng = Engine(spec, comp, tcfg.EngineSpec(prefill_chunk=16, **ENG), tp,
+                 device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.generate([[1, 2, 3]], prefix=object())
 
 
 # ---------------------------------------------------------------------------

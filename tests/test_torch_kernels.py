@@ -92,7 +92,8 @@ def test_unported_flash_options_raise():
     with pytest.raises(NotImplementedError):
         flash_causal_attention(x, x, x, torch.tensor([64]), softcap=50.0)
     with pytest.raises(NotImplementedError):
-        flash_causal_attention(x, x, x, torch.tensor([64]), q_start=8)
+        flash_causal_attention(x[:, :, 8:], x, x, torch.tensor([64]),
+                               q_start=8, softcap=50.0)
 
 
 def _bf16_err_over_tol(got, want):

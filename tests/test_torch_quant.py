@@ -274,6 +274,10 @@ def test_unported_quantization_raises():
     q, mask, _, treg = _case(4, 2, 128, 32, "group", 32, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         quant_decode_attention(_t(q), treg, _t(mask), nbits=4, softcap=30.0)
+    # the pa kernel takes per-token V with K groups that tile each plane
+    # (a chunked prefill's region); a group region with two V channel
+    # groups is not one
+    q, mask, _, treg = _case(4, 2, 128, 64, "group", 32, 1)
     with pytest.raises(ValueError, match="pa layout"):
         quant_fused_attention_pa(_t(q), treg, _t(mask), nbits=4)
 
