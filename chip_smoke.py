@@ -66,7 +66,20 @@ Phases (any failure exits non-zero):
  18. parity_h2o_chunked and profile_h2o_chunked: depth-2 logits, kernels
      against plain, for H2O, chunked snapkv and chunked kivi4-pa; CUDA-event
      stage times of the H2O 32k, chunked H2O 8k and chunked kivi4-pa 32k
-     prefills.
+     prefills;
+ 19. two_pass_kernels: the two-pass flash schedule's kernels (pass A's row
+     maxes, pass B against them) against their plain versions at the 8k
+     batch and bench.py's 32k prompt, timed beside the one-pass kernel and
+     masked SDPA (KIVI group regions' factored kernel is checked in
+     kv_quant_kernels, the route their runs take by default);
+ 20. engine_two_pass_prefix: ``Engine.generate`` with
+     ``prefill_two_pass=True`` ((g) the 8k batch, snapkv, bf16; (h) bench.py's
+     32k int4 snapkv) and with a prefix handle ((i) bf16 snapkv, chunk 2048,
+     a 6144-token prefix shared by 4 requests; (j) bench.py's 32k fullkv
+     kivi4-pa, int4, chunk 8192, a 24576-token quantized handle, on a
+     misaligned (pad 1) and an aligned (pad 0) prompt), each with its launch
+     counts held to the plan's and its first-token logits to its one-pass
+     or no-prefix twin's.
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -133,19 +146,23 @@ LLAMA_MM = {"wqkv": (4096, 6144), "wo": (4096, 4096),
 
 
 #: the KIVI runs of phase_engine_kv_quant: name -> (weights, method, nbits,
-#: layout, size).  "32k": bench.py's configuration (one 32767-token prompt,
-#: 128 new tokens, cap 128: snapkv keeps 128 slots per query head, one
-#: split, so it takes the whole-region group kernel) with int4 weights;
+#: layout, size, f32).  "32k": bench.py's configuration (one 32767-token
+#: prompt, 128 new tokens, cap 128: snapkv keeps 128 slots per query head,
+#: one split, so it takes a whole-region group kernel) with int4 weights;
 #: "8k": the bf16 main path's batch (4 x 8000/6000/3000/1000 tokens, 32 new
 #: tokens), snapkv's default cap 2048 (per-query-head storage, 32 heads;
-#: group regions take the tiled kernel).  q_group_size 64.
+#: group regions take a split kernel).  q_group_size 64.  Group regions
+#: decode by default through quant_fused_attention_group (the factored
+#: dequantization, JAX's default); ``f32`` runs set use_quant_kernel (JAX's
+#: opt-in route: the f32 kernels, whole or tiled by the split plan).
 KV_RUNS = {
-    "int4 fullkv kivi4-pa 32k": ("int4", "fullkv", 4, "pa", "32k"),
-    "int4 fullkv kivi4 32k": ("int4", "fullkv", 4, "group", "32k"),
-    "int4 snapkv kivi4 32k": ("int4", "snapkv", 4, "group", "32k"),
-    "bf16 snapkv kivi4 8k": ("bf16", "snapkv", 4, "group", "8k"),
-    "bf16 snapkv kivi2 8k": ("bf16", "snapkv", 2, "group", "8k"),
-    "bf16 snapkv kivi4-pa 8k": ("bf16", "snapkv", 4, "pa", "8k"),
+    "int4 fullkv kivi4-pa 32k": ("int4", "fullkv", 4, "pa", "32k", False),
+    "int4 fullkv kivi4 32k f32": ("int4", "fullkv", 4, "group", "32k", True),
+    "int4 snapkv kivi4 32k": ("int4", "snapkv", 4, "group", "32k", False),
+    "int4 snapkv kivi4 32k f32": ("int4", "snapkv", 4, "group", "32k", True),
+    "bf16 snapkv kivi4 8k": ("bf16", "snapkv", 4, "group", "8k", False),
+    "bf16 snapkv kivi2 8k": ("bf16", "snapkv", 2, "group", "8k", False),
+    "bf16 snapkv kivi4-pa 8k": ("bf16", "snapkv", 4, "pa", "8k", False),
 }
 #: kv_cache_bytes of the 32k fullkv runs, worked out by hand from the layout
 #: (per layer: K and V codes 16,777,216 each, K scale/zero 8,192 (pa) or
@@ -153,30 +170,34 @@ KV_RUNS = {
 #: slots 524,288; times 32 layers)
 KV_BYTES_32K = {"pa": 1_157_890_048, "group": 1_358_954_496}
 REGION_KERNELS = ("quant_decode_attention", "quant_decode_attention_tiled",
-                  "quant_fused_attention_pa")
+                  "quant_fused_attention_pa", "quant_fused_attention_group")
+#: the kernels of each layout: group (f32 whole, f32 tiled, factored), pa
+GROUP_KERNELS = ("quant_decode_attention", "quant_decode_attention_tiled",
+                 "quant_fused_attention_group")
 #: region kernels against their plain versions, on normalised outputs
-#: acc / l.  The group-layout kernels are f32 end to end, like their plain
+#: acc / l.  The f32 group kernels are f32 end to end, like their plain
 #: version (f32 dequantization, f32 attention): only the order of the f32
-#: sums differs (~2^-20 relative), so they pass within 2^-10.  The pa kernel
-#: rounds p * vs to bf16 at a running max where the plain version rounds at
-#: the row's final max (2^-9 noise per probability, at random), the noise
-#: the decode kernel's limit (TOL_TEXT) allows for.  m (f32 logits) is held
-#: within 2^-12 max(1, |m|) and l within 2^-10 l for all three.
-REGION_TOL = {"group": (2.0 ** -10, 2.0 ** -10),
-              "pa": (KERNEL_RTOL, KERNEL_ROW_TOL)}
+#: sums differs (~2^-20 relative), so they pass within 2^-10.  The folded
+#: kernels (pa, and the group layout's factored route) round p * vs to bf16
+#: at a running max where the plain version rounds at the row's final max
+#: (2^-9 noise per probability, at random), the noise the decode kernel's
+#: limit (TOL_TEXT) allows for.  m (f32 logits) is held within
+#: 2^-12 max(1, |m|) and l within 2^-10 l for all four.
+REGION_TOL = {"f32": (2.0 ** -10, 2.0 ** -10),
+              "folded": (KERNEL_RTOL, KERNEL_ROW_TOL)}
 #: the tail mode's bf16 outputs: the partials' limit on acc / l plus one
 #: bf16 ulp (<= 2^-7 |want|), since kernel and plain version may round
 #: their f32 results to neighbouring bf16 values
-TAIL_TOL = {"group": (2.0 ** -10 + 2.0 ** -7, 2.0 ** -10),
-            "pa": (KERNEL_RTOL + 2.0 ** -7, KERNEL_ROW_TOL)}
+TAIL_TOL = {"f32": (2.0 ** -10 + 2.0 ** -7, 2.0 ** -10),
+            "folded": (KERNEL_RTOL + 2.0 ** -7, KERNEL_ROW_TOL)}
 REGION_TOL_TEXT = {
-    "group": "|err| <= 2^-10 |want| + 2^-10 rms(want's row) on acc/l; "
-             "m within 2^-12 max(1,|m|), l within 2^-10 l",
-    "pa": TOL_TEXT + " on acc/l; m within 2^-12 max(1,|m|), l within "
-                     "2^-10 l"}
+    "f32": "|err| <= 2^-10 |want| + 2^-10 rms(want's row) on acc/l; "
+           "m within 2^-12 max(1,|m|), l within 2^-10 l",
+    "folded": TOL_TEXT + " on acc/l; m within 2^-12 max(1,|m|), l within "
+                         "2^-10 l"}
 TAIL_TOL_TEXT = {
-    "group": "|err| <= (2^-10 + 2^-7) |want| + 2^-10 rms(want's row)",
-    "pa": "|err| <= (2^-6 + 2^-7) |want| + 2^-5 rms(want's row)"}
+    "f32": "|err| <= (2^-10 + 2^-7) |want| + 2^-10 rms(want's row)",
+    "folded": "|err| <= (2^-6 + 2^-7) |want| + 2^-5 rms(want's row)"}
 
 #: MInference's block-sparse prefill kernels.  Their partials are held as
 #: the pa region kernel's: acc / l within TOL_TEXT (kernel and plain version
@@ -563,7 +584,7 @@ def _kernels():
             "decode_attention": kernels.decode_attention,
             **{k: getattr(kernels, k)
                for k in MM_KERNELS + REGION_KERNELS + SPARSE_KERNELS
-               + CHUNK_KERNELS}}
+               + CHUNK_KERNELS + TWO_PASS_KERNELS}}
 
 
 def reset_counts():
@@ -903,7 +924,7 @@ def phase_profile(torch, dev, params, vocab, method="snapkv", steps=8,
     return True
 
 
-def kv_spec(method, nbits, layout, size):
+def kv_spec(method, nbits, layout, size, *_):
     """CompressionSpec of a KIVI run (KV_RUNS) and its (bucket, max_new)."""
     from pyramidkv_tpu_torch.config import CompressionSpec
 
@@ -921,14 +942,15 @@ def kv_shape(run):
     from pyramidkv_tpu_torch.models.llama import region_route
     from pyramidkv_tpu_torch.policy import make_plan, stores_kv_heads
 
-    _, method, nbits, layout, size = KV_RUNS[run]
+    _, method, nbits, layout, size, f32 = KV_RUNS[run]
     cs, (bucket, max_new) = kv_spec(method, nbits, layout, size)
     plan = make_plan(cs, LAYERS, bucket, max_new)
     hm = HK if stores_kv_heads(cs) else H
     per = 8 // nbits
     s_pad = -(-plan.prefill_slots // (64 * per)) * 64 * per
     b = 1 if size == "32k" else B
-    route = region_route(cs, b * hm, s_pad // per, torch.device("cuda", 0))
+    route = region_route(cs, b * hm, s_pad // per, torch.device("cuda", 0),
+                         f32)
     return (route.__name__, b, hm, H // hm,
             plan.prefill_slots, nbits, s_pad)
 
@@ -936,7 +958,7 @@ def kv_shape(run):
 def kv_cache_bytes(run) -> int:
     """kv_cache_bytes a KIVI run must report, from its layout: the region's
     codes, scales and zeros plus the bf16 decode slots, 32 layers."""
-    _, method, nbits, layout, size = KV_RUNS[run]
+    _, method, nbits, layout, size, _ = KV_RUNS[run]
     _, b, hm, _, _, _, s_pad = kv_shape(run)
     per, g = 8 // nbits, 64
     ds = QMAX_NEW if size == "32k" else MAX_NEW
@@ -964,8 +986,9 @@ def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
     from pyramidkv_tpu_torch.ops import quant
 
     layout = "pa" if kind == "quant_fused_attention_pa" else "group"
+    tol = "folded" if kind.startswith("quant_fused") else "f32"
     kern = getattr(kernels, kind)
-    region_plain = (quant.quant_region_attention_fused if layout == "pa"
+    region_plain = (quant.quant_region_attention_fused if tol == "folded"
                     else quant.quant_decode_attention_plain)
 
     def plain(q, reg, mask, nbits, tail=None):
@@ -1008,8 +1031,8 @@ def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
                      / (2.0 ** -12 * want[1].abs().clamp_min(1.0))).max())
     l_ratio = float(((got[2] - want[2]).abs()
                      / (2.0 ** -10 * want[2]).clamp_min(1e-30)).max())
-    tail_ratio = err_over_tol(got_o, want_o, *TAIL_TOL[layout])
-    ratio = max(err_over_tol(og, ow, *REGION_TOL[layout]), m_ratio, l_ratio,
+    tail_ratio = err_over_tol(got_o, want_o, *TAIL_TOL[tol])
+    ratio = max(err_over_tol(og, ow, *REGION_TOL[tol]), m_ratio, l_ratio,
                 tail_ratio)
     w, s_pad, _, _ = quant.region_geometry(reg, nbits)
     rec = {"check": kind, "case": label, "B": b, "Hk": hk, "G": grp, "S": s,
@@ -1022,8 +1045,8 @@ def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
                                / want[2].clamp_min(1e-30)).max()),
            "tail_max_abs_err": float((got_o - want_o).abs().max()),
            "tail_err_over_tol": tail_ratio,
-           "tail_tol": TAIL_TOL_TEXT[layout],
-           "err_over_tol": ratio, "tol": REGION_TOL_TEXT[layout],
+           "tail_tol": TAIL_TOL_TEXT[tol],
+           "err_over_tol": ratio, "tol": REGION_TOL_TEXT[tol],
            "rms": float(ow.square().mean().sqrt()),
            "all_masked_row": [float(got[1][0, 0]), float(got[2][0, 0])]}
     if timed:
@@ -1071,20 +1094,24 @@ def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
 
 
 def phase_kv_quant_kernels(torch, F, dev):
-    """The three KIVI region kernels against their plain versions: short
+    """The four KIVI region kernels against their plain versions: short
     ragged regions first (a plane width that is no multiple of the 32-row
     chunk, K groups of 12 slots straddling chunks, a last split shorter than
     the others, an odd plane width with odd V rows), then each KIVI run's
     region shape, timed.  Returns (ok, {kernel: [timed recs]})."""
     ok = True
     # (kernel, B, Hk, G, slots, nbits, group size, tail slots): tails of 1
-    # (the first decode step) to 37 slots, some not a multiple of 4 warps
+    # (the first decode step) to 37 slots, some not a multiple of 4 warps;
+    # the factored group kernel on its whole-region and split plans
     short = (("quant_decode_attention", 2, 3, 2, 1000, 4, 12, 1),
              ("quant_decode_attention", 1, 4, 8, 40, 2, 16, 37),
              ("quant_decode_attention_tiled", 1, 8, 4, 4900, 4, 64, 6),
              ("quant_decode_attention_tiled", 2, 2, 1, 300, 8, 32, 2),
              ("quant_fused_attention_pa", 2, 2, 4, 1001, 8, 5, 13),
-             ("quant_fused_attention_pa", 1, 3, 2, 777, 2, 64, 1))
+             ("quant_fused_attention_pa", 1, 3, 2, 777, 2, 64, 1),
+             ("quant_fused_attention_group", 2, 3, 2, 1000, 4, 12, 1),
+             ("quant_fused_attention_group", 1, 8, 8, 4900, 2, 16, 37),
+             ("quant_fused_attention_group", 2, 2, 1, 300, 8, 32, 2))
     seed = 300
     for kind, b, hk, grp, s, nbits, gs, t_len in short:
         r, _ = check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs,
@@ -1092,7 +1119,8 @@ def phase_kv_quant_kernels(torch, F, dev):
         ok &= r
         seed += 1
     recs = {k: [] for k in REGION_KERNELS}
-    for run, (_, _, _, layout, size) in KV_RUNS.items():
+    checked = {}  # (kernel, region shape) -> the run it was checked for
+    for run, (_, _, _, layout, size, _) in KV_RUNS.items():
         kind, b, hm, grp, sp, nbits, _ = kv_shape(run)
         # the decode slots of the run: its tail at its last step
         t_len = QMAX_NEW if size == "32k" else MAX_NEW
@@ -1102,10 +1130,16 @@ def phase_kv_quant_kernels(torch, F, dev):
         rec["layers"] = LAYERS * (t_len - 1)
         recs[kind].append(rec)
         ok &= r
-        if layout == "group":
-            # the group kernel the route did not pick, timed at the same
-            # shape: the evidence for the route (kept out of the kernels line)
-            other = REGION_KERNELS[1 - REGION_KERNELS.index(kind)]
+        shape = (b, hm, grp, sp, nbits)
+        checked[(kind, shape)] = run
+        for other in (GROUP_KERNELS if layout == "group" else ()):
+            # a group kernel no run takes at this shape, timed there: the
+            # evidence for the routes (kept out of the kernels line)
+            if (other, shape) in checked or any(
+                    kv_shape(r2)[0] == other and kv_shape(r2)[1:6] == shape
+                    for r2 in KV_RUNS):
+                continue
+            checked[(other, shape)] = run
             r, _ = check_region(torch, F, dev, other, b, hm, grp, sp, nbits,
                                 64, True, seed, run + " (other route)", t_len)
             ok &= r
@@ -1117,9 +1151,9 @@ def phase_kv_quant_kernels(torch, F, dev):
 def phase_engine_kv_quant(torch, dev, params, q4, vocab):
     """``Engine.generate`` on a KIVI cache for each KV_RUNS configuration:
     every decode step sends each layer's region through exactly one region
-    kernel (the route its layout and size call for) and nothing through the
-    bf16 decode kernel; kv_cache_bytes equals the layout's.  Returns (ok,
-    {run: counts}, {run: decode tok/s})."""
+    kernel (the route its layout, size and ``f32`` flag call for) and
+    nothing through the bf16 decode kernel; kv_cache_bytes equals the
+    layout's.  Returns (ok, {run: counts}, {run: decode tok/s})."""
     from pyramidkv_tpu_torch.config import EngineSpec, ModelSpec
     from pyramidkv_tpu_torch.engine import Engine
 
@@ -1128,11 +1162,12 @@ def phase_engine_kv_quant(torch, dev, params, q4, vocab):
     rng = np.random.default_rng(0)
     p8 = [rng.integers(0, vocab, size=t).tolist() for t in TRUE_LEN]
     ok, counts, tok_s = True, {}, {}
-    for run, (wname, method, nbits, layout, size) in KV_RUNS.items():
+    for run, (wname, method, nbits, layout, size, f32) in KV_RUNS.items():
         cs, (bucket, max_new) = kv_spec(method, nbits, layout, size)
         prompts = p32 if size == "32k" else p8
         eng = Engine(spec, cs, EngineSpec(max_new_tokens=max_new,
-                                          prefill_buckets=(bucket,)),
+                                          prefill_buckets=(bucket,),
+                                          use_quant_kernel=f32),
                      q4 if wname == "int4" else params, device=dev)
         eng.generate(prompts, max_new_tokens=2)  # warm-up
         torch.cuda.synchronize()
@@ -1152,6 +1187,7 @@ def phase_engine_kv_quant(torch, dev, params, q4, vocab):
                 and out.kv_cache_bytes == want_bytes
                 and (size != "32k" or method != "fullkv"
                      or want_bytes == KV_BYTES_32K[layout])
+                and eng.f32_quant == f32
                 and eng.plan_for(bucket).segments == (
                     (0, LAYERS, eng.plan_for(bucket).width),)
                 and all(0 <= t < vocab for t in toks)
@@ -1185,7 +1221,7 @@ def phase_parity_kv_quant(torch, dev, params, vocab, steps=4):
     spec = ModelSpec.preset("llama3-8b", num_hidden_layers=2)
     ok = True
     for run in ("int4 fullkv kivi4-pa 32k", "bf16 snapkv kivi4 8k"):
-        wname, method, nbits, layout, size = KV_RUNS[run]
+        wname, method, nbits, layout, size, _ = KV_RUNS[run]
         cs, (bucket, max_new) = kv_spec(method, nbits, layout, size)
         p2 = dict(params, layers={k: v[:2]
                                   for k, v in params["layers"].items()})
@@ -1691,6 +1727,19 @@ KV_BYTES_32K_CHUNKED_PA = 1_158_676_480
 KV_BYTES_SNAPKV_32K = 134_217_728
 
 
+#: the two-pass flash schedule's kernels (pass A, pass B)
+TWO_PASS_KERNELS = ("flash_row_max", "flash_pass_b")
+#: pass A's row maxes against the plain version's: f32 dot products of the
+#: same bf16 values summed in other orders (~2^-20 relative)
+ROW_MAX_TOL_TEXT = ("m within 2^-12 max(1,|m|) (rows past the pad); rows "
+                    "with no visible key exactly float32.min")
+#: the 24576-token handle of run (j): three 8192-token chunks of bench.py's
+#: prompt; run (i)'s 6144-token prefix: three 2048-token chunks
+PREFIX_32K, PREFIX_8K = 3 * C32K, 3 * C8K
+#: run (i)'s requests (each starts with the 6144-token prefix)
+PREFIX_LENS = (8000, 7600, 7000, 6400)
+
+
 def _rand_bf16(torch, g, dev, *shape):
     return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
@@ -1988,6 +2037,110 @@ def phase_h2o_chunk_kernels(torch, F, dev):
     ok &= r and rec["k_groups"] == QN // C32K
     recs["pa_chunked"].append(rec)
     torch.cuda.empty_cache()
+    return ok, recs
+
+
+def check_two_pass(torch, F, dev, case, b, hk, n, true_len, seed):
+    """The two-pass schedule's kernels against their plain versions on one
+    shape: pass A's row maxes; pass B fed the plain row maxes (checked
+    alone); the composed ``flash_causal_attention(two_pass=True)`` against
+    the plain composition.  Rows past the pad within their limits, rows
+    with no visible key exact (m = float32.min, output 0).  Timed beside
+    the one-pass kernel and masked SDPA.  Returns (ok, {kernel: rec})."""
+    from pyramidkv_tpu_torch.kernels import (flash_causal_attention,
+                                             flash_pass_b, flash_row_max)
+    from pyramidkv_tpu_torch.ops.attention import (flash_pass_b_plain,
+                                                   flash_row_max_plain)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = _rand_bf16(torch, g, dev, b, H, n, D)
+    k, v = (_rand_bf16(torch, g, dev, b, hk, n, D) for _ in range(2))
+    tl = torch.tensor(true_len, dtype=torch.int32, device=dev)
+    m_got = flash_row_max(q, k, tl)
+    m_want = flash_row_max_plain(q, k, tl)
+    out_got = flash_pass_b(q, k, v, m_want, tl)
+    out_want = flash_pass_b_plain(q, k, v, m_want, tl)
+    both = flash_causal_attention(q, k, v, tl, two_pass=True)
+    torch.cuda.synchronize()
+    neg = torch.finfo(torch.float32).min
+    m_ratio = out_ratio = both_ratio = m_err = out_err = 0.0
+    dead_ok = True
+    for bi, t in enumerate(true_len):
+        pad = n - t
+        gm, wm = m_got[bi, :, pad:], m_want[bi, :, pad:]
+        m_err = max(m_err, float((gm - wm).abs().max()))
+        m_ratio = max(m_ratio, float(((gm - wm).abs() / (
+            2.0 ** -12 * wm.abs().clamp_min(1.0))).max()))
+        out_err = max(out_err, float((out_got[bi, :, pad:].float()
+                                      - out_want[bi, :, pad:].float()
+                                      ).abs().max()))
+        out_ratio = max(out_ratio, err_over_tol(out_got[bi, :, pad:],
+                                                out_want[bi, :, pad:]))
+        both_ratio = max(both_ratio, err_over_tol(both[bi, :, pad:],
+                                                  out_want[bi, :, pad:]))
+        dead_ok &= bool((m_got[bi, :, :pad] == neg).all()
+                        and (m_want[bi, :, :pad] == neg).all()
+                        and (out_got[bi, :, :pad] == 0).all()
+                        and (both[bi, :, :pad] == 0).all())
+    tls = np.asarray(true_len, np.float64)
+    pairs = float(H * (tls * (tls + 1) / 2).sum())  # visible (row, col)
+    qb, kb = q.numel() * 2, k.numel() * 2
+    mb, ob = b * H * n * 4, q.numel() * 2
+    # one-pass kernel and masked SDPA: the same function in one call
+    one_ms = time_ms(torch, lambda: flash_causal_attention(q, k, v, tl),
+                     reps=5)
+    lib = masked_sdpa_inputs(torch, q, k, v, tl, 0)
+    sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        *lib[:3], attn_mask=lib[3]), reps=3)
+    del lib
+    base = {"case": case, "B": b, "H": H, "Hk": hk, "N": n,
+            "true_len": list(true_len), "visible_pairs": pairs,
+            "dead_rows_exact": dead_ok, "one_pass_ms": one_ms,
+            "sdpa_ms": sdpa_ms, "layers": LAYERS,
+            "schedule_bound_ms": bound(6.0 * D * pairs,
+                                       qb + 2 * kb + mb + ob)[0]}
+    ra = dict(base, check="flash_row_max", max_abs_err=m_err,
+              err_over_tol=m_ratio, tol=ROW_MAX_TOL_TEXT, library_ms=None,
+              library_note="none: no single PyTorch call computes the "
+                           "masked row maxes of Q K^T")
+    ra["ms"] = time_ms(torch, lambda: flash_row_max(q, k, tl), reps=5)
+    ra["plain_ms"] = time_ms(torch, lambda: flash_row_max_plain(q, k, tl),
+                             reps=1, warmup=0)
+    ra["bound_ms"], ra["bound_by"] = bound(2.0 * D * pairs, qb + kb + mb)
+    rb = dict(base, check="flash_pass_b", max_abs_err=out_err,
+              err_over_tol=out_ratio, composed_err_over_tol=both_ratio,
+              tol=TOL_TEXT + "; rows with no visible key exactly 0",
+              library_ms=sdpa_ms)
+    rb["ms"] = time_ms(torch, lambda: flash_pass_b(q, k, v, m_want, tl),
+                       reps=5)
+    rb["plain_ms"] = time_ms(torch, lambda: flash_pass_b_plain(
+        q, k, v, m_want, tl), reps=1, warmup=0)
+    rb["bound_ms"], rb["bound_by"] = bound(4.0 * D * pairs,
+                                           qb + 2 * kb + mb + ob)
+    log(ra)
+    log(rb)
+    ok = (m_ratio <= 1 and out_ratio <= 1 and both_ratio <= 1 and dead_ok
+          and bool(torch.isfinite(out_got).all()))
+    return ok, {"flash_row_max": ra, "flash_pass_b": rb}
+
+
+def phase_two_pass_kernels(torch, F, dev):
+    """The two-pass schedule's kernels on a short ragged shape (a row
+    shorter than a tile, G = 1 and 8) and at the engine runs' shapes: the
+    8k batch (run (g)) and bench.py's 32k prompt (run (h)).  Returns (ok,
+    {kernel: [timed recs]})."""
+    ok = True
+    recs = {k: [] for k in TWO_PASS_KERNELS}
+    for seed, (case, b, hk, n, tls) in enumerate((
+            ("short ragged", 2, 4, 512, (512, 37)),
+            ("8k", B, HK, N, TRUE_LEN),
+            ("32k", 1, HK, QN, (QTRUE,))), start=560):
+        r, got = check_two_pass(torch, F, dev, case, b, hk, n, tls, seed)
+        ok &= r
+        if case != "short ragged":
+            for k in TWO_PASS_KERNELS:
+                recs[k].append(got[k])
+        torch.cuda.empty_cache()
     return ok, recs
 
 
@@ -2323,6 +2476,257 @@ def phase_profile_h2o_chunked(torch, dev, params, q4, vocab):
     return ok
 
 
+def _timed(torch, fn, *a, **kw):
+    """(result, host seconds) of a call ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn(*a, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _logits_close(torch, got, want) -> dict:
+    """First-token logits held to their twin's: within 2^-5 of the largest
+    (as the parity phases); the same argmax and bit equality reported."""
+    diff = float((got - want).abs().max())
+    top = float(want.abs().max())
+    return {"first_logits_max_abs_diff": diff, "largest_logit": top,
+            "tol": 2.0 ** -5 * top, "ok": diff <= 2.0 ** -5 * top,
+            "same_first_token": bool((got.argmax(-1)
+                                      == want.argmax(-1)).all()),
+            "bitwise_equal": torch.equal(got, want)}
+
+
+def aligned_carry(eng, handle, tokens, tl, k0) -> dict:
+    """The carry resumed from ``handle`` against the no-handle run's over
+    chunks [0, k0) of a prompt whose pad is a multiple of the chunk:
+    differing elements and the largest relative difference per leaf."""
+    import torch
+
+    from pyramidkv_tpu_torch.models import chunked_prefill as cp
+
+    c, n = eng.engine_spec.prefill_chunk, tokens.shape[1]
+    plan = eng.plan_for(n)
+    with torch.inference_mode():
+        res = eng._apply_prefix(n, 1, handle, [int(tl[0])])[0]
+        st = cp.init_quant_state(eng.model_spec, plan, 1, c, eng.device)
+        for i in range(k0):
+            cp.prefill_chunk_quant(eng.params, eng.model_spec, plan, st,
+                                   tokens[:, i * c:(i + 1) * c], tl, i * c)
+    out, ok = {}, True
+    for name in cp.QuantChunkState._fields:
+        a, b = getattr(res, name), getattr(st, name)
+        axis = 4 if name in ("k_scale", "k_zero") else 3
+        a, b = (x.narrow(axis, 0, x.shape[axis] * k0 // (n // c))
+                for x in (a, b))
+        rel = float(((a.float() - b.float()).abs()
+                     / b.float().abs().clamp_min(1e-30)).max())
+        out[name] = {"differing": int((a != b).sum()), "of": a.numel(),
+                     "max_rel_diff": rel}
+        ok &= (rel <= 2.0 ** -22 if name.endswith("scale")
+               else torch.equal(a, b))
+    out["ok"] = ok
+    del res, st
+    return out
+
+
+def phase_engine_two_pass_prefix(torch, dev, params, q4, vocab):
+    """Runs (g)-(j) at full width (32 layers): ``Engine.generate`` with
+    ``prefill_two_pass=True`` on (g) the 8k batch, snapkv, bf16 and (h)
+    bench.py's 32k int4 snapkv; with a prefix handle on (i) bf16 snapkv,
+    chunk 2048, bucket 8192: a 6144-token prefix precomputed once, then 4
+    requests of 8000/7600/7000/6400 ids starting with it (k0 = 3), and (j)
+    bench.py's 32k fullkv kivi4-pa, int4, chunk 8192: a 24576-token
+    quantized handle, resumed on bench.py's 32767-id prompt (pad 1:
+    misaligned requantization) and on a 32768-id one (pad 0: aligned).
+    Every launch count is held to the plan's (the precompute's too); the
+    first-token logits to the twin's (the one-pass prefill, or the chunked
+    prefill without the handle), whose prefill wall is timed beside.  The
+    misaligned resume of (j) requantizes 24576 of its slots on a shifted
+    4-bit grid, a second quantization error of the size of the carry's own:
+    its logits are held, as tests/test_prefix_cache.py holds the carry's
+    squared error to 2.5x the plain carry's, within (1 + sqrt(2.5)) times
+    the distance quantization itself puts between the no-handle chunked
+    prefill and the monolithic one (bf16 attention, the region quantized
+    after), measured on the same prompt.  The aligned resume's carry is
+    held to the no-handle run's over the covered chunks: codes and zeros
+    bit for bit, scales within 2^-22 (requantizing grid values rounds the
+    span in f32).  Returns (ok, {run: counts})."""
+    from pyramidkv_tpu_torch.config import (CompressionSpec, EngineSpec,
+                                            ModelSpec)
+    from pyramidkv_tpu_torch.engine import Engine
+    from pyramidkv_tpu_torch.models import llama
+    from pyramidkv_tpu_torch.models.weights import kernel_route
+
+    spec = ModelSpec.preset("llama3-8b")
+    rng = np.random.default_rng(0)
+    p8 = [rng.integers(0, vocab, size=t).tolist() for t in TRUE_LEN]
+    p32 = np.random.default_rng(0).integers(0, vocab, size=QTRUE).tolist()
+    ok, counts = True, {}
+
+    def want_counts(**kw):
+        w = dict.fromkeys(_kernels(), 0)
+        w.update(kw)
+        return w
+
+    def check(run, c, want, rec):
+        good = c == want and rec.pop("_ok", True)
+        rec.update(run=run, phase="engine_two_pass_prefix",
+                   launches={k: v for k, v in c.items() if v},
+                   expected_launches={k: v for k, v in want.items() if v},
+                   ok=good)
+        log(rec)
+        return good
+
+    # (g), (h): the two-pass flash schedule, against the one-pass prefill
+    for run, wts, prompts, bucket, max_new, comp in (
+            ("(g) bf16 snapkv 8k two-pass", params, p8, N, MAX_NEW,
+             dict(method="snapkv")),
+            ("(h) int4 snapkv 32k two-pass", q4, [p32], QN, QMAX_NEW,
+             dict(method="snapkv", **QCOMP))):
+        eng = Engine(spec, CompressionSpec(**comp),
+                     EngineSpec(max_new_tokens=max_new,
+                                prefill_buckets=(bucket,),
+                                prefill_two_pass=True), wts, device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        out = eng.generate(prompts)
+        c = read_counts()
+        counts[run] = c
+        want = want_counts(flash_row_max=LAYERS, flash_pass_b=LAYERS,
+                           decode_attention=LAYERS * out.decode_steps)
+        if wts is q4:
+            want.update(expected_launches(q4, out.decode_steps, 1, QN))
+        tokens, tl = bucket_tokens(torch, dev, prompts, bucket)
+        plan = eng.plan_for(bucket)
+        with torch.inference_mode():
+            (l2, _), _ = _timed(torch, llama.prefill, wts, spec, plan,
+                                tokens, tl, prefill_two_pass=True)
+            (l1, _), one_s = _timed(torch, llama.prefill, wts, spec, plan,
+                                    tokens, tl)
+        twin = _logits_close(torch, l2, l1)
+        toks = [t for seq in out.tokens for t in seq]
+        rec = {"prefill_s": out.prefill_seconds, "one_pass_prefill_s": one_s,
+               "decode_s": out.decode_seconds,
+               "decode_steps": out.decode_steps,
+               "kv_cache_bytes": out.kv_cache_bytes, "vs_one_pass": twin,
+               "first_tokens": out.tokens[0][:8],
+               "_ok": (twin["ok"] and out.decode_steps == max_new - 1
+                       and all(0 <= t < vocab for t in toks))}
+        ok &= check(run, c, want, rec)
+        del eng, out, l1, l2
+        torch.cuda.empty_cache()
+
+    # (i): the bf16 carry resumed from a 6144-token prefix
+    run = "(i) bf16 snapkv 8k chunk 2048 prefix 6144"
+    eng = Engine(spec, CompressionSpec(method="snapkv"),
+                 EngineSpec(max_new_tokens=MAX_NEW, prefill_buckets=(N,),
+                            prefill_chunk=C8K), params, device=dev)
+    rng = np.random.default_rng(6)
+    prefix = rng.integers(0, vocab, size=PREFIX_8K).tolist()
+    prompts = [prefix + rng.integers(0, vocab, size=t - PREFIX_8K).tolist()
+               for t in PREFIX_LENS]
+    lens = [len(p) for p in prompts]
+    reset_counts()
+    handle, pre_s = _timed(torch, eng.precompute_prefix, prefix)
+    good = read_counts() == want_counts(
+        flash_causal_attention=LAYERS * (PREFIX_8K // C8K))
+    reset_counts()
+    out = eng.generate(prompts, prefix=handle)
+    c = read_counts()
+    counts[run] = c
+    k0 = eng._apply_prefix(N, len(prompts), handle, lens)[1]
+    want = want_counts(flash_causal_attention=LAYERS * (N // C8K - k0),
+                       decode_attention=LAYERS * out.decode_steps)
+    tokens, tl = bucket_tokens(torch, dev, prompts, N)
+    with torch.inference_mode():
+        (lp, _), _ = _timed(torch, eng._run_chunked_prefill, N, tokens, tl,
+                            prefix=handle, lens=lens)
+        (l0, _), plain_s = _timed(torch, eng._run_chunked_prefill, N,
+                                  tokens, tl)
+    twin = _logits_close(torch, lp, l0)
+    rec = {"precompute_s": pre_s, "handle_bytes": handle.kv_bytes, "k0": k0,
+           "prefill_s": out.prefill_seconds, "no_prefix_prefill_s": plain_s,
+           "decode_s": out.decode_seconds, "decode_steps": out.decode_steps,
+           "kv_cache_bytes": out.kv_cache_bytes, "vs_no_prefix": twin,
+           "first_tokens": out.tokens[0][:8],
+           "_ok": good and k0 == 3 and twin["ok"]
+           and out.decode_steps == MAX_NEW - 1}
+    ok &= check(run, c, want, rec)
+    del eng, handle, out, lp, l0
+    torch.cuda.empty_cache()
+
+    # (j): the quantized carry resumed from a 24576-token int4-weight handle
+    cs = CompressionSpec(method="fullkv", quant_method="kivi", nbits=4,
+                         q_layout="pa", **QCOMP)
+    eng = Engine(spec, cs, EngineSpec(max_new_tokens=QMAX_NEW,
+                                      prefill_buckets=(QN,),
+                                      prefill_chunk=C32K), q4, device=dev)
+    nh = PREFIX_32K // C32K
+    reset_counts()
+    handle, pre_s = _timed(torch, eng.precompute_prefix, p32[:PREFIX_32K])
+    # the chunks' partials (self tiles and history tiles); no lm_head
+    pre_want = want_counts(flash_attention_partials=LAYERS * (
+        nh + nh * (nh - 1) // 2), **expected_launches(q4, 0, 1, C32K, nh))
+    lm = kernel_route(q4["lm_head"], 1)
+    if lm is not None:
+        pre_want[lm[0]] -= 1
+    pre_c = read_counts()
+    pre_ok = pre_c == pre_want
+    nc = QN // C32K
+    for label, prompt in (("pad 1, misaligned", p32),
+                          ("pad 0, aligned", p32 + [int(p32[-1])])):
+        run = f"(j) int4 fullkv kivi4-pa 32k chunk 8192 prefix 24576, {label}"
+        reset_counts()
+        out = eng.generate([prompt], prefix=handle)
+        c = read_counts()
+        counts[run] = c
+        k0 = eng._apply_prefix(QN, 1, handle, [len(prompt)])[1]
+        want = want_counts(
+            flash_attention_partials=LAYERS * sum(
+                1 + i for i in range(k0, nc)),
+            quant_fused_attention_pa=LAYERS * out.decode_steps,
+            **expected_launches(q4, out.decode_steps, 1, C32K, nc - k0))
+        tokens, tl = bucket_tokens(torch, dev, [prompt], QN)
+        with torch.inference_mode():
+            (lp, _), _ = _timed(torch, eng._run_chunked_prefill, QN, tokens,
+                                tl, prefix=handle, lens=[len(prompt)])
+            (l0, _), plain_s = _timed(torch, eng._run_chunked_prefill, QN,
+                                      tokens, tl)
+        twin = _logits_close(torch, lp, l0)
+        if (QN - len(prompt)) % C32K == 0:
+            twin["carry"] = aligned_carry(eng, handle, tokens, tl, k0)
+            twin["ok"] &= twin["carry"]["ok"]
+        else:
+            with torch.inference_mode():
+                lm, _ = llama.prefill(q4, spec, eng.plan_for(QN), tokens,
+                                      tl)
+            d_q = float((l0 - lm).abs().max())
+            twin.update(quantization_distance=d_q,
+                        tol=(1 + 2.5 ** 0.5) * d_q,
+                        ok=twin["first_logits_max_abs_diff"]
+                        <= (1 + 2.5 ** 0.5) * d_q)
+            del lm
+        rec = {"precompute_s": pre_s, "precompute_launches": {
+                   k: v for k, v in pre_c.items() if v},
+               "precompute_ok": pre_ok, "handle_bytes": handle.kv_bytes,
+               "k0": k0, "pad": QN - len(prompt),
+               "prefill_s": out.prefill_seconds,
+               "no_prefix_prefill_s": plain_s,
+               "decode_s": out.decode_seconds,
+               "decode_steps": out.decode_steps,
+               "kv_cache_bytes": out.kv_cache_bytes, "vs_no_prefix": twin,
+               "first_tokens": out.tokens[0][:8],
+               "_ok": pre_ok and k0 == nh and twin["ok"]
+               and out.decode_steps == QMAX_NEW - 1}
+        ok &= check(run, c, want, rec)
+        del out, lp, l0
+        torch.cuda.empty_cache()
+    del eng, handle
+    torch.cuda.empty_cache()
+    return ok, counts
+
+
 def kernel_entry(name, source, replaces, launches, recs):
     """One entry of the kernels line.  ``recs`` holds one timed check per
     shape the kernel runs at in these launches (pyramidkv: one per
@@ -2402,6 +2806,8 @@ def main() -> int:
     ok &= r
     r, chunk_recs = phase_h2o_chunk_kernels(torch, F, dev)
     ok &= r
+    r, tp_recs = phase_two_pass_kernels(torch, F, dev)
+    ok &= r
 
     spec = ModelSpec.preset("llama3-8b")
     t0 = time.perf_counter()
@@ -2441,6 +2847,9 @@ def main() -> int:
     ok &= r
     ok &= phase_parity_h2o_chunked(torch, dev, params, spec.vocab_size)
     ok &= phase_profile_h2o_chunked(torch, dev, params, q4, spec.vocab_size)
+    r, tcounts = phase_engine_two_pass_prefix(torch, dev, params, q4,
+                                              spec.vocab_size)
+    ok &= r
     del q4
     # the port's counterpart of bench.py's number (information only: decode
     # is host-bound, see the profile phases)
@@ -2492,15 +2901,18 @@ def main() -> int:
         kernels.append(kernel_entry(
             name, src + "int4_matmul.cu", tpu + str(line),
             qsum(kernel, runs), mm_recs[name]))
-    kv_tpu = {"quant_decode_attention": "quant_decode.py:158",
-              "quant_decode_attention_tiled": "quant_decode.py:437",
-              "quant_fused_attention_pa": "quant_fused_decode.py:145"}
+    # the factored group kernel replaces the XLA function the TPU engine
+    # decodes group regions with by default (no Pallas kernel there)
+    kv_tpu = {"quant_decode_attention": "kernels/quant_decode.py:158",
+              "quant_decode_attention_tiled": "kernels/quant_decode.py:437",
+              "quant_fused_attention_pa": "kernels/quant_fused_decode.py:145",
+              "quant_fused_attention_group": "ops/quant.py:408"}
     for kind in REGION_KERNELS:
         src_file = ("quant_fused_decode.cu" if kind.endswith("_pa")
                     else "quant_decode.cu")
         kernels.append(kernel_entry(
             f"{kind} ({', '.join(r['case'] for r in kv_recs[kind])})",
-            src + src_file, "pyramidkv_tpu/kernels/" + kv_tpu[kind],
+            src + src_file, "pyramidkv_tpu/" + kv_tpu[kind],
             sum(c[kind] for c in kvcounts.values()), kv_recs[kind]))
     # launches of each block-sparse kernel per generate at each checked
     # shape: the shapes' weights in the kernels line
@@ -2561,6 +2973,17 @@ def main() -> int:
     for ent in kernels[-5:-3]:
         ent["library_note"] = ("none: no single PyTorch call computes the "
                                "column sums of a softmax")
+    # the two-pass schedule: each shape launched once per layer by its run
+    # ((g) at 8k, (h) at 32k)
+    tp_runs = [r for r in tcounts if "two-pass" in r]
+    for kind, line in (("flash_row_max", 209), ("flash_pass_b", 258)):
+        kernels.append(kernel_entry(
+            f"{kind} (two_pass=True; 8k batch, 32k)",
+            src + "flash_prefill.cu",
+            f"pyramidkv_tpu/kernels/flash_prefill.py:{line}",
+            sum(tcounts[r][kind] for r in tp_runs), tp_recs[kind]))
+    kernels[-2]["library_note"] = tp_recs["flash_row_max"][0][
+        "library_note"]
     for k in kernels:  # one line per kernel
         log({"kernel": k["name"], **k})
     log({"kernels": kernels})

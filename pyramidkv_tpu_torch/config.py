@@ -5,9 +5,12 @@ run ``pyramidkv_tpu/__init__.py``, which imports JAX.  Field names, defaults,
 presets and validation are the same, so specs built for either package
 describe the same model, policy and engine.  Many fields select features
 not ported yet: the port raises for those that change results (methods,
-KV quantization, model families, sampling, chunked prefill, speculation)
-and ignores the TPU schedule knobs (``prefill_block``, ``prefill_sub_k``,
-``prefill_two_pass``, ``use_quant_*``), which do not.
+KV quantization, model families, sampling, speculation) and ignores the
+TPU tiling knobs (``prefill_block``, ``prefill_sub_k``,
+``use_quant_fused_kernel``), which do not.  ``prefill_two_pass`` runs the
+two-pass flash kernels; ``use_quant_kernel`` / ``use_quant_tiled`` route
+group-layout KIVI regions to the f32 region kernels (JAX's opt-in route)
+unless ``use_quant_fused`` names the default factored one.
 """
 
 from __future__ import annotations

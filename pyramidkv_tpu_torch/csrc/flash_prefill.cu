@@ -1,9 +1,11 @@
 // Causal GQA flash-attention prefill over a left-padded buffer (sm_90a),
-// normalised or as online-softmax partials.
+// normalised (one pass, or the two-pass schedule) or as online-softmax
+// partials.
 //
 // Replaces: pyramidkv_tpu/kernels/flash_prefill.py::flash_causal_attention
-// (Pallas TPU, body `_kernel`) in its default schedule (two_pass=False,
-// sub_k=1, no softcap), with any `q_start`; and
+// (Pallas TPU) in its default schedule (two_pass=False, body `_kernel`) and
+// its two-pass schedule (two_pass=True: pass A `_max_kernel`, pass B
+// `_kernel_pass_b`), sub_k=1, no softcap, with any `q_start`; and
 // flash_prefill.py::flash_attention_partials (body `_kernel_partials`).
 //
 // What it computes, per batch row b with pad = N - true_len[b]: the Nq
@@ -17,7 +19,14 @@
 // accumulator and the base-2 statistics (m = max of the log2(e)-scaled
 // logits, l = sum of exp2(s - m)); a row with no visible key gets m =
 // float32.min, l = 0, acc = 0.  Its q_start is 0 (the causal self tile) or
-// >= N (every key precedes every query: no causal edge).
+// >= N (every key precedes every query: no causal edge).  The two-pass
+// schedule splits the one-pass kernel's work in two launches: pass A
+// (`pkv_flash_row_max`) writes each row's max m of the base-2 logits over
+// its visible keys (float32.min for none); pass B (`pkv_flash_pass_b`)
+// accumulates p = exp2(s - max(m, float32.min / 2)), l = sum p and
+// acc = sum bf16(p) v against that known max, with no running max, no
+// alpha exponential and no accumulator rescale, and writes acc / l (0
+// where l = 0).
 //
 // What bounds it on the H100: operations.  At the prefill shapes of the main
 // path (N = 8192, D = 128) attention does ~N/2 multiply-adds per byte of
@@ -36,6 +45,10 @@
 // - The heaviest q-tiles (last rows, longest key range) are scheduled first.
 // - Online softmax in the exp2 domain with log2(e) folded into the q scaling,
 //   q rounded to bf16 after scaling exactly as the TPU wrapper does.
+// - The two-pass schedule uses the same tiling and walk in both passes; pass
+//   A loads only K and does only the Q K^T products and a max per row, pass
+//   B drops the online softmax's per-tile bookkeeping (the TPU schedule's
+//   aim) at the price of a second Q K^T and a second read of K.
 // Left for later: TMA/wgmma, a multi-stage copy pipeline and warp
 // specialisation (tiles are loaded synchronously here).
 
@@ -81,8 +94,12 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// PARTIALS: write (acc, m, l) f32 instead of the normalised bf16 output.
-template <bool PARTIALS>
+// What a launch writes: kOut the normalised bf16 output (online softmax);
+// kPartials (acc, m, l) f32; kRowMax pass A's row maxes m; kPassB pass B's
+// normalised bf16 output, against the row maxes m_in of pass A.
+enum Mode { kOut = 0, kPartials = 1, kRowMax = 2, kPassB = 3 };
+
+template <int MODE>
 __global__ void __launch_bounds__(NTHREADS)
 flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, Nq, D]
                      const __nv_bfloat16* __restrict__ k,   // [B*Hk, ldk, D]
@@ -92,10 +109,14 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, Nq, D]
                      float* __restrict__ acc_out,           // [B*H, Nq, D]
                      float* __restrict__ m_out,             // [B*H, Nq]
                      float* __restrict__ l_out,             // [B*H, Nq]
+                     const float* __restrict__ m_in,        // [B*H, Nq]
                      int H, int Hk, int N, int ldk, int Nq, int q_start,
                      int window, float scale_log2) {
+  constexpr bool PARTIALS = MODE == kPartials;
+  constexpr bool ROW_MAX = MODE == kRowMax;
+  constexpr bool PASS_B = MODE == kPassB;
   __shared__ __align__(16) __nv_bfloat16 ks[BK * LDS];
-  __shared__ __align__(16) __nv_bfloat16 vs[BK * LDS];
+  __shared__ __align__(16) __nv_bfloat16 vs[ROW_MAX ? 8 : BK * LDS];
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest q-tiles first
   const int bh = blockIdx.y;
@@ -119,7 +140,9 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, Nq, D]
   const __nv_bfloat16* vb = v + (size_t)kv_row * ldk * D;
 
   if (last_row < pad) {  // every row is padding: no visible key
-    if (PARTIALS) {
+    if (ROW_MAX) {
+      if (tid < BQ) m_out[(size_t)bh * Nq + q0 + tid] = -FLT_MAX;
+    } else if (PARTIALS) {
       float* ab = acc_out + ((size_t)bh * Nq + q0) * D;
       for (int i = tid; i < BQ * D; i += NTHREADS) ab[i] = 0.f;
       if (tid < BQ) {
@@ -159,6 +182,13 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, Nq, D]
   }
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // per-thread partial row sums
+  if (PASS_B) {
+    // pass A's maxes, clamped as the TPU's pass B clamps them: a row with
+    // no visible key keeps p = exp2(-inf) = 0 and l = 0
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      m[i] = fmaxf(m_in[(size_t)bh * Nq + r0 + 8 * i], -FLT_MAX / 2);
+  }
 
   int lo = pad;
   if (window > 0) lo = max(lo, g0 - window + 1);
@@ -174,8 +204,9 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, Nq, D]
       const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
       *reinterpret_cast<uint4*>(&ks[r * LDS + c]) =
           *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * D + c);
-      *reinterpret_cast<uint4*>(&vs[r * LDS + c]) =
-          *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * D + c);
+      if (!ROW_MAX)
+        *reinterpret_cast<uint4*>(&vs[r * LDS + c]) =
+            *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * D + c);
     }
     __syncthreads();
 
@@ -209,9 +240,34 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, Nq, D]
       }
     }
 
+    if (ROW_MAX) {  // pass A: this thread's share of each row's max
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int nt = 0; nt < BK / 8; ++nt)
+          m[i] = fmaxf(m[i], fmaxf(s[nt][2 * i], s[nt][2 * i + 1]));
+      continue;
+    }
+
+    if (PASS_B) {  // p = exp2(s - m) against the known max: no rescale
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float rs = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < BK / 8; ++nt) {
+          const float p0 = exp2f(s[nt][2 * i] - m[i]);
+          const float p1 = exp2f(s[nt][2 * i + 1] - m[i]);
+          s[nt][2 * i] = p0;
+          s[nt][2 * i + 1] = p1;
+          rs += p0 + p1;
+        }
+        l[i] += rs;
+      }
+    }
+
     // online softmax, one update per fragment row (i = 0: r0, i = 1: r0+8)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < 2 && !PASS_B; ++i) {
       float mx = -INFINITY;
 #pragma unroll
       for (int nt = 0; nt < BK / 8; ++nt) {
@@ -257,6 +313,17 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, Nq, D]
         mma_bf16(o[dt], a, b0, b1);
       }
     }
+  }
+
+  if (ROW_MAX) {  // the row's max over its row group's 4 threads
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+      if (tig == 0)
+        m_out[(size_t)bh * Nq + r0 + 8 * i] = m[i] == -INFINITY ? -FLT_MAX : m[i];
+    }
+    return;
   }
 
   // finalize: full row sums across the 4 threads of a row group
@@ -305,11 +372,41 @@ extern "C" int pkv_flash_prefill(const void* q, const void* k, const void* v,
                                  int Hk, int N, int ldk, int Nq, int q_start,
                                  int window, float scale, void* stream) {
   dim3 grid(Nq / BQ, B * H);
-  flash_prefill_kernel<false><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+  flash_prefill_kernel<kOut><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const int*)true_len, (__nv_bfloat16*)out,
-      nullptr, nullptr, nullptr, H, Hk, N, ldk, Nq, q_start, window,
+      nullptr, nullptr, nullptr, nullptr, H, Hk, N, ldk, Nq, q_start, window,
       scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+// Pass A of the two-pass schedule: m [B*H, Nq] f32, the row maxes of the
+// base-2 logits (float32.min for a row with no visible key).  Arguments as
+// pkv_flash_prefill's.
+extern "C" int pkv_flash_row_max(const void* q, const void* k,
+                                 const void* true_len, void* m, int B, int H,
+                                 int Hk, int N, int ldk, int Nq, int q_start,
+                                 int window, float scale, void* stream) {
+  dim3 grid(Nq / BQ, B * H);
+  flash_prefill_kernel<kRowMax><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, nullptr,
+      (const int*)true_len, nullptr, nullptr, (float*)m, nullptr, nullptr, H,
+      Hk, N, ldk, Nq, q_start, window, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+// Pass B: out [B*H, Nq, D] bf16 from pass A's m [B*H, Nq].
+extern "C" int pkv_flash_pass_b(const void* q, const void* k, const void* v,
+                                const void* true_len, const void* m, void* out,
+                                int B, int H, int Hk, int N, int ldk, int Nq,
+                                int q_start, int window, float scale,
+                                void* stream) {
+  dim3 grid(Nq / BQ, B * H);
+  flash_prefill_kernel<kPassB><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const int*)true_len, (__nv_bfloat16*)out,
+      nullptr, nullptr, nullptr, (const float*)m, H, Hk, N, ldk, Nq, q_start,
+      window, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -320,9 +417,10 @@ extern "C" int pkv_flash_partials(const void* q, const void* k, const void* v,
                                   void* l, int B, int H, int Hk, int N, int Nq,
                                   int q_start, float scale, void* stream) {
   dim3 grid(Nq / BQ, B * H);
-  flash_prefill_kernel<true><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+  flash_prefill_kernel<kPartials><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const int*)true_len, nullptr, (float*)acc,
-      (float*)m, (float*)l, H, Hk, N, N, Nq, q_start, 0, scale * LOG2E);
+      (float*)m, (float*)l, nullptr, H, Hk, N, N, Nq, q_start, 0,
+      scale * LOG2E);
   return (int)cudaGetLastError();
 }

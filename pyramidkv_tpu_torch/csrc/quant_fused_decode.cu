@@ -1,5 +1,5 @@
 // Factored-dequantization decode attention over a pa-layout KIVI region
-// (sm_90a).  The body is in quant_region.cuh (PA = true).
+// (sm_90a).  The body is in quant_region.cuh (mode kPA).
 //
 // Replaces: pyramidkv_tpu/kernels/quant_fused_decode.py::
 // quant_fused_attention_pa (Pallas TPU, body `_kernel`) with its adapter
@@ -42,6 +42,6 @@ extern "C" int pkv_quant_fused_pa(PKVQ_PARAMS) {
   const pkvq::Args a = pkvq::make_args(q, kc, ks, kz, vc, vs, vz, mask, acc,
                                        m, l, W, S_pad, NG, Dp, NGV, mstride,
                                        n_valid, rows_per_split, scale);
-  PKVQ_DISPATCH(G, nbits, return PKVQ_LAUNCH(true, false, a));
+  PKVQ_DISPATCH(G, nbits, return PKVQ_LAUNCH(pkvq::kPA, false, a));
   return 0;
 }

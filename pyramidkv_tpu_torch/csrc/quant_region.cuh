@@ -1,5 +1,6 @@
 // Shared body of the KIVI region decode kernels (sm_90a):
-// quant_decode.cu (group layout: whole region, and split over slots) and
+// quant_decode.cu (group layout, whole region or split over slots: f32
+// dequantization, or the factored dequantization with bf16 folds) and
 // quant_fused_decode.cu (pa layout, split over slots).
 //
 // The region of one (batch row, KV head), as ops/quant.py::quantize_kv_region
@@ -48,6 +49,23 @@ constexpr int NWARPS = 8;
 constexpr int CHUNK = 32;  // byte-rows per warp iteration (one per lane)
 constexpr float NEG = -FLT_MAX;
 
+// How a region's affine dequantization enters the attention:
+// kF32   every K/V element dequantized in f32 (code * scale + zero), as
+//        ops/quant.py::quant_decode_attention_plain;
+// kPA    the pa layout's factored form, as
+//        ops/quant.py::quant_region_attention_fused with one V group: the
+//        K scale folded into bf16 queries held in shared memory (one per
+//        bit-plane, or per K group of the plane), the K zero a logit bias,
+//        the V scale folded into bf16 probabilities, the V zero a
+//        separately rescaled scalar;
+// kFold  the group layout's factored form, the same function's grouped
+//        branch: per slot, the query folded with the slot's K group scale
+//        and rounded to bf16 (q * scale * ks[d, group]), the K zero term
+//        q * scale . kz[:, group] in f32; per slot and lane, the
+//        probability folded with the V scale of the lane's channel group
+//        and rounded to bf16, the V zero term p * vz in f32.
+enum Mode { kF32 = 0, kPA = 1, kFold = 2 };
+
 struct Args {
   const __nv_bfloat16* q;  // [B, Hk * G, D]
   const int8_t* kc;        // [B * Hk, W, D]
@@ -81,24 +99,22 @@ __device__ __forceinline__ float bf16_round(float x) {
 }
 
 // Partials of byte-rows [row0, row1) of region `bk` (all PER planes), written
-// to slot `out` of a.acc / a.m / a.l.  PA: factored dequantization (K scale
-// folded into bf16 queries, K zero a logit bias, V scale folded into bf16
-// probabilities, V zero a separately rescaled scalar), as
-// ops/quant.py::quant_region_attention_fused; else f32 dequantization of
-// every element, as ops/quant.py::quant_decode_attention_plain.
+// to slot `out` of a.acc / a.m / a.l, dequantizing as MODE says.
 // Folded query copies of the pa kernel: one per bit-plane, where they fit
 // the 48 KB of static shared memory beside wacc (every shape but G = 8 with
 // 2-bit codes); else one, and the wrappers refuse NG > 1.
-template <int G, int NBITS, bool PA>
+template <int G, int NBITS, int MODE>
 __host__ __device__ constexpr int q_copies() {
-  return PA && G * (8 / NBITS) <= 16 ? 8 / NBITS : 1;
+  return MODE == kPA && G * (8 / NBITS) <= 16 ? 8 / NBITS : 1;
 }
 
-template <int G, int NBITS, bool PA>
+template <int G, int NBITS, int MODE>
 __device__ void region_partials(const Args& a, int bk, int row0, int row1,
                                 int out) {
+  constexpr bool PA = MODE == kPA;
+  constexpr bool FOLD = MODE == kFold;
   constexpr int PER = 8 / NBITS;
-  constexpr int QP = q_copies<G, NBITS, PA>();
+  constexpr int QP = q_copies<G, NBITS, MODE>();
   constexpr uint32_t MASK = (1u << NBITS) - 1u;
   __shared__ __align__(16) float qs[QP][G][D];
   __shared__ float zb[QP][G];
@@ -119,10 +135,12 @@ __device__ void region_partials(const Args& a, int bk, int row0, int row1,
   for (int i = tid; i < QP * G * D; i += NWARPS * 32) {
     const int p = i / (G * D), g = (i / D) % G, d = i % D;
     const float x = __bfloat162float(qg[g * D + d]);
-    // group: the raw query (logits = (q . k) * scale, as the plain version);
-    // pa: q * scale * ks rounded to bf16, as the plain version's bf16 dot
+    // f32: the raw query (logits = (q . k) * scale, as the plain version);
+    // pa: q * scale * ks rounded to bf16, as the plain version's bf16 dot;
+    // fold: q * scale in f32 (the plain version's qg), folded per slot
     qs[p][g][d] =
-        PA ? bf16_round(x * a.scale * ksb[(size_t)d * a.NG + p * gpl + grow]) : x;
+        PA ? bf16_round(x * a.scale * ksb[(size_t)d * a.NG + p * gpl + grow])
+           : (FOLD ? x * a.scale : x);
   }
   for (int t = warp; PA && t < QP * G; t += NWARPS) {
     // K zero term of (plane copy t / G, head t % G): scale * (q . kz), f32
@@ -178,6 +196,18 @@ __device__ void region_partials(const Args& a, int bk, int row0, int row1,
 #pragma unroll
             for (int p = 0; p < PER; ++p) {
               float kv = (float)((byte >> (p * NBITS)) & MASK);
+              if (FOLD) {
+                // bf16(q * scale * ks) . code + (q * scale) . kz
+                const size_t o = (size_t)d * a.NG + grp[p];
+                const float ksv = __ldg(ksb + o), kzv = __ldg(kzb + o);
+#pragma unroll
+                for (int g = 0; g < G; ++g) {
+                  const float qv = qs[0][g][d];
+                  dot[p][g] = fmaf(bf16_round(qv * ksv), kv,
+                                   fmaf(qv, kzv, dot[p][g]));
+                }
+                continue;
+              }
               if (!PA) {
                 const size_t o = (size_t)d * a.NG + grp[p];
                 kv = fmaf(kv, __ldg(ksb + o), __ldg(kzb + o));
@@ -197,7 +227,7 @@ __device__ void region_partials(const Args& a, int bk, int row0, int row1,
         for (int g = 0; g < G; ++g) {
           s[p][g] = !valid ? NEG
                            : (PA ? dot[p][g] + zb[QP == 1 ? 0 : p][g]
-                                 : dot[p][g] * a.scale);
+                                 : (FOLD ? dot[p][g] : dot[p][g] * a.scale));
         }
       }
     } else {
@@ -208,7 +238,8 @@ __device__ void region_partials(const Args& a, int bk, int row0, int row1,
     }
 
     // online softmax over the chunk's 32 * PER slots; pr: the lane's row's
-    // probability (pa: times the V scale, rounded to bf16)
+    // probability (pa: times the V scale, rounded to bf16; fold: as it is,
+    // each lane folds its own channel group's V scale in P.V)
     float pr[PER][G];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -263,11 +294,19 @@ __device__ void region_partials(const Args& a, int bk, int row0, int row1,
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const float c = (float)((vw >> (8 * k + p * NBITS)) & MASK);
-          vv[k] = PA ? c : fmaf(c, sc, zr);
+          vv[k] = MODE == kF32 ? fmaf(c, sc, zr) : c;
         }
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float pj = __shfl_sync(0xffffffffu, pr[p][g], r);
+          if (FOLD) {
+            // bf16(p * vs) . code + p * vz (the group's zero term, f32)
+            const float pf = bf16_round(pj * sc), pz = pj * zr;
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              acc[g][k] = fmaf(pf, vv[k], acc[g][k] + pz);
+            continue;
+          }
 #pragma unroll
           for (int k = 0; k < 4; ++k) acc[g][k] = fmaf(pj, vv[k], acc[g][k]);
         }
@@ -313,19 +352,20 @@ __device__ void region_partials(const Args& a, int bk, int row0, int row1,
 }
 
 // One block per (batch row, KV head): the whole region.
-template <int G, int NBITS, bool PA>
+template <int G, int NBITS, int MODE>
 __global__ void __launch_bounds__(NWARPS * 32) whole_kernel(Args a) {
-  region_partials<G, NBITS, PA>(a, blockIdx.x, 0, a.W, blockIdx.x);
+  region_partials<G, NBITS, MODE>(a, blockIdx.x, 0, a.W, blockIdx.x);
 }
 
 // grid (B * Hk, nsplit): block (bk, s) takes byte-rows
 // [s * rows_per_split, (s + 1) * rows_per_split) into workspace slot
 // bk * nsplit + s.
-template <int G, int NBITS, bool PA>
+template <int G, int NBITS, int MODE>
 __global__ void __launch_bounds__(NWARPS * 32) split_kernel(Args a) {
   const int r0 = blockIdx.y * a.rows_per_split;
-  region_partials<G, NBITS, PA>(a, blockIdx.x, r0, min(a.W, r0 + a.rows_per_split),
-                                blockIdx.x * gridDim.y + blockIdx.y);
+  region_partials<G, NBITS, MODE>(a, blockIdx.x, r0,
+                                  min(a.W, r0 + a.rows_per_split),
+                                  blockIdx.x * gridDim.y + blockIdx.y);
 }
 
 // The bf16 decode-slot tail of one decode step (T = 0: none): K and V
@@ -452,12 +492,12 @@ __global__ void __launch_bounds__(D) finish_kernel(
 // partials straight to a's outputs when there is no tail; else the region
 // kernel (whole_kernel, or split_kernel over grid (B * Hk, nsplit)) writes
 // them to the workspace and finish_kernel merges them (and the tail).
-template <int G, int NBITS, bool PA>
+template <int G, int NBITS, int MODE>
 int launch(const Args& a, bool whole, float* ws_acc, float* ws_m, float* ws_l,
            int BHk, int nsplit, const Tail& t, __nv_bfloat16* out,
            cudaStream_t st) {
   if (whole && t.T == 0) {
-    whole_kernel<G, NBITS, PA><<<BHk, NWARPS * 32, 0, st>>>(a);
+    whole_kernel<G, NBITS, MODE><<<BHk, NWARPS * 32, 0, st>>>(a);
     return (int)cudaGetLastError();
   }
   Args w = a;
@@ -466,9 +506,9 @@ int launch(const Args& a, bool whole, float* ws_acc, float* ws_m, float* ws_l,
   w.l = ws_l;
   if (whole) {
     nsplit = 1;
-    whole_kernel<G, NBITS, PA><<<BHk, NWARPS * 32, 0, st>>>(w);
+    whole_kernel<G, NBITS, MODE><<<BHk, NWARPS * 32, 0, st>>>(w);
   } else {
-    split_kernel<G, NBITS, PA><<<dim3(BHk, nsplit), NWARPS * 32, 0, st>>>(w);
+    split_kernel<G, NBITS, MODE><<<dim3(BHk, nsplit), NWARPS * 32, 0, st>>>(w);
   }
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
@@ -512,9 +552,9 @@ int launch(const Args& a, bool whole, float* ws_acc, float* ws_m, float* ws_l,
       const void *tk, const void *tv, const void *tmask, int T, int tmstride, \
       void *out, void *stream
 
-// launch<GG, NB, PA_> of the entry's arguments (inside PKVQ_DISPATCH).
-#define PKVQ_LAUNCH(PA_, WHOLE_, a_)                                          \
-  pkvq::launch<GG, NB, PA_>(                                                  \
+// launch<GG, NB, MODE_> of the entry's arguments (inside PKVQ_DISPATCH).
+#define PKVQ_LAUNCH(MODE_, WHOLE_, a_)                                        \
+  pkvq::launch<GG, NB, MODE_>(                                                \
       a_, WHOLE_, (float*)ws_acc, (float*)ws_m, (float*)ws_l, BHk, nsplit,    \
       pkvq::Tail{(const __nv_bfloat16*)tk, (const __nv_bfloat16*)tv,          \
                  (const uint8_t*)tmask, T, tmstride},                         \

@@ -34,6 +34,8 @@ ENTRY_POINTS = {
     "flash_prefill": [
         ("pkv_flash_prefill", [_P] * 5 + [_I] * 8 + [_F, _P]),
         ("pkv_flash_partials", [_P] * 7 + [_I] * 6 + [_F, _P]),
+        ("pkv_flash_row_max", [_P] * 4 + [_I] * 8 + [_F, _P]),
+        ("pkv_flash_pass_b", [_P] * 6 + [_I] * 8 + [_F, _P]),
     ],
     "h2o_scores": [
         ("pkv_h2o_stats", [_P] * 5 + [_I] * 5 + [_F, _P]),
@@ -47,7 +49,9 @@ ENTRY_POINTS = {
         ("pkv_int4_matmul_dma", [_P] * 5 + [_I] * 9 + [_P]),
     ],
     "quant_decode": [("pkv_quant_decode", _REGION),
-                     ("pkv_quant_decode_tiled", _REGION)],
+                     ("pkv_quant_decode_tiled", _REGION),
+                     ("pkv_quant_group_fused", _REGION),
+                     ("pkv_quant_group_fused_tiled", _REGION)],
     "quant_fused_decode": [("pkv_quant_fused_pa", _REGION)],
     "block_sparse_prefill": [
         ("pkv_slash_tiles", [_P] * 10 + [_I] * 7 + [_F, _P]),

@@ -1,11 +1,13 @@
 """Causal flash-attention prefill: wrappers of ``csrc/flash_prefill.cu``.
 
 Counterparts of ``pyramidkv_tpu/kernels/flash_prefill.py``'s
-``flash_causal_attention`` in its default schedule (one pass, ``sub_k=1``,
-any ``q_start``) and ``flash_attention_partials``.  On a CUDA tensor each
-launches the hand-written sm_90a kernel; on a CPU tensor it runs the plain
-version (``ops.attention.causal_prefill_attention``,
-``ops.attention.flash_partials_plain``).
+``flash_causal_attention`` (``sub_k=1``, any ``q_start``) in its default
+one-pass schedule and its two-pass schedule (``two_pass=True``: pass A
+:func:`flash_row_max`, pass B :func:`flash_pass_b`), and of
+``flash_attention_partials``.  On a CUDA tensor each launches its
+hand-written sm_90a kernel; on a CPU tensor it runs the plain version
+(``ops.attention.causal_prefill_attention``, ``flash_row_max_plain``,
+``flash_pass_b_plain``, ``flash_partials_plain``).
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from typing import Optional
 
 import torch
 
-from ..ops.attention import causal_prefill_attention, flash_partials_plain
+from ..ops.attention import (causal_prefill_attention, flash_partials_plain,
+                             flash_pass_b_plain, flash_row_max_plain)
 from . import _build
 
 #: q rows per block and keys per tile of the CUDA kernel
@@ -64,6 +67,7 @@ def flash_causal_attention(
     scale: Optional[float] = None,
     softcap: Optional[float] = None,
     q_start: int = 0,
+    two_pass: bool = False,
 ) -> torch.Tensor:
     """Causal GQA attention over a left-padded buffer.
 
@@ -71,33 +75,95 @@ def flash_causal_attention(
     first N rows of a contiguous [B, Hk, >= N, D] buffer, as a prefill chunk
     reads its carry); true_len: [B] int.  The queries sit at global columns
     [q_start, q_start + Nq) of the keys (a prefill chunk: q_start + Nq == N;
-    the monolithic prefill: q_start = 0, Nq == N).
+    the monolithic prefill: q_start = 0, Nq == N).  ``two_pass``: the TPU's
+    two-pass schedule, :func:`flash_row_max` then :func:`flash_pass_b`.
     Returns [B, H, Nq, D]; rows below the left pad are 0 on the card (no
     visible key) and unspecified on the CPU path — callers never read them.
     """
     if softcap is not None:
         raise NotImplementedError(
             "softcap is not ported yet (Gemma-2, ROADMAP queue 1 #10)")
+    kw = dict(sliding_window=sliding_window, scale=scale, q_start=q_start)
+    if two_pass:
+        return flash_pass_b(q, k, v, flash_row_max(q, k, true_len, **kw),
+                            true_len, **kw)
     if q.device.type == "cpu":
-        return causal_prefill_attention(
-            q, k, v, true_len=true_len, sliding_window=sliding_window,
-            scale=scale, q_start=q_start)
+        return causal_prefill_attention(q, k, v, true_len=true_len, **kw)
+    out = torch.empty_like(q)
+    err = _launch("pkv_flash_prefill", q, k, v, true_len, (out,), **kw)
+    _build.check(err, "flash_prefill")
+    flash_causal_attention.launches += 1
+    return out
+
+
+def _launch(symbol, q, k, v, true_len, outs, *, sliding_window, scale,
+            q_start, m=None):
+    """Check the arguments of a normalised-attention entry point of
+    ``csrc/flash_prefill.cu`` and launch ``symbol`` (pass A takes no v: it
+    is given k's); returns its error code."""
     b, h, nq, d = q.shape
     hk, n = k.shape[1], k.shape[2]
     # rows per head of the buffer k and v view (size-1 dims carry no stride)
     ldk = (k.stride(1) // d if hk > 1 else k.stride(0) // d if b > 1 else n)
     tl = _check(q, k, v, true_len,
                 q_start + nq == n or (q_start == 0 and nq == n), ldk)
-    out = torch.empty_like(q)
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
-    lib = _build.library("flash_prefill")
-    err = lib.pkv_flash_prefill(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), tl.data_ptr(),
-        out.data_ptr(), b, h, hk, n, ldk, nq, q_start,
-        int(sliding_window or 0),
-        float(sc), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_prefill")
-    flash_causal_attention.launches += 1
+    ins = [q.data_ptr(), k.data_ptr()]
+    if symbol != "pkv_flash_row_max":
+        ins.append(v.data_ptr())
+    ins.append(tl.data_ptr())
+    if m is not None:
+        ins.append(m.data_ptr())
+    return getattr(_build.library("flash_prefill"), symbol)(
+        *ins, *(o.data_ptr() for o in outs), b, h, hk, n, ldk, nq, q_start,
+        int(sliding_window or 0), float(sc),
+        torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def flash_row_max(q: torch.Tensor, k: torch.Tensor, true_len: torch.Tensor,
+                  *, sliding_window: Optional[int] = None,
+                  scale: Optional[float] = None,
+                  q_start: int = 0) -> torch.Tensor:
+    """Pass A of the two-pass schedule (the TPU's ``_max_kernel``): each
+    query row's max base-2 logit over its visible keys.  Arguments as
+    :func:`flash_causal_attention`.  Returns m [B, H, Nq] f32 (float32.min
+    for a row with no visible key)."""
+    if q.device.type == "cpu":
+        return flash_row_max_plain(q, k, true_len,
+                                   sliding_window=sliding_window,
+                                   scale=scale, q_start=q_start)
+    m = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    err = _launch("pkv_flash_row_max", q, k, k, true_len, (m,),
+                  sliding_window=sliding_window, scale=scale,
+                  q_start=q_start)
+    _build.check(err, "flash_row_max")
+    flash_row_max.launches += 1
+    return m
+
+
+def flash_pass_b(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 m: torch.Tensor, true_len: torch.Tensor, *,
+                 sliding_window: Optional[int] = None,
+                 scale: Optional[float] = None,
+                 q_start: int = 0) -> torch.Tensor:
+    """Pass B of the two-pass schedule (the TPU's ``_kernel_pass_b``): the
+    rescale-free accumulation against pass A's row maxes ``m`` [B, H, Nq]
+    f32.  Returns [B, H, Nq, D] in q's dtype, 0 on rows with no visible
+    key."""
+    if q.device.type == "cpu":
+        return flash_pass_b_plain(q, k, v, m, true_len,
+                                  sliding_window=sliding_window, scale=scale,
+                                  q_start=q_start)
+    if (m.dtype != torch.float32 or tuple(m.shape) != tuple(q.shape[:3])
+            or not m.is_contiguous() or m.device != q.device):
+        raise ValueError(f"m must be contiguous float32 {tuple(q.shape[:3])} "
+                         f"on {q.device}, got {m.dtype} {tuple(m.shape)}")
+    out = torch.empty_like(q)
+    err = _launch("pkv_flash_pass_b", q, k, v, true_len, (out,), m=m,
+                  sliding_window=sliding_window, scale=scale,
+                  q_start=q_start)
+    _build.check(err, "flash_pass_b")
+    flash_pass_b.launches += 1
     return out
 
 
@@ -138,4 +204,6 @@ def flash_attention_partials(
 
 #: kernel launches since the last reset (CPU calls do not count)
 flash_causal_attention.launches = 0
+flash_row_max.launches = 0
+flash_pass_b.launches = 0
 flash_attention_partials.launches = 0

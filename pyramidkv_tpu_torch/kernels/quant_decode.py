@@ -1,14 +1,26 @@
 """Decode attention over a group-layout KIVI region: wrappers of
 ``csrc/quant_decode.cu``.
 
-Counterparts of ``pyramidkv_tpu/kernels/quant_decode.py``'s
-``quant_decode_attention`` (one block per region) and
-``quant_decode_attention_tiled`` (the slots split across blocks, a finish
-pass merging the splits); :func:`split_plan` says which a region takes.  Both return the region's e-domain partials (acc [B, H, D],
-m [B, H], l [B, H], f32), which the decode step merges with its bf16 tail.
-On a CUDA tensor they launch the hand-written sm_90a kernels; on a CPU
-tensor they run the plain version (``ops.quant.quant_decode_attention_plain``:
-f32 dequantization, then f32 partials).
+:func:`quant_fused_attention_group` is the default route: the factored
+dequantization of JAX ``ops/quant.py::quant_region_attention_fused`` (its
+grouped branch), the JAX engine's default decode of a group-layout region,
+with its bf16 roundings (the query folded with each slot-group's K scale,
+the probabilities with each channel-group's V scale).  Its plain version is
+``ops.quant.quant_region_attention_fused``; it launches the whole-region or
+the split kernel as :func:`split_plan` says.
+
+:func:`quant_decode_attention` (one block per region) and
+:func:`quant_decode_attention_tiled` (the slots split across blocks, a
+finish pass merging the splits) are the counterparts of
+``pyramidkv_tpu/kernels/quant_decode.py``'s kernels of the same names, the
+JAX engine's opt-in ``use_quant_kernel`` / ``use_quant_tiled`` route: f32
+dequantization, then f32 partials (plain version
+``ops.quant.quant_decode_attention_plain``).
+
+Each returns the region's e-domain partials (acc [B, H, D], m [B, H],
+l [B, H], f32), or with a tail the layer's output.  On a CUDA tensor it
+launches the hand-written sm_90a kernel; on a CPU tensor it runs the plain
+version.
 
 The region is one layer's ``QuantizedKVRegion`` (``ops/quant.py``); its
 slot-major K codes are read as they lie.  ``mask`` is the region's
@@ -24,7 +36,8 @@ import math
 import torch
 
 from ..ops.quant import (QuantizedKVRegion, merge_tail,
-                         quant_decode_attention_plain, region_geometry)
+                         quant_decode_attention_plain,
+                         quant_region_attention_fused, region_geometry)
 from . import _build
 
 HEAD_DIM = 128
@@ -197,6 +210,28 @@ def quant_decode_attention_tiled(q: torch.Tensor, reg: QuantizedKVRegion,
     return out
 
 
+def quant_fused_attention_group(q: torch.Tensor, reg: QuantizedKVRegion,
+                                mask: torch.Tensor, *, nbits: int, tail=None,
+                                scale=None, softcap=None):
+    """The factored dequantization with the JAX function's bf16 roundings
+    (``ops.quant.quant_region_attention_fused``), over a group-layout
+    region: the whole-region kernel where :func:`split_plan` gives one
+    split, else the split kernel.  Arguments and results as
+    :func:`quant_decode_attention`."""
+    check_unsupported(scale, softcap)
+    if q.device.type == "cpu":
+        return merge_tail(quant_region_attention_fused(q, reg, mask,
+                                                       nbits=nbits), q, tail)
+    b, hk, w = reg.k.codes.shape[:3]
+    whole = split_plan(q.device, b * hk, w)[0] == 1
+    out = launch_region(
+        "pkv_quant_group_fused" if whole else "pkv_quant_group_fused_tiled",
+        "quant_decode", q, reg, mask, nbits, split=not whole, tail=tail)
+    quant_fused_attention_group.launches += 1
+    return out
+
+
 #: kernel launches since the last reset (CPU calls do not count)
 quant_decode_attention.launches = 0
 quant_decode_attention_tiled.launches = 0
+quant_fused_attention_group.launches = 0

@@ -26,8 +26,10 @@ Two carries, as in the JAX package:
 
 Methods outside :func:`supports_chunked` / :func:`supports_chunked_quant`
 (minference, and fullkv + KIVI where the chunk does not fit its groups)
-take the monolithic prefill (``engine.py``).  Prefix handles
-(``quant_state_from_prefix``) are not ported yet.
+take the monolithic prefill (``engine.py``).  A prefix handle
+(``engine.py::PrefixHandle``) resumes either carry: the bf16 one by a
+scatter of the handle's rows (``Engine._apply_prefix``), the quantized one
+through :func:`quant_state_from_prefix`.
 """
 
 from __future__ import annotations
@@ -439,3 +441,102 @@ def prefill_finish_quant(
         positions=positions[None].expand(L, -1, -1, -1).contiguous(),
         true_len=true_len.to(torch.int32), quant=reg)
     return llama._logits(hidden_last, params, spec, attention_impl), cache
+
+
+def quant_state_from_prefix(
+    spec: ModelSpec,
+    plan: PolicyPlan,
+    hstate: QuantChunkState,
+    p_full: int,
+    pads,
+    k0: int,
+    chunk: int,
+    handle_nbits: Optional[int] = None,
+) -> QuantChunkState:
+    """The quantized carry of a batch resumed from a quantized prefix handle
+    (JAX ``models/chunked_prefill.py::quant_state_from_prefix``).
+
+    ``hstate`` is the prefix's own chunk-local carry ([L, 1, ...] leaves,
+    built unpadded, so its chunk grid starts at slot 0; on the carry's
+    device).  Request chunk j < ``k0`` of a row with left pad p covers
+    slots [j*C, (j+1)*C), whose content is the handle's span shifted by p:
+    the (<= 2) overlapping handle chunks are dequantized at the handle's
+    width (``handle_nbits``, or the plan's), windowed, the columns before
+    the pad zeroed (as ``prefill_chunk_quant`` zeroes them) and requantized
+    on the request's chunk grid at the plan's width.  With p % C == 0 the
+    grids coincide and requantizing grid-snapped values returns their codes
+    and zeros (the scales within an f32 rounding of the span).  The
+    arithmetic is that of JAX's function as XLA compiles it (one rounding
+    in each dequantization, the scale times the reciprocal of 2^nbits - 1),
+    so the carry is JAX's bit for bit on the same handle.  One (layer, chunk
+    pair) window is live at a time: no bf16 buffer of the full context is
+    built.  ``pads``: one int per batch row.  Returns the carry for chunks
+    [k0, N / C) to continue, zero past the covered chunks."""
+    cs = plan.spec
+    nbits = cs.nbits
+    per = 8 // nbits
+    h_nbits = handle_nbits or nbits
+    h_per = 8 // h_nbits
+    c = chunk
+    dh = spec.head_dim
+    dp = _round_up(dh, cs.q_group_size)
+    kg, vg = _quant_groups(cs, c, dp)
+    n_hc = p_full // c  # handle chunks
+    dev = hstate.k_codes.device
+    state = init_quant_state(spec, plan, len(pads), c, dev)
+    cols = torch.arange(c, device=dev)
+
+    def dequantize_fused(qt, group_size, pack_axis=-1):
+        """``dequantize`` with one rounding (code * scale + zero exact in
+        f64, rounded once to f32): the fused multiply-add that XLA makes of
+        the JAX function, so the requantized carry is JAX's bit for bit."""
+        codes = _unpack(qt.codes, h_nbits, axis=pack_axis)
+        *lead, n = codes.shape
+        g = codes.reshape(*lead, n // group_size, group_size).double()
+        return (g * qt.scale.double() + qt.zero.double()).float().reshape(
+            *lead, n)
+
+    def dq(li, m):
+        """Handle chunk m of layer li dequantized: K, V [KV, C, Dh] f32
+        (zeros outside [0, n_hc))."""
+        if not 0 <= m < n_hc:
+            z = torch.zeros((spec.num_key_value_heads, c, dh),
+                            dtype=torch.float32, device=dev)
+            return z, z
+        rows = slice(m * (c // h_per), (m + 1) * (c // h_per))
+        kgs = slice(m * (c // kg), (m + 1) * (c // kg))
+        kt = dequantize_fused(QuantizedTensor(
+            hstate.k_codes[li, 0, :, rows].transpose(-1, -2),
+            hstate.k_scale[li, 0, :, :, kgs], hstate.k_zero[li, 0, :, :, kgs]),
+            kg)
+        vs = slice(m * c, (m + 1) * c)
+        vt = dequantize_fused(QuantizedTensor(
+            hstate.v_codes[li, 0, :, rows], hstate.v_scale[li, 0, :, vs],
+            hstate.v_zero[li, 0, :, vs]), vg, pack_axis=-2)
+        return kt.transpose(-1, -2), vt[..., :dh]
+
+    for bi, p in enumerate(int(x) for x in pads):
+        for j in range(k0):
+            a = j * c - p  # handle slot at the window's start
+            m0 = a // c
+            off = a - m0 * c
+            keep = ((a + cols) >= 0)[None, :, None]  # slot >= pad
+            rows = slice(j * (c // per), (j + 1) * (c // per))
+            kgs = slice(j * (c // kg), (j + 1) * (c // kg))
+            vs = slice(j * c, (j + 1) * c)
+            for li in range(spec.num_hidden_layers):
+                (ka, va), (kb, vb) = dq(li, m0), dq(li, m0 + 1)
+                kwin = torch.cat([ka, kb], dim=-2)[:, off:off + c]
+                vwin = torch.cat([va, vb], dim=-2)[:, off:off + c]
+                kq = quantize(kwin.masked_fill(~keep, 0.0).transpose(-1, -2),
+                              nbits=nbits, group_size=kg, compiled=True)
+                vq = quantize(torch.nn.functional.pad(
+                    vwin.masked_fill(~keep, 0.0), (0, dp - dh)),
+                    nbits=nbits, group_size=vg, pack_axis=-2, compiled=True)
+                state.k_codes[li, bi, :, rows] = kq.codes.transpose(-1, -2)
+                state.k_scale[li, bi, :, :, kgs] = kq.scale
+                state.k_zero[li, bi, :, :, kgs] = kq.zero
+                state.v_codes[li, bi, :, rows] = vq.codes
+                state.v_scale[li, bi, :, vs] = vq.scale
+                state.v_zero[li, bi, :, vs] = vq.zero
+    return state

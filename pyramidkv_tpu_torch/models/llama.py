@@ -33,7 +33,7 @@ from ..cache import KVCache, LayerCacheView
 from ..config import ModelSpec
 from ..kernels import (decode_attention, flash_causal_attention,
                        quant_decode_attention, quant_decode_attention_tiled,
-                       quant_fused_attention_pa)
+                       quant_fused_attention_group, quant_fused_attention_pa)
 from ..kernels.quant_decode import split_plan
 from ..ops import attention as plain
 from ..ops import quant
@@ -195,12 +195,16 @@ def prefill(
     true_len: torch.Tensor,
     *,
     attention_impl: str = "kernel",
+    prefill_two_pass: bool = False,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the prompt through the model, compressing each layer's KV.
 
     tokens: [B, N] left-padded token ids (N == plan.bucket_len);
-    true_len: [B] real-token counts.  Returns (f32 logits [B, vocab] of the
-    last position, the compressed KVCache).
+    true_len: [B] real-token counts.  ``prefill_two_pass``: the dense flash
+    attention runs the two-pass schedule (JAX ``llama.py:473/553``; the
+    plain path and MInference's sparse attention ignore it, as in JAX).
+    Returns (f32 logits [B, vocab] of the last position, the compressed
+    KVCache).
     """
     check_ported(spec)
     if attention_impl not in IMPLS:
@@ -235,7 +239,8 @@ def prefill(
                 attn = _sparse_attention(q, k, v, true_len, cs, budgets, li,
                                          attention_impl)
             elif attention_impl == "kernel":
-                attn = flash_causal_attention(q, k, v, true_len)
+                attn = flash_causal_attention(q, k, v, true_len,
+                                              two_pass=prefill_two_pass)
             else:
                 attn = plain.causal_prefill_attention(q, k, v,
                                                       true_len=true_len)
@@ -326,34 +331,43 @@ def assemble_cache(seg_stacks: list, true_len: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def region_route(cs, bhk: int, w: int, device: torch.device):
+def region_route(cs, bhk: int, w: int, device: torch.device,
+                 f32_quant: bool = False):
     """The region kernel a KIVI layer of ``bhk`` regions of ``w`` byte-rows
     decodes through on ``device``: pa regions through
     ``quant_fused_attention_pa``; group regions through
-    ``quant_decode_attention`` where the split plan gives them one split,
-    else through ``quant_decode_attention_tiled``."""
+    ``quant_fused_attention_group`` (JAX's default: the factored
+    dequantization with bf16 folds), or with ``f32_quant`` (JAX's opt-in
+    ``use_quant_kernel`` / ``use_quant_tiled``) through the f32 kernels:
+    ``quant_decode_attention`` where the split plan gives one split, else
+    ``quant_decode_attention_tiled``."""
     if cs.q_layout == "pa":
         return quant_fused_attention_pa
+    if not f32_quant:
+        return quant_fused_attention_group
     return (quant_decode_attention if split_plan(device, bhk, w)[0] == 1
             else quant_decode_attention_tiled)
 
 
 def _region_attention(q: torch.Tensor, reg, layer: LayerCacheView,
-                      plan: PolicyPlan, impl: str) -> torch.Tensor:
+                      plan: PolicyPlan, impl: str,
+                      f32_quant: bool = False) -> torch.Tensor:
     """One KIVI layer's decode attention over the quantized prefill region
-    and the bf16 decode slots (the tail): one region-kernel call, whose
-    finish pass attends over the tail and merges, or its plain version
-    (region partials, tail partials in plain torch as the JAX package
-    leaves them to XLA, merged).  Returns [B, H, D] in q's dtype."""
+    and the bf16 decode slots (the tail): one region-kernel call
+    (:func:`region_route`), whose finish pass attends over the tail and
+    merges, or its plain version (region partials, tail partials in plain
+    torch as the JAX package leaves them to XLA, merged).  Returns
+    [B, H, D] in q's dtype."""
     cs, sp = plan.spec, plan.prefill_slots
     visible = layer.mask
     tail = (layer.k, layer.v, visible[:, :, sp:])
     if impl == "kernel":
         b, hk, w = reg.k.codes.shape[:3]
-        return region_route(cs, b * hk, w, q.device)(
+        return region_route(cs, b * hk, w, q.device, f32_quant)(
             q, reg, visible[:, :, :sp], nbits=cs.nbits, tail=tail)
-    plain_region = (quant.quant_region_attention_fused if cs.q_layout == "pa"
-                    else quant.quant_decode_attention_plain)
+    plain_region = (quant.quant_decode_attention_plain
+                    if f32_quant and cs.q_layout == "group"
+                    else quant.quant_region_attention_fused)
     return quant.merge_tail(
         plain_region(q, reg, visible[:, :, :sp], nbits=cs.nbits), q, tail)
 
@@ -366,6 +380,7 @@ def decode_step(
     token: torch.Tensor,
     *,
     attention_impl: str = "kernel",
+    f32_quant: bool = False,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step against the compressed cache.
 
@@ -374,7 +389,9 @@ def decode_step(
     layer (the JAX version returns a new cache; this one advances
     ``cache.step`` and returns the same buffers); with a KIVI cache, whose
     k/v buffers hold only the decode slots, into k/v slot ``step``.
-    Returns (f32 logits [B, vocab], cache).
+    ``f32_quant``: group-layout KIVI regions decode through the f32
+    region kernels (:func:`region_route`).  Returns (f32 logits [B, vocab],
+    cache).
     """
     check_ported(spec)
     if attention_impl not in IMPLS:
@@ -417,7 +434,7 @@ def decode_step(
             if quantized:
                 attn = _region_attention(
                     q, quant.layer_region(cache.quant, start + i), layer,
-                    sub, attention_impl)
+                    sub, attention_impl, f32_quant)
             else:
                 attn = attend(q, layer.k, layer.v, layer.mask)
             hidden = hidden + mm(attn.reshape(b, -1), wts["wo"],

@@ -5,7 +5,9 @@ These are the plain versions of the port's flash and decode kernels
 counterparts of ``pyramidkv_tpu/ops/attention.py``'s
 ``causal_prefill_attention``, ``decode_attention``, ``tile_attention_partials``
 and ``merge_partials_pair``; :func:`flash_partials_plain` is the plain
-version of ``flash_attention_partials`` (base-2 statistics).  The CPU path runs
+version of ``flash_attention_partials`` (base-2 statistics), and
+:func:`flash_row_max_plain` / :func:`flash_pass_b_plain` the plain versions
+of the two passes of ``flash_causal_attention(two_pass=True)``.  The CPU path runs
 them; on the card they are the references the kernels are held against.
 
 Numerics follow the JAX versions: operands in the storage dtype with f32
@@ -141,6 +143,80 @@ def flash_partials_plain(
         m[..., r0:r0 + block] = mb
     return (acc.reshape(b, h, nq, d), m.reshape(b, h, nq),
             l.reshape(b, h, nq))
+
+
+def _base2_logit_blocks(q, k, true_len, sliding_window, scale, q_start,
+                        block):
+    """Yield (r0, rows, s) per query-row block of the TPU flash kernel's
+    base-2 logits: ``s = bf16(q * scale * log2 e) . k`` in f32 (the
+    wrapper's fold: log2(e) and the softmax scale multiply q in f32, rounded
+    to q's dtype), masked to float32.min outside the causal edge, the left
+    pad and the sliding window; s is [B, Hk, G, rows, N]."""
+    b, h, nq, d = q.shape
+    hk, n = k.shape[1], k.shape[2]
+    assert q_start + nq == n or (q_start == 0 and nq == n), (q_start, nq, n)
+    g = h // hk
+    block = _row_block(block, b * h * n, nq)
+    sc = (scale if scale is not None else 1.0 / math.sqrt(d)) * math.log2(
+        math.e)
+    qr = (q.float() * sc).to(q.dtype).float().reshape(b, hk, g, nq, d)
+    pad = (n - true_len).to(torch.int64)
+    col = torch.arange(n, device=q.device)
+    colv = col[None, :] >= pad[:, None]  # [B, N]
+    kf = k.float().transpose(-1, -2)
+    for r0 in range(0, nq, block):
+        rows = q_start + r0 + torch.arange(block, device=q.device)
+        vis = col[None, :] <= rows[:, None]
+        if sliding_window is not None:
+            vis &= (rows[:, None] - col[None, :]) < sliding_window
+        mask = vis[None] & colv[:, None, :]  # [B, block, N]
+        s = torch.matmul(qr[:, :, :, r0:r0 + block].reshape(
+            b, hk, g * block, d), kf).reshape(b, hk, g, block, n)
+        yield r0, block, s.masked_fill(~mask[:, None, None], _NEG_INF)
+
+
+def flash_row_max_plain(q, k, true_len, *, sliding_window=None, scale=None,
+                        q_start: int = 0, block: int = 512) -> torch.Tensor:
+    """Pass A of the two-pass flash schedule (plain version of
+    ``kernels/flash_prefill.py``'s row-max kernel; the TPU's ``_max_kernel``):
+    the max over every visible key of each query row's base-2 logit
+    (:func:`_base2_logit_blocks`).  q: [B, H, Nq, D]; k: [B, Hk, N, D].
+    Returns m [B, H, Nq] f32; a row with no visible key has m =
+    float32.min."""
+    b, h, nq, _ = q.shape
+    m = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+    mg = m.view(b, k.shape[1], h // k.shape[1], nq)
+    for r0, rows, s in _base2_logit_blocks(q, k, true_len, sliding_window,
+                                           scale, q_start, block):
+        mg[..., r0:r0 + rows] = s.amax(dim=-1)
+    return m
+
+
+def flash_pass_b_plain(q, k, v, m, true_len, *, sliding_window=None,
+                       scale=None, q_start: int = 0,
+                       block: int = 512) -> torch.Tensor:
+    """Pass B of the two-pass flash schedule (plain version of
+    ``kernels/flash_prefill.py``'s pass-B kernel; the TPU's
+    ``_kernel_pass_b``): rescale-free accumulation against the known row
+    maxes m [B, H, Nq] (:func:`flash_row_max_plain`), clamped to
+    float32.min / 2: ``p = exp2(s - m)``, ``l = sum p``, ``acc = sum p v``
+    with p rounded to v's dtype; ``out = acc / l`` (0 where l = 0).  Returns
+    [B, H, Nq, D] in q's dtype."""
+    b, h, nq, d = q.shape
+    hk = k.shape[1]
+    g = h // hk
+    mg = m.reshape(b, hk, g, nq).clamp_min(_NEG_INF / 2)
+    vf = v.float()
+    out = torch.empty((b, hk, g, nq, d), dtype=q.dtype, device=q.device)
+    for r0, rows, s in _base2_logit_blocks(q, k, true_len, sliding_window,
+                                           scale, q_start, block):
+        p = torch.exp2(s - mg[..., r0:r0 + rows, None])
+        l = p.sum(-1)
+        acc = torch.matmul(p.to(v.dtype).float().reshape(b, hk, g * rows, -1),
+                           vf).reshape(b, hk, g, rows, d)
+        out[:, :, :, r0:r0 + rows] = (
+            acc / torch.where(l == 0, 1.0, l)[..., None]).to(q.dtype)
+    return out.reshape(b, h, nq, d)
 
 
 def tile_attention_partials(

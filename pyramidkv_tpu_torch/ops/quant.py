@@ -9,13 +9,14 @@ not adjacent slots.  Keys are grouped along slots (per-channel scales), values
 along channels (per-token scales); ``layout="pa"`` widens each group to its
 whole axis.
 
-Also here: the plain versions of the port's three region kernels
+Also here: the plain versions of the port's region kernels
 (``kernels/quant_decode.py``, ``kernels/quant_fused_decode.py``) —
 :func:`quant_decode_attention_plain` (f32 dequantization, then f32
 attention partials, as the JAX package's tests define the reference of its
-group-layout kernels) and :func:`quant_region_attention_fused` (the factored
-dequantization of the pa layout, per bit-plane, with the JAX function's bf16
-roundings).
+group-layout kernels, JAX's opt-in route) and
+:func:`quant_region_attention_fused` (the factored dequantization, per
+bit-plane, with the JAX function's bf16 roundings: JAX's default decode of
+both layouts).
 
 Not ported yet (ROADMAP queue 1 #11): KVQuant's outlier sidecar and the
 chunked dequantization scan ``quant_region_attention_partials``.
@@ -87,8 +88,11 @@ def _unpack(codes: torch.Tensor, nbits: int, axis: int = -1) -> torch.Tensor:
 
 
 def quantize(x: torch.Tensor, *, nbits: int, group_size: int = 64,
-             pack_axis: int = -1) -> QuantizedTensor:
-    """Asymmetric per-group min/max quantization along the last axis."""
+             pack_axis: int = -1, compiled: bool = False) -> QuantizedTensor:
+    """Asymmetric per-group min/max quantization along the last axis.
+    ``compiled``: the scale as XLA compiles the JAX function, (max - min)
+    times the f32 reciprocal of 2^nbits - 1 instead of the division
+    (bit-equal to a jitted caller such as the prefix resume)."""
     xf = x.float()
     *lead, n = xf.shape
     assert n % group_size == 0, (n, group_size)
@@ -96,7 +100,9 @@ def quantize(x: torch.Tensor, *, nbits: int, group_size: int = 64,
     mn = g.amin(dim=-1, keepdim=True)
     mx = g.amax(dim=-1, keepdim=True)
     qmax = float(2 ** nbits - 1)
-    scale = ((mx - mn) / qmax).clamp_min(1e-8)
+    span = mx - mn
+    scale = (span * torch.tensor(1.0 / qmax, dtype=torch.float32)
+             if compiled else span / qmax).clamp_min(1e-8)
     codes = torch.clamp(torch.round((g - mn) / scale), 0, qmax)
     codes = codes.reshape(*lead, n).to(torch.int32)
     return QuantizedTensor(codes=_pack(codes, nbits, axis=pack_axis),
@@ -177,18 +183,22 @@ def quant_decode_attention_plain(q: torch.Tensor, reg: QuantizedKVRegion,
 
 def quant_region_attention_fused(q: torch.Tensor, reg: QuantizedKVRegion,
                                  visible: torch.Tensor, *, nbits: int):
-    """Attention partials over a pa-layout region without a dequantized
-    copy (plain version of ``kernels/quant_fused_decode.py``).
+    """Attention partials over a KIVI region without a dequantized copy
+    (JAX ``ops/quant.py::quant_region_attention_fused``; plain version of
+    ``kernels/quant_fused_decode.py`` and of
+    ``kernels/quant_decode.py::quant_fused_attention_group``).
 
     The affine dequantization folds through the attention algebra: the K
-    per-channel scale into the query (rounded to bf16, as the JAX function
-    feeds its bf16 dot), the K zero into a logit bias q . kz; the V per-token
-    scale into the probabilities (rounded to bf16), the V zero into the
-    scalar sum_t p_t vz_t added to every channel.  Bit-planes are separate
-    slot spans whose logits concatenate in planar slot order.  K may have
-    Gk > 1 slot groups (the chunked prefill's carry: one group per chunk),
-    each plane holding whole groups: the query then folds once per group,
-    and the zero term is a per-group bias.
+    scale into the query (rounded to bf16, as the JAX function feeds its
+    bf16 dot), the K zero into a logit bias q . kz (f32); the V scale into
+    the probabilities (rounded to bf16), the V zero into the sum
+    sum_t p_t vz_t (f32) added to the channels of its group.  Bit-planes are
+    separate slot spans whose logits concatenate in planar slot order.  K
+    may have Gk > 1 slot groups (the group layout, or the chunked prefill's
+    pa carry: one group per chunk), each plane holding whole groups: the
+    query then folds once per group and the zero term is a per-group bias.
+    V may have Gv > 1 channel groups (the group layout): the probabilities
+    then fold once per group.
 
     q: [B, H, D]; visible: [B, Hk, n] (n <= S_pad).  Returns (acc [B, H, D],
     m [B, H], l [B, H]) f32."""
@@ -196,18 +206,18 @@ def quant_region_attention_fused(q: torch.Tensor, reg: QuantizedKVRegion,
     hk = reg.k.codes.shape[1]
     g = h // hk
     per = 8 // nbits
-    w, s_pad, kg_sz, _ = region_geometry(reg, nbits)
-    gk = reg.k.scale.shape[-2]
-    if reg.v.scale.shape[-2] != 1 or (gk > 1 and w % kg_sz):
-        raise ValueError("quant_region_attention_fused takes the pa layout: "
-                         "one V group, K groups that tile each bit-plane")
+    w, s_pad, kg_sz, vg_sz = region_geometry(reg, nbits)
+    gk, gv = reg.k.scale.shape[-2], reg.v.scale.shape[-2]
+    if gk > 1 and w % kg_sz:
+        raise ValueError("quant_region_attention_fused takes K groups that "
+                         "tile each bit-plane")
     mask = _pad_mask(visible, s_pad)
     qg = q.float().reshape(b, hk, g, d) * (1.0 / math.sqrt(d))
     ku = reg.k.codes.view(torch.uint8)
     vu = reg.v.codes.view(torch.uint8)
     mb = (1 << nbits) - 1
     ks, kz = reg.k.scale[..., 0], reg.k.zero[..., 0]        # [B, Hk, D, Gk]
-    vs, vz = reg.v.scale[..., 0, 0], reg.v.zero[..., 0, 0]  # [B, Hk, S_pad]
+    vs, vz = reg.v.scale[..., 0], reg.v.zero[..., 0]        # [B, Hk, S, Gv]
     planes = []
     for p in range(per):
         cp = ((ku >> (p * nbits)) & mb).float()             # [B, Hk, W, D]
@@ -232,16 +242,24 @@ def quant_region_attention_fused(q: torch.Tensor, reg: QuantizedKVRegion,
     pe = torch.exp(s - m.clamp_min(_NEG_INF / 2)[..., None]).masked_fill(
         ~valid, 0.0)
     l = pe.sum(-1)
-    acc = torch.zeros((b, hk, g, reg.v.codes.shape[-1]), dtype=torch.float32,
-                      device=q.device)
+    dp = reg.v.codes.shape[-1]
+    acc = torch.zeros((b, hk, g, dp), dtype=torch.float32, device=q.device)
     for p in range(per):
-        pe_p = pe[..., p * w:(p + 1) * w]
-        vp = ((vu >> (p * nbits)) & mb).float()
-        ps = (pe_p * vs[:, :, None, p * w:(p + 1) * w]).to(
-            torch.bfloat16).float()
-        acc += torch.einsum("bkqw,bkwe->bkqe", ps, vp)
-        acc += torch.einsum("bkqw,bkw->bkq", pe_p,
-                            vz[:, :, p * w:(p + 1) * w])[..., None]
+        pe_p = pe[..., p * w:(p + 1) * w]                    # [B,Hk,G,W]
+        vp = ((vu >> (p * nbits)) & mb).float()              # [B,Hk,W,Dp]
+        vs_p, vz_p = vs[:, :, p * w:(p + 1) * w], vz[:, :, p * w:(p + 1) * w]
+        if gv == 1:
+            ps = (pe_p * vs_p[:, :, None, :, 0]).to(torch.bfloat16).float()
+            acc += torch.einsum("bkqw,bkwe->bkqe", ps, vp)
+            acc += torch.einsum("bkqw,bkw->bkq", pe_p,
+                                vz_p[..., 0])[..., None]
+            continue
+        ps5 = (pe_p[..., None] * vs_p[:, :, None]).to(
+            torch.bfloat16).float()                          # [B,Hk,G,W,Gv]
+        acc5 = torch.einsum("bkqwg,bkwge->bkqge", ps5,
+                            vp.reshape(b, hk, w, gv, vg_sz))
+        zv5 = torch.einsum("bkqw,bkwg->bkqg", pe_p, vz_p)
+        acc += (acc5 + zv5[..., None]).reshape(b, hk, g, dp)
     return (acc[..., :d].reshape(b, h, d), m.reshape(b, h), l.reshape(b, h))
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Mutation check of the port's KIVI region kernels, MInference's
-block-sparse prefill kernels, the H2O kernels and the chunked prefill's
-flash kernels, on a CUDA card.
+block-sparse prefill kernels, the H2O kernels, the chunked prefill's flash
+kernels and the two-pass flash schedule, on a CUDA card.
 
     python3 scripts/port_mutation_check.py [--log FILE]
 
@@ -32,7 +32,15 @@ non-zero if a mutant was not caught.  Mutants:
   a history tile's last 64 keys);
 - ``flash_q_start_edge`` (``csrc/flash_prefill.cu``): the key-tile loop's
   causal edge one tile early (the global row of a block's first query
-  taken as q_start + q0 - 64), at every q_start.
+  taken as q_start + q0 - 64), at every q_start;
+- ``row_max_skip_first_k_tile`` (``csrc/flash_prefill.cu``): pass A of the
+  two-pass schedule starts one key tile late (the first tile past the pad
+  never enters a row's max);
+- ``pass_b_drop_last_k_tile`` (``csrc/flash_prefill.cu``): pass B skips
+  the last key tile of every block (the diagonal tile);
+- ``fold_skip_first_k_group`` (``csrc/quant_region.cuh``): the factored
+  group kernel folds the query of each block's first K group (on every
+  bit-plane) with 1 instead of the group's scale.
 """
 
 from __future__ import annotations
@@ -85,6 +93,20 @@ MUTANTS = {
         ("flash_causal_attention (q_start)",),
         "  const int g0 = q_start + q0;             // its global row",
         "  const int g0 = q_start + q0 - BQ;"),
+    "row_max_skip_first_k_tile": (
+        "flash_prefill.cu", "phase_two_pass_kernels", ("flash_row_max",),
+        "  const int kt_begin = lo / BK;",
+        "  const int kt_begin = lo / BK + (ROW_MAX ? 1 : 0);"),
+    "pass_b_drop_last_k_tile": (
+        "flash_prefill.cu", "phase_two_pass_kernels", ("flash_pass_b",),
+        "  const int kt_end = min(last_row, N - 1) / BK;",
+        "  const int kt_end = min(last_row, N - 1) / BK - (PASS_B ? 1 : 0);"),
+    "fold_skip_first_k_group": (
+        "quant_region.cuh", "phase_kv_quant_kernels",
+        ("quant_fused_attention_group",),
+        "const float ksv = __ldg(ksb + o), kzv = __ldg(kzb + o);",
+        "const float ksv = grp[p] == (row0 + p * W) / a.kg ? 1.f : "
+        "__ldg(ksb + o), kzv = __ldg(kzb + o);"),
 }
 _RUN = """
 import json, sys, torch, torch.nn.functional as F

@@ -288,8 +288,12 @@ def _quant_engines(params, fmt, chunk=64):
     eng = dict(max_new_tokens=8, prefill_buckets=(256,))
     je = JaxEngine(jcfg.ModelSpec.tiny(), jcfg.CompressionSpec(**comp),
                    jcfg.EngineSpec(prefill_chunk=chunk, **eng), params[0])
+    # group regions decode through the f32 kernels, the route the JAX
+    # engine takes under _FORCE_QUANT_KERNEL (test_torch_engine.py holds
+    # the default route to JAX's default)
+    f32 = dict(use_quant_kernel=layout == "group")
     tes = [Engine(tcfg.ModelSpec.tiny(), tcfg.CompressionSpec(**comp),
-                  tcfg.EngineSpec(prefill_chunk=c, **eng), params[1],
+                  tcfg.EngineSpec(prefill_chunk=c, **eng, **f32), params[1],
                   device="cpu") for c in (chunk, None)]
     return je, *tes
 

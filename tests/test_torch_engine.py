@@ -80,10 +80,9 @@ def test_unported_engine_options_raise(params):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(spec, tcfg.CompressionSpec(method="cam", **COMP),
                tcfg.EngineSpec(**ENG), tp, device="cpu")
-    eng = Engine(spec, comp, tcfg.EngineSpec(prefill_chunk=16, **ENG), tp,
-                 device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.generate([[1, 2, 3]], prefix=object())
+        Engine(tcfg.ModelSpec.tiny(sliding_window=32), comp,
+               tcfg.EngineSpec(**ENG), tp, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -183,14 +182,18 @@ KIVI = {"kivi4": (4, "group"), "kivi2": (2, "group"),
 
 
 @pytest.mark.parametrize("method", ["fullkv", "snapkv"])
-@pytest.mark.parametrize("fmt", list(KIVI))
+@pytest.mark.parametrize("fmt", list(KIVI) + ["kivi4-default"])
 def test_kivi_generate_matches_jax_engine(params, fmt, method):
     """The JAX engine with its region kernels forced on (interpret mode:
     ``_FORCE_QUANT_KERNEL`` for group regions, ``_FORCE_QUANT_FUSED_KERNEL``
-    for pa) against the port's CPU engine: tokens, decode steps and cache
-    bytes (region codes, scales and zeros plus the bf16 decode slots)."""
+    for pa) against the port's CPU engine on the same route (group: the f32
+    kernels, ``use_quant_kernel``); ``kivi4-default``: both engines' default
+    group route (the factored dequantization with bf16 folds).  Tokens,
+    decode steps and cache bytes (region codes, scales and zeros plus the
+    bf16 decode slots)."""
     jp, tp = params
-    nbits, layout = KIVI[fmt]
+    default = fmt == "kivi4-default"
+    nbits, layout = KIVI["kivi4" if default else fmt]
     pa = layout == "pa"
     comp = dict(method=method, quant_method="kivi", nbits=nbits,
                 q_layout=layout, max_capacity_prompt=200 if pa else 16,
@@ -200,14 +203,16 @@ def test_kivi_generate_matches_jax_engine(params, fmt, method):
     prompts = [rng.integers(1, 256, size=n).tolist()
                for n in ((250, 211, 40) if pa else (60, 37, 12))]
     force = jl._FORCE_QUANT_FUSED_KERNEL if pa else jl._FORCE_QUANT_KERNEL
-    force[0] = True
+    force[0] = not default
     try:
         want = JaxEngine(jcfg.ModelSpec.tiny(), jcfg.CompressionSpec(**comp),
                          jcfg.EngineSpec(**eng), jp).generate(prompts)
     finally:
         force[0] = False
+    f32 = dict(use_quant_kernel=not (pa or default))
     got = Engine(tcfg.ModelSpec.tiny(), tcfg.CompressionSpec(**comp),
-                 tcfg.EngineSpec(**eng), tp, device="cpu").generate(prompts)
+                 tcfg.EngineSpec(**eng, **f32), tp,
+                 device="cpu").generate(prompts)
     assert got.tokens == want.tokens
     assert got.decode_steps == want.decode_steps
     assert got.kv_cache_bytes == want.kv_cache_bytes
@@ -217,8 +222,7 @@ def test_kivi_counterfactual_knobs_raise(params):
     spec = tcfg.ModelSpec.tiny()
     kivi = dict(method="snapkv", quant_method="kivi", nbits=4, **QCOMP)
     for layout, es in (("group", dict(use_quant_scan=True)),
-                       ("pa", dict(use_quant_scan=True)),
-                       ("group", dict(use_quant_fused=True))):
+                       ("pa", dict(use_quant_scan=True))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(spec, tcfg.CompressionSpec(q_layout=layout, **kivi),
                    tcfg.EngineSpec(**es, **ENG), params[1], device="cpu")
@@ -226,8 +230,63 @@ def test_kivi_counterfactual_knobs_raise(params):
         Engine(spec, tcfg.CompressionSpec(
             method="snapkv", quant_method="kvquant", **QCOMP),
             tcfg.EngineSpec(**ENG), params[1], device="cpu")
-    # the knobs that name what the port always does are accepted
-    Engine(spec, tcfg.CompressionSpec(q_layout="pa", **kivi),
-           tcfg.EngineSpec(use_quant_kernel=True, use_quant_tiled=True,
-                           use_quant_fused=True, use_quant_fused_kernel=True,
-                           **ENG), params[1], device="cpu")
+    # the routes the port runs are accepted: use_quant_fused names the
+    # default of both layouts, use_quant_kernel / use_quant_tiled the f32
+    # group kernels
+    for layout in ("pa", "group"):
+        Engine(spec, tcfg.CompressionSpec(q_layout=layout, **kivi),
+               tcfg.EngineSpec(use_quant_kernel=True, use_quant_tiled=True,
+                               use_quant_fused=True,
+                               use_quant_fused_kernel=True, **ENG),
+               params[1], device="cpu")
+    assert not Engine(spec, tcfg.CompressionSpec(q_layout="group", **kivi),
+                      tcfg.EngineSpec(use_quant_kernel=True,
+                                      use_quant_fused=True, **ENG),
+                      params[1], device="cpu").f32_quant
+
+
+# ---------------------------------------------------------------------------
+# The KIVI group layout's default route against the JAX engine's default
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def params0():
+    jp = jl.init_params(jcfg.ModelSpec.tiny(), jax.random.PRNGKey(0),
+                        dtype=jnp.float32)
+    return jp, params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                 device="cpu")
+
+
+@pytest.mark.parametrize("case", ["pyramidkv kivi2", "fullkv kivi2 chunk 64"])
+def test_kivi_group_default_matches_jax_default(params0, case):
+    """Live JAX engines on their default KIVI group route (no
+    ``_FORCE_QUANT_KERNEL``: ``ops/quant.py::quant_region_attention_fused``,
+    bf16-rounded folds) against the port's default: the inputs on which the
+    port's former default (the f32 kernels) gave request 0 the tokens 40,
+    208, 101, 90 against JAX's 40, 208, 101, 61 (pyramidkv), and differed
+    at request 0's token 7 (fullkv, chunked)."""
+    jp, tp = params0
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 256, size=n).tolist() for n in (179, 233, 20)]
+    kivi = dict(quant_method="kivi", nbits=2, q_group_size=16,
+                q_layout="group")
+    if case.startswith("pyramidkv"):
+        comp = dict(method="pyramidkv", max_capacity_prompt=64,
+                    window_size=8, **kivi)
+        eng = dict(max_new_tokens=16, prefill_buckets=(256,))
+    else:
+        comp = dict(method="fullkv", **kivi)
+        eng = dict(max_new_tokens=16, prefill_buckets=(256,),
+                   prefill_chunk=64)
+    want = JaxEngine(jcfg.ModelSpec.tiny(), jcfg.CompressionSpec(**comp),
+                     jcfg.EngineSpec(**eng), jp).generate(prompts)
+    te = Engine(tcfg.ModelSpec.tiny(), tcfg.CompressionSpec(**comp),
+                tcfg.EngineSpec(**eng), tp, device="cpu")
+    assert not te.f32_quant
+    got = te.generate(prompts)
+    assert got.tokens == want.tokens
+    assert got.decode_steps == want.decode_steps
+    assert got.kv_cache_bytes == want.kv_cache_bytes
+    if case.startswith("pyramidkv"):
+        assert got.tokens[0][:4] == [40, 208, 101, 61]

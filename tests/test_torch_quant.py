@@ -218,6 +218,34 @@ def test_quant_fused_pa_plain_matches_pallas(nbits):
                                    atol=1e-4)
 
 
+@pytest.mark.parametrize("nbits", [8, 4, 2])
+@pytest.mark.parametrize("s,d,group,hk", [(128, 32, 16, 2), (300, 64, 16, 4),
+                                          (1000, 32, 32, 2)])
+def test_quant_fused_group_plain_matches_jax(nbits, s, d, group, hk):
+    """The grouped branch of the factored dequantization (Gk > 1 K
+    slot-groups, Gv > 1 V channel-groups but for d == group) against JAX's
+    ``quant_region_attention_fused``, through the port's default group
+    route on the CPU.  Both round the folded query and probabilities to
+    bf16; their f32 logits and exponentials differ in the last bits, which
+    now and then flips one bf16 rounding (~2^-8 of one probability x its
+    code: up to ~5e-5 at 8 bits), hence 1e-4 on normalised outputs as the pa
+    test above; l and m within 1e-5 relative."""
+    from pyramidkv_tpu_torch.kernels import quant_fused_attention_group
+
+    q, mask, jreg, treg = _case(nbits, hk, s, d, "group", group, nbits + s)
+    assert treg.k.scale.shape[-2] > 1
+    assert (treg.v.scale.shape[-2] > 1) == (d > group)
+    want = jq.quant_region_attention_fused(
+        jnp.asarray(q), jreg, jnp.asarray(mask), num_slots=s, head_dim=d,
+        nbits=nbits)
+    got = quant_fused_attention_group(_t(q), treg, _t(mask), nbits=nbits)
+    np.testing.assert_allclose(_norm(got), _norm(want), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]),
+                               rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("layout", ["group", "pa"])
 def test_tail_mode_matches_jax_merge(layout):
     """Given the step's bf16 decode tail, a wrapper returns the layer's
@@ -283,9 +311,12 @@ def test_unported_quantization_raises():
 
 
 def test_region_route_follows_the_split_plan():
-    """Group regions take the whole-region kernel when the split plan gives
+    """Group regions take the factored-dequantization kernel by default
+    (JAX's default route); with ``f32_quant`` (JAX's opt-in
+    use_quant_kernel) the f32 whole-region kernel when the split plan gives
     one split (made for an H100 on the CPU), else the tiled one; pa regions
     the pa kernel."""
+    from pyramidkv_tpu_torch.kernels import quant_fused_attention_group
     from pyramidkv_tpu_torch.models.llama import region_route
 
     cpu = torch.device("cpu")
@@ -294,11 +325,16 @@ def test_region_route_follows_the_split_plan():
     pa = tcfg.CompressionSpec(method="fullkv", quant_method="kivi", nbits=4,
                               q_layout="pa")
     assert region_route(pa, 8, 16384, cpu) is quant_fused_attention_pa
+    assert region_route(pa, 8, 16384, cpu, True) is quant_fused_attention_pa
+    for bhk, w in ((32, 64), (128, 1024), (8, 16384)):
+        assert region_route(group, bhk, w, cpu) is quant_fused_attention_group
     # bench.py's 32k snapkv (cap 128): 32 regions of 64 byte-rows
-    assert region_route(group, 32, 64, cpu) is quant_decode_attention
+    assert region_route(group, 32, 64, cpu, True) is quant_decode_attention
     # the 8k batch's snapkv (cap 2048) and 32k fullkv
-    assert region_route(group, 128, 1024, cpu) is quant_decode_attention_tiled
-    assert region_route(group, 8, 16384, cpu) is quant_decode_attention_tiled
+    assert region_route(group, 128, 1024, cpu,
+                        True) is quant_decode_attention_tiled
+    assert region_route(group, 8, 16384, cpu,
+                        True) is quant_decode_attention_tiled
 
 
 def test_region_bridge_needs_a_card_unless_asked_for_cpu():
