@@ -9,22 +9,27 @@ Phases (any failure exits non-zero):
   2. build: nvcc builds every kernel of the main path from ``csrc/``;
   3. kernels: each CUDA kernel against its plain PyTorch version on the card,
      at every shape the engine phase gives it (decode: each method's cache
-     width, each pyramidkv segment's), with its time, the plain version's
+     width, each pyramidkv segment's, bench.py's 32k widths; first short
+     shapes and shapes of several splits with a wholly masked split, a row
+     masked in every split and S no multiple of the tile; two calls
+     bitwise equal), with its time, the plain version's
      time, the time of one library call computing the same function (a
      yardstick the port never calls) and the least time the card could take;
   4. engine: ``Engine.generate`` on Llama-3-8B geometry (all 32 layers,
      seeded random bf16 weights made on the card), 4 requests of
      8000/6000/3000/1000 tokens, 32 new tokens, for fullkv, snapkv and
-     pyramidkv, with the kernels' launch counts of each run;
+     pyramidkv, with the kernels' launch counts of each run; then
+     decode_engine_masks: the decode kernel at the masks of a real fullkv
+     cache after prefill and a decode step (8k batch, 32k), timed;
   5. parity: last-position prefill logits through the kernels against the
      plain path, at depth 2 with the same widths;
   6. profile: where the time goes in one snapkv prefill and 8 decode steps
      (host wall time, device busy time and top kernels from torch.profiler;
-     device operations and host ms per decode step in each span);
+     device operations and host ms per decode step in each span; the decode
+     kernel's device ms per step), then the same for fullkv;
   7. mm_kernels: the weight-quantized matmul kernels (int4 per-channel and
      g128, int8, int4 windowed) against their plain versions at every
-     Llama-3-8B decode shape, rows 1 and 8, plus flash prefill at 32k and
-     decode attention at the quantized runs' cache widths;
+     Llama-3-8B decode shape, rows 1 and 8, plus flash prefill at 32k;
   8. engine_quant: ``Engine.generate`` with quantized weights on bench.py's
      configuration (32 layers, one 32767-token prompt, 128 new tokens,
      snapkv cap 128): int4 fullkv and snapkv, int4-g128, int8 and
@@ -32,8 +37,9 @@ Phases (any failure exits non-zero):
      the counts its plan implies;
   9. parity_quant: depth-2 prefill logits, kernels against plain, for the
      int4 and int4-g128 weights;
- 10. profile_quant: the int4 snapkv run's prefill and 8 decode steps, with
-     the matmul kernels' device time per step beside their bound;
+ 10. profile_quant: the int4 snapkv and fullkv runs' prefill and 8 decode
+     steps, with the matmul kernels' device time per step beside their
+     bound;
  11. kv_quant_kernels: the KIVI region kernels (group layout whole and
      tiled, pa layout) against their plain versions on short ragged regions
      and at every KIVI run's region shape, timed; each group-layout shape
@@ -42,7 +48,8 @@ Phases (any failure exits non-zero):
      fullkv with int4 weights and a kivi4-pa (its baseline) or kivi4 group
      cache, bench.py's 32k snapkv with a kivi4 group cache, and snapkv
      kivi4, kivi2 and kivi4-pa on the bf16 8k batch, each
-     with one region-kernel launch per layer per decode step and the
+     with one region-kernel call per layer per decode step (one CUDA
+     kernel on the whole-region plan, two on the split plan) and the
      kv_cache_bytes its layout implies;
  13. parity_kv_quant: depth-2 decode logits on a KIVI cache, kernels
      against plain (32k fullkv kivi4-pa, 8k snapkv kivi4);
@@ -360,24 +367,41 @@ def check_flash(torch, F, dev, b, h, hk, n, true_len, window, timed, seed):
     return ok, rec
 
 
-def check_decode(torch, F, dev, b, h, hk, s, timed, seed, label):
+def check_decode(torch, F, dev, b, h, hk, s, timed, seed, label, mask=None,
+                 masked_split=False):
+    """The decode kernel against its plain version (and two calls against
+    each other, bitwise) on random q, K, V.  ``mask``: the visibility to use
+    (an engine cache's), else random at 70% with row (0, 0) masked
+    everywhere (uniform average, as on the TPU; across several splits where
+    the plan makes several) and, with ``masked_split``, split 1 of row
+    (0, 1) wholly masked."""
     from pyramidkv_tpu_torch.kernels import decode_attention
+    from pyramidkv_tpu_torch.kernels.decode_attn import decode_split_plan
     from pyramidkv_tpu_torch.ops.attention import decode_attention as plain
 
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, h, D), generator=g, device=dev).to(torch.bfloat16)
     k = torch.randn((b, hk, s, D), generator=g, device=dev).to(torch.bfloat16)
     v = torch.randn((b, hk, s, D), generator=g, device=dev).to(torch.bfloat16)
-    mask = torch.rand((b, hk, s), generator=g, device=dev) < 0.7
-    mask[0, 0] = False  # one all-masked row: uniform average, as on the TPU
+    nsplit, rows = decode_split_plan(dev, b * hk, s)
+    if mask is None:
+        mask = torch.rand((b, hk, s), generator=g, device=dev) < 0.7
+        mask[0, 0] = False  # one all-masked row: uniform average, as on the TPU
+        if masked_split:
+            assert nsplit > 2 and hk > 1, (nsplit, hk)
+            mask[0, 1, rows:2 * rows] = False
     got = decode_attention(q, k, v, mask)
     want = plain(q, k, v, mask)
+    again = decode_attention(q, k, v, mask)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     ratio = err_over_tol(got, want)
     rec = {"check": "decode_attention", "case": label, "B": b, "H": h,
-           "Hk": hk, "S": s, "max_abs_err": err, "err_over_tol": ratio,
-           "tol": TOL_TEXT, "rms": float(want.float().square().mean().sqrt())}
+           "Hk": hk, "S": s, "nsplit": nsplit, "split_slots": rows,
+           "visible": float(mask.float().mean()),
+           "max_abs_err": err, "err_over_tol": ratio,
+           "tol": TOL_TEXT, "rms": float(want.float().square().mean().sqrt()),
+           "bitwise_repeat": bool(torch.equal(got, again))}
     if timed:
         rec["ms"] = graph_ms(torch, lambda: decode_attention(q, k, v, mask),
                              reps=50)
@@ -393,36 +417,57 @@ def check_decode(torch, F, dev, b, h, hk, s, timed, seed, label):
             torch, lambda: F.scaled_dot_product_attention(
                 q4, kr, vr, attn_mask=mr), reps=50)
         del kr, vr, mr
+        # bytes: each visible K and V row once (the work this mask needs),
+        # the mask, q and the output
         valid = float(mask.sum())
         flops = 4.0 * D * (h // hk) * valid
         nbytes = valid * D * 2 * 2 + b * hk * s + 2 * b * h * D * 2
         rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes)
     log(rec)
-    ok = ratio <= 1 and bool(torch.isfinite(got).all())
+    ok = (ratio <= 1 and bool(torch.isfinite(got).all())
+          and rec["bitwise_repeat"])
     return ok, rec
 
 
 def phase_kernels(torch, F, dev):
-    """Every kernel at every shape the engine phase gives it: flash at the
-    bucket; decode at snapkv's cache width (per-head, G=1), at each of
-    pyramidkv's segment widths (G=1) and at fullkv's (true GQA, G=4).
-    Returns (ok, {"flash": rec, method: [rec per segment], ...})."""
+    """Flash prefill at short ragged shapes and at the engine phase's
+    bucket.  Returns (ok, {"flash": rec})."""
     ok = True
     # short shapes first: ragged pads, a window, every group size
     for args in ((2, 4, 2, 256, (256, 77), None), (2, 4, 4, 192, (150, 3), 50),
                  (1, 8, 1, 128, (128,), None)):
         r, _ = check_flash(torch, F, dev, *args, timed=False, seed=1)
         ok &= r
+    r, flash = check_flash(torch, F, dev, B, H, HK, N, TRUE_LEN, None,
+                           timed=True, seed=3)
+    return ok & r, {"flash": flash}
+
+
+def phase_decode_kernels(torch, F, dev):
+    """The decode kernel at every shape the engine runs it with: the 8k
+    batch's snapkv cache width (per-head, G=1), each of pyramidkv's segment
+    widths (G=1) and fullkv's (true GQA, G=4); bench.py's 32k snapkv and
+    fullkv; after short shapes and shapes of several splits (a wholly
+    masked split, a row masked in every split, S no multiple of the tile).
+    Returns (ok, {method: [rec per segment], "32k " + method: rec})."""
+    ok = True
     for i, (b, h, hk, s) in enumerate(((2, 4, 4, 37), (2, 8, 4, 300),
                                        (1, 16, 4, 1), (3, 16, 2, 4099))):
         r, _ = check_decode(torch, F, dev, b, h, hk, s, timed=False,
                             seed=2 + i, label="short")
         ok &= r
-    # the main path's shapes, timed
-    r, flash = check_flash(torch, F, dev, B, H, HK, N, TRUE_LEN, None,
-                           timed=True, seed=3)
-    ok &= r
-    recs = {"flash": flash}
+    # several splits: a wholly masked split beside visible ones, a row
+    # masked in every split, S no multiple of the 64-slot tile (the last
+    # split shorter), G = 4, 8, 2 and 1, merged by merge_kernel (more than
+    # 4 splits) or in a cluster (3 splits)
+    for i, (b, h, hk, s) in enumerate(((1, 8, 2, 20000), (2, 16, 2, 9001),
+                                       (1, 8, 4, 70001), (2, 4, 4, 12345),
+                                       (3, 24, 24, 1000), (2, 160, 40, 777))):
+        r, _ = check_decode(torch, F, dev, b, h, hk, s, timed=False,
+                            seed=20 + i, label="short splits",
+                            masked_split=True)
+        ok &= r
+    recs = {}
     seed = 4
     for method, hk in (("snapkv", H), ("pyramidkv", H), ("fullkv", HK)):
         recs[method] = []
@@ -434,6 +479,13 @@ def phase_kernels(torch, F, dev):
             recs[method].append(rec)
             ok &= r
             seed += 1
+    for method, hk in (("snapkv", H), ("fullkv", HK)):
+        (_, _, p), = qplan(method).segment_plans()
+        r, recs["32k " + method] = check_decode(
+            torch, F, dev, 1, H, hk, p.total_slots, timed=True, seed=seed,
+            label=f"{method} 32k, G={H // hk}")
+        ok &= r
+        seed += 1
     return ok, recs
 
 
@@ -519,9 +571,8 @@ PER_STEP = {"wqkv": LAYERS, "wo": LAYERS, "w_gateup": LAYERS,
 def phase_mm_kernels(torch, F, dev):
     """The matmul kernels at every Llama-3-8B decode shape (rows 1 and 8),
     after short ragged shapes; flash prefill at the quantized runs' 32k
-    bucket; decode attention at their cache widths.  Returns (ok, {entry
-    name: [timed recs at rows 1, weighted by launches per step]}, flash
-    rec, {method: decode rec})."""
+    bucket.  Returns (ok, {entry name: [timed recs at rows 1, weighted by
+    launches per step]}, flash rec)."""
     ok = True
     short = (("int4_matmul", 64, 6, 3, "bf16", 0),      # span 1, odd width
              ("int4_matmul", 96, 38, 5, "f32", 16),     # span 1, grouped
@@ -556,15 +607,7 @@ def phase_mm_kernels(torch, F, dev):
     r, flash = check_flash(torch, F, dev, 1, H, HK, QN, (QTRUE,), None,
                            timed=True, seed=3)
     ok &= r
-    decode = {}
-    for method, hk in (("snapkv", H), ("fullkv", HK)):
-        (_, _, p), = qplan(method).segment_plans()
-        r, decode[method] = check_decode(
-            torch, F, dev, 1, H, hk, p.total_slots, timed=True, seed=seed,
-            label=f"{method} 32k, G={H // hk}")
-        ok &= r
-        seed += 1
-    return ok, entries, flash, decode
+    return ok, entries, flash
 
 
 def qplan(method: str, **kv):
@@ -590,10 +633,35 @@ def _kernels():
 def reset_counts():
     for fn in _kernels().values():
         fn.launches = 0
+        if hasattr(fn, "kernels"):
+            fn.kernels = 0
 
 
 def read_counts() -> dict:
     return {k: fn.launches for k, fn in _kernels().items()}
+
+
+def read_region_kernels() -> dict:
+    """The CUDA kernels the KIVI region wrappers' launches ran."""
+    from pyramidkv_tpu_torch import kernels
+
+    return {k: getattr(kernels, k).kernels for k in REGION_KERNELS}
+
+
+def region_kernels_per_call(run) -> int:
+    """CUDA kernels one region call of a KIVI run launches: one where its
+    route takes the whole-region plan (region, bf16 tail and merge in one
+    launch), two where it takes the split plan (split kernel, finish
+    pass)."""
+    import torch
+
+    from pyramidkv_tpu_torch.kernels import quant_decode
+
+    route, b, hm, _, _, nbits, s_pad = kv_shape(run)
+    if route == "quant_fused_attention_group":
+        return quant_decode.group_plan(torch.device("cuda", 0), b * hm,
+                                       s_pad // (8 // nbits))[1]
+    return quant_decode.region_kernels(route != "quant_decode_attention")
 
 
 def phase_engine(torch, dev, params, vocab):
@@ -640,6 +708,51 @@ def phase_engine(torch, dev, params, vocab):
         del eng, out
         torch.cuda.empty_cache()
     return ok, counts
+
+
+def phase_decode_engine_masks(torch, F, dev, params, vocab):
+    """The decode kernel at the engine's own visibility: the mask of a real
+    fullkv cache (layer 0, depth 2) after prefill and one decode step, for
+    the 8k batch (left pads of 192 to 7192 slots, 31 unwritten decode
+    slots) and bench.py's 32k prompt (one pad slot, 127 unwritten), with
+    random q, K and V; timed beside the random-mask shapes.  Returns
+    (ok, [recs])."""
+    from pyramidkv_tpu_torch.config import CompressionSpec, ModelSpec
+    from pyramidkv_tpu_torch.models import llama
+    from pyramidkv_tpu_torch.policy import make_plan
+
+    spec = ModelSpec.preset("llama3-8b", num_hidden_layers=2)
+    p2 = dict(params, layers={k: v[:2] for k, v in params["layers"].items()})
+    ok, recs = True, []
+    for label, b, bucket, tls, max_new in (
+            ("engine mask fullkv 8k", B, N, TRUE_LEN, MAX_NEW),
+            ("engine mask fullkv 32k", 1, QN, (QTRUE,), QMAX_NEW)):
+        plan = make_plan(CompressionSpec(method="fullkv"), 2, bucket, max_new)
+        rng = np.random.default_rng(3)
+        tokens = torch.from_numpy(rng.integers(
+            0, vocab, size=(b, bucket)).astype(np.int64)).to(dev)
+        tl = torch.tensor(tls, dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            logits, cache = llama.prefill(p2, spec, plan, tokens, tl)
+            _, cache = llama.decode_step(p2, spec, plan, cache,
+                                         logits.argmax(-1))
+            mask = cache.mask[0].contiguous()
+        del cache
+        s = mask.shape[-1]
+        pads = [bucket - t for t in tls]
+        good = (s == plan.total_slots and all(
+            not bool(mask[i, :, :pads[i]].any())
+            and bool(mask[i, :, pads[i]:bucket + 1].all())
+            and not bool(mask[i, :, bucket + 1:].any()) for i in range(b)))
+        r, rec = check_decode(torch, F, dev, b, H, HK, s, timed=True,
+                              seed=60, label=label, mask=mask)
+        rec["mask_layout_ok"] = good
+        log({"phase": "decode_engine_masks", "case": label, "pads": pads,
+             "ok": r and good})
+        ok &= r and good
+        recs.append(rec)
+        torch.cuda.empty_cache()
+    return ok, recs
 
 
 def quantized(params, weights: str):
@@ -856,10 +969,13 @@ def phase_profile(torch, dev, params, vocab, method="snapkv", steps=8,
         mm_us = sum(t for k, t, _ in ev
                     if "mm_kernel" in k or "finish_kernel" in k)
         region_us = sum(t for k, t, _ in ev if "pkvq::" in k)
+        # the bf16 decode kernel: its split and merge kernels
+        attn_us = sum(t for k, t, _ in ev if "pkvq::" not in k and (
+            "split_kernel" in k or "merge_kernel" in k))
         return sum(t for _, t, _ in ev) / 1e6, [
             {"kernel": k[:90], "device_ms": t / 1e3, "calls": c}
             for k, t, c in top], mm_us / 1e3, region_us / 1e3, sum(
-                c for _, _, c in ev)
+                c for _, _, c in ev), attn_us / 1e3
 
     def host_spans(fn, *a):
         """Host ms spent inside each of HOST_SPANS while fn(*a) runs, with
@@ -896,9 +1012,9 @@ def phase_profile(torch, dev, params, vocab, method="snapkv", steps=8,
         cache.step = 0
         host = host_spans(decode, cache, tok)
         cache.step = 0
-        pre_busy, pre_top, _, _, _ = device_profile(prefill)
-        dec_busy, dec_top, dec_mm, dec_region, dec_ops = device_profile(
-            decode, cache, tok)
+        pre_busy, pre_top, _, _, _, _ = device_profile(prefill)
+        dec_busy, dec_top, dec_mm, dec_region, dec_ops, dec_attn = \
+            device_profile(decode, cache, tok)
     for part, w, busy, top in (("prefill", pre_wall, pre_busy, pre_top),
                                ("decode", dec_wall, dec_busy, dec_top)):
         rec = {"phase": "profile", "method": method, "weights": weights,
@@ -917,6 +1033,7 @@ def phase_profile(torch, dev, params, vocab, method="snapkv", steps=8,
             # host ms per step inside each span (spans nest: the region
             # kernel, tail partials and merge lie inside region_attention)
             rec["device_ops_per_step"] = dec_ops / steps
+            rec["decode_attention_device_ms_per_step"] = dec_attn / steps
             rec["host_ms_per_step"] = {k: v / steps for k, v in host.items()}
         if kv and part == "decode":
             rec["region_device_ms_per_step"] = dec_region / steps
@@ -1035,7 +1152,13 @@ def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
     ratio = max(err_over_tol(og, ow, *REGION_TOL[tol]), m_ratio, l_ratio,
                 tail_ratio)
     w, s_pad, _, _ = quant.region_geometry(reg, nbits)
+    from pyramidkv_tpu_torch.kernels import quant_decode
+    per_call = (quant_decode.group_plan(dev, b * hk, w)[1]
+                if kind == "quant_fused_attention_group"
+                else quant_decode.region_kernels(
+                    kind != "quant_decode_attention"))
     rec = {"check": kind, "case": label, "B": b, "Hk": hk, "G": grp, "S": s,
+           "kernels_per_call": per_call,
            "S_pad": s_pad, "plane_width": w, "nbits": nbits,
            "group_size": gs, "layout": layout, "tail": t_len,
            "k_groups": reg.k.scale.shape[-2],
@@ -1176,10 +1299,13 @@ def phase_engine_kv_quant(torch, dev, params, q4, vocab):
         c = read_counts()
         counts[run] = c
         tok_s[run] = out.decode_steps * len(prompts) / out.decode_seconds
+        ck = read_region_kernels()
         route = kv_shape(run)[0]
+        per_call = region_kernels_per_call(run)
         want_bytes = kv_cache_bytes(run)
         toks = [t for seq in out.tokens for t in seq]
         good = (c[route] == LAYERS * out.decode_steps
+                and ck[route] == per_call * c[route]
                 and not any(c[k] for k in REGION_KERNELS if k != route)
                 and c["decode_attention"] == 0
                 and c["flash_causal_attention"] == LAYERS
@@ -1194,12 +1320,14 @@ def phase_engine_kv_quant(torch, dev, params, q4, vocab):
                 and all(len(seq) == max_new for seq in out.tokens))
         log({"phase": "engine_kv_quant", "run": run, "weights": wname,
              "method": method, "nbits": nbits, "layout": layout,
-             "route": route, "prefill_s": out.prefill_seconds,
+             "route": route, "region_kernels_per_layer_step": per_call,
+             "prefill_s": out.prefill_seconds,
              "decode_s": out.decode_seconds,
              "decode_steps": out.decode_steps,
              "decode_tok_per_s": tok_s[run],
              "kv_cache_bytes": out.kv_cache_bytes,
              "expected_kv_cache_bytes": want_bytes, "launches": c,
+             "region_cuda_kernels": ck,
              "first_tokens": out.tokens[0][:8], "ok": good})
         ok &= good
         del eng, out
@@ -2798,7 +2926,11 @@ def main() -> int:
                 print(f"nvcc {name}: {line.strip()}", flush=True)
 
     ok, recs = phase_kernels(torch, F, dev)
-    r, mm_recs, qflash, qdecode = phase_mm_kernels(torch, F, dev)
+    r, drecs = phase_decode_kernels(torch, F, dev)
+    ok &= r
+    recs.update(drecs)
+    qdecode = {m: drecs["32k " + m] for m in ("snapkv", "fullkv")}
+    r, mm_recs, qflash = phase_mm_kernels(torch, F, dev)
     ok &= r
     r, kv_recs = phase_kv_quant_kernels(torch, F, dev)
     ok &= r
@@ -2820,8 +2952,11 @@ def main() -> int:
                      *params["layers"].values()]) / 2 ** 30})
     r, counts = phase_engine(torch, dev, params, spec.vocab_size)
     ok &= r
+    r, _ = phase_decode_engine_masks(torch, F, dev, params, spec.vocab_size)
+    ok &= r
     ok &= phase_parity(torch, dev, params, spec.vocab_size)
     ok &= phase_profile(torch, dev, params, spec.vocab_size)
+    ok &= phase_profile(torch, dev, params, spec.vocab_size, method="fullkv")
     r, qcounts, qtok_s, qprefill_s = phase_engine_quant(torch, dev, params,
                                                         spec.vocab_size)
     ok &= r
@@ -2829,6 +2964,8 @@ def main() -> int:
         ok &= phase_parity(torch, dev, params, spec.vocab_size, weights)
     q4 = quantized(params, "int4")
     ok &= phase_profile(torch, dev, q4, spec.vocab_size, weights="int4")
+    ok &= phase_profile(torch, dev, q4, spec.vocab_size, method="fullkv",
+                        weights="int4")
     r, kvcounts, kvtok_s = phase_engine_kv_quant(torch, dev, params, q4,
                                                  spec.vocab_size)
     ok &= r

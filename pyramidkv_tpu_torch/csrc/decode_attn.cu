@@ -1,4 +1,5 @@
-// One-token masked decode attention over the slot cache (sm_90a).
+// One-token masked decode attention over the slot cache (sm_90a):
+// split-S flash-decoding.
 //
 // Replaces: pyramidkv_tpu/kernels/decode_attn.py::decode_attention_pallas
 // (Pallas TPU, body `_kernel`).
@@ -12,21 +13,46 @@
 // convention of the TPU kernel.  S is unbounded: the TPU's 4096-slot cap was
 // a VMEM limit, and fullkv decodes over 8192 + decode slots.
 //
-// What bounds it on the H100: bytes.  Every K and V row is read once and
-// used for G <= 8 dot products, ~G/2 flop per byte, far below the ridge.
+// What bounds it on the H100: bytes.  Every visible K and V row is read once
+// and used for G <= 8 dot products, ~G/2 flop per byte, far below the ridge.
 //
-// What the design does about it: one block per (b, kv head) streams the
-// whole [S, D] K/V strip once for the group's G queries (grouped compute, no
-// repeat_kv copy).  Its 8 warps split S into 32-slot chunks and keep their
-// own online softmax, so each warp has 16 independent 16-byte K loads and 32
-// V loads in flight per chunk; the partial (m, l, acc) of the warps merge in
-// shared memory at the end.  Differences from the TPU kernel: the softmax is
-// online (not single-pass), and the probabilities stay f32 in the PV product
-// instead of being rounded to V's dtype first.
-// Left for later: a split over S across blocks (flash-decoding) for the
-// B * Hk = 32 blocks of the fullkv case, which occupy only part of the card.
+// What the design does about it:
+// - the slots are split across blocks, grid (B * Hk, nsplit), nsplit from
+//   the shapes alone (kernels/decode_attn.py::decode_split_plan: one wave
+//   of two blocks an SM, 256-2048 slots a split), so B * Hk = 8 regions at
+//   32k fill the card, and the host reads no device value (the step stays
+//   capturable in a CUDA graph);
+// - a block streams its split's K and V strips (contiguous [rows, D] bf16)
+//   through a ring of 64-slot tiles in shared memory: thread 0 issues two
+//   1-D bulk copies a tile (the copy engine, no tensor map), the warps wait
+//   on the stage's mbarrier.  3 stages (96 KB, two blocks an SM), never more
+//   than a split's tiles;
+// - the split's first tiles are copied before its mask is read; the mask
+//   then gives per-32-slot visibility words, and later tiles with no
+//   visible slot are never copied: the engine's left pads and unwritten
+//   decode slots are contiguous masked runs;
+// - a warp takes 8 slots of each tile, 8 lanes a slot (16 of the 128
+//   channels each, the query's in registers): one 16-byte shared load per
+//   lane and half-row, a 3-step shuffle sum per query; P.V with 4 channels
+//   a lane, the probabilities kept in f32;
+// - the splits merge in a fixed order, with no atomics (two calls are
+//   bitwise equal): up to 4 splits of a region run as one thread-block
+//   cluster and block 0 reads the others' partials from their shared
+//   memory; more write f32 (acc, m, l) to a workspace that merge_kernel
+//   combines (clusters of 8 were slower on the card, and so was a merge in
+//   the last split to finish, through a counter); one split writes the
+//   bf16 output itself.
+// The float32.min convention across splits: a split with no visible slot in
+// a row that has one contributes nothing (m = -inf); when the row has none
+// at all (the block scans the row's mask to find out), every split attends
+// over all its slots at logit float32.min, so the merge averages all S
+// slots.  Logits are kept in the base-2 domain (scale * log2(e)).
+// Differences from the TPU kernel: the softmax is online, and the
+// probabilities stay f32 in the PV product instead of being rounded to V's
+// dtype first.
 
 #include <cfloat>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,184 +60,537 @@
 namespace {
 
 constexpr int D = 128;
-constexpr int NWARPS = 8;
-constexpr int CHUNK = 32;  // slots per warp iteration (one per lane)
+constexpr int NT = 256;                   // threads a block
+constexpr int NWARPS = NT / 32;
+constexpr int TILE = 64;                  // slots a tile, 8 a warp (the
+                                          // wrapper's plan assumes it)
+constexpr int HG = TILE / (NWARPS * 4);   // groups of 4 slots a warp
+constexpr int WPT = TILE / 32;            // visibility words a tile
+constexpr int STAGES = 3;                 // ring depth: two blocks an SM
+constexpr int MAX_CLUSTER = 4;            // splits merged in a cluster (as
+                                          // the wrapper's MAX_CLUSTER)
+constexpr int MAXS = 2048;                // slots a split at most
+constexpr int MAXT = MAXS / TILE;         // tiles a split at most
+constexpr int ROW_BYTES = D * 2;          // one bf16 K or V row
+constexpr int TILE_BYTES = TILE * ROW_BYTES;
+constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// Bytes of a ring of ns stages of K and V tiles, which afterwards holds the
+// warps' states (m, l [NWARPS][8 or fewer], acc [NWARPS][G][D]) and a
+// cluster split's partial (acc [G][D], m [G], l [G]), all f32.
+__host__ __device__ constexpr int ring_bytes(int ns, int G) {
+  return ns * 2 * TILE_BYTES > (2 * NWARPS * 8 + (NWARPS + 1) * G * D + 2 * G) * 4
+             ? ns * 2 * TILE_BYTES
+             : (2 * NWARPS * 8 + (NWARPS + 1) * G * D + 2 * G) * 4;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// Dynamic shared memory of a ring of ns stages: the ring, then the stages'
+// mbarriers.
+__host__ __device__ constexpr int smem_bytes(int ns, int G) {
+  return ring_bytes(ns, G) + 8 * ns;
 }
 
-template <int G>
-__global__ void __launch_bounds__(NWARPS * 32)
-decode_attn_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hk*G, D]
-                   const __nv_bfloat16* __restrict__ k,   // [B, Hk, S, D]
-                   const __nv_bfloat16* __restrict__ v,   // [B, Hk, S, D]
-                   const uint8_t* __restrict__ mask,      // [B, Hk, S]
-                   __nv_bfloat16* __restrict__ out,       // [B, Hk*G, D]
-                   int S, float scale) {
-  __shared__ __align__(16) float qs[G][D];
-  __shared__ float wm[NWARPS][G];
-  __shared__ float wl[NWARPS][G];
-  __shared__ __align__(16) float wacc[NWARPS][G][D];
+// Hopper's 1-D bulk copies (the copy engine, no tensor map) and the
+// mbarriers they complete on: one thread arms a stage's mbarrier with the
+// bytes to expect and issues the copies; the warps wait on its phase parity.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
 
-  const int bk = blockIdx.x;  // b * Hk + kvh
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  // the group's G query rows are consecutive in [B, H, D]
-  const __nv_bfloat16* qg = q + (size_t)bk * G * D;
-  for (int i = tid; i < G * D; i += NWARPS * 32) {
-    qs[i / D][i % D] = __bfloat162float(qg[i]);
+// One bulk copy of `bytes` (a multiple of 16) from global to shared memory
+// by the copy engine; its completion counts against the mbarrier's bytes.
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// After mbarrier.init, before any thread uses the barriers.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Order this thread's earlier generic accesses to shared memory (the reads of
+// a stage) before the copy engine's later writes to it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Wait for phase `parity` of the mbarrier to complete.  A copy that never
+// lands (a fault) traps after about two seconds instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_addr(bar);
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > 4000000000LL) __trap();
   }
-  __syncthreads();
+}
 
-  const __nv_bfloat16* kb = k + (size_t)bk * S * D;
-  const __nv_bfloat16* vb = v + (size_t)bk * S * D;
+// The query's 16 channels of this lane, [8c, 8c+8) and [64+8c, 64+8c+8):
+// f32 registers for G <= 4, bf16 pairs for G = 8 (128 f32 would not fit).
+template <int G>
+struct QReg {
+  static constexpr bool PACKED = G > 4;
+  float f[PACKED ? 1 : G][16];
+  __nv_bfloat162 p[PACKED ? G : 1][8];
+  __device__ __forceinline__ float2 pair(int g, int u) const {
+    if constexpr (PACKED) return __bfloat1622float2(p[g][u]);
+    else return make_float2(f[g][2 * u], f[g][2 * u + 1]);
+  }
+};
+
+// grid (B * Hk, nsplit): block (bk, sp) attends over slots
+// [sp * rows, min(S, (sp + 1) * rows)) of region bk; rows is a multiple of
+// TILE.  One split: out[bk * G + g] = bf16 output.  Else the split's partials
+// (acc [G, D], m [G], l [G], base-2 m) go to slot bk * nsplit + sp of the
+// workspace, for merge_kernel; or with `cluster` (the grid launched as
+// clusters of the nsplit blocks of a region) block 0 of the cluster merges
+// the splits' partials from the blocks' shared memory, in split order, and
+// writes the output.  ns: stages of the ring.
+template <int G>
+__global__ void __launch_bounds__(NT, G <= 4 ? 2 : 1)
+split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hk*G, D]
+             const __nv_bfloat16* __restrict__ k,   // [B, Hk, S, D]
+             const __nv_bfloat16* __restrict__ v,   // [B, Hk, S, D]
+             const uint8_t* __restrict__ mask,      // [B, Hk, S]
+             __nv_bfloat16* __restrict__ out,       // [B, Hk*G, D]
+             float* __restrict__ ws_acc, float* __restrict__ ws_m,
+             float* __restrict__ ws_l, int S, int rows, float scale2, int ns,
+             int cluster) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ uint32_t words[MAXS / 32];  // visibility bits, 32 slots a word
+  __shared__ int list[MAXT];            // the tiles to attend over, in order
+  __shared__ int nlist;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + ring_bytes(ns, G));
+
+  const int bk = blockIdx.x, sp = blockIdx.y, nsplit = gridDim.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int s0 = sp * rows;
+  const int s1 = min(S, s0 + rows);
+  const int ntiles = (s1 - s0 + TILE - 1) / TILE;
   const uint8_t* mb = mask + (size_t)bk * S;
 
-  float m[G], lpart[G], acc[G][4];
+  const char* kb = reinterpret_cast<const char*>(k + (size_t)bk * S * D);
+  const char* vb = reinterpret_cast<const char*>(v + (size_t)bk * S * D);
+  // tile i of the list goes to stage i % ns, its K and V rows copied by the
+  // copy engine (thread 0 issues two bulk copies) and awaited on the stage's
+  // mbarrier.  The split's first ns tiles are copied before the mask is read
+  // (visible or not: a masked slot adds nothing beside a visible one), so
+  // the mask's and the tiles' latencies overlap.
+  const int pre = min(ntiles, ns);
+  auto issue = [&](int i, int t) {
+    const int r0 = s0 + t * TILE;
+    const int nbytes = min(TILE, s1 - r0) * ROW_BYTES;
+    uint8_t* ks = smem + (i % ns) * 2 * TILE_BYTES;
+    mbar_expect(&bars[i % ns], 2 * nbytes);
+    bulk_g2s(ks, kb + (size_t)r0 * ROW_BYTES, nbytes, &bars[i % ns]);
+    bulk_g2s(ks + TILE_BYTES, vb + (size_t)r0 * ROW_BYTES, nbytes, &bars[i % ns]);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < ns; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
+    for (int i = 0; i < pre; ++i) issue(i, i);
+  }
+
+  // the query's channels of this lane (loaded while the mask is read)
+  const int j = lane >> 3, c = lane & 7;
+  QReg<G> qr;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const __nv_bfloat16* qg = q + ((size_t)bk * G + g) * D;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const uint4 w = *reinterpret_cast<const uint4*>(qg + half * 64 + 8 * c);
+      const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if constexpr (QReg<G>::PACKED) {
+          qr.p[g][half * 4 + u] = p2[u];
+        } else {
+          const float2 f = __bfloat1622float2(p2[u]);
+          qr.f[g][half * 8 + 2 * u] = f.x;
+          qr.f[g][half * 8 + 2 * u + 1] = f.y;
+        }
+      }
+    }
+  }
+
+  // the split's visibility words (every warp), then the list (warp 0): the
+  // prefetched tiles, then the later tiles with a visible slot, in order
+  {
+    constexpr int PER_WARP = MAXS / 32 / NWARPS;
+    bool vis[PER_WARP];
+#pragma unroll
+    for (int u = 0; u < PER_WARP; ++u) {  // the loads in flight together
+      const int s = s0 + (warp + u * NWARPS) * 32 + lane;
+      vis[u] = s < s1 && mb[s] != 0;
+    }
+#pragma unroll
+    for (int u = 0; u < PER_WARP; ++u) {
+      const int h = warp + u * NWARPS;
+      const uint32_t bits = __ballot_sync(FULL, vis[u]);
+      if (lane == 0 && h < ntiles * WPT) words[h] = bits;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    bool any = false;
+    for (int t0 = 0; t0 < ntiles; t0 += 32) {
+      const int t = t0 + lane;
+      uint32_t w = 0;
+#pragma unroll
+      for (int x = 0; x < WPT; ++x) w |= t < ntiles ? words[t * WPT + x] : 0u;
+      any |= __any_sync(FULL, w != 0);
+      const bool keep = t < ntiles && (t < pre || w != 0);
+      const uint32_t b = __ballot_sync(FULL, keep);
+      if (keep) list[n + __popc(b & ((1u << lane) - 1u))] = t;
+      n += __popc(b);
+    }
+    if (lane == 0) nlist = any ? n : 0;
+  }
+  __syncthreads();
+  int n = nlist;
+  bool uniform = false;
+  if (n == 0) {
+    // the prefetched tiles land before the block may end
+    for (int i = 0; i < pre; ++i) mbar_wait(&bars[i], 0);
+    // nothing visible in the split: does the row hold a visible slot?
+    bool found = false;
+    for (int base = 0; nsplit > 1 && base < S && !found; base += NT * 8) {
+      bool mine = false;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int s = base + u * NT + tid;
+        mine |= s < S && mb[s] != 0;
+      }
+      found = __syncthreads_or(mine);
+    }
+    // yes: this split attends over nothing, its partial is (0, -inf, 0).
+    // No: every slot of the row is masked; attend over all of them at
+    // logit float32.min (the words are all zero).  The prefetched tiles'
+    // phase 0 has completed; waiting on it again returns at once.
+    uniform = !found;
+    n = found ? 0 : ntiles;
+  }
+
+  float m[G], l[G], acc[G][4];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = -INFINITY;
-    lpart[g] = 0.f;
+    l[g] = 0.f;
     acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
   }
 
-  for (int c0 = warp * CHUNK; c0 < S; c0 += NWARPS * CHUNK) {
-    const int slot = c0 + lane;
-    float s[G];
-    if (slot < S) {
-      // lane-per-slot logits: the lane reads its whole 256-byte K row
-      const uint4* kr = reinterpret_cast<const uint4*>(kb + (size_t)slot * D);
-      uint4 kv[D / 8];
+  for (int i = 0; i < n; ++i) {
+    if (i > 0) {
+      __syncthreads();  // stage (i - 1) % ns has been read by every warp
+      const int nx = i - 1 + ns;
+      if (tid == 0 && nx < n) {
+        fence_proxy_async();
+        issue(nx, uniform ? nx : list[nx]);
+      }
+    }
+    mbar_wait(&bars[i % ns], (i / ns) & 1);  // tile i has landed
+    const int t = uniform ? i : list[i];
+    const int r0 = s0 + t * TILE;
+    const uint8_t* ks = smem + (i % ns) * 2 * TILE_BYTES;
+    const uint8_t* vs = ks + TILE_BYTES;
+
+    // logits of the warp's slots: slot r = HG * 4 * warp + 4 h + j
+    float sl[HG][G];
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) kv[i] = kr[i];
+    for (int h = 0; h < HG; ++h) {
+      const int r = warp * HG * 4 + h * 4 + j;
+      const uint4 k0 = *reinterpret_cast<const uint4*>(ks + r * ROW_BYTES + c * 16);
+      const uint4 k1 = *reinterpret_cast<const uint4*>(ks + r * ROW_BYTES + (c + 8) * 16);
+      const __nv_bfloat162* ka = reinterpret_cast<const __nv_bfloat162*>(&k0);
+      const __nv_bfloat162* kc = reinterpret_cast<const __nv_bfloat162*>(&k1);
       float dot[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) dot[g] = 0.f;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&kv[i]);
+      for (int u = 0; u < 4; ++u) {
+        const float2 fa = __bfloat1622float2(ka[u]);
+        const float2 fc = __bfloat1622float2(kc[u]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(p2[j]);
-#pragma unroll
-          for (int g = 0; g < G; ++g) {
-            const float2 qq = *reinterpret_cast<const float2*>(&qs[g][i * 8 + 2 * j]);
-            dot[g] = fmaf(qq.x, f.x, dot[g]);
-            dot[g] = fmaf(qq.y, f.y, dot[g]);
-          }
+        for (int g = 0; g < G; ++g) {
+          const float2 qa = qr.pair(g, u), qc = qr.pair(g, 4 + u);
+          dot[g] = fmaf(qa.x, fa.x, dot[g]);
+          dot[g] = fmaf(qa.y, fa.y, dot[g]);
+          dot[g] = fmaf(qc.x, fc.x, dot[g]);
+          dot[g] = fmaf(qc.y, fc.y, dot[g]);
         }
       }
-      const bool valid = mb[slot] != 0;
+      const bool in_row = r0 + r < s1;
+      const bool vis = (words[t * WPT + (r >> 5)] >> (r & 31)) & 1u;
 #pragma unroll
-      for (int g = 0; g < G; ++g) s[g] = valid ? dot[g] * scale : -FLT_MAX;
-    } else {
-#pragma unroll
-      for (int g = 0; g < G; ++g) s[g] = -INFINITY;  // beyond S: not a slot
+      for (int g = 0; g < G; ++g) {
+        float x = dot[g];
+        x += __shfl_xor_sync(FULL, x, 1);
+        x += __shfl_xor_sync(FULL, x, 2);
+        x += __shfl_xor_sync(FULL, x, 4);
+        // past S: not a slot; masked: float32.min
+        sl[h][g] = !in_row ? -INFINITY : (vis ? x * scale2 : -FLT_MAX);
+      }
     }
 
-    float p[G];
+    // online softmax over the warp's slots (a lane keeps its own slots' l)
+    float e[HG][G];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      // slot c0 < S always exists, so m_new is finite
-      const float m_new = fmaxf(m[g], warp_max(s[g]));
-      const float alpha = expf(m[g] - m_new);
-      p[g] = expf(s[g] - m_new);
-      lpart[g] = lpart[g] * alpha + p[g];
+      float mx = sl[0][g];
+#pragma unroll
+      for (int h = 1; h < HG; ++h) mx = fmaxf(mx, sl[h][g]);
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 16));
+      const float mn = fmaxf(m[g], mx);
+      if (mn == -INFINITY) {  // the warp's slots all lie past S
+#pragma unroll
+        for (int h = 0; h < HG; ++h) e[h][g] = 0.f;
+        continue;
+      }
+      const float alpha = exp2f(m[g] - mn);  // 0 while m = -inf
+      float esum = 0.f;
+#pragma unroll
+      for (int h = 0; h < HG; ++h) {
+        e[h][g] = exp2f(sl[h][g] - mn);
+        esum += e[h][g];
+      }
+      l[g] = fmaf(l[g], alpha, esum);
       acc[g][0] *= alpha;
       acc[g][1] *= alpha;
       acc[g][2] *= alpha;
       acc[g][3] *= alpha;
-      m[g] = m_new;
+      m[g] = mn;
     }
 
-    // PV: lane owns head-dim columns [4 * lane, 4 * lane + 4)
-    const int nrows = min(CHUNK, S - c0);
-    uint2 vr[CHUNK];
+    // P.V: this lane owns channels [4 lane, 4 lane + 4)
 #pragma unroll
-    for (int j = 0; j < CHUNK; ++j) {
-      if (j < nrows) {
-        vr[j] = *reinterpret_cast<const uint2*>(vb + (size_t)(c0 + j) * D + lane * 4);
-      }
-    }
+    for (int h = 0; h < HG; ++h) {
 #pragma unroll
-    for (int j = 0; j < CHUNK; ++j) {
-      if (j < nrows) {
-        const float2 f0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vr[j].x));
-        const float2 f1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vr[j].y));
+      for (int jj = 0; jj < 4; ++jj) {
+        const int r = warp * HG * 4 + h * 4 + jj;
+        if (r0 + r >= s1) continue;  // the same for the whole warp
+        const uint2 vw = *reinterpret_cast<const uint2*>(vs + r * ROW_BYTES + lane * 8);
+        const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vw.x));
+        const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vw.y));
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          const float pj = __shfl_sync(0xffffffffu, p[g], j);
-          acc[g][0] = fmaf(pj, f0.x, acc[g][0]);
-          acc[g][1] = fmaf(pj, f0.y, acc[g][1]);
-          acc[g][2] = fmaf(pj, f1.x, acc[g][2]);
-          acc[g][3] = fmaf(pj, f1.y, acc[g][3]);
+          const float pj = __shfl_sync(FULL, e[h][g], jj * 8);
+          acc[g][0] = fmaf(pj, v01.x, acc[g][0]);
+          acc[g][1] = fmaf(pj, v01.y, acc[g][1]);
+          acc[g][2] = fmaf(pj, v23.x, acc[g][2]);
+          acc[g][3] = fmaf(pj, v23.y, acc[g][3]);
         }
       }
     }
   }
+  __syncthreads();  // the ring is free: it holds the warps' states now
 
-  // merge the warps' partial softmax states
+  float* wm = reinterpret_cast<float*>(smem);       // [NWARPS][G]
+  float* wl = wm + NWARPS * G;                      // [NWARPS][G]
+  float* wacc = wm + 2 * NWARPS * 8;                // [NWARPS][G][D]
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const float lw = warp_sum(lpart[g]);
+    float lw = l[g];  // the 4 slot groups' sums
+    lw += __shfl_xor_sync(FULL, lw, 8);
+    lw += __shfl_xor_sync(FULL, lw, 16);
     if (lane == 0) {
-      wm[warp][g] = m[g];
-      wl[warp][g] = lw;
+      wm[warp * G + g] = m[g];
+      wl[warp * G + g] = lw;
     }
-    *reinterpret_cast<float4*>(&wacc[warp][g][lane * 4]) =
+    *reinterpret_cast<float4*>(&wacc[(warp * G + g) * D + lane * 4]) =
         make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
   }
   __syncthreads();
 
-  __nv_bfloat16* ob = out + (size_t)bk * G * D;
-  for (int i = tid; i < G * D; i += NWARPS * 32) {
+  const size_t row = ((size_t)bk * nsplit + sp) * G;
+  float* part = wacc + NWARPS * G * D;  // cluster: the split's acc [G][D],
+  float* pm = part + G * D;             // m [G] and l [G]
+  float* pl = pm + G;
+  for (int i = tid; i < G * D; i += NT) {
     const int g = i / D, d = i % D;
     float mx = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < NWARPS; ++w) mx = fmaxf(mx, wm[w][g]);
-    float l = 0.f, o = 0.f;
+    for (int w = 0; w < NWARPS; ++w) mx = fmaxf(mx, wm[w * G + g]);
+    float lt = 0.f, o = 0.f;
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) {
-      const float f = expf(wm[w][g] - mx);  // idle warps: exp(-inf) = 0
-      l += wl[w][g] * f;
-      o += wacc[w][g][d] * f;
+      // a warp with no slot (m = -inf) adds nothing; one with only masked
+      // slots (m = float32.min) adds nothing beside a visible slot
+      const float f = wm[w * G + g] == -INFINITY ? 0.f : exp2f(wm[w * G + g] - mx);
+      lt = fmaf(wl[w * G + g], f, lt);
+      o = fmaf(wacc[(w * G + g) * D + d], f, o);
     }
-    ob[i] = __float2bfloat16(o / l);
+    if (nsplit == 1) {
+      out[((size_t)bk * G + g) * D + d] = __float2bfloat16(o / lt);
+    } else if (cluster) {
+      part[i] = o;
+      if (d == 0) {
+        pm[g] = mx;
+        pl[g] = lt;
+      }
+    } else {
+      ws_acc[row * D + i] = o;
+      if (d == 0) {
+        ws_m[row + g] = mx;
+        ws_l[row + g] = lt;
+      }
+    }
   }
+  if (!cluster) return;
+
+  // the cluster's merge: block 0 reads each split's partial from that
+  // block's shared memory, in split order; every block stays until it has
+  // been read
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();
+  if (cl.block_rank() == 0) {
+    for (int i = tid; i < G * D; i += NT) {
+      const int g = i / D;
+      float mx = -INFINITY;
+      for (int r = 0; r < nsplit; ++r) mx = fmaxf(mx, cl.map_shared_rank(pm, r)[g]);
+      float lt = 0.f, o = 0.f;
+      for (int r = 0; r < nsplit; ++r) {
+        const float mr = cl.map_shared_rank(pm, r)[g];
+        const float f = mr == -INFINITY ? 0.f : exp2f(mr - mx);
+        lt = fmaf(cl.map_shared_rank(pl, r)[g], f, lt);
+        o = fmaf(cl.map_shared_rank(part, r)[i], f, o);
+      }
+      out[(size_t)bk * G * D + i] = __float2bfloat16(o / lt);
+    }
+  }
+  cl.sync();
+}
+
+// Combine the nsplit partials of (bk, g): block (bk, g), 4 warps, a lane 4
+// channels; warp w sums splits w, w + 4, ... in order (8 loads in flight),
+// then the warps' sums add in warp order: the same order on every call.
+template <int G>
+__global__ void __launch_bounds__(D)
+merge_kernel(const float* __restrict__ ws_acc, const float* __restrict__ ws_m,
+             const float* __restrict__ ws_l, int nsplit,
+             __nv_bfloat16* __restrict__ out) {
+  __shared__ float red[4];
+  __shared__ __align__(16) float wacc[4][D];
+  __shared__ float wl[4];
+  const int bk = blockIdx.x, g = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const size_t base = (size_t)bk * nsplit;
+  float mx = -INFINITY;
+  for (int s = tid; s < nsplit; s += D) mx = fmaxf(mx, ws_m[(base + s) * G + g]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  mx = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
+  float lt = 0.f;
+  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+  for (int s = warp; s < nsplit; s += 4) {
+    const size_t row = (base + s) * G + g;
+    const float m = ws_m[row];
+    const float f = m == -INFINITY ? 0.f : exp2f(m - mx);
+    const float4 a = *reinterpret_cast<const float4*>(&ws_acc[row * D + lane * 4]);
+    lt = fmaf(ws_l[row], f, lt);
+    o.x = fmaf(a.x, f, o.x);
+    o.y = fmaf(a.y, f, o.y);
+    o.z = fmaf(a.z, f, o.z);
+    o.w = fmaf(a.w, f, o.w);
+  }
+  *reinterpret_cast<float4*>(&wacc[warp][lane * 4]) = o;
+  if (lane == 0) wl[warp] = lt;
+  __syncthreads();
+  const float l = ((wl[0] + wl[1]) + wl[2]) + wl[3];
+  const float od = ((wacc[0][tid] + wacc[1][tid]) + wacc[2][tid]) + wacc[3][tid];
+  out[((size_t)bk * G + g) * D + tid] = __float2bfloat16(od / l);
 }
 
 template <int G>
 int launch(const void* q, const void* k, const void* v, const void* mask,
-           void* out, int B, int Hk, int S, float scale, cudaStream_t stream) {
-  decode_attn_kernel<G><<<B * Hk, NWARPS * 32, 0, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const uint8_t*)mask, (__nv_bfloat16*)out, S,
-      scale);
+           void* out, void* ws_acc, void* ws_m, void* ws_l, int BHk, int S,
+           int nsplit, int rows, float scale2, cudaStream_t stream) {
+  static bool smem_set = false;  // once a process, per instantiation
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        split_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes(STAGES, G));
+    if (e != cudaSuccess) return (int)e;
+    smem_set = true;
+  }
+  const int ns = min(STAGES, (rows + TILE - 1) / TILE);  // no deeper than a split
+  // up to MAX_CLUSTER splits merge in a cluster, more in merge_kernel
+  const int cluster = nsplit > 1 && nsplit <= MAX_CLUSTER;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(BHk, nsplit);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem_bytes(ns, G);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cluster ? nsplit : 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t le = cudaLaunchKernelEx(
+      &cfg, split_kernel<G>, (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const uint8_t*)mask, (__nv_bfloat16*)out,
+      (float*)ws_acc, (float*)ws_m, (float*)ws_l, S, rows, scale2, ns,
+      cluster);
+  if (le != cudaSuccess) return (int)le;
+  const int err = (int)cudaGetLastError();
+  if (err != 0 || nsplit == 1 || cluster) return err;
+  merge_kernel<G><<<dim3(BHk, G), D, 0, stream>>>(
+      (const float*)ws_acc, (const float*)ws_m, (const float*)ws_l, nsplit,
+      (__nv_bfloat16*)out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns a CUDA error code; cudaErrorInvalidValue for an unsupported G.
+// q [B, H, D], k/v [B, Hk, S, D] bf16, mask [B, Hk, S] bool, out [B, H, D]
+// bf16; ws_acc [B*Hk*nsplit, G, D], ws_m/ws_l [B*Hk*nsplit, G] f32
+// (unused when nsplit = 1); rows: slots a split, a multiple of 64, at most 2048, with
+// (nsplit - 1) * rows < S <= nsplit * rows.  Returns a CUDA error code;
+// cudaErrorInvalidValue for an unsupported G or plan.
 extern "C" int pkv_decode_attn(const void* q, const void* k, const void* v,
-                               const void* mask, void* out, int B, int H,
-                               int Hk, int S, float scale, void* stream) {
+                               const void* mask, void* out, void* ws_acc,
+                               void* ws_m, void* ws_l, int B, int H, int Hk,
+                               int S, int nsplit, int rows, float scale,
+                               void* stream) {
+  if (rows % TILE || rows > MAXT * TILE || nsplit < 1 ||
+      (long long)(nsplit - 1) * rows >= S || (long long)nsplit * rows < S)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const float scale2 = scale * 1.4426950408889634f;  // base-2 logits
+  const int BHk = B * Hk;
   switch (H / Hk) {
-    case 1: return launch<1>(q, k, v, mask, out, B, Hk, S, scale, st);
-    case 2: return launch<2>(q, k, v, mask, out, B, Hk, S, scale, st);
-    case 4: return launch<4>(q, k, v, mask, out, B, Hk, S, scale, st);
-    case 8: return launch<8>(q, k, v, mask, out, B, Hk, S, scale, st);
+    case 1: return launch<1>(q, k, v, mask, out, ws_acc, ws_m, ws_l, BHk, S, nsplit, rows, scale2, st);
+    case 2: return launch<2>(q, k, v, mask, out, ws_acc, ws_m, ws_l, BHk, S, nsplit, rows, scale2, st);
+    case 4: return launch<4>(q, k, v, mask, out, ws_acc, ws_m, ws_l, BHk, S, nsplit, rows, scale2, st);
+    case 8: return launch<8>(q, k, v, mask, out, ws_acc, ws_m, ws_l, BHk, S, nsplit, rows, scale2, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

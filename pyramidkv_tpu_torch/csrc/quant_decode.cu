@@ -28,9 +28,10 @@
 // function does: the query folded with each slot's K group scale and
 // rounded to bf16, the K zero term in f32; the probability folded with each
 // channel group's V scale and rounded to bf16, the V zero term in f32.
-// Given the step's bf16 decode tail, the finish pass attends over it too
-// and writes the layer's normalised bf16 output: one call per layer per
-// decode step.
+// Given the step's bf16 decode tail, the call attends over it too and
+// writes the layer's normalised bf16 output: one call per layer per decode
+// step, one launch on the whole-region plan (whole_kernel), two on the
+// split plan (split_kernel, then finish_kernel).
 //
 // What bounds them on the H100: bytes.  Each packed code byte is read once
 // and feeds PER slots x G queries; ~1 flop per code bit (kFold: ~2, the
@@ -49,8 +50,12 @@
 // - kFold folds in registers, per slot, what the XLA function materialises
 //   as [G, D, groups] folded queries and [G, W, groups] folded
 //   probabilities.
-// Left for later: staging K scales in shared memory (each lane reads its
-// group's 2 x 128 f32 scale/zero values through L1), and tensor-core dots.
+// - whole_kernel (the whole-region plan) gives each 64-row region all 8
+//   warps (8 lanes a row) and stages the K scale / zero columns in shared
+//   memory; bench.py's 32k snapkv kivi4 decodes in one launch at SDPA's
+//   time.
+// Left for later: the split kernels' lane-per-row body (K scales through
+// L1), and tensor-core dots.
 
 #include "quant_region.cuh"
 

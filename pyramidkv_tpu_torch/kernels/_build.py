@@ -41,8 +41,7 @@ ENTRY_POINTS = {
         ("pkv_h2o_stats", [_P] * 5 + [_I] * 5 + [_F, _P]),
         ("pkv_h2o_colsum", [_P] * 6 + [_I] * 5 + [_F, _P]),
     ],
-    "decode_attn": [("pkv_decode_attn",
-                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P])],
+    "decode_attn": [("pkv_decode_attn", [_P] * 8 + [_I] * 6 + [_F, _P])],
     "int4_matmul": [
         ("pkv_int4_matmul", [_P] * 5 + [_I] * 9 + [_P]),
         ("pkv_int8_matmul", [_P] * 5 + [_I] * 8 + [_P]),

@@ -3,8 +3,11 @@
 Counterpart of ``pyramidkv_tpu/kernels/decode_attn.py::
 decode_attention_pallas`` — on the H100 it is the port's decode path for
 every cache size (the TPU kept it opt-in and capped at 4096 slots).  On a
-CUDA tensor it launches the hand-written sm_90a kernel; on a CPU tensor it
-runs the plain version (``ops.attention.decode_attention``).
+CUDA tensor it launches the hand-written sm_90a kernel, the slots split
+across blocks as :func:`decode_split_plan` says; on a CPU tensor it runs the
+plain version (``ops.attention.decode_attention``).
+:func:`decode_attention_split_plain` is the kernel's schedule in plain
+PyTorch: per-split f32 partials merged in split order.
 """
 
 from __future__ import annotations
@@ -13,12 +16,72 @@ import math
 
 import torch
 
+from ..ops.attention import _NEG_INF
 from ..ops.attention import decode_attention as decode_attention_plain
 from . import _build
+from .quant_decode import _sm_count
 
 HEAD_DIM = 128
 #: GQA group sizes the kernel is instantiated for
 GROUPS = (1, 2, 4, 8)
+#: slots a tile of the kernel's ring (its TILE); a split holds at most 32
+TILE = 64
+_MAX_TILES = 32
+#: up to this many splits merge inside a thread-block cluster (the kernel's
+#: MAX_CLUSTER); more go through a workspace and a merge kernel
+MAX_CLUSTER = 4
+
+
+def decode_split_plan(device: torch.device, bhk: int, s: int):
+    """(nsplit, slots per split) for ``bhk`` regions of ``s`` slots on
+    ``device``: about 2 blocks per SM (the kernel's residency: one wave),
+    each split at most 32 64-slot tiles (the last split may be shorter).
+    Shapes only: the host reads no mask, so the decode step never waits on
+    the card."""
+    tiles = -(-s // TILE)
+    want = max(1, 2 * _sm_count(device) // bhk)
+    per = min(-(-tiles // want), _MAX_TILES)
+    return -(-tiles // per), per * TILE
+
+
+def decode_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, mask: torch.Tensor,
+                                 nsplit: int, rows: int) -> torch.Tensor:
+    """The kernel's schedule in plain PyTorch: split s attends over slots
+    [s * rows, min(S, (s + 1) * rows)) in f32 (probabilities kept in f32),
+    giving (acc, m, l); a split with no visible slot in a row that has one
+    gives (0, -inf, 0), and in a row with none every split attends over all
+    its slots at logit float32.min; the partials merge in split order.
+    Shapes as :func:`decode_attention`; returns [B, H, D] in q's dtype."""
+    b, h, d = q.shape
+    hk, s = k.shape[1], k.shape[2]
+    if (nsplit - 1) * rows >= s or nsplit * rows < s:
+        raise ValueError(f"plan ({nsplit}, {rows}) does not cover {s} slots")
+    qg = q.float().reshape(b, hk, h // hk, d)
+    row_vis = mask.any(-1)[..., None]                           # [B, Hk, 1]
+    parts = []
+    for i in range(nsplit):
+        sl = slice(i * rows, min(s, (i + 1) * rows))
+        mi = mask[:, :, None, sl]
+        x = torch.matmul(qg, k[:, :, sl].float().transpose(-1, -2)) * (
+            1.0 / math.sqrt(d))
+        x = x.masked_fill(~mi, _NEG_INF)
+        m = x.amax(-1)
+        p = torch.exp(x - m[..., None])
+        acc, l = torch.matmul(p, v[:, :, sl].float()), p.sum(-1)
+        empty = ~mi.any(-1) & row_vis                           # [B, Hk, G]
+        parts.append((acc.masked_fill(empty[..., None], 0.0),
+                      m.masked_fill(empty, -math.inf),
+                      l.masked_fill(empty, 0.0)))
+    m_all = parts[0][1]
+    for _, m, _ in parts[1:]:
+        m_all = torch.maximum(m_all, m)
+    num = den = 0.0
+    for acc, m, l in parts:
+        w = torch.exp(m - m_all).masked_fill(m == -math.inf, 0.0)
+        num = num + acc * w[..., None]
+        den = den + l * w
+    return (num / den[..., None]).reshape(b, h, d).to(q.dtype)
 
 
 def decode_attention(
@@ -51,11 +114,21 @@ def decode_attention(
             or mask.device != q.device):
         raise ValueError("mask must be a contiguous bool tensor on q's device")
     out = torch.empty_like(q)
+    nsplit, rows = decode_split_plan(q.device, b * hk, s)
+    stream = torch.cuda.current_stream(q.device)
+    if nsplit > MAX_CLUSTER:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        ws = (torch.empty((b * hk * nsplit, h // hk, d), **f32),
+              torch.empty((b * hk * nsplit, h // hk), **f32),
+              torch.empty((b * hk * nsplit, h // hk), **f32))
+        ws_ptrs = tuple(x.data_ptr() for x in ws)
+    else:
+        ws_ptrs = (None, None, None)
     lib = _build.library("decode_attn")
     err = lib.pkv_decode_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), b, h, hk, s, 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), *ws_ptrs, b, h, hk, s, nsplit, rows,
+        1.0 / math.sqrt(d), stream.cuda_stream)
     _build.check(err, "decode_attn")
     decode_attention.launches += 1
     return out

@@ -134,11 +134,13 @@ def launch_region(symbol: str, lib: str, q: torch.Tensor,
                          f"strides {mask.stride()}")
     pa = ng == ngv == 1
     if (d != HEAD_DIM or h % hk or h // hk not in GROUPS or nbits not in NBITS
-            or (vg % 4 and not pa)):
+            or (vg % 4 and not pa) or ((dp % 4 or w % 4) and not split)):
         raise ValueError(f"kernel takes D == {HEAD_DIM}, H/Hk in {GROUPS}, "
                          f"nbits in {NBITS}, V groups of a multiple of 4 "
-                         f"channels; got D={d} H/Hk={h / hk} nbits={nbits} "
-                         f"V group {vg}")
+                         f"channels (and, over a whole region, V rows of a "
+                         f"multiple of 4 bytes and a multiple of 4 byte-rows)"
+                         f"; got D={d} H/Hk={h / hk} nbits={nbits} V group "
+                         f"{vg}, V row {dp} bytes, {w} byte-rows")
     g = h // hk
     f32 = dict(dtype=torch.float32, device=q.device)
     if tail is None:
@@ -156,7 +158,7 @@ def launch_region(symbol: str, lib: str, q: torch.Tensor,
     if split_within:
         rows = math.gcd(rows, split_within)
         nsplit = -(-w // rows)
-    if split or tail is not None:
+    if split:
         ws = (torch.empty((b * hk * nsplit, g, d), **f32),
               torch.empty((b * hk * nsplit, g), **f32),
               torch.empty((b * hk * nsplit, g), **f32))
@@ -176,6 +178,22 @@ def launch_region(symbol: str, lib: str, q: torch.Tensor,
     return res
 
 
+def region_kernels(split: bool) -> int:
+    """CUDA kernels one region call launches: the whole-region kernel
+    attends over the region and the bf16 tail and writes the output in one
+    launch; the split kernel is followed by its finish pass."""
+    return 2 if split else 1
+
+
+def group_plan(device: torch.device, bhk: int, w: int):
+    """(entry point, CUDA kernels a call launches) of the factored group
+    route for ``bhk`` regions of ``w`` byte-rows: the whole-region kernel
+    where :func:`split_plan` gives one split, else the split kernel."""
+    whole = split_plan(device, bhk, w)[0] == 1
+    return ("pkv_quant_group_fused" if whole
+            else "pkv_quant_group_fused_tiled", region_kernels(not whole))
+
+
 def quant_decode_attention(q: torch.Tensor, reg: QuantizedKVRegion,
                            mask: torch.Tensor, *, nbits: int, tail=None,
                            scale=None, softcap=None):
@@ -183,7 +201,7 @@ def quant_decode_attention(q: torch.Tensor, reg: QuantizedKVRegion,
     query heads of the KV head.  q: [B, H, D] -> (acc, m, l); with ``tail``,
     the step's bf16 decode slots (k, v [B, Hk, T, D], mask [B, Hk, T]), the
     layer's attention output over region and tail, [B, H, D] in q's dtype
-    (a finish pass attends over the tail and merges)."""
+    (the same launch attends over the tail and merges)."""
     check_unsupported(scale, softcap)
     if q.device.type == "cpu":
         return merge_tail(quant_decode_attention_plain(q, reg, mask,
@@ -191,6 +209,7 @@ def quant_decode_attention(q: torch.Tensor, reg: QuantizedKVRegion,
     out = launch_region("pkv_quant_decode", "quant_decode", q, reg, mask,
                         nbits, split=False, tail=tail)
     quant_decode_attention.launches += 1
+    quant_decode_attention.kernels += region_kernels(False)
     return out
 
 
@@ -207,6 +226,7 @@ def quant_decode_attention_tiled(q: torch.Tensor, reg: QuantizedKVRegion,
     out = launch_region("pkv_quant_decode_tiled", "quant_decode", q, reg,
                         mask, nbits, split=True, tail=tail)
     quant_decode_attention_tiled.launches += 1
+    quant_decode_attention_tiled.kernels += region_kernels(True)
     return out
 
 
@@ -223,15 +243,17 @@ def quant_fused_attention_group(q: torch.Tensor, reg: QuantizedKVRegion,
         return merge_tail(quant_region_attention_fused(q, reg, mask,
                                                        nbits=nbits), q, tail)
     b, hk, w = reg.k.codes.shape[:3]
-    whole = split_plan(q.device, b * hk, w)[0] == 1
-    out = launch_region(
-        "pkv_quant_group_fused" if whole else "pkv_quant_group_fused_tiled",
-        "quant_decode", q, reg, mask, nbits, split=not whole, tail=tail)
+    symbol, kernels = group_plan(q.device, b * hk, w)
+    out = launch_region(symbol, "quant_decode", q, reg, mask, nbits,
+                        split=kernels > 1, tail=tail)
     quant_fused_attention_group.launches += 1
+    quant_fused_attention_group.kernels += kernels
     return out
 
 
-#: kernel launches since the last reset (CPU calls do not count)
-quant_decode_attention.launches = 0
-quant_decode_attention_tiled.launches = 0
-quant_fused_attention_group.launches = 0
+#: wrapper calls that launched on the card since the last reset (CPU calls
+#: do not count), and the CUDA kernels those calls launched
+for _fn in (quant_decode_attention, quant_decode_attention_tiled,
+            quant_fused_attention_group):
+    _fn.launches = _fn.kernels = 0
+del _fn

@@ -20,7 +20,7 @@ import torch
 
 from ..ops.quant import (QuantizedKVRegion, merge_tail,
                          quant_region_attention_fused, region_geometry)
-from .quant_decode import check_unsupported, launch_region
+from .quant_decode import check_unsupported, launch_region, region_kernels
 
 
 def quant_fused_attention_pa(q: torch.Tensor, reg: QuantizedKVRegion,
@@ -47,8 +47,10 @@ def quant_fused_attention_pa(q: torch.Tensor, reg: QuantizedKVRegion,
                         mask, nbits, split=True, tail=tail,
                         split_within=kg if gk > 1 else 0)
     quant_fused_attention_pa.launches += 1
+    quant_fused_attention_pa.kernels += region_kernels(True)
     return out
 
 
-#: kernel launches since the last reset (CPU calls do not count)
-quant_fused_attention_pa.launches = 0
+#: wrapper calls that launched on the card since the last reset (CPU calls
+#: do not count), and the CUDA kernels those calls launched
+quant_fused_attention_pa.launches = quant_fused_attention_pa.kernels = 0

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Mutation check of the port's KIVI region kernels, MInference's
 block-sparse prefill kernels, the H2O kernels, the chunked prefill's flash
-kernels and the two-pass flash schedule, on a CUDA card.
+kernels, the two-pass flash schedule and the split decode kernel, on a CUDA
+card.
 
     python3 scripts/port_mutation_check.py [--log FILE]
 
@@ -16,9 +17,12 @@ mutant, the smallest ``err_over_tol`` over those and over the short checks
 non-zero if a mutant was not caught.  Mutants:
 
 - ``drop_plane`` (``csrc/quant_region.cuh``): the last bit-plane's V codes
-  read as 0 (with 8-bit codes, the only plane);
+  read as 0 (with 8-bit codes, the only plane) in the split-plan kernels
+  (targets the checks on the split plan; ``whole_drop_plane`` is the same
+  fault in the whole-region kernel);
 - ``drop_chunk`` (``csrc/quant_region.cuh``): warp 1 skips its first 32-row
-  chunk of every block's slot range (a slot tile never attended);
+  chunk of every block's slot range (a slot tile never attended; split
+  plan);
 - ``slash_drop_last_tile`` (``csrc/block_sparse_prefill.cu``): the grid
   slash kernel skips the last valid entry of every tile list (targets its
   own checks and the db-against-grid check);
@@ -40,7 +44,28 @@ non-zero if a mutant was not caught.  Mutants:
   the last key tile of every block (the diagonal tile);
 - ``fold_skip_first_k_group`` (``csrc/quant_region.cuh``): the factored
   group kernel folds the query of each block's first K group (on every
-  bit-plane) with 1 instead of the group's scale.
+  bit-plane) with 1 instead of the group's scale (split plan);
+- ``whole_drop_plane`` (``csrc/quant_region.cuh``): the whole-region
+  kernel reads the last bit-plane's V codes as 0;
+- ``whole_unit_scale_first_k_group`` (``csrc/quant_region.cuh``): the
+  whole-region kernel takes 1 for the K scale of every slot in K group 0
+  (both modes);
+- ``whole_skip_first_tail_chunk`` (``csrc/quant_region.cuh``): the
+  one-launch whole-region kernel never attends over the first 32 slots of
+  the bf16 decode tail (targets the checks on the whole-region plan);
+- ``decode_merge_drops_last_split`` (``csrc/decode_attn.cu``): the merge
+  kernel of the split decode leaves the last split out of the sums
+  (targets the checks of more than 4 splits);
+- ``decode_cluster_drops_last_split`` (``csrc/decode_attn.cu``): the same
+  fault in the cluster merge (targets the checks of 2 to 4 splits);
+- ``decode_drops_partial_tile`` (``csrc/decode_attn.cu``): the split kernel
+  treats the slots of a tile cut short by S as past S (targets the
+  random-mask checks whose S is no multiple of the 64-slot tile);
+- ``decode_skips_all_masked_row`` (``csrc/decode_attn.cu``): a split with no
+  visible slot in a row masked everywhere attends over nothing instead of
+  all its slots (tile skipping applied to that row: targets the random-mask
+  checks, each of which masks one row everywhere).
+A check whose output is not finite counts as caught (err_over_tol inf).
 """
 
 from __future__ import annotations
@@ -55,14 +80,26 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join("pyramidkv_tpu_torch", "csrc")
-KIVI = ("quant_region.cuh", "phase_kv_quant_kernels", None)
-#: name -> (source, chip_smoke phase, targeted checks (None: all), old, new)
+KIVI = ("quant_region.cuh", "phase_kv_quant_kernels")
+DECODE = ("decode_attn.cu", "phase_decode_kernels")
+
+
+def _whole(r):
+    return r["kernels_per_call"] == 1
+
+
+def _split(r):
+    return r["kernels_per_call"] == 2
+
+
+#: name -> (source, chip_smoke phase, targeted checks (None: all; a tuple
+#: of check names, or a predicate on a check's record), old, new)
 MUTANTS = {
-    "drop_plane": (*KIVI,
+    "drop_plane": (*KIVI, lambda r: _split(r),
         "const float c = (float)((vw >> (8 * k + p * NBITS)) & MASK);",
         "const float c = p == PER - 1 ? 0.f : (float)((vw >> (8 * k + p "
         "* NBITS)) & MASK);"),
-    "drop_chunk": (*KIVI,
+    "drop_chunk": (*KIVI, lambda r: _split(r),
         "for (int j0 = row0 + warp * CHUNK; j0 < row1; j0 += NWARPS * CHUNK) {",
         "for (int j0 = row0 + warp * CHUNK + (warp == 1 ? NWARPS * CHUNK : 0);"
         " j0 < row1; j0 += NWARPS * CHUNK) {"),
@@ -102,11 +139,42 @@ MUTANTS = {
         "  const int kt_end = min(last_row, N - 1) / BK;",
         "  const int kt_end = min(last_row, N - 1) / BK - (PASS_B ? 1 : 0);"),
     "fold_skip_first_k_group": (
-        "quant_region.cuh", "phase_kv_quant_kernels",
-        ("quant_fused_attention_group",),
+        *KIVI, lambda r: r["check"] == "quant_fused_attention_group"
+        and _split(r),
         "const float ksv = __ldg(ksb + o), kzv = __ldg(kzb + o);",
         "const float ksv = grp[p] == (row0 + p * W) / a.kg ? 1.f : "
         "__ldg(ksb + o), kzv = __ldg(kzb + o);"),
+    "whole_skip_first_tail_chunk": (
+        *KIVI, _whole,
+        "const bool vis = h0 + lane < ntail && twords[h0 + lane] != 0;",
+        "const bool vis = h0 + lane < ntail && twords[h0 + lane] != 0 && "
+        "h0 + lane > 0;"),
+    "whole_drop_plane": (
+        *KIVI, _whole,
+        "const float cv = code_f((vw >> (8 * k + p * NBITS)) & MASK);",
+        "const float cv = p == PER - 1 ? 0.f : code_f((vw >> (8 * k + p * "
+        "NBITS)) & MASK);"),
+    "whole_unit_scale_first_k_group": (
+        *KIVI, _whole,
+        "const float ksv = ksp[o], kzv = kzp[o];",
+        "const float ksv = grp[p] == 0 ? 1.f : ksp[o], kzv = kzp[o];"),
+    "decode_merge_drops_last_split": (
+        *DECODE, lambda r: r["nsplit"] > 4,
+        "for (int s = warp; s < nsplit; s += 4) {",
+        "for (int s = warp; s < nsplit - 1; s += 4) {"),
+    "decode_cluster_drops_last_split": (
+        *DECODE, lambda r: 1 < r["nsplit"] <= 4,
+        "for (int r = 0; r < nsplit; ++r) {",
+        "for (int r = 0; r < nsplit - 1; ++r) {"),
+    "decode_drops_partial_tile": (
+        *DECODE, lambda r: r["S"] % 64 != 0 and not r["case"].startswith(
+            "engine"),
+        "const bool in_row = r0 + r < s1;",
+        "const bool in_row = r0 + r < s1 && r0 + TILE <= s1;"),
+    "decode_skips_all_masked_row": (
+        *DECODE, lambda r: not r["case"].startswith("engine"),
+        "    n = found ? 0 : ntiles;",
+        "    n = 0;"),
 }
 _RUN = """
 import json, sys, torch, torch.nn.functional as F
@@ -115,8 +183,12 @@ recs = []
 cs.log = recs.append
 cs.SPARSE_CASES = {k: v[:-1] + (False,) for k, v in cs.SPARSE_CASES.items()}
 getattr(cs, sys.argv[1])(torch, F, torch.device("cuda", 0))
-print(json.dumps([{k: r.get(k) for k in ("check", "case", "err_over_tol")}
-                  for r in recs]))
+def finite(x):
+    return x if x == x else float("inf")  # NaN: not a finite output
+print(json.dumps([{**{k: r.get(k) for k in ("check", "case", "S", "nsplit",
+                                            "kernels_per_call")},
+                   "err_over_tol": finite(r["err_over_tol"])}
+                  for r in recs if "err_over_tol" in r]))
 """
 
 
@@ -146,7 +218,8 @@ def main() -> int:
             print(res.stderr[-3000:], file=sys.stderr)
             return 1
         recs = json.loads(res.stdout.strip().splitlines()[-1])
-        hit = [r for r in recs if targets is None or r["check"] in targets]
+        hit = [r for r in recs if targets is None or (
+            targets(r) if callable(targets) else r["check"] in targets)]
         main_r = [r["err_over_tol"] for r in hit
                   if not r["case"].startswith("short")]
         short_r = [r["err_over_tol"] for r in hit
