@@ -6,13 +6,15 @@
 
 Phases (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: nvcc builds every kernel of the main path from ``csrc/``;
+  2. build: nvcc builds every kernel of the main path from ``csrc/``, and
+     prints each kernel's registers and spills (``ptxas_report``);
   3. kernels: each CUDA kernel against its plain PyTorch version on the card,
      at every shape the engine phase gives it (decode: each method's cache
      width, each pyramidkv segment's, bench.py's 32k widths; first short
      shapes and shapes of several splits with a wholly masked split, a row
-     masked in every split and S no multiple of the tile; two calls
-     bitwise equal), with its time, the plain version's
+     masked in every split and S no multiple of the tile; the flash
+     kernels at short ragged shapes first too; the decode and flash
+     kernels' two calls bitwise equal), with its time, the plain version's
      time, the time of one library call computing the same function (a
      yardstick the port never calls) and the least time the card could take;
   4. engine: ``Engine.generate`` on Llama-3-8B geometry (all 32 layers,
@@ -61,7 +63,10 @@ Phases (any failure exits non-zero):
      their plain versions, four sparse-prefill generate runs, depth-2
      parity and CUDA-event stage times of a 32k sparse prefill;
  16. h2o_chunk_kernels: the two H2O kernels (stats, colsum) against their
-     plain versions at the 8k batch and bench.py's 32k prompt, flash with
+     plain versions at the 8k batch and bench.py's 32k prompt; untimed
+     short shapes of the flash kernels (q_start on a carry longer than the
+     chunk's keys, a last q tile of 64 rows; partials on a self and a
+     history tile of N = 192 with a pad inside a key tile); flash with
      q_start at every chunk of the 8k batch, flash_attention_partials on the
      self and history tiles of the 32k and 8k chunk carries, and the pa
      region kernel with one K group per chunk, timed;
@@ -271,11 +276,13 @@ def plan_for(method: str):
 def err_over_tol(got, want, rtol=KERNEL_RTOL, row_tol=KERNEL_ROW_TOL
                  ) -> float:
     """Largest |got - want| / (its limit, TOL_TEXT by default): <= 1
-    passes."""
+    passes; a value that is not finite is infinitely far off (Python's max
+    would drop a NaN)."""
     g, w = got.float(), want.float()
     rms = w.square().mean(-1, keepdim=True).sqrt()
     lim = (rtol * w.abs() + row_tol * rms).clamp_min(1e-30)
-    return float(((g - w).abs() / lim).max())
+    r = float(((g - w).abs() / lim).max())
+    return r if r == r else float("inf")
 
 
 def bound(flops: float, nbytes: float, peak=PEAK_BF16_FLOPS) -> tuple:
@@ -314,7 +321,8 @@ def graph_ms(torch, fn, reps: int) -> float:
     return time_ms(torch, g.replay, reps=3) / reps
 
 
-def check_flash(torch, F, dev, b, h, hk, n, true_len, window, timed, seed):
+def check_flash(torch, F, dev, b, h, hk, n, true_len, window, timed, seed,
+                case):
     from pyramidkv_tpu_torch.kernels import flash_causal_attention
     from pyramidkv_tpu_torch.ops.attention import causal_prefill_attention
 
@@ -324,6 +332,7 @@ def check_flash(torch, F, dev, b, h, hk, n, true_len, window, timed, seed):
     v = torch.randn((b, hk, n, D), generator=g, device=dev).to(torch.bfloat16)
     tl = torch.tensor(true_len, dtype=torch.int32, device=dev)
     got = flash_causal_attention(q, k, v, tl, sliding_window=window)
+    again = flash_causal_attention(q, k, v, tl, sliding_window=window)
     want = causal_prefill_attention(q, k, v, true_len=tl,
                                     sliding_window=window)
     torch.cuda.synchronize()
@@ -336,10 +345,12 @@ def check_flash(torch, F, dev, b, h, hk, n, true_len, window, timed, seed):
     rms = (sq / (h * sum(true_len) * D)) ** 0.5
     pad_rows_zero = all(
         bool((got[bi, :, :n - t] == 0).all()) for bi, t in enumerate(true_len))
-    rec = {"check": "flash_causal_attention", "B": b, "H": h, "Hk": hk,
-           "N": n, "true_len": list(true_len), "window": window,
+    rec = {"check": "flash_causal_attention", "case": case, "B": b, "H": h,
+           "Hk": hk, "N": n, "true_len": list(true_len), "window": window,
            "max_abs_err": err, "err_over_tol": ratio, "tol": TOL_TEXT,
-           "rms": rms, "pad_rows_zero": pad_rows_zero}
+           "rms": rms, "pad_rows_zero": pad_rows_zero,
+           "bitwise_repeat": bool(torch.equal(got, again))}
+    del again
     if timed:
         rec["ms"] = time_ms(torch, lambda: flash_causal_attention(
             q, k, v, tl, sliding_window=window), reps=10)
@@ -363,7 +374,8 @@ def check_flash(torch, F, dev, b, h, hk, n, true_len, window, timed, seed):
                   + b * h * n * D * 2 + b * 4)
         rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes)
     log(rec)
-    ok = ratio <= 1 and pad_rows_zero and bool(torch.isfinite(got).all())
+    ok = (ratio <= 1 and pad_rows_zero and bool(torch.isfinite(got).all())
+          and rec["bitwise_repeat"])
     return ok, rec
 
 
@@ -436,10 +448,11 @@ def phase_kernels(torch, F, dev):
     # short shapes first: ragged pads, a window, every group size
     for args in ((2, 4, 2, 256, (256, 77), None), (2, 4, 4, 192, (150, 3), 50),
                  (1, 8, 1, 128, (128,), None)):
-        r, _ = check_flash(torch, F, dev, *args, timed=False, seed=1)
+        r, _ = check_flash(torch, F, dev, *args, timed=False, seed=1,
+                           case="short ragged")
         ok &= r
     r, flash = check_flash(torch, F, dev, B, H, HK, N, TRUE_LEN, None,
-                           timed=True, seed=3)
+                           timed=True, seed=3, case="8k batch")
     return ok & r, {"flash": flash}
 
 
@@ -605,7 +618,7 @@ def phase_mm_kernels(torch, F, dev):
                     rec["layers"] = PER_STEP[shape]  # launches per step
                     entries[name].append(rec)
     r, flash = check_flash(torch, F, dev, 1, H, HK, QN, (QTRUE,), None,
-                           timed=True, seed=3)
+                           timed=True, seed=3, case="32k")
     ok &= r
     return ok, entries, flash
 
@@ -2032,10 +2045,11 @@ def visible_pairs(true_len, n, nq, q_start, h):
 
 
 def check_flash_chunk(torch, F, dev, b, hk, n, true_len, chunk, i, seed,
-                      buf):
+                      buf, case=None, timed=True):
     """flash_causal_attention with q_start = i * chunk on chunk i of a
     prefill, its keys read in place from the bucket-long carry ``buf`` (k,
-    v [B, Hk, n, D]), against the plain version; rows past the pad."""
+    v [B, Hk, n, D]), against the plain version; rows past the pad; two
+    calls bitwise equal."""
     from pyramidkv_tpu_torch.kernels import flash_causal_attention
     from pyramidkv_tpu_torch.ops.attention import causal_prefill_attention
 
@@ -2045,6 +2059,7 @@ def check_flash_chunk(torch, F, dev, b, hk, n, true_len, chunk, i, seed,
     kh, vh = buf[0][:, :, :e], buf[1][:, :, :e]
     tl = torch.tensor(true_len, dtype=torch.int32, device=dev) - (n - e)
     got = flash_causal_attention(q, kh, vh, tl, q_start=i * chunk)
+    again = flash_causal_attention(q, kh, vh, tl, q_start=i * chunk)
     want = causal_prefill_attention(q, kh, vh, true_len=tl, q_start=i * chunk)
     torch.cuda.synchronize()
     ratio = err = 0.0
@@ -2056,10 +2071,17 @@ def check_flash_chunk(torch, F, dev, b, hk, n, true_len, chunk, i, seed,
         err = max(err, float((gb.float() - wb.float()).abs().max()))
         ratio = max(ratio, err_over_tol(gb, wb))
     rec = {"check": "flash_causal_attention (q_start)",
-           "case": f"8k batch chunk {i}", "B": b, "H": H, "Hk": hk,
-           "N": e, "Nq": chunk, "q_start": i * chunk,
+           "case": case or f"8k batch chunk {i}", "B": b, "H": H, "Hk": hk,
+           "N": e, "Nq": chunk, "q_start": i * chunk, "ldk": n,
            "true_len": list(true_len), "max_abs_err": err,
-           "err_over_tol": ratio, "tol": TOL_TEXT}
+           "err_over_tol": ratio, "tol": TOL_TEXT,
+           "bitwise_repeat": bool(torch.equal(got, again))}
+    del again
+    ok = (ratio <= 1 and bool(torch.isfinite(got).all())
+          and rec["bitwise_repeat"])
+    if not timed:
+        log(rec)
+        return ok, rec
     rec["ms"] = time_ms(torch, lambda: flash_causal_attention(
         q, kh, vh, tl, q_start=i * chunk), reps=5)
     rec["plain_ms"] = time_ms(torch, lambda: causal_prefill_attention(
@@ -2073,13 +2095,15 @@ def check_flash_chunk(torch, F, dev, b, hk, n, true_len, chunk, i, seed,
     rec["visible_pairs"] = pairs
     rec["bound_ms"], rec["bound_by"] = bound(4.0 * D * pairs, nbytes)
     log(rec)
-    return ratio <= 1 and bool(torch.isfinite(got).all()), rec
+    return ok, rec
 
 
-def check_partials(torch, F, dev, case, b, hk, c, tile_len, q_start, seed):
+def check_partials(torch, F, dev, case, b, hk, c, tile_len, q_start, seed,
+                   timed=True):
     """flash_attention_partials on one tile of a quantized-carry chunk:
     ``q_start == 0`` the causal self tile, ``q_start == c`` a history tile
-    (every key visible); ``tile_len`` [B] the tile's valid keys."""
+    (every key visible); ``tile_len`` [B] the tile's valid keys; two calls
+    bitwise equal."""
     from pyramidkv_tpu_torch.kernels import flash_attention_partials
     from pyramidkv_tpu_torch.ops.attention import flash_partials_plain
 
@@ -2088,6 +2112,7 @@ def check_partials(torch, F, dev, case, b, hk, c, tile_len, q_start, seed):
                for n_h in (H, hk, hk))
     tl = torch.tensor(tile_len, dtype=torch.int32, device=dev)
     got = flash_attention_partials(q, k, v, tl, q_start=q_start)
+    again = flash_attention_partials(q, k, v, tl, q_start=q_start)
     want = flash_partials_plain(q, k, v, tl, q_start=q_start)
     torch.cuda.synchronize()
     ratio, err, m_err, l_err, dead_ok = partials_ratio_exp2(torch, got, want)
@@ -2096,7 +2121,15 @@ def check_partials(torch, F, dev, case, b, hk, c, tile_len, q_start, seed):
            "tile_len": list(tile_len), "max_abs_err": err, "m_err": m_err,
            "l_rel_err": l_err, "err_over_tol": ratio,
            "dead_rows": int((want[2] == 0).sum()), "dead_rows_exact": dead_ok,
-           "tol": SPARSE_TOL_TEXT + "; rows with no visible key exact"}
+           "tol": SPARSE_TOL_TEXT + "; rows with no visible key exact",
+           "bitwise_repeat": all(torch.equal(x, y)
+                                 for x, y in zip(got, again))}
+    del again
+    ok = (ratio <= 1 and dead_ok and rec["bitwise_repeat"]
+          and all(bool(torch.isfinite(x).all()) for x in got))
+    if not timed:
+        log(rec)
+        return ok, rec
     rec["ms"] = time_ms(torch, lambda: flash_attention_partials(
         q, k, v, tl, q_start=q_start), reps=5)
     rec["plain_ms"] = time_ms(torch, lambda: flash_partials_plain(
@@ -2110,8 +2143,7 @@ def check_partials(torch, F, dev, case, b, hk, c, tile_len, q_start, seed):
     rec["visible_pairs"] = pairs
     rec["bound_ms"], rec["bound_by"] = bound(4.0 * D * pairs, nbytes)
     log(rec)
-    return (ratio <= 1 and dead_ok
-            and all(bool(torch.isfinite(x).all()) for x in got)), rec
+    return ok, rec
 
 
 def tile_len(true_len, n, c, start):
@@ -2137,6 +2169,24 @@ def phase_h2o_chunk_kernels(torch, F, dev):
             recs["h2o_row_stats"].append(got["stats"])
             recs["h2o_colsum"].append(got["colsum"])
         torch.cuda.empty_cache()
+    # short shapes first: the one-pass kernel at q_start on a carry longer
+    # than the chunk's keys (ldk > N; a last q tile of 64 rows; N % 128 =
+    # 64), partials on a self and a history tile of N = 192 with a pad
+    # inside the second key tile; untimed
+    g = torch.Generator(device=dev).manual_seed(509)
+    buf = (_rand_bf16(torch, g, dev, 2, HK, 512, D),
+           _rand_bf16(torch, g, dev, 2, HK, 512, D))
+    for seed, (chunk, i) in enumerate(((192, 1), (64, 4)), start=511):
+        r, _ = check_flash_chunk(torch, F, dev, 2, HK, 512, (512, 300), chunk,
+                                 i, seed, buf, case=f"short chunk {chunk} "
+                                 f"at {i * chunk}, ldk 512", timed=False)
+        ok &= r
+    for seed, (case, hk, q_start) in enumerate((
+            ("short self tile N=192", HK, 0),
+            ("short history tile N=192", H, 192)), start=515):
+        r, _ = check_partials(torch, F, dev, case, 2, hk, 192, (192, 50),
+                              q_start, seed, timed=False)
+        ok &= r
     g = torch.Generator(device=dev).manual_seed(510)
     buf = (_rand_bf16(torch, g, dev, B, HK, N, D),
            _rand_bf16(torch, g, dev, B, HK, N, D))
@@ -2887,6 +2937,26 @@ def kernel_entry(name, source, replaces, launches, recs):
     return ent
 
 
+def ptxas_report(text: str) -> list:
+    """Per entry function of an ``nvcc -Xptxas -v`` log, its registers and
+    spill bytes ({"phase": "ptxas", ...}); and each warning line."""
+    out, fn = [], None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            fn = {"phase": "ptxas", "function": line.split("'")[1]}
+            out.append(fn)
+        elif fn is not None and "spill stores" in line:
+            fn["spill_stores"] = int(
+                line.split("bytes spill stores")[0].split(",")[-1])
+            fn["spill_loads"] = int(
+                line.split("bytes spill loads")[0].split(",")[-1])
+        elif fn is not None and "Used" in line and "registers" in line:
+            fn["registers"] = int(line.split("Used")[1].split()[0])
+        elif "warning" in line.lower():
+            out.append({"phase": "ptxas", "warning": line.strip()})
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -2920,10 +2990,10 @@ def main() -> int:
 
     secs = _build.build_all()
     log({"phase": "build", "seconds": secs})
+    # registers and spills of every kernel, and the compilers' warnings
     for name, text in _build.build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"nvcc {name}: {line.strip()}", flush=True)
+        for rec in ptxas_report(text):
+            log({"library": name, **rec})
 
     ok, recs = phase_kernels(torch, F, dev)
     r, drecs = phase_decode_kernels(torch, F, dev)

@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int D = 128;
@@ -88,61 +90,6 @@ __host__ __device__ constexpr int ring_bytes(int ns, int G) {
 // mbarriers.
 __host__ __device__ constexpr int smem_bytes(int ns, int G) {
   return ring_bytes(ns, G) + 8 * ns;
-}
-
-// Hopper's 1-D bulk copies (the copy engine, no tensor map) and the
-// mbarriers they complete on: one thread arms a stage's mbarrier with the
-// bytes to expect and issues the copies; the warps wait on its phase parity.
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// One bulk copy of `bytes` (a multiple of 16) from global to shared memory
-// by the copy engine; its completion counts against the mbarrier's bytes.
-__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
-                                         int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// After mbarrier.init, before any thread uses the barriers.
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// Order this thread's earlier generic accesses to shared memory (the reads of
-// a stage) before the copy engine's later writes to it.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Wait for phase `parity` of the mbarrier to complete.  A copy that never
-// lands (a fault) traps after about two seconds instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = smem_addr(bar);
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-    if (done) return;
-    if (clock64() - t0 > 4000000000LL) __trap();
-  }
 }
 
 // The query's 16 channels of this lane, [8c, 8c+8) and [64+8c, 64+8c+8):

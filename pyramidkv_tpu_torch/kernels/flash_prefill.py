@@ -8,6 +8,11 @@ one-pass schedule and its two-pass schedule (``two_pass=True``: pass A
 hand-written sm_90a kernel; on a CPU tensor it runs the plain version
 (``ops.attention.causal_prefill_attention``, ``flash_row_max_plain``,
 ``flash_pass_b_plain``, ``flash_partials_plain``).
+
+:func:`flash_tile_plan` mirrors the key-tile plan of the one-pass and
+partials kernel (``flash_wgmma_kernel``), and :func:`flash_tiled_plain`
+runs that kernel's schedule in plain PyTorch (the CPU tests hold it to the
+plain versions and to the Pallas kernels).
 """
 
 from __future__ import annotations
@@ -21,9 +26,13 @@ from ..ops.attention import (causal_prefill_attention, flash_partials_plain,
                              flash_pass_b_plain, flash_row_max_plain)
 from . import _build
 
-#: q rows per block and keys per tile of the CUDA kernel
+#: the kernels' granularity: N and Nq are multiples of it
 TILE = 64
 HEAD_DIM = 128
+#: q rows per block and keys per tile of the one-pass and partials kernel
+#: (``csrc/flash_prefill.cu``, namespace ``wg``)
+BLOCK_Q = 128
+BLOCK_K = 128
 
 
 def _check(q, k, v, true_len, nq_ok: bool, ldk: int):
@@ -51,6 +60,9 @@ def _check(q, k, v, true_len, nq_ok: bool, ldk: int):
     if d != HEAD_DIM or n % TILE or nq % TILE:
         raise ValueError(f"kernel takes D == {HEAD_DIM} and N, Nq % {TILE} "
                          f"== 0, got D={d} N={n} Nq={nq}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start 16-byte aligned (the copy "
+                         "engine's tensor maps)")
     tl = true_len.to(device=q.device, dtype=torch.int32).contiguous()
     if tl.shape != (b,):
         raise ValueError(f"true_len must be [{b}], got {tuple(tl.shape)}")
@@ -200,6 +212,94 @@ def flash_attention_partials(
     _build.check(err, "flash_partials")
     flash_attention_partials.launches += 1
     return acc, m, l
+
+
+def flash_tile_plan(n: int, nq: int, q_start: int, pad: int,
+                    window: Optional[int] = None):
+    """The key tiles each q tile of the one-pass and partials kernel visits.
+
+    Queries sit at global rows [q_start, q_start + nq) of n keys, the first
+    ``pad`` of which are padding.  q tile t holds rows q_start + t *
+    BLOCK_Q up to the last real row; it visits the key tiles of BLOCK_K
+    keys from the one holding its pad or window edge (its first row's) to
+    the one holding its causal edge (its last row's; none past n: a history
+    tile, q_start >= n, sees every key).  A tile is interior when every
+    (row, key) pair of the q tile's rows and the tile's keys is visible:
+    past the pad, causal, below n and inside the window; the kernel masks
+    only the others.  Returns one (range of key-tile indices, [interior
+    flag per tile]) per q tile."""
+    bq, bk = BLOCK_Q, BLOCK_K
+    plan = []
+    for t in range(-(-nq // bq)):
+        g0 = q_start + t * bq
+        g1 = min(g0 + bq, q_start + nq) - 1
+        lo = max(pad, g0 - window + 1) if window else pad
+        hi = min(g1, n - 1)
+        tiles = range(lo // bk, hi // bk + 1) if lo <= hi else range(0)
+        plan.append((tiles, [
+            kt * bk >= pad and kt * bk + bk - 1 <= g0 and kt * bk + bk <= n
+            and (not window or g1 - kt * bk < window) for kt in tiles]))
+    return plan
+
+
+def flash_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      true_len: torch.Tensor, *,
+                      sliding_window: Optional[int] = None,
+                      scale: Optional[float] = None, q_start: int = 0,
+                      partials: bool = False):
+    """The one-pass and partials kernel's schedule in plain PyTorch: each q
+    tile walks its :func:`flash_tile_plan`, masks only the tiles that are
+    not interior, and runs the base-2 online softmax tile by tile, with q
+    scaled by scale * log2(e) and rounded to q's dtype and each tile's P
+    rounded to v's dtype at the running max (as the kernel does in bf16;
+    with f32 inputs nothing is rounded).  Arguments as
+    :func:`flash_causal_attention`; ``partials``: return (acc, m, l) f32 as
+    :func:`flash_attention_partials` does, else the output in q's dtype (0
+    on rows with no visible key)."""
+    b, h, nq, d = q.shape
+    hk, n = k.shape[1], k.shape[2]
+    g = h // hk
+    bq, bk = BLOCK_Q, BLOCK_K
+    sc = (scale if scale is not None else 1.0 / math.sqrt(d)) * math.log2(
+        math.e)
+    qr = (q.float() * sc).to(q.dtype).float()
+    kf, vf = k.float(), v.float()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, nq, d), **f32)
+    m = torch.full((b, h, nq), -math.inf, **f32)
+    l = torch.zeros((b, h, nq), **f32)
+    for bi in range(b):
+        pad = n - int(true_len[bi])
+        plan = flash_tile_plan(n, nq, q_start, pad, sliding_window)
+        for t, (tiles, interior) in enumerate(plan):
+            r0, r1 = t * bq, min(t * bq + bq, nq)
+            rows = q_start + torch.arange(r0, r1, device=q.device)[:, None]
+            qt = qr[bi, :, r0:r1].reshape(hk, g, r1 - r0, d)
+            mt = m[bi, :, r0:r1].reshape(hk, g, -1)
+            lt = l[bi, :, r0:r1].reshape(hk, g, -1)
+            at = acc[bi, :, r0:r1].reshape(hk, g, r1 - r0, d)
+            for kt, inner in zip(tiles, interior):
+                c0, c1 = kt * bk, min(kt * bk + bk, n)
+                s = torch.matmul(qt, kf[bi, :, None, c0:c1].transpose(-1, -2))
+                if not inner:
+                    cols = torch.arange(c0, c1, device=q.device)[None, :]
+                    vis = (cols >= pad) & (cols <= rows)
+                    if sliding_window:
+                        vis &= rows - cols < sliding_window
+                    s = s.masked_fill(~vis, -math.inf)
+                m_new = torch.maximum(mt, s.amax(-1))
+                m_use = torch.where(m_new == -math.inf, 0.0, m_new)
+                alpha = torch.exp2(mt - m_use)
+                p = torch.exp2(s - m_use[..., None])
+                lt.mul_(alpha).add_(p.sum(-1))
+                at.mul_(alpha[..., None]).add_(torch.matmul(
+                    p.to(v.dtype).float(), vf[bi, :, None, c0:c1]))
+                mt.copy_(m_new)
+    if partials:
+        neg = torch.finfo(torch.float32).min
+        return acc, torch.where(m == -math.inf, neg, m), l
+    inv = torch.where(l > 0, 1.0 / l.clamp_min(1e-30), 0.0)
+    return (acc * inv[..., None]).to(q.dtype)
 
 
 #: kernel launches since the last reset (CPU calls do not count)

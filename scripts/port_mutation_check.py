@@ -32,11 +32,20 @@ non-zero if a mutant was not caught.  Mutants:
 - ``h2o_colsum_skip_last_q_tile`` (``csrc/h2o_scores.cu``): the colsum
   kernel stops before the last 64-row query tile;
 - ``partials_drop_last_k_tile`` (``csrc/flash_prefill.cu``): the partials
-  entry skips the last key tile of every block (the self tile's diagonal,
-  a history tile's last 64 keys);
-- ``flash_q_start_edge`` (``csrc/flash_prefill.cu``): the key-tile loop's
-  causal edge one tile early (the global row of a block's first query
-  taken as q_start + q0 - 64), at every q_start;
+  entry of the wgmma kernel skips the last key tile of every block (the
+  self tile's diagonal, a history tile's last 128 keys);
+- ``flash_q_start_edge`` (``csrc/flash_prefill.cu``): the wgmma kernel's
+  causal edge one key tile early (its last row taken as 128 rows before
+  the block's last), at every q_start;
+- ``flash_drop_diagonal_tile`` (``csrc/flash_prefill.cu``): the one-pass
+  entry of the wgmma kernel skips each q tile's last key tile (the
+  diagonal; targets check_flash);
+- ``flash_interior_on_pad_edge`` (``csrc/flash_prefill.cu``): the key tile
+  holding a row's pad edge counts as interior, so its pad keys go unmasked
+  (targets check_flash);
+- ``flash_wrong_stage`` (``csrc/flash_prefill.cu``): the consumer
+  warpgroups read the K stage before the one they waited on (targets
+  check_flash);
 - ``row_max_skip_first_k_tile`` (``csrc/flash_prefill.cu``): pass A of the
   two-pass schedule starts one key tile late (the first tile past the pad
   never enters a row's max);
@@ -123,13 +132,26 @@ MUTANTS = {
     "partials_drop_last_k_tile": (
         "flash_prefill.cu", "phase_h2o_chunk_kernels",
         ("flash_attention_partials",),
-        "  const int kt_end = min(last_row, N - 1) / BK;",
-        "  const int kt_end = min(last_row, N - 1) / BK - (PARTIALS ? 1 : 0);"),
+        "const int kt_last = hi / BK;",
+        "const int kt_last = hi / BK - (MODE == kPartials ? 1 : 0);"),
     "flash_q_start_edge": (
         "flash_prefill.cu", "phase_h2o_chunk_kernels",
         ("flash_causal_attention (q_start)",),
-        "  const int g0 = q_start + q0;             // its global row",
-        "  const int g0 = q_start + q0 - BQ;"),
+        "const int hi = min(g1, N - 1);",
+        "const int hi = min(g1 - BK, N - 1);"),
+    "flash_drop_diagonal_tile": (
+        "flash_prefill.cu", "phase_kernels", ("flash_causal_attention",),
+        "const int kt_last = hi / BK;",
+        "const int kt_last = hi / BK - (MODE == kOut ? 1 : 0);"),
+    "flash_interior_on_pad_edge": (
+        "flash_prefill.cu", "phase_kernels", ("flash_causal_attention",),
+        "const bool interior = c0 >= pad && c0 + BK - 1 <= g0 &&",
+        "const bool interior = c0 + BK > pad && c0 + BK - 1 <= g0 &&"),
+    "flash_wrong_stage": (
+        "flash_prefill.cu", "phase_kernels", ("flash_causal_attention",),
+        "const uint32_t k_addr = kring_a + st * TILE_BYTES;",
+        "const uint32_t k_addr = kring_a + ((st + STAGES - 1) % STAGES) * "
+        "TILE_BYTES;"),
     "row_max_skip_first_k_tile": (
         "flash_prefill.cu", "phase_two_pass_kernels", ("flash_row_max",),
         "  const int kt_begin = lo / BK;",
