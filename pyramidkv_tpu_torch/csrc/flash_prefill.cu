@@ -34,8 +34,8 @@
 // the tensor-core rate (4 D flops a visible pair), not HBM; next comes the
 // MUFU's exp2 rate (one a visible pair, about half the tensor-core time).
 //
-// The one-pass and partials entries (`flash_wgmma_kernel`) are built for
-// that bound:
+// The one-pass, partials and pass-B entries (`flash_wgmma_kernel`) are
+// built for that bound:
 // - a block takes 128 query rows of one (b, h): two consumer warpgroups of
 //   64 rows and a producer warpgroup whose one thread starts every copy.
 //   Q, K and V are copied by the copy engine through tensor maps with
@@ -63,9 +63,13 @@
 //   kernels/flash_prefill.py::flash_tile_plan mirrors the plan;
 // - q tiles are launched heaviest first across all heads;
 // - online softmax in base 2, P rounded to bf16 before P V (the TPU's
-//   p.astype(v.dtype)), no atomics and a fixed order (bitwise repeatable).
-// Pass A and pass B (`flash_prefill_kernel`) keep the first port's
-// warp-level mma.sync design: tiles loaded synchronously by all threads.
+//   p.astype(v.dtype)), no atomics and a fixed order (bitwise repeatable);
+// - pass B runs the same pipeline against pass A's known row maxes: P =
+//   exp2(S - m) with no running max, no alpha and no accumulator rescale
+//   (m clamped at float32.min / 2 and edge tiles masked to float32.min, as
+//   the TPU's pass B, so a row with no visible key gets l = 0 and writes 0).
+// Pass A (`row_max_kernel`) keeps the first port's warp-level mma.sync
+// design: 64-row q tiles, key tiles loaded synchronously by all threads.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -85,25 +89,20 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// What a launch writes: kOut the normalised bf16 output (online softmax);
-// kPartials (acc, m, l) f32; kRowMax pass A's row maxes m; kPassB pass B's
+// What a launch of flash_wgmma_kernel writes: kOut the normalised bf16
+// output (online softmax); kPartials (acc, m, l) f32; kPassB pass B's
 // normalised bf16 output, against the row maxes m_in of pass A.
-enum Mode { kOut = 0, kPartials = 1, kRowMax = 2, kPassB = 3 };
+enum Mode { kOut = 0, kPartials = 1, kPassB = 2 };
 
 // ---------------------------------------------------------------------------
-// The two-pass schedule: warp-level mma.sync, 64-row q tiles, 64-key tiles.
+// Pass A of the two-pass schedule: warp-level mma.sync, 64-row q tiles,
+// 64-key tiles.
 // ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;        // q rows per block: 4 warps x 16 rows
 constexpr int BK = 64;        // keys per k-tile
 constexpr int NTHREADS = 128;
 constexpr int LDS = D + 8;    // padded smem row (bf16): conflict-free fragments
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
 
 // two consecutive bf16 of q, times `scale`, rounded back to bf16
 __device__ __forceinline__ uint32_t load_q2(const __nv_bfloat16* p,
@@ -122,22 +121,16 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int MODE>
+// grid (Nq / BQ, B*H): m_out [B*H, Nq], each row's max base-2 logit over
+// its visible keys (float32.min for none).
 __global__ void __launch_bounds__(NTHREADS)
-flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, Nq, D]
-                     const __nv_bfloat16* __restrict__ k,   // [B*Hk, ldk, D]
-                     const __nv_bfloat16* __restrict__ v,   // [B*Hk, ldk, D]
-                     const int* __restrict__ true_len,      // [B]
-                     __nv_bfloat16* __restrict__ out,       // [B*H, Nq, D]
-                     float* __restrict__ m_out,             // [B*H, Nq]
-                     const float* __restrict__ m_in,        // [B*H, Nq]
-                     int H, int Hk, int N, int ldk, int Nq, int q_start,
-                     int window, float scale_log2) {
-  constexpr bool ROW_MAX = MODE == kRowMax;
-  constexpr bool PASS_B = MODE == kPassB;
-  static_assert(ROW_MAX || PASS_B, "pass A or pass B");
+row_max_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, Nq, D]
+               const __nv_bfloat16* __restrict__ k,   // [B*Hk, ldk, D]
+               const int* __restrict__ true_len,      // [B]
+               float* __restrict__ m_out,             // [B*H, Nq]
+               int H, int Hk, int N, int ldk, int Nq, int q_start,
+               int window, float scale_log2) {
   __shared__ __align__(16) __nv_bfloat16 ks[BK * LDS];
-  __shared__ __align__(16) __nv_bfloat16 vs[ROW_MAX ? 8 : BK * LDS];
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest q-tiles first
   const int bh = blockIdx.y;
@@ -158,19 +151,9 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, Nq, D]
   // keys [0, N) of a buffer of ldk rows per head (a prefill chunk reads the
   // first N rows of the bucket-long carry in place)
   const __nv_bfloat16* kb = k + (size_t)kv_row * ldk * D;
-  const __nv_bfloat16* vb = v + (size_t)kv_row * ldk * D;
 
   if (last_row < pad) {  // every row is padding: no visible key
-    if (ROW_MAX) {
-      if (tid < BQ) m_out[(size_t)bh * Nq + q0 + tid] = -FLT_MAX;
-    } else {
-      const uint4 z = make_uint4(0, 0, 0, 0);
-      __nv_bfloat16* ob = out + ((size_t)bh * Nq + q0) * D;
-      for (int i = tid; i < BQ * D / 8; i += NTHREADS) {
-        int r = i / (D / 8), c = (i % (D / 8)) * 8;
-        *reinterpret_cast<uint4*>(ob + (size_t)r * D + c) = z;
-      }
-    }
+    if (tid < BQ) m_out[(size_t)bh * Nq + q0 + tid] = -FLT_MAX;
     return;
   }
 
@@ -189,21 +172,7 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, Nq, D]
     qf[kk][3] = load_q2(qb + (size_t)(r0 + 8) * D + c + 8, scale_log2);
   }
 
-  float o[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  }
   float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // per-thread partial row sums
-  if (PASS_B) {
-    // pass A's maxes, clamped as the TPU's pass B clamps them: a row with
-    // no visible key keeps p = exp2(-inf) = 0 and l = 0
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      m[i] = fmaxf(m_in[(size_t)bh * Nq + r0 + 8 * i], -FLT_MAX / 2);
-  }
-
   int lo = pad;
   if (window > 0) lo = max(lo, g0 - window + 1);
   const int kt_begin = lo / BK;
@@ -218,9 +187,6 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, Nq, D]
       const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
       *reinterpret_cast<uint4*>(&ks[r * LDS + c]) =
           *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * D + c);
-      if (!ROW_MAX)
-        *reinterpret_cast<uint4*>(&vs[r * LDS + c]) =
-            *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * D + c);
     }
     __syncthreads();
 
@@ -241,7 +207,8 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, Nq, D]
       }
     }
 
-    // mask: causal, left padding, sliding window
+    // mask (causal, left padding, sliding window), then this thread's
+    // share of each row's max
 #pragma unroll
     for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
@@ -250,78 +217,18 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, Nq, D]
         const int col = k0 + nt * 8 + tig * 2 + (e & 1);
         bool ok = col <= row && col >= pad;
         if (window > 0) ok = ok && (row - col < window);
-        if (!ok) s[nt][e] = -INFINITY;
-      }
-    }
-
-    if constexpr (ROW_MAX) {  // pass A: this thread's share of each row's max
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt)
-          m[i] = fmaxf(m[i], fmaxf(s[nt][2 * i], s[nt][2 * i + 1]));
-    } else {
-      // pass B: p = exp2(s - m) against the known max, no rescale
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float rs = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt) {
-          const float p0 = exp2f(s[nt][2 * i] - m[i]);
-          const float p1 = exp2f(s[nt][2 * i + 1] - m[i]);
-          s[nt][2 * i] = p0;
-          s[nt][2 * i + 1] = p1;
-          rs += p0 + p1;
-        }
-        l[i] += rs;
-      }
-
-      // O += P V, P rounded to bf16 (the TPU kernel's p.astype(v.dtype))
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[4];
-        a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
-          const __nv_bfloat16* vp = &vs[(kk * 16 + tig * 2) * LDS + dt * 8 + gid];
-          const uint32_t b0 = pack_raw(vp[0], vp[LDS]);
-          const uint32_t b1 = pack_raw(vp[8 * LDS], vp[9 * LDS]);
-          mma_bf16(o[dt], a, b0, b1);
-        }
+        if (ok) m[e >> 1] = fmaxf(m[e >> 1], s[nt][e]);
       }
     }
   }
 
-  if constexpr (ROW_MAX) {  // the row's max over its row group's 4 threads
+  // the row's max over its row group's 4 threads
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
-      m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
-      if (tig == 0)
-        m_out[(size_t)bh * Nq + r0 + 8 * i] = m[i] == -INFINITY ? -FLT_MAX : m[i];
-    }
-    return;
-  } else {
-    // finalize: full row sums across the 4 threads of a row group
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    }
-    __nv_bfloat16* ob = out + (size_t)bh * Nq * D;
-    const float inv0 = l[0] > 0.f ? 1.f / l[0] : 0.f;
-    const float inv1 = l[1] > 0.f ? 1.f / l[1] : 0.f;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      const int c = dt * 8 + tig * 2;
-      *reinterpret_cast<uint32_t*>(ob + (size_t)r0 * D + c) =
-          pack_bf16(o[dt][0] * inv0, o[dt][1] * inv0);
-      *reinterpret_cast<uint32_t*>(ob + (size_t)(r0 + 8) * D + c) =
-          pack_bf16(o[dt][2] * inv1, o[dt][3] * inv1);
-    }
+  for (int i = 0; i < 2; ++i) {
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+    if (tig == 0)
+      m_out[(size_t)bh * Nq + r0 + 8 * i] = m[i] == -INFINITY ? -FLT_MAX : m[i];
   }
 }
 
@@ -512,6 +419,44 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
   }
 }
 
+// Pass B's tile for this thread's two rows: s becomes p = exp2(s - m)
+// against the rows' known maxes m (pass A's, at least float32.min / 2), and
+// l gains sum p; no running max, no alpha, no rescale.  An edge tile masks
+// elementwise to float32.min, as the TPU's pass B: p = 0 there, and a row
+// with no visible key (m clamped to float32.min / 2) keeps l = 0.
+__device__ __forceinline__ void known_max_tile(float (&s)[64],
+                                               const float (&m)[2],
+                                               float (&l)[2], bool edge,
+                                               int c0, int grow, int tig,
+                                               int pad, int N, int window) {
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = grow + ((e >> 1) << 3);
+        const int col = c0 + j * 8 + tig * 2 + (e & 1);
+        bool ok = col >= pad && col <= row && col < N;
+        if (window > 0) ok = ok && row - col < window;
+        if (!ok) s[4 * j + e] = -FLT_MAX;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float p0 = exp2f(s[4 * j + 2 * i] - m[i]);
+      const float p1 = exp2f(s[4 * j + 2 * i + 1] - m[i]);
+      s[4 * j + 2 * i] = p0;
+      s[4 * j + 2 * i + 1] = p1;
+      rs += p0 + p1;
+    }
+    l[i] += rs;
+  }
+}
+
 // P rounded to bf16 in the A-operand layout of P V: for keys [16kk, 16kk+16)
 // (accumulator chunks 2kk and 2kk+1), a0/a2 row grow, a1/a3 row grow + 8.
 __device__ __forceinline__ void pack_p(const float (&s)[64],
@@ -537,8 +482,9 @@ __device__ __forceinline__ void rescale(float (&o)[64], const float (&a)[2]) {
 
 // grid (B*H, ceil(Nq / BQ)), NTHREADS threads, SMEM_BYTES of dynamic shared
 // memory.  Maps: q {D, Nq, B*H}, k and v {D, N, B*Hk} (row stride ldk), all
-// bf16, boxes {64, 128, 1}, 128-byte swizzle.  kOut writes out [B*H, Nq, D]
-// bf16; kPartials acc [B*H, Nq, D], m, l [B*H, Nq] f32.
+// bf16, boxes {64, 128, 1}, 128-byte swizzle.  kOut and kPassB write out
+// [B*H, Nq, D] bf16 (kPassB against m_in [B*H, Nq], pass A's row maxes);
+// kPartials acc [B*H, Nq, D], m, l [B*H, Nq] f32.
 template <int MODE>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -547,8 +493,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const int* __restrict__ true_len,
                    __nv_bfloat16* __restrict__ out,
                    float* __restrict__ acc_out, float* __restrict__ m_out,
-                   float* __restrict__ l_out, int H, int Hk, int N, int Nq,
-                   int q_start, int window, float scale_log2) {
+                   float* __restrict__ l_out,
+                   const float* __restrict__ m_in, int H, int Hk, int N,
+                   int Nq, int q_start, int window, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t q_full, k_full[STAGES], v_full[STAGES],
       k_empty[STAGES], v_empty[STAGES];
@@ -623,6 +570,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int i = 0; i < 64; ++i) o[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};
     float l[2] = {0.f, 0.f};  // per-thread partial row sums
+    if constexpr (MODE == kPassB) {
+      // pass A's maxes, clamped as the TPU's pass B clamps them (rows past
+      // Nq, in a q tile cut short, are never written)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        m[i] = r0 + 8 * i < Nq
+                   ? fmaxf(m_in[(size_t)bh * Nq + r0 + 8 * i], -FLT_MAX / 2)
+                   : 0.f;
+    }
 
     if (ntiles > 0) {
       // q * scale * log2(e), rounded to bf16, in place (this warpgroup's 64
@@ -649,7 +605,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       const uint32_t vring_a = smem_addr(vring);
       float s[64];
       uint32_t p[32];
-      float alpha[2];
       // per tile: S = Q K^T, the softmax, O += P V, each product waited
       // before the next step (the other warpgroup's products fill the
       // tensor cores meanwhile); a tile's K is released as soon as S is in
@@ -670,9 +625,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         wgmma_wait<0>();
         fence_regs(s);
         mbar_arrive(&k_empty[st]);
-        softmax_tile(s, m, l, alpha, !interior, c0, grow, tig, pad, N,
-                     window);
-        rescale(o, alpha);
+        if constexpr (MODE == kPassB) {
+          known_max_tile(s, m, l, !interior, c0, grow, tig, pad, N, window);
+        } else {
+          float alpha[2];
+          softmax_tile(s, m, l, alpha, !interior, c0, grow, tig, pad, N,
+                       window);
+          rescale(o, alpha);
+        }
         pack_p(s, p);
         mbar_wait(&v_full[st], (i / STAGES) & 1);
         wgmma_fence();
@@ -759,9 +719,9 @@ bool make_map(CUtensorMap* map, const void* base, int rows, int planes,
 
 template <int MODE>
 int launch(const void* q, const void* k, const void* v, const void* true_len,
-           void* out, void* acc, void* m, void* l, int B, int H, int Hk,
-           int N, int ldk, int Nq, int q_start, int window, float scale,
-           void* stream) {
+           void* out, void* acc, void* m, void* l, const void* m_in, int B,
+           int H, int Hk, int N, int ldk, int Nq, int q_start, int window,
+           float scale, void* stream) {
   CUtensorMap qm, km, vm;
   if (!make_map(&qm, q, Nq, B * H, Nq, BQ) ||
       !make_map(&km, k, N, B * Hk, ldk, BK) ||
@@ -779,7 +739,8 @@ int launch(const void* q, const void* k, const void* v, const void* true_len,
   flash_wgmma_kernel<MODE><<<grid, NTHREADS, SMEM_BYTES,
                              (cudaStream_t)stream>>>(
       qm, km, vm, (const int*)true_len, (__nv_bfloat16*)out, (float*)acc,
-      (float*)m, (float*)l, H, Hk, N, Nq, q_start, window, scale * LOG2E);
+      (float*)m, (float*)l, (const float*)m_in, H, Hk, N, Nq, q_start, window,
+      scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -792,8 +753,8 @@ extern "C" int pkv_flash_prefill(const void* q, const void* k, const void* v,
                                  int Hk, int N, int ldk, int Nq, int q_start,
                                  int window, float scale, void* stream) {
   return wg::launch<kOut>(q, k, v, true_len, out, nullptr, nullptr, nullptr,
-                          B, H, Hk, N, ldk, Nq, q_start, window, scale,
-                          stream);
+                          nullptr, B, H, Hk, N, ldk, Nq, q_start, window,
+                          scale, stream);
 }
 
 // Pass A of the two-pass schedule: m [B*H, Nq] f32, the row maxes of the
@@ -804,10 +765,9 @@ extern "C" int pkv_flash_row_max(const void* q, const void* k,
                                  int Hk, int N, int ldk, int Nq, int q_start,
                                  int window, float scale, void* stream) {
   dim3 grid(Nq / BQ, B * H);
-  flash_prefill_kernel<kRowMax><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, nullptr,
-      (const int*)true_len, nullptr, (float*)m, nullptr, H, Hk, N, ldk, Nq,
-      q_start, window, scale * LOG2E);
+  row_max_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const int*)true_len,
+      (float*)m, H, Hk, N, ldk, Nq, q_start, window, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -817,13 +777,9 @@ extern "C" int pkv_flash_pass_b(const void* q, const void* k, const void* v,
                                 int B, int H, int Hk, int N, int ldk, int Nq,
                                 int q_start, int window, float scale,
                                 void* stream) {
-  dim3 grid(Nq / BQ, B * H);
-  flash_prefill_kernel<kPassB><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const int*)true_len, (__nv_bfloat16*)out,
-      nullptr, (const float*)m, H, Hk, N, ldk, Nq, q_start, window,
-      scale * LOG2E);
-  return (int)cudaGetLastError();
+  return wg::launch<kPassB>(q, k, v, true_len, out, nullptr, nullptr, nullptr,
+                            m, B, H, Hk, N, ldk, Nq, q_start, window, scale,
+                            stream);
 }
 
 // acc [B*H, Nq, D], m, l [B*H, Nq] f32; q_start 0 (causal self tile,
@@ -832,6 +788,7 @@ extern "C" int pkv_flash_partials(const void* q, const void* k, const void* v,
                                   const void* true_len, void* acc, void* m,
                                   void* l, int B, int H, int Hk, int N, int Nq,
                                   int q_start, float scale, void* stream) {
-  return wg::launch<kPartials>(q, k, v, true_len, nullptr, acc, m, l, B, H,
-                               Hk, N, N, Nq, q_start, 0, scale, stream);
+  return wg::launch<kPartials>(q, k, v, true_len, nullptr, acc, m, l,
+                               nullptr, B, H, Hk, N, N, Nq, q_start, 0, scale,
+                               stream);
 }

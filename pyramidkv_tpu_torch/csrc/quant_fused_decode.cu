@@ -42,6 +42,6 @@ extern "C" int pkv_quant_fused_pa(PKVQ_PARAMS) {
   const pkvq::Args a = pkvq::make_args(q, kc, ks, kz, vc, vs, vz, mask, acc,
                                        m, l, W, S_pad, NG, Dp, NGV, mstride,
                                        n_valid, rows_per_split, scale);
-  PKVQ_DISPATCH(G, nbits, return PKVQ_LAUNCH(pkvq::kPA, false, a));
+  PKVQ_DISPATCH(G, nbits, return PKVQ_LAUNCH_PA(a));
   return 0;
 }

@@ -48,9 +48,7 @@ ENTRY_POINTS = {
         ("pkv_int4_matmul_dma", [_P] * 5 + [_I] * 9 + [_P]),
     ],
     "quant_decode": [("pkv_quant_decode", _REGION),
-                     ("pkv_quant_decode_tiled", _REGION),
-                     ("pkv_quant_group_fused", _REGION),
-                     ("pkv_quant_group_fused_tiled", _REGION)],
+                     ("pkv_quant_group_fused", _REGION)],
     "quant_fused_decode": [("pkv_quant_fused_pa", _REGION)],
     "block_sparse_prefill": [
         ("pkv_slash_tiles", [_P] * 10 + [_I] * 7 + [_F, _P]),

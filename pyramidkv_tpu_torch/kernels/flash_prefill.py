@@ -9,10 +9,10 @@ hand-written sm_90a kernel; on a CPU tensor it runs the plain version
 (``ops.attention.causal_prefill_attention``, ``flash_row_max_plain``,
 ``flash_pass_b_plain``, ``flash_partials_plain``).
 
-:func:`flash_tile_plan` mirrors the key-tile plan of the one-pass and
-partials kernel (``flash_wgmma_kernel``), and :func:`flash_tiled_plain`
-runs that kernel's schedule in plain PyTorch (the CPU tests hold it to the
-plain versions and to the Pallas kernels).
+:func:`flash_tile_plan` mirrors the key-tile plan of the one-pass,
+partials and pass-B kernel (``flash_wgmma_kernel``), and
+:func:`flash_tiled_plain` runs that kernel's schedule in plain PyTorch (the
+CPU tests hold it to the plain versions and to the Pallas kernels).
 """
 
 from __future__ import annotations
@@ -29,8 +29,8 @@ from . import _build
 #: the kernels' granularity: N and Nq are multiples of it
 TILE = 64
 HEAD_DIM = 128
-#: q rows per block and keys per tile of the one-pass and partials kernel
-#: (``csrc/flash_prefill.cu``, namespace ``wg``)
+#: q rows per block and keys per tile of the one-pass, partials and pass-B
+#: kernel (``csrc/flash_prefill.cu``, namespace ``wg``)
 BLOCK_Q = 128
 BLOCK_K = 128
 
@@ -160,8 +160,9 @@ def flash_pass_b(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  q_start: int = 0) -> torch.Tensor:
     """Pass B of the two-pass schedule (the TPU's ``_kernel_pass_b``): the
     rescale-free accumulation against pass A's row maxes ``m`` [B, H, Nq]
-    f32.  Returns [B, H, Nq, D] in q's dtype, 0 on rows with no visible
-    key."""
+    f32, on the one-pass kernel's pipeline (``flash_tiled_plain`` with
+    ``m_known`` is its schedule).  Returns [B, H, Nq, D] in q's dtype, 0 on
+    rows with no visible key."""
     if q.device.type == "cpu":
         return flash_pass_b_plain(q, k, v, m, true_len,
                                   sliding_window=sliding_window, scale=scale,
@@ -216,7 +217,8 @@ def flash_attention_partials(
 
 def flash_tile_plan(n: int, nq: int, q_start: int, pad: int,
                     window: Optional[int] = None):
-    """The key tiles each q tile of the one-pass and partials kernel visits.
+    """The key tiles each q tile of the one-pass, partials and pass-B kernel
+    visits.
 
     Queries sit at global rows [q_start, q_start + nq) of n keys, the first
     ``pad`` of which are padding.  q tile t holds rows q_start + t *
@@ -246,16 +248,21 @@ def flash_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       true_len: torch.Tensor, *,
                       sliding_window: Optional[int] = None,
                       scale: Optional[float] = None, q_start: int = 0,
-                      partials: bool = False):
-    """The one-pass and partials kernel's schedule in plain PyTorch: each q
-    tile walks its :func:`flash_tile_plan`, masks only the tiles that are
-    not interior, and runs the base-2 online softmax tile by tile, with q
-    scaled by scale * log2(e) and rounded to q's dtype and each tile's P
-    rounded to v's dtype at the running max (as the kernel does in bf16;
-    with f32 inputs nothing is rounded).  Arguments as
+                      partials: bool = False,
+                      m_known: Optional[torch.Tensor] = None):
+    """The schedule of the one-pass, partials and pass-B kernel
+    (``flash_wgmma_kernel``) in plain PyTorch: each q tile walks its
+    :func:`flash_tile_plan`, masks only the tiles that are not interior,
+    and runs the base-2 online softmax tile by tile, with q scaled by
+    scale * log2(e) and rounded to q's dtype and each tile's P rounded to
+    v's dtype at the running max (as the kernel does in bf16; with f32
+    inputs nothing is rounded).  Arguments as
     :func:`flash_causal_attention`; ``partials``: return (acc, m, l) f32 as
     :func:`flash_attention_partials` does, else the output in q's dtype (0
-    on rows with no visible key)."""
+    on rows with no visible key).  ``m_known`` [B, H, Nq]: pass B against
+    these row maxes (pass A's), clamped to float32.min / 2, edge tiles
+    masked to float32.min: P = exp2(S - m) with no running max and no
+    rescale, P rounded at the known max."""
     b, h, nq, d = q.shape
     hk, n = k.shape[1], k.shape[2]
     g = h // hk
@@ -268,6 +275,9 @@ def flash_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc = torch.zeros((b, h, nq, d), **f32)
     m = torch.full((b, h, nq), -math.inf, **f32)
     l = torch.zeros((b, h, nq), **f32)
+    neg = torch.finfo(torch.float32).min
+    if m_known is not None:
+        m = m_known.float().clamp_min(neg / 2)
     for bi in range(b):
         pad = n - int(true_len[bi])
         plan = flash_tile_plan(n, nq, q_start, pad, sliding_window)
@@ -286,7 +296,14 @@ def flash_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     vis = (cols >= pad) & (cols <= rows)
                     if sliding_window:
                         vis &= rows - cols < sliding_window
-                    s = s.masked_fill(~vis, -math.inf)
+                    s = s.masked_fill(
+                        ~vis, -math.inf if m_known is None else neg)
+                if m_known is not None:  # pass B: the known max
+                    p = torch.exp2(s - mt[..., None])
+                    lt.add_(p.sum(-1))
+                    at.add_(torch.matmul(p.to(v.dtype).float(),
+                                         vf[bi, :, None, c0:c1]))
+                    continue
                 m_new = torch.maximum(mt, s.amax(-1))
                 m_use = torch.where(m_new == -math.inf, 0.0, m_new)
                 alpha = torch.exp2(mt - m_use)
@@ -296,7 +313,6 @@ def flash_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     p.to(v.dtype).float(), vf[bi, :, None, c0:c1]))
                 mt.copy_(m_new)
     if partials:
-        neg = torch.finfo(torch.float32).min
         return acc, torch.where(m == -math.inf, neg, m), l
     inv = torch.where(l > 0, 1.0 / l.clamp_min(1e-30), 0.0)
     return (acc * inv[..., None]).to(q.dtype)

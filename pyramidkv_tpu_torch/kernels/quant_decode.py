@@ -6,16 +6,21 @@ dequantization of JAX ``ops/quant.py::quant_region_attention_fused`` (its
 grouped branch), the JAX engine's default decode of a group-layout region,
 with its bf16 roundings (the query folded with each slot-group's K scale,
 the probabilities with each channel-group's V scale).  Its plain version is
-``ops.quant.quant_region_attention_fused``; it launches the whole-region or
-the split kernel as :func:`split_plan` says.
+``ops.quant.quant_region_attention_fused``.
 
 :func:`quant_decode_attention` (one block per region) and
-:func:`quant_decode_attention_tiled` (the slots split across blocks, a
-finish pass merging the splits) are the counterparts of
-``pyramidkv_tpu/kernels/quant_decode.py``'s kernels of the same names, the
-JAX engine's opt-in ``use_quant_kernel`` / ``use_quant_tiled`` route: f32
-dequantization, then f32 partials (plain version
-``ops.quant.quant_decode_attention_plain``).
+:func:`quant_decode_attention_tiled` (the slots split across blocks) are
+the counterparts of ``pyramidkv_tpu/kernels/quant_decode.py``'s kernels of
+the same names, the JAX engine's opt-in ``use_quant_kernel`` /
+``use_quant_tiled`` route: f32 dequantization, then f32 partials (plain
+version ``ops.quant.quant_decode_attention_plain``).
+
+All three launch one CUDA kernel (``region_kernel``) on a plan of splits
+(:func:`split_plan`, from the shapes alone; the whole-region wrapper takes
+one split), which merges up to MAX_CLUSTER splits in a thread-block
+cluster, and more in a merge kernel after it.  :func:`region_split_plain`
+runs that schedule in plain PyTorch (the CPU tests hold it to the plain
+versions).
 
 Each returns the region's e-domain partials (acc [B, H, D], m [B, H],
 l [B, H], f32), or with a tail the layer's output.  On a CUDA tensor it
@@ -35,6 +40,7 @@ import math
 
 import torch
 
+from ..ops.attention import decode_attention_partials
 from ..ops.quant import (QuantizedKVRegion, merge_tail,
                          quant_decode_attention_plain,
                          quant_region_attention_fused, region_geometry)
@@ -46,7 +52,21 @@ NBITS = (2, 4, 8)
 #: an H100's SM count: split plans made for CPU tensors (where the wrappers
 #: run their plain versions) are the card's
 H100_SMS = 132
-#: byte-rows per warp iteration in the kernels
+#: splits of a region the group kernel merges through a thread-block
+#: cluster in one launch (as MAX_CLUSTER in csrc/quant_region.cuh); more
+#: take a merge kernel after it
+MAX_CLUSTER = 4
+#: byte-rows an item of the group kernel's ring, slots a tail item
+ITEM_ROWS = 32
+TAIL_ROWS = 32
+#: ring stages, and the dynamic shared memory a block may have
+RING_STAGES = 4
+MAX_SMEM = 232448
+#: items a split takes at least, and staged K columns (bit-planes x K
+#: groups) at most, under :func:`split_plan`
+_MIN_ITEMS = 4
+_MAX_COLS = 28
+#: byte-rows per warp iteration in the pa kernel
 _CHUNK = 32
 
 
@@ -57,15 +77,94 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def split_plan(device: torch.device, bhk: int, w: int):
-    """(nsplit, byte-rows per split) for ``bhk`` regions of ``w`` byte-rows
-    on ``device``: about 4 blocks per SM, and at least one 32-row chunk per
-    warp (8 warps) in each split.  One split means the whole-region kernel
-    fills the card as well as the tiled one, without its finish pass."""
+def pa_split_plan(device: torch.device, bhk: int, w: int):
+    """(nsplit, byte-rows per split) of the pa kernel for ``bhk`` regions of
+    ``w`` byte-rows on ``device``: about 4 blocks per SM, and at least one
+    32-row chunk per warp (8 warps) in each split."""
     chunks = -(-w // _CHUNK)
     want = max(1, min(chunks // 8, -(-4 * _sm_count(device) // bhk)))
     rows = _CHUNK * -(-chunks // want)
     return -(-w // rows), rows
+
+
+def staged_groups(rows: int, kg: int, ng: int) -> int:
+    """K groups the group kernel stages per bit-plane for splits of
+    ``rows`` byte-rows: a run of ``rows`` consecutive slots touches at most
+    ceil(rows / kg) + 1 groups of ``kg`` slots, and a plane no more than
+    ``ng`` (staged_groups in csrc/quant_region.cuh)."""
+    return min(ng, (rows + 2 * kg - 2) // kg)
+
+
+def split_plan(device: torch.device, bhk: int, w: int, nbits: int, kg: int):
+    """(nsplit, byte-rows per split) of the group kernel for ``bhk``
+    regions of ``w`` byte-rows, ``nbits``-bit codes and K groups of ``kg``
+    slots, on ``device``, from the shapes alone: one wave of two blocks an
+    SM at most (the kernel's registers allow two), at least 4 ring items a
+    split, no more than MAX_CLUSTER splits where ``bhk * MAX_CLUSTER``
+    blocks already fill the card (one launch), and splits short enough
+    that their staged K columns (planes x groups) stay within 28 (shared
+    memory then holds them for G = 8 with V groups of 16 channels or
+    more).  Splits are whole items; one split takes all ``w`` rows."""
+    per = 8 // nbits
+    items = -(-w // ITEM_ROWS)
+    sms = _sm_count(device)
+    want = max(1, min(items // _MIN_ITEMS, 2 * sms // bhk))
+    if bhk * MAX_CLUSTER >= sms:
+        want = min(want, MAX_CLUSTER)
+    if per * (w * per // kg) > _MAX_COLS:
+        # staged_groups(rows) <= _MAX_COLS / per  <=>  rows <= (that - 1) kg + 1
+        top = ((_MAX_COLS // per - 1) * kg + 1) // ITEM_ROWS * ITEM_ROWS
+        want = max(want, -(-w // max(ITEM_ROWS, top)))
+    rows = ITEM_ROWS * -(-items // want)
+    nsplit = -(-w // rows)
+    return (1, w) if nsplit == 1 else (nsplit, rows)
+
+
+def region_kernels(nsplit: int) -> int:
+    """CUDA kernels one group-region call launches: one up to MAX_CLUSTER
+    splits (one split, or a cluster merging them), two beyond (the split
+    kernel, then a merge kernel)."""
+    return 1 if nsplit <= MAX_CLUSTER else 2
+
+
+def region_smem_bytes(g: int, nbits: int, fold: bool, rows: int, kg: int,
+                      ng: int, dp: int, ngv: int, t: int,
+                      win: int | None = None) -> int:
+    """Dynamic shared memory of one group-kernel block (region_layout in
+    csrc/quant_region.cuh) for splits of ``rows`` byte-rows whose K tables
+    are staged ``win`` byte-rows at a time (default: all ``rows``): the
+    ring, the query, the staged K tables, the region's and the tail's
+    visibility words and the tail's item list."""
+    per = 8 // nbits
+    qrow = HEAD_DIM + 4 * (HEAD_DIM // 16)
+    cols = per * staged_groups(rows if win is None else win, kg, ng)
+    region = ITEM_ROWS * (HEAD_DIM + dp) + 2 * per * ITEM_ROWS * ngv * 4
+    stage = -(-max(region, 2 * TAIL_ROWS * HEAD_DIM * 2) // 16) * 16
+    states = (2 * 8 * 8 + 9 * g * HEAD_DIM + 16) * 4
+    ktab = cols * g * (qrow + 1) * 4 if fold else 2 * cols * qrow * 4
+    ntail = -(-t // TAIL_ROWS)
+    return (max(RING_STAGES * stage, states) + g * qrow * 4
+            + -(-ktab // 16) * 16 + per * -(-rows // 32) * 4 + 8 * ntail)
+
+
+@functools.lru_cache(maxsize=None)
+def region_window(g: int, nbits: int, fold: bool, rows: int, kg: int,
+                  ng: int, dp: int, ngv: int, t: int) -> int:
+    """Byte-rows one staging of the group kernel's K tables covers for
+    splits of ``rows`` byte-rows (region_window in csrc/quant_region.cuh):
+    all of them where their tables fit MAX_SMEM (every :func:`split_plan`
+    plan), else the most whole ring items that fit (a long region on the
+    one-split plan; the kernel stages each window's tables in turn); 0
+    where not one item fits."""
+    def fits(win):
+        return region_smem_bytes(g, nbits, fold, rows, kg, ng, dp, ngv, t,
+                                 win) <= MAX_SMEM
+    if fits(rows):
+        return rows
+    win = (rows - 1) // ITEM_ROWS * ITEM_ROWS
+    while win > 0 and not fits(win):
+        win -= ITEM_ROWS
+    return win
 
 
 def check_unsupported(scale, softcap) -> None:
@@ -99,12 +198,13 @@ def _check_tail(tail, q: torch.Tensor, hk: int):
 
 def launch_region(symbol: str, lib: str, q: torch.Tensor,
                   reg: QuantizedKVRegion, mask: torch.Tensor, nbits: int,
-                  split: bool, tail=None, split_within: int = 0):
+                  plan, tail=None, workspace: bool = False):
     """Check the shapes, allocate the outputs (and the workspace) and
-    launch ``symbol`` of ``csrc/<lib>.cu``.  Returns (acc, m, l), or with
-    ``tail`` the attention output over region and tail, [B, H, D] in q's
-    dtype.  ``split_within``: a byte-row count each split's rows must lie
-    inside (their count divides it)."""
+    launch ``symbol`` of ``csrc/<lib>.cu`` on ``plan`` = (nsplit, byte-rows
+    per split).  Returns (acc, m, l), or with ``tail`` the attention output
+    over region and tail, [B, H, D] in q's dtype.  ``workspace``: the
+    kernel writes the splits' partials to a workspace (the pa kernel, and
+    the group kernel beyond MAX_CLUSTER splits)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, h, d = q.shape
@@ -134,13 +234,13 @@ def launch_region(symbol: str, lib: str, q: torch.Tensor,
                          f"strides {mask.stride()}")
     pa = ng == ngv == 1
     if (d != HEAD_DIM or h % hk or h // hk not in GROUPS or nbits not in NBITS
-            or (vg % 4 and not pa) or ((dp % 4 or w % 4) and not split)):
+            or (not pa and (vg % 4 or dp % 4 or w % 4))):
         raise ValueError(f"kernel takes D == {HEAD_DIM}, H/Hk in {GROUPS}, "
-                         f"nbits in {NBITS}, V groups of a multiple of 4 "
-                         f"channels (and, over a whole region, V rows of a "
-                         f"multiple of 4 bytes and a multiple of 4 byte-rows)"
-                         f"; got D={d} H/Hk={h / hk} nbits={nbits} V group "
-                         f"{vg}, V row {dp} bytes, {w} byte-rows")
+                         f"nbits in {NBITS} and, over a group-layout region, "
+                         f"V groups and V rows of a multiple of 4 channels "
+                         f"or bytes and a multiple of 4 byte-rows; got D={d} "
+                         f"H/Hk={h / hk} nbits={nbits} V group {vg}, V row "
+                         f"{dp} bytes, {w} byte-rows")
     g = h // hk
     f32 = dict(dtype=torch.float32, device=q.device)
     if tail is None:
@@ -154,11 +254,8 @@ def launch_region(symbol: str, lib: str, q: torch.Tensor,
         t_stride = tm.stride(1)
         res = torch.empty_like(q)
         outs = (None, None, None, res.data_ptr())
-    nsplit, rows = split_plan(q.device, b * hk, w) if split else (1, w)
-    if split_within:
-        rows = math.gcd(rows, split_within)
-        nsplit = -(-w // rows)
-    if split:
+    nsplit, rows = plan
+    if workspace:
         ws = (torch.empty((b * hk * nsplit, g, d), **f32),
               torch.empty((b * hk * nsplit, g), **f32),
               torch.empty((b * hk * nsplit, g), **f32))
@@ -178,55 +275,126 @@ def launch_region(symbol: str, lib: str, q: torch.Tensor,
     return res
 
 
-def region_kernels(split: bool) -> int:
-    """CUDA kernels one region call launches: the whole-region kernel
-    attends over the region and the bf16 tail and writes the output in one
-    launch; the split kernel is followed by its finish pass."""
-    return 2 if split else 1
+def region_plan(q: torch.Tensor, reg: QuantizedKVRegion, nbits: int):
+    """:func:`split_plan` of a region call's shapes."""
+    b, hk, w = reg.k.codes.shape[:3]
+    kg = region_geometry(reg, nbits)[2]
+    return split_plan(q.device, b * hk, w, nbits, kg)
 
 
-def group_plan(device: torch.device, bhk: int, w: int):
-    """(entry point, CUDA kernels a call launches) of the factored group
-    route for ``bhk`` regions of ``w`` byte-rows: the whole-region kernel
-    where :func:`split_plan` gives one split, else the split kernel."""
-    whole = split_plan(device, bhk, w)[0] == 1
-    return ("pkv_quant_group_fused" if whole
-            else "pkv_quant_group_fused_tiled", region_kernels(not whole))
+def launch_group(symbol: str, q, reg, mask, nbits: int, plan, tail=None):
+    """Launch a group-layout entry point of ``csrc/quant_decode.cu`` on
+    ``plan``; returns (result, CUDA kernels launched).  Raises where not
+    even one ring item's K tables fit shared memory (:func:`region_window`:
+    K groups of a few slots at G = 8)."""
+    w, _, kg, _ = region_geometry(reg, nbits)
+    if not region_window(
+            q.shape[1] // reg.k.codes.shape[1], nbits,
+            symbol == "pkv_quant_group_fused", plan[1], kg,
+            reg.k.scale.shape[-2], reg.v.codes.shape[-1],
+            reg.v.scale.shape[-2], 0 if tail is None else tail[0].shape[2]):
+        raise ValueError(f"the K tables of one {ITEM_ROWS}-row item of a "
+                         f"{w}-byte-row region (K groups of {kg} slots) "
+                         f"exceed shared memory ({MAX_SMEM} bytes)")
+    kernels = region_kernels(plan[0])
+    return launch_region(symbol, "quant_decode", q, reg, mask, nbits, plan,
+                         tail=tail, workspace=kernels > 1), kernels
+
+
+def _merge_parts(parts):
+    """(acc, m, l) partials merged in list order, as the kernels merge
+    them: a part whose m <= float32.min / 2 (no visible slot) adds nothing,
+    and m stays float32.min where no part has a visible slot."""
+    neg = torch.finfo(torch.float32).min
+    m_all = parts[0][1]
+    for _, m, _ in parts[1:]:
+        m_all = torch.maximum(m_all, m)
+    acc = l_all = 0.0
+    for a, m, l in parts:
+        f = torch.exp(m - m_all).masked_fill(m <= neg / 2, 0.0)
+        acc = acc + a * f[..., None]
+        l_all = l_all + l * f
+    return acc, m_all, l_all
+
+
+def region_split_plain(q: torch.Tensor, reg: QuantizedKVRegion,
+                       mask: torch.Tensor, *, nbits: int, plan, fold: bool,
+                       tail=None):
+    """The group kernel's schedule in plain PyTorch, on ``plan`` =
+    (nsplit, byte-rows per split): split s attends over byte-rows
+    [s * rows, (s + 1) * rows) on every bit-plane (slot j + p * W) with
+    the kernel's arithmetic (``fold``: ``ops.quant.
+    quant_region_attention_fused``, its bf16 folds with p rounded at the
+    split's max; else f32 dequantization, ``quant_decode_attention_plain``)
+    and over its share of the bf16 tail (the 32-slot items with a visible
+    slot, item i of them to split i % nsplit); the splits' partials merge
+    in split order.  Arguments and results as :func:`quant_decode_attention`
+    (a split or a row with no visible slot: m = float32.min, l = 0,
+    acc = 0)."""
+    nsplit, rows = plan
+    w = reg.k.codes.shape[2]
+    if rows < 1 or not (nsplit - 1) * rows < w <= nsplit * rows:
+        raise ValueError(f"the plan must cover {w} byte-rows with non-empty "
+                         f"splits, got {nsplit} x {rows}")
+    region = (quant_region_attention_fused if fold
+              else quant_decode_attention_plain)
+    split_of = (torch.arange(mask.shape[-1], device=q.device) % w) // rows
+    if tail is not None:
+        tk, tv, tm = tail
+        t = tm.shape[-1]
+        items = -(-t // TAIL_ROWS)
+        vis = torch.nn.functional.pad(tm, (0, items * TAIL_ROWS - t)).reshape(
+            *tm.shape[:2], items, TAIL_ROWS).any(-1)
+        share = (torch.cumsum(vis.long(), -1) - 1) % nsplit
+        tail_of = share.repeat_interleave(TAIL_ROWS, -1)[..., :t]
+    parts = []
+    for s in range(nsplit):
+        part = region(q, reg, mask & (split_of == s), nbits=nbits)
+        if tail is not None:
+            part = _merge_parts([part, decode_attention_partials(
+                q, tk, tv, tm & (tail_of == s))])
+        parts.append(part)
+    acc, m, l = _merge_parts(parts)
+    if tail is None:
+        return acc, m, l
+    return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
 def quant_decode_attention(q: torch.Tensor, reg: QuantizedKVRegion,
                            mask: torch.Tensor, *, nbits: int, tail=None,
                            scale=None, softcap=None):
     """Whole-region kernel: one block per (batch row, KV head) covers the G
-    query heads of the KV head.  q: [B, H, D] -> (acc, m, l); with ``tail``,
-    the step's bf16 decode slots (k, v [B, Hk, T, D], mask [B, Hk, T]), the
-    layer's attention output over region and tail, [B, H, D] in q's dtype
-    (the same launch attends over the tail and merges)."""
+    query heads of the KV head and the whole region (the one-split plan).
+    q: [B, H, D] -> (acc, m, l); with ``tail``, the step's bf16 decode slots
+    (k, v [B, Hk, T, D], mask [B, Hk, T]), the layer's attention output over
+    region and tail, [B, H, D] in q's dtype (the same launch attends over
+    the tail and merges)."""
     check_unsupported(scale, softcap)
     if q.device.type == "cpu":
         return merge_tail(quant_decode_attention_plain(q, reg, mask,
                                                        nbits=nbits), q, tail)
-    out = launch_region("pkv_quant_decode", "quant_decode", q, reg, mask,
-                        nbits, split=False, tail=tail)
+    out, kernels = launch_group("pkv_quant_decode", q, reg, mask, nbits,
+                                (1, reg.k.codes.shape[2]), tail)
     quant_decode_attention.launches += 1
-    quant_decode_attention.kernels += region_kernels(False)
+    quant_decode_attention.kernels += kernels
     return out
 
 
 def quant_decode_attention_tiled(q: torch.Tensor, reg: QuantizedKVRegion,
                                  mask: torch.Tensor, *, nbits: int, tail=None,
                                  scale=None, softcap=None):
-    """The same function with the slots split across blocks (long regions)
-    and a finish pass merging the splits (and the tail).  Arguments and
-    results as :func:`quant_decode_attention`."""
+    """The same function with the slots split across blocks as
+    :func:`split_plan` says (long regions), the splits merged in a cluster
+    or by a merge kernel.  Arguments and results as
+    :func:`quant_decode_attention`."""
     check_unsupported(scale, softcap)
     if q.device.type == "cpu":
         return merge_tail(quant_decode_attention_plain(q, reg, mask,
                                                        nbits=nbits), q, tail)
-    out = launch_region("pkv_quant_decode_tiled", "quant_decode", q, reg,
-                        mask, nbits, split=True, tail=tail)
+    out, kernels = launch_group("pkv_quant_decode", q, reg, mask, nbits,
+                                region_plan(q, reg, nbits), tail)
     quant_decode_attention_tiled.launches += 1
-    quant_decode_attention_tiled.kernels += region_kernels(True)
+    quant_decode_attention_tiled.kernels += kernels
     return out
 
 
@@ -235,17 +403,14 @@ def quant_fused_attention_group(q: torch.Tensor, reg: QuantizedKVRegion,
                                 scale=None, softcap=None):
     """The factored dequantization with the JAX function's bf16 roundings
     (``ops.quant.quant_region_attention_fused``), over a group-layout
-    region: the whole-region kernel where :func:`split_plan` gives one
-    split, else the split kernel.  Arguments and results as
+    region, on :func:`split_plan`'s plan.  Arguments and results as
     :func:`quant_decode_attention`."""
     check_unsupported(scale, softcap)
     if q.device.type == "cpu":
         return merge_tail(quant_region_attention_fused(q, reg, mask,
                                                        nbits=nbits), q, tail)
-    b, hk, w = reg.k.codes.shape[:3]
-    symbol, kernels = group_plan(q.device, b * hk, w)
-    out = launch_region(symbol, "quant_decode", q, reg, mask, nbits,
-                        split=kernels > 1, tail=tail)
+    out, kernels = launch_group("pkv_quant_group_fused", q, reg, mask, nbits,
+                                region_plan(q, reg, nbits), tail)
     quant_fused_attention_group.launches += 1
     quant_fused_attention_group.kernels += kernels
     return out

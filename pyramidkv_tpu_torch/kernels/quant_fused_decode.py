@@ -16,11 +16,17 @@ results as ``kernels/quant_decode.py``.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..ops.quant import (QuantizedKVRegion, merge_tail,
                          quant_region_attention_fused, region_geometry)
-from .quant_decode import check_unsupported, launch_region, region_kernels
+from .quant_decode import check_unsupported, launch_region, pa_split_plan
+
+
+#: CUDA kernels a call launches: the split kernel and its finish pass
+PA_KERNELS = 2
 
 
 def quant_fused_attention_pa(q: torch.Tensor, reg: QuantizedKVRegion,
@@ -42,12 +48,16 @@ def quant_fused_attention_pa(q: torch.Tensor, reg: QuantizedKVRegion,
     if gk > 1 and q.shape[1] // reg.k.codes.shape[1] * (8 // nbits) > 16:
         raise ValueError("the pa kernel folds K groups for G * 8 / nbits <= "
                          "16 (one query copy per bit-plane in shared memory)")
-    # with K groups, each split stays inside one group's byte-rows
+    b, hk = reg.k.codes.shape[:2]
+    nsplit, rows = pa_split_plan(q.device, b * hk, w)
+    if gk > 1:  # each split stays inside one group's byte-rows
+        rows = math.gcd(rows, kg)
+        nsplit = -(-w // rows)
     out = launch_region("pkv_quant_fused_pa", "quant_fused_decode", q, reg,
-                        mask, nbits, split=True, tail=tail,
-                        split_within=kg if gk > 1 else 0)
+                        mask, nbits, (nsplit, rows), tail=tail,
+                        workspace=True)
     quant_fused_attention_pa.launches += 1
-    quant_fused_attention_pa.kernels += region_kernels(True)
+    quant_fused_attention_pa.kernels += PA_KERNELS
     return out
 
 

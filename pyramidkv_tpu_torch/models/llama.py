@@ -339,14 +339,15 @@ def region_route(cs, bhk: int, w: int, device: torch.device,
     ``quant_fused_attention_group`` (JAX's default: the factored
     dequantization with bf16 folds), or with ``f32_quant`` (JAX's opt-in
     ``use_quant_kernel`` / ``use_quant_tiled``) through the f32 kernels:
-    ``quant_decode_attention`` where the split plan gives one split, else
+    ``quant_decode_attention`` where the split plan (for the spec's nbits
+    and K group size) gives one split, else
     ``quant_decode_attention_tiled``."""
     if cs.q_layout == "pa":
         return quant_fused_attention_pa
     if not f32_quant:
         return quant_fused_attention_group
-    return (quant_decode_attention if split_plan(device, bhk, w)[0] == 1
-            else quant_decode_attention_tiled)
+    one = split_plan(device, bhk, w, cs.nbits, cs.q_group_size)[0] == 1
+    return quant_decode_attention if one else quant_decode_attention_tiled
 
 
 def _region_attention(q: torch.Tensor, reg, layer: LayerCacheView,
@@ -354,8 +355,8 @@ def _region_attention(q: torch.Tensor, reg, layer: LayerCacheView,
                       f32_quant: bool = False) -> torch.Tensor:
     """One KIVI layer's decode attention over the quantized prefill region
     and the bf16 decode slots (the tail): one region-kernel call
-    (:func:`region_route`), whose finish pass attends over the tail and
-    merges, or its plain version (region partials, tail partials in plain
+    (:func:`region_route`), which attends over the tail too and merges,
+    or its plain version (region partials, tail partials in plain
     torch as the JAX package leaves them to XLA, merged).  Returns
     [B, H, D] in q's dtype."""
     cs, sp = plan.spec, plan.prefill_slots

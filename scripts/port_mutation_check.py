@@ -9,7 +9,7 @@ card.
 Copies ``pyramidkv_tpu_torch``, ``chip_smoke.py`` and
 ``configs/minference`` into a temporary directory once per mutant, breaks one CUDA source there, and runs the
 ``chip_smoke`` phase that checks it against the broken kernels (each copy
-builds its own libraries; the minference checks run untimed).  A mutant is
+builds its own libraries; every check runs untimed).  A mutant is
 caught when it fails the tolerance at every main shape (the checks whose
 case is not a short one) of the checks it targets; the script prints, per
 mutant, the smallest ``err_over_tol`` over those and over the short checks
@@ -17,12 +17,11 @@ mutant, the smallest ``err_over_tol`` over those and over the short checks
 non-zero if a mutant was not caught.  Mutants:
 
 - ``drop_plane`` (``csrc/quant_region.cuh``): the last bit-plane's V codes
-  read as 0 (with 8-bit codes, the only plane) in the split-plan kernels
-  (targets the checks on the split plan; ``whole_drop_plane`` is the same
-  fault in the whole-region kernel);
-- ``drop_chunk`` (``csrc/quant_region.cuh``): warp 1 skips its first 32-row
-  chunk of every block's slot range (a slot tile never attended; split
-  plan);
+  read as 0 (with 8-bit codes, the only plane) in the pa layout's split
+  kernel (``region_drop_plane`` is the same fault in the group kernel);
+- ``drop_chunk`` (``csrc/quant_region.cuh``): warp 1 of the pa layout's
+  split kernel skips its first 32-row chunk of every block's slot range (a
+  slot tile never attended);
 - ``slash_drop_last_tile`` (``csrc/block_sparse_prefill.cu``): the grid
   slash kernel skips the last valid entry of every tile list (targets its
   own checks and the db-against-grid check);
@@ -49,19 +48,36 @@ non-zero if a mutant was not caught.  Mutants:
 - ``row_max_skip_first_k_tile`` (``csrc/flash_prefill.cu``): pass A of the
   two-pass schedule starts one key tile late (the first tile past the pad
   never enters a row's max);
-- ``pass_b_drop_last_k_tile`` (``csrc/flash_prefill.cu``): pass B skips
-  the last key tile of every block (the diagonal tile);
-- ``fold_skip_first_k_group`` (``csrc/quant_region.cuh``): the factored
-  group kernel folds the query of each block's first K group (on every
-  bit-plane) with 1 instead of the group's scale (split plan);
-- ``whole_drop_plane`` (``csrc/quant_region.cuh``): the whole-region
-  kernel reads the last bit-plane's V codes as 0;
-- ``whole_unit_scale_first_k_group`` (``csrc/quant_region.cuh``): the
-  whole-region kernel takes 1 for the K scale of every slot in K group 0
-  (both modes);
-- ``whole_skip_first_tail_chunk`` (``csrc/quant_region.cuh``): the
-  one-launch whole-region kernel never attends over the first 32 slots of
-  the bf16 decode tail (targets the checks on the whole-region plan);
+- ``pass_b_skip_diagonal_tile`` (``csrc/flash_prefill.cu``): pass B (the
+  wgmma kernel's pass-B entry) skips each q tile's last key tile (the
+  diagonal);
+- ``pass_b_unclamped_max`` (``csrc/flash_prefill.cu``): pass B reads pass
+  A's m without the float32.min / 2 clamp, so a row that is all padding
+  (m = float32.min) takes p = 1 on its masked keys instead of 0;
+- ``fold_skip_first_k_group`` (``csrc/quant_region.cuh``): the group
+  kernel's kFold mode folds the query of each split's first staged K group
+  on every bit-plane with 1 instead of the group's scale;
+- ``region_drop_plane`` (``csrc/quant_region.cuh``): the group kernel reads
+  the last bit-plane's V codes as 0;
+- ``region_unit_scale_first_k_group`` (``csrc/quant_region.cuh``): the
+  group kernel's kF32 mode stages 1 for the K scale of K group 0;
+- ``region_wrong_plane_k_group`` (``csrc/quant_region.cuh``): the group
+  kernel stages, for each bit-plane's columns, the K groups of the next
+  plane's slots (targets the checks of 2- and 4-bit codes);
+- ``region_cluster_drops_last_split`` (``csrc/quant_region.cuh``): the
+  cluster merge of the group kernel leaves the last split out of the sums
+  (targets the checks of 2 to 4 splits);
+- ``region_merge_drops_last_split`` (``csrc/quant_region.cuh``): the merge
+  kernel after the group kernel leaves the last split out of the sums
+  (targets the checks of more than 4 splits);
+- ``region_window_restages_first`` (``csrc/quant_region.cuh``): where a
+  split's K tables take several stagings (a long region on one split),
+  each later staging reloads the first window's K groups (targets the
+  checks of more than one staging);
+- ``region_skip_first_tail_item`` (``csrc/quant_region.cuh``): the group
+  kernel never attends over the first 32 slots of the bf16 decode tail;
+- ``region_skip_last_tail_item`` (``csrc/quant_region.cuh``): the group
+  kernel never attends over the tail's last 32-slot item;
 - ``decode_merge_drops_last_split`` (``csrc/decode_attn.cu``): the merge
   kernel of the split decode leaves the last split out of the sums
   (targets the checks of more than 4 splits);
@@ -93,22 +109,22 @@ KIVI = ("quant_region.cuh", "phase_kv_quant_kernels")
 DECODE = ("decode_attn.cu", "phase_decode_kernels")
 
 
-def _whole(r):
-    return r["kernels_per_call"] == 1
+def _group(r):
+    return r["check"] != "quant_fused_attention_pa"
 
 
-def _split(r):
-    return r["kernels_per_call"] == 2
+def _pa(r):
+    return r["check"] == "quant_fused_attention_pa"
 
 
 #: name -> (source, chip_smoke phase, targeted checks (None: all; a tuple
 #: of check names, or a predicate on a check's record), old, new)
 MUTANTS = {
-    "drop_plane": (*KIVI, lambda r: _split(r),
+    "drop_plane": (*KIVI, _pa,
         "const float c = (float)((vw >> (8 * k + p * NBITS)) & MASK);",
         "const float c = p == PER - 1 ? 0.f : (float)((vw >> (8 * k + p "
         "* NBITS)) & MASK);"),
-    "drop_chunk": (*KIVI, lambda r: _split(r),
+    "drop_chunk": (*KIVI, _pa,
         "for (int j0 = row0 + warp * CHUNK; j0 < row1; j0 += NWARPS * CHUNK) {",
         "for (int j0 = row0 + warp * CHUNK + (warp == 1 ? NWARPS * CHUNK : 0);"
         " j0 < row1; j0 += NWARPS * CHUNK) {"),
@@ -155,31 +171,58 @@ MUTANTS = {
     "row_max_skip_first_k_tile": (
         "flash_prefill.cu", "phase_two_pass_kernels", ("flash_row_max",),
         "  const int kt_begin = lo / BK;",
-        "  const int kt_begin = lo / BK + (ROW_MAX ? 1 : 0);"),
-    "pass_b_drop_last_k_tile": (
+        "  const int kt_begin = lo / BK + 1;"),
+    "pass_b_skip_diagonal_tile": (
         "flash_prefill.cu", "phase_two_pass_kernels", ("flash_pass_b",),
-        "  const int kt_end = min(last_row, N - 1) / BK;",
-        "  const int kt_end = min(last_row, N - 1) / BK - (PASS_B ? 1 : 0);"),
+        "const int kt_last = hi / BK;",
+        "const int kt_last = hi / BK - (MODE == kPassB ? 1 : 0);"),
+    "pass_b_unclamped_max": (
+        "flash_prefill.cu", "phase_two_pass_kernels", ("flash_pass_b",),
+        "? fmaxf(m_in[(size_t)bh * Nq + r0 + 8 * i], -FLT_MAX / 2)",
+        "? m_in[(size_t)bh * Nq + r0 + 8 * i]"),
     "fold_skip_first_k_group": (
-        *KIVI, lambda r: r["check"] == "quant_fused_attention_group"
-        and _split(r),
-        "const float ksv = __ldg(ksb + o), kzv = __ldg(kzb + o);",
-        "const float ksv = grp[p] == (row0 + p * W) / a.kg ? 1.f : "
-        "__ldg(ksb + o), kzv = __ldg(kzb + o);"),
-    "whole_skip_first_tail_chunk": (
-        *KIVI, _whole,
-        "const bool vis = h0 + lane < ntail && twords[h0 + lane] != 0;",
-        "const bool vis = h0 + lane < ntail && twords[h0 + lane] != 0 && "
-        "h0 + lane > 0;"),
-    "whole_drop_plane": (
-        *KIVI, _whole,
+        *KIVI, lambda r: r["check"] == "quant_fused_attention_group",
+        "const float ksv = grp < NG ? ksb[o] : 0.f;",
+        "const float ksv = grp < NG ? (c % gpp == 0 ? 1.f : ksb[o]) : 0.f;"),
+    "region_drop_plane": (
+        *KIVI, _group,
         "const float cv = code_f((vw >> (8 * k + p * NBITS)) & MASK);",
         "const float cv = p == PER - 1 ? 0.f : code_f((vw >> (8 * k + p * "
         "NBITS)) & MASK);"),
-    "whole_unit_scale_first_k_group": (
-        *KIVI, _whole,
-        "const float ksv = ksp[o], kzv = kzp[o];",
-        "const float ksv = grp[p] == 0 ? 1.f : ksp[o], kzv = kzp[o];"),
+    "region_unit_scale_first_k_group": (
+        *KIVI, lambda r: r["check"] in ("quant_decode_attention",
+                                        "quant_decode_attention_tiled"),
+        "kt[c * QROW + pad_d(d)] = grp < NG ? ksb[o] : 0.f;",
+        "kt[c * QROW + pad_d(d)] = grp < NG ? (grp == 0 ? 1.f : ksb[o]) : "
+        "0.f;"),
+    "region_wrong_plane_k_group": (
+        *KIVI, lambda r: _group(r) and r["nbits"] < 8,
+        "auto col_group = [&](int c) { return (wrow0 + (c / gpp) * W) / kg + "
+        "c % gpp; };",
+        "auto col_group = [&](int c) { return (wrow0 + ((c / gpp + 1) % PER) "
+        "* W) / kg + c % gpp; };"),
+    "region_cluster_drops_last_split": (
+        *KIVI, lambda r: _group(r) and 1 < r["nsplit"] <= 4,
+        "for (int r = 0; r < nsplit; ++r) {",
+        "for (int r = 0; r < nsplit - 1; ++r) {"),
+    "region_merge_drops_last_split": (
+        *KIVI, lambda r: _group(r) and r["nsplit"] > 4,
+        "const float f = ws_m[row] <= NEG / 2 ? 0.f : expf(ws_m[row] - mx);",
+        "const float f = s == nsplit - 1 || ws_m[row] <= NEG / 2 ? 0.f : "
+        "expf(ws_m[row] - mx);"),
+    "region_window_restages_first": (
+        *KIVI, lambda r: _group(r) and (r["windows"] or 1) > 1,
+        "      stage_tables(wrow0);\n      __syncthreads();",
+        "      stage_tables(row0);\n      __syncthreads();"),
+    "region_skip_first_tail_item": (
+        *KIVI, _group,
+        "const bool vis = h0 + lane < ntail && twords[h0 + lane] != 0;",
+        "const bool vis = h0 + lane < ntail && twords[h0 + lane] != 0 && "
+        "h0 + lane > 0;"),
+    "region_skip_last_tail_item": (
+        *KIVI, _group,
+        "const bool vis = h0 + lane < ntail && twords[h0 + lane] != 0;",
+        "const bool vis = h0 + lane < ntail - 1 && twords[h0 + lane] != 0;"),
     "decode_merge_drops_last_split": (
         *DECODE, lambda r: r["nsplit"] > 4,
         "for (int s = warp; s < nsplit; s += 4) {",
@@ -204,11 +247,16 @@ import chip_smoke as cs
 recs = []
 cs.log = recs.append
 cs.SPARSE_CASES = {k: v[:-1] + (False,) for k, v in cs.SPARSE_CASES.items()}
+# a mutant is caught or not whatever the times: each timed call runs once
+# and reads 1 ms
+cs.time_ms = lambda torch, fn, reps, warmup=1: (fn(), 1.0)[1]
+cs.graph_ms = lambda torch, fn, reps: (fn(), 1.0)[1]
 getattr(cs, sys.argv[1])(torch, F, torch.device("cuda", 0))
 def finite(x):
     return x if x == x else float("inf")  # NaN: not a finite output
 print(json.dumps([{**{k: r.get(k) for k in ("check", "case", "S", "nsplit",
-                                            "kernels_per_call")},
+                                            "kernels_per_call", "nbits",
+                                            "windows")},
                    "err_over_tol": finite(r["err_over_tol"])}
                   for r in recs if "err_over_tol" in r]))
 """

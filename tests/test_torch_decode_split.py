@@ -6,8 +6,8 @@ is the kernel's schedule in plain PyTorch (f32 partials per split, a wholly
 masked split dropped, an all-masked row averaged over every slot, the
 splits merged in order).  Here it is held to the port's plain decode and to
 the JAX package's Pallas kernel in interpret mode on the same numpy inputs;
-the KIVI group route's plan is held to one CUDA launch exactly where the
-split plan gives one split.
+the KIVI group route's plan is held to one CUDA launch exactly where its
+splits fit one thread-block cluster.
 
 Tolerance: f32 on every side (the oracle's probabilities stay f32, as the
 kernel's; the plain version and the Pallas kernel keep them f32 for f32
@@ -111,11 +111,13 @@ def test_split_oracle_refuses_a_plan_that_misses_slots():
     (1, 8), (600, 4096), (4, 255), (64, 512),
 ])
 def test_group_route_is_one_launch_exactly_on_one_split(bhk, w):
-    """The factored group route launches one CUDA kernel (region, bf16
-    tail and merge together) where the split plan gives one split, and the
-    split kernel plus its finish pass otherwise."""
-    symbol, kernels = quant_decode.group_plan(CPU, bhk, w)
-    one = quant_decode.split_plan(CPU, bhk, w)[0] == 1
-    assert (kernels == 1) == one
-    assert symbol == ("pkv_quant_group_fused" if one
-                      else "pkv_quant_group_fused_tiled")
+    """The group route launches one CUDA kernel (region, bf16 tail and
+    merge together) where the split plan gives one split and where its
+    splits fit one thread-block cluster (up to MAX_CLUSTER: the cluster
+    merges them), and the split kernel plus a merge kernel otherwise."""
+    nsplit, _ = quant_decode.split_plan(CPU, bhk, w, 4, 64)
+    kernels = quant_decode.region_kernels(nsplit)
+    assert (kernels == 1) == (nsplit <= quant_decode.MAX_CLUSTER)
+    # 8 regions of 32k fullkv kivi4: 32 splits and a merge kernel; 600
+    # regions of 4096 byte-rows: 11 splits (their staged K groups)
+    assert kernels == (2 if (bhk, w) in ((8, 16384), (600, 4096)) else 1)

@@ -22,6 +22,16 @@ kernel (``csrc/flash_prefill.cu``, ``flash_wgmma_kernel``), on the CPU.
   themselves plus 2^-7 of their row's rms: a P term whose f32 value differs
   in its last bits (other summation orders) can still round to the other
   bf16 neighbour and move an output by 2^-8 p v / l.
+- The pass-B mode of ``flash_tiled_plain`` (``m_known``: P = exp2(S - m)
+  against pass A's row maxes, no running max, edge tiles masked to
+  float32.min) against ``flash_pass_b_plain`` and JAX's
+  ``flash_causal_attention(two_pass=True)`` in interpret mode, with
+  padding, ``q_start`` and a sliding window: in f32 within 2e-5 (the same
+  terms, other orders); in bf16 against the plain version within 2^-7
+  |want| + 2^-7 rms (both round P at the same known max, so only a P term
+  whose f32 value differs in its last bits can round to the other bf16
+  neighbour, and the output's own bf16 ulp).  Rows with no visible key
+  write exactly 0.
 """
 
 import jax.numpy as jnp
@@ -35,7 +45,9 @@ from pyramidkv_tpu_torch.kernels.flash_prefill import (BLOCK_K, BLOCK_Q,
                                                       flash_tile_plan,
                                                       flash_tiled_plain)
 from pyramidkv_tpu_torch.ops.attention import (causal_prefill_attention,
-                                               flash_partials_plain)
+                                               flash_partials_plain,
+                                               flash_pass_b_plain,
+                                               flash_row_max_plain)
 
 KTOL = 2e-5
 D = 128
@@ -256,3 +268,59 @@ def test_tiled_partials_bf16_match_pallas():
     np.testing.assert_allclose(m[live], wm[live], rtol=2.0 ** -12,
                                atol=2.0 ** -12)
     np.testing.assert_allclose(l[live], wl[live], rtol=2.0 ** -10)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_tiled_pass_b_matches_plain_and_pallas_f32(case):
+    b, h, hk, n, nq, q_start, tl, window = case
+    q, k, v = _inputs(b, h, hk, n, nq, seed=3 * n + nq)
+    tlt = torch.tensor(tl)
+    qt, kt, vt = (_torch(x, False) for x in (q, k, v))
+    kw = dict(sliding_window=window, q_start=q_start)
+    m = flash_row_max_plain(qt, kt, tlt, **kw)
+    got = flash_tiled_plain(qt, kt, vt, tlt, m_known=m, **kw).numpy()
+    plain = flash_pass_b_plain(qt, kt, vt, m, tlt, **kw).numpy()
+    pallas = np.asarray(jax_flash(
+        *(_jax(x, False) for x in (q, k, v)), jnp.asarray(tl, jnp.int32),
+        two_pass=True, interpret=True, **kw))
+    for bi, t in enumerate(tl):
+        rows = slice(max(0, n - t - q_start), None)  # past the pad
+        np.testing.assert_allclose(got[bi, :, rows], plain[bi, :, rows],
+                                   rtol=KTOL, atol=KTOL)
+        np.testing.assert_allclose(got[bi, :, rows], pallas[bi, :, rows],
+                                   rtol=KTOL, atol=KTOL)
+        assert (got[bi, :, :rows.start] == 0).all()  # no visible key: 0
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_tiled_pass_b_bf16_matches_plain(case):
+    b, h, hk, n, nq, q_start, tl, window = case
+    q, k, v = _inputs(b, h, hk, n, nq, seed=5, bf16=True)
+    tlt = torch.tensor(tl)
+    qt, kt, vt = (_torch(x, True) for x in (q, k, v))
+    kw = dict(sliding_window=window, q_start=q_start)
+    m = flash_row_max_plain(qt, kt, tlt, **kw)
+    got = flash_tiled_plain(qt, kt, vt, tlt, m_known=m, **kw).float().numpy()
+    plain = flash_pass_b_plain(qt, kt, vt, m, tlt, **kw).float().numpy()
+    for bi, t in enumerate(tl):
+        rows = slice(max(0, n - t - q_start), None)
+        assert _err_over_tol(got[bi, :, rows], plain[bi, :, rows],
+                             2.0 ** -7, 2.0 ** -7) <= 1
+        assert (got[bi, :, :rows.start] == 0).all()
+
+
+def test_tiled_pass_b_clamps_the_known_max():
+    """A row with no visible key carries m = float32.min from pass A; the
+    pass-B schedule clamps it to float32.min / 2, so its masked logits
+    (float32.min) give p = 0 and the row writes 0.  Unclamped, they would
+    give p = 1 and the mean of the visited values."""
+    b, h, hk, n = 1, 2, 2, 192
+    q, k, v = _inputs(b, h, hk, n, n, seed=19)
+    tlt = torch.tensor([60])
+    qt, kt, vt = (_torch(x, False) for x in (q, k, v))
+    m = flash_row_max_plain(qt, kt, tlt)
+    neg = torch.finfo(torch.float32).min
+    assert (m[0, :, :n - 60] == neg).all()
+    out = flash_tiled_plain(qt, kt, vt, tlt, m_known=m)
+    assert (out[0, :, :n - 60] == 0).all()
+    assert torch.isfinite(out).all() and (out[0, :, n - 60:] != 0).any()

@@ -315,7 +315,11 @@ def test_region_route_follows_the_split_plan():
     (JAX's default route); with ``f32_quant`` (JAX's opt-in
     use_quant_kernel) the f32 whole-region kernel when the split plan gives
     one split (made for an H100 on the CPU), else the tiled one; pa regions
-    the pa kernel."""
+    the pa kernel.  The group kernel launches once a call up to
+    MAX_CLUSTER splits (the 8k batch: 2 in a cluster), twice beyond (32k
+    fullkv: 32 splits and a merge kernel); the pa kernel twice (its split
+    kernel and finish pass)."""
+    from pyramidkv_tpu_torch.kernels import quant_decode, quant_fused_decode
     from pyramidkv_tpu_torch.kernels import quant_fused_attention_group
     from pyramidkv_tpu_torch.models.llama import region_route
 
@@ -335,6 +339,11 @@ def test_region_route_follows_the_split_plan():
                         True) is quant_decode_attention_tiled
     assert region_route(group, 8, 16384, cpu,
                         True) is quant_decode_attention_tiled
+    kernels = {(bhk, w): quant_decode.region_kernels(
+        quant_decode.split_plan(cpu, bhk, w, 4, 64)[0])
+        for bhk, w in ((32, 64), (128, 1024), (8, 16384))}
+    assert kernels == {(32, 64): 1, (128, 1024): 1, (8, 16384): 2}
+    assert quant_fused_decode.PA_KERNELS == 2
 
 
 def test_region_bridge_needs_a_card_unless_asked_for_cpu():
