@@ -65,7 +65,10 @@ Phases (any failure exits non-zero):
      their plain versions, four sparse-prefill generate runs, depth-2
      parity and CUDA-event stage times of a 32k sparse prefill;
  16. h2o_chunk_kernels: the two H2O kernels (stats, colsum) against their
-     plain versions at the 8k batch and bench.py's 32k prompt; untimed
+     plain versions at the 8k batch and bench.py's 32k prompt and at short
+     edge shapes (a pad inside a 128-row tile and on a tile boundary, a q
+     tile made wholly of padding, N - W no multiple of 128, a W x W block
+     across two tiles), each called twice and held bitwise equal; untimed
      short shapes of the flash kernels (q_start on a carry longer than the
      chunk's keys, a last q tile of 64 rows; partials on a self and a
      history tile of N = 192 with a pad inside a key tile); flash with
@@ -1901,12 +1904,21 @@ COLSUM_TOL = (2.0 ** -14, 2.0 ** -14)
 COLSUM_TOL_TEXT = "|err| <= 2^-14 |want| + 2^-14 rms(want's row)"
 STATS_TOL_TEXT = ("m within 2^-12 max(1,|m|), l within 2^-10 l (rows past "
                   "the pad)")
-#: H2O kernel checks: case -> (B, H, Hk, N, true_len, the engine's top-k
-#: width there, timed)
+#: H2O kernel checks: case -> (B, H, Hk, N, true_len, W, the engine's top-k
+#: width there, timed).  The edge cases: pads of 256 and 128 (on 128-row
+#: tile boundaries); a pad of 240 (q tile 0 wholly padding, q tile 1
+#: straddling the pad); N % 128 = 64 (N - W = 440, the last key and query
+#: tiles cut short by N); W = 200 (the W x W block's rows 312-511 span two
+#: tiles)
 H2O_CASES = {
-    "short ragged": (2, 8, 2, 384, (384, 150), 100, False),
-    "8k": (B, H, HK, N, TRUE_LEN, 2040, True),
-    "32k": (1, H, HK, QN, (QTRUE,), 120, True),
+    "short ragged": (2, 8, 2, 384, (384, 150), 8, 100, False),
+    "edge: pads on tile boundaries": (2, 8, 2, 512, (256, 384), 8, 100,
+                                      False),
+    "edge: a q tile of padding": (1, 8, 2, 640, (400,), 8, 100, False),
+    "edge: N - W = 440": (2, 8, 2, 448, (448, 300), 8, 100, False),
+    "edge: W x W across two tiles": (1, 8, 2, 512, (500,), 200, 100, False),
+    "8k": (B, H, HK, N, TRUE_LEN, 8, 2040, True),
+    "32k": (1, H, HK, QN, (QTRUE,), 8, 120, True),
 }
 #: the H2O / chunked-prefill engine runs: name -> (weights, CompressionSpec
 #: arguments, size, prefill_chunk)
@@ -1959,14 +1971,14 @@ def h2o_pairs(n, true_len, h, w):
 
 
 def h2o_bound(pairs, nbytes):
-    """(least ms, "operations" or "bytes", unit) of one H2O pass: its QK^T
-    products on the tensor cores (2 D flops a pair), its one exp2 a pair
-    on the MUFU, its bytes."""
+    """(least ms, "operations" or "bytes", unit, {unit: ms}) of one H2O
+    pass: its QK^T products on the tensor cores (2 D flops a pair), its one
+    exp2 a pair on the MUFU, its bytes."""
     t = {"tensor cores": 2.0 * D * pairs / PEAK_BF16_FLOPS * 1e3,
          "MUFU exp2": pairs / PEAK_EXP2 * 1e3,
          "bytes": nbytes / PEAK_BYTES * 1e3}
     unit = max(t, key=t.get)
-    return t[unit], ("bytes" if unit == "bytes" else "operations"), unit
+    return t[unit], ("bytes" if unit == "bytes" else "operations"), unit, t
 
 
 def check_h2o(torch, dev, case, seed):
@@ -1976,20 +1988,22 @@ def check_h2o(torch, dev, case, seed):
     ``ops.scoring.h2o_colsum`` on the same m, l, and the two together
     (``kernels.h2o_scores``) against the plain score the engine's plain path
     takes (``ops.scoring.h2o_scores``), with the overlap of their top-k at
-    the engine's width.  Returns (ok, {"stats": rec, "colsum": rec})."""
+    the engine's width; each kernel called twice, bitwise equal.  Returns
+    (ok, {"stats": rec, "colsum": rec})."""
     from pyramidkv_tpu_torch import kernels
     from pyramidkv_tpu_torch.ops import scoring
 
-    b, h, hk, n, true_len, width, timed = H2O_CASES[case]
-    w = 8
+    b, h, hk, n, true_len, w, width, timed = H2O_CASES[case]
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k = _rand_bf16(torch, g, dev, b, h, n, D), _rand_bf16(
         torch, g, dev, b, hk, n, D)
     tl = torch.tensor(true_len, dtype=torch.int32, device=dev)
     kw = dict(window_size=w, true_len=tl)
     m, l = kernels.h2o_row_stats(q, k, **kw)
+    m2, l2 = kernels.h2o_row_stats(q, k, **kw)
     pm, pl = scoring.h2o_row_stats(q, k, **kw)
     cs = kernels.h2o_colsum(q, k, m, l, **kw)
+    cs2 = kernels.h2o_colsum(q, k, m, l, **kw)
     pcs = scoring.h2o_colsum(q, k, m, l, **kw)
     got = kernels.h2o_scores(q, k, **kw)
     want = scoring.h2o_scores(q, k, **kw)
@@ -2026,8 +2040,11 @@ def check_h2o(torch, dev, case, seed):
     stats = {"check": "h2o_row_stats", **shape,
              "max_abs_err": float((m - pm).abs()[rows].max()),
              "l_rel_err": float(((l - pl).abs() / pl)[rows].max()),
-             "err_over_tol": max(m_ratio, l_ratio), "tol": STATS_TOL_TEXT}
+             "err_over_tol": max(m_ratio, l_ratio), "tol": STATS_TOL_TEXT,
+             "bitwise_repeat": bool(torch.equal(m, m2)
+                                    and torch.equal(l, l2))}
     colsum = {"check": "h2o_colsum", **shape, "max_abs_err": cs_err,
+              "bitwise_repeat": bool(torch.equal(cs, cs2)),
               "err_over_tol": cs_ratio, "tol": COLSUM_TOL_TEXT,
               "scores_max_abs_err": sc_err, "scores_err_over_tol": sc_ratio,
               "scores_tol": H2O_TOL_TEXT,
@@ -2048,14 +2065,17 @@ def check_h2o(torch, dev, case, seed):
             # no single PyTorch call computes softmax column sums
             rec["library_ms"] = None
             rec["visible_pairs"] = pairs
-            rec["bound_ms"], rec["bound_by"], rec["bound_unit"] = h2o_bound(
-                pairs, qk_bytes + extra)
+            (rec["bound_ms"], rec["bound_by"], rec["bound_unit"],
+             units) = h2o_bound(pairs, qk_bytes + extra)
+            rec["bound_ms_tensor_cores"] = units["tensor cores"]
+            rec["bound_ms_mufu"] = units["MUFU exp2"]
         colsum["plain_scores_ms"] = time_ms(
             torch, lambda: scoring.h2o_scores(q, k, **kw), reps=1, warmup=0)
     log(stats)
     log(colsum)
     ok = (max(m_ratio, l_ratio, cs_ratio, sc_ratio) <= 1 and same_inf
-          and tuple(got.shape) == (b, h, n - w))
+          and tuple(got.shape) == (b, h, n - w) and stats["bitwise_repeat"]
+          and colsum["bitwise_repeat"])
     return ok, {"stats": stats, "colsum": colsum}
 
 
@@ -2672,8 +2692,10 @@ def phase_profile_h2o_chunked(torch, dev, params, q4, vocab):
         return run
 
     stages = {
-        "(b) int4 h2o 32k": [(h2o_mod, "h2o_row_stats", "h2o stats kernel"),
-                             (h2o_mod, "h2o_colsum", "h2o colsum kernel"),
+        # kernels.h2o_scores launches both kernels through _stats and
+        # _colsum (the query scaled once for both)
+        "(b) int4 h2o 32k": [(h2o_mod, "_stats", "h2o stats kernel"),
+                             (h2o_mod, "_colsum", "h2o colsum kernel"),
                              (llama, "flash_causal_attention",
                               "flash kernel")],
         "(d) bf16 h2o 8k chunk 2048": [
@@ -2727,7 +2749,9 @@ def phase_profile_h2o_chunked(torch, dev, params, q4, vocab):
                         "rest_ms": stream_ms - sum(ms.values()),
                         "stage_calls": {k: len(v) for k, v in spans.items()
                                         if k != "prefill"}}
-            ok &= all(len(v) > 0 for k, v in spans.items())
+            # every stage ran (a patch the prefill never calls would time
+            # nothing)
+            ok &= all(spans.get(label) for _, _, label in patches)
             del eng
             torch.cuda.empty_cache()
     log({"phase": "profile_h2o_chunked", **out})
@@ -3011,15 +3035,32 @@ def kernel_entry(name, source, replaces, launches, recs):
     if len(recs) > 1:
         ent["shapes"] = [{k: r[k] for k in (
             "S", "case", "x", "layers", "tail", "Vs", "T", "max_abs_err",
-            "visible_pairs", "ms", "bound_unit",
+            "visible_pairs", "ms", "bound_unit", "bound_ms_tensor_cores",
+            "bound_ms_mufu",
             "partials_ms", "plain_ms", "bound_ms", "library_ms") if k in r}
             for r in recs]
     return ent
 
 
+def clocks() -> dict:
+    """The card's SM clock, its maximum, power draw, temperature and active
+    clock-throttle reasons (nvidia-smi): a run whose kernels all read slow
+    shows here whether the card was held below its clocks."""
+    keys = ("clocks.sm", "clocks.max.sm", "power.draw", "temperature.gpu",
+            "clocks_throttle_reasons.active")
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={','.join(keys)}",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    vals = out.stdout.strip().splitlines()[0].split(", ") if (
+        out.returncode == 0 and out.stdout.strip()) else []
+    return dict(zip(keys, vals))
+
+
 def ptxas_report(text: str) -> list:
     """Per entry function of an ``nvcc -Xptxas -v`` log, its registers and
-    spill bytes ({"phase": "ptxas", ...}); and each warning line."""
+    spill bytes ({"phase": "ptxas", ...}); and each warning line, with
+    ptxas's notes that it serialized wgmma products or injected a wait for
+    them (C7515, C7517: the products no longer overlap other work)."""
     out, fn = [], None
     for line in text.splitlines():
         if "Compiling entry function" in line:
@@ -3032,7 +3073,7 @@ def ptxas_report(text: str) -> list:
                 line.split("bytes spill loads")[0].split(",")[-1])
         elif fn is not None and "Used" in line and "registers" in line:
             fn["registers"] = int(line.split("Used")[1].split()[0])
-        elif "warning" in line.lower():
+        elif "warning" in line.lower() or "(C751" in line:
             out.append({"phase": "ptxas", "warning": line.strip()})
     return out
 
@@ -3066,7 +3107,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     log({"phase": "device", "torch": torch.__version__,
-         "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0)})
+         "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
+         "clocks": clocks()})
 
     secs = _build.build_all()
     log({"phase": "build", "seconds": secs})
@@ -3273,6 +3315,7 @@ def main() -> int:
         "library_note"]
     for k in kernels:  # one line per kernel
         log({"kernel": k["name"], **k})
+    log({"phase": "device_end", "clocks": clocks()})
     log({"kernels": kernels})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -249,60 +249,6 @@ constexpr int TILE_BYTES = 2 * KV_HALF;  // one K or V tile (both boxes)
 constexpr int WG_Q_BYTES = 64 * 128;     // a warpgroup's rows of one box
 constexpr int SMEM_BYTES = 1024 + 2 * Q_HALF + 2 * STAGES * TILE_BYTES;
 
-// A shared-memory matrix descriptor for wgmma, 128-byte swizzle: `lbo` and
-// `sbo` in bytes.  K-major (Q, K): 8-row groups sbo = 1024 apart, lbo unused.
-// MN-major (V): lbo = bytes between the two 64-column boxes along D, sbo =
-// 1024 between 8-key groups.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving reads of an accumulator above the wait that
-// completes it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// D[64 x 128] (+)= A B, A and B from shared memory (bf16, f32 accumulate)
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
 // D[64 x 128] += A B, A from registers (4 x bf16x2 a thread), B MN-major
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
@@ -676,45 +622,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
-// (no link against libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult got;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &got) == cudaSuccess &&
-        got == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A map of `planes` matrices of `rows` x D bf16, `ld` rows apart, in boxes
-// of {64, box_rows, 1} with 128-byte swizzle; rows >= `rows` read as zeros.
-bool make_map(CUtensorMap* map, const void* base, int rows, int planes,
-              int ld, int box_rows) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)ld * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)BOX, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int MODE>

@@ -4,284 +4,569 @@
 // TPU): pass 1 `_stats_kernel`, pass 2 `_colsum_kernel`.
 //
 // What it computes, per (batch row b, query head h) with pad = N -
-// true_len[b] and the log2(e)/sqrt(D)-scaled query rounded to bf16 (the TPU
-// wrapper's fold), logits s[r, c] = qs[r] . k[c] in f32:
-//   visible(r, c) = c >= pad and not (r >= N-W and c >= N-W and c > r)
-// (causal ONLY inside the trailing W x W block: the reference's quirk);
+// true_len[b] and the pre-scaled query qs = bf16(q * log2(e) / sqrt(D)) (the
+// TPU wrapper's `qr`, computed once a layer by the wrapper), logits
+// s[r, c] = qs[r] . k[c] in f32 and
+//   visible(r, c) = r >= pad and c >= pad and
+//                   not (r >= N - W and c >= N - W and c > r)
+// (causal ONLY inside the trailing W x W block: the reference's quirk):
 //   pass 1 (h2o_stats_kernel): m[r] = max_c s[r, c], l[r] = sum_c exp2(s -
-//     m[r]) over the visible c, every row;
+//     m[r]) over the visible c; a padding row (r < pad) sees nothing and
+//     writes m = float32.min, l = 0;
 //   pass 2 (h2o_colsum_kernel): score[c] = sum_{r >= pad} exp2(s[r, c] -
 //     m[r]) / max(l[r], 1e-30) for c < N - W, and -inf at c < pad.
 // Columns c < N - W never lie in the W x W block, so pass 2 masks only the
 // padding rows.
 //
-// What bounds it on the H100: operations.  Each pass computes every
-// visible logit (B * H * true_len^2 of them, 2 * D flops each, on the
-// tensor cores) and takes one exp2 of each (the MUFU unit, 16 a clock per
-// SM), against only ~2 bytes of q or k per logit row and column.
+// What bounds it on the H100: operations, two kinds nearly equal.  Each
+// pass computes every visible logit (B * H * true_len^2 of them) at 2 * D
+// flops on the tensor cores (1/16 of an SM clock a logit at 4096 bf16 flops
+// a clock) and takes one exp2 of it on the MUFU (16 a clock per SM: 1/16 of
+// a clock too), against ~2 bytes of q or k per logit row and column.  A
+// design that runs the products and the exponentials one after the other
+// cannot come within 2x of the bound.
 //
-// What the design does about it:
-// - mma.sync m16n8k16 (bf16 operands, f32 accumulation) as in
-//   flash_prefill.cu.  Pass 1 keeps a q tile's fragments in registers and
-//   walks ALL key tiles past the pad (no triangular cut: the statistic is
-//   non-causal outside the W x W block).  Pass 2 computes S transposed
-//   (K Q^T): a block owns 64 keys, keeps their fragments in registers and
-//   walks the query tiles past the pad in a fixed order, so each column sum
-//   is a row sum of its own fragments, reduced over the 4 lanes of a group
-//   at the end: no atomics, the same bits every run.
-// - GQA without repeat_kv: query head h reads KV head h / (H / Hk).
-// Left for later: TMA/wgmma, a copy pipeline, and the mask on interior
-// tiles (every tile is masked here).
+// What the design does about it (the machinery of flash_prefill.cu's
+// flash_wgmma_kernel, csrc/hopper.cuh):
+// - a block owns 128 rows of one (b, h): stats 128 queries, colsum 128 keys;
+//   two consumer warpgroups of 64 rows each and one producer warp (288
+//   threads).  A consumer holds its 64 rows (the A operand: stats the
+//   pre-scaled Q, colsum K) in 32 registers a thread for the whole walk,
+//   so the products read only B from shared memory (both operands from
+//   shared memory ran slower: 96 of the SM's 128 bytes a clock at the
+//   tensor cores' rate).  The producer's lane 0 copies 128-row tiles of
+//   the walked axis (stats: keys, colsum: pre-scaled queries) into a ring
+//   of STAGES through tensor maps {D, N, planes} with 128-byte swizzle
+//   (GQA: KV plane b * Hk + h / (H / Hk), no repeat_kv);
+// - a tile is walked as two units of 64 rows: S = A B^T of a unit is
+//   64 x 64 on wgmma m64n64k16 (A from registers, B K-major; stats: A = Q,
+//   B = K; colsum: A = K, B = Q, so S^T = K Q^T and a column sum of P is a
+//   row sum of the accumulator), 32 f32 a thread;
+// - each consumer keeps TWO accumulators: unit u+1's product runs (wgmma is
+//   asynchronous) while unit u's max, exp2 and sums are taken, then unit
+//   u+2 is issued into u's accumulator, so the tensor cores and the MUFU
+//   work at once.  Two 64 x 128 accumulators and A do not fit the 168
+//   registers a thread of a 288-thread block gets (ptxas counts whole
+//   warpgroups) without spilling; two 64 x 64 ones and A take 151.  ptxas
+//   keeps products in flight only through straight-line waits and while
+//   nothing but wgmma writes an accumulator: the walk peels its last two
+//   units, and stats masks a copy of S, never S itself (else ptxas
+//   serializes the products, C7515, or injects a full wait, C7517);
+// - stats walks every key tile from floor(pad / 128) to the end (no
+//   triangular cut: the statistic is non-causal outside the W x W block)
+//   and masks only edge tiles: the one holding the pad edge, one cut short
+//   by N, one that meets the W x W block's causal part, and every tile of
+//   a q tile that straddles the pad (its padding rows see nothing); a q
+//   tile made wholly of padding writes (float32.min, 0) and returns;
+//   kernels/h2o_scores.py::h2o_tile_plan mirrors the plan;
+// - colsum walks the query tiles from floor(pad / 128) to the end.  The
+//   producer warp reads each tile's m and l from device memory a tile
+//   ahead and writes beside the tile in the ring the exponent offset m +
+//   log2(max(l, 1e-30)) (m clamped at float32.min / 2 as the TPU's), so a
+//   pair costs a subtraction and an exp2 and no multiply; only the tile
+//   that holds the pad edge or is cut short by N masks rows (their offset
+//   is float32.max: exp2 gives 0).  The last column block is cut at N - W
+//   on writing;
+// - colsum's sums: two partial sums a thread (its two keys), over its 32
+//   queries of each tile in a fixed order, across every tile, then over
+//   the 4 lanes of a row: no atomics, the same bits every run;
+// - exp2 is the MUFU's, subnormal results flushed (exp2f's range handling
+//   costs three instructions a pair);
+// - blocks are launched longest batch row first (the 8k batch is ragged).
+// What holds it at ~2x: the products alone run at ~1.4x the tensor bound
+// (each block streams its (b, h)'s whole K or Q through L2: ~5.6 TB/s at
+// 32k) and the exponentials alone at ~1.5x the MUFU bound (two consumer
+// warps an SM sub-partition hide little latency); taking a quarter of the
+// exponentials on the FMA pipe instead ran slower
+// (scripts/port_h2o_variants.py, PERF.md).
 
-#include <cfloat>
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cfloat>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int D = 128;
-constexpr int BQ = 64;  // rows (pass 1: queries, pass 2: keys) per block
-constexpr int BT = 64;  // tile of the walked axis (pass 1: keys, 2: queries)
-constexpr int NTHREADS = 128;
-constexpr int LDS = D + 8;
+constexpr int D = 128;            // head dim (the only one the kernels take)
+constexpr int BR = 128;           // a block's rows: stats queries, colsum keys
+constexpr int BT = 128;           // rows of a tile of the walked axis
+constexpr int STAGES = 4;         // tiles in flight
+constexpr int NCONS = 256;        // two consumer warpgroups
+constexpr int NTHREADS = NCONS + 32;  // and one producer warp
+constexpr int BOX = 64;           // bf16 columns of one 128-byte swizzled box
+constexpr int HALF = 128 * 128;   // bytes of one box column of 128 rows
+constexpr int TILE_BYTES = 2 * HALF;  // 128 rows x D bf16 (both boxes)
+constexpr int WG_BYTES = 64 * 128;    // a warpgroup's 64 rows of one box
+// 1024 to align the swizzled boxes, the ring, and colsum's exponent offsets
+// (a float per row of each stage)
+constexpr int SMEM_BYTES = 1024 + STAGES * TILE_BYTES + STAGES * BT * 4;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-__device__ __forceinline__ uint32_t load_scaled2(const __nv_bfloat16* p,
-                                                 float scale) {
-  float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  return pack_bf16(f.x * scale, f.y * scale);
+// 2^x on the MUFU, subnormal results flushed to 0 (exp2f adds three
+// instructions a call to keep them): a term below 2^-126 changes no sum of
+// a row's (at least one term of 1) or a column's probabilities that the
+// checks can see, and an instruction a pair matters here.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ uint32_t load_raw2(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
+// D[64 x 64] (+)= A B, A from registers (4 x bf16x2 a thread), B K-major in
+// shared memory (bf16, f32 accumulate)
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32], uint32_t a0,
+                                           uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t db,
+                                           int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
 }
 
-// A-operand fragments of 16 rows (r, r + 8) of a [*, D] bf16 matrix, times
-// `scale` and rounded to bf16 when SCALED.
-template <bool SCALED>
-__device__ __forceinline__ void load_a(uint32_t f[D / 16][4],
-                                       const __nv_bfloat16* base, int r,
-                                       int tig, float scale) {
+// This thread's A fragments of a warpgroup's 64 rows of a [*, D] bf16
+// matrix: rows `row` and row + 8 (zeros from row `rows` on), for each of the
+// 8 steps of 16 along D columns 16 kk + 2 tig + {0, 1} and + 8 (wgmma's
+// register layout of A, the same as the warp-level MMA's).
+__device__ __forceinline__ void load_a(uint32_t (&f)[32],
+                                       const __nv_bfloat16* p, int row,
+                                       int rows, int tig) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + tig * 2;
-    const __nv_bfloat16* p0 = base + (size_t)r * D + c;
-    const __nv_bfloat16* p1 = base + (size_t)(r + 8) * D + c;
-    if (SCALED) {
-      f[kk][0] = load_scaled2(p0, scale);
-      f[kk][1] = load_scaled2(p1, scale);
-      f[kk][2] = load_scaled2(p0 + 8, scale);
-      f[kk][3] = load_scaled2(p1 + 8, scale);
-    } else {
-      f[kk][0] = load_raw2(p0);
-      f[kk][1] = load_raw2(p1);
-      f[kk][2] = load_raw2(p0 + 8);
-      f[kk][3] = load_raw2(p1 + 8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row + (e & 1) * 8;
+      const int c = kk * 16 + tig * 2 + (e >> 1) * 8;
+      f[4 * kk + e] =
+          r < rows ? *reinterpret_cast<const uint32_t*>(p + (size_t)r * D + c)
+                   : 0u;
     }
   }
 }
 
-// S[16 rows x 64] = A (fragments) . T^T, T a [64, D] tile in shared memory.
-__device__ __forceinline__ void tile_dot(float s[BT / 8][4],
-                                         const uint32_t a[D / 16][4],
-                                         const __nv_bfloat16* ts, int gid,
-                                         int tig) {
-#pragma unroll
-  for (int nt = 0; nt < BT / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+// The consumer warpgroup's walk over the ring: `ntiles` tiles, each as two
+// units of 64 of its rows (unit u: tile u / 2, rows 64 (u % 2) on), so a
+// unit's S = A B^T is 64 x 64 (32 f32 a thread: entries 4j + {0, 1} row
+// `row`, 4j + {2, 3} row + 8, columns 8j + 2 tig + {0, 1}), A the
+// warpgroup's 64 rows of the block in registers.  Two accumulators: unit
+// u+1's product is in flight (wgmma is asynchronous) while unit u is
+// processed, then u+2's is issued into u's accumulator.
+struct Walk {
+  uint32_t ring;     // the ring's stages (B, K-major)
+  uint64_t* full;
+  uint64_t* empty;
+  int nu;            // units: 2 ntiles
+};
+
+__device__ __forceinline__ void issue(const Walk& w, const uint32_t (&a)[32],
+                                      float (&s)[32], int u) {
+  const int i = u >> 1, st = i % STAGES;
+  if (!(u & 1)) mbar_wait(&w.full[st], (i / STAGES) & 1);
+  const uint32_t b = w.ring + st * TILE_BYTES + (u & 1) * WG_BYTES;
+  wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt) {
-      const __nv_bfloat16* tp = &ts[(nt * 8 + gid) * LDS + kk * 16 + tig * 2];
-      mma_bf16(s[nt], a[kk], *reinterpret_cast<const uint32_t*>(tp),
-               *reinterpret_cast<const uint32_t*>(tp + 8));
+    // 8 steps of 16 along D, four 32-byte steps within each 64-column box
+    const uint32_t off = (kk >> 2) * HALF + (kk & 3) * 32;
+    wgmma_rs64(s, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+               sw128_desc(b + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// Wait until at most N products are in flight (the most recent), then keep
+// the compiler from reading `s` above the wait.
+template <int N>
+__device__ __forceinline__ void land(float (&s)[32]) {
+  wgmma_wait<N>();
+  fence_regs(s);
+}
+
+// Every unit in order, two in flight: unit u is processed (then its tile's
+// stage released after its second unit) while unit u+1's product runs, and
+// unit u+2 is issued into u's accumulator.  The waits do not depend on the
+// data (the last two units are peeled off): ptxas follows which product an
+// accumulator waits for only through straight-line waits, and injects a
+// full wait where it cannot.
+template <typename F>
+__device__ __forceinline__ void walk(const Walk& w, const uint32_t (&a)[32],
+                                     F& process) {
+  float s0[32], s1[32];
+  issue(w, a, s0, 0);
+  issue(w, a, s1, 1);
+  for (int u = 0; u < w.nu - 2; u += 2) {
+    land<1>(s0);
+    process(s0, u);
+    issue(w, a, s0, u + 2);
+    land<1>(s1);
+    process(s1, u + 1);
+    mbar_arrive(&w.empty[(u >> 1) % STAGES]);  // the tile is read
+    issue(w, a, s1, u + 3);
+  }
+  land<1>(s0);
+  process(s0, w.nu - 2);
+  land<0>(s1);
+  process(s1, w.nu - 1);
+}
+
+// The batch row of rank r when the rows are ordered by true length, longest
+// first (ties by index): blocks are launched heaviest first.
+__device__ __forceinline__ int batch_of_rank(const int* tl, int B, int r) {
+  for (int b = 0; b < B; ++b) {
+    const int t = tl[b];
+    int rank = 0;
+    for (int o = 0; o < B; ++o) {
+      const int u = tl[o];
+      rank += u > t || (u == t && o < b);
     }
+    if (rank == r) return b;
+  }
+  return 0;
+}
+
+// (b, h, t) of this block: grid B * H * nblk, batch rows longest first,
+// then heads, then the block's 128 rows from the last (real rows before a
+// short row's padding).
+struct Place {
+  int b, h, t;
+};
+__device__ __forceinline__ Place place(const int* tl, int B, int H,
+                                       int nblk) {
+  const int per_b = H * nblk;
+  const int x = blockIdx.x % per_b;
+  return {batch_of_rank(tl, B, blockIdx.x / per_b), x / nblk,
+          nblk - 1 - x % nblk};
+}
+
+// ---------------------------------------------------------------------------
+// Pass 1: row statistics
+// ---------------------------------------------------------------------------
+
+// 64 keys from c0 for this thread's two rows (i = 0: entries 4j, 4j+1, row
+// `row`; i = 1: 4j+2, 4j+3, row + 8), masked elementwise (to -inf) only on
+// an edge tile (EDGE): the online max and exp2-sum, base 2.  The
+// accumulator is only read: an instruction writing it between two products
+// makes ptxas serialize them.
+template <bool EDGE>
+__device__ __forceinline__ void stats_unit(const float (&s)[32], float (&m)[2],
+                                           float (&l)[2], int c0, int row,
+                                           int tig, int pad, int N, int W) {
+  auto at = [&](int j, int e) {
+    const int r = row + ((e >> 1) << 3);
+    const int c = c0 + j * 8 + tig * 2 + (e & 1);
+    // c > r >= N - W puts the pair in the W x W block's causal part
+    return EDGE && (min(r, c) < pad || c >= N || (r >= N - W && c > r))
+               ? -INFINITY
+               : s[4 * j + e];
+  };
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      mx = fmaxf(mx, fmaxf(at(j, 2 * i), at(j, 2 * i + 1)));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[i], mx);
+    // a row with nothing visible yet keeps l == 0
+    const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      rs += ex2(at(j, 2 * i) - m_use) + ex2(at(j, 2 * i + 1) - m_use);
+    l[i] = l[i] * ex2(m[i] - m_use) + rs;
+    m[i] = m_new;
   }
 }
 
-// Pass 1: grid (N / BQ, B * H); row statistics m, l [B*H, N].
-__global__ void __launch_bounds__(NTHREADS)
-h2o_stats_kernel(const __nv_bfloat16* __restrict__ q,  // [B*H, N, D]
-                 const __nv_bfloat16* __restrict__ k,  // [B*Hk, N, D]
+// Whether key tile `c0` of the block's rows [r0, r1] holds a masked pair:
+// the pad edge (and a q tile straddling it), a tile cut short by N, or the
+// W x W block's causal part (a column c > r for a row r >= N - W).
+__device__ __forceinline__ bool stats_edge(int c0, int r0, int r1, int pad,
+                                           int N, int W) {
+  const int c1 = min(c0 + BT, N) - 1;
+  const int rb = max(r0, N - W);  // the first row in the block
+  return r0 < pad || c0 < pad || c0 + BT > N || (rb <= r1 && c1 > rb);
+}
+
+// grid B * H * ceil(N / BR), NTHREADS threads, SMEM_BYTES of dynamic shared
+// memory.  Maps: qs {D, N, B*H}, k {D, N, B*Hk}, bf16, boxes {64, 128, 1};
+// m, l [B*H, N] f32.
+__global__ void __launch_bounds__(NTHREADS, 1)
+h2o_stats_kernel(const __nv_bfloat16* __restrict__ qs,
+                 const __grid_constant__ CUtensorMap kmap,
                  const int* __restrict__ true_len, float* __restrict__ m_out,
-                 float* __restrict__ l_out, int H, int Hk, int N, int W,
-                 float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 ks[BT * LDS];
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int kv_row = b * Hk + h / (H / Hk);
-  const int pad = N - true_len[b];
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
+                 float* __restrict__ l_out, int B, int H, int Hk, int N,
+                 int W) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t k_full[STAGES], k_empty[STAGES];
+  uint8_t* ring = align1024(smem_raw);  // [STAGES][2][BT][128 B]
+
+  const int nqt = (N + BR - 1) / BR;
+  const Place p = place(true_len, B, H, nqt);
+  const int bh = p.b * H + p.h;
+  const int kv_row = p.b * Hk + p.h / (H / Hk);
+  const int pad = N - true_len[p.b];
+  const int r0 = p.t * BR;
+  const int r1 = min(r0 + BR, N) - 1;
   float* mb = m_out + (size_t)bh * N;
   float* lb = l_out + (size_t)bh * N;
-  if (q0 + BQ - 1 < pad) {  // padding rows only: pass 2 skips them
-    if (tid < BQ) {
-      mb[q0 + tid] = -FLT_MAX;
-      lb[q0 + tid] = 0.f;
+  if (r1 < pad) {  // padding rows only: nothing visible
+    if (threadIdx.x < BR && r0 + threadIdx.x < N) {
+      mb[r0 + threadIdx.x] = -FLT_MAX;
+      lb[r0 + threadIdx.x] = 0.f;
     }
     return;
   }
-  const __nv_bfloat16* kb = k + (size_t)kv_row * N * D;
-  const int r0 = q0 + warp * 16 + gid;  // fragment rows r0, r0 + 8
-  uint32_t qf[D / 16][4];
-  load_a<true>(qf, q + (size_t)bh * N * D, r0, tig, scale_log2);
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
+  const int kt_first = pad / BT;
+  const int ntiles = nqt - kt_first;  // every key tile to the end
 
-  for (int kt = pad / BT; kt < N / BT; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < BT * D / 8 / NTHREADS; ++i) {
-      const int idx = tid + i * NTHREADS;
-      const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-      *reinterpret_cast<uint4*>(&ks[r * LDS + c]) =
-          *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * D + c);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&k_full[i], 1);
+      mbar_init(&k_empty[i], NCONS);
     }
-    __syncthreads();
-    float s[BT / 8][4];
-    tile_dot(s, qf, ks, gid, tig);
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + ((e >> 1) << 3);
-        const int col = k0 + nt * 8 + tig * 2 + (e & 1);
-        const bool hid = col < pad || (row >= N - W && col >= N - W && col > row);
-        if (hid) s[nt][e] = -INFINITY;
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NCONS) {  // the producer warp: lane 0 fills the ring
+    if (threadIdx.x == NCONS) {
+      for (int i = 0; i < ntiles; ++i) {
+        const int st = i % STAGES;
+        if (i >= STAGES) mbar_wait(&k_empty[st], ((i / STAGES) - 1) & 1);
+        uint8_t* kd = ring + st * TILE_BYTES;
+        const int row = (kt_first + i) * BT;
+        mbar_expect(&k_full[st], TILE_BYTES);
+        tma_load_3d(kd, &kmap, 0, row, kv_row, &k_full[st]);
+        tma_load_3d(kd + HALF, &kmap, BOX, row, kv_row, &k_full[st]);
       }
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < BT / 8; ++nt)
-        mx = fmaxf(mx, fmaxf(s[nt][2 * i], s[nt][2 * i + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[i], mx);
-      const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
-      float rs = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < BT / 8; ++nt)
-        rs += exp2f(s[nt][2 * i] - m_use) + exp2f(s[nt][2 * i + 1] - m_use);
-      l[i] = l[i] * exp2f(m[i] - m_use) + rs;
-      m[i] = m_new;
-    }
+    return;
   }
+
+  const int cw = threadIdx.x / 128;  // consumer warpgroup: 64 rows
+  const int tid = threadIdx.x % 128;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row = r0 + cw * 64 + warp * 16 + (lane >> 2);
+  const int tig = lane & 3;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // per-thread partial row sums
+  auto process = [&](const float (&s)[32], int u) {
+    const int c0 = (kt_first + (u >> 1)) * BT;
+    const int cu = c0 + (u & 1) * 64;
+    if (stats_edge(c0, r0, r1, pad, N, W))
+      stats_unit<true>(s, m, l, cu, row, tig, pad, N, W);
+    else
+      stats_unit<false>(s, m, l, cu, row, tig, pad, N, W);
+  };
+  uint32_t a[32];
+  load_a(a, qs + (size_t)bh * N * D, row, N, tig);
+  walk(Walk{smem_addr(ring), k_full, k_empty, 2 * ntiles}, a, process);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    if (tig == 0) {
-      mb[r0 + 8 * i] = m[i] == -INFINITY ? -FLT_MAX : m[i];
-      lb[r0 + 8 * i] = l[i];
+    const int r = row + 8 * i;
+    if (tig == 0 && r < N) {  // a last q tile may be cut short by N
+      mb[r] = m[i] == -INFINITY ? -FLT_MAX : m[i];
+      lb[r] = l[i];
     }
   }
 }
 
-// Pass 2: grid (ceil((N - W) / BQ), B * H); scores [B*H, N - W].
-__global__ void __launch_bounds__(NTHREADS)
-h2o_colsum_kernel(const __nv_bfloat16* __restrict__ q,  // [B*H, N, D]
-                  const __nv_bfloat16* __restrict__ k,  // [B*Hk, N, D]
+// ---------------------------------------------------------------------------
+// Pass 2: column sums
+// ---------------------------------------------------------------------------
+
+// The exponent offset of query row r: m + log2(max(l, 1e-30)), m clamped at
+// float32.min / 2; float32.max (exp2 gives 0) where `hide`.
+__device__ __forceinline__ float exp_offset(float m, float l, bool hide) {
+  float lg;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(lg) : "f"(fmaxf(l, 1e-30f)));
+  return hide ? FLT_MAX : fmaxf(m, -FLT_MAX / 2) + lg;
+}
+
+// m and l of the 4 query rows from r (N % 64 == 0: all 4 below N or none;
+// rows past N read nothing and are hidden).
+__device__ __forceinline__ void load_rows(const float* mb, const float* lb,
+                                          int r, int N, float4& mv,
+                                          float4& lv) {
+  if (r < N) {
+    mv = *reinterpret_cast<const float4*>(mb + r);
+    lv = *reinterpret_cast<const float4*>(lb + r);
+  } else {
+    mv = lv = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Expect `bytes` more on the mbarrier's current phase, without arriving.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// grid B * H * ceil((N - W) / BR), NTHREADS threads, SMEM_BYTES of dynamic
+// shared memory.  Maps as the stats kernel's; m, l [B*H, N] f32 from it;
+// out [B*H, N - W] f32.
+__global__ void __launch_bounds__(NTHREADS, 1)
+h2o_colsum_kernel(const __grid_constant__ CUtensorMap qmap,
+                  const __nv_bfloat16* __restrict__ k,
                   const int* __restrict__ true_len,
-                  const float* __restrict__ m_in,       // [B*H, N]
-                  const float* __restrict__ l_in,
-                  float* __restrict__ out,              // [B*H, N - W]
-                  int H, int Hk, int N, int W, float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 qs[BT * LDS];
-  __shared__ float ms[BT], il[BT];
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int kv_row = b * Hk + h / (H / Hk);
-  const int pad = N - true_len[b];
-  const int c0 = blockIdx.x * BQ;  // first key (column) of the block
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
+                  const float* __restrict__ m_in,
+                  const float* __restrict__ l_in, float* __restrict__ out,
+                  int B, int H, int Hk, int N, int W) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t q_full[STAGES], q_empty[STAGES];
+  uint8_t* ring = align1024(smem_raw);  // [STAGES][2][BT][128 B]
+  float* offs = reinterpret_cast<float*>(ring + STAGES * TILE_BYTES);
+
   const int nout = N - W;
+  const Place p = place(true_len, B, H, (nout + BR - 1) / BR);
+  const int bh = p.b * H + p.h;
+  const int kv_row = p.b * Hk + p.h / (H / Hk);
+  const int pad = N - true_len[p.b];
+  const int c0 = p.t * BR;  // the block's first key (column)
   float* ob = out + (size_t)bh * nout;
-  if (c0 + BQ - 1 < pad) {  // padding columns only
-    if (tid < BQ && c0 + tid < nout) ob[c0 + tid] = -INFINITY;
+  if (min(c0 + BR, nout) <= pad) {  // padding columns only
+    if (threadIdx.x < BR && c0 + threadIdx.x < nout)
+      ob[c0 + threadIdx.x] = -INFINITY;
     return;
   }
-  const __nv_bfloat16* qb = q + (size_t)bh * N * D;
-  const float* mb = m_in + (size_t)bh * N;
-  const float* lb = l_in + (size_t)bh * N;
-  const int r0 = c0 + warp * 16 + gid;  // this thread's keys r0, r0 + 8
-  uint32_t kf[D / 16][4];
-  load_a<false>(kf, k + (size_t)kv_row * N * D, r0, tig, 0.f);
-  float cs[2] = {0.f, 0.f};
+  const int qt_first = pad / BT;
+  const int ntiles = (N + BT - 1) / BT - qt_first;
 
-  for (int qt = pad / BT; qt < N / BT; ++qt) {
-    const int t0 = qt * BT;
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < BT * D / 2 / NTHREADS; ++i) {
-      const int idx = tid + i * NTHREADS;
-      const int r = idx / (D / 2), c = (idx % (D / 2)) * 2;
-      *reinterpret_cast<uint32_t*>(&qs[r * LDS + c]) =
-          load_scaled2(qb + (size_t)(t0 + r) * D + c, scale_log2);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&q_full[i], 32);  // the producer warp's lanes
+      mbar_init(&q_empty[i], NCONS);
     }
-    if (tid < BT) {
-      const int row = t0 + tid;
-      // padding rows add nothing: exp2(s - FLT_MAX) = 0, times 0
-      ms[tid] = row >= pad ? fmaxf(mb[row], -FLT_MAX / 2) : FLT_MAX;
-      il[tid] = row >= pad ? 1.f / fmaxf(lb[row], 1e-30f) : 0.f;
-    }
-    __syncthreads();
-    float s[BT / 8][4];
-    tile_dot(s, kf, qs, gid, tig);
-#pragma unroll
-    for (int nt = 0; nt < BT / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = nt * 8 + tig * 2 + (e & 1);  // query in the tile
-        cs[e >> 1] += exp2f(s[nt][e] - ms[j]) * il[j];
-      }
-    }
+    mbar_fence_init();
   }
+  __syncthreads();
+
+  if (threadIdx.x >= NCONS) {
+    // the producer warp: lane 0 copies the block's keys once and each
+    // query tile; every lane writes 4 of the tile's exponent offsets, from
+    // m and l loaded a tile ahead (their latency hides behind the wait for
+    // a free stage)
+    const int lane = threadIdx.x - NCONS;
+    const float* mb = m_in + (size_t)bh * N;
+    const float* lb = l_in + (size_t)bh * N;
+    float4 mv, lv;
+    load_rows(mb, lb, qt_first * BT + lane * 4, N, mv, lv);
+    for (int i = 0; i < ntiles; ++i) {
+      const int st = i % STAGES;
+      const int t0 = (qt_first + i) * BT;
+      float4 mn, ln;
+      load_rows(mb, lb, t0 + BT + lane * 4, N, mn, ln);
+      if (i >= STAGES) mbar_wait(&q_empty[st], ((i / STAGES) - 1) & 1);
+      if (lane == 0) {
+        uint8_t* qd = ring + st * TILE_BYTES;
+        mbar_expect_tx(&q_full[st], TILE_BYTES);
+        tma_load_3d(qd, &qmap, 0, t0, bh, &q_full[st]);
+        tma_load_3d(qd + HALF, &qmap, BOX, t0, bh, &q_full[st]);
+      }
+      // only the tile holding the pad edge or cut short by N masks rows
+      const bool edge = t0 < pad || t0 + BT > N;
+      const int r = t0 + lane * 4;
+      *reinterpret_cast<float4*>(offs + st * BT + lane * 4) = make_float4(
+          exp_offset(mv.x, lv.x, edge && (r < pad || r >= N)),
+          exp_offset(mv.y, lv.y, edge && (r + 1 < pad || r + 1 >= N)),
+          exp_offset(mv.z, lv.z, edge && (r + 2 < pad || r + 2 >= N)),
+          exp_offset(mv.w, lv.w, edge && (r + 3 < pad || r + 3 >= N)));
+      mbar_arrive(&q_full[st]);
+      mv = mn;
+      lv = ln;
+    }
+    return;
+  }
+
+  const int cw = threadIdx.x / 128;  // consumer warpgroup: 64 keys
+  const int tid = threadIdx.x % 128;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int tig = lane & 3;
+  float cs[2] = {0.f, 0.f};
+  // this thread's two keys gain exp2(s - offset) over its 16 queries of the
+  // unit (8j + 2 tig + {0, 1} from 64 (u % 2)), in a fixed order
+  auto process = [&](const float (&s)[32], int u) {
+    const float* off =
+        offs + ((u >> 1) % STAGES) * BT + (u & 1) * 64 + tig * 2;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 o = *reinterpret_cast<const float2*>(off + j * 8);
+      cs[0] += ex2(s[4 * j] - o.x) + ex2(s[4 * j + 1] - o.y);
+      cs[1] += ex2(s[4 * j + 2] - o.x) + ex2(s[4 * j + 3] - o.y);
+    }
+  };
+  const int key = c0 + cw * 64 + warp * 16 + (lane >> 2);
+  uint32_t a[32];
+  load_a(a, k + (size_t)kv_row * N * D, key, N, tig);
+  walk(Walk{smem_addr(ring), q_full, q_empty, 2 * ntiles}, a, process);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     cs[i] += __shfl_xor_sync(0xffffffffu, cs[i], 1);
     cs[i] += __shfl_xor_sync(0xffffffffu, cs[i], 2);
-    const int col = r0 + 8 * i;
-    if (tig == 0 && col < nout) ob[col] = col >= pad ? cs[i] : -INFINITY;
+    const int c = key + 8 * i;
+    if (tig == 0 && c < nout) ob[c] = c >= pad ? cs[i] : -INFINITY;
   }
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, bool& done) {
+  if (done) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  done = e == cudaSuccess;
+  return (int)e;
 }
 
 }  // namespace
 
-// scale_log2: log2(e) / sqrt(D), folded into q (rounded to bf16) by both.
-extern "C" int pkv_h2o_stats(const void* q, const void* k, const void* true_len,
-                             void* m, void* l, int B, int H, int Hk, int N,
-                             int W, float scale_log2, void* stream) {
-  h2o_stats_kernel<<<dim3(N / BQ, B * H), NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const int*)true_len,
-      (float*)m, (float*)l, H, Hk, N, W, scale_log2);
+// qs: the query times log2(e)/sqrt(D), rounded to bf16 [B*H, N, D]; k
+// [B*Hk, N, D] bf16; true_len [B] int32; m, l [B*H, N] f32 out.
+extern "C" int pkv_h2o_stats(const void* qs, const void* k,
+                             const void* true_len, void* m, void* l, int B,
+                             int H, int Hk, int N, int W, void* stream) {
+  CUtensorMap km;
+  if (!make_map(&km, k, N, B * Hk, N, BT)) return (int)cudaErrorInvalidValue;
+  static bool attr = false;
+  if (const int e = set_smem(h2o_stats_kernel, attr)) return e;
+  h2o_stats_kernel<<<B * H * ((N + BR - 1) / BR), NTHREADS, SMEM_BYTES,
+                     (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)qs, km, (const int*)true_len, (float*)m,
+      (float*)l, B, H, Hk, N, W);
   return (int)cudaGetLastError();
 }
 
-extern "C" int pkv_h2o_colsum(const void* q, const void* k,
+// Arguments as pkv_h2o_stats's, m and l its output; out [B*H, N - W] f32.
+extern "C" int pkv_h2o_colsum(const void* qs, const void* k,
                               const void* true_len, const void* m,
                               const void* l, void* out, int B, int H, int Hk,
-                              int N, int W, float scale_log2, void* stream) {
-  dim3 grid((N - W + BQ - 1) / BQ, B * H);
-  h2o_colsum_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const int*)true_len,
-      (const float*)m, (const float*)l, (float*)out, H, Hk, N, W, scale_log2);
+                              int N, int W, void* stream) {
+  CUtensorMap qm;
+  if (!make_map(&qm, qs, N, B * H, N, BT)) return (int)cudaErrorInvalidValue;
+  static bool attr = false;
+  if (const int e = set_smem(h2o_colsum_kernel, attr)) return e;
+  h2o_colsum_kernel<<<B * H * ((N - W + BR - 1) / BR), NTHREADS, SMEM_BYTES,
+                      (cudaStream_t)stream>>>(
+      qm, (const __nv_bfloat16*)k, (const int*)true_len, (const float*)m,
+      (const float*)l, (float*)out, B, H, Hk, N, W);
   return (int)cudaGetLastError();
 }

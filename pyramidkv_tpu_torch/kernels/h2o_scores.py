@@ -8,6 +8,15 @@ held.  :func:`h2o_scores` runs both.  On a CUDA tensor each wrapper launches
 its hand-written sm_90a kernel; on a CPU tensor it runs the plain version
 (``ops.scoring.h2o_row_stats``, ``h2o_colsum``, and for the whole score
 ``ops.scoring.h2o_scores``).
+
+Both kernels read the query pre-scaled: q times log2(e)/sqrt(D), rounded
+to bf16 (:func:`scaled_query`, the TPU wrapper's ``qr``).  Each wrapper
+computes it for itself; :func:`h2o_scores` once for both passes.
+
+:func:`h2o_tile_plan` mirrors the tiles each kernel's blocks visit and
+which of them they mask, and :func:`h2o_tiled_plain` runs both kernels'
+schedule in plain PyTorch (the CPU tests hold it to the plain versions and
+to the Pallas kernels).
 """
 
 from __future__ import annotations
@@ -19,9 +28,14 @@ import torch
 from ..ops import scoring
 from . import _build
 
-#: rows per block and tile width of the CUDA kernels
+#: the kernels' granularity: N is a multiple of it
 TILE = 64
 HEAD_DIM = 128
+#: rows a block owns and rows of a tile of the walked axis (stats: queries,
+#: then keys; colsum: keys, then queries)
+BLOCK = 128
+_NEG = torch.finfo(torch.float32).min
+_MAX = torch.finfo(torch.float32).max
 
 
 def _check(q, k, window_size, true_len):
@@ -39,18 +53,57 @@ def _check(q, k, window_size, true_len):
     if d != HEAD_DIM or n % TILE or not 0 <= window_size < n:
         raise ValueError(f"kernel takes D == {HEAD_DIM}, N % {TILE} == 0 and "
                          f"0 <= W < N; got D={d} N={n} W={window_size}")
+    if any(t.data_ptr() % 16 for t in (q, k)):
+        raise ValueError("q and k must start 16-byte aligned (the copy "
+                         "engine's tensor maps)")
     tl = true_len.to(device=q.device, dtype=torch.int32).contiguous()
     if tl.shape != (b,):
         raise ValueError(f"true_len must be [{b}], got {tuple(tl.shape)}")
     return tl
 
 
-def _args(q, k, window_size):
-    """The C entries' trailing arguments: B, H, Hk, N, W, the base-2 scale
-    log2(e)/sqrt(D) and the stream."""
-    b, h, n, d = q.shape
-    return (b, h, k.shape[1], n, window_size, math.log2(math.e) / math.sqrt(d),
-            torch.cuda.current_stream(q.device).cuda_stream)
+def scaled_query(q: torch.Tensor) -> torch.Tensor:
+    """q times log2(e)/sqrt(D), rounded to q's dtype (an f32 product rounded
+    to nearest even: the TPU wrapper's ``qr``, the plain versions' logits'
+    query)."""
+    return q * (math.log2(math.e) / math.sqrt(q.shape[-1]))
+
+
+def _args(qs, k, window_size):
+    """The C entries' trailing arguments: B, H, Hk, N, W and the stream."""
+    b, h, n, _ = qs.shape
+    return (b, h, k.shape[1], n, window_size,
+            torch.cuda.current_stream(qs.device).cuda_stream)
+
+
+def _stats(qs, k, tl, window_size):
+    b, h, n, _ = qs.shape
+    m = torch.empty((b, h, n), dtype=torch.float32, device=qs.device)
+    l = torch.empty_like(m)
+    err = _build.library("h2o_scores").pkv_h2o_stats(
+        qs.data_ptr(), k.data_ptr(), tl.data_ptr(), m.data_ptr(),
+        l.data_ptr(), *_args(qs, k, window_size))
+    _build.check(err, "h2o_stats")
+    h2o_row_stats.launches += 1
+    return m, l
+
+
+def _colsum(qs, k, tl, m, l, window_size):
+    b, h, n, _ = qs.shape
+    for name, t in (("m", m), ("l", l)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (b, h, n)
+                or not t.is_contiguous() or t.device != qs.device
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be contiguous float32 {(b, h, n)} "
+                             f"on {qs.device}, 16-byte aligned")
+    out = torch.empty((b, h, n - window_size), dtype=torch.float32,
+                      device=qs.device)
+    err = _build.library("h2o_scores").pkv_h2o_colsum(
+        qs.data_ptr(), k.data_ptr(), tl.data_ptr(), m.data_ptr(),
+        l.data_ptr(), out.data_ptr(), *_args(qs, k, window_size))
+    _build.check(err, "h2o_colsum")
+    h2o_colsum.launches += 1
+    return out
 
 
 def h2o_row_stats(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
@@ -62,15 +115,7 @@ def h2o_row_stats(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
         return scoring.h2o_row_stats(q, k, window_size=window_size,
                                      true_len=true_len)
     tl = _check(q, k, window_size, true_len)
-    b, h, n, _ = q.shape
-    m = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    err = _build.library("h2o_scores").pkv_h2o_stats(
-        q.data_ptr(), k.data_ptr(), tl.data_ptr(), m.data_ptr(), l.data_ptr(),
-        *_args(q, k, window_size))
-    _build.check(err, "h2o_stats")
-    h2o_row_stats.launches += 1
-    return m, l
+    return _stats(scaled_query(q), k, tl, window_size)
 
 
 def h2o_colsum(q: torch.Tensor, k: torch.Tensor, m: torch.Tensor,
@@ -82,19 +127,7 @@ def h2o_colsum(q: torch.Tensor, k: torch.Tensor, m: torch.Tensor,
         return scoring.h2o_colsum(q, k, m, l, window_size=window_size,
                                   true_len=true_len)
     tl = _check(q, k, window_size, true_len)
-    b, h, n, _ = q.shape
-    for name, t in (("m", m), ("l", l)):
-        if (t.dtype != torch.float32 or tuple(t.shape) != (b, h, n)
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous float32 {(b, h, n)}")
-    out = torch.empty((b, h, n - window_size), dtype=torch.float32,
-                      device=q.device)
-    err = _build.library("h2o_scores").pkv_h2o_colsum(
-        q.data_ptr(), k.data_ptr(), tl.data_ptr(), m.data_ptr(), l.data_ptr(),
-        out.data_ptr(), *_args(q, k, window_size))
-    _build.check(err, "h2o_colsum")
-    h2o_colsum.launches += 1
-    return out
+    return _colsum(scaled_query(q), k, tl, m, l, window_size)
 
 
 def h2o_scores(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
@@ -105,8 +138,147 @@ def h2o_scores(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
     if q.device.type == "cpu":
         return scoring.h2o_scores(q, k, window_size=window_size,
                                   true_len=true_len)
-    m, l = h2o_row_stats(q, k, window_size=window_size, true_len=true_len)
-    return h2o_colsum(q, k, m, l, window_size=window_size, true_len=true_len)
+    tl = _check(q, k, window_size, true_len)
+    qs = scaled_query(q)
+    m, l = _stats(qs, k, tl, window_size)
+    return _colsum(qs, k, tl, m, l, window_size)
+
+
+def h2o_tile_plan(n: int, true_len: int, w: int, tile: int = BLOCK):
+    """The tiles each block of the two kernels visits, for one batch row of
+    ``true_len`` tokens in a buffer of n (pad = n - true_len), window w.
+
+    A pair (row r, column c) is visible when r >= pad, c >= pad and not
+    (r >= n - w and c > r): the causal part of the trailing W x W block
+    (c > r >= n - w puts c there too).
+
+    - ``"stats"``: one entry per q tile t (rows [t * tile, min(t * tile +
+      tile, n))): a q tile made wholly of padding visits nothing; any other
+      visits every key tile from floor(pad / tile) to the last.  A key tile
+      is an edge tile, masked elementwise, when it holds a masked pair of
+      the q tile's rows: it holds the pad edge, the q tile straddles the
+      pad, it is cut short by n (its columns past n), or it meets the
+      W x W block's causal part.
+    - ``"colsum"``: one entry per column block (keys [c * tile, min(c *
+      tile + tile, n - w)) are written): a block of padding columns only
+      visits nothing; any other visits every query tile from floor(pad /
+      tile) to the last.  A query tile is an edge tile, with its hidden rows
+      masked, when it holds the pad edge or is cut short by n; columns
+      below n - w never meet the W x W block, and those below the pad are
+      written as -inf.
+
+    Returns {"stats": [(range of key tiles, [edge flag per tile]), ...],
+    "colsum": [(range of query tiles, [edge flags]), ...]}."""
+    pad = n - true_len
+    nt = -(-n // tile)
+    stats = []
+    for t in range(nt):
+        r0, r1 = t * tile, min(t * tile + tile, n) - 1
+        if r1 < pad:
+            stats.append((range(0), []))
+            continue
+        tiles = range(pad // tile, nt)
+        rb = max(r0, n - w)  # the first of the rows in the W x W block
+
+        def edge(kt):
+            c0 = kt * tile
+            c1 = min(c0 + tile, n) - 1
+            return (r0 < pad or c0 < pad or c0 + tile > n
+                    or (rb <= r1 and c1 > rb))
+        stats.append((tiles, [edge(kt) for kt in tiles]))
+    colsum = []
+    for c in range(-(-(n - w) // tile)):
+        if min(c * tile + tile, n - w) <= pad:
+            colsum.append((range(0), []))
+            continue
+        tiles = range(pad // tile, nt)
+        colsum.append((tiles, [qt * tile < pad or qt * tile + tile > n
+                               for qt in tiles]))
+    return {"stats": stats, "colsum": colsum}
+
+
+def h2o_tiled_plain(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
+                    true_len: torch.Tensor):
+    """Both kernels' schedule in plain PyTorch: q [B, H, N, D], k [B, Hk, N,
+    D] -> (m, l) [B, H, N] and the scores [B, H, N - W], f32.
+
+    The query is scaled by log2(e)/sqrt(D) and rounded to q's dtype (in f32
+    nothing is rounded); logits are f32 products.  Stats: each q tile of
+    :func:`h2o_tile_plan` walks its key tiles, masks only the edge tiles
+    (to -inf), and keeps the base-2 online max and exp2-sum 64 keys at a
+    time (the kernel's units: a tile's two halves);
+    a row with nothing visible (padding) gets m = float32.min, l = 0.
+    Colsum: each column block walks its query tiles; a query's exponent
+    offset is m + log2(max(l, 1e-30)) (m clamped at float32.min / 2), a
+    hidden row's (an edge tile's rows below the pad or past n) float32.max;
+    the kernel's thread holding key c sums exp2(s - offset) over queries j
+    * 8 + 2 lane + {0, 1} of each tile (lane 0-3, j = 0..15, pairs first),
+    one partial sum per lane across every tile in order, then (lane 0 +
+    lane 1) + (lane 2 + lane 3); -inf at padding columns."""
+    b, h, n, d = q.shape
+    hk = k.shape[1]
+    g = h // hk
+    w = window_size
+    bt = BLOCK
+    qs = scaled_query(q).float()
+    kf = k.float()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, n), -math.inf, **f32)
+    l = torch.zeros((b, h, n), **f32)
+    scores = torch.full((b, h, n - w), -math.inf, **f32)
+    for bi in range(b):
+        pad = n - int(true_len[bi])
+        plan = h2o_tile_plan(n, int(true_len[bi]), w, bt)
+        qb = qs[bi].reshape(hk, g, n, d)
+        for t, (tiles, edges) in enumerate(plan["stats"]):
+            r0, r1 = t * bt, min(t * bt + bt, n)
+            rows = torch.arange(r0, r1, device=q.device)[:, None]
+            mt = m[bi, :, r0:r1].reshape(hk, g, -1)
+            lt = l[bi, :, r0:r1].reshape(hk, g, -1)
+            for kt, edge in zip(tiles, edges):
+                # the tile's two 64-key units, the kernel's online steps
+                for c0 in range(kt * bt, min(kt * bt + bt, n), bt // 2):
+                    c1 = min(c0 + bt // 2, n)
+                    s = torch.matmul(qb[:, :, r0:r1], kf[bi, :, None, c0:c1]
+                                     .transpose(-1, -2))
+                    if edge:
+                        cols = torch.arange(c0, c1, device=q.device)[None, :]
+                        hid = ((torch.minimum(rows, cols) < pad)
+                               | ((rows >= n - w) & (cols > rows)))
+                        s = s.masked_fill(hid, -math.inf)
+                    m_new = torch.maximum(mt, s.amax(-1))
+                    m_use = torch.where(m_new == -math.inf, 0.0, m_new)
+                    lt.mul_(torch.exp2(mt - m_use)).add_(
+                        torch.exp2(s - m_use[..., None]).sum(-1))
+                    mt.copy_(m_new)
+        m[bi] = torch.where(m[bi] == -math.inf, _NEG, m[bi])
+        off = m[bi].clamp_min(_NEG / 2) + torch.log2(l[bi].clamp_min(1e-30))
+        off = torch.cat([off, torch.full((h, bt), _MAX, **f32)], -1)
+        for c, (tiles, edges) in enumerate(plan["colsum"]):
+            if not tiles:
+                continue
+            c0, c1 = c * bt, min(c * bt + bt, n - w)
+            kb = kf[bi, :, None, c0:c1]  # [hk, 1, cols, d]
+            lanes = torch.zeros((h, c1 - c0, 4), **f32)
+            for qt, edge in zip(tiles, edges):
+                t0, t1 = qt * bt, min(qt * bt + bt, n)
+                o = off[:, t0:t0 + bt].clone()
+                if edge:
+                    r = torch.arange(t0, t0 + bt, device=q.device)
+                    o[:, (r < pad) | (r >= n)] = _MAX
+                s = torch.matmul(kb, qb[:, :, t0:t1].transpose(-1, -2))
+                s = torch.nn.functional.pad(s.reshape(h, c1 - c0, -1),
+                                            (0, bt - (t1 - t0)))
+                p = torch.exp2(s - o[:, None, :]).reshape(h, c1 - c0, 16, 4,
+                                                          2)
+                pairs = p[..., 0] + p[..., 1]  # [h, cols, j, lane]
+                for j in range(16):
+                    lanes += pairs[:, :, j]
+            cs = (lanes[..., 0] + lanes[..., 1]) + (lanes[..., 2]
+                                                    + lanes[..., 3])
+            cols = torch.arange(c0, c1, device=q.device)
+            scores[bi, :, c0:c1] = torch.where(cols >= pad, cs, -math.inf)
+    return m, l, scores
 
 
 #: kernel launches since the last reset (CPU calls do not count)

@@ -5,7 +5,8 @@
 
 EDITS.json maps a variant's name to a list of [old, new] text edits of
 ``pyramidkv_tpu_torch/csrc/flash_prefill.cu`` (each ``old`` must occur once;
-an empty list is the source as it is).  Each variant is built with the
+an empty list is the source as it is) or to the path of another source,
+from the repository's root.  Each variant is built with the
 package's nvcc flags in its own directory (all at once), and its ptxas
 registers and spills are printed for the one-pass / partials kernel
 (``flash_wgmma_kernel``); with ``--sass`` also its highest register and its
@@ -38,8 +39,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def sass_stats(lib_path: str) -> dict:
-    """Highest register and local loads/stores of the wgmma kernel's SASS."""
+def sass_stats(lib_path: str, kernel: str = "flash_wgmma_kernel") -> dict:
+    """Highest register and local loads/stores of the SASS of each function
+    whose name holds ``kernel``."""
     from pyramidkv_tpu_torch.kernels import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -47,13 +49,70 @@ def sass_stats(lib_path: str) -> dict:
                           text=True, check=True).stdout
     out = {}
     for func in re.split(r"\n\s*Function : ", text)[1:]:
-        if "flash_wgmma_kernel" not in func.split("\n")[0]:
+        if kernel not in func.split("\n")[0]:
             continue
         out[func.split("\n")[0].strip()[:80]] = {
             "max_register": max(int(r) for r in re.findall(r"\bR(\d+)\b",
                                                            func)),
             "local_ld_st": len(re.findall(r"\b(?:STL|LDL)\b", func))}
     return out
+
+
+def build_variants(variants: dict, name: str, kernels: tuple, sass: bool,
+                   emit) -> dict:
+    """Build each variant of ``csrc/<name>.cu`` (a list of [old, new] text
+    edits, each ``old`` occurring once, or the path of another source from
+    the repository's root) with the package's nvcc flags, all at once, each
+    in its own copy of ``csrc``; emit its ptxas registers and spills (and,
+    with ``sass``, SASS register and local-memory counts) for the functions
+    whose names hold one of ``kernels``, and ptxas's notes; bind its entry
+    points as the package does.  Returns {variant: library}."""
+    import chip_smoke as cs
+    from pyramidkv_tpu_torch.kernels import _build
+
+    tmp = tempfile.mkdtemp()
+    procs = {}
+    for var, edits in variants.items():
+        d = os.path.join(tmp, var)
+        shutil.copytree(_build.CSRC, d)
+        path = os.path.join(d, f"{name}.cu")
+        if isinstance(edits, str):
+            shutil.copy(os.path.join(ROOT, edits), path)
+            edits = []
+        with open(path) as f:
+            src = f.read()
+        for old, new in edits:
+            if src.count(old) != 1:
+                raise ValueError(f"{var}: edit text occurs "
+                                 f"{src.count(old)} times: {old[:60]!r}")
+            src = src.replace(old, new)
+        with open(path, "w") as f:
+            f.write(src)
+        procs[var] = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+             os.path.join(d, "lib.so"), path], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for var, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            emit({"variant": var, "build_failed": log[-3000:]})
+            continue
+        so = os.path.join(tmp, var, "lib.so")
+        rec = {"variant": var, "ptxas": [
+            r for r in cs.ptxas_report(log)
+            if any(k in r.get("function", "") for k in kernels)
+            or "(C751" in r.get("warning", "")]}
+        if sass:
+            rec["sass"] = {k: v for kern in kernels
+                           for k, v in sass_stats(so, kern).items()}
+        emit(rec)
+        lib = ctypes.CDLL(so)
+        for symbol, argtypes in _build.ENTRY_POINTS[name]:
+            getattr(lib, symbol).argtypes = argtypes
+            getattr(lib, symbol).restype = ctypes.c_int
+        libs[var] = lib
+    return libs
 
 
 def main() -> int:
@@ -67,7 +126,6 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
-    from pyramidkv_tpu_torch.kernels import _build
 
     if not torch.cuda.is_available():
         print("port_flash_variants: no CUDA device", file=sys.stderr)
@@ -86,43 +144,8 @@ def main() -> int:
 
     with open(args.edits) as f:
         variants = json.load(f)
-    tmp = tempfile.mkdtemp()
-    procs = {}
-    for name, edits in variants.items():
-        d = os.path.join(tmp, name)
-        shutil.copytree(_build.CSRC, d)
-        path = os.path.join(d, "flash_prefill.cu")
-        with open(path) as f:
-            src = f.read()
-        for old, new in edits:
-            if src.count(old) != 1:
-                raise ValueError(f"{name}: edit text occurs "
-                                 f"{src.count(old)} times: {old[:60]!r}")
-            src = src.replace(old, new)
-        with open(path, "w") as f:
-            f.write(src)
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-             os.path.join(d, "lib.so"), path], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            emit({"variant": name, "build_failed": log[-3000:]})
-            continue
-        so = os.path.join(tmp, name, "lib.so")
-        rec = {"variant": name, "ptxas": [
-            r for r in cs.ptxas_report(log)
-            if "flash_wgmma_kernel" in r.get("function", "")]}
-        if args.sass:
-            rec["sass"] = sass_stats(so)
-        emit(rec)
-        lib = ctypes.CDLL(so)
-        for symbol, argtypes in _build.ENTRY_POINTS["flash_prefill"]:
-            getattr(lib, symbol).argtypes = argtypes
-            getattr(lib, symbol).restype = ctypes.c_int
-        libs[name] = lib
+    libs = build_variants(variants, "flash_prefill", ("flash_wgmma_kernel",),
+                          args.sass, emit)
 
     stream = torch.cuda.current_stream().cuda_stream
     sc = 1.0 / cs.D ** 0.5

@@ -4,7 +4,7 @@ block-sparse prefill kernels, the H2O kernels, the chunked prefill's flash
 kernels, the two-pass flash schedule and the split decode kernel, on a CUDA
 card.
 
-    python3 scripts/port_mutation_check.py [--log FILE]
+    python3 scripts/port_mutation_check.py [--only NAMES] [--log FILE]
 
 Copies ``pyramidkv_tpu_torch``, ``chip_smoke.py`` and
 ``configs/minference`` into a temporary directory once per mutant, breaks one CUDA source there, and runs the
@@ -28,8 +28,26 @@ non-zero if a mutant was not caught.  Mutants:
 - ``vertical_drop_last_chunk`` (``csrc/block_sparse_prefill.cu``): the
   vertical kernel stops before the last 64-column chunk that holds a valid
   column;
-- ``h2o_colsum_skip_last_q_tile`` (``csrc/h2o_scores.cu``): the colsum
-  kernel stops before the last 64-row query tile;
+- ``h2o_stats_pad_edge_interior`` / ``h2o_colsum_pad_edge_interior``
+  (``csrc/h2o_scores.cu``): the tile holding the pad edge counts as
+  interior in the stats kernel (its padding columns go unmasked) / the
+  colsum kernel (its padding rows, m = float32.min and l = 0, go unhidden);
+  each targets its kernel's checks with a pad inside a 128-row tile;
+- ``h2o_stats_no_causal_block``: the stats kernel drops the W x W block's
+  causal mask (targets the check whose W x W block spans two tiles; with
+  W = 8 a row gains at most 7 of thousands of terms);
+- ``h2o_colsum_padding_rows_counted``: colsum's producer leaves every
+  fourth padding row of the pad-edge tile unhidden (targets the checks
+  with a pad inside a tile);
+- ``h2o_stats_skip_last_key_tile`` / ``h2o_colsum_skip_last_q_tile``: the
+  stats kernel's blocks stop before their last key tile / the colsum
+  kernel's before their last query tile (unless it is their only one);
+- ``h2o_release_before_products`` (both kernels' shared walk): a consumer
+  releases a ring stage as soon as its tile has landed, before the
+  products that read it are issued, so the producer refills a stage that
+  wgmma may still read (and colsum's offsets beside it) (targets the 8k
+  and 32k checks: the short ones' blocks walk no more tiles than the ring
+  holds);
 - ``partials_drop_last_k_tile`` (``csrc/flash_prefill.cu``): the partials
   entry of the wgmma kernel skips the last key tile of every block (the
   self tile's diagonal, a history tile's last 128 keys);
@@ -107,6 +125,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join("pyramidkv_tpu_torch", "csrc")
 KIVI = ("quant_region.cuh", "phase_kv_quant_kernels")
 DECODE = ("decode_attn.cu", "phase_decode_kernels")
+H2O = ("h2o_scores.cu", "phase_h2o_chunk_kernels")
 
 
 def _group(r):
@@ -115,6 +134,11 @@ def _group(r):
 
 def _pa(r):
     return r["check"] == "quant_fused_attention_pa"
+
+
+def _pad_in_tile(r):
+    """An H2O check with a batch row whose pad lies inside a 128-row tile."""
+    return any((r["N"] - t) % 128 for t in r["true_len"])
 
 
 #: name -> (source, chip_smoke phase, targeted checks (None: all; a tuple
@@ -141,10 +165,37 @@ MUTANTS = {
         "  int vlast = 0;\n"
         "  for (int c = 0; c < Vs; ++c) if (vvalid[col_base + c]) vlast = c;\n"
         "  for (int c0 = 0; c0 < vlast / BK * BK; c0 += BK) {"),
+    "h2o_stats_pad_edge_interior": (
+        *H2O, lambda r: r["check"] == "h2o_row_stats" and _pad_in_tile(r),
+        "  return r0 < pad || c0 < pad || c0 + BT > N || (rb <= r1 && c1 > rb);",
+        "  return r0 < pad || c0 + BT > N || (rb <= r1 && c1 > rb);"),
+    "h2o_colsum_pad_edge_interior": (
+        *H2O, lambda r: r["check"] == "h2o_colsum" and _pad_in_tile(r),
+        "      const bool edge = t0 < pad || t0 + BT > N;",
+        "      const bool edge = t0 + BT > N;"),
+    "h2o_stats_no_causal_block": (
+        *H2O, lambda r: r["check"] == "h2o_row_stats" and r["W"] > 128,
+        "    return EDGE && (min(r, c) < pad || c >= N || (r >= N - W && c > r))",
+        "    return EDGE && (min(r, c) < pad || c >= N)"),
+    "h2o_colsum_padding_rows_counted": (
+        *H2O, lambda r: r["check"] == "h2o_colsum" and _pad_in_tile(r),
+        "          exp_offset(mv.x, lv.x, edge && (r < pad || r >= N)),",
+        "          exp_offset(mv.x, lv.x, edge && r >= N),"),
+    "h2o_stats_skip_last_key_tile": (
+        *H2O, ("h2o_row_stats",),
+        "  const int ntiles = nqt - kt_first;  // every key tile to the end",
+        "  const int ntiles = max(nqt - kt_first - 1, 1);"),
     "h2o_colsum_skip_last_q_tile": (
-        "h2o_scores.cu", "phase_h2o_chunk_kernels", ("h2o_colsum",),
-        "  for (int qt = pad / BT; qt < N / BT; ++qt) {",
-        "  for (int qt = pad / BT; qt < N / BT - 1; ++qt) {"),
+        *H2O, ("h2o_colsum",),
+        "  const int ntiles = (N + BT - 1) / BT - qt_first;",
+        "  const int ntiles = max((N + BT - 1) / BT - qt_first - 1, 1);"),
+    "h2o_release_before_products": (
+        *H2O, lambda r: r["case"] in ("8k", "32k"),
+        ("  if (!(u & 1)) mbar_wait(&w.full[st], (i / STAGES) & 1);",
+         "    mbar_arrive(&w.empty[(u >> 1) % STAGES]);  "
+         "// the tile is read\n"),
+        ("  if (!(u & 1)) {\n    mbar_wait(&w.full[st], (i / STAGES) & 1);\n"
+         "    mbar_arrive(&w.empty[st]);\n  }", "")),
     "partials_drop_last_k_tile": (
         "flash_prefill.cu", "phase_h2o_chunk_kernels",
         ("flash_attention_partials",),
@@ -256,7 +307,8 @@ def finite(x):
     return x if x == x else float("inf")  # NaN: not a finite output
 print(json.dumps([{**{k: r.get(k) for k in ("check", "case", "S", "nsplit",
                                             "kernels_per_call", "nbits",
-                                            "windows")},
+                                            "windows", "N", "W",
+                                            "true_len")},
                    "err_over_tol": finite(r["err_over_tol"])}
                   for r in recs if "err_over_tol" in r]))
 """
@@ -265,9 +317,13 @@ print(json.dumps([{**{k: r.get(k) for k in ("check", "case", "S", "nsplit",
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log", help="append the JSON result lines to this file")
+    ap.add_argument("--only", help="comma-separated prefixes: run only the "
+                    "mutants whose names start with one of them")
     args = ap.parse_args()
     failed = False
     for name, (source, phase, targets, old, new) in MUTANTS.items():
+        if args.only and not name.startswith(tuple(args.only.split(","))):
+            continue
         with tempfile.TemporaryDirectory() as tmp:
             shutil.copytree(os.path.join(ROOT, "pyramidkv_tpu_torch"),
                             os.path.join(tmp, "pyramidkv_tpu_torch"),
@@ -279,9 +335,13 @@ def main() -> int:
             path = os.path.join(tmp, CSRC, source)
             with open(path) as f:
                 src = f.read()
-            assert src.count(old) == 1, name
+            # old and new: one text edit, or tuples of several
+            for o, n in ([(old, new)] if isinstance(old, str)
+                         else zip(old, new)):
+                assert src.count(o) == 1, name
+                src = src.replace(o, n)
             with open(path, "w") as f:
-                f.write(src.replace(old, new))
+                f.write(src)
             res = subprocess.run([sys.executable, "-c", _RUN, phase],
                                  cwd=tmp, capture_output=True, text=True)
         if res.returncode != 0:
