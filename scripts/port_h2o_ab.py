@@ -8,7 +8,7 @@ H2O kernels, on one CUDA card.
 parent commit's (``pkv_h2o_stats`` / ``pkv_h2o_colsum`` taking the
 unscaled query and the scale log2(e)/sqrt(D)), for example
 ``git show HEAD~1:pyramidkv_tpu_torch/csrc/h2o_scores.cu`` written to a
-directory the chip tool copies.  The script builds the package's
+directory inside the repository.  The script builds the package's
 ``csrc/h2o_scores.cu`` ("new", which takes the pre-scaled query) and PATH
 ("other") with the package's nvcc flags, then times the prefill of runs
 (a) and (b) of ``chip_smoke.py`` (Llama-3-8B geometry, 32 layers, seeded
