@@ -44,8 +44,10 @@ Phases (any failure exits non-zero):
      bound;
  11. kv_quant_kernels: the KIVI region kernels (group layout whole and
      tiled, pa layout) against their plain versions on short ragged regions
-     (also with a wholly masked split, in a cluster and past one) and at
-     every KIVI run's region shape, timed, each call repeated bit for bit;
+     (also with a wholly masked split, in a cluster and past one; the pa
+     kernel at G = 8 kivi2 with 4 K groups and with V rows of 129 bytes and
+     splits ending inside a unit, tails of 37 and 1 slots) and at every
+     KIVI run's region shape, timed, each call repeated bit for bit;
      each group-layout shape also through the group kernel its route did
      not pick;
  12. engine_kv_quant: ``Engine.generate`` on a KIVI cache: bench.py's 32k
@@ -68,7 +70,10 @@ Phases (any failure exits non-zero):
      plain versions at the 8k batch and bench.py's 32k prompt and at short
      edge shapes (a pad inside a 128-row tile and on a tile boundary, a q
      tile made wholly of padding, N - W no multiple of 128, a W x W block
-     across two tiles), each called twice and held bitwise equal; untimed
+     across two tiles), each called twice and held bitwise equal; at the
+     8k and 32k shapes over 8 seeds, the top-k picks of the kernels, of a
+     plain version dividing by l and of one with the kernel's folded
+     exponent that stray from an f64 reference's (count_h2o_picks); untimed
      short shapes of the flash kernels (q_start on a carry longer than the
      chunk's keys, a last q tile of 64 rows; partials on a self and a
      history tile of N = 192 with a pad inside a key tile); flash with
@@ -85,9 +90,11 @@ Phases (any failure exits non-zero):
      stage times of the H2O 32k, chunked H2O 8k and chunked kivi4-pa 32k
      prefills;
  19. two_pass_kernels: the two-pass flash schedule's kernels (pass A's row
-     maxes, pass B against them, twice: bitwise equal) against their plain
-     versions on short shapes (N = 192, q_start, rows that are all
-     padding), at the 8k batch and bench.py's 32k prompt, timed beside the
+     maxes, pass B against them, each twice: bitwise equal) against their
+     plain versions on short shapes (N = 192, q_start, rows that are all
+     padding), on edge shapes of pass A's unit plan (sliding windows, a q
+     tile all padding, Nq = 192 at q_start with N % 128 = 64, G = 8 and 1),
+     at the 8k batch and bench.py's 32k prompt, timed beside the
      one-pass kernel and masked SDPA (KIVI group regions' factored kernel
      is checked in kv_quant_kernels, the route their runs take by
      default);
@@ -678,8 +685,10 @@ def region_plan_of(kind, dev, b, hk, w, nbits, kg):
     from pyramidkv_tpu_torch.kernels import quant_decode, quant_fused_decode
 
     if kind == "quant_fused_attention_pa":
-        return (quant_decode.pa_split_plan(dev, b * hk, w)[0],
-                quant_fused_decode.PA_KERNELS)
+        # K groups of kg slots: a plane holds whole ones (or one group)
+        return (quant_fused_decode.pa_split_plan(
+            dev, b * hk, w, kg if kg <= w else 0)[0],
+            quant_fused_decode.PA_KERNELS)
     nsplit = (1 if kind == "quant_decode_attention"
               else quant_decode.split_plan(dev, b * hk, w, nbits, kg)[0])
     return nsplit, quant_decode.region_kernels(nsplit)
@@ -997,8 +1006,8 @@ def phase_profile(torch, dev, params, vocab, method="snapkv", steps=8,
               for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
         top = sorted(ev, key=lambda x: -x[1])[:10]
-        mm_us = sum(t for k, t, _ in ev
-                    if "mm_kernel" in k or "finish_kernel" in k)
+        mm_us = sum(t for k, t, _ in ev if "pkvq::" not in k and (
+            "mm_kernel" in k or "finish_kernel" in k))
         region_us = sum(t for k, t, _ in ev if "pkvq::" in k)
         # the bf16 decode kernel: its split and merge kernels
         attn_us = sum(t for k, t, _ in ev if "pkvq::" not in k and (
@@ -1305,6 +1314,19 @@ def phase_kv_quant_kernels(torch, F, dev):
     for kind, b, hk, grp, s, nbits, gs, t_len in short:
         r, _ = check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs,
                             False, seed, "short", t_len)
+        ok &= r
+        seed += 1
+    # edge shapes of the pa kernel (untimed): G = 8 with 2-bit codes and 4
+    # K groups (the chunked carry; the earlier kernel refused it), a tail
+    # of 37; V rows of 129 bytes (V group size 3: staged byte by byte) with
+    # splits ending inside a 16-row unit, a tail of 1
+    for label, b, hk, grp, s, nbits, gs, t_len, k_chunk in (
+            ("edge: G=8 kivi2, 4 K groups", 1, 2, 8, 1024, 2, 64, 37, 256),
+            ("edge: V rows of 129 bytes, splits ending mid-unit", 2, 3, 4,
+             1001, 4, 3, 1, None)):
+        r, _ = check_region(torch, F, dev, "quant_fused_attention_pa", b, hk,
+                            grp, s, nbits, gs, False, seed, label, t_len,
+                            k_chunk=k_chunk)
         ok &= r
         seed += 1
     # a wholly masked split: split 1 of the 8k batch's 2-split clusters,
@@ -2079,6 +2101,98 @@ def check_h2o(torch, dev, case, seed):
     return ok, {"stats": stats, "colsum": colsum}
 
 
+def h2o_scores_f64(torch, q, k, w, tl, rows=64):
+    """H2O scores in f64 from the kernels' inputs (q times log2(e)/sqrt(D)
+    rounded to bf16, as both kernels and the plain versions take it), each
+    row's probabilities divided by its l: the reference the picks are
+    counted against.  -> [B, H, N - W] f64, -inf at padding columns."""
+    from pyramidkv_tpu_torch.ops import scoring
+
+    b, h, n, d = q.shape
+    hk = k.shape[1]
+    colv = scoring._column_valid(n, tl)
+    acc = torch.zeros((b, h, n - w), dtype=torch.float64, device=q.device)
+    kd = k.double().transpose(-1, -2)
+    for r0 in range(0, n, rows):
+        qs = (q[:, :, r0:r0 + rows].float() * (math.log2(math.e)
+                                                / math.sqrt(d))).to(
+            q.dtype).double().reshape(b, hk, h // hk * rows, d)
+        s = torch.matmul(qs, kd).reshape(b, h, rows, n).masked_fill(
+            scoring._h2o_hidden(r0, rows, n, w, colv)[:, None], -math.inf)
+        p = torch.exp2(s - s.amax(-1, keepdim=True))
+        p = p / p.sum(-1, keepdim=True)  # padding rows: NaN, dropped below
+        acc += torch.where(colv[:, None, r0:r0 + rows, None], p,
+                           0.0)[..., :n - w].sum(2)
+        del s, p
+    return acc.masked_fill(~colv[:, None, :n - w], -math.inf)
+
+
+def h2o_colsum_folded(torch, q, k, m, l, w, tl, rows=512):
+    """The plain colsum with the kernel's folded exponent: sum over the
+    valid rows of exp2(s - (max(m, float32.min / 2) + log2(max(l,
+    1e-30)))), f32, instead of exp2(s - m) / l."""
+    from pyramidkv_tpu_torch.ops import scoring
+
+    b, h, n, _ = q.shape
+    rows = scoring._row_block(rows, b * h * n, n)
+    colv = scoring._column_valid(n, tl)
+    acc = torch.zeros((b, h, n - w), dtype=torch.float32, device=q.device)
+    off = (m.clamp_min(-3.4e38 / 2) + torch.log2(l.clamp_min(1e-30)))
+    for r0 in range(0, n, rows):
+        s = scoring._h2o_logits2(q, k, r0, rows)[..., :n - w]
+        p = torch.exp2(s - off[..., r0:r0 + rows, None])
+        acc += p.masked_fill(~colv[:, None, r0:r0 + rows, None], 0.0).sum(2)
+    return acc.masked_fill(~colv[:, None, :n - w], -math.inf)
+
+
+def count_h2o_picks(torch, dev, case, seeds=8):
+    """How far the H2O kernels' top-k picks stray from an f64 reference
+    (``h2o_scores_f64``) at an engine shape, over ``seeds`` random inputs,
+    beside two plain f32 versions: one dividing by l (JAX's
+    ``_colsum_kernel``, ``ops.scoring.h2o_scores``) and one with the
+    kernel's folded exponent (``h2o_colsum_folded``).  For each: the picks
+    not in the reference's top-k, and the largest gap of such a pick below
+    the reference's k-th score, relative to it (a near-tie is a small
+    gap).  Logs one record; returns it."""
+    from pyramidkv_tpu_torch import kernels
+    from pyramidkv_tpu_torch.ops import scoring
+
+    b, h, hk, n, true_len, w, width, _ = H2O_CASES[case]
+    kk = min(width, n - w)
+    tl = torch.tensor(true_len, dtype=torch.int32, device=dev)
+    kw = dict(window_size=w, true_len=tl)
+    out = {name: {"differing": 0, "max_rel_gap": 0.0}
+           for name in ("kernels", "plain_divide", "plain_folded")}
+    for seed in range(seeds):
+        g = torch.Generator(device=dev).manual_seed(700 + seed)
+        q, k = _rand_bf16(torch, g, dev, b, h, n, D), _rand_bf16(
+            torch, g, dev, b, hk, n, D)
+        ref = h2o_scores_f64(torch, q, k, w, tl)
+        top_r = torch.topk(ref, kk, dim=-1).values
+        kth = top_r[..., -1:]
+        pm, pl = scoring.h2o_row_stats(q, k, **kw)
+        for name, sc in (
+                ("kernels", kernels.h2o_scores(q, k, **kw)),
+                ("plain_divide", scoring.h2o_scores(q, k, **kw)),
+                ("plain_folded", h2o_colsum_folded(torch, q, k, pm, pl, w,
+                                                   tl))):
+            pick = torch.topk(sc, kk, dim=-1).indices
+            in_ref = torch.zeros_like(ref, dtype=torch.bool).scatter_(
+                -1, torch.topk(ref, kk, dim=-1).indices, True)
+            stray = ~torch.gather(in_ref, -1, pick)
+            gap = ((kth - torch.gather(ref, -1, pick)) / kth.abs()).float()
+            out[name]["differing"] += int(stray.sum())
+            if bool(stray.any()):
+                out[name]["max_rel_gap"] = max(out[name]["max_rel_gap"],
+                                               float(gap[stray].max()))
+        del q, k, ref
+        torch.cuda.empty_cache()
+    rec = {"check": "h2o_topk_picks", "case": case, "seeds": seeds,
+           "picks": seeds * b * h * kk, "width": kk, **out}
+    log(rec)
+    return rec
+
+
 def partials_ratio_exp2(torch, got, want):
     """(err_over_tol, max |acc/l| err, m err, l rel err, dead rows exact) of
     base-2 partials: acc / l within TOL_TEXT, m within 2^-12 max(1, |m|),
@@ -2255,6 +2369,10 @@ def phase_h2o_chunk_kernels(torch, F, dev):
             recs["h2o_row_stats"].append(got["stats"])
             recs["h2o_colsum"].append(got["colsum"])
         torch.cuda.empty_cache()
+    # the top-k picks against an f64 reference, over 8 seeds (a measure,
+    # not a gate: near-ties break either way in any f32 summation order)
+    for case in ("8k", "32k"):
+        count_h2o_picks(torch, dev, case)
     # short shapes first: the one-pass kernel at q_start on a carry longer
     # than the chunk's keys (ldk > N; a last q tile of 64 rows; N % 128 =
     # 64), partials on a self and a history tile of N = 192 with a pad
@@ -2305,15 +2423,16 @@ def phase_h2o_chunk_kernels(torch, F, dev):
 
 
 def check_two_pass(torch, F, dev, case, b, hk, n, true_len, seed,
-                   q_start=0):
+                   q_start=0, window=None, timed=True):
     """The two-pass schedule's kernels against their plain versions on one
-    shape (queries at global rows [q_start, n) of n keys): pass A's row
-    maxes; pass B fed the plain row maxes (checked alone, and called twice:
+    shape (queries at global rows [q_start, n) of n keys, a sliding
+    ``window`` if given): pass A's row maxes (called twice: bitwise equal);
+    pass B fed the plain row maxes (checked alone, and called twice:
     bitwise equal); the composed ``flash_causal_attention(two_pass=True)``
     against the plain composition.  Rows past the pad within their limits,
     rows with no visible key exact (m = float32.min, output 0; pass B's
-    err_over_tol is infinite otherwise).  Timed beside the one-pass kernel
-    and masked SDPA.  Returns (ok, {kernel: rec})."""
+    err_over_tol is infinite otherwise).  ``timed``: timed beside the
+    one-pass kernel and masked SDPA.  Returns (ok, {kernel: rec})."""
     from pyramidkv_tpu_torch.kernels import (flash_causal_attention,
                                              flash_pass_b, flash_row_max)
     from pyramidkv_tpu_torch.ops.attention import (flash_pass_b_plain,
@@ -2324,8 +2443,9 @@ def check_two_pass(torch, F, dev, case, b, hk, n, true_len, seed,
     q = _rand_bf16(torch, g, dev, b, H, nq, D)
     k, v = (_rand_bf16(torch, g, dev, b, hk, n, D) for _ in range(2))
     tl = torch.tensor(true_len, dtype=torch.int32, device=dev)
-    kw = dict(q_start=q_start)
+    kw = dict(q_start=q_start, sliding_window=window)
     m_got = flash_row_max(q, k, tl, **kw)
+    m_again = flash_row_max(q, k, tl, **kw)
     m_want = flash_row_max_plain(q, k, tl, **kw)
     out_got = flash_pass_b(q, k, v, m_want, tl, **kw)
     again = flash_pass_b(q, k, v, m_want, tl, **kw)
@@ -2333,6 +2453,7 @@ def check_two_pass(torch, F, dev, case, b, hk, n, true_len, seed,
     both = flash_causal_attention(q, k, v, tl, two_pass=True, **kw)
     torch.cuda.synchronize()
     repeat = bool(torch.equal(out_got, again))
+    repeat_a = bool(torch.equal(m_got, m_again))
     neg = torch.finfo(torch.float32).min
     m_ratio = out_ratio = both_ratio = m_err = out_err = 0.0
     dead_a = dead_b = True
@@ -2353,69 +2474,84 @@ def check_two_pass(torch, F, dev, case, b, hk, n, true_len, seed,
                        and (m_want[bi, :, :dead] == neg).all())
         dead_b &= bool((out_got[bi, :, :dead] == 0).all()
                        and (both[bi, :, :dead] == 0).all())
-    pairs = visible_pairs(true_len, n, nq, q_start, H)
-    qb, kb = q.numel() * 2, k.numel() * 2
-    mb, ob = b * H * nq * 4, q.numel() * 2
-    # one-pass kernel and masked SDPA: the same function in one call
-    one_ms = time_ms(torch, lambda: flash_causal_attention(q, k, v, tl, **kw),
-                     reps=5)
-    lib = masked_sdpa_inputs(torch, q, k, v, tl, q_start)
-    sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        *lib[:3], attn_mask=lib[3]), reps=3)
-    del lib
-    base = {"case": case, "B": b, "H": H, "Hk": hk, "N": n, "Nq": nq,
-            "q_start": q_start, "true_len": list(true_len),
-            "visible_pairs": pairs, "dead_rows_exact": dead_a and dead_b,
-            "one_pass_ms": one_ms, "sdpa_ms": sdpa_ms, "layers": LAYERS,
-            "schedule_bound_ms": bound(6.0 * D * pairs,
-                                       qb + 2 * kb + mb + ob)[0]}
+    base = {"case": case, "B": b, "H": H, "Hk": hk, "G": H // hk, "N": n,
+            "Nq": nq, "q_start": q_start, "window": window,
+            "true_len": list(true_len), "dead_rows_exact": dead_a and dead_b,
+            "layers": LAYERS}
     ra = dict(base, check="flash_row_max", max_abs_err=m_err,
               err_over_tol=m_ratio if dead_a else math.inf,
-              tol=ROW_MAX_TOL_TEXT, library_ms=None,
+              tol=ROW_MAX_TOL_TEXT, repeat_bitwise=repeat_a, library_ms=None,
               library_note="none: no single PyTorch call computes the "
                            "masked row maxes of Q K^T")
-    ra["ms"] = time_ms(torch, lambda: flash_row_max(q, k, tl, **kw), reps=5)
-    ra["plain_ms"] = time_ms(torch, lambda: flash_row_max_plain(
-        q, k, tl, **kw), reps=1, warmup=0)
-    ra["bound_ms"], ra["bound_by"] = bound(2.0 * D * pairs, qb + kb + mb)
     rb = dict(base, check="flash_pass_b", max_abs_err=out_err,
               err_over_tol=(max(out_ratio, both_ratio) if dead_b
                             else math.inf),
               composed_err_over_tol=both_ratio, repeat_bitwise=repeat,
-              tol=TOL_TEXT + "; rows with no visible key exactly 0",
-              library_ms=sdpa_ms)
-    rb["ms"] = time_ms(torch, lambda: flash_pass_b(q, k, v, m_want, tl, **kw),
-                       reps=5)
-    rb["pass_b_over_one_pass"] = rb["ms"] / one_ms
-    rb["plain_ms"] = time_ms(torch, lambda: flash_pass_b_plain(
-        q, k, v, m_want, tl, **kw), reps=1, warmup=0)
-    rb["bound_ms"], rb["bound_by"] = bound(4.0 * D * pairs,
-                                           qb + 2 * kb + mb + ob)
+              tol=TOL_TEXT + "; rows with no visible key exactly 0")
+    if timed:
+        pairs = visible_pairs(true_len, n, nq, q_start, H)
+        qb, kb = q.numel() * 2, k.numel() * 2
+        mb, ob = b * H * nq * 4, q.numel() * 2
+        # one-pass kernel and masked SDPA: the same function in one call
+        one_ms = time_ms(torch, lambda: flash_causal_attention(
+            q, k, v, tl, **kw), reps=5)
+        lib = masked_sdpa_inputs(torch, q, k, v, tl, q_start)
+        sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            *lib[:3], attn_mask=lib[3]), reps=3)
+        del lib
+        for rec in (ra, rb):
+            rec.update(visible_pairs=pairs, one_pass_ms=one_ms,
+                       sdpa_ms=sdpa_ms, schedule_bound_ms=bound(
+                           6.0 * D * pairs, qb + 2 * kb + mb + ob)[0])
+        ra["ms"] = time_ms(torch, lambda: flash_row_max(q, k, tl, **kw),
+                           reps=5)
+        ra["plain_ms"] = time_ms(torch, lambda: flash_row_max_plain(
+            q, k, tl, **kw), reps=1, warmup=0)
+        ra["bound_ms"], ra["bound_by"] = bound(2.0 * D * pairs,
+                                               qb + kb + mb)
+        rb["library_ms"] = sdpa_ms
+        rb["ms"] = time_ms(torch, lambda: flash_pass_b(
+            q, k, v, m_want, tl, **kw), reps=5)
+        rb["pass_b_over_one_pass"] = rb["ms"] / one_ms
+        rb["plain_ms"] = time_ms(torch, lambda: flash_pass_b_plain(
+            q, k, v, m_want, tl, **kw), reps=1, warmup=0)
+        rb["bound_ms"], rb["bound_by"] = bound(4.0 * D * pairs,
+                                               qb + 2 * kb + mb + ob)
     log(ra)
     log(rb)
     ok = (m_ratio <= 1 and out_ratio <= 1 and both_ratio <= 1 and dead_a
-          and dead_b and repeat and bool(torch.isfinite(out_got).all()))
+          and dead_b and repeat and repeat_a
+          and bool(torch.isfinite(out_got).all()))
     return ok, {"flash_row_max": ra, "flash_pass_b": rb}
 
 
 def phase_two_pass_kernels(torch, F, dev):
     """The two-pass schedule's kernels on short ragged shapes (N = 192, a
     row shorter than a tile, rows that are all padding, G = 8, 1 and 8; a
-    prefill chunk at q_start) and at the engine runs' shapes: the 8k batch
-    (run (g)) and bench.py's 32k prompt (run (h)).  Returns (ok, {kernel:
-    [timed recs]})."""
+    prefill chunk at q_start), on edge shapes of pass A's unit plan (a
+    sliding window, with G = 8 and with a q tile all padding at G = 1; a
+    chunk at q_start with N % 128 = 64, Nq cut short of a 128-row q tile
+    and rows before the pad), untimed, and at the engine runs' shapes:
+    the 8k batch (run (g)) and bench.py's 32k prompt (run (h)).  Returns
+    (ok, {kernel: [timed recs]})."""
     ok = True
     recs = {k: [] for k in TWO_PASS_KERNELS}
-    for seed, (case, b, hk, n, tls, q_start) in enumerate((
-            ("short ragged", 2, 4, 512, (512, 37), 0),
-            ("short N=192", 2, 32, 192, (192, 70), 0),
-            ("short q_start", 2, 4, 448, (448, 300), 256),
-            ("8k", B, HK, N, TRUE_LEN, 0),
-            ("32k", 1, HK, QN, (QTRUE,), 0)), start=560):
+    for seed, (case, b, hk, n, tls, q_start, window) in enumerate((
+            ("short ragged", 2, 4, 512, (512, 37), 0, None),
+            ("short N=192", 2, 32, 192, (192, 70), 0, None),
+            ("short q_start", 2, 4, 448, (448, 300), 256, None),
+            ("edge: window 256, G=8", 2, 4, 1024, (1024, 700), 0, 256),
+            ("edge: window 64, a q tile all padding, G=1", 1, 32, 448,
+             (100,), 0, 64),
+            ("edge: q_start 512, Nq=192, N=704, G=1", 2, 32, 704, (704, 150),
+             512, None),
+            ("8k", B, HK, N, TRUE_LEN, 0, None),
+            ("32k", 1, HK, QN, (QTRUE,), 0, None)), start=560):
+        timed = case in ("8k", "32k")
         r, got = check_two_pass(torch, F, dev, case, b, hk, n, tls, seed,
-                                q_start)
+                                q_start, window, timed)
         ok &= r
-        if not case.startswith("short"):
+        if timed:
             for k in TWO_PASS_KERNELS:
                 recs[k].append(got[k])
         torch.cuda.empty_cache()

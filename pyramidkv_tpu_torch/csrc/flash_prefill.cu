@@ -68,8 +68,25 @@
 //   exp2(S - m) with no running max, no alpha and no accumulator rescale
 //   (m clamped at float32.min / 2 and edge tiles masked to float32.min, as
 //   the TPU's pass B, so a row with no visible key gets l = 0 and writes 0).
-// Pass A (`row_max_kernel`) keeps the first port's warp-level mma.sync
-// design: 64-row q tiles, key tiles loaded synchronously by all threads.
+// Pass A (`row_max_kernel`, namespace rm) needs only S = Q K^T and a max:
+// no P, no V, no O.  Its work is the one-pass kernel's first product with
+// the walk of h2o_scores.cu's stats kernel, not a mode of
+// flash_wgmma_kernel, whose consumers hold S, P and O for one tile at a
+// time and leave no registers for a second S:
+// - a block takes 128 query rows of one (b, h), the same key-tile plan as
+//   flash_wgmma_kernel (heaviest q tiles first); a producer warp's lane 0
+//   copies 128-key tiles into a ring of 4 stages through the k tensor map;
+// - each of two consumer warpgroups holds its 64 rows of bf16(q * scale *
+//   log2 e) in 32 registers a thread as wgmma's A operand, and walks a tile
+//   as two 64-key units on m64n64k16 into two accumulators: unit u+1's
+//   product runs while unit u's max is taken (151 registers, no spill in
+//   the H2O kernel of the same shape);
+// - a unit is masked only where it is not interior to the warpgroup's 64
+//   rows (the diagonal, the pad edge, the window edge, a tile cut short by
+//   N), reading a copy of S so ptxas keeps the products in flight; each
+//   thread keeps a running max of its two rows over its columns, reduced
+//   over the 4 lanes of a row at the end: no shared-memory round trip.
+// kernels/flash_prefill.py::row_max_unit_plan mirrors the unit plan.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -94,143 +111,220 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // normalised bf16 output, against the row maxes m_in of pass A.
 enum Mode { kOut = 0, kPartials = 1, kPassB = 2 };
 
-// ---------------------------------------------------------------------------
-// Pass A of the two-pass schedule: warp-level mma.sync, 64-row q tiles,
-// 64-key tiles.
-// ---------------------------------------------------------------------------
-
-constexpr int BQ = 64;        // q rows per block: 4 warps x 16 rows
-constexpr int BK = 64;        // keys per k-tile
-constexpr int NTHREADS = 128;
-constexpr int LDS = D + 8;    // padded smem row (bf16): conflict-free fragments
-
-// two consecutive bf16 of q, times `scale`, rounded back to bf16
-__device__ __forceinline__ uint32_t load_q2(const __nv_bfloat16* p,
-                                            float scale) {
-  __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(p);
-  float2 f = __bfloat1622float2(x);
+// Two bf16 times `scale`, rounded back to bf16.
+__device__ __forceinline__ uint32_t scale2(uint32_t x, float scale) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
   return pack_bf16(f.x * scale, f.y * scale);
 }
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// ---------------------------------------------------------------------------
+// Pass A of the two-pass schedule: row maxes on wgmma, Q in registers.
+// ---------------------------------------------------------------------------
+
+namespace rm {
+
+constexpr int BQ = 128;           // q rows a block: 2 consumer warpgroups x 64
+constexpr int BK = 128;           // keys a tile (two units of 64)
+constexpr int STAGES = 4;         // K tiles in flight
+constexpr int NCONS = 256;        // two consumer warpgroups
+constexpr int NTHREADS = NCONS + 32;  // and one producer warp
+constexpr int BOX = 64;           // bf16 columns of one 128-byte swizzled box
+constexpr int HALF = BK * 128;    // bytes of one box column of a tile
+constexpr int TILE_BYTES = 2 * HALF;
+constexpr int UNIT_BYTES = 64 * 128;  // a unit's 64 keys of one box
+constexpr int SMEM_BYTES = 1024 + STAGES * TILE_BYTES;
+
+// This thread's A fragments of its warpgroup's 64 q rows: local rows `row`
+// and row + 8 (zeros from Nq on), for each of the 8 steps of 16 along D
+// columns 16 kk + 2 tig + {0, 1} and + 8, times scale * log2(e) and rounded
+// to bf16 (the TPU wrapper's fold; wgmma's register layout of A).
+__device__ __forceinline__ void load_q(uint32_t (&f)[32],
+                                       const __nv_bfloat16* qb, int row,
+                                       int Nq, int tig, float scale) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row + (e & 1) * 8;
+      const int c = kk * 16 + tig * 2 + (e >> 1) * 8;
+      f[4 * kk + e] =
+          r < Nq ? scale2(*reinterpret_cast<const uint32_t*>(
+                              qb + (size_t)r * D + c), scale)
+                 : 0u;
+    }
+  }
 }
 
-// grid (Nq / BQ, B*H): m_out [B*H, Nq], each row's max base-2 logit over
-// its visible keys (float32.min for none).
-__global__ void __launch_bounds__(NTHREADS)
-row_max_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, Nq, D]
-               const __nv_bfloat16* __restrict__ k,   // [B*Hk, ldk, D]
-               const int* __restrict__ true_len,      // [B]
-               float* __restrict__ m_out,             // [B*H, Nq]
-               int H, int Hk, int N, int ldk, int Nq, int q_start,
-               int window, float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 ks[BK * LDS];
+// Unit u's S = Q K^T (64 rows x 64 keys: tile u / 2, keys 64 (u % 2) on),
+// issued into `s` (wgmma is asynchronous); the tile's stage is waited for
+// at its first unit.
+__device__ __forceinline__ void issue(uint32_t ring, uint64_t* full,
+                                      const uint32_t (&a)[32],
+                                      float (&s)[32], int u) {
+  const int i = u >> 1, st = i % STAGES;
+  if (!(u & 1)) mbar_wait(&full[st], (i / STAGES) & 1);
+  const uint32_t b = ring + st * TILE_BYTES + (u & 1) * UNIT_BYTES;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // 8 steps of 16 along D, four 32-byte steps within each 64-column box
+    const uint32_t off = (kk >> 2) * HALF + (kk & 3) * 32;
+    wgmma_rs64(s, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+               sw128_desc(b + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest q-tiles first
-  const int bh = blockIdx.y;
+template <int N>
+__device__ __forceinline__ void land(float (&s)[32]) {
+  wgmma_wait<N>();
+  fence_regs(s);
+}
+
+// This thread's running maxes of its rows `grow` and grow + 8 (global)
+// over the unit's keys [cu, cu + 64): entries 4j + {0, 1} row grow,
+// 4j + {2, 3} row grow + 8, keys cu + 8j + 2 tig + {0, 1}; on an edge unit
+// (EDGE) a key that the row does not see (before the pad, after the causal
+// edge, at or past N, outside the window) is skipped.  The accumulator is
+// only read: an instruction writing it between two products makes ptxas
+// serialize them.
+template <bool EDGE>
+__device__ __forceinline__ void max_unit(const float (&s)[32], float (&m)[2],
+                                         int cu, int grow, int tig, int pad,
+                                         int N, int window) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = grow + 8 * i;
+    float mx = m[i];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = cu + 8 * j + 2 * tig + e;
+        bool ok = true;
+        if (EDGE) {
+          ok = c >= pad && c <= r && c < N;
+          if (window > 0) ok = ok && r - c < window;
+        }
+        mx = fmaxf(mx, ok ? s[4 * j + 2 * i + e] : -INFINITY);
+      }
+    }
+    m[i] = mx;
+  }
+}
+
+// grid (B*H, ceil(Nq / BQ)), NTHREADS threads, SMEM_BYTES of dynamic shared
+// memory.  q [B*H, Nq, D] bf16; map k {D, N, B*Hk} (row stride ldk), boxes
+// {64, 128, 1}, 128-byte swizzle; m_out [B*H, Nq] f32.
+__global__ void __launch_bounds__(NTHREADS, 1)
+row_max_kernel(const __nv_bfloat16* __restrict__ q,
+               const __grid_constant__ CUtensorMap kmap,
+               const int* __restrict__ true_len, float* __restrict__ m_out,
+               int H, int Hk, int N, int Nq, int q_start, int window,
+               float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[STAGES], empty[STAGES];
+  // 128-byte swizzle repeats every 1024 bytes: boxes start 1024-aligned
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest q tiles first
   const int b = bh / H;
-  const int h = bh % H;
-  const int kv_row = b * Hk + h / (H / Hk);
+  const int kv_row = b * Hk + (bh % H) / (H / Hk);
   const int pad = N - true_len[b];
-  const int q0 = qt * BQ;                  // local row of the tile's first
-  const int g0 = q_start + q0;             // its global row
-  const int last_row = g0 + BQ - 1;        // global
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int gid = lane >> 2;  // fragment row group
-  const int tig = lane & 3;   // thread in group
-
-  const __nv_bfloat16* qb = q + (size_t)bh * Nq * D;
-  // keys [0, N) of a buffer of ldk rows per head (a prefill chunk reads the
-  // first N rows of the bucket-long carry in place)
-  const __nv_bfloat16* kb = k + (size_t)kv_row * ldk * D;
-
-  if (last_row < pad) {  // every row is padding: no visible key
-    if (tid < BQ) m_out[(size_t)bh * Nq + q0 + tid] = -FLT_MAX;
+  // the block's key tiles, as flash_wgmma_kernel's plan: from the pad or
+  // window edge of its first row to the causal edge of its last
+  const int g0 = q_start + qt * BQ;
+  const int g1 = min(g0 + BQ, q_start + Nq) - 1;
+  const int lo = window > 0 ? max(pad, g0 - window + 1) : pad;
+  const int hi = min(g1, N - 1);
+  const int kt_first = lo / BK;
+  const int ntiles = lo > hi ? 0 : hi / BK - kt_first + 1;
+  float* mb = m_out + (size_t)bh * Nq;
+  if (ntiles == 0) {  // no row of the block sees a key
+    const int r = qt * BQ + threadIdx.x;
+    if (threadIdx.x < BQ && r < Nq) mb[r] = -FLT_MAX;
     return;
   }
 
-  // local rows of this thread's accumulator fragments: r0 and r0 + 8
-  const int r0 = q0 + warp * 16 + gid;
-  const int gr0 = q_start + r0;  // global
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], NCONS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  // q fragments (A operand, row-major 16x16 per k-step), scaled once
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + tig * 2;
-    qf[kk][0] = load_q2(qb + (size_t)r0 * D + c, scale_log2);
-    qf[kk][1] = load_q2(qb + (size_t)(r0 + 8) * D + c, scale_log2);
-    qf[kk][2] = load_q2(qb + (size_t)r0 * D + c + 8, scale_log2);
-    qf[kk][3] = load_q2(qb + (size_t)(r0 + 8) * D + c + 8, scale_log2);
+  if (threadIdx.x >= NCONS) {  // the producer warp: lane 0 fills the ring
+    if (threadIdx.x == NCONS) {
+      for (int i = 0; i < ntiles; ++i) {
+        const int st = i % STAGES;
+        if (i >= STAGES) mbar_wait(&empty[st], ((i / STAGES) - 1) & 1);
+        uint8_t* kd = ring + st * TILE_BYTES;
+        const int row = (kt_first + i) * BK;
+        mbar_expect(&full[st], TILE_BYTES);
+        tma_load_3d(kd, &kmap, 0, row, kv_row, &full[st]);
+        tma_load_3d(kd + HALF, &kmap, BOX, row, kv_row, &full[st]);
+      }
+    }
+    return;
   }
 
+  const int cw = threadIdx.x / 128;  // consumer warpgroup: 64 rows
+  const int tid = threadIdx.x % 128;
+  const int warp = tid >> 5, lane = tid & 31, tig = lane & 3;
+  const int row = qt * BQ + cw * 64 + warp * 16 + (lane >> 2);  // local
+  const int grow = q_start + row;     // global; row + 8 likewise
+  const int r_lo = g0 + cw * 64;      // the warpgroup's first global row
   float m[2] = {-INFINITY, -INFINITY};
-  int lo = pad;
-  if (window > 0) lo = max(lo, g0 - window + 1);
-  const int kt_begin = lo / BK;
-  const int kt_end = min(last_row, N - 1) / BK;
-
-  for (int kt = kt_begin; kt <= kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile is consumed
-#pragma unroll
-    for (int i = 0; i < BK * D / 8 / NTHREADS; ++i) {
-      const int idx = tid + i * NTHREADS;
-      const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-      *reinterpret_cast<uint4*>(&ks[r * LDS + c]) =
-          *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * D + c);
-    }
-    __syncthreads();
-
-    // S = (q * scale * log2 e) K^T : 16 rows x 64 keys per warp
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const __nv_bfloat16* kp = &ks[(nt * 8 + gid) * LDS + kk * 16 + tig * 2];
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kp);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kp + 8);
-        mma_bf16(s[nt], qf[kk], b0, b1);
-      }
-    }
-
-    // mask (causal, left padding, sliding window), then this thread's
-    // share of each row's max
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = gr0 + ((e >> 1) << 3);
-        const int col = k0 + nt * 8 + tig * 2 + (e & 1);
-        bool ok = col <= row && col >= pad;
-        if (window > 0) ok = ok && (row - col < window);
-        if (ok) m[e >> 1] = fmaxf(m[e >> 1], s[nt][e]);
-      }
-    }
+  // an interior unit: every pair of the warpgroup's 64 rows and the unit's
+  // 64 keys is visible (past the pad, causal, inside N and the window)
+  auto process = [&](const float (&s)[32], int u) {
+    const int cu = (kt_first + (u >> 1)) * BK + (u & 1) * 64;
+    const bool interior = cu >= pad && cu + 63 <= r_lo && cu + 64 <= N &&
+                          (window <= 0 || r_lo + 63 - cu < window);
+    if (interior)
+      max_unit<false>(s, m, cu, grow, tig, pad, N, window);
+    else
+      max_unit<true>(s, m, cu, grow, tig, pad, N, window);
+  };
+  uint32_t a[32];
+  load_q(a, q + (size_t)bh * Nq * D, row, Nq, tig, scale_log2);
+  // every unit in order, two in flight: unit u is processed (then its
+  // tile's stage released after its second unit) while unit u+1's product
+  // runs, and unit u+2 is issued into u's accumulator; the last two units
+  // are peeled, so every wait is straight-line (h2o_scores.cu's walk)
+  const uint32_t ra = smem_addr(ring);
+  const int nu = 2 * ntiles;
+  float s0[32], s1[32];
+  issue(ra, full, a, s0, 0);
+  issue(ra, full, a, s1, 1);
+  for (int u = 0; u < nu - 2; u += 2) {
+    land<1>(s0);
+    process(s0, u);
+    issue(ra, full, a, s0, u + 2);
+    land<1>(s1);
+    process(s1, u + 1);
+    mbar_arrive(&empty[(u >> 1) % STAGES]);  // the tile is read
+    issue(ra, full, a, s1, u + 3);
   }
-
-  // the row's max over its row group's 4 threads
+  land<1>(s0);
+  process(s0, nu - 2);
+  land<0>(s1);
+  process(s1, nu - 1);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
     m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
-    if (tig == 0)
-      m_out[(size_t)bh * Nq + r0 + 8 * i] = m[i] == -INFINITY ? -FLT_MAX : m[i];
+    const int r = row + 8 * i;
+    // a last q tile may be cut short by Nq
+    if (tig == 0 && r < Nq) mb[r] = m[i] == -INFINITY ? -FLT_MAX : m[i];
   }
 }
+
+}  // namespace rm
 
 // ---------------------------------------------------------------------------
 // One pass and partials: TMA ring, wgmma, warp-specialised.
@@ -310,12 +404,6 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-// Two bf16 times `scale`, rounded back to bf16.
-__device__ __forceinline__ uint32_t scale2(uint32_t x, float scale) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
-  return pack_bf16(f.x * scale, f.y * scale);
 }
 
 // The online softmax of one tile for this thread's two rows (i = 0: the
@@ -671,10 +759,22 @@ extern "C" int pkv_flash_row_max(const void* q, const void* k,
                                  const void* true_len, void* m, int B, int H,
                                  int Hk, int N, int ldk, int Nq, int q_start,
                                  int window, float scale, void* stream) {
-  dim3 grid(Nq / BQ, B * H);
-  row_max_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const int*)true_len,
-      (float*)m, H, Hk, N, ldk, Nq, q_start, window, scale * LOG2E);
+  CUtensorMap km;
+  if (!make_map(&km, k, N, B * Hk, ldk, rm::BK))
+    return (int)cudaErrorInvalidValue;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rm::row_max_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        rm::SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    attr = true;
+  }
+  dim3 grid(B * H, (Nq + rm::BQ - 1) / rm::BQ);
+  rm::row_max_kernel<<<grid, rm::NTHREADS, rm::SMEM_BYTES,
+                       (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, km, (const int*)true_len, (float*)m, H, Hk, N,
+      Nq, q_start, window, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 

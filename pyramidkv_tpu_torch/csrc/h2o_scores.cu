@@ -119,27 +119,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// D[64 x 64] (+)= A B, A from registers (4 x bf16x2 a thread), B K-major in
-// shared memory (bf16, f32 accumulate)
-__device__ __forceinline__ void wgmma_rs64(float (&d)[32], uint32_t a0,
-                                           uint32_t a1, uint32_t a2,
-                                           uint32_t a3, uint64_t db,
-                                           int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
-}
-
 // This thread's A fragments of a warpgroup's 64 rows of a [*, D] bf16
 // matrix: rows `row` and row + 8 (zeros from row `rows` on), for each of the
 // 8 steps of 16 along D columns 16 kk + 2 tig + {0, 1} and + 8 (wgmma's

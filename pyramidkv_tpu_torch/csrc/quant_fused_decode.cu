@@ -22,22 +22,41 @@
 // scale/zero pair per slot: 35.9 MB per layer at bench.py's 32k fullkv
 // kivi4-pa, 10.7 us at 3.35 TB/s.
 //
-// What the design does about it: the slot-major K codes are read as they lie
-// (no entry transpose), one block covers the G query heads of its KV head,
-// and the slots are split across blocks (the TPU carried its online softmax
-// over a sequential (tile, plane) grid on one core), merged by a finish pass
-// in a fixed order.  The per-element work is one FMA per code and query,
-// with no scale loads.  Left for later: tensor-core dots (the codes are
-// exact in bf16) and a TMA ring.
+// What the design does about it (quant_region.cuh, pa_split_kernel):
+// - the slot-major K codes are read as they lie (no entry transpose); one
+//   block covers the G query heads of its KV head; the slots are split
+//   across blocks in whole 64-row quanta, 16 rows to each of 4 warps
+//   in turn (the TPU carried its online softmax over a sequential (tile,
+//   plane) grid on one core), so a split's warps get equal rows, and a
+//   split never crosses a K group;
+// - each warp streams its units' K codes, V codes, V scales and
+//   zeros through its own 3-stage cp.async ring (16-byte copies with
+//   constant trip counts; the next unit's mask bytes loaded a unit ahead),
+//   so a split's bytes are in flight together;
+// - both dots run on the tensor cores (mma.sync m16n8k16, the G heads on
+//   the M side): the codes are exact in bf16 after a few bit operations a
+//   pair, the folded query and the V-scaled probabilities are already bf16
+//   (exact products, f32 sums), so a code costs ~1.5 instructions instead
+//   of a conversion and G FMAs;
+// - the folded queries (one per <= 4-bit field of a code byte) sit in
+//   dynamic shared memory as ready A fragments, so any G, nbits and K
+//   groups fit (the earlier kernel refused G * 8 / nbits > 16 with K
+//   groups);
+// - the finish pass (pa_finish_kernel), launched as a programmatic
+//   dependent, attends over the bf16 tail while the splits run, then merges
+//   them in split order: no atomics, two calls bitwise equal.
 
 #include "quant_region.cuh"
 
 // C signature: PKVQ_PARAMS (quant_region.cuh), with NGV = 1 and NG = 1 or
-// K groups tiling each plane, each split inside one group.
+// K groups tiling each plane; the nsplit splits of rows_per_split byte-rows
+// tile each K group's byte-rows (the whole plane with one group).
 extern "C" int pkv_quant_fused_pa(PKVQ_PARAMS) {
-  if (NGV != 1) return (int)cudaErrorInvalidValue;
-  if (NG > 1 && (W % (S_pad / NG) || (S_pad / NG) % rows_per_split ||
-                 G * (8 / nbits) > 16))
+  const int seg = NG > 1 ? S_pad / NG : W;  // byte-rows of a K group
+  // the K code rows go by 16-byte copies: 16-byte aligned
+  if (NGV != 1 || rows_per_split < 1 || seg < 1 || W % seg ||
+      reinterpret_cast<uintptr_t>(kc) % 16 ||
+      nsplit != W / seg * ((seg + rows_per_split - 1) / rows_per_split))
     return (int)cudaErrorInvalidValue;
   const pkvq::Args a = pkvq::make_args(q, kc, ks, kz, vc, vs, vz, mask, acc,
                                        m, l, W, S_pad, NG, Dp, NGV, mstride,

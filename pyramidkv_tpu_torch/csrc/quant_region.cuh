@@ -25,12 +25,12 @@
 // normalised bf16 output over region and tail.
 //
 // Two kernels:
-// - the pa layout (mode kPA): split_kernel splits the byte-rows across
-//   blocks (8 warps; a warp takes 32 byte-rows at a time, one per lane, and
-//   all PER planes of them; logits lane-per-slot against the query folded
-//   with the K scale in shared memory; P.V lane-per-4-channels) and
-//   finish_kernel merges the splits in a fixed order, attends over the tail
-//   and writes the output;
+// - the pa layout (mode kPA): pa_split_kernel splits the byte-rows across
+//   blocks (4 warps, each streaming its 16-row units through its own
+//   cp.async ring; both products on the tensor cores, codes turned into
+//   bf16 by bit operations) and pa_finish_kernel, a programmatic dependent
+//   launch, attends over the tail, merges the splits in a fixed order and
+//   writes the output;
 // - the group layout (modes kF32 and kFold): region_kernel, on any plan
 //   (below).
 
@@ -56,7 +56,8 @@ constexpr unsigned FULL = 0xffffffffu;
 // kPA    the pa layout's factored form, as
 //        ops/quant.py::quant_region_attention_fused with one V group: the
 //        K scale folded into bf16 queries held in shared memory (one per
-//        bit-plane, or per K group of the plane), the K zero a logit bias,
+//        bit-plane, with the K group of the split's rows), the K zero a
+//        logit bias,
 //        the V scale folded into bf16 probabilities, the V zero a
 //        separately rescaled scalar;
 // kFold  the group layout's factored form, the same function's grouped
@@ -110,234 +111,526 @@ __device__ __forceinline__ float bf16_round(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// The pa layout: split_kernel + finish_kernel.
+// Asynchronous copies (both layouts' rings)
 // ---------------------------------------------------------------------------
 
-// Folded query copies of the pa kernel: one per bit-plane, where they fit
-// the 48 KB of static shared memory beside wacc (every shape but G = 8 with
-// 2-bit codes); else one, and the wrappers refuse NG > 1.
-template <int G, int NBITS>
-__host__ __device__ constexpr int q_copies() {
-  return G * (8 / NBITS) <= 16 ? 8 / NBITS : 1;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 
-// Partials of byte-rows [row0, row1) of region `bk` (all PER planes), written
-// to slot `out` of a.acc / a.m / a.l.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// The pa layout: pa_split_kernel + pa_finish_kernel.
+//
+// pa_split_kernel runs both products on the tensor cores (mma.sync
+// m16n8k16, bf16 in, f32 accumulate), the G query heads on the M side (rows
+// G..15 zero), as the TPU kernel's MXU dots:
+// - S = Qf Kc^T: A the folded query (bf16, a copy per bit-plane in dynamic
+//   shared memory), B the K codes of 8 byte-rows (n) along 16 channels (k);
+// - O += P Vc: A = P straight from S's accumulator layout (rows = heads,
+//   k = 16 byte-rows: two n-tiles of S), B the V codes of the 16 byte-rows
+//   along 8 channels a tile (16 tiles).
+// Heads on M waste rows (3/4 at G = 4), but P never moves between lanes;
+// with slots on M the accumulator of S is the transpose of P V's B operand.
+// A code becomes bf16 by bit operations alone: its bits under 0x43 (bf16
+// 128 + code, codes of at most 4 bits), for the logits less 128 (one bf16x2
+// subtraction for two codes), for P V as it is, 128 times the sum of P
+// taken off at the end; an 8-bit code is two 4-bit fields, the high one
+// against the query (or P) times 16 (exact in bf16).  Products of bf16
+// values and codes are exact; only the f32 sums run in another order than
+// the plain version's.
+// ---------------------------------------------------------------------------
+
+constexpr int PA_WARPS = 4;     // warps a block
+constexpr int PA_BLOCKS = 2;    // blocks an SM (the plan's one wave)
+constexpr int PA_UNIT = 16;     // byte-rows a warp takes at a time
+constexpr int PA_STAGES = 3;    // units in flight a warp
+constexpr int PA_ROW = D + 16;  // padded bytes of a staged code row
+constexpr int FQ_QUADS = 33;    // 16-byte A fragments of a folded query
+                                // row (32 and a pad)
+
+// The <= 4-bit fields of a code byte: nbits 2 and 4 one per bit-plane; 8
+// the low and the high nibble of its one plane.
+template <int NBITS>
+__host__ __device__ constexpr int pa_fields() {
+  return NBITS == 8 ? 2 : 8 / NBITS;
+}
+
+// One ring stage: K and V codes [PA_UNIT][PA_ROW], then the unit's V scales
+// and zeros [PER][PA_UNIT] f32 each.
+template <int NBITS>
+__host__ __device__ constexpr int pa_stage_bytes() {
+  return 2 * PA_UNIT * PA_ROW + 2 * (8 / NBITS) * PA_UNIT * 4;
+}
+
+// Dynamic shared memory of a block: the warps' rings (their merge states
+// afterwards), the folded queries [fields][G][FQ_QUADS] A fragments and
+// the warps' sums of the K zero terms [PA_WARPS][PER][G] f32.
 template <int G, int NBITS>
-__device__ void pa_partials(const Args& a, int bk, int row0, int row1,
-                            int out) {
+__host__ __device__ constexpr int pa_smem_bytes() {
+  return PA_WARPS * PA_STAGES * pa_stage_bytes<NBITS>() +
+         pa_fields<NBITS>() * G * FQ_QUADS * 16 + PA_WARPS * (8 / NBITS) * G * 4;
+}
+
+// Two codes (bytes of `y` picked by `sel`, the other bytes 0x43) as bf16x2.
+__device__ __forceinline__ uint32_t code2(uint32_t y, uint32_t sel) {
+  uint32_t x;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(x) : "r"(y), "r"(0x43434343u), "r"(sel));
+  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&x);
+  v = __hsub2(v, __floats2bfloat162_rn(128.f, 128.f));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The same two codes as bf16 128 + code: P V takes them so (one
+// instruction less a pair) and takes 128 times the sum of P off its rows at
+// the end.  The offset is exact in every product; in the f32 sums it costs
+// a few low bits of the accumulator, far inside the output's limit (the
+// logits keep code2: their limit is tighter).
+__device__ __forceinline__ uint32_t code2_128(uint32_t y, uint32_t sel) {
+  uint32_t x;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(x) : "r"(y), "r"(0x43434343u), "r"(sel));
+  return x;
+}
+
+// The sum of a bf16x2's two values.
+__device__ __forceinline__ float sum2(uint32_t x) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+  return f.x + f.y;
+}
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t x;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(x) : "r"(a), "r"(b), "r"(sel));
+  return x;
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += A B, m16n8k16; A = {a0, a1, a2, a3} as the fragment registers hold
+// it (here a1 = a3 = 0: rows 8-15 are no head), kept whole so no register
+// moves assemble it for each product
+__device__ __forceinline__ void mma_g(float (&c)[4], const uint4& a,
+                                      uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// The byte-rows of split `sp` of a region: the splits tile each K group's
+// byte-rows (`seg` of them; the whole plane with one group), `rows` a split
+// (the last of each group shorter).
+__device__ __forceinline__ int2 pa_split_rows(int sp, int rows, int seg,
+                                              int W) {
+  const int sps = (seg + rows - 1) / rows;  // splits a group
+  const int r0 = (sp / sps) * seg + (sp % sps) * rows;
+  return make_int2(r0, min(min(r0 + rows, (sp / sps + 1) * seg), W));
+}
+
+// grid (B * Hk, nsplit), PA_WARPS warps, pa_smem_bytes<G, NBITS>() of
+// dynamic shared memory.  Block (bk, sp) attends over its split's byte-rows
+// (all PER planes) and writes its partials to workspace slot
+// bk * nsplit + sp.  The split's 16-row units go to the warps in turn (unit
+// u to warp u % PA_WARPS); each warp streams its own units through its own
+// ring of PA_STAGES stages (cp.async, no block barrier) and keeps its own
+// online softmax (e-domain; p = exp(s - m) at the warp's running max); the
+// warps merge in order at the end.
+template <int G, int NBITS>
+__global__ void __launch_bounds__(PA_WARPS * 32, PA_BLOCKS)
+pa_split_kernel(Args a) {
   constexpr int PER = 8 / NBITS;
-  constexpr int QP = q_copies<G, NBITS>();
-  constexpr uint32_t MASK = (1u << NBITS) - 1u;
-  __shared__ __align__(16) float qs[QP][G][D];
-  __shared__ float zb[QP][G];
-  __shared__ float wm[NWARPS][G];
-  __shared__ float wl[NWARPS][G];
-  __shared__ float wz[NWARPS][G];
-  __shared__ __align__(16) float wacc[NWARPS][G][D];
+  constexpr int NF = pa_fields<NBITS>();
+  constexpr int FB = NBITS < 4 ? NBITS : 4;  // bits of a field
+  constexpr uint32_t M8 = ((1u << FB) - 1u) * 0x01010101u;
+  constexpr int STAGE = pa_stage_bytes<NBITS>();
+  extern __shared__ __align__(16) uint8_t smem[];
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int W = a.W;
-  const __nv_bfloat16* qg = a.q + (size_t)bk * G * D;
-  const float* ksb = a.ks + (size_t)bk * D * a.NG;
-  const float* kzb = a.kz + (size_t)bk * D * a.NG;
-  // the K group of plane p's slots in this block's byte-rows
-  const int gpl = a.W / a.kg, grow = row0 / a.kg;
-  for (int i = tid; i < QP * G * D; i += NWARPS * 32) {
-    const int p = i / (G * D), g = (i / D) % G, d = i % D;
-    const float x = __bfloat162float(qg[g * D + d]);
-    // q * scale * ks rounded to bf16, as the plain version's bf16 dot
-    qs[p][g][d] = bf16_round(x * a.scale * ksb[(size_t)d * a.NG + p * gpl + grow]);
-  }
-  for (int t = warp; t < QP * G; t += NWARPS) {
-    // K zero term of (plane copy t / G, head t % G): scale * (q . kz), f32
-    const int p = t / G, g = t % G;
-    float z = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      z = fmaf(__bfloat162float(qg[g * D + d]) * a.scale,
-               kzb[(size_t)d * a.NG + p * gpl + grow], z);
-    }
-    z = warp_sum(z);
-    if (lane == 0) zb[p][g] = z;
-  }
-  __syncthreads();
+  const int bk = blockIdx.x, sp = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int W = a.W, Dp = a.Dp;
+  const int2 rr = pa_split_rows(sp, a.rows_per_split, a.NG > 1 ? a.kg : W, W);
+  const int row0 = rr.x, row1 = rr.y;
+  const int nunits = (row1 - row0 + PA_UNIT - 1) / PA_UNIT;
+  const int nu = nunits > warp ? (nunits - warp + PA_WARPS - 1) / PA_WARPS : 0;
+  uint8_t* ring = smem + warp * PA_STAGES * STAGE;
+  // the folded queries as A fragments {a0, 0, a2, 0}: quad (f G + g)
+  // FQ_QUADS + 8 tig + kk holds channels 32 tig + 4 kk + {0, 1} and {2, 3}
+  uint4* fq = reinterpret_cast<uint4*>(smem + PA_WARPS * PA_STAGES * STAGE);
+  // the K zero terms' partial sums [PA_WARPS][PER][G]
+  float* zb = reinterpret_cast<float*>(fq + NF * G * FQ_QUADS);
 
-  const int8_t* kcb = a.kc + (size_t)bk * W * D;
-  const int8_t* vcb = a.vc + (size_t)bk * W * a.Dp;
-  const float* vsb = a.vs + (size_t)bk * W * PER * a.NGV;
-  const float* vzb = a.vz + (size_t)bk * W * PER * a.NGV;
-  const uint8_t* mb = a.mask + (size_t)bk * a.mstride;
-
-  float m[G], lp[G], zv[G], acc[G][4];
+  const char* kcb = reinterpret_cast<const char*>(a.kc) + (size_t)bk * W * D;
+  const char* vcb = reinterpret_cast<const char*>(a.vc) + (size_t)bk * W * Dp;
+  const float* vsb = a.vs + (size_t)bk * W * PER;
+  const float* vzb = a.vz + (size_t)bk * W * PER;
+  // V rows copy 16 bytes at a time where they lie 16-byte aligned, 4 where
+  // 4-byte aligned, else byte by byte (an odd V row: plain loads)
+  const int vstep = (Dp % 16 == 0 && reinterpret_cast<uintptr_t>(vcb) % 16 == 0)
+                        ? 16
+                        : (Dp % 4 == 0 && reinterpret_cast<uintptr_t>(vcb) % 4 == 0)
+                              ? 4
+                              : 1;
+  // this warp's unit i into stage i % PA_STAGES (one commit group a unit;
+  // empty past the warp's units); rows past the split are not copied
+  auto issue = [&](int i) {
+    if (i < nu) {
+      uint8_t* st = ring + (i % PA_STAGES) * STAGE;
+      const int ur0 = row0 + (warp + i * PA_WARPS) * PA_UNIT;
+      const int nr = min(PA_UNIT, row1 - ur0);
+      uint8_t* vd = st + PA_UNIT * PA_ROW;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = -INFINITY;
-    lp[g] = zv[g] = 0.f;
-    acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
-  }
-
-  for (int j0 = row0 + warp * CHUNK; j0 < row1; j0 += NWARPS * CHUNK) {
-    const int j = j0 + lane;
-    float s[PER][G];
-    if (j < row1) {
-      float dot[PER][G];
-#pragma unroll
-      for (int p = 0; p < PER; ++p)
-#pragma unroll
-        for (int g = 0; g < G; ++g) dot[p][g] = 0.f;
-      const uint4* kr = reinterpret_cast<const uint4*>(kcb + (size_t)j * D);
-#pragma unroll 1
-      for (int i = 0; i < D / 16; ++i) {
-        const uint4 kw = kr[i];
-        const uint32_t words[4] = {kw.x, kw.y, kw.z, kw.w};
-#pragma unroll
-        for (int w = 0; w < 4; ++w) {
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int d = i * 16 + w * 4 + k;
-            const uint32_t byte = (words[w] >> (8 * k)) & 0xffu;
-#pragma unroll
-            for (int p = 0; p < PER; ++p) {
-              const float kv = (float)((byte >> (p * NBITS)) & MASK);
-#pragma unroll
-              for (int g = 0; g < G; ++g)
-                dot[p][g] = fmaf(qs[QP == 1 ? 0 : p][g][d], kv, dot[p][g]);
-            }
-          }
+      for (int j = 0; j < PA_UNIT * (D / 16) / 32; ++j) {
+        const int c = lane + 32 * j, r = c >> 3, o = (c & 7) * 16;
+        if (r < nr) {
+          cp_async16(st + r * PA_ROW + o, kcb + (size_t)(ur0 + r) * D + o);
+          if (vstep == 16)
+            cp_async16(vd + r * PA_ROW + o, vcb + (size_t)(ur0 + r) * Dp + o);
         }
       }
-#pragma unroll
-      for (int p = 0; p < PER; ++p) {
-        const int slot = j + p * W;
-        const bool valid = slot < a.n_valid && mb[slot] != 0;
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-          s[p][g] = valid ? dot[p][g] + zb[QP == 1 ? 0 : p][g] : NEG;
+      if (vstep == 4) {
+        for (int c = lane; c < nr * (D / 4); c += 32)
+          cp_async4(vd + (c >> 5) * PA_ROW + (c & 31) * 4,
+                    vcb + (size_t)(ur0 + (c >> 5)) * Dp + (c & 31) * 4);
+      } else if (vstep == 1) {
+        for (int c = lane; c < nr * (D / 4); c += 32) {
+          const uint8_t* s = reinterpret_cast<const uint8_t*>(vcb) +
+                             (size_t)(ur0 + (c >> 5)) * Dp + (c & 31) * 4;
+          *reinterpret_cast<uint32_t*>(vd + (c >> 5) * PA_ROW + (c & 31) * 4) =
+              (uint32_t)s[0] | (uint32_t)s[1] << 8 | (uint32_t)s[2] << 16 |
+              (uint32_t)s[3] << 24;
+        }
       }
-    } else {
+      // V scales, then zeros: [PER][PA_UNIT] each, slot r + p * W; piece
+      // c = (z PER + p) PA_UNIT + r
+      float* sc = reinterpret_cast<float*>(st + 2 * PA_UNIT * PA_ROW);
 #pragma unroll
-      for (int p = 0; p < PER; ++p)
-#pragma unroll
-        for (int g = 0; g < G; ++g) s[p][g] = -INFINITY;  // not a slot
+      for (int j = 0; j < (2 * PER * PA_UNIT + 31) / 32; ++j) {
+        const int c = lane + 32 * j;
+        const int z = c / (PER * PA_UNIT), p = (c / PA_UNIT) % PER;
+        const int r = c % PA_UNIT;
+        if (c < 2 * PER * PA_UNIT && r < nr)
+          cp_async4(sc + c, (z ? vzb : vsb) + ur0 + r + p * W);
+      }
     }
-
-    // online softmax over the chunk's 32 * PER slots; pr: the lane's row's
-    // probability times the V scale, rounded to bf16
-    float pr[PER][G];
+    cp_async_commit();
+  };
+  // the folded queries: field f of head g, channel d, bf16(q * scale *
+  // ks[d, group of plane p]) (times 16 for 8-bit codes' high nibble), the
+  // group of plane p's slots in this split's byte-rows p * W / kg +
+  // row0 / kg; and the K zero terms scale * (q . kz[:, group]), f32.  A
+  // thread takes one channel: its loads (G query values, PER scales and
+  // zeros) go out first, ahead of the ring's first copies in the memory
+  // system, and land while those are issued
+  static_assert(PA_WARPS * 32 == D, "the folds take a thread a channel");
+  const int gpl = W / a.kg, gsp = row0 / a.kg;
+  __nv_bfloat16 qraw[G];
+  float ksd[PER], kzd[PER];
+#pragma unroll
+  for (int g = 0; g < G; ++g) qraw[g] = a.q[((size_t)bk * G + g) * D + tid];
+#pragma unroll
+  for (int p = 0; p < PER; ++p) {
+    const size_t o = ((size_t)bk * D + tid) * a.NG + p * gpl + gsp;
+    ksd[p] = a.ks[o];
+    kzd[p] = a.kz[o];
+  }
+  for (int i = 0; i < PA_STAGES - 1; ++i) issue(i);
+  float qd[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) qd[g] = __bfloat162float(qraw[g]) * a.scale;
+  __nv_bfloat16* fqh = reinterpret_cast<__nv_bfloat16*>(fq);
+  // this channel's place in its quad (the zero beside it too)
+  const int fpos = ((tid >> 5) * 8 + ((tid >> 2) & 7)) * 8 + (tid & 1) +
+                   ((tid >> 1) & 1) * 4;
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float mx = s[0][g];
+      const float x = bf16_round(qd[g] * ksd[NBITS == 8 ? 0 : f]);
+      __nv_bfloat16* q8 = fqh + (f * G + g) * FQ_QUADS * 8 + fpos;
+      q8[0] = __float2bfloat16(NBITS == 8 && f == 1 ? 16.f * x : x);
+      q8[2] = __float2bfloat16(0.f);
+    }
+  // the zero terms' sums: over each warp's 32 channels, then the warps in
+  // order (after the barrier)
 #pragma unroll
-      for (int p = 1; p < PER; ++p) mx = fmaxf(mx, s[p][g]);
-      // byte-row j0 < row1 exists, so m_new >= float32.min is finite
-      const float m_new = fmaxf(m[g], warp_max(mx));
-      const float alpha = expf(m[g] - m_new);
-      float lsum = 0.f, zsum = 0.f;
+  for (int p = 0; p < PER; ++p)
 #pragma unroll
-      for (int p = 0; p < PER; ++p) {
-        const float e = s[p][g] > NEG ? expf(s[p][g] - m_new) : 0.f;
-        lsum += e;
-        pr[p][g] = e;
-        if (e != 0.f) {
-          const int slot = j + p * W;
-          zsum = fmaf(e, vzb[slot], zsum);
-          pr[p][g] = bf16_round(e * vsb[slot]);
+    for (int g = 0; g < G; ++g) {
+      const float z = warp_sum(qd[g] * kzd[p]);
+      if (lane == 0) zb[(warp * PER + p) * G + g] = z;
+    }
+  __syncthreads();
+  // the finish pass may launch now: its tail work overlaps this grid, and it
+  // waits for this grid's partials before it reads them
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+
+  // this lane: head gid (real where gid < G), byte-rows 8t + 2 tig + e of
+  // a unit's two 8-row n-tiles; its P V accumulators hold head gid,
+  // channels 32 tig + nt and 32 tig + 16 + nt of tile nt
+  const bool hv = gid < G;
+  const uint8_t* mb = a.mask + (size_t)bk * a.mstride;
+  float o[16][4];
+#pragma unroll
+  for (int nt = 0; nt < 16; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  // ps: the bf16 P this lane fed P V (times the field weights), for the
+  // 128 offset of code2_128
+  float m = -INFINITY, l = 0.f, zv = 0.f, ps = 0.f;
+  float zl[PER];  // the lane's head's K zero terms
+#pragma unroll
+  for (int p = 0; p < PER; ++p) {
+    zl[p] = 0.f;
+#pragma unroll
+    for (int w = 0; w < PA_WARPS; ++w)
+      zl[p] += hv ? zb[(w * PER + p) * G + gid] : 0.f;
+  }
+
+  // visibility of unit i's PER x 16 slots (byte-row ur0 + r, plane p: bit
+  // 16 p + r of the unit's vbits), one mask byte a lane (0 where the slot
+  // is past the split, n_valid or the warp's units), loaded a unit ahead
+  constexpr int VW = (PER * PA_UNIT + 31) / 32;
+  auto load_vis = [&](int i, uint8_t (&mv)[VW]) {
+    const int ur0 = row0 + (warp + i * PA_WARPS) * PA_UNIT;
+#pragma unroll
+    for (int j = 0; j < VW; ++j) {
+      const int x = 32 * j + lane, r = ur0 + (x & 15),
+                slot = r + (x >> 4) * W;
+      mv[j] = i < nu && x < PER * PA_UNIT && r < row1 && slot < a.n_valid
+                  ? mb[slot]
+                  : 0;
+    }
+  };
+  uint8_t vcur[VW];
+  load_vis(0, vcur);
+
+  for (int i = 0; i < nu; ++i) {
+    // unit i has landed: this lane's copies, then every lane's; stage i - 1
+    // is free
+    cp_async_wait<PA_STAGES - 2>();
+    __syncwarp();
+    issue(i + PA_STAGES - 1);
+    const uint8_t* st = ring + (i % PA_STAGES) * STAGE;
+    const int ur0 = row0 + (warp + i * PA_WARPS) * PA_UNIT;
+    // the next unit's mask bytes go out now: their latency hides behind
+    // this unit
+    uint8_t vnext[VW];
+    load_vis(i + 1, vnext);
+
+    // ---- S = Qf Kc^T, per plane: 16 heads x (2 n-tiles of 8 byte-rows);
+    // k step kk takes channels 32 tig + 4 kk + {0..3} of the lane's row
+    float s[PER][2][4];
+#pragma unroll
+    for (int p = 0; p < PER; ++p)
+#pragma unroll
+      for (int t = 0; t < 2; ++t) s[p][t][0] = s[p][t][1] = s[p][t][2] = s[p][t][3] = 0.f;
+    uint4 kw[2][2];
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        kw[t][h] = *reinterpret_cast<const uint4*>(
+            st + (8 * t + gid) * PA_ROW + 32 * tig + 16 * h);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint4 qa[NF];
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        qa[f] = hv ? fq[(f * G + gid) * FQ_QUADS + 8 * tig + kk]
+                   : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const uint4 w4 = kw[t][kk >> 2];
+        const uint32_t word = (kk & 3) == 0 ? w4.x : (kk & 3) == 1 ? w4.y
+                              : (kk & 3) == 2 ? w4.z : w4.w;
+#pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          const uint32_t y = (word >> (f * FB)) & M8;
+          mma_g(s[NBITS == 8 ? 0 : f][t], qa[f], code2(y, 0x4140),
+                code2(y, 0x4342));
         }
       }
-      lp[g] = lp[g] * alpha + lsum;
-      zv[g] = zv[g] * alpha + zsum;
-      acc[g][0] *= alpha;
-      acc[g][1] *= alpha;
-      acc[g][2] *= alpha;
-      acc[g][3] *= alpha;
-      m[g] = m_new;
     }
 
-    // P.V: this lane owns channels [4 * lane, 4 * lane + 4)
-    const int nrows = min(CHUNK, row1 - j0);
-#pragma unroll 4
-    for (int r = 0; r < nrows; ++r) {
-      const int jr = j0 + r;
-      // channels 4 * lane + k; Dp may be odd (an odd group size)
-      const int8_t* vp = vcb + (size_t)jr * a.Dp + lane * 4;
-      const uint32_t vw =
-          (a.Dp & 3) == 0
-              ? *reinterpret_cast<const uint32_t*>(vp)
-              : (uint32_t)(uint8_t)vp[0] | (uint32_t)(uint8_t)vp[1] << 8 |
-                    (uint32_t)(uint8_t)vp[2] << 16 | (uint32_t)(uint8_t)vp[3] << 24;
+    // ---- online softmax of the unit for head gid (e-domain)
+    uint32_t vbits[VW];
 #pragma unroll
-      for (int p = 0; p < PER; ++p) {
+    for (int j = 0; j < VW; ++j) {
+      vbits[j] = __ballot_sync(FULL, vcur[j] != 0);
+      vcur[j] = vnext[j];
+    }
+    float sv[PER][2][2];
+    float mx = -INFINITY;
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float pj = __shfl_sync(FULL, pr[p][g], r);
+    for (int p = 0; p < PER; ++p)
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float c = (float)((vw >> (8 * k + p * NBITS)) & MASK);
-            acc[g][k] = fmaf(pj, c, acc[g][k]);
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = ur0 + 8 * t + 2 * tig + e;
+          // past the split: not a slot; masked: float32.min
+          const int x = 16 * p + 8 * t + 2 * tig + e;  // the slot's bit
+          sv[p][t][e] = r >= row1 ? -INFINITY
+                        : (vbits[x >> 5] >> (x & 31)) & 1u ? s[p][t][e] + zl[p]
+                                                       : NEG;
+          mx = fmaxf(mx, sv[p][t][e]);
+        }
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+    // the unit has a byte-row in the split: m_new >= float32.min is finite
+    const float m_new = fmaxf(m, mx);
+    const float alpha = __expf(m - m_new);  // 0 while m = -inf
+    l *= alpha;
+    zv *= alpha;
+    ps *= alpha;
+    if (__any_sync(FULL, alpha != 1.f)) {  // a max moved: rescale
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        o[nt][0] *= alpha;
+        o[nt][1] *= alpha;
+      }
+    }
+    m = m_new;
+    // p times the V scale (rounded to bf16 when packed), p times the V zero
+    const float* vsc = reinterpret_cast<const float*>(st + 2 * PA_UNIT * PA_ROW);
+    float pv[PER][2][2];
+#pragma unroll
+    for (int p = 0; p < PER; ++p)
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const float2 vs2 = *reinterpret_cast<const float2*>(
+            vsc + p * PA_UNIT + 8 * t + 2 * tig);
+        const float2 vz2 = *reinterpret_cast<const float2*>(
+            vsc + (PER + p) * PA_UNIT + 8 * t + 2 * tig);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float ev = sv[p][t][e] > NEG ? __expf(sv[p][t][e] - m_new) : 0.f;
+          l += ev;
+          pv[p][t][e] = 0.f;
+          if (ev != 0.f) {  // rows past the split hold no scales
+            zv = fmaf(ev, e ? vz2.y : vz2.x, zv);
+            pv[p][t][e] = ev * (e ? vs2.y : vs2.x);
           }
         }
       }
+
+    // ---- O += P Vc: B the V codes of byte-rows {2 tig, 2 tig + 1} (b0)
+    // and {8 + 2 tig, 9 + 2 tig} (b1), channel 16 gid + 4 u + e of tile
+    // nt = 4 u + e
+    uint4 vw[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      vw[j] = *reinterpret_cast<const uint4*>(
+          st + PA_UNIT * PA_ROW + ((j >> 1) * 8 + 2 * tig + (j & 1)) * PA_ROW +
+          16 * gid);
+    uint4 pa[NF];  // A fragments of P, field f
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const int p = NBITS == 8 ? 0 : f;
+      const float w = NBITS == 8 && f == 1 ? 16.f : 1.f;
+      pa[f] = make_uint4(pack2(pv[p][0][0] * w, pv[p][0][1] * w), 0u,
+                         pack2(pv[p][1][0] * w, pv[p][1][1] * w), 0u);
+      ps += sum2(pa[f].x) + sum2(pa[f].z);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const uint32_t w0 = u == 0 ? vw[0].x : u == 1 ? vw[0].y : u == 2 ? vw[0].z : vw[0].w;
+      const uint32_t w1 = u == 0 ? vw[1].x : u == 1 ? vw[1].y : u == 2 ? vw[1].z : vw[1].w;
+      const uint32_t w2 = u == 0 ? vw[2].x : u == 1 ? vw[2].y : u == 2 ? vw[2].z : vw[2].w;
+      const uint32_t w3 = u == 0 ? vw[3].x : u == 1 ? vw[3].y : u == 2 ? vw[3].z : vw[3].w;
+      // rows 2 tig and 2 tig + 1 interleaved: channel bytes 0, 1 | 2, 3
+      const uint32_t x00 = prmt(w0, w1, 0x5140), x01 = prmt(w0, w1, 0x7362);
+      const uint32_t x10 = prmt(w2, w3, 0x5140), x11 = prmt(w2, w3, 0x7362);
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        const uint32_t y00 = (x00 >> (f * FB)) & M8, y01 = (x01 >> (f * FB)) & M8;
+        const uint32_t y10 = (x10 >> (f * FB)) & M8, y11 = (x11 >> (f * FB)) & M8;
+        mma_g(o[4 * u + 0], pa[f], code2_128(y00, 0x4140), code2_128(y10, 0x4140));
+        mma_g(o[4 * u + 1], pa[f], code2_128(y00, 0x4342), code2_128(y10, 0x4342));
+        mma_g(o[4 * u + 2], pa[f], code2_128(y01, 0x4140), code2_128(y11, 0x4140));
+        mma_g(o[4 * u + 3], pa[f], code2_128(y01, 0x4342), code2_128(y11, 0x4342));
+      }
     }
   }
 
-  // merge the warps' partial softmax states
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float lw = warp_sum(lp[g]);
-    const float zw = warp_sum(zv[g]);
-    if (lane == 0) {
-      wm[warp][g] = m[g];
-      wl[warp][g] = lw;
-      wz[warp][g] = zw;
+  // the warp's sums over the 4 lanes of a head, then the warps' states
+  // merged in warp order (the rings are free: they hold the states now)
+  l += __shfl_xor_sync(FULL, l, 1);
+  l += __shfl_xor_sync(FULL, l, 2);
+  zv += __shfl_xor_sync(FULL, zv, 1);
+  zv += __shfl_xor_sync(FULL, zv, 2);
+  ps += __shfl_xor_sync(FULL, ps, 1);
+  ps += __shfl_xor_sync(FULL, ps, 2);
+  cp_async_wait<0>();
+  __syncthreads();
+  float* wm = reinterpret_cast<float*>(smem);  // [PA_WARPS][G]
+  float* wl = wm + PA_WARPS * G;
+  float* wz = wl + PA_WARPS * G;
+  float* wacc = wz + PA_WARPS * G;             // [PA_WARPS][G][D]
+  if (hv) {
+    if (tig == 0) {
+      wm[warp * G + gid] = m;
+      wl[warp * G + gid] = l;
+      wz[warp * G + gid] = zv;
     }
-    *reinterpret_cast<float4*>(&wacc[warp][g][lane * 4]) =
-        make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+    float* wa = wacc + (warp * G + gid) * D + 32 * tig;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      wa[nt] = o[nt][0] - 128.f * ps;
+      wa[16 + nt] = o[nt][1] - 128.f * ps;
+    }
   }
   __syncthreads();
-
-  for (int i = tid; i < G * D; i += NWARPS * 32) {
+  for (int i = tid; i < G * D; i += PA_WARPS * 32) {
     const int g = i / D, d = i % D;
     float mx = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < NWARPS; ++w) mx = fmaxf(mx, wm[w][g]);
-    float l = 0.f, o = 0.f;
+    for (int w = 0; w < PA_WARPS; ++w) mx = fmaxf(mx, wm[w * G + g]);
+    float lt = 0.f, o2 = 0.f;
 #pragma unroll
-    for (int w = 0; w < NWARPS; ++w) {
+    for (int w = 0; w < PA_WARPS; ++w) {
       // idle warps (m = -inf) and all-masked ones (l = 0) add nothing
-      const float f = wm[w][g] <= NEG / 2 ? 0.f : expf(wm[w][g] - mx);
-      l = fmaf(wl[w][g], f, l);
-      o = fmaf(wacc[w][g][d] + wz[w][g], f, o);
+      const float f = wm[w * G + g] <= NEG / 2 ? 0.f : expf(wm[w * G + g] - mx);
+      lt = fmaf(wl[w * G + g], f, lt);
+      o2 = fmaf(wacc[(w * G + g) * D + d] + wz[w * G + g], f, o2);
     }
-    const size_t row = (size_t)out * G + g;
-    a.acc[row * D + d] = o;
+    const size_t row = ((size_t)bk * gridDim.y + sp) * G + g;
+    a.acc[row * D + d] = o2;
     if (d == 0) {
       a.m[row] = mx;
-      a.l[row] = l;
+      a.l[row] = lt;
     }
   }
 }
 
-// grid (B * Hk, nsplit): block (bk, s) takes byte-rows
-// [s * rows_per_split, (s + 1) * rows_per_split) into workspace slot
-// bk * nsplit + s.
-template <int G, int NBITS>
-__global__ void __launch_bounds__(NWARPS * 32) split_kernel(Args a) {
-  const int r0 = blockIdx.y * a.rows_per_split;
-  pa_partials<G, NBITS>(a, blockIdx.x, r0, min(a.W, r0 + a.rows_per_split),
-                        blockIdx.x * gridDim.y + blockIdx.y);
-}
-
-// Merge the nsplit partials of each (bk, g) in split order into (acc, m, l).
-// With a tail, attend over it too (f32 logits of the bf16 q and K, as
+// Merge the nsplit partials of each (bk, g) in split order into (acc, m, l);
+// with a tail, attend over it too (f32 logits of the bf16 q and K, as
 // ops/attention.py::decode_attention_partials), merge it after the splits
 // and write the normalised output out[bk * G + g] in bf16 instead.  Block
-// (bk, g), thread d: 4 warps; in the tail a warp takes 32-slot chunks
-// (chunk c of warp w starts at slot 32 * (w + 4c)), a lane one slot's
-// logit, then 4 channels of P.V.
+// (bk, g), thread d: 4 warps.  Launched as a programmatic dependent of
+// pa_split_kernel: the tail (which reads nothing the split kernel writes)
+// runs first, then the block waits for the split kernel's partials.  In the
+// tail a warp takes 32-slot chunks (chunk c of warp w starts at slot 32 *
+// (w + 4c)), a lane one slot's logit, then 4 channels of P.V, every load of
+// a chunk in flight together.
 template <int G>
-__global__ void __launch_bounds__(D) finish_kernel(
+__global__ void __launch_bounds__(D) pa_finish_kernel(
     const float* __restrict__ wacc, const float* __restrict__ wm,
     const float* __restrict__ wl, int nsplit, const __nv_bfloat16* q, Tail t,
     float scale, float* __restrict__ acc, float* __restrict__ m,
@@ -347,6 +640,71 @@ __global__ void __launch_bounds__(D) finish_kernel(
   __shared__ float tm[TW], tl[TW];
   __shared__ __align__(16) float ta[TW][D];
   const int bk = blockIdx.x, g = blockIdx.y, d = threadIdx.x;
+  const size_t row = (size_t)bk * G + g;
+  const int warp = d >> 5, lane = d & 31;
+  if (t.T > 0) {
+    qs[d] = __bfloat162float(q[row * D + d]);
+    __syncthreads();
+    const __nv_bfloat16* kb = t.k + (size_t)bk * t.T * D;
+    const __nv_bfloat16* vb = t.v + (size_t)bk * t.T * D + lane * 4;
+    const uint8_t* tmb = t.mask + (size_t)bk * t.mstride;
+    float wmx = -INFINITY, wls = 0.f, wa[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int c0 = warp * 32; c0 < t.T; c0 += TW * 32) {
+      const int s = c0 + lane;
+      float x = -INFINITY;  // not a visible slot
+      if (s < t.T && tmb[s]) {
+        const uint4* kr = reinterpret_cast<const uint4*>(kb + (size_t)s * D);
+        uint4 kw[D / 8];
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) kw[i] = kr[i];
+        float dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          const uint32_t words[4] = {kw[i].x, kw[i].y, kw[i].z, kw[i].w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float2 kf = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&words[k]));
+            dot = fmaf(qs[i * 8 + 2 * k], kf.x, dot);
+            dot = fmaf(qs[i * 8 + 2 * k + 1], kf.y, dot);
+          }
+        }
+        x = dot * scale;
+      }
+      const float cm = warp_max(x);
+      if (cm == -INFINITY) continue;  // no visible slot in the chunk
+      const float mn = fmaxf(wmx, cm);
+      const float alpha = expf(wmx - mn);  // 0 while wmx = -inf
+      const float p = x == -INFINITY ? 0.f : expf(x - mn);
+      wls = fmaf(wls, alpha, warp_sum(p));
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wa[k] *= alpha;
+      const int nrows = min(32, t.T - c0);
+      uint2 vw[32];
+#pragma unroll
+      for (int r = 0; r < 32; ++r)
+        vw[r] = r < nrows ? *reinterpret_cast<const uint2*>(vb + (size_t)(c0 + r) * D)
+                          : make_uint2(0u, 0u);
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const float pr = __shfl_sync(FULL, p, r);  // 0 past the tail
+        const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vw[r].x));
+        const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vw[r].y));
+        wa[0] = fmaf(pr, v01.x, wa[0]);
+        wa[1] = fmaf(pr, v01.y, wa[1]);
+        wa[2] = fmaf(pr, v23.x, wa[2]);
+        wa[3] = fmaf(pr, v23.y, wa[3]);
+      }
+      wmx = mn;
+    }
+    if (lane == 0) {
+      tm[warp] = wmx;
+      tl[warp] = wls;
+    }
+    *reinterpret_cast<float4*>(&ta[warp][lane * 4]) = make_float4(wa[0], wa[1], wa[2], wa[3]);
+  }
+  // the split kernel's partials are complete and visible from here on
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const size_t base = (size_t)bk * nsplit;
   float mx = -INFINITY;
 #pragma unroll 8
@@ -354,12 +712,11 @@ __global__ void __launch_bounds__(D) finish_kernel(
   float ls = 0.f, o = 0.f;
 #pragma unroll 8
   for (int s = 0; s < nsplit; ++s) {
-    const size_t row = (base + s) * G + g;
-    const float f = wm[row] <= NEG / 2 ? 0.f : expf(wm[row] - mx);
-    ls = fmaf(wl[row], f, ls);
-    o = fmaf(wacc[row * D + d], f, o);
+    const size_t r = (base + s) * G + g;
+    const float f = wm[r] <= NEG / 2 ? 0.f : expf(wm[r] - mx);
+    ls = fmaf(wl[r], f, ls);
+    o = fmaf(wacc[r * D + d], f, o);
   }
-  const size_t row = (size_t)bk * G + g;
   if (t.T == 0) {
     acc[row * D + d] = o;
     if (d == 0) {
@@ -368,61 +725,6 @@ __global__ void __launch_bounds__(D) finish_kernel(
     }
     return;
   }
-
-  qs[d] = __bfloat162float(q[row * D + d]);
-  __syncthreads();
-  const int warp = d >> 5, lane = d & 31;
-  const __nv_bfloat16* kb = t.k + (size_t)bk * t.T * D;
-  const __nv_bfloat16* vb = t.v + (size_t)bk * t.T * D + lane * 4;
-  const uint8_t* mb = t.mask + (size_t)bk * t.mstride;
-  float wmx = -INFINITY, wls = 0.f, wa[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int c0 = warp * 32; c0 < t.T; c0 += TW * 32) {
-    const int s = c0 + lane;
-    float x = -INFINITY;  // not a visible slot
-    if (s < t.T && mb[s]) {
-      const uint4* kr = reinterpret_cast<const uint4*>(kb + (size_t)s * D);
-      float dot = 0.f;
-#pragma unroll 4
-      for (int i = 0; i < D / 8; ++i) {
-        const uint4 kw = kr[i];
-        const uint32_t words[4] = {kw.x, kw.y, kw.z, kw.w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float2 kf = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&words[k]));
-          dot = fmaf(qs[i * 8 + 2 * k], kf.x, dot);
-          dot = fmaf(qs[i * 8 + 2 * k + 1], kf.y, dot);
-        }
-      }
-      x = dot * scale;
-    }
-    const float cm = warp_max(x);
-    if (cm == -INFINITY) continue;  // no visible slot in the chunk
-    const float mn = fmaxf(wmx, cm);
-    const float alpha = expf(wmx - mn);  // 0 while wmx = -inf
-    const float p = x == -INFINITY ? 0.f : expf(x - mn);
-    wls = fmaf(wls, alpha, warp_sum(p));
-#pragma unroll
-    for (int k = 0; k < 4; ++k) wa[k] *= alpha;
-    const int nrows = min(32, t.T - c0);
-    for (int r = 0; r < nrows; ++r) {
-      const float pr = __shfl_sync(FULL, p, r);
-      if (pr == 0.f) continue;  // the same row for the whole warp
-      const uint2 vw = *reinterpret_cast<const uint2*>(vb + (size_t)(c0 + r) * D);
-      const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vw.x));
-      const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vw.y));
-      wa[0] = fmaf(pr, v01.x, wa[0]);
-      wa[1] = fmaf(pr, v01.y, wa[1]);
-      wa[2] = fmaf(pr, v23.x, wa[2]);
-      wa[3] = fmaf(pr, v23.y, wa[3]);
-    }
-    wmx = mn;
-  }
-  if (lane == 0) {
-    tm[warp] = wmx;
-    tl[warp] = wls;
-  }
-  *reinterpret_cast<float4*>(&ta[warp][lane * 4]) = make_float4(wa[0], wa[1], wa[2], wa[3]);
   __syncthreads();
   float mall = mx;
 #pragma unroll
@@ -440,21 +742,42 @@ __global__ void __launch_bounds__(D) finish_kernel(
   out[row * D + d] = __float2bfloat16(ot / fmaxf(lt, 1e-30f));
 }
 
-// The pa layout's launches: split_kernel over grid (B * Hk, nsplit) writes
-// the partials to the workspace and finish_kernel merges them (and the
-// tail).
+// The pa layout's launches: pa_split_kernel over grid (B * Hk, nsplit)
+// writes the partials to the workspace, pa_finish_kernel (a programmatic
+// dependent launch) merges them (and the tail).
 template <int G, int NBITS>
 int launch_pa(const Args& a, float* ws_acc, float* ws_m, float* ws_l, int BHk,
               int nsplit, const Tail& t, __nv_bfloat16* out, cudaStream_t st) {
+  constexpr int smem = pa_smem_bytes<G, NBITS>();
+  static bool attr = false;  // per instantiation
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pa_split_kernel<G, NBITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    attr = true;
+  }
   Args w = a;
   w.acc = ws_acc;
   w.m = ws_m;
   w.l = ws_l;
-  split_kernel<G, NBITS><<<dim3(BHk, nsplit), NWARPS * 32, 0, st>>>(w);
+  pa_split_kernel<G, NBITS><<<dim3(BHk, nsplit), PA_WARPS * 32, smem, st>>>(w);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  finish_kernel<G><<<dim3(BHk, G), D, 0, st>>>(ws_acc, ws_m, ws_l, nsplit, a.q, t,
-                                                a.scale, a.acc, a.m, a.l, out);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(BHk, G);
+  cfg.blockDim = dim3(D);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr2[1];
+  attr2[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr2[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr2;
+  cfg.numAttrs = 1;
+  const cudaError_t le = cudaLaunchKernelEx(
+      &cfg, pa_finish_kernel<G>, (const float*)ws_acc, (const float*)ws_m,
+      (const float*)ws_l, nsplit, a.q, t, a.scale, a.acc, a.m, a.l, out);
+  if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();
 }
 
@@ -569,20 +892,6 @@ inline int region_window(int G, int per, bool fold, int rows, int kg, int NG,
   return win;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // A code (0..255) as a float: 2^23 + code, less 2^23.
 __device__ __forceinline__ float code_f(uint32_t c) {
   return __uint_as_float(0x4B000000u | c) - 8388608.f;
@@ -597,7 +906,7 @@ __global__ void __launch_bounds__(NWARPS * 32)
 region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
               float* __restrict__ ws_acc, float* __restrict__ ws_m,
               float* __restrict__ ws_l) {
-  static_assert(MODE != kPA, "the pa layout takes split_kernel");
+  static_assert(MODE != kPA, "the pa layout takes pa_split_kernel");
   constexpr bool FOLD = MODE == kFold;
   constexpr int PER = 8 / NBITS;
   constexpr uint32_t MASK = (1u << NBITS) - 1u;

@@ -12,7 +12,9 @@ hand-written sm_90a kernel; on a CPU tensor it runs the plain version
 :func:`flash_tile_plan` mirrors the key-tile plan of the one-pass,
 partials and pass-B kernel (``flash_wgmma_kernel``), and
 :func:`flash_tiled_plain` runs that kernel's schedule in plain PyTorch (the
-CPU tests hold it to the plain versions and to the Pallas kernels).
+CPU tests hold it to the plain versions and to the Pallas kernels);
+:func:`row_max_unit_plan` and :func:`row_max_tiled_plain` do the same for
+pass A's kernel (``row_max_kernel``).
 """
 
 from __future__ import annotations
@@ -316,6 +318,85 @@ def flash_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return acc, torch.where(m == -math.inf, neg, m), l
     inv = torch.where(l > 0, 1.0 / l.clamp_min(1e-30), 0.0)
     return (acc * inv[..., None]).to(q.dtype)
+
+
+#: keys of one unit of pass A's kernel (``row_max_kernel``): a 128-key
+#: tile is walked as two units by each 64-row consumer warpgroup
+UNIT = 64
+
+
+def row_max_unit_plan(n: int, nq: int, q_start: int, pad: int,
+                      window: Optional[int] = None):
+    """The units pass A's kernel (``csrc/flash_prefill.cu``, namespace
+    ``rm``) walks: per q tile of BLOCK_Q rows, per 64-row consumer
+    warpgroup, every 64-key unit of the tiles :func:`flash_tile_plan`
+    gives the q tile, in order, as (first key, interior).  A unit is
+    interior when every (row, key) pair of the warpgroup's 64 rows
+    (counted to 64 even past nq) and the unit's 64 keys is visible: past
+    the pad, causal, below n and inside the window; the kernel masks only
+    the others (the diagonal, the pad edge, the window edge, a tile cut
+    short by n).  Returns [q tile][warpgroup] -> [(first key, interior)]."""
+    plan = []
+    for t, (tiles, _) in enumerate(flash_tile_plan(n, nq, q_start, pad,
+                                                   window)):
+        g0 = q_start + t * BLOCK_Q
+        groups = []
+        for cw in range(BLOCK_Q // UNIT):
+            r_lo = g0 + cw * UNIT
+            groups.append([
+                (cu, cu >= pad and cu + UNIT - 1 <= r_lo and cu + UNIT <= n
+                 and (not window or r_lo + UNIT - 1 - cu < window))
+                for kt in tiles for cu in (kt * BLOCK_K, kt * BLOCK_K + UNIT)])
+        plan.append(groups)
+    return plan
+
+
+def row_max_tiled_plain(q: torch.Tensor, k: torch.Tensor,
+                        true_len: torch.Tensor, *,
+                        sliding_window: Optional[int] = None,
+                        scale: Optional[float] = None,
+                        q_start: int = 0) -> torch.Tensor:
+    """Pass A's kernel schedule in plain PyTorch: each warpgroup's 64 rows
+    of bf16(q * scale * log2 e) (q's dtype; f32 is not rounded) walk their
+    :func:`row_max_unit_plan` units, the mask applied only to units that
+    are not interior, a running max per row.  Arguments as
+    :func:`flash_row_max`; returns m [B, H, Nq] f32, float32.min on a row
+    with no visible key."""
+    b, h, nq, d = q.shape
+    hk, n = k.shape[1], k.shape[2]
+    g = h // hk
+    sc = (scale if scale is not None else 1.0 / math.sqrt(d)) * math.log2(
+        math.e)
+    qr = (q.float() * sc).to(q.dtype).float()
+    kf = k.float()
+    m = torch.full((b, h, nq), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    for bi in range(b):
+        pad = n - int(true_len[bi])
+        plan = row_max_unit_plan(n, nq, q_start, pad, sliding_window)
+        for t, groups in enumerate(plan):
+            for cw, units in enumerate(groups):
+                r0 = t * BLOCK_Q + cw * UNIT
+                r1 = min(r0 + UNIT, nq)
+                if r0 >= r1:
+                    continue  # rows past Nq: never written
+                rows = q_start + torch.arange(r0, r1, device=q.device)[:, None]
+                qt = qr[bi, :, r0:r1].reshape(hk, g, r1 - r0, d)
+                mt = m[bi, :, r0:r1].reshape(hk, g, -1)
+                for cu, inner in units:
+                    c1 = min(cu + UNIT, n)
+                    if c1 <= cu:
+                        continue  # keys past n: zeros, all masked
+                    s = torch.matmul(qt, kf[bi, :, None, cu:c1].transpose(
+                        -1, -2))
+                    if not inner:
+                        cols = torch.arange(cu, c1, device=q.device)[None, :]
+                        vis = (cols >= pad) & (cols <= rows)
+                        if sliding_window:
+                            vis &= rows - cols < sliding_window
+                        s = s.masked_fill(~vis, -math.inf)
+                    mt.copy_(torch.maximum(mt, s.amax(-1)))
+    return torch.where(m == -math.inf, torch.finfo(torch.float32).min, m)
 
 
 #: kernel launches since the last reset (CPU calls do not count)

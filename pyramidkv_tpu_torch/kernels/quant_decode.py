@@ -66,8 +66,6 @@ MAX_SMEM = 232448
 #: groups) at most, under :func:`split_plan`
 _MIN_ITEMS = 4
 _MAX_COLS = 28
-#: byte-rows per warp iteration in the pa kernel
-_CHUNK = 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,16 +73,6 @@ def _sm_count(device: torch.device) -> int:
     if device.type != "cuda":
         return H100_SMS
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def pa_split_plan(device: torch.device, bhk: int, w: int):
-    """(nsplit, byte-rows per split) of the pa kernel for ``bhk`` regions of
-    ``w`` byte-rows on ``device``: about 4 blocks per SM, and at least one
-    32-row chunk per warp (8 warps) in each split."""
-    chunks = -(-w // _CHUNK)
-    want = max(1, min(chunks // 8, -(-4 * _sm_count(device) // bhk)))
-    rows = _CHUNK * -(-chunks // want)
-    return -(-w // rows), rows
 
 
 def staged_groups(rows: int, kg: int, ng: int) -> int:
@@ -232,7 +220,7 @@ def launch_region(symbol: str, lib: str, q: torch.Tensor,
         raise ValueError("mask must be a bool [B, Hk, n <= S_pad] prefix view "
                          f"of a contiguous array, got {tuple(mask.shape)} "
                          f"strides {mask.stride()}")
-    pa = ng == ngv == 1
+    pa = symbol == "pkv_quant_fused_pa"
     if (d != HEAD_DIM or h % hk or h // hk not in GROUPS or nbits not in NBITS
             or (not pa and (vg % 4 or dp % 4 or w % 4))):
         raise ValueError(f"kernel takes D == {HEAD_DIM}, H/Hk in {GROUPS}, "

@@ -2,7 +2,7 @@
 """Prefill walls of the port with two builds of its flash kernels, on one
 CUDA card.
 
-    python3 scripts/port_flash_ab.py --other PATH [--log FILE]
+    python3 scripts/port_flash_ab.py --other PATH [--runs NAMES] [--log FILE]
 
 ``PATH`` is another ``flash_prefill.cu`` with the same C entry points (for
 example the parent commit's, from ``git show``).  The script builds the
@@ -15,7 +15,12 @@ package's nvcc flags, then times the prefill of four engine runs of
 - run (c): bf16 snapkv, the 8k batch, ``prefill_chunk=2048`` (flash at
   ``q_start``);
 - run (e): int4 fullkv kivi4-pa, the 32k prompt, ``prefill_chunk=8192``
-  (``flash_attention_partials``).
+  (``flash_attention_partials``);
+- runs (g) and (h): ``prefill_two_pass=True`` on bf16 snapkv, the 8k
+  batch, and int4 snapkv, the 32k prompt (pass A and pass B).
+
+``--runs``: comma-separated prefixes of the run names to time (default:
+every run).
 
 Each prefill runs once to warm up, then in turns other, new, new, other
 (host seconds around a prefill that ends in a synchronize).  Each run's
@@ -65,6 +70,8 @@ def main() -> int:
     ap.add_argument("--other", required=True,
                     help="another flash_prefill.cu to time beside the "
                          "package's")
+    ap.add_argument("--runs", help="comma-separated prefixes of the runs "
+                    "to time (default: all)")
     ap.add_argument("--log", help="append the JSON lines to this file")
     args = ap.parse_args()
 
@@ -75,6 +82,7 @@ def main() -> int:
                                             ModelSpec)
     from pyramidkv_tpu_torch.engine import Engine
     from pyramidkv_tpu_torch.kernels import _build
+    from pyramidkv_tpu_torch.models import llama
     from pyramidkv_tpu_torch.models.convert import init_params
 
     if not torch.cuda.is_available():
@@ -97,17 +105,26 @@ def main() -> int:
            .tolist()]
     rng = np.random.default_rng(0)
     p8 = [rng.integers(0, vocab, size=t).tolist() for t in cs.TRUE_LEN]
+    # name -> (weights, compression, bucket, chunk, prompts, two-pass)
     runs = {
         "int4 fullkv 32k": (q4, CompressionSpec(method="fullkv", **cs.QCOMP),
-                            cs.QN, None, p32),
+                            cs.QN, None, p32, False),
         "bf16 snapkv 8k batch": (params, CompressionSpec(method="snapkv"),
-                                 cs.N, None, p8),
+                                 cs.N, None, p8, False),
     }
     for run in ("(c) bf16 snapkv 8k chunk 2048",
                 "(e) int4 fullkv kivi4-pa 32k chunk 8192"):
         comp, bucket, _, chunk = cs.chunk_run_spec(run)
         runs[run] = (q4 if cs.CHUNK_RUNS[run][0] == "int4" else params, comp,
-                     bucket, chunk, p32 if bucket == cs.QN else p8)
+                     bucket, chunk, p32 if bucket == cs.QN else p8, False)
+    runs["(g) bf16 snapkv 8k two-pass"] = (
+        params, CompressionSpec(method="snapkv"), cs.N, None, p8, True)
+    runs["(h) int4 snapkv 32k two-pass"] = (
+        q4, CompressionSpec(method="snapkv", **cs.QCOMP), cs.QN, None, p32,
+        True)
+    if args.runs:
+        runs = {k: v for k, v in runs.items()
+                if k.startswith(tuple(args.runs.split(",")))}
     out_f = open(args.log, "a") if args.log else None
 
     def emit(rec):
@@ -117,7 +134,8 @@ def main() -> int:
             out_f.write(line + "\n")
 
     with torch.inference_mode():
-        for run, (wts, comp, bucket, chunk, prompts) in runs.items():
+        for run, (wts, comp, bucket, chunk, prompts,
+                  two_pass) in runs.items():
             eng = Engine(spec, comp, EngineSpec(max_new_tokens=8,
                                                 prefill_buckets=(bucket,),
                                                 prefill_chunk=chunk),
@@ -129,7 +147,10 @@ def main() -> int:
                 _build._loaded["flash_prefill"] = libs[turn]
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                res = cs.prefill_with(eng, bucket, tokens, tl, "kernel")
+                res = (llama.prefill(wts, spec, eng.plan_for(bucket), tokens,
+                                     tl, prefill_two_pass=True) if two_pass
+                       else cs.prefill_with(eng, bucket, tokens, tl,
+                                            "kernel"))
                 torch.cuda.synchronize()
                 walls[turn].append(time.perf_counter() - t0)
                 logits[turn] = res[0].float()  # [B, vocab], the last position

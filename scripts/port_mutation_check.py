@@ -16,12 +16,22 @@ mutant, the smallest ``err_over_tol`` over those and over the short checks
 (where a mutant may not bite: a region too short for warp 1), and exits
 non-zero if a mutant was not caught.  Mutants:
 
-- ``drop_plane`` (``csrc/quant_region.cuh``): the last bit-plane's V codes
-  read as 0 (with 8-bit codes, the only plane) in the pa layout's split
-  kernel (``region_drop_plane`` is the same fault in the group kernel);
+- ``drop_plane`` (``csrc/quant_region.cuh``): the pa layout's split kernel
+  reads the V codes of its last <= 4-bit field as 0 (the last bit-plane;
+  with 8-bit codes their high nibble) (``region_drop_plane`` is the same
+  fault in the group kernel);
 - ``drop_chunk`` (``csrc/quant_region.cuh``): warp 1 of the pa layout's
-  split kernel skips its first 32-row chunk of every block's slot range (a
-  slot tile never attended);
+  split kernel skips its first 16-row unit of every split (slots never
+  attended);
+- ``pa_last_unit_reads_unwaited_stage``: each warp of the pa split kernel
+  reads its last unit from the ring stage after the one it waited for (a
+  stage whose copy it never waited for);
+- ``pa_plane_folds_next_group``: the pa split kernel folds plane p's query
+  and zero term with the K scale and zero group of plane p + 1 (targets
+  the checks with K groups, the chunked carry's);
+- ``pa_merge_drops_last_split``: the pa finish pass leaves each region's
+  last split out of the merge (targets the checks of more than one
+  split);
 - ``slash_drop_last_tile`` (``csrc/block_sparse_prefill.cu``): the grid
   slash kernel skips the last valid entry of every tile list (targets its
   own checks and the db-against-grid check);
@@ -66,6 +76,10 @@ non-zero if a mutant was not caught.  Mutants:
 - ``row_max_skip_first_k_tile`` (``csrc/flash_prefill.cu``): pass A of the
   two-pass schedule starts one key tile late (the first tile past the pad
   never enters a row's max);
+- ``row_max_drops_last_unit``: pass A's consumers skip the last 64-key unit
+  of each block's walk (the diagonal tile's second half);
+- ``row_max_no_window_mask``: pass A's edge units leave the window edge
+  unmasked (targets the checks with a sliding window);
 - ``pass_b_skip_diagonal_tile`` (``csrc/flash_prefill.cu``): pass B (the
   wgmma kernel's pass-B entry) skips each q tile's last key tile (the
   diagonal);
@@ -145,13 +159,31 @@ def _pad_in_tile(r):
 #: of check names, or a predicate on a check's record), old, new)
 MUTANTS = {
     "drop_plane": (*KIVI, _pa,
-        "const float c = (float)((vw >> (8 * k + p * NBITS)) & MASK);",
-        "const float c = p == PER - 1 ? 0.f : (float)((vw >> (8 * k + p "
-        "* NBITS)) & MASK);"),
+        ("const uint32_t y00 = (x00 >> (f * FB)) & M8, y01 = (x01 >> (f * "
+         "FB)) & M8;",
+         "const uint32_t y10 = (x10 >> (f * FB)) & M8, y11 = (x11 >> (f * "
+         "FB)) & M8;"),
+        ("const uint32_t y00 = f == NF - 1 ? 0u : (x00 >> (f * FB)) & M8, "
+         "y01 = f == NF - 1 ? 0u : (x01 >> (f * FB)) & M8;",
+         "const uint32_t y10 = f == NF - 1 ? 0u : (x10 >> (f * FB)) & M8, "
+         "y11 = f == NF - 1 ? 0u : (x11 >> (f * FB)) & M8;")),
     "drop_chunk": (*KIVI, _pa,
-        "for (int j0 = row0 + warp * CHUNK; j0 < row1; j0 += NWARPS * CHUNK) {",
-        "for (int j0 = row0 + warp * CHUNK + (warp == 1 ? NWARPS * CHUNK : 0);"
-        " j0 < row1; j0 += NWARPS * CHUNK) {"),
+        "    issue(i + PA_STAGES - 1);\n    const uint8_t* st",
+        "    issue(i + PA_STAGES - 1);\n    if (warp == 1 && i == 0) continue;"
+        "\n    const uint8_t* st"),
+    "pa_last_unit_reads_unwaited_stage": (*KIVI, _pa,
+        "const uint8_t* st = ring + (i % PA_STAGES) * STAGE;",
+        "const uint8_t* st = ring + ((i + (i == nu - 1)) % PA_STAGES) * "
+        "STAGE;"),
+    "pa_plane_folds_next_group": (
+        *KIVI, lambda r: _pa(r) and r["k_groups"] > 1,
+        "const size_t o = ((size_t)bk * D + tid) * a.NG + p * gpl + gsp;",
+        "const size_t o = ((size_t)bk * D + tid) * a.NG + ((p + 1) % PER) * "
+        "gpl + gsp;"),
+    "pa_merge_drops_last_split": (
+        *KIVI, lambda r: _pa(r) and r["nsplit"] > 1,
+        "  for (int s = 0; s < nsplit; ++s) {\n    const size_t r = ",
+        "  for (int s = 0; s < nsplit - 1; ++s) {\n    const size_t r = "),
     "slash_drop_last_tile": (
         "block_sparse_prefill.cu", "phase_minference_kernels",
         ("slash_tile_attention",
@@ -204,8 +236,10 @@ MUTANTS = {
     "flash_q_start_edge": (
         "flash_prefill.cu", "phase_h2o_chunk_kernels",
         ("flash_causal_attention (q_start)",),
-        "const int hi = min(g1, N - 1);",
-        "const int hi = min(g1 - BK, N - 1);"),
+        "const int hi = min(g1, N - 1);\n  const int kt_first = lo / BK;\n"
+        "  const int kt_last",
+        "const int hi = min(g1 - BK, N - 1);\n  const int kt_first = lo / "
+        "BK;\n  const int kt_last"),
     "flash_drop_diagonal_tile": (
         "flash_prefill.cu", "phase_kernels", ("flash_causal_attention",),
         "const int kt_last = hi / BK;",
@@ -221,8 +255,21 @@ MUTANTS = {
         "TILE_BYTES;"),
     "row_max_skip_first_k_tile": (
         "flash_prefill.cu", "phase_two_pass_kernels", ("flash_row_max",),
-        "  const int kt_begin = lo / BK;",
-        "  const int kt_begin = lo / BK + 1;"),
+        "  const int kt_first = lo / BK;\n  const int ntiles = lo > hi ? 0 : "
+        "hi / BK - kt_first + 1;",
+        "  const int kt_first = lo / BK + 1;\n  const int ntiles = lo > hi ? "
+        "0 : hi / BK - kt_first + 1;"),
+    "row_max_drops_last_unit": (
+        "flash_prefill.cu", "phase_two_pass_kernels", ("flash_row_max",),
+        "  auto process = [&](const float (&s)[32], int u) {\n    const int "
+        "cu",
+        "  auto process = [&](const float (&s)[32], int u) {\n    if (u == 2 "
+        "* ntiles - 1) return;\n    const int cu"),
+    "row_max_no_window_mask": (
+        "flash_prefill.cu", "phase_two_pass_kernels",
+        lambda r: r["check"] == "flash_row_max" and r.get("window"),
+        "          if (window > 0) ok = ok && r - c < window;\n",
+        ""),
     "pass_b_skip_diagonal_tile": (
         "flash_prefill.cu", "phase_two_pass_kernels", ("flash_pass_b",),
         "const int kt_last = hi / BK;",
@@ -298,6 +345,9 @@ import chip_smoke as cs
 recs = []
 cs.log = recs.append
 cs.SPARSE_CASES = {k: v[:-1] + (False,) for k, v in cs.SPARSE_CASES.items()}
+# the H2O picks' count is a measurement, not a check: no mutant's verdict
+# reads it
+cs.count_h2o_picks = lambda *a, **kw: None
 # a mutant is caught or not whatever the times: each timed call runs once
 # and reads 1 ms
 cs.time_ms = lambda torch, fn, reps, warmup=1: (fn(), 1.0)[1]
@@ -308,7 +358,8 @@ def finite(x):
 print(json.dumps([{**{k: r.get(k) for k in ("check", "case", "S", "nsplit",
                                             "kernels_per_call", "nbits",
                                             "windows", "N", "W",
-                                            "true_len")},
+                                            "true_len", "k_groups",
+                                            "window")},
                    "err_over_tol": finite(r["err_over_tol"])}
                   for r in recs if "err_over_tol" in r]))
 """
