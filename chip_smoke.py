@@ -64,8 +64,12 @@ Phases (any failure exits non-zero):
      counterpart of bench.py's snapkv / fullkv-kivi4-pa decode tok/s;
  15. minference_kernels, engine_minference, parity_minference,
      profile_minference: MInference's three block-sparse kernels against
-     their plain versions, four sparse-prefill generate runs, depth-2
-     parity and CUDA-event stage times of a 32k sparse prefill;
+     their plain versions (also at 64-row q-blocks of 64-key tiles, at
+     N % 128 = 64 with 192-row q-blocks, with the vertical columns
+     shuffled, and with a batch row that is all padding; the vertical and
+     grid slash kernels' two calls bitwise equal), four sparse-prefill
+     generate runs, depth-2 parity and CUDA-event stage times of a 32k
+     sparse prefill (the vertical wrapper's sort a stage of its own);
  16. h2o_chunk_kernels: the two H2O kernels (stats, colsum) against their
      plain versions at the 8k batch and bench.py's 32k prompt and at short
      edge shapes (a pad inside a 128-row tile and on a tile boundary, a q
@@ -229,8 +233,9 @@ TAIL_TOL_TEXT = {
 
 #: MInference's block-sparse prefill kernels.  Their partials are held as
 #: the pa region kernel's: acc / l within TOL_TEXT (kernel and plain version
-#: round p to bf16 at different running maxima: 64-key sub-tiles against
-#: the plain version's 256-key tiles or one-shot row), m within
+#: round p to bf16 at different running maxima: 128-key tiles, or the db
+#: kernel's 64-key sub-tiles, against the plain version's k_tile-key tiles
+#: or one-shot row), m within
 #: 2^-12 max(1, |m|) and l within 2^-10 l (f32 dots and sums in other
 #: orders).
 SPARSE_KERNELS = ("vertical_attention_partials", "slash_tile_attention",
@@ -240,18 +245,31 @@ SPARSE_TOL_TEXT = (TOL_TEXT + " on acc/l; m within 2^-12 max(1,|m|), l "
 #: the synthetic per-head pattern config (32 layers x 32 heads)
 PCFG_PATH = "configs/minference/llama3_8b_synthetic.json"
 #: kernel checks: case -> (B, H, Hk, N, true_len, budgets, q_block, k_tile,
-#: tile_budget, timed).  budgets: "default" (CompressionSpec's 1000 / 200),
-#: "pcfg" (layer 0 of PCFG_PATH, the config-wide maxima 3500 / 6096 setting
-#: the top-k widths: Vs 3584) or (vertical, slash).  The short cases come
-#: first: a prompt shorter than last_q beside a full one, and G=1 with
-#: 128-row q-blocks of 64-key tiles.
+#: tile_budget, shuffle, timed).  budgets: "default" (CompressionSpec's 1000
+#: / 200), "pcfg" (layer 0 of PCFG_PATH, the config-wide maxima 3500 / 6096
+#: setting the top-k widths: Vs 3584) or (vertical, slash).  shuffle: the
+#: vertical columns handed over in a seeded random order (the invalid ones
+#: among the valid).  The short cases come first: a prompt shorter than
+#: last_q beside a full one, and G=1 with 128-row q-blocks of 64-key tiles;
+#: then the vertical and grid slash kernels' edge shapes: 64-row q-blocks of
+#: 64-key tiles (each consumer warpgroup walks its own list), N % 128 = 64
+#: with 192-row q-blocks (a 128-row q tile across two lists), shuffled
+#: columns at G = 1, and a batch row that is all padding at G = 8.
 SPARSE_CASES = {
     "short ragged": (2, 8, 2, 1024, (1024, 37), (100, 50), 512, 256, 2,
-                     False),
-    "short tiles": (1, 4, 4, 640, (600,), (60, 30), 128, 64, 3, False),
-    "32k": (1, H, HK, QN, (QTRUE,), "default", 512, 256, 8, True),
-    "32k pcfg": (1, H, HK, QN, (QTRUE,), "pcfg", 512, 256, 8, True),
-    "8k": (B, H, HK, N, TRUE_LEN, "default", 512, 256, 8, True),
+                     False, False),
+    "short tiles": (1, 4, 4, 640, (600,), (60, 30), 128, 64, 3, False,
+                    False),
+    "tiles 64": (1, 8, 2, 2048, (2000,), (150, 60), 64, 64, 6, False, False),
+    "N % 128 = 64": (2, 8, 2, 1344, (1344, 1000), (100, 50), 192, 192, 3,
+                     False, False),
+    "shuffled vertical": (1, 8, 8, 2048, (1900,), (200, 60), 256, 128, 4,
+                          True, False),
+    "padded row": (2, 16, 2, 1024, (1024, 0), (100, 50), 512, 256, 2, False,
+                   False),
+    "32k": (1, H, HK, QN, (QTRUE,), "default", 512, 256, 8, False, True),
+    "32k pcfg": (1, H, HK, QN, (QTRUE,), "pcfg", 512, 256, 8, False, True),
+    "8k": (B, H, HK, N, TRUE_LEN, "default", 512, 256, 8, False, True),
 }
 #: the minference engine runs: name -> (weights, CompressionSpec arguments
 #: or "pcfg", the SPARSE_CASES shape its kernels run at).  32k: bench.py's
@@ -1590,14 +1608,16 @@ def check_sparse(torch, F, dev, case, seed):
     """The three block-sparse kernels against their plain versions on one
     SPARSE_CASES shape, on a pattern that the port's estimate_vertical_slash
     makes from seeded random bf16 q/k (the same pattern for both sides);
-    the two slash kernels also against each other.  Timed cases add each
-    kernel's time (a CUDA graph of repeated calls), its plain version's, one
-    masked SDPA call's (the yardstick) and the bound.  Returns (ok,
-    {kernel: rec})."""
+    the two slash kernels also against each other.  The vertical and grid
+    slash kernels are called twice and held bitwise equal.  Timed cases add
+    each kernel's time (a CUDA graph of repeated calls), its plain
+    version's, one masked SDPA call's (the yardstick) and the bound.
+    Returns (ok, {kernel: rec})."""
     from pyramidkv_tpu_torch import kernels
     from pyramidkv_tpu_torch.ops import sparse_prefill as sp
 
-    b, h, hk, n, true_len, budgets, qb, kt, budget, timed = SPARSE_CASES[case]
+    (b, h, hk, n, true_len, budgets, qb, kt, budget, shuffle,
+     timed) = SPARSE_CASES[case]
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, h, n, D), generator=g, device=dev).to(torch.bfloat16)
     k = torch.randn((b, hk, n, D), generator=g, device=dev).to(torch.bfloat16)
@@ -1606,9 +1626,14 @@ def check_sparse(torch, F, dev, case, seed):
     pat = sp.estimate_vertical_slash(q, k, true_len=tl,
                                      **sparse_budgets(torch, dev, budgets))
     ti, tv = sp._slash_tile_selection(pat, n, qb, kt, budget)
-    k_vert, v_vert = sp.gather_vertical_kv(k, v, pat.vert_idx)
+    vcol, vvalid = pat.vert_idx, pat.vert_valid
+    if shuffle:
+        perm = torch.randperm(vcol.shape[-1], generator=g, device=dev)
+        vcol, vvalid = vcol[..., perm].contiguous(), vvalid[..., perm]
+        vvalid = vvalid.contiguous()
+    k_vert, v_vert = sp.gather_vertical_kv(k, v, vcol)
     vs, t = k_vert.shape[2], ti.shape[-1]
-    vargs = (q, k_vert, v_vert, pat.vert_idx, pat.vert_valid, tl)
+    vargs = (q, k_vert, v_vert, vcol, vvalid, tl)
     sargs = (q, k, v, ti, tv, pat.vert, tl)
     skw = dict(q_block=qb, k_tile=kt)
     want_v = sp.vertical_attention_partials_plain(*vargs)
@@ -1625,8 +1650,8 @@ def check_sparse(torch, F, dev, case, seed):
     ok, recs, outs = True, {}, {}
     shape = {"case": case, "B": b, "H": h, "Hk": hk, "N": n,
              "true_len": list(true_len), "Vs": vs, "T": t, "q_block": qb,
-             "k_tile": kt,
-             "valid_vertical": int(pat.vert_valid.sum()),
+             "k_tile": kt, "shuffled": shuffle,
+             "valid_vertical": int(vvalid.sum()),
              "valid_tiles": int(tv.sum())}
     for name, (kern, plain, args, kw, want) in calls.items():
         got = kern(*args, **kw)
@@ -1638,17 +1663,21 @@ def check_sparse(torch, F, dev, case, seed):
                "tol": SPARSE_TOL_TEXT,
                "rms": float((want[0] / want[2].clamp_min(1e-30)[..., None])
                             .square().mean().sqrt())}
+        if not name.endswith("_db"):
+            again = kern(*args, **kw)
+            rec["bitwise_repeat"] = all(torch.equal(x, y)
+                                        for x, y in zip(got, again))
+            del again
         if timed:
             rec["ms"] = graph_ms(torch, lambda: kern(*args, **kw), reps=10)
             rec["plain_ms"] = time_ms(torch, lambda: plain(*args, **kw),
                                       reps=1, warmup=0)
             if name.startswith("vertical"):
                 rows = torch.arange(n, device=dev)[None, None, :, None]
-                mask = ((pat.vert_idx[:, :, None, :] <= rows)
-                        & pat.vert_valid[:, :, None, :])
+                mask = ((vcol[:, :, None, :] <= rows)
+                        & vvalid[:, :, None, :])
                 lib = (q, k_vert, v_vert)
-                pairs = float(((n - pat.vert_idx.long())
-                               * pat.vert_valid).sum())
+                pairs = float(((n - vcol.long()) * vvalid).sum())
                 nbytes = (q.numel() * 2 + 2 * k_vert.numel() * 2
                           + vs * b * h * 5)
             else:
@@ -1666,10 +1695,12 @@ def check_sparse(torch, F, dev, case, seed):
             rec["bound_ms"], rec["bound_by"] = bound(4.0 * D * pairs, nbytes)
         log(rec)
         ok &= (ratio <= 1 and all(bool(torch.isfinite(x).all()) for x in got)
-               and tuple(got[0].shape) == (b, h, n, D))
+               and tuple(got[0].shape) == (b, h, n, D)
+               and rec.get("bitwise_repeat", True))
         recs[name] = rec
         torch.cuda.empty_cache()
-    # the two slash kernels visit the same live sub-tiles in the same order
+    # the two slash kernels sum the same terms in other orders (64-row
+    # q tiles and sub-tiles against 128-row q tiles and paired units)
     ratio, err, _, _ = partials_ratio(outs["slash_tile_attention_db"],
                                       outs["slash_tile_attention"])
     same = all(torch.equal(a, b_) for a, b_ in zip(
@@ -1824,8 +1855,13 @@ def phase_profile_minference(torch, dev, q4, vocab):
     each stage (estimation, tile selection, gather, each kernel, merge; for
     fullkv the flash kernel) give the stream time each takes, which is its
     device time while the device runs without gaps; "rest" is the prefill's
-    stream time less those stages.  Wall times from unpatched runs."""
+    stream time less those stages.  The vertical kernel's wrapper sorts its
+    columns first: "vertical sort" (torch's sort by key and the per-tile
+    counts; the copy of K and V in key order is a kernel of the vertical
+    call) is taken out of "vertical kernel".  Wall times from unpatched
+    runs."""
     from pyramidkv_tpu_torch.config import CompressionSpec, ModelSpec
+    from pyramidkv_tpu_torch.kernels import block_sparse_prefill as bsp
     from pyramidkv_tpu_torch.models import llama
     from pyramidkv_tpu_torch.ops import sparse_prefill as sp
     from pyramidkv_tpu_torch.policy import make_plan
@@ -1859,6 +1895,7 @@ def phase_profile_minference(torch, dev, q4, vocab):
                (sp, "_slash_tile_selection", "tile selection"),
                (sp, "gather_vertical_kv", "gather"),
                (sp, "merge_partials", "merge"),
+               (bsp, "sort_vertical_columns", "vertical sort"),
                (llama, "flash_causal_attention", "flash kernel")]
     out = {}
     with torch.inference_mode():
@@ -1887,6 +1924,8 @@ def phase_profile_minference(torch, dev, q4, vocab):
             ms = {k: sum(e0.elapsed_time(e1) for e0, e1 in v)
                   for k, v in spans.items()}
             stream_ms = ms.pop("prefill")
+            if "vertical sort" in ms:  # inside the vertical kernel's span
+                ms["vertical kernel"] -= ms["vertical sort"]
             out[method] = {"wall_s": wall, "stream_ms": stream_ms,
                            "stages_ms": ms,
                            "rest_ms": stream_ms - sum(ms.values()),

@@ -1,11 +1,11 @@
-// MInference's block-sparse prefill partials on sm_90a: the slash tiles
-// (whole list, or its valid prefix double-buffered) and the vertical
-// columns.
+// MInference's block-sparse prefill partials on sm_90a: the vertical
+// columns and the slash tiles (every list entry, or the valid prefix
+// double-buffered).
 //
 // Replaces: pyramidkv_tpu/kernels/block_sparse_prefill.py
+//   vertical_attention_partials_kernel (body `_vert_kernel`) -> pkv_vertical_partials
 //   slash_tile_attention               (body `_kernel`)      -> pkv_slash_tiles
 //   slash_tile_attention_db            (body `_db_kernel`)   -> pkv_slash_tiles_db
-//   vertical_attention_partials_kernel (body `_vert_kernel`) -> pkv_vertical_partials
 //
 // What they compute: online-softmax partials of causal attention over part
 // of the keys, for the caller to flash-merge.  For query row r of head h
@@ -22,41 +22,81 @@
 // - vertical: the Vs columns gathered per query head (k_vert, v_vert
 //   [B,H,Vs,D]) whose id vcol <= r and vvalid.
 //
-// What bounds them on the H100: operations.  At 32k each 64-row q tile
-// multiplies against at most T*k_tile = 2048 slash keys and Vs = 1024-3584
-// vertical columns, ~4*64*2048*128 flops per 2*2048*128*2 bytes of K/V: far
-// above the card's ~295 flop/byte bf16 ridge.
+// What bounds them on the H100: operations.  At 32k a 128-row q tile
+// multiplies against up to T*k_tile = 2048 slash keys and up to Vs =
+// 1024-3584 vertical columns, ~4*128*2048*128 flops per 2*2048*128*2 bytes
+// of K/V: far above the card's ~295 flop/byte bf16 ridge.
 //
-// What the design does about it:
-// - One block per (64-row q tile, b*h), 4 warps x 16 rows, mma.sync
-//   m16n8k16 bf16 with f32 accumulation; q fragments stay in registers and
-//   the S -> P fragments feed P V without a trip through shared memory (the
-//   layout of csrc/flash_prefill.cu).  A q tile takes the tile list of the
-//   q-block it lies in; query head h reads KV head h / G (no repeat_kv).
-// - Work that cannot contribute is not done: a 64-key sub-tile that is
-//   invalid, wholly above the diagonal or wholly left of the pad is
-//   skipped (exact: in the TPU kernel such a tile gives p = 0, alpha = 1),
-//   as is a 64-column vertical chunk with no valid column at or below the
-//   tile's last row (top-k order is not sorted, so no causal cut-off).
-// - Natural-log row maxes: s = q K^T in f32, then exp(s - m) as
-//   exp2(s * log2e - m * log2e); log2(e) is not folded into the rounded q,
-//   as the TPU's block-sparse kernels do not fold it either.
-// - The db kernel copies the next live sub-tile's K, V and vert flags with
-//   cp.async into a second shared-memory buffer while the current one is
-//   multiplied (the TPU pair's difference: a loop over every entry against
-//   a double-buffered loop over the valid prefix).
+// The vertical and grid slash entries (`sp::sparse_wgmma_kernel`) take the
+// design of csrc/flash_prefill.cu's flash_wgmma_kernel:
+// - a 128-row q tile of one (b, h) is walked by a producer warpgroup whose
+//   one thread starts every copy and two consumer warpgroups of 64 rows; Q
+//   and 128-key tiles of K and V arrive by TMA (128-byte swizzle) in a ring
+//   of STAGES stages; S = Q K^T and O += P V run on wgmma, P in registers,
+//   each product waited before the next step (the register budget of
+//   flash_wgmma_kernel: S, P and O of one tile);
+// - a block walks two q tiles of its (b, h), t and nqt-1-t (a heavy and a
+//   light one: blocks of even work), through one ring, each with its own Q
+//   buffer: the second's copies and first products overlap the first's
+//   last tile and stores (a walk is short: ~4 tiles of the vertical at
+//   32k, so a block's fill and drain would otherwise count once a tile);
+// - a tile is two 64-key units, each its own pair of TMA boxes, so the
+//   slash walk can pair any two live units; a missing unit is read past
+//   the end of the tensor (zeros) and masked;
+// - it is a kernel of its own, not a mode of flash_wgmma_kernel: its
+//   producer walks a list the consumers do not know in advance (each stage
+//   carries its units' first keys, the warpgroups it is for and the words
+//   its masks read; a stage for no warpgroup ends the walk), its masks
+//   compare per-column keys or test bits, and its m is in natural units of
+//   logits of bf16(q * scale) (log2 e is not folded into the rounded q, as
+//   the TPU's block-sparse kernels do not fold it; exp(s - m) is taken as
+//   exp2(s * log2e - m * log2e) in f32);
+// - vertical: the wrapper sorts each (b, h)'s columns by key (vcol where
+//   valid, int max otherwise) and counts, per q tile, the columns with key
+//   <= its first row (a prefix every row sees: unmasked tiles) and <= its
+//   last row (where the walk ends); the tiles between are masked by
+//   comparing each column's key (copied beside the tile) with the row;
+//   later columns are never read.  `gather_sorted_kernel` first copies the
+//   K and V rows in key order, as far as a walk can read (the valid
+//   columns, rounded up to a tile), for the TMA's contiguous boxes (a
+//   gather by cp.async in the producer warpgroup measured 1.6x slower);
+// - slash: the producer walks the tile list of each warpgroup's q-block in
+//   order (one walk for both where they share it), skips invalid entries
+//   and 64-key units above the last row or left of the pad (exact: such a
+//   unit gives p = 0, alpha = 1) and copies K and V at KV row h / G (no
+//   repeat_kv); the wrapper packs vert into 64-bit words, copied beside
+//   the tile; a warpgroup masks a unit only where it crosses the
+//   warpgroup's diagonal or the pad (every test), is missing (all), or
+//   holds a vertical column (a bit test of the thread's own columns and a
+//   select);
+// - no atomics and a fixed order: bitwise repeatable.
+// kernels/block_sparse_prefill.py's vertical_tile_plan and slash_unit_plan
+// mirror the two walks.
+//
+// The db kernel (opt-in) keeps the first design: one block per (64-row q
+// tile, b*h), 4 warps of mma.sync m16n8k16 (q fragments in registers, the
+// S -> P fragments feed P V without a trip through shared memory), the
+// next live 64-key sub-tile's K, V and vert flags copied with cp.async
+// into a second shared-memory buffer while the current one is multiplied
+// (the TPU pair's difference: a loop over every entry against a
+// double-buffered loop over the valid prefix).
 // Dropped TPU-only limits: the scalar-memory chunking over b*h and the
-// 8-row broadcast of m / l.  Left for later: TMA / wgmma, a deeper pipeline.
+// 8-row broadcast of m / l.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cfloat>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int D = 128;        // head dim (the only one the kernels take)
+// the db kernel's geometry (namespace sp has its own)
 constexpr int BQ = 64;        // q rows per block: 4 warps x 16 rows
-constexpr int BK = 64;        // keys per sub-tile / vertical chunk
+constexpr int BK = 64;        // keys per sub-tile
 constexpr int NTHREADS = 128;
 constexpr int LDS = D + 8;    // padded smem row (bf16): conflict-free fragments
 constexpr float LOG2E = 1.4426950408889634f;
@@ -253,21 +293,6 @@ __device__ __forceinline__ void store_empty(float* acc, float* m, float* l,
   }
 }
 
-// synchronous copy of 64 rows of K and V ([.., D] bf16) into shared memory
-__device__ __forceinline__ void load_kv(__nv_bfloat16* ks, __nv_bfloat16* vs,
-                                        const __nv_bfloat16* kg,
-                                        const __nv_bfloat16* vg, int tid) {
-#pragma unroll
-  for (int i = 0; i < BK * D / 8 / NTHREADS; ++i) {
-    const int idx = tid + i * NTHREADS;
-    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
-    *reinterpret_cast<uint4*>(&ks[r * LDS + c]) =
-        *reinterpret_cast<const uint4*>(kg + (size_t)r * D + c);
-    *reinterpret_cast<uint4*>(&vs[r * LDS + c]) =
-        *reinterpret_cast<const uint4*>(vg + (size_t)r * D + c);
-  }
-}
-
 struct SlashArgs {
   const __nv_bfloat16* q;   // [B*H, N, D]
   const __nv_bfloat16* k;   // [B*Hk, N, D]
@@ -303,53 +328,6 @@ __device__ __forceinline__ SlashBlock slash_block(const SlashArgs& a,
   sb.list_pos = sb.bh * (a.N / a.q_block) + sb.q0 / a.q_block;
   sb.list = a.tile_idx + (size_t)sb.list_pos * a.T;
   return sb;
-}
-
-// Slash, grid (#11): every list entry in order; invalid entries and dead
-// sub-tiles are skipped.
-__global__ void __launch_bounds__(NTHREADS)
-slash_tiles_kernel(const SlashArgs a) {
-  __shared__ __align__(16) __nv_bfloat16 ks[BK * LDS];
-  __shared__ __align__(16) __nv_bfloat16 vs[BK * LDS];
-  __shared__ uint8_t vf[BK];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const SlashBlock sb = slash_block(a, warp, gid);
-  const size_t row_base = (size_t)sb.bh * a.N;
-  if (sb.last_row < sb.pad) {  // every row is padding
-    store_empty(a.acc + row_base * D, a.m + row_base, a.l + row_base, sb.q0,
-                tid);
-    return;
-  }
-  const uint8_t* valid =
-      static_cast<const uint8_t*>(a.flags) + (size_t)sb.list_pos * a.T;
-  const __nv_bfloat16* kb = a.k + (size_t)sb.kv_row * a.N * D;
-  const __nv_bfloat16* vb = a.v + (size_t)sb.kv_row * a.N * D;
-  const uint8_t* vrow = a.vert + row_base;
-  const int pad = sb.pad;
-
-  Rows st;
-  load_rows(st, a.q + (row_base + sb.r0) * D, tig, a.scale);
-  const int subs = a.k_tile / BK;
-  for (int t = 0; t < a.T; ++t) {
-    if (!valid[t]) continue;
-    const int tile0 = sb.list[t] * a.k_tile;
-    for (int sub = 0; sub < subs; ++sub) {
-      const int k0 = tile0 + sub * BK;
-      if (k0 > sb.last_row || k0 + BK - 1 < pad) continue;
-      __syncthreads();  // the previous sub-tile is consumed
-      load_kv(ks, vs, kb + (size_t)k0 * D, vb + (size_t)k0 * D, tid);
-      if (tid < BK) vf[tid] = vrow[k0 + tid];
-      __syncthreads();
-      attend(st, ks, vs, sb.r0, gid, tig, [&](int c) {
-        const int col = k0 + c;
-        return (vf[c] || col < pad) ? NO_COL : col;
-      });
-    }
-  }
-  store_rows(st, a.acc + row_base * D, a.m + row_base, a.l + row_base, sb.r0,
-             tig);
 }
 
 // Slash, db (#12): the valid prefix [0, nval) only, the next live
@@ -431,48 +409,6 @@ slash_tiles_db_kernel(const SlashArgs a) {
              tig);
 }
 
-// Vertical (#13): every query row against its head's Vs gathered columns,
-// walked in 64-column chunks with an online softmax.
-__global__ void __launch_bounds__(NTHREADS)
-vertical_partials_kernel(const __nv_bfloat16* __restrict__ q,   // [B*H, N, D]
-                         const __nv_bfloat16* __restrict__ kv,  // [B*H, Vs, D]
-                         const __nv_bfloat16* __restrict__ vv,  // [B*H, Vs, D]
-                         const int* __restrict__ vcol,          // [B*H, Vs]
-                         const uint8_t* __restrict__ vvalid,    // [B*H, Vs]
-                         float* __restrict__ acc, float* __restrict__ m,
-                         float* __restrict__ l, int N, int Vs, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 ks[BK * LDS];
-  __shared__ __align__(16) __nv_bfloat16 vs[BK * LDS];
-  __shared__ int ckey[BK];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int last_row = q0 + BQ - 1;
-  const int r0 = q0 + warp * 16 + gid;
-  const size_t row_base = (size_t)bh * N;
-  const size_t col_base = (size_t)bh * Vs;
-
-  Rows st;
-  load_rows(st, q + (row_base + r0) * D, tig, scale);
-  for (int c0 = 0; c0 < Vs; c0 += BK) {
-    __syncthreads();  // the previous chunk is consumed
-    int live = 0;
-    if (tid < BK) {
-      const int key = vvalid[col_base + c0 + tid] ? vcol[col_base + c0 + tid]
-                                                  : NO_COL;
-      ckey[tid] = key;
-      live = key <= last_row;
-    }
-    if (!__syncthreads_or(live)) continue;  // nothing visible in this chunk
-    load_kv(ks, vs, kv + (col_base + c0) * D, vv + (col_base + c0) * D, tid);
-    __syncthreads();
-    attend(st, ks, vs, r0, gid, tig, [&](int c) { return ckey[c]; });
-  }
-  store_rows(st, acc + row_base * D, m + row_base, l + row_base, r0, tig);
-}
-
 SlashArgs slash_args(const void* q, const void* k, const void* v,
                      const void* tile_idx, const void* flags,
                      const void* vert, const void* true_len, void* acc,
@@ -499,20 +435,612 @@ SlashArgs slash_args(const void* q, const void* k, const void* v,
   return a;
 }
 
+
+// ---------------------------------------------------------------------------
+// Vertical and grid slash: TMA ring, wgmma, warp-specialised.
+// ---------------------------------------------------------------------------
+
+namespace sp {
+
+constexpr int BQ = 128;         // q rows a block: 2 consumer warpgroups x 64
+constexpr int UNIT = 64;        // keys a unit (its own TMA boxes)
+constexpr int BK = 2 * UNIT;    // keys a tile
+constexpr int STAGES = 2;       // K and V tiles in flight
+constexpr int NTHREADS = 384;   // producer warpgroup + 2 consumer warpgroups
+constexpr int BOX = 64;         // bf16 columns of one 128-byte swizzled box
+constexpr int Q_HALF = BQ * 128;         // bytes of one box column of Q
+constexpr int KV_HALF = BK * 128;        // of K or V
+constexpr int UNIT_BYTES = UNIT * 128;   // a unit's rows of one box
+constexpr int TILE_BYTES = 2 * KV_HALF;  // one K or V tile (both boxes)
+constexpr int WG_Q_BYTES = 64 * 128;     // a warpgroup's rows of one box
+// beside each K tile: its 128 column keys (vertical) or, per unit, the 16
+// bytes of vert words holding the unit's word (slash)
+constexpr int META_BYTES = BK * 4;
+// a block's q tiles: a heavy one and a light one (q tiles t and nqt-1-t),
+// each with its own Q buffer, so the second's copies and first products
+// overlap the first's last tile and stores
+constexpr int QTILES = 2;
+constexpr int SMEM_BYTES = 1024 + QTILES * 2 * Q_HALF + 2 * STAGES * TILE_BYTES +
+                           STAGES * META_BYTES;
+
+enum Mode { kVertical = 0, kSlash = 1 };
+
+struct Args {
+  const int* true_len;             // slash: [B]
+  const int* keys;                 // vertical: [B*H, vs_pad] sorted keys
+  const int* counts;               // vertical: [B*H, nqt, 2]
+  const int* tile_idx;             // slash: [B*H, N/q_block, T]
+  const uint8_t* tile_valid;       // slash: [B*H, N/q_block, T]
+  const unsigned long long* vbits; // slash: [B*H, nwords], bit c of word w:
+                                   // column 64 w + c is vertical
+  float* acc;                      // [B*H, N, D]
+  float* m;                        // [B*H, N]
+  float* l;                        // [B*H, N]
+  int H, Hk, N;
+  int nqt;      // q tiles a row: ceil(N / BQ)
+  int rows;     // rows of a K / V plane: Vs (vertical) or N (slash)
+  int vs_pad;   // vertical: keys a row (Vs rounded up to BK)
+  int nwords;   // slash: vert words a row (even)
+  int q_block, k_tile, T;
+  float scale;
+};
+
+// Two bf16 times `scale`, rounded back to bf16.
+__device__ __forceinline__ uint32_t scale2(uint32_t x, float scale) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+  return pack_bf16(f.x * scale, f.y * scale);
+}
+
+// 2^x on the MUFU unit (a subnormal result flushed to 0; -inf gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S = Q K^T for one warpgroup: 64 rows x 128 keys, 8 steps of 16 along D
+// (four 32-byte steps within each 64-column box).
+__device__ __forceinline__ void qk_product(float (&s)[64], uint32_t q_addr,
+                                           uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t dq = (kk >> 2) * Q_HALF + (kk & 3) * 32;
+    const uint32_t dk = (kk >> 2) * KV_HALF + (kk & 3) * 32;
+    wgmma_ss(s, sw128_desc(q_addr + dq, 16, 1024),
+             sw128_desc(k_addr + dk, 16, 1024), kk > 0);
+  }
+}
+
+// O += P V for one warpgroup: 8 steps of 16 keys (2048 bytes of V each).
+__device__ __forceinline__ void pv_product(float (&o)[64],
+                                           const uint32_t (&p)[32],
+                                           uint32_t v_addr) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+             sw128_desc(v_addr + kk * 16 * 128, KV_HALF, 1024));
+}
+
+// This thread's accumulator entries: 4j + {0, 1} row r0, 4j + {2, 3} row
+// r0 + 8, tile columns 8j + 2 tig + {0, 1}.
+//
+// A vertical edge tile: column c is visible from row r iff keys[c] <= r
+// (invalid columns and those past Vs hold int max).
+__device__ __forceinline__ void mask_keys(float (&s)[64], const int* keys,
+                                          int r0, int tig) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int2 kk = *reinterpret_cast<const int2*>(keys + j * 8 + tig * 2);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + ((e >> 1) << 3);
+      if (((e & 1) ? kk.y : kk.x) > row) s[4 * j + e] = -INFINITY;
+    }
+  }
+}
+
+// Unit u of a slash tile (entries 4j + e, j = 8u .. 8u + 7): column k0 + c
+// is visible from row r iff k0 + c <= r, k0 + c >= pad and bit c of the
+// unit's vert word w is clear; a missing unit (k0 = -1) has none.
+__device__ __forceinline__ void mask_unit(float (&s)[64], int u, int k0,
+                                          unsigned long long w, int r0,
+                                          int tig, int pad) {
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int c = jj * 8 + tig * 2;  // column within the unit
+    const uint32_t bits = (uint32_t)(w >> c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + ((e >> 1) << 3);
+      const int col = k0 + c + (e & 1);
+      const bool ok = k0 >= 0 && col >= pad && col <= row &&
+                      !((bits >> (e & 1)) & 1u);
+      if (!ok) s[4 * (8 * u + jj) + e] = -INFINITY;
+    }
+  }
+}
+
+// Unit u of a slash tile that every row of the warpgroup sees but for its
+// vertical columns: only the bit test of the thread's own columns.
+__device__ __forceinline__ void mask_unit_bits(float (&s)[64], int u,
+                                               unsigned long long w,
+                                               int tig) {
+  const uint32_t lo = (uint32_t)(w >> (2 * tig));
+  const uint32_t hi = (uint32_t)(w >> (32 + 2 * tig));
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const uint32_t x = (jj < 4 ? lo : hi) >> (8 * (jj & 3));
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if ((x >> (e & 1)) & 1u) s[4 * (8 * u + jj) + e] = -INFINITY;
+  }
+}
+
+// The online softmax of one tile for this thread's two rows (i = 0: entries
+// 4j, 4j+1; i = 1: 4j+2, 4j+3), natural-unit maxes: s becomes p =
+// exp2(s log2e - m_new log2e).
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
+                                             float (&l)[2],
+                                             float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[i], mx);
+    // a row with nothing visible yet keeps p == 0 and alpha == 0
+    const float ml = (m_new == -INFINITY) ? 0.f : m_new * LOG2E;
+    alpha[i] = ex2(m[i] * LOG2E - ml);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float p0 = ex2(fmaf(s[4 * j + 2 * i], LOG2E, -ml));
+      const float p1 = ex2(fmaf(s[4 * j + 2 * i + 1], LOG2E, -ml));
+      s[4 * j + 2 * i] = p0;
+      s[4 * j + 2 * i + 1] = p1;
+      rs += p0 + p1;
+    }
+    l[i] = l[i] * alpha[i] + rs;
+    m[i] = m_new;
+  }
+}
+
+// P rounded to bf16 in the A-operand layout of P V: for keys [16kk, 16kk+16)
+// (accumulator chunks 2kk and 2kk+1), a0/a2 row r0, a1/a3 row r0 + 8.
+__device__ __forceinline__ void pack_p(const float (&s)[64],
+                                       uint32_t (&p)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    p[4 * kk + 0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    p[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+__device__ __forceinline__ void rescale(float (&o)[64], const float (&a)[2]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    o[4 * j + 0] *= a[0];
+    o[4 * j + 1] *= a[0];
+    o[4 * j + 2] *= a[1];
+    o[4 * j + 3] *= a[1];
+  }
+}
+
+// grid (B*H, ceil(nqt / 2)), NTHREADS threads, SMEM_BYTES of dynamic shared
+// memory: block (bh, p) takes q tiles nqt-1-p and p (one where they meet).
+// Maps, all bf16 with 128-byte swizzle: q {D, N, B*H} in boxes
+// {64, 128, 1}; k and v {D, rows, planes} in boxes {64, 64, 1}: the sorted
+// gathered columns [B*H, Vs, D] (kVertical) or the grouped keys
+// [B*Hk, N, D] (kSlash).
+template <int MODE>
+__global__ void __launch_bounds__(NTHREADS, 1)
+sparse_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap, const Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t q_full[QTILES], k_full[STAGES], v_full[STAGES],
+      k_empty[STAGES], v_empty[STAGES];
+  // per stage: its units' first keys (-1: none) and the warpgroups it is
+  // for (bit w: warpgroup w; 0: the walk of a q tile has ended)
+  __shared__ int tile_k0[STAGES][2], tile_wg[STAGES];
+  // 128-byte swizzle repeats every 1024 bytes: boxes start 1024-aligned
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* qbuf = smem;                          // [QTILES][2][BQ][128 B]
+  uint8_t* kring = qbuf + QTILES * 2 * Q_HALF;   // [STAGES][2][BK][128 B]
+  uint8_t* vring = kring + STAGES * TILE_BYTES;  // the same
+  uint8_t* meta = vring + STAGES * TILE_BYTES;   // [STAGES][META_BYTES]
+
+  const int bh = blockIdx.x;
+  const int qts[QTILES] = {a.nqt - 1 - (int)blockIdx.y, (int)blockIdx.y};
+  const int nq_here = qts[0] == qts[1] ? 1 : 2;
+  const int b = bh / a.H;
+  const int plane =
+      MODE == kVertical ? bh : b * a.Hk + (bh % a.H) / (a.H / a.Hk);
+  const int pad = MODE == kSlash ? a.N - a.true_len[b] : 0;
+
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < QTILES; ++j) mbar_init(&q_full[j], 1);
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&k_full[i], 1);
+      mbar_init(&v_full[i], 1);
+      mbar_init(&k_empty[i], 256);
+      mbar_init(&v_empty[i], 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {
+    // producer: one thread walks the block's tiles and keeps the ring full
+    setmaxnreg_dec<40>();
+    if (threadIdx.x != 0) return;
+    int i = 0;          // stages filled
+    int j = 0, q0 = 0;  // the q tile walked
+    bool q_sent = false;
+    // the next stage, once the warpgroups have released its last use
+    auto claim = [&]() {
+      const int st = i % STAGES;
+      if (i >= STAGES) mbar_wait(&k_empty[st], ((i / STAGES) - 1) & 1);
+      return st;
+    };
+    auto claim_v = [&](int st) {
+      if (i >= STAGES) mbar_wait(&v_empty[st], ((i / STAGES) - 1) & 1);
+    };
+    // one tile: units k0a and k0b (-1: none, read as zeros past the rows)
+    // for the warpgroups in `wgs`
+    auto emit = [&](int k0a, int k0b, int wgs) {
+      if (!q_sent) {
+        uint8_t* qd = qbuf + j * 2 * Q_HALF;
+        mbar_expect(&q_full[j], 2 * Q_HALF);
+        tma_load_3d(qd, &qmap, 0, q0, bh, &q_full[j]);
+        tma_load_3d(qd + Q_HALF, &qmap, BOX, q0, bh, &q_full[j]);
+        q_sent = true;
+      }
+      const int k0[2] = {k0a, k0b};
+      const int st = claim();
+      tile_k0[st][0] = k0a;
+      tile_k0[st][1] = k0b;
+      tile_wg[st] = wgs;
+      uint8_t* md = meta + st * META_BYTES;
+      const int mbytes = MODE == kVertical
+                             ? META_BYTES
+                             : 16 * ((k0a >= 0) + (k0b >= 0));
+      mbar_expect(&k_full[st], TILE_BYTES + mbytes);
+      uint8_t* kd = kring + st * TILE_BYTES;
+      for (int u = 0; u < 2; ++u) {
+        const int row = k0[u] >= 0 ? k0[u] : a.rows;
+        tma_load_3d(kd + u * UNIT_BYTES, &kmap, 0, row, plane, &k_full[st]);
+        tma_load_3d(kd + KV_HALF + u * UNIT_BYTES, &kmap, BOX, row, plane,
+                    &k_full[st]);
+        if (MODE == kSlash && k0[u] >= 0)
+          bulk_g2s(md + 16 * u,
+                   a.vbits + (size_t)bh * a.nwords + ((k0[u] / UNIT) & ~1),
+                   16, &k_full[st]);
+      }
+      if (MODE == kVertical)
+        bulk_g2s(md, a.keys + (size_t)bh * a.vs_pad + k0a, META_BYTES,
+                 &k_full[st]);
+      claim_v(st);
+      uint8_t* vd = vring + st * TILE_BYTES;
+      mbar_expect(&v_full[st], TILE_BYTES);
+      for (int u = 0; u < 2; ++u) {
+        const int row = k0[u] >= 0 ? k0[u] : a.rows;
+        tma_load_3d(vd + u * UNIT_BYTES, &vmap, 0, row, plane, &v_full[st]);
+        tma_load_3d(vd + KV_HALF + u * UNIT_BYTES, &vmap, BOX, row, plane,
+                    &v_full[st]);
+      }
+      ++i;
+    };
+
+    for (; j < nq_here; ++j) {
+      q0 = qts[j] * BQ;
+      q_sent = false;
+      // warpgroup 1 has rows unless N % 128 = 64 cuts the q tile short
+      const int row_wgs = q0 + 64 < a.N ? 3 : 1;
+      if (MODE == kVertical) {
+        // the sorted columns up to the last with key <= the tile's last row
+        const int n_last = a.counts[((size_t)bh * a.nqt + qts[j]) * 2 + 1];
+        for (int c0 = 0; c0 < n_last; c0 += BK) emit(c0, c0 + UNIT, row_wgs);
+      } else {
+        const int nq = a.N / a.q_block;
+        // the live 64-key units of q-block qb's list, in list order, paired
+        // into tiles for the warpgroups in `wgs`, whose last row is
+        // last_row
+        auto walk = [&](int qb, int wgs, int last_row) {
+          const size_t base = ((size_t)bh * nq + qb) * a.T;
+          int pending = -1;  // a unit waiting for its pair
+          int idx = a.tile_idx[base], val = a.tile_valid[base];
+          for (int t = 0; t < a.T; ++t) {
+            const int cur = idx, ok = val;
+            if (t + 1 < a.T) {  // the next entry's loads in flight
+              idx = a.tile_idx[base + t + 1];
+              val = a.tile_valid[base + t + 1];
+            }
+            if (!ok) continue;
+            for (int k0 = cur * a.k_tile; k0 < (cur + 1) * a.k_tile;
+                 k0 += UNIT) {
+              if (k0 > last_row || k0 + UNIT - 1 < pad) continue;
+              if (pending < 0) {
+                pending = k0;
+              } else {
+                emit(pending, k0, wgs);
+                pending = -1;
+              }
+            }
+          }
+          if (pending >= 0) emit(pending, -1, wgs);
+        };
+        // a warpgroup walks if it has a row past the pad; both share one
+        // walk where their 64-row halves lie in one q-block
+        const int last0 = min(q0 + 63, a.N - 1);
+        const int last1 = min(q0 + 127, a.N - 1);
+        const bool live0 = last0 >= pad;
+        const bool live1 = row_wgs == 3 && last1 >= pad;
+        const int qb0 = q0 / a.q_block, qb1 = (q0 + 64) / a.q_block;
+        if (live0 && live1 && qb0 == qb1) {
+          walk(qb0, 3, last1);
+        } else {
+          if (live0) walk(qb0, 1, last0);
+          if (live1) walk(qb1, 2, last1);
+        }
+      }
+      // the end of the q tile's walk: a stage for no warpgroup, no copy
+      const int st = claim();
+      tile_wg[st] = 0;
+      mbar_arrive(&k_full[st]);
+      claim_v(st);
+      mbar_arrive(&v_full[st]);
+      ++i;
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int cw = wgi - 1;  // consumer warpgroup: 64 rows of each q tile
+  const int tid = threadIdx.x - 128 * wgi;
+  const int warp = tid >> 5, lane = tid & 31, tig = lane & 3;
+  const uint32_t kring_a = smem_addr(kring);
+  const uint32_t vring_a = smem_addr(vring);
+  float o[64], s[64];
+  uint32_t p[32];
+  int i = 0;  // stages consumed
+  for (int j = 0; j < nq_here; ++j) {
+    const int q0 = qts[j] * BQ;
+    const int r_lo = q0 + cw * 64;                  // the warpgroup's first row
+    const int r0 = r_lo + warp * 16 + (lane >> 2);  // rows r0 and r0 + 8
+    // vertical: the sorted columns every row of the q tile sees
+    const int n_first =
+        MODE == kVertical ? a.counts[((size_t)bh * a.nqt + qts[j]) * 2] : 0;
+    uint8_t* qs = qbuf + j * 2 * Q_HALF;
+    const uint32_t q_addr = smem_addr(qs) + cw * WG_Q_BYTES;
+#pragma unroll
+    for (int e = 0; e < 64; ++e) o[e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};  // per-thread partial row sums
+    bool q_ready = false;
+    for (;; ++i) {
+      const int st = i % STAGES, ph = (i / STAGES) & 1;
+      mbar_wait(&k_full[st], ph);
+      const int wgs = tile_wg[st];
+      if (!((wgs >> cw) & 1)) {  // the other warpgroup's tile, or the end
+        mbar_arrive(&k_empty[st]);
+        mbar_wait(&v_full[st], ph);
+        mbar_arrive(&v_empty[st]);
+        if (wgs == 0) {
+          ++i;
+          break;
+        }
+        continue;
+      }
+      if (!q_ready) {
+        // q * scale, rounded to bf16, in place (this warpgroup's 64 rows
+        // of both boxes), then fenced for wgmma's async-proxy reads
+        mbar_wait(&q_full[j], 0);
+#pragma unroll
+        for (int it = 0; it < 2 * WG_Q_BYTES / 16 / 128; ++it) {
+          const int c = tid + 128 * it;  // 16-byte chunk
+          uint4* qp = reinterpret_cast<uint4*>(
+              qs + (c / (WG_Q_BYTES / 16)) * Q_HALF + cw * WG_Q_BYTES +
+              (c % (WG_Q_BYTES / 16)) * 16);
+          uint4 x = *qp;
+          x.x = scale2(x.x, a.scale);
+          x.y = scale2(x.y, a.scale);
+          x.z = scale2(x.z, a.scale);
+          x.w = scale2(x.w, a.scale);
+          *qp = x;
+        }
+        fence_proxy_async();
+        named_bar_sync(1 + cw, 128);
+        q_ready = true;
+      }
+      wgmma_fence();
+      qk_product(s, q_addr, kring_a + st * TILE_BYTES);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      const uint8_t* md = meta + st * META_BYTES;
+      if constexpr (MODE == kVertical) {
+        // interior: every column's key <= the q tile's first row
+        if (tile_k0[st][0] + BK > n_first)
+          mask_keys(s, reinterpret_cast<const int*>(md), r0, tig);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int k0 = tile_k0[st][u];
+          const unsigned long long w =
+              k0 >= 0 ? reinterpret_cast<const unsigned long long*>(
+                            md + 16 * u)[(k0 / UNIT) & 1]
+                      : 0ull;
+          // every test unless every row of the warpgroup lies past the pad
+          // and at or below every column (never a missing unit: pad >= 0)
+          if (!(k0 >= pad && k0 + UNIT - 1 <= r_lo))
+            mask_unit(s, u, k0, w, r0, tig, pad);
+          else if (w != 0ull)
+            mask_unit_bits(s, u, w, tig);
+        }
+      }
+      mbar_arrive(&k_empty[st]);
+      float alpha[2];
+      softmax_tile(s, m, l, alpha);
+      rescale(o, alpha);
+      pack_p(s, p);
+      mbar_wait(&v_full[st], ph);
+      wgmma_fence();
+      pv_product(o, p, vring_a + st * TILE_BYTES);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(&v_empty[st]);
+    }
+
+    // full row sums across the 4 threads of a row group, then the rows
+    // that exist (a last q tile may hold 64)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r >= a.N) continue;
+      const size_t row = (size_t)bh * a.N + r;
+      float* ab = a.acc + row * D;
+#pragma unroll
+      for (int c = 0; c < 16; ++c)
+        *reinterpret_cast<float2*>(ab + c * 8 + tig * 2) =
+            make_float2(o[4 * c + 2 * h], o[4 * c + 2 * h + 1]);
+      if (tig == 0) {
+        a.m[row] = m[h] == -INFINITY ? NEG_MAX : m[h];
+        a.l[row] = l[h];
+      }
+    }
+  }
+}
+
+// The vertical kernel's K and V in key order: row r of (b, h) is row
+// order[r] of k_vert / v_vert, for the rows the walk can read (the valid
+// columns, counts' last n_last, rounded up to a tile; later rows are never
+// read).  16 threads a row, 16 bytes a thread: whole 128-byte lines.
+constexpr int GATHER_ROWS = 16;  // rows a block
+
+__global__ void __launch_bounds__(GATHER_ROWS * 16)
+gather_sorted_kernel(const uint4* __restrict__ k_vert,
+                     const uint4* __restrict__ v_vert,
+                     const long long* __restrict__ order,
+                     const int* __restrict__ counts, uint4* __restrict__ ks,
+                     uint4* __restrict__ vs, int Vs, int nqt) {
+  const int bh = blockIdx.y;
+  const int n_valid = counts[((size_t)bh * nqt + nqt - 1) * 2 + 1];
+  const int limit = min(Vs, (n_valid + BK - 1) / BK * BK);
+  const int r = blockIdx.x * GATHER_ROWS + threadIdx.x / 16;
+  if (r >= limit) return;
+  const int c = threadIdx.x % 16;  // 16-byte chunk of the row
+  const size_t row = (size_t)bh * Vs;
+  const size_t src = (row + order[row + r]) * 16 + c;
+  const size_t dst = (row + r) * 16 + c;
+  ks[dst] = k_vert[src];
+  vs[dst] = v_vert[src];
+}
+
+// Encode the maps and launch: q [B*H, N, D]; k and v `planes` planes of
+// a.rows rows.
+template <int MODE>
+int launch(const void* q, const void* k, const void* v, const Args& a,
+           int B, int planes, void* stream) {
+  CUtensorMap qm, km, vm;
+  if (!make_map(&qm, q, a.N, B * a.H, a.N, BQ) ||
+      !make_map(&km, k, a.rows, planes, a.rows, UNIT) ||
+      !make_map(&vm, v, a.rows, planes, a.rows, UNIT))
+    return (int)cudaErrorInvalidValue;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sparse_wgmma_kernel<MODE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (e != cudaSuccess) return (int)e;
+    attr = true;
+  }
+  dim3 grid(B * a.H, (a.nqt + 1) / 2);
+  sparse_wgmma_kernel<MODE><<<grid, NTHREADS, SMEM_BYTES,
+                              (cudaStream_t)stream>>>(qm, km, vm, a);
+  return (int)cudaGetLastError();
+}
+
+Args base_args(void* acc, void* m, void* l, int H, int N, float scale) {
+  Args a = {};
+  a.acc = (float*)acc;
+  a.m = (float*)m;
+  a.l = (float*)l;
+  a.H = H;
+  a.Hk = H;
+  a.N = N;
+  a.nqt = (N + BQ - 1) / BQ;
+  a.scale = scale;
+  return a;
+}
+
+}  // namespace sp
+
 }  // namespace
 
+// Grid slash (every list entry): acc [B*H, N, D], m, l [B*H, N] f32.
+// vbits [B*H, nwords] int64: the vert flags packed 64 columns a word.
 extern "C" int pkv_slash_tiles(const void* q, const void* k, const void* v,
                                const void* tile_idx, const void* tile_valid,
-                               const void* vert, const void* true_len,
+                               const void* vbits, const void* true_len,
                                void* acc, void* m, void* l, int B, int H,
                                int Hk, int N, int q_block, int k_tile, int T,
-                               float scale, void* stream) {
-  const SlashArgs a = slash_args(q, k, v, tile_idx, tile_valid, vert,
-                                 true_len, acc, m, l, H, Hk, N, q_block,
-                                 k_tile, T, scale);
-  slash_tiles_kernel<<<dim3(N / BQ, B * H), NTHREADS, 0,
-                       (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+                               int nwords, float scale, void* stream) {
+  sp::Args a = sp::base_args(acc, m, l, H, N, scale);
+  a.Hk = Hk;
+  a.rows = N;
+  a.true_len = (const int*)true_len;
+  a.tile_idx = (const int*)tile_idx;
+  a.tile_valid = (const uint8_t*)tile_valid;
+  a.vbits = (const unsigned long long*)vbits;
+  a.nwords = nwords;
+  a.q_block = q_block;
+  a.k_tile = k_tile;
+  a.T = T;
+  return sp::launch<sp::kSlash>(q, k, v, a, B, B * Hk, stream);
+}
+
+// Vertical: k_vert, v_vert [B*H, Vs, D] bf16 as gathered; order [B*H, Vs]
+// int64, each (b, h)'s columns by key; keys [B*H, vs_pad] the keys in that
+// order (int max past the valid ones and up to vs_pad); counts [B*H,
+// ceil(N/128), 2]: the keys <= each q tile's first and last row; k_sorted,
+// v_sorted [B*H, Vs, D] bf16 scratch for the rows in key order.
+extern "C" int pkv_vertical_partials(const void* q, const void* k_vert,
+                                     const void* v_vert, const void* order,
+                                     const void* keys, const void* counts,
+                                     void* k_sorted, void* v_sorted,
+                                     void* acc, void* m, void* l, int B,
+                                     int H, int N, int Vs, int vs_pad,
+                                     float scale, void* stream) {
+  sp::Args a = sp::base_args(acc, m, l, H, N, scale);
+  a.rows = Vs;
+  a.keys = (const int*)keys;
+  a.counts = (const int*)counts;
+  a.vs_pad = vs_pad;
+  sp::gather_sorted_kernel<<<dim3((Vs + sp::GATHER_ROWS - 1) /
+                                      sp::GATHER_ROWS,
+                                  B * H),
+                             sp::GATHER_ROWS * 16, 0,
+                             (cudaStream_t)stream>>>(
+      (const uint4*)k_vert, (const uint4*)v_vert, (const long long*)order,
+      a.counts, (uint4*)k_sorted, (uint4*)v_sorted, Vs, a.nqt);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return sp::launch<sp::kVertical>(q, k_sorted, v_sorted, a, B, B * H,
+                                   stream);
 }
 
 extern "C" int pkv_slash_tiles_db(const void* q, const void* k, const void* v,
@@ -537,15 +1065,3 @@ extern "C" int pkv_slash_tiles_db(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-extern "C" int pkv_vertical_partials(const void* q, const void* k_vert,
-                                     const void* v_vert, const void* vcol,
-                                     const void* vvalid, void* acc, void* m,
-                                     void* l, int B, int H, int N, int Vs,
-                                     float scale, void* stream) {
-  vertical_partials_kernel<<<dim3(N / BQ, B * H), NTHREADS, 0,
-                             (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_vert,
-      (const __nv_bfloat16*)v_vert, (const int*)vcol, (const uint8_t*)vvalid,
-      (float*)acc, (float*)m, (float*)l, N, Vs, scale);
-  return (int)cudaGetLastError();
-}

@@ -51,9 +51,9 @@ ENTRY_POINTS = {
                      ("pkv_quant_group_fused", _REGION)],
     "quant_fused_decode": [("pkv_quant_fused_pa", _REGION)],
     "block_sparse_prefill": [
-        ("pkv_slash_tiles", [_P] * 10 + [_I] * 7 + [_F, _P]),
+        ("pkv_slash_tiles", [_P] * 10 + [_I] * 8 + [_F, _P]),
         ("pkv_slash_tiles_db", [_P] * 10 + [_I] * 7 + [_F, _P]),
-        ("pkv_vertical_partials", [_P] * 8 + [_I] * 4 + [_F, _P]),
+        ("pkv_vertical_partials", [_P] * 11 + [_I] * 5 + [_F, _P]),
     ],
 }
 

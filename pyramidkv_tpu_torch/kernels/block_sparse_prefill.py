@@ -12,22 +12,37 @@ a row with nothing visible has m = float32.min and l = 0.
 The kernels trust the index arrays they are given: tile ids in
 [0, N/k_tile) and vertical column ids in [0, N), as the estimation and tile
 selection of ``ops/sparse_prefill.py`` produce them.
+
+:func:`vertical_tile_plan` and :func:`slash_unit_plan` mirror the walks of
+the vertical and grid slash kernel (``sp::sparse_wgmma_kernel``), and
+:func:`vertical_tiled_plain` and :func:`slash_tiled_plain` run its schedule
+in plain PyTorch (the CPU tests hold them to the plain versions and to the
+Pallas kernels).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 
-from ..ops.sparse_prefill import (slash_tile_attention_plain,
+from ..ops.sparse_prefill import (_scaled_q, slash_tile_attention_plain,
                                   vertical_attention_partials_plain)
 from . import _build
 
-#: q rows per block, keys per sub-tile (and vertical columns per chunk)
+#: the db kernel's granularity (q rows per block, keys per sub-tile); N,
+#: q_block, k_tile and Vs are multiples of it
 TILE = 64
 HEAD_DIM = 128
+#: q rows per block, keys per unit and keys per tile of the vertical and
+#: grid slash kernel (namespace ``sp``)
+BLOCK_Q = 128
+UNIT = 64
+BLOCK_K = 2 * UNIT
+#: the sort key of an invalid vertical column: after every row
+NO_KEY = 2 ** 31 - 1
 
 
 def _check_operands(named, device) -> None:
@@ -45,7 +60,7 @@ def _check_card(q: torch.Tensor, softcap) -> None:
     if softcap is not None:
         raise NotImplementedError(
             "softcap (Gemma-2) is not ported to the block-sparse kernels yet "
-            "(ROADMAP queue 1 #10)")
+            "(ROADMAP queue 2A #2)")
 
 
 def _outputs(q: torch.Tensor):
@@ -85,19 +100,42 @@ def _slash(db: bool, q, k, v, tile_idx, tile_valid, vert, true_len, q_block,
                      ("tile_idx", tile_idx, torch.int32),
                      ("tile_valid", tile_valid, torch.bool),
                      ("vert", vert, torch.bool)), q.device)
-    # db walks each list's valid prefix: its length per (b, h, q-block)
-    flags = (tile_valid.sum(dim=-1, dtype=torch.int32) if db
-             else tile_valid)
     acc, m, l = _outputs(q)
-    sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    sc = float(scale if scale is not None else 1.0 / math.sqrt(d))
     lib = _build.library("block_sparse_prefill")
-    fn = lib.pkv_slash_tiles_db if db else lib.pkv_slash_tiles
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), tile_idx.data_ptr(),
-             flags.data_ptr(), vert.data_ptr(), tl.data_ptr(), acc.data_ptr(),
-             m.data_ptr(), l.data_ptr(), b, h, hk, n, q_block, k_tile, t,
-             float(sc), torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if db:
+        # db walks each list's valid prefix: its length per (b, h, q-block)
+        nval = tile_valid.sum(dim=-1, dtype=torch.int32)
+        err = lib.pkv_slash_tiles_db(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), tile_idx.data_ptr(),
+            nval.data_ptr(), vert.data_ptr(), tl.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), b, h, hk, n, q_block, k_tile, t, sc,
+            stream)
+    else:
+        vbits = pack_vertical_bits(vert)
+        err = lib.pkv_slash_tiles(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), tile_idx.data_ptr(),
+            tile_valid.data_ptr(), vbits.data_ptr(), tl.data_ptr(),
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, hk, n, q_block,
+            k_tile, t, vbits.shape[-1], sc, stream)
     _build.check(err, "slash_tiles_db" if db else "slash_tiles")
     return acc, m, l
+
+
+def pack_vertical_bits(vert: torch.Tensor) -> torch.Tensor:
+    """vert [B, H, N] bool as [B*H, W] int64 words, bit c of word w the
+    flag of column 64 w + c; W = 2 ceil(N / 128), even, so the kernel's
+    16-byte copies of a word pair stay aligned and inside the row."""
+    b, h, n = vert.shape
+    words = 2 * -(-n // BLOCK_K)
+    bits = torch.zeros((b * h, words * UNIT), dtype=torch.bool,
+                       device=vert.device)
+    bits[:, :n] = vert.reshape(b * h, n)
+    shift = torch.arange(UNIT, dtype=torch.int64, device=vert.device)
+    # distinct powers of two: the sum is the bitwise or (bit 63 wraps to
+    # the sign, as in the kernel's unsigned words)
+    return (bits.view(b * h, words, UNIT).to(torch.int64) << shift).sum(-1)
 
 
 def slash_tile_attention(
@@ -191,16 +229,224 @@ def vertical_attention_partials(
     _check_operands((("q", q, bf), ("k_vert", k_vert, bf),
                      ("v_vert", v_vert, bf), ("vcol", vcol, torch.int32),
                      ("vvalid", vvalid, torch.bool)), q.device)
+    order, keys, counts = sort_vertical_columns(vcol, vvalid, n)
+    # the kernel's scratch: K and V rows in key order
+    k_sorted, v_sorted = torch.empty_like(k_vert), torch.empty_like(v_vert)
     acc, m, l = _outputs(q)
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
     lib = _build.library("block_sparse_prefill")
     err = lib.pkv_vertical_partials(
-        q.data_ptr(), k_vert.data_ptr(), v_vert.data_ptr(), vcol.data_ptr(),
-        vvalid.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h,
-        n, vs, float(sc), torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k_vert.data_ptr(), v_vert.data_ptr(), order.data_ptr(),
+        keys.data_ptr(), counts.data_ptr(), k_sorted.data_ptr(),
+        v_sorted.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), b,
+        h, n, vs, keys.shape[-1], float(sc),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "vertical_partials")
     vertical_attention_partials.launches += 1
     return acc, m, l
+
+
+def _vertical_keys(vcol: torch.Tensor, vvalid: torch.Tensor):
+    """(sorted keys, order) of vertical columns: a column's key is its id
+    where valid and NO_KEY otherwise, ascending along the last axis (a
+    stable sort: equal keys keep their order)."""
+    key = torch.where(vvalid, vcol.to(torch.int32),
+                      torch.full_like(vcol, NO_KEY, dtype=torch.int32))
+    return torch.sort(key, dim=-1, stable=True)
+
+
+def sort_vertical_columns(vcol: torch.Tensor, vvalid: torch.Tensor, n: int):
+    """The vertical kernel's walk inputs: each (b, h)'s Vs columns in key
+    order (its ``gather_sorted_kernel`` copies their K and V rows in that
+    order).  Returns (order [B, H, Vs] int64; keys [B, H, vs_pad] int32,
+    the sorted keys padded with NO_KEY to a multiple of BLOCK_K; counts
+    [B, H, ceil(N / BLOCK_Q), 2] int32: per q tile, the sorted columns with
+    key <= its first row (every row of the tile sees them) and <= its
+    last)."""
+    keys, order = _vertical_keys(vcol, vvalid)
+    if keys.shape[-1] % BLOCK_K:
+        keys = torch.nn.functional.pad(keys, (0, -keys.shape[-1] % BLOCK_K),
+                                       value=NO_KEY)
+    bounds = _tile_bounds(n, keys.device)
+    counts = torch.searchsorted(
+        keys, bounds.expand(*keys.shape[:-1], -1).contiguous(), right=True,
+        out_int32=True)
+    return order, keys, counts.view(*keys.shape[:-1], -1, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_bounds(n: int, device: torch.device) -> torch.Tensor:
+    """[2 ceil(n / BLOCK_Q)] int32: each q tile's first and last row."""
+    q0 = torch.arange(0, n, BLOCK_Q, dtype=torch.int32)
+    return torch.stack([q0, q0 + BLOCK_Q - 1], dim=-1).reshape(-1).to(device)
+
+
+def vertical_tile_plan(vcol: torch.Tensor, vvalid: torch.Tensor, n: int):
+    """The vertical kernel's walk for one (b, h): vcol, vvalid [Vs].
+
+    The columns are sorted by key (:func:`sort_vertical_columns`); q tile t
+    (rows 128 t up to 128 t + 127) visits the 128-column tiles of the
+    sorted order up to the last column with key <= its last row, and a
+    tile is interior (unmasked) when every key in it is <= the q tile's
+    first row.  Returns (order [Vs] int64, sorted keys [Vs] int32, one
+    [(tile index, interior)] per q tile)."""
+    keys, order = _vertical_keys(vcol, vvalid)
+    plan = []
+    for q0 in range(0, n, BLOCK_Q):
+        n_first = int((keys <= q0).sum())
+        n_last = int((keys <= q0 + BLOCK_Q - 1).sum())
+        plan.append([(u, (u + 1) * BLOCK_K <= n_first)
+                     for u in range(-(-n_last // BLOCK_K))])
+    return order, keys, plan
+
+
+def slash_unit_plan(tile_idx: torch.Tensor, tile_valid: torch.Tensor,
+                    vert: torch.Tensor, n: int, pad: int, q_block: int,
+                    k_tile: int):
+    """The grid slash kernel's walk for one (b, h): tile_idx, tile_valid
+    [N/q_block, T], vert [N].
+
+    q tile t holds rows 128 t on: warpgroup w its 64 rows from 128 t + 64 w
+    (none past N).  A warpgroup with a row past the pad walks the list of
+    its q-block: both in one walk where their rows lie in one q-block.  A
+    walk visits the valid entries in list order and, in each, the 64-key
+    units that are not above its last row nor wholly left of the pad,
+    paired into 128-key tiles as they come (a last unit alone, the other
+    missing).  A warpgroup masks a tile where a unit is missing, starts
+    left of the pad, reaches past the warpgroup's first row or holds a
+    vertical column.  Returns one [(warpgroups as bits, (first key of each
+    unit, -1: missing), (masked for warpgroup 0, for warpgroup 1))] per q
+    tile."""
+    idx, valid = tile_idx.tolist(), tile_valid.tolist()
+    vert_units = vert.reshape(-1)[:n].tolist()
+    plan = []
+    for q0 in range(0, n, BLOCK_Q):
+        wgs_rows = 3 if q0 + UNIT < n else 1
+        last = (min(q0 + UNIT - 1, n - 1), min(q0 + BLOCK_Q - 1, n - 1))
+        live = (last[0] >= pad, wgs_rows == 3 and last[1] >= pad)
+        qb = (q0 // q_block, (q0 + UNIT) // q_block)
+        if live[0] and live[1] and qb[0] == qb[1]:
+            walks = [(qb[0], 3, last[1])]
+        else:
+            walks = [(qb[w], 1 << w, last[w]) for w in (0, 1) if live[w]]
+        tiles = []
+        for q_b, wgs, last_row in walks:
+            units = [k0 for t, ok in zip(idx[q_b], valid[q_b]) if ok
+                     for k0 in range(t * k_tile, (t + 1) * k_tile, UNIT)
+                     if k0 <= last_row and k0 + UNIT - 1 >= pad]
+            for j in range(0, len(units), 2):
+                pair = (units[j], units[j + 1] if j + 1 < len(units) else -1)
+                masked = tuple(
+                    bool(wgs >> w & 1) and any(
+                        k0 < 0 or k0 < pad or k0 + UNIT - 1 > q0 + UNIT * w
+                        or any(vert_units[k0:k0 + UNIT]) for k0 in pair)
+                    for w in (0, 1))
+                tiles.append((wgs, pair, masked))
+        plan.append(tiles)
+    return plan
+
+
+def _online_update(acc, m, l, s, v) -> None:
+    """One tile of the kernels' online softmax on the views acc [R, D],
+    m, l [R] (in place): natural-unit maxes, P rounded to v's dtype at the
+    running max."""
+    m_new = torch.maximum(m, s.amax(-1))
+    m_use = torch.where(m_new == -math.inf, 0.0, m_new)
+    alpha = torch.exp(m - m_use)
+    p = torch.exp(s - m_use[..., None])
+    l.mul_(alpha).add_(p.sum(-1))
+    acc.mul_(alpha[..., None]).add_(p.to(v.dtype).float() @ v.float())
+    m.copy_(m_new)
+
+
+def _partials_out(acc, m, l):
+    return acc, torch.where(m == -math.inf, torch.finfo(torch.float32).min,
+                            m), l
+
+
+def vertical_tiled_plain(q, k_vert, v_vert, vcol, vvalid, true_len, *,
+                         scale: Optional[float] = None):
+    """The vertical kernel's schedule in plain PyTorch: each (b, h)'s
+    columns in key order, each q tile's :func:`vertical_tile_plan` tiles
+    in order, the key mask only on tiles that are not interior, P rounded
+    to v's dtype at each tile's running max (with f32 inputs nothing is
+    rounded).  Arguments and result as
+    :func:`vertical_attention_partials`."""
+    del true_len
+    b, h, n, d = q.shape
+    vs = k_vert.shape[2]
+    qs = _scaled_q(q, scale).float()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, n, d), **f32)
+    m = torch.full((b, h, n), -math.inf, **f32)
+    l = torch.zeros((b, h, n), **f32)
+    for bi in range(b):
+        for hi in range(h):
+            order, keys, plan = vertical_tile_plan(vcol[bi, hi],
+                                                   vvalid[bi, hi], n)
+            kf, vv = k_vert[bi, hi, order].float(), v_vert[bi, hi, order]
+            for t, tiles in enumerate(plan):
+                r0, r1 = t * BLOCK_Q, min(t * BLOCK_Q + BLOCK_Q, n)
+                rows = torch.arange(r0, r1, device=q.device)[:, None]
+                for u, interior in tiles:
+                    c0, c1 = u * BLOCK_K, min(u * BLOCK_K + BLOCK_K, vs)
+                    s = qs[bi, hi, r0:r1] @ kf[c0:c1].T
+                    if not interior:
+                        s = s.masked_fill(keys[c0:c1][None, :] > rows,
+                                          -math.inf)
+                    _online_update(acc[bi, hi, r0:r1], m[bi, hi, r0:r1],
+                                   l[bi, hi, r0:r1], s, vv[c0:c1])
+    return _partials_out(acc, m, l)
+
+
+def slash_tiled_plain(q, k, v, tile_idx, tile_valid, vert, true_len, *,
+                      q_block: int = 128, k_tile: int = 128,
+                      scale: Optional[float] = None):
+    """The grid slash kernel's schedule in plain PyTorch: each warpgroup's
+    64 rows walk the tiles of :func:`slash_unit_plan` that are theirs, the
+    mask (causal, pad, vertical columns, a missing unit) only on tiles
+    masked for them, P rounded to v's dtype at each tile's running max.
+    Arguments and result as :func:`slash_tile_attention`."""
+    b, h, n, d = q.shape
+    g = h // k.shape[1]
+    qs = _scaled_q(q, scale).float()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, n, d), **f32)
+    m = torch.full((b, h, n), -math.inf, **f32)
+    l = torch.zeros((b, h, n), **f32)
+    for bi in range(b):
+        pad = n - int(true_len[bi])
+        for hi in range(h):
+            kf, vv = k[bi, hi // g].float(), v[bi, hi // g]
+            vert_h = vert[bi, hi]
+            plan = slash_unit_plan(tile_idx[bi, hi], tile_valid[bi, hi],
+                                   vert_h, n, pad, q_block, k_tile)
+            for t, tiles in enumerate(plan):
+                for w in (0, 1):
+                    r0 = t * BLOCK_Q + w * UNIT
+                    r1 = min(r0 + UNIT, n)
+                    rows = torch.arange(r0, r1, device=q.device)[:, None]
+                    for wgs, pair, masked in tiles:
+                        if not wgs >> w & 1:
+                            continue
+                        cols = torch.cat([
+                            torch.arange(k0, k0 + UNIT, device=q.device)
+                            if k0 >= 0 else torch.full(
+                                (UNIT,), -1, device=q.device)
+                            for k0 in pair])
+                        have = cols >= 0
+                        cc = cols.clamp_min(0)
+                        s = qs[bi, hi, r0:r1] @ kf[cc].T
+                        if masked[w]:
+                            vis = (have & (cols >= pad) & ~vert_h[cc])[None]
+                            s = s.masked_fill(~(vis & (cols[None] <= rows)),
+                                              -math.inf)
+                        # a missing unit is read as zeros
+                        vt = torch.where(have[:, None], vv[cc],
+                                         torch.zeros_like(vv[cc]))
+                        _online_update(acc[bi, hi, r0:r1], m[bi, hi, r0:r1],
+                                       l[bi, hi, r0:r1], s, vt)
+    return _partials_out(acc, m, l)
 
 
 #: kernel launches since the last reset (CPU calls do not count)

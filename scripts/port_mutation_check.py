@@ -33,11 +33,26 @@ non-zero if a mutant was not caught.  Mutants:
   last split out of the merge (targets the checks of more than one
   split);
 - ``slash_drop_last_tile`` (``csrc/block_sparse_prefill.cu``): the grid
-  slash kernel skips the last valid entry of every tile list (targets its
-  own checks and the db-against-grid check);
+  slash kernel's walk skips the last valid entry of every tile list
+  (targets its own checks and the db-against-grid check);
 - ``vertical_drop_last_chunk`` (``csrc/block_sparse_prefill.cu``): the
-  vertical kernel stops before the last 64-column chunk that holds a valid
-  column;
+  vertical kernel never attends over the last 64-column unit of the sorted
+  order that holds a valid column (nor past it);
+- ``vertical_edge_one_unit_early``: the vertical walk of a q tile ends up
+  to one 64-column unit early (a last tile of at most 64 columns to read is
+  not visited);
+- ``vertical_interior_one_unit_long``: the vertical kernel takes the
+  interior prefix (unmasked tiles) one unit longer than the columns every
+  row of the q tile sees;
+- ``slash_vertical_unit_unmasked``: a slash unit inside the warpgroup's
+  rows (past the pad, below the diagonal) skips the bit test of its
+  vertical columns (the vertical partials' columns counted twice);
+- ``slash_pad_unit_unmasked``: a slash unit across the pad takes only the
+  bit test of the units inside the rows, its padding columns unmasked
+  (targets the slash checks with a pad inside a 64-key unit);
+- ``slash_neighbour_list_q_block_64``: warpgroup 1 of a q tile walks
+  warpgroup 0's tile list, the neighbouring q-block's at q_block 64
+  (targets the slash checks at q_block 64);
 - ``h2o_stats_pad_edge_interior`` / ``h2o_colsum_pad_edge_interior``
   (``csrc/h2o_scores.cu``): the tile holding the pad edge counts as
   interior in the stats kernel (its padding columns go unmasked) / the
@@ -140,6 +155,7 @@ CSRC = os.path.join("pyramidkv_tpu_torch", "csrc")
 KIVI = ("quant_region.cuh", "phase_kv_quant_kernels")
 DECODE = ("decode_attn.cu", "phase_decode_kernels")
 H2O = ("h2o_scores.cu", "phase_h2o_chunk_kernels")
+BSP = ("block_sparse_prefill.cu", "phase_minference_kernels")
 
 
 def _group(r):
@@ -185,18 +201,41 @@ MUTANTS = {
         "  for (int s = 0; s < nsplit; ++s) {\n    const size_t r = ",
         "  for (int s = 0; s < nsplit - 1; ++s) {\n    const size_t r = "),
     "slash_drop_last_tile": (
-        "block_sparse_prefill.cu", "phase_minference_kernels",
-        ("slash_tile_attention",
-         "slash_tile_attention_db vs slash_tile_attention"),
-        "    if (!valid[t]) continue;",
-        "    if (!valid[t] || t + 1 == a.T || !valid[t + 1]) continue;"),
+        *BSP, ("slash_tile_attention",
+               "slash_tile_attention_db vs slash_tile_attention"),
+        "            if (!ok) continue;",
+        "            if (!ok || t + 1 == a.T || !val) continue;"),
     "vertical_drop_last_chunk": (
-        "block_sparse_prefill.cu", "phase_minference_kernels",
-        ("vertical_attention_partials",),
-        "  for (int c0 = 0; c0 < Vs; c0 += BK) {",
-        "  int vlast = 0;\n"
-        "  for (int c = 0; c < Vs; ++c) if (vvalid[col_base + c]) vlast = c;\n"
-        "  for (int c0 = 0; c0 < vlast / BK * BK; c0 += BK) {"),
+        *BSP, ("vertical_attention_partials",),
+        "        for (int c0 = 0; c0 < n_last; c0 += BK) emit(c0, c0 + UNIT, "
+        "row_wgs);",
+        "        const int vlast = (a.counts[((size_t)bh * a.nqt + a.nqt - 1) "
+        "* 2 + 1] - 1) / UNIT * UNIT;\n"
+        "        for (int c0 = 0; c0 < min(n_last, vlast); c0 += BK) emit(c0, "
+        "c0 + UNIT < vlast ? c0 + UNIT : -1, row_wgs);"),
+    "vertical_edge_one_unit_early": (
+        *BSP, ("vertical_attention_partials",),
+        "for (int c0 = 0; c0 < n_last; c0 += BK)",
+        "for (int c0 = 0; c0 < n_last - UNIT; c0 += BK)"),
+    "vertical_interior_one_unit_long": (
+        *BSP, ("vertical_attention_partials",),
+        "if (tile_k0[st][0] + BK > n_first)",
+        "if (tile_k0[st][0] + BK > n_first + UNIT)"),
+    "slash_vertical_unit_unmasked": (
+        *BSP, ("slash_tile_attention",),
+        "          else if (w != 0ull)",
+        "          else if (false && w != 0ull)"),
+    "slash_pad_unit_unmasked": (
+        *BSP, lambda r: r["check"] == "slash_tile_attention" and any(
+            (r["N"] - t) % 64 for t in r["true_len"]),
+        "          if (!(k0 >= pad && k0 + UNIT - 1 <= r_lo))",
+        "          if (!(k0 >= pad && k0 + UNIT - 1 <= r_lo) &&\n"
+        "              !(k0 < pad && k0 + UNIT > pad))"),
+    "slash_neighbour_list_q_block_64": (
+        *BSP, lambda r: r["check"] == "slash_tile_attention"
+        and r["q_block"] == 64,
+        "qb1 = (q0 + 64) / a.q_block;",
+        "qb1 = q0 / a.q_block;"),
     "h2o_stats_pad_edge_interior": (
         *H2O, lambda r: r["check"] == "h2o_row_stats" and _pad_in_tile(r),
         "  return r0 < pad || c0 < pad || c0 + BT > N || (rb <= r1 && c1 > rb);",
@@ -359,7 +398,7 @@ print(json.dumps([{**{k: r.get(k) for k in ("check", "case", "S", "nsplit",
                                             "kernels_per_call", "nbits",
                                             "windows", "N", "W",
                                             "true_len", "k_groups",
-                                            "window")},
+                                            "window", "q_block")},
                    "err_over_tol": finite(r["err_over_tol"])}
                   for r in recs if "err_over_tol" in r]))
 """
