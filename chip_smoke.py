@@ -31,7 +31,11 @@ Phases (any failure exits non-zero):
      kernel's device ms per step), then the same for fullkv;
   7. mm_kernels: the weight-quantized matmul kernels (int4 per-channel and
      g128, int8, int4 windowed) against their plain versions at every
-     Llama-3-8B decode shape, rows 1 and 8, plus flash prefill at 32k;
+     Llama-3-8B decode shape, rows 1 and 8, after short and edge shapes
+     (odd widths, codes TMA cannot read, a stacked layer at an odd
+     offset, 9 and 40 rows, group sizes 8-128, uneven slices); each int4
+     kernel called twice and held bitwise equal; each format's matmul ms
+     per decode step beside its bound; plus flash prefill at 32k;
   8. engine_quant: ``Engine.generate`` with quantized weights on bench.py's
      configuration (32 layers, one 32767-token prompt, 128 new tokens,
      snapkv cap 128): int4 fullkv and snapkv, int4-g128, int8 and
@@ -536,11 +540,26 @@ def phase_decode_kernels(torch, F, dev):
     return ok, recs
 
 
+def mm_plan(torch, dev, kind, in_dim, out2, rows, xdt, gs):
+    """The int4 kernel's plan for a call of ``kind`` (None for int8)."""
+    from pyramidkv_tpu_torch.kernels.int4_matmul import (dma_stage_rows,
+                                                         int4_tile_plan)
+
+    if kind == "int8_matmul":
+        return None
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ks = dma_stage_rows(in_dim) if kind == "int4_matmul_dma" else None
+    return int4_tile_plan(rows, in_dim, out2, gs, sms, xdt == "f32", ks)
+
+
 def check_mm(torch, dev, kind, in_dim, out, rows, xdt, timed, seed, label,
-             gs=0):
+             gs=0, layers=0):
     """One matmul kernel against its plain version on random codes (every
     byte value), scales and x.  ``kind``: int4_matmul, int4_matmul_dma or
-    int8_matmul; ``xdt``: "bf16" or "f32"."""
+    int8_matmul; ``xdt``: "bf16" or "f32"; ``layers``: stacked codes
+    [layers, in, out'] read at layer 1 (a view at an offset of in * out'
+    bytes).  An int4 kernel is called twice and its two outputs must be
+    bitwise equal."""
     from pyramidkv_tpu_torch.kernels.int4_matmul import unpack_nibbles
     from pyramidkv_tpu_torch.models.weights import KERNELS
 
@@ -548,8 +567,9 @@ def check_mm(torch, dev, kind, in_dim, out, rows, xdt, timed, seed, label,
     g = torch.Generator(device=dev).manual_seed(seed)
     int4 = kind != "int8_matmul"
     lo = -128 if int4 else -127
-    codes = torch.randint(lo, 128, (in_dim, out // 2 if int4 else out),
-                          generator=g, device=dev, dtype=torch.int8)
+    ncb = out // 2 if int4 else out
+    codes = torch.randint(lo, 128, ((layers,) if layers else ()) + (
+        in_dim, ncb), generator=g, device=dev, dtype=torch.int8)
     sshape = (in_dim // gs, out) if gs else (out,)
     qmax = 7.0 if int4 else 127.0
     scale = (0.5 + torch.rand(sshape, generator=g, device=dev)) / (
@@ -557,15 +577,25 @@ def check_mm(torch, dev, kind, in_dim, out, rows, xdt, timed, seed, label,
     dt = torch.bfloat16 if xdt == "bf16" else torch.float32
     x = torch.randn((rows, in_dim), generator=g, device=dev).to(dt)
     kw = {"group_size": gs} if kind == "int4_matmul" else {}
+    if layers:
+        kw["layer"] = 1
     got = kern(x, codes, scale, **kw)
+    again = kern(x, codes, scale, **kw) if int4 else got
     want = plain(x, codes, scale, **kw)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     ratio = err_over_tol(got, want, *MM_TOL[xdt])
     rec = {"check": kind, "case": label, "in": in_dim, "out": out,
-           "rows": rows, "x": xdt, "group_size": gs, "max_abs_err": err,
-           "err_over_tol": ratio, "tol": MM_TOL_TEXT[xdt],
+           "rows": rows, "x": xdt, "group_size": gs, "layers": layers,
+           "max_abs_err": err, "err_over_tol": ratio, "tol": MM_TOL_TEXT[xdt],
            "rms": float(want.float().square().mean().sqrt())}
+    plan = mm_plan(torch, dev, kind, in_dim, ncb, rows, xdt, gs)
+    if plan is not None:
+        c2 = codes[1] if layers else codes
+        rec.update(plan=plan._asdict(), cluster=plan.cluster,
+                   span=128 if ncb % 128 == 0 else 1,
+                   tma=ncb % 16 == 0 and c2.data_ptr() % 16 == 0,
+                   repeat_bitwise=bool(torch.equal(got, again)))
     if timed:
         rec["ms"] = graph_ms(torch, lambda: kern(x, codes, scale, **kw),
                              reps=50)
@@ -592,7 +622,8 @@ def check_mm(torch, dev, kind, in_dim, out, rows, xdt, timed, seed, label,
             PEAK_BF16_FLOPS if xdt == "bf16" else PEAK_F32_FLOPS)
     log(rec)
     ok = ratio <= 1 and bool(torch.isfinite(got).all()) \
-        and got.dtype == x.dtype and tuple(got.shape) == (rows, out)
+        and got.dtype == x.dtype and tuple(got.shape) == (rows, out) \
+        and rec.get("repeat_bitwise", True)
     return ok, rec
 
 
@@ -609,6 +640,33 @@ MM_CASES = [
                         ("w_down", "bf16"), ("lm_head8", "bf16"),
                         ("lm_head8", "f32")]),
 ]
+#: matmul checks at short and edge shapes, untimed: (kernel, in, out, rows,
+#: x dtype, group size, case, stacked layers).  "short": odd widths (span
+#: 1), the unpadded 64128-byte lm_head row, 40 rows; "edge": codes whose
+#: rows TMA cannot read (out2 % 16 != 0, and a stacked layer at an odd
+#: byte offset), 9 rows, group sizes 32, 64, 8 and 24 (k-steps across
+#: groups), an in-dim the cluster's slices do not divide evenly
+MM_SHORT = (
+    ("int4_matmul", 64, 6, 3, "bf16", 0, "short", 0),
+    ("int4_matmul", 96, 38, 5, "f32", 16, "short", 0),
+    ("int4_matmul", 4096, 128256, 1, "f32", 0, "short", 0),
+    ("int4_matmul", 4096, 4096, 40, "bf16", 0, "short", 0),
+    ("int4_matmul", 4096, 4096, 40, "bf16", 128, "short", 0),
+    ("int4_matmul_dma", 4096, 4096, 40, "bf16", 0, "short", 0),
+    ("int4_matmul_dma", 512, 256, 3, "f32", 0, "short", 0),
+    ("int8_matmul", 256, 384, 3, "f32", 0, "short", 0),
+    ("int4_matmul", 256, 74, 3, "bf16", 0, "edge: out2 % 16 != 0", 0),
+    ("int4_matmul", 256, 74, 2, "f32", 32, "edge: out2 % 16 != 0, g32", 0),
+    ("int4_matmul", 97, 38, 2, "bf16", 0, "edge: stacked, odd offset", 3),
+    ("int4_matmul", 4096, 4096, 9, "bf16", 0, "edge: rows 9", 0),
+    ("int4_matmul", 4096, 6144, 9, "bf16", 64, "edge: rows 9, g64", 0),
+    ("int4_matmul", 4096, 4096, 1, "bf16", 32, "edge: g32", 0),
+    ("int4_matmul", 14336, 4096, 8, "bf16", 64, "edge: g64", 0),
+    ("int4_matmul", 256, 256, 2, "bf16", 8, "edge: g8", 0),
+    ("int4_matmul", 192, 128, 3, "f32", 24, "edge: g24", 0),
+    ("int4_matmul", 3000, 4096, 1, "f32", 0, "edge: uneven slices", 0),
+    ("int4_matmul_dma", 1536, 2048, 2, "bf16", 0, "edge: uneven slices", 0),
+)
 #: launches of each shape per decode step (wq/wo, wk/wv, w_gate/w_up: two)
 PER_STEP = {"wqkv": LAYERS, "wo": LAYERS, "w_gateup": LAYERS,
             "w_down": LAYERS, "lm_head4": 1, "lm_head8": 1, "wq": 2 * LAYERS,
@@ -621,18 +679,10 @@ def phase_mm_kernels(torch, F, dev):
     bucket.  Returns (ok, {entry name: [timed recs at rows 1, weighted by
     launches per step]}, flash rec)."""
     ok = True
-    short = (("int4_matmul", 64, 6, 3, "bf16", 0),      # span 1, odd width
-             ("int4_matmul", 96, 38, 5, "f32", 16),     # span 1, grouped
-             ("int4_matmul", 4096, 128256, 1, "f32", 0),  # 64128 bytes
-             ("int4_matmul", 4096, 4096, 40, "bf16", 0),  # rows 40
-             ("int4_matmul", 4096, 4096, 40, "bf16", 128),
-             ("int4_matmul_dma", 4096, 4096, 40, "bf16", 0),
-             ("int4_matmul_dma", 512, 256, 3, "f32", 0),
-             ("int8_matmul", 256, 384, 3, "f32", 0))
     seed = 100
-    for kind, i, o, rows, xdt, gs in short:
+    for kind, i, o, rows, xdt, gs, case, layers in MM_SHORT:
         r, _ = check_mm(torch, dev, kind, i, o, rows, xdt, False, seed,
-                        "short", gs)
+                        case, gs, layers)
         ok &= r
         seed += 1
     entries = {}
@@ -651,6 +701,14 @@ def phase_mm_kernels(torch, F, dev):
                 if on_path:
                     rec["layers"] = PER_STEP[shape]  # launches per step
                     entries[name].append(rec)
+        # the format's matmul time per decode step at rows 1 (each shape
+        # times its launches a step) beside the least time its bytes take
+        recs = entries[name]
+        log({"phase": "mm_per_step", "format": name,
+             "ms_per_step": sum(r["layers"] * r["ms"] for r in recs),
+             "bound_ms_per_step": sum(r["layers"] * r["bound_ms"]
+                                      for r in recs),
+             "shapes": [r["case"] for r in recs]})
     r, flash = check_flash(torch, F, dev, 1, H, HK, QN, (QTRUE,), None,
                            timed=True, seed=3, case="32k")
     ok &= r

@@ -43,9 +43,9 @@ ENTRY_POINTS = {
     ],
     "decode_attn": [("pkv_decode_attn", [_P] * 8 + [_I] * 6 + [_F, _P])],
     "int4_matmul": [
-        ("pkv_int4_matmul", [_P] * 5 + [_I] * 9 + [_P]),
+        ("pkv_int4_mm", [_P] * 5 + [_I] * 13 + [_P]),
+        ("pkv_int4_map", [_P] * 2 + [_I] * 3),
         ("pkv_int8_matmul", [_P] * 5 + [_I] * 8 + [_P]),
-        ("pkv_int4_matmul_dma", [_P] * 5 + [_I] * 9 + [_P]),
     ],
     "quant_decode": [("pkv_quant_decode", _REGION),
                      ("pkv_quant_group_fused", _REGION)],

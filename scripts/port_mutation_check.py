@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Mutation check of the port's KIVI region kernels, MInference's
 block-sparse prefill kernels, the H2O kernels, the chunked prefill's flash
-kernels, the two-pass flash schedule and the split decode kernel, on a CUDA
-card.
+kernels, the two-pass flash schedule, the split decode kernel and the int4
+decode matmul kernel, on a CUDA card.
 
     python3 scripts/port_mutation_check.py [--only NAMES] [--log FILE]
 
@@ -137,6 +137,17 @@ non-zero if a mutant was not caught.  Mutants:
   visible slot in a row masked everywhere attends over nothing instead of
   all its slots (tile skipping applied to that row: targets the random-mask
   checks, each of which masks one row everywhere).
+- ``int4_cluster_drops_last_rank`` (``csrc/int4_matmul.cu``): rank 0 of
+  the int4 kernel's cluster leaves the last rank's partial out of its sum
+  (targets the int4 checks of more than one rank);
+- ``int4_last_group_unscaled``: the last group of the in-dim takes scale 1
+  on its low-nibble columns (targets the grouped int4 checks);
+- ``int4_span1_nibbles_swapped``: at span 1 a byte's low nibble is written
+  to its high nibble's column and back (targets the span-1 int4 checks);
+- ``int4_drops_last_stage``: the consumers skip the products of each
+  slice's last ring stage (waiting for it and releasing it as before);
+- ``int4_x_row_0_for_all``: every x row's B fragment reads x row 0
+  (targets the int4 checks of more than one row).
 A check whose output is not finite counts as caught (err_over_tol inf).
 """
 
@@ -156,6 +167,7 @@ KIVI = ("quant_region.cuh", "phase_kv_quant_kernels")
 DECODE = ("decode_attn.cu", "phase_decode_kernels")
 H2O = ("h2o_scores.cu", "phase_h2o_chunk_kernels")
 BSP = ("block_sparse_prefill.cu", "phase_minference_kernels")
+MM = ("int4_matmul.cu", "phase_mm_kernels")
 
 
 def _group(r):
@@ -164,6 +176,10 @@ def _group(r):
 
 def _pa(r):
     return r["check"] == "quant_fused_attention_pa"
+
+
+def _int4(r):
+    return r["check"] in ("int4_matmul", "int4_matmul_dma")
 
 
 def _pad_in_tile(r):
@@ -377,6 +393,30 @@ MUTANTS = {
         *DECODE, lambda r: not r["case"].startswith("engine"),
         "    n = found ? 0 : ntiles;",
         "    n = 0;"),
+    "int4_cluster_drops_last_rank": (
+        *MM, lambda r: _int4(r) and r["cluster"] > 1,
+        "for (int r = 1; r < nrank; ++r) v += src[r * psz + e];",
+        "for (int r = 1; r < nrank - 1; ++r) v += src[r * psz + e];"),
+    "int4_last_group_unscaled": (
+        *MM, lambda r: _int4(r) and r["group_size"] > 0,
+        "#pragma unroll\n  for (int i = 0; i < 8; ++i) {\n"
+        "    acc[i][0] = fmaf(frag[i][0], s[i], acc[i][0]);",
+        "  if ((grp + 1) * a.gs >= a.in_dim)\n"
+        "    for (int e = 0; e < 8; ++e) s[e] = 1.f;\n"
+        "#pragma unroll\n  for (int i = 0; i < 8; ++i) {\n"
+        "    acc[i][0] = fmaf(frag[i][0], s[i], acc[i][0]);"),
+    "int4_span1_nibbles_swapped": (
+        *MM, lambda r: _int4(r) and r["span"] == 1,
+        "return span == 1 ? 2 * j + nib :",
+        "return span == 1 ? 2 * j + 1 - nib :"),
+    "int4_drops_last_stage": (
+        *MM, _int4,
+        "const int nks = (min(a.ks,",
+        "const int nks = i == nst - 1 ? 0 : (min(a.ks,"),
+    "int4_x_row_0_for_all": (
+        *MM, lambda r: _int4(r) and r["rows"] > 1,
+        "const __nv_bfloat16* xl = xs + g * xp + 2 * t;",
+        "const __nv_bfloat16* xl = xs + 2 * t;"),
 }
 _RUN = """
 import json, sys, torch, torch.nn.functional as F
@@ -398,7 +438,9 @@ print(json.dumps([{**{k: r.get(k) for k in ("check", "case", "S", "nsplit",
                                             "kernels_per_call", "nbits",
                                             "windows", "N", "W",
                                             "true_len", "k_groups",
-                                            "window", "q_block")},
+                                            "window", "q_block", "rows",
+                                            "group_size", "cluster",
+                                            "span")},
                    "err_over_tol": finite(r["err_over_tol"])}
                   for r in recs if "err_over_tol" in r]))
 """

@@ -19,10 +19,15 @@ from pyramidkv_tpu.kernels import int4_matmul as jk
 from pyramidkv_tpu.models import weights as jw
 from pyramidkv_tpu_torch.kernels import int4_matmul, int4_matmul_dma, int8_matmul
 from pyramidkv_tpu_torch.kernels.int4_matmul import (
-    _plan_dma,
+    _SMEM_MAX,
+    Int4Plan,
     _plan_stream,
+    dma_stage_rows,
     int4_matmul_plain,
+    int4_tile_plan,
+    int4_tiled_plain,
     int8_matmul_plain,
+    split_x3,
 )
 
 TOL4, TOL8 = 2e-5, 1e-4
@@ -162,16 +167,141 @@ def test_stream_plans_cover_the_in_dim(rows, in_dim, ncb, gs):
     assert rt * kc * 4 <= 160 * 1024
 
 
+def _check_plan(p, rows, in_dim, out2, gs):
+    """What the int4 kernel (``pkv_int4_mm``) asks of a plan."""
+    assert 1 <= p.cluster <= 8 and 1 <= p.ncol * p.kw <= (4 if gs else 8)
+    assert p.ks % 64 == 0 and p.ks % (16 * p.kw) == 0
+    # the slices cover the in-dim once, each non-empty, whole groups each
+    assert p.slice % 16 == 0
+    assert p.slice * (p.cluster - 1) < in_dim <= p.slice * p.cluster
+    if gs:
+        assert p.slice % gs == 0 and in_dim % gs == 0
+    assert 1 <= p.rp <= min(8, rows) and p.stages >= 1
+    # staged group scales: every group of the slice
+    assert p.ss_rows == 0 or (gs and p.ss_rows * gs >= p.slice)
+    assert p.smem <= _SMEM_MAX
+    assert p.blocks == p.cluster * -(-out2 // (64 * p.ncol))
+
+
 @pytest.mark.parametrize("rows,in_dim,out2,win", [
     (1, 4096, 2048, 512), (1, 14336, 2048, 512), (8, 4096, 65536, 512),
-    (2, 512, 256, 128), (1, 384, 128, 512),
+    (2, 512, 256, 128), (1, 384, 128, 512), (40, 4096, 3072, 512),
 ])
 def test_dma_plans_cover_the_in_dim(rows, in_dim, out2, win):
-    rt, vb, w, wpb, splits = _plan_dma(rows, in_dim, out2, win)
+    """int4_matmul_dma runs the int4 kernel with ring stages of its window
+    (shrunk to divide the in-dim, as the JAX package does)."""
+    w = dma_stage_rows(in_dim, win)
     assert in_dim % w == 0 and w <= win
-    nw = in_dim // w
-    assert wpb * (splits - 1) < nw <= wpb * splits
-    assert 64 % vb == 0
+    p = int4_tile_plan(rows, in_dim, out2, 0, 132, False, w)
+    _check_plan(p, rows, in_dim, out2, 0)
+    assert p.ks == max(64, w // 64 * 64)
+
+
+#: Llama-3-8B's int4 decode shapes: name -> (in, out2 bytes)
+LLAMA_INT4 = {"wqkv": (4096, 3072), "wo": (4096, 2048),
+              "w_gateup": (4096, 14336), "w_down": (14336, 2048),
+              "lm_head4": (4096, 65536)}
+
+
+@pytest.mark.parametrize("shape", list(LLAMA_INT4))
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("fmt", ["per-channel", "g128", "dma"])
+def test_int4_tile_plan_fills_the_card(shape, rows, fmt):
+    """At each decode shape, as the engine calls it (bf16 x for the layers,
+    f32 x for the lm_head), the int4 plan covers the in-dim with clusters
+    of at most 8 slices of whole groups, fits shared memory and gives every
+    SM of an H100 at least one block (one launch, no second pass)."""
+    in_dim, out2 = LLAMA_INT4[shape]
+    gs = 128 if fmt == "g128" else 0
+    ks = dma_stage_rows(in_dim) if fmt == "dma" else None
+    p = int4_tile_plan(rows, in_dim, out2, gs, 132, shape == "lm_head4", ks)
+    _check_plan(p, rows, in_dim, out2, gs)
+    assert p.blocks >= 132
+    assert p.rp == rows  # one pass over the codes at <= 8 rows
+    if ks:
+        assert p.ks == ks
+
+
+@pytest.mark.parametrize("rows,in_dim,out2,gs,x_f32", [
+    (3, 64, 3, 0, False), (5, 96, 19, 16, True), (1, 4096, 64128, 0, True),
+    (40, 4096, 2048, 128, False), (384, 14336, 2048, 0, True),
+    (2, 256, 128, 8, False), (3, 192, 64, 24, True), (1, 3000, 2048, 0, True),
+    (9, 4096, 3072, 64, False), (8, 14336, 2048, 2048, True),
+])
+def test_int4_tile_plan_edges(rows, in_dim, out2, gs, x_f32):
+    """Odd widths, k-steps across groups (8, 24), an in-dim the slices do not
+    divide evenly, 40 and 384 rows (several passes of 8), f32 x at the
+    widest shapes: every plan is one the kernel takes."""
+    p = int4_tile_plan(rows, in_dim, out2, gs, 132, x_f32)
+    _check_plan(p, rows, in_dim, out2, gs)
+    assert p.rp == min(8, rows)
+
+
+# the tiled order's shapes, (in, out, group size), and a plan of several
+# ranks and several warps a column: span 128 and span 1
+TILED = {128: (1024, 256, 128, 8), 1: (384, 40, 16, 3)}
+
+
+@pytest.mark.parametrize("span", [128, 1])
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("rows,stacked,x_f32", [
+    (1, False, False), (3, False, False), (8, False, False),
+    (9, False, False), (40, False, False), (3, True, False),
+    (2, False, True)])
+def test_int4_tiled_plain_matches_pallas(span, grouped, rows, stacked, x_f32):
+    """The kernel's order of sums (per-warp k-steps, per-group partials
+    scaled, warps then cluster ranks added in order) against the plain
+    version and the Pallas kernel in interpret mode."""
+    in_dim, out, gs, ranks = TILED[span]
+    rng = np.random.default_rng(300 + rows + span + 7 * grouped + 11 * x_f32)
+    q, codes, scale = _quant(rng, 3 if stacked else 0, in_dim, out,
+                             gs=gs if grouped else None)
+    x = rng.normal(size=(rows, in_dim)).astype(np.float32)
+    layer = 1 if stacked else None
+    sc = scale[1] if stacked else scale
+    g = gs if grouped else 0
+    # 4 warps on one column, 128-row stages, slices of 128 rows
+    plan = Int4Plan(ncol=1, kw=4, ks=128, stages=2, cluster=ranks,
+                    slice=128, rp=min(8, rows), ss_rows=0, smem=1,
+                    blocks=ranks * -(-(out // 2) // 64))
+    _check_plan(plan, rows, in_dim, out // 2, g)
+    xt = _t(x) if x_f32 else _t(x).to(torch.bfloat16)
+    got = int4_tiled_plain(xt, _t(codes), _t(sc), plan, layer=layer,
+                           group_size=g)
+    assert got.dtype == xt.dtype and got.shape == (rows, out)
+    plain = int4_matmul_plain(xt, _t(codes), _t(sc), layer=layer,
+                              group_size=g)
+    tol = TOL4 if x_f32 else 2.0 ** -7
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(),
+                               rtol=tol, atol=tol)
+    want = np.asarray(jk.int4_matmul(
+        jnp.asarray(xt.float().numpy()), q.codes, jnp.asarray(sc),
+        layer=None if layer is None else jnp.int32(layer), interpret=True,
+        group_size=g))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+def test_split_x3_is_exact():
+    """f32 x == hi + mid + lo bit for bit (three bf16 terms, the int4
+    kernel's f32 path), over random f32 of every exponent down to 2^-110,
+    tiny values (1e-30, 1e-33) included; below, the lo term rounds at bf16's
+    smallest subnormal: an error of at most 2^-134."""
+    rng = np.random.default_rng(5)
+    mant = rng.uniform(1, 2, size=20000) * rng.choice([-1, 1], size=20000)
+    exps = rng.integers(-110, 100, size=20000)
+    x = np.concatenate([(mant * np.exp2(exps)).astype(np.float32),
+                        rng.normal(size=5000).astype(np.float32),
+                        np.float32([1e-30, -1e-33, 3e-34, 1.0, -0.0, 0.0])])
+    x = x[(np.abs(x) >= 2.0 ** -110) | (x == 0)]
+    hi, mid, lo = split_x3(_t(x))
+    s64 = hi.double() + mid.double() + lo.double()
+    assert torch.equal(s64, _t(x).double())
+    # the kernel's f32 sum of the three products' terms: exact as well
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), _t(x))
+    tiny = (_t(rng.uniform(1, 2, size=1000)) * 2.0 ** -120).float()
+    h, m, lt = split_x3(tiny)
+    err = (h.double() + m.double() + lt.double() - tiny.double()).abs()
+    assert float(err.max()) <= 2.0 ** -134
 
 
 def _err_over_tol(got, want, f32):
