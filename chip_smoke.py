@@ -237,11 +237,11 @@ TAIL_TOL_TEXT = {
 
 #: MInference's block-sparse prefill kernels.  Their partials are held as
 #: the pa region kernel's: acc / l within TOL_TEXT (kernel and plain version
-#: round p to bf16 at different running maxima: 128-key tiles, or the db
-#: kernel's 64-key sub-tiles, against the plain version's k_tile-key tiles
-#: or one-shot row), m within
+#: round p to bf16 at different running maxima: 128-key tiles against the
+#: plain version's k_tile-key tiles or one-shot row), m within
 #: 2^-12 max(1, |m|) and l within 2^-10 l (f32 dots and sums in other
-#: orders).
+#: orders).  The db slash function is the grid kernel over each list's
+#: valid prefix: bitwise equal to the grid kernel on valid-first lists.
 SPARSE_KERNELS = ("vertical_attention_partials", "slash_tile_attention",
                   "slash_tile_attention_db")
 SPARSE_TOL_TEXT = (TOL_TEXT + " on acc/l; m within 2^-12 max(1,|m|), l "
@@ -249,31 +249,40 @@ SPARSE_TOL_TEXT = (TOL_TEXT + " on acc/l; m within 2^-12 max(1,|m|), l "
 #: the synthetic per-head pattern config (32 layers x 32 heads)
 PCFG_PATH = "configs/minference/llama3_8b_synthetic.json"
 #: kernel checks: case -> (B, H, Hk, N, true_len, budgets, q_block, k_tile,
-#: tile_budget, shuffle, timed).  budgets: "default" (CompressionSpec's 1000
-#: / 200), "pcfg" (layer 0 of PCFG_PATH, the config-wide maxima 3500 / 6096
-#: setting the top-k widths: Vs 3584) or (vertical, slash).  shuffle: the
-#: vertical columns handed over in a seeded random order (the invalid ones
-#: among the valid).  The short cases come first: a prompt shorter than
-#: last_q beside a full one, and G=1 with 128-row q-blocks of 64-key tiles;
-#: then the vertical and grid slash kernels' edge shapes: 64-row q-blocks of
-#: 64-key tiles (each consumer warpgroup walks its own list), N % 128 = 64
-#: with 192-row q-blocks (a 128-row q tile across two lists), shuffled
-#: columns at G = 1, and a batch row that is all padding at G = 8.
+#: tile_budget, shuffle, permute, timed).  budgets: "default"
+#: (CompressionSpec's 1000 / 200), "pcfg" (layer 0 of PCFG_PATH, the
+#: config-wide maxima 3500 / 6096 setting the top-k widths: Vs 3584) or
+#: (vertical, slash).  shuffle: the vertical columns handed over in a seeded
+#: random order (the invalid ones among the valid).  permute: each tile
+#: list's entries in a seeded random order (lists not valid-first: the db
+#: function's prefix differs from the flags).  The short cases come first: a
+#: prompt shorter than last_q beside a full one, and G=1 with 128-row
+#: q-blocks of 64-key tiles; then the vertical and slash kernels' edge
+#: shapes: 64-row q-blocks of 64-key tiles (each consumer warpgroup walks
+#: its own list), N % 128 = 64 with 192-row q-blocks (a 128-row q tile
+#: across two lists), shuffled columns at G = 1, a batch row that is all
+#: padding at G = 8, and lists not valid-first with a pad inside a unit.
 SPARSE_CASES = {
     "short ragged": (2, 8, 2, 1024, (1024, 37), (100, 50), 512, 256, 2,
-                     False, False),
+                     False, False, False),
     "short tiles": (1, 4, 4, 640, (600,), (60, 30), 128, 64, 3, False,
-                    False),
-    "tiles 64": (1, 8, 2, 2048, (2000,), (150, 60), 64, 64, 6, False, False),
+                    False, False),
+    "tiles 64": (1, 8, 2, 2048, (2000,), (150, 60), 64, 64, 6, False, False,
+                 False),
     "N % 128 = 64": (2, 8, 2, 1344, (1344, 1000), (100, 50), 192, 192, 3,
-                     False, False),
+                     False, False, False),
     "shuffled vertical": (1, 8, 8, 2048, (1900,), (200, 60), 256, 128, 4,
-                          True, False),
+                          True, False, False),
     "padded row": (2, 16, 2, 1024, (1024, 0), (100, 50), 512, 256, 2, False,
-                   False),
-    "32k": (1, H, HK, QN, (QTRUE,), "default", 512, 256, 8, False, True),
-    "32k pcfg": (1, H, HK, QN, (QTRUE,), "pcfg", 512, 256, 8, False, True),
-    "8k": (B, H, HK, N, TRUE_LEN, "default", 512, 256, 8, False, True),
+                   False, False),
+    "lists not valid-first": (2, 8, 2, 1024, (1024, 700), (100, 50), 128,
+                              64, 4, False, True, False),
+    "32k": (1, H, HK, QN, (QTRUE,), "default", 512, 256, 8, False, False,
+            True),
+    "32k pcfg": (1, H, HK, QN, (QTRUE,), "pcfg", 512, 256, 8, False, False,
+                 True),
+    "8k": (B, H, HK, N, TRUE_LEN, "default", 512, 256, 8, False, False,
+           True),
 }
 #: the minference engine runs: name -> (weights, CompressionSpec arguments
 #: or "pcfg", the SPARSE_CASES shape its kernels run at).  32k: bench.py's
@@ -1662,19 +1671,30 @@ def slash_pairs(torch, ti, tv, vert, tl, qb, kt) -> float:
     return float((rows * live).sum())
 
 
+def list_prefix(torch, tv):
+    """The db function's entries: the first tv.sum(-1) of each list
+    (arange(T) < nval), written here apart from the wrapper's valid_prefix
+    so that a fault there shows against this."""
+    t = tv.shape[-1]
+    return (torch.arange(t, device=tv.device)
+            < tv.sum(-1, keepdim=True)).contiguous()
+
+
 def check_sparse(torch, F, dev, case, seed):
     """The three block-sparse kernels against their plain versions on one
     SPARSE_CASES shape, on a pattern that the port's estimate_vertical_slash
     makes from seeded random bf16 q/k (the same pattern for both sides);
-    the two slash kernels also against each other.  The vertical and grid
-    slash kernels are called twice and held bitwise equal.  Timed cases add
-    each kernel's time (a CUDA graph of repeated calls), its plain
-    version's, one masked SDPA call's (the yardstick) and the bound.
-    Returns (ok, {kernel: rec})."""
+    db's plain version is the slash one over each list's valid prefix.
+    Each kernel is called twice and held bitwise equal; db and grid are
+    held bitwise equal to each other where the lists are valid-first (one
+    kernel, the same flags), and their difference is logged where not.
+    Timed cases add each kernel's time (a CUDA graph of repeated calls),
+    its plain version's, one masked SDPA call's (the yardstick) and the
+    bound.  Returns (ok, {kernel: rec})."""
     from pyramidkv_tpu_torch import kernels
     from pyramidkv_tpu_torch.ops import sparse_prefill as sp
 
-    (b, h, hk, n, true_len, budgets, qb, kt, budget, shuffle,
+    (b, h, hk, n, true_len, budgets, qb, kt, budget, shuffle, permute,
      timed) = SPARSE_CASES[case]
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, h, n, D), generator=g, device=dev).to(torch.bfloat16)
@@ -1684,6 +1704,12 @@ def check_sparse(torch, F, dev, case, seed):
     pat = sp.estimate_vertical_slash(q, k, true_len=tl,
                                      **sparse_budgets(torch, dev, budgets))
     ti, tv = sp._slash_tile_selection(pat, n, qb, kt, budget)
+    if permute:
+        perm = torch.argsort(torch.rand(ti.shape, generator=g, device=dev),
+                             dim=-1)
+        ti, tv = ti.gather(-1, perm).contiguous(), tv.gather(-1, perm)
+        tv = tv.contiguous()
+    prefix = list_prefix(torch, tv)
     vcol, vvalid = pat.vert_idx, pat.vert_valid
     if shuffle:
         perm = torch.randperm(vcol.shape[-1], generator=g, device=dev)
@@ -1694,24 +1720,31 @@ def check_sparse(torch, F, dev, case, seed):
     vargs = (q, k_vert, v_vert, vcol, vvalid, tl)
     sargs = (q, k, v, ti, tv, pat.vert, tl)
     skw = dict(q_block=qb, k_tile=kt)
-    want_v = sp.vertical_attention_partials_plain(*vargs)
-    want_s = sp.slash_tile_attention_plain(*sargs, **skw)
+
+    def db_plain(*args, **kw):  # the slash function over the prefix
+        return sp.slash_tile_attention_plain(*args[:4], prefix, *args[5:],
+                                             **kw)
+
+    # name -> (kernel, plain version, arguments, keywords, the flags that
+    # count for its slash walk)
     calls = {"vertical_attention_partials": (
                  kernels.vertical_attention_partials,
-                 sp.vertical_attention_partials_plain, vargs, {}, want_v),
+                 sp.vertical_attention_partials_plain, vargs, {}, None),
              "slash_tile_attention": (
                  kernels.slash_tile_attention, sp.slash_tile_attention_plain,
-                 sargs, skw, want_s),
+                 sargs, skw, tv),
              "slash_tile_attention_db": (
-                 kernels.slash_tile_attention_db,
-                 sp.slash_tile_attention_plain, sargs, skw, want_s)}
+                 kernels.slash_tile_attention_db, db_plain, sargs, skw,
+                 prefix)}
     ok, recs, outs = True, {}, {}
     shape = {"case": case, "B": b, "H": h, "Hk": hk, "N": n,
              "true_len": list(true_len), "Vs": vs, "T": t, "q_block": qb,
-             "k_tile": kt, "shuffled": shuffle,
+             "k_tile": kt, "shuffled": shuffle, "lists_permuted": permute,
              "valid_vertical": int(vvalid.sum()),
-             "valid_tiles": int(tv.sum())}
-    for name, (kern, plain, args, kw, want) in calls.items():
+             "valid_tiles": int(tv.sum()),
+             "lists_not_valid_first": int((prefix != tv).any(-1).sum())}
+    for name, (kern, plain, args, kw, flags) in calls.items():
+        want = plain(*args, **kw)
         got = kern(*args, **kw)
         torch.cuda.synchronize()
         outs[name] = got
@@ -1721,11 +1754,11 @@ def check_sparse(torch, F, dev, case, seed):
                "tol": SPARSE_TOL_TEXT,
                "rms": float((want[0] / want[2].clamp_min(1e-30)[..., None])
                             .square().mean().sqrt())}
-        if not name.endswith("_db"):
-            again = kern(*args, **kw)
-            rec["bitwise_repeat"] = all(torch.equal(x, y)
-                                        for x, y in zip(got, again))
-            del again
+        del want
+        again = kern(*args, **kw)
+        rec["bitwise_repeat"] = all(torch.equal(x, y)
+                                    for x, y in zip(got, again))
+        del again
         if timed:
             rec["ms"] = graph_ms(torch, lambda: kern(*args, **kw), reps=10)
             rec["plain_ms"] = time_ms(torch, lambda: plain(*args, **kw),
@@ -1739,9 +1772,9 @@ def check_sparse(torch, F, dev, case, seed):
                 nbytes = (q.numel() * 2 + 2 * k_vert.numel() * 2
                           + vs * b * h * 5)
             else:
-                *lib, mask = slash_library_inputs(torch, q, k, v, ti, tv,
+                *lib, mask = slash_library_inputs(torch, q, k, v, ti, flags,
                                                   pat.vert, tl, qb, kt)
-                pairs = slash_pairs(torch, ti, tv, pat.vert, tl, qb, kt)
+                pairs = slash_pairs(torch, ti, flags, pat.vert, tl, qb, kt)
                 nbytes = (q.numel() * 2 + 2 * k.numel() * 2 + ti.numel() * 5
                           + b * h * n + b * 4)
             rec["library_ms"] = time_ms(
@@ -1754,19 +1787,21 @@ def check_sparse(torch, F, dev, case, seed):
         log(rec)
         ok &= (ratio <= 1 and all(bool(torch.isfinite(x).all()) for x in got)
                and tuple(got[0].shape) == (b, h, n, D)
-               and rec.get("bitwise_repeat", True))
+               and rec["bitwise_repeat"])
         recs[name] = rec
         torch.cuda.empty_cache()
-    # the two slash kernels sum the same terms in other orders (64-row
-    # q tiles and sub-tiles against 128-row q tiles and paired units)
+    # one kernel: on valid-first lists the prefix is the flags, so db is
+    # grid bit for bit; elsewhere the two functions differ (logged only)
     ratio, err, _, _ = partials_ratio(outs["slash_tile_attention_db"],
                                       outs["slash_tile_attention"])
     same = all(torch.equal(a, b_) for a, b_ in zip(
         outs["slash_tile_attention_db"], outs["slash_tile_attention"]))
     log({"check": "slash_tile_attention_db vs slash_tile_attention",
-         "case": case, "max_abs_err": err, "err_over_tol": ratio,
-         "bitwise_equal": same, "tol": SPARSE_TOL_TEXT})
-    ok &= ratio <= 1
+         "case": case, "lists_permuted": permute, "max_abs_err": err,
+         "err_over_tol": ratio, "bitwise_equal": same,
+         "required": "nothing (lists not valid-first)" if permute
+         else "bitwise equal"})
+    ok &= permute or same
     return ok, recs
 
 

@@ -52,7 +52,6 @@ ENTRY_POINTS = {
     "quant_fused_decode": [("pkv_quant_fused_pa", _REGION)],
     "block_sparse_prefill": [
         ("pkv_slash_tiles", [_P] * 10 + [_I] * 8 + [_F, _P]),
-        ("pkv_slash_tiles_db", [_P] * 10 + [_I] * 7 + [_F, _P]),
         ("pkv_vertical_partials", [_P] * 11 + [_I] * 5 + [_F, _P]),
     ],
 }

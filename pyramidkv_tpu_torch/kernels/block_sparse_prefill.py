@@ -4,10 +4,17 @@
 Counterparts of ``pyramidkv_tpu/kernels/block_sparse_prefill.py``'s
 ``slash_tile_attention``, ``slash_tile_attention_db`` and
 ``vertical_attention_partials_kernel``.  On a CUDA tensor each launches its
-hand-written sm_90a kernel; on a CPU tensor it runs the plain version
+hand-written sm_90a kernel (``sp::sparse_wgmma_kernel``; both slash
+functions its slash walk); on a CPU tensor it runs the plain version
 (``ops/sparse_prefill.py``).  All three return online-softmax partials
 (acc [B,H,N,D] f32 unnormalised, m and l [B,H,N] f32, m in natural units);
 a row with nothing visible has m = float32.min and l = 0.
+
+The two slash functions differ only in which list entries count: every
+valid one (``slash_tile_attention``), or the first ``tile_valid.sum(-1)``
+entries whatever their flags (``slash_tile_attention_db``, the TPU db
+kernel's loop bound; :func:`valid_prefix`).  On a valid-first list, as
+the tile selection makes them, the two are one function.
 
 The kernels trust the index arrays they are given: tile ids in
 [0, N/k_tile) and vertical column ids in [0, N), as the estimation and tile
@@ -32,7 +39,7 @@ from ..ops.sparse_prefill import (_scaled_q, slash_tile_attention_plain,
                                   vertical_attention_partials_plain)
 from . import _build
 
-#: the db kernel's granularity (q rows per block, keys per sub-tile); N,
+#: the kernels' grain (rows of a consumer warpgroup, keys of a unit): N,
 #: q_block, k_tile and Vs are multiples of it
 TILE = 64
 HEAD_DIM = 128
@@ -70,7 +77,7 @@ def _outputs(q: torch.Tensor):
             torch.empty((b, h, n), dtype=torch.float32, device=q.device))
 
 
-def _slash(db: bool, q, k, v, tile_idx, tile_valid, vert, true_len, q_block,
+def _slash(q, k, v, tile_idx, tile_valid, vert, true_len, q_block,
            k_tile, scale, softcap):
     _check_card(q, softcap)
     b, h, n, d = q.shape
@@ -104,23 +111,23 @@ def _slash(db: bool, q, k, v, tile_idx, tile_valid, vert, true_len, q_block,
     sc = float(scale if scale is not None else 1.0 / math.sqrt(d))
     lib = _build.library("block_sparse_prefill")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if db:
-        # db walks each list's valid prefix: its length per (b, h, q-block)
-        nval = tile_valid.sum(dim=-1, dtype=torch.int32)
-        err = lib.pkv_slash_tiles_db(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), tile_idx.data_ptr(),
-            nval.data_ptr(), vert.data_ptr(), tl.data_ptr(), acc.data_ptr(),
-            m.data_ptr(), l.data_ptr(), b, h, hk, n, q_block, k_tile, t, sc,
-            stream)
-    else:
-        vbits = pack_vertical_bits(vert)
-        err = lib.pkv_slash_tiles(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), tile_idx.data_ptr(),
-            tile_valid.data_ptr(), vbits.data_ptr(), tl.data_ptr(),
-            acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, hk, n, q_block,
-            k_tile, t, vbits.shape[-1], sc, stream)
-    _build.check(err, "slash_tiles_db" if db else "slash_tiles")
+    vbits = pack_vertical_bits(vert)
+    err = lib.pkv_slash_tiles(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), tile_idx.data_ptr(),
+        tile_valid.data_ptr(), vbits.data_ptr(), tl.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, hk, n, q_block,
+        k_tile, t, vbits.shape[-1], sc, stream)
+    _build.check(err, "slash_tiles")
     return acc, m, l
+
+
+def valid_prefix(tile_valid: torch.Tensor) -> torch.Tensor:
+    """The entries the TPU db kernel visits: [B, H, nq, T] bool, true for
+    the first ``tile_valid.sum(-1)`` entries of each list, whatever their
+    own flags.  Equal to ``tile_valid`` on a valid-first list."""
+    t = tile_valid.shape[-1]
+    nval = tile_valid.sum(dim=-1, keepdim=True)
+    return (torch.arange(t, device=tile_valid.device) < nval).contiguous()
 
 
 def pack_vertical_bits(vert: torch.Tensor) -> torch.Tensor:
@@ -161,8 +168,8 @@ def slash_tile_attention(
         return slash_tile_attention_plain(
             q, k, v, tile_idx, tile_valid, vert, true_len, q_block=q_block,
             k_tile=k_tile, scale=scale, softcap=softcap)
-    out = _slash(False, q, k, v, tile_idx, tile_valid, vert, true_len,
-                 q_block, k_tile, scale, softcap)
+    out = _slash(q, k, v, tile_idx, tile_valid, vert, true_len, q_block,
+                 k_tile, scale, softcap)
     slash_tile_attention.launches += 1
     return out
 
@@ -181,15 +188,17 @@ def slash_tile_attention_db(
     scale: Optional[float] = None,
     softcap: Optional[float] = None,
 ):
-    """:func:`slash_tile_attention` over only the valid prefix of each list
-    (valid-first order, as ``_slash_tile_selection``'s top-k gives it), the
-    next sub-tile's K/V copy in flight while the current one is used."""
+    """:func:`slash_tile_attention` over each list's valid prefix
+    (:func:`valid_prefix`): its first ``tile_valid.sum(-1)`` entries, as
+    the TPU db kernel walks them.  On the card the same kernel as
+    :func:`slash_tile_attention`, given the prefix for the flags."""
+    prefix = valid_prefix(tile_valid)
     if q.device.type == "cpu":
         return slash_tile_attention_plain(
-            q, k, v, tile_idx, tile_valid, vert, true_len, q_block=q_block,
+            q, k, v, tile_idx, prefix, vert, true_len, q_block=q_block,
             k_tile=k_tile, scale=scale, softcap=softcap)
-    out = _slash(True, q, k, v, tile_idx, tile_valid, vert, true_len,
-                 q_block, k_tile, scale, softcap)
+    out = _slash(q, k, v, tile_idx, prefix, vert, true_len, q_block, k_tile,
+                 scale, softcap)
     slash_tile_attention_db.launches += 1
     return out
 

@@ -96,7 +96,8 @@ def flash_causal_attention(
     """
     if softcap is not None:
         raise NotImplementedError(
-            "softcap is not ported yet (Gemma-2, ROADMAP queue 1 #10)")
+            "softcap is not ported yet (ROADMAP queue 2A #1; Gemma-2: queue "
+            "1 #5)")
     kw = dict(sliding_window=sliding_window, scale=scale, q_start=q_start)
     if two_pass:
         return flash_pass_b(q, k, v, flash_row_max(q, k, true_len, **kw),

@@ -73,7 +73,7 @@ def region_from_numpy(reg, *, device=None) -> QuantizedKVRegion:
     (KVQuant) are not ported and must be None."""
     if reg.k_out_idx is not None or reg.v_out_idx is not None:
         raise NotImplementedError(
-            "KVQuant outlier sidecars are not ported yet (ROADMAP queue 1 #11)")
+            "KVQuant outlier sidecars are not ported yet (ROADMAP queue 1 #6)")
     device = _device(device, "region_from_numpy")
 
     def part(qt):

@@ -18,7 +18,7 @@ group-layout kernels, JAX's opt-in route) and
 bit-plane, with the JAX function's bf16 roundings: JAX's default decode of
 both layouts).
 
-Not ported yet (ROADMAP queue 1 #11): KVQuant's outlier sidecar and the
+Not ported yet (ROADMAP queue 1 #6): KVQuant's outlier sidecar and the
 chunked dequantization scan ``quant_region_attention_partials``.
 """
 

@@ -12,8 +12,9 @@ N * (Vs + tile_budget * k_tile) * D instead of N^2 * D:
 * slash coverage is block-granular: each q-block attends its
   ``tile_budget`` k-tiles of highest slash coverage, with the causal and
   padding masks and with the vertical columns masked out
-  (``slash_tile_attention``; ``slash_tile_attention_db`` walks only the
-  valid prefix of the list).
+  (``slash_tile_attention``; ``slash_tile_attention_db`` takes the first
+  ``tile_valid.sum(-1)`` entries of each list instead, as the TPU db
+  kernel's loop bound does: the same on valid-first lists).
 
 Both emit online-softmax partials (unnormalised acc, row max m in natural
 units, row sum l), merged here in plain torch as the JAX package leaves the
@@ -240,10 +241,11 @@ def slash_tile_attention_plain(
     softcap: Optional[float] = None,
 ):
     """Online-softmax partials of each q-block against its listed k-tiles:
-    the plain version of ``slash_tile_attention`` and of
-    ``slash_tile_attention_db`` (one function: an invalid tile leaves the
-    partials exactly as they were, so walking only the valid prefix of a
-    valid-first list gives the same result).
+    the plain version of ``slash_tile_attention`` and, given the valid
+    prefix of each list (``kernels.block_sparse_prefill.valid_prefix``)
+    for ``tile_valid``, of ``slash_tile_attention_db`` (an invalid tile
+    leaves the partials exactly as they were, so on a valid-first list the
+    two give the same result).
 
     q: [B, H, N, D]; k, v: [B, Hk, N, D]; tile_idx / tile_valid
     [B, H, N/q_block, T]; vert: [B, H, N] bool, the columns to leave out
@@ -411,8 +413,8 @@ def sparse_prefill_attention(
 ) -> torch.Tensor:
     """Causal attention over the pattern: the vertical columns exactly, the
     slash coverage by k-tile.  K/V may be grouped (no repeat_kv).
-    ``slash_impl``: "db" walks each list's valid prefix with the next
-    sub-tile's copy in flight, anything else the whole list.  ``impl``:
+    ``slash_impl``: "db" takes each list's first ``tile_valid.sum(-1)``
+    entries (its valid prefix), anything else its valid entries.  ``impl``:
     "kernel" (the kernel wrappers) or "plain".  Returns [B, H, N, D] in q's
     dtype."""
     n = q.shape[2]

@@ -38,7 +38,7 @@ def _check_ported(spec: CompressionSpec) -> None:
             spec.quant_method is not None and spec.nbits not in (2, 4, 8)):
         raise NotImplementedError(
             "KVQuant's outlier sidecar and 1- or 3-bit KIVI are not ported "
-            "yet (ROADMAP queue 1 #11)")
+            "yet (ROADMAP queue 1 #6)")
     if spec.gqa_aggregate or spec.merge or spec.layer_capacity is not None:
         raise NotImplementedError(
             "gqa_aggregate, merging and per-layer capacities are not ported "

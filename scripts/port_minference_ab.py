@@ -182,8 +182,8 @@ def sparse_inputs(torch, cs, dev, case, seed):
     slash args, slash keywords)."""
     from pyramidkv_tpu_torch.ops import sparse_prefill as sp
 
-    b, h, hk, n, true_len, budgets, qb, kt, budget, _, _ = (
-        cs.SPARSE_CASES[case])
+    b, h, hk, n, true_len, budgets, qb, kt, budget = (
+        cs.SPARSE_CASES[case][:9])
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (torch.randn((b, hh, n, cs.D), generator=g, device=dev)
                .to(torch.bfloat16) for hh in (h, hk, hk))

@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 """Mutation check of the port's KIVI region kernels, MInference's
-block-sparse prefill kernels, the H2O kernels, the chunked prefill's flash
-kernels, the two-pass flash schedule, the split decode kernel and the int4
-decode matmul kernel, on a CUDA card.
+block-sparse prefill kernels and the db slash wrapper, the H2O kernels, the
+chunked prefill's flash kernels, the two-pass flash schedule, the split
+decode kernel and the int4 decode matmul kernel, on a CUDA card.
 
     python3 scripts/port_mutation_check.py [--only NAMES] [--log FILE]
 
 Copies ``pyramidkv_tpu_torch``, ``chip_smoke.py`` and
-``configs/minference`` into a temporary directory once per mutant, breaks one CUDA source there, and runs the
-``chip_smoke`` phase that checks it against the broken kernels (each copy
-builds its own libraries; every check runs untimed).  A mutant is
-caught when it fails the tolerance at every main shape (the checks whose
-case is not a short one) of the checks it targets; the script prints, per
-mutant, the smallest ``err_over_tol`` over those and over the short checks
-(where a mutant may not bite: a region too short for warp 1), and exits
-non-zero if a mutant was not caught.  Mutants:
+``configs/minference`` into a temporary directory once per mutant, breaks
+one file of the package there (a CUDA source, or a kernel wrapper's
+Python), and runs the ``chip_smoke`` phase that checks it against the
+broken kernels (each copy builds its own libraries; every check runs
+untimed).  A mutant is caught when it fails the tolerance at every main
+shape (the checks whose case is not a short one) of the checks it
+targets; the script prints, per mutant, the smallest ``err_over_tol`` over
+those and over the short checks (where a mutant may not bite: a region too
+short for warp 1), and exits non-zero if a mutant was not caught.
+Mutants:
 
 - ``drop_plane`` (``csrc/quant_region.cuh``): the pa layout's split kernel
   reads the V codes of its last <= 4-bit field as 0 (the last bit-plane;
@@ -32,9 +34,17 @@ non-zero if a mutant was not caught.  Mutants:
 - ``pa_merge_drops_last_split``: the pa finish pass leaves each region's
   last split out of the merge (targets the checks of more than one
   split);
-- ``slash_drop_last_tile`` (``csrc/block_sparse_prefill.cu``): the grid
-  slash kernel's walk skips the last valid entry of every tile list
-  (targets its own checks and the db-against-grid check);
+- ``slash_drop_last_tile`` (``csrc/block_sparse_prefill.cu``): the slash
+  kernel's walk skips the last valid entry of every tile list (targets the
+  checks of both slash functions, which share the walk);
+- ``db_prefix_from_flags`` (``kernels/block_sparse_prefill.py``): the db
+  wrapper hands the kernel ``tile_valid`` in place of the valid prefix
+  (targets the db check on lists that are not valid-first, the only ones
+  where the two differ);
+- ``db_prefix_one_short`` (``kernels/block_sparse_prefill.py``): the valid
+  prefix ends one entry early, ``arange(T) < nval - 1`` (targets the db
+  checks; ``chip_smoke.py`` computes the prefix of db's plain version on
+  its own);
 - ``vertical_drop_last_chunk`` (``csrc/block_sparse_prefill.cu``): the
   vertical kernel never attends over the last 64-column unit of the sorted
   order that holds a valid column (nor past it);
@@ -162,12 +172,14 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join("pyramidkv_tpu_torch", "csrc")
-KIVI = ("quant_region.cuh", "phase_kv_quant_kernels")
-DECODE = ("decode_attn.cu", "phase_decode_kernels")
-H2O = ("h2o_scores.cu", "phase_h2o_chunk_kernels")
-BSP = ("block_sparse_prefill.cu", "phase_minference_kernels")
-MM = ("int4_matmul.cu", "phase_mm_kernels")
+PKG = "pyramidkv_tpu_torch"
+#: (source file in the package, chip_smoke phase that checks it)
+KIVI = ("csrc/quant_region.cuh", "phase_kv_quant_kernels")
+DECODE = ("csrc/decode_attn.cu", "phase_decode_kernels")
+H2O = ("csrc/h2o_scores.cu", "phase_h2o_chunk_kernels")
+BSP = ("csrc/block_sparse_prefill.cu", "phase_minference_kernels")
+BSP_PY = ("kernels/block_sparse_prefill.py", "phase_minference_kernels")
+MM = ("csrc/int4_matmul.cu", "phase_mm_kernels")
 
 
 def _group(r):
@@ -217,10 +229,18 @@ MUTANTS = {
         "  for (int s = 0; s < nsplit; ++s) {\n    const size_t r = ",
         "  for (int s = 0; s < nsplit - 1; ++s) {\n    const size_t r = "),
     "slash_drop_last_tile": (
-        *BSP, ("slash_tile_attention",
-               "slash_tile_attention_db vs slash_tile_attention"),
+        *BSP, ("slash_tile_attention", "slash_tile_attention_db"),
         "            if (!ok) continue;",
         "            if (!ok || t + 1 == a.T || !val) continue;"),
+    "db_prefix_from_flags": (
+        *BSP_PY, lambda r: r["check"] == "slash_tile_attention_db"
+        and r["case"] == "lists not valid-first",
+        "    prefix = valid_prefix(tile_valid)\n",
+        "    prefix = tile_valid\n"),
+    "db_prefix_one_short": (
+        *BSP_PY, ("slash_tile_attention_db",),
+        "device=tile_valid.device) < nval)",
+        "device=tile_valid.device) < nval - 1)"),
     "vertical_drop_last_chunk": (
         *BSP, ("vertical_attention_partials",),
         "        for (int c0 = 0; c0 < n_last; c0 += BK) emit(c0, c0 + UNIT, "
@@ -284,53 +304,53 @@ MUTANTS = {
         ("  if (!(u & 1)) {\n    mbar_wait(&w.full[st], (i / STAGES) & 1);\n"
          "    mbar_arrive(&w.empty[st]);\n  }", "")),
     "partials_drop_last_k_tile": (
-        "flash_prefill.cu", "phase_h2o_chunk_kernels",
+        "csrc/flash_prefill.cu", "phase_h2o_chunk_kernels",
         ("flash_attention_partials",),
         "const int kt_last = hi / BK;",
         "const int kt_last = hi / BK - (MODE == kPartials ? 1 : 0);"),
     "flash_q_start_edge": (
-        "flash_prefill.cu", "phase_h2o_chunk_kernels",
+        "csrc/flash_prefill.cu", "phase_h2o_chunk_kernels",
         ("flash_causal_attention (q_start)",),
         "const int hi = min(g1, N - 1);\n  const int kt_first = lo / BK;\n"
         "  const int kt_last",
         "const int hi = min(g1 - BK, N - 1);\n  const int kt_first = lo / "
         "BK;\n  const int kt_last"),
     "flash_drop_diagonal_tile": (
-        "flash_prefill.cu", "phase_kernels", ("flash_causal_attention",),
+        "csrc/flash_prefill.cu", "phase_kernels", ("flash_causal_attention",),
         "const int kt_last = hi / BK;",
         "const int kt_last = hi / BK - (MODE == kOut ? 1 : 0);"),
     "flash_interior_on_pad_edge": (
-        "flash_prefill.cu", "phase_kernels", ("flash_causal_attention",),
+        "csrc/flash_prefill.cu", "phase_kernels", ("flash_causal_attention",),
         "const bool interior = c0 >= pad && c0 + BK - 1 <= g0 &&",
         "const bool interior = c0 + BK > pad && c0 + BK - 1 <= g0 &&"),
     "flash_wrong_stage": (
-        "flash_prefill.cu", "phase_kernels", ("flash_causal_attention",),
+        "csrc/flash_prefill.cu", "phase_kernels", ("flash_causal_attention",),
         "const uint32_t k_addr = kring_a + st * TILE_BYTES;",
         "const uint32_t k_addr = kring_a + ((st + STAGES - 1) % STAGES) * "
         "TILE_BYTES;"),
     "row_max_skip_first_k_tile": (
-        "flash_prefill.cu", "phase_two_pass_kernels", ("flash_row_max",),
+        "csrc/flash_prefill.cu", "phase_two_pass_kernels", ("flash_row_max",),
         "  const int kt_first = lo / BK;\n  const int ntiles = lo > hi ? 0 : "
         "hi / BK - kt_first + 1;",
         "  const int kt_first = lo / BK + 1;\n  const int ntiles = lo > hi ? "
         "0 : hi / BK - kt_first + 1;"),
     "row_max_drops_last_unit": (
-        "flash_prefill.cu", "phase_two_pass_kernels", ("flash_row_max",),
+        "csrc/flash_prefill.cu", "phase_two_pass_kernels", ("flash_row_max",),
         "  auto process = [&](const float (&s)[32], int u) {\n    const int "
         "cu",
         "  auto process = [&](const float (&s)[32], int u) {\n    if (u == 2 "
         "* ntiles - 1) return;\n    const int cu"),
     "row_max_no_window_mask": (
-        "flash_prefill.cu", "phase_two_pass_kernels",
+        "csrc/flash_prefill.cu", "phase_two_pass_kernels",
         lambda r: r["check"] == "flash_row_max" and r.get("window"),
         "          if (window > 0) ok = ok && r - c < window;\n",
         ""),
     "pass_b_skip_diagonal_tile": (
-        "flash_prefill.cu", "phase_two_pass_kernels", ("flash_pass_b",),
+        "csrc/flash_prefill.cu", "phase_two_pass_kernels", ("flash_pass_b",),
         "const int kt_last = hi / BK;",
         "const int kt_last = hi / BK - (MODE == kPassB ? 1 : 0);"),
     "pass_b_unclamped_max": (
-        "flash_prefill.cu", "phase_two_pass_kernels", ("flash_pass_b",),
+        "csrc/flash_prefill.cu", "phase_two_pass_kernels", ("flash_pass_b",),
         "? fmaxf(m_in[(size_t)bh * Nq + r0 + 8 * i], -FLT_MAX / 2)",
         "? m_in[(size_t)bh * Nq + r0 + 8 * i]"),
     "fold_skip_first_k_group": (
@@ -446,34 +466,40 @@ print(json.dumps([{**{k: r.get(k) for k in ("check", "case", "S", "nsplit",
 """
 
 
+def mutated(name: str) -> str:
+    """The text of a mutant's source file with its edits applied (each
+    edit's old text found exactly once)."""
+    source, _, _, old, new = MUTANTS[name]
+    with open(os.path.join(ROOT, PKG, source)) as f:
+        src = f.read()
+    # old and new: one text edit, or tuples of several
+    for o, n in [(old, new)] if isinstance(old, str) else zip(old, new):
+        assert src.count(o) == 1, name
+        src = src.replace(o, n)
+    return src
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log", help="append the JSON result lines to this file")
     ap.add_argument("--only", help="comma-separated prefixes: run only the "
                     "mutants whose names start with one of them")
     args = ap.parse_args()
+    names = [n for n in MUTANTS if not args.only
+             or n.startswith(tuple(args.only.split(",")))]
+    texts = {n: mutated(n) for n in names}  # every edit applies, up front
     failed = False
-    for name, (source, phase, targets, old, new) in MUTANTS.items():
-        if args.only and not name.startswith(tuple(args.only.split(","))):
-            continue
+    for name in names:
+        source, phase, targets, _, _ = MUTANTS[name]
         with tempfile.TemporaryDirectory() as tmp:
-            shutil.copytree(os.path.join(ROOT, "pyramidkv_tpu_torch"),
-                            os.path.join(tmp, "pyramidkv_tpu_torch"),
+            shutil.copytree(os.path.join(ROOT, PKG), os.path.join(tmp, PKG),
                             ignore=shutil.ignore_patterns("_build"))
             shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp)
             # the minference checks read the per-head pattern config
             shutil.copytree(os.path.join(ROOT, "configs", "minference"),
                             os.path.join(tmp, "configs", "minference"))
-            path = os.path.join(tmp, CSRC, source)
-            with open(path) as f:
-                src = f.read()
-            # old and new: one text edit, or tuples of several
-            for o, n in ([(old, new)] if isinstance(old, str)
-                         else zip(old, new)):
-                assert src.count(o) == 1, name
-                src = src.replace(o, n)
-            with open(path, "w") as f:
-                f.write(src)
+            with open(os.path.join(tmp, PKG, source), "w") as f:
+                f.write(texts[name])
             res = subprocess.run([sys.executable, "-c", _RUN, phase],
                                  cwd=tmp, capture_output=True, text=True)
         if res.returncode != 0:
