@@ -21,8 +21,18 @@ Phases (any failure exits non-zero):
      seeded random bf16 weights made on the card), 4 requests of
      8000/6000/3000/1000 tokens, 32 new tokens, for fullkv, snapkv and
      pyramidkv, with the kernels' launch counts of each run; then
-     decode_engine_masks: the decode kernel at the masks of a real fullkv
-     cache after prefill and a decode step (8k batch, 32k), timed;
+     engine_methods: the rest of the compression stack on the same batch
+     (streamingllm, l2norm with its segmented plan, random twice with one
+     seed, adakv with each head's visible slots held to its allocation,
+     headkv on seeded synthetic capacities, cam, snapkv with pivot
+     merging, ThinK's narrow layout, snapkv and h2o with gqa_aggregate,
+     snapkv with a 3072-to-1024 layer_capacity schedule), each with its
+     launch counts, kv_cache_bytes and segments held to its plan, and the
+     decode kernel at each new cache width; parity_methods: depth-2
+     prefill and first-decode-step logits, kernels against plain, for
+     adakv, cam, think and pivot; then decode_engine_masks: the decode
+     kernel at the masks of a real fullkv cache after prefill and a decode
+     step (8k batch, 32k), timed;
   5. parity: last-position prefill logits through the kernels against the
      plain path, at depth 2 with the same widths;
   6. profile: where the time goes in one snapkv prefill and 8 decode steps
@@ -833,6 +843,270 @@ def phase_engine(torch, dev, params, vocab):
         del eng, out
         torch.cuda.empty_cache()
     return ok, counts
+
+
+#: the compression-stack runs of phase_engine_methods (8k batch, bf16):
+#: CompressionSpec arguments beyond the defaults (cap 2048, window 8,
+#: kernel 7, maxpool)
+METHOD_RUNS = {
+    "streamingllm": dict(method="streamingllm"),
+    "l2norm": dict(method="l2norm"),  # skip_layers (0, 1): segmented
+    "random": dict(method="random"),
+    "adakv": dict(method="adakv"),
+    "headkv": dict(method="headkv"),  # head_capacity: method_spec
+    "cam": dict(method="cam"),
+    "snapkv pivot": dict(method="snapkv", merge="pivot"),
+    "think": dict(method="think"),  # the narrow layout
+    "snapkv gqa": dict(method="snapkv", gqa_aggregate=True),
+    "h2o gqa": dict(method="h2o", gqa_aggregate=True),
+    "snapkv layer_capacity": dict(method="snapkv"),  # 3072 down to 1024
+}
+#: the per-layer schedule of the layer_capacity run
+LAYER_CAPS = tuple(int(round(3072 - 2048 * i / (LAYERS - 1)))
+                   for i in range(LAYERS))
+PARITY_METHODS = ("adakv", "cam", "think", "snapkv pivot")
+
+
+def method_spec(run, layers=LAYERS):
+    """The CompressionSpec of a METHOD_RUNS run; headkv's capacities come
+    from seeded synthetic retrieval-head scores (the real priors are not in
+    the repository) through ``headkv_capacity_from_scores``."""
+    from pyramidkv_tpu_torch.config import (CompressionSpec,
+                                            headkv_capacity_from_scores)
+
+    kw = dict(METHOD_RUNS[run])
+    if run == "headkv":
+        scores = np.random.default_rng(15).random(layers * H).tolist()
+        kw["head_capacity"] = headkv_capacity_from_scores(
+            scores, layers, H, 2048)
+    if run == "snapkv layer_capacity":
+        kw["layer_capacity"] = LAYER_CAPS[:layers]
+    return CompressionSpec(**kw)
+
+
+def method_plan(run):
+    from pyramidkv_tpu_torch.policy import make_plan
+
+    return make_plan(method_spec(run), LAYERS, N, MAX_NEW)
+
+
+def methods_kv_bytes(plan, b: int) -> int:
+    """The cache bytes a plan implies (bf16 K and V over each segment's
+    slots; ThinK's narrow layout: K without the pruned slots, which live
+    at D_kept channels beside their int32 channel indices)."""
+    from pyramidkv_tpu_torch.policy import stores_kv_heads
+
+    cs = plan.spec
+    hs = HK if stores_kv_heads(cs) else H
+    sp = plan.think_pruned_slots if plan.think_narrow else 0
+    total = sum((stop - start) * b * hs * (2 * sub.total_slots - sp) * D * 2
+                for start, stop, sub in plan.segment_plans())
+    if plan.think_narrow:
+        dk = D - int(D * cs.pruning_ratio)
+        total += LAYERS * b * H * (sp * dk * 2 + dk * 4)
+    return total
+
+
+def methods_segments(run):
+    """The slot segments each run's plan should have, from the method's
+    definition: l2norm's skipped layers 0-1 keep the whole bucket, every
+    other plan one width for all layers."""
+    if run == "l2norm":
+        return ((0, 2, N), (2, LAYERS, 2048))
+    width = {"streamingllm": 4, "adakv": 4080,
+             "snapkv layer_capacity": max(LAYER_CAPS) - 8}.get(run)
+    if run == "headkv":
+        caps = method_spec(run).head_capacity
+        width = min(max(max(max(r) for r in caps), 2040), N - 8)
+    return ((0, LAYERS, width or 2040),)
+
+
+def phase_engine_methods(torch, F, dev, params, vocab):
+    """The rest of the compression stack on the engine phase's 8k batch
+    (Llama-3-8B, 32 layers, bf16, 32 new tokens): each METHOD_RUNS run's
+    ``generate`` with its launch counts (32 flash; 32 decode launches per
+    step, none for ThinK's narrow decode; 32 + 32 H2O launches for h2o
+    gqa; no matmul kernel), kv_cache_bytes and segments held to its plan,
+    the random run repeated with its seed (same tokens), and AdaKV's
+    per-head budgets held to its allocation (each head's visible prefill
+    slots = its count + the window); then the decode kernel against its
+    plain version at each new cache width.  Returns (ok, {run: counts},
+    [decode recs])."""
+    from pyramidkv_tpu_torch import policy
+    from pyramidkv_tpu_torch.config import EngineSpec, ModelSpec
+    from pyramidkv_tpu_torch.engine import Engine
+
+    spec = ModelSpec.preset("llama3-8b")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, size=t).tolist() for t in TRUE_LEN]
+    ok, counts = True, {}
+    for run in METHOD_RUNS:
+        eng = Engine(spec, method_spec(run),
+                     EngineSpec(max_new_tokens=MAX_NEW, prefill_buckets=(N,)),
+                     params, device=dev)
+        eng.generate([p[:64] for p in prompts], max_new_tokens=2)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        out = eng.generate(prompts)
+        c = read_counts()
+        counts[run] = c
+        plan = eng.plan_for(N)
+        toks = [t for seq in out.tokens for t in seq]
+        h2o = 32 if run == "h2o gqa" else 0
+        want_decode = 0 if plan.think_narrow else LAYERS * out.decode_steps
+        rec = {"phase": "engine_methods", "run": run,
+               "prefill_s": out.prefill_seconds,
+               "decode_s": out.decode_seconds,
+               "decode_steps": out.decode_steps,
+               "decode_tok_per_s": (out.decode_steps * len(prompts)
+                                    / out.decode_seconds
+                                    if out.decode_seconds else None),
+               "kv_cache_bytes": out.kv_cache_bytes,
+               "expected_kv_cache_bytes": methods_kv_bytes(plan, B),
+               "segments": [list(x) for x in plan.segments],
+               "tokens_per_request": [len(x) for x in out.tokens],
+               "launches": c}
+        good = (c["flash_causal_attention"] == LAYERS
+                and c["decode_attention"] == want_decode
+                and c["h2o_row_stats"] == h2o and c["h2o_colsum"] == h2o
+                and not any(c[k] for k in MM_KERNELS)
+                and out.kv_cache_bytes == rec["expected_kv_cache_bytes"]
+                and plan.segments == methods_segments(run)
+                and out.decode_steps >= 1
+                and all(0 <= t < vocab for t in toks)
+                and all(len(x) >= 1 for x in out.tokens))
+        if run == "random":
+            again = eng.generate(prompts, rng_seed=0)
+            rec["repeat_same_tokens"] = again.tokens == out.tokens
+            good &= rec["repeat_same_tokens"]
+        if run == "adakv":
+            r, rec["adakv_heads"] = adakv_budgets(torch, dev, eng, prompts,
+                                                  policy)
+            good &= r
+        rec["ok"] = bool(good)
+        log(rec)
+        ok &= bool(good)
+        del eng, out
+        torch.cuda.empty_cache()
+    # the decode kernel at the new runs' cache widths (random masks)
+    recs, seen, seed = [], {}, 90
+    for run in METHOD_RUNS:
+        plan = method_plan(run)
+        if plan.think_narrow:
+            continue
+        hk = HK if plan.spec.gqa_aggregate else H
+        for start, stop, sub in plan.segment_plans():
+            key = (hk, sub.total_slots)
+            if key not in seen:
+                r, rec = check_decode(
+                    torch, F, dev, B, H, hk, sub.total_slots, timed=True,
+                    seed=seed, label=f"methods S={key[1]}, G={H // hk}")
+                ok &= r
+                seed += 1
+                rec["layers"] = 0
+                seen[key] = rec
+                recs.append(rec)
+            # this shape's launches: its layers in every decode step
+            seen[key]["layers"] += (stop - start) * (
+                counts[run]["decode_attention"] // LAYERS)
+    return ok, counts, recs
+
+
+def adakv_budgets(torch, dev, eng, prompts, policy):
+    """AdaKV's per-head budgets in the cache: a kernel-path prefill of the
+    8k batch with ``adakv_allocate`` recorded; each (layer, row, head)'s
+    visible prefill slots must equal its allocated count plus the window,
+    and the heads' counts must differ.  Returns (ok, summary)."""
+    tokens, tl = bucket_tokens(torch, dev, prompts, N)
+    seen, orig = [], policy.adakv_allocate
+
+    def record(*a, **kw):
+        alloc = orig(*a, **kw)
+        seen.append(alloc.counts)
+        return alloc
+
+    policy.adakv_allocate = record
+    try:
+        with torch.inference_mode():
+            _, cache = prefill_with(eng, N, tokens, tl, "kernel")
+    finally:
+        policy.adakv_allocate = orig
+    plan = eng.plan_for(N)
+    counts = torch.stack(seen)  # [L, B, H]
+    vis = cache.mask[..., :plan.prefill_slots].sum(-1)  # [L, B, H]
+    win = torch.clamp(tl, max=plan.window).to(vis.dtype)[None, :, None]
+    same = bool(torch.equal(vis - win, counts.to(vis.dtype)))
+    spread = [int(x) for x in (counts.amin(), counts.amax())]
+    del cache
+    return same and spread[0] < spread[1], {
+        "layers": len(seen), "visible_equals_allocation": same,
+        "min_max_head_count": spread}
+
+
+def phase_parity_methods(torch, dev, params, vocab):
+    """Depth-2 logits, kernels against plain, for AdaKV, CAM, ThinK
+    (narrow) and pivot merging on the 8k batch: each path's prefill
+    logits, then the first decode step of each path on its own copy of
+    the kernel path's cache, fed the same tokens.  Limit: 2^-5 of the
+    largest plain logit, as phase_parity."""
+    from pyramidkv_tpu_torch.config import EngineSpec, ModelSpec
+    from pyramidkv_tpu_torch.engine import Engine
+    from pyramidkv_tpu_torch.models import llama
+
+    spec = ModelSpec.preset("llama3-8b", num_hidden_layers=2)
+    p2 = dict(params, layers={k: v[:2] for k, v in params["layers"].items()})
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(
+        rng.integers(0, vocab, size=(B, N)).astype(np.int64)).to(dev)
+    tl = torch.tensor(TRUE_LEN, dtype=torch.int32, device=dev)
+    ok = True
+    for run in PARITY_METHODS:
+        eng = Engine(spec, method_spec(run, layers=2),
+                     EngineSpec(max_new_tokens=MAX_NEW, prefill_buckets=(N,)),
+                     p2, device=dev)
+        plan = eng.plan_for(N)
+        with torch.inference_mode():
+            lk, ck = prefill_with(eng, N, tokens, tl, "kernel")
+            lp, cp_ = prefill_with(eng, N, tokens, tl, "plain")
+            prefill_err = float((lk - lp).abs().max())
+            same_slots = float((ck.positions == cp_.positions).float().mean())
+            top = float(lp.abs().max())
+            cp_ = clone_cache(torch, ck)
+            tok = lp.argmax(-1)
+            dk, ck = llama.decode_step(p2, spec, plan, ck, tok,
+                                       attention_impl="kernel")
+            dp, cp_ = llama.decode_step(p2, spec, plan, cp_, tok,
+                                        attention_impl="plain")
+        torch.cuda.synchronize()
+        err = float((dk - dp).abs().max())
+        tol = 2.0 ** -5 * max(top, float(dp.abs().max()))
+        good = (max(err, prefill_err) <= tol
+                and bool(torch.isfinite(dk).all())
+                and tuple(dk.shape) == (B, vocab))
+        log({"phase": "parity_methods", "run": run, "depth": 2,
+             "prefill_max_abs_err": prefill_err, "decode_max_abs_err": err,
+             "tol": tol, "same_argmax": bool(
+                 (dk.argmax(-1) == dp.argmax(-1)).all()),
+             "plain_prefill_same_slot_share": same_slots, "ok": good})
+        ok &= good
+        del eng, ck, cp_
+        torch.cuda.empty_cache()
+    return ok
+
+
+def clone_cache(torch, cache):
+    """A copy of a KVCache's buffers (the decode step writes in place)."""
+    import dataclasses
+
+    def cl(x):
+        if x is None or isinstance(x, torch.Tensor):
+            return x if x is None else x.clone()
+        parts = [cl(t) for t in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+
+    return dataclasses.replace(cache, **{
+        f.name: cl(getattr(cache, f.name))
+        for f in dataclasses.fields(cache) if f.name not in ("step",)})
 
 
 def phase_decode_engine_masks(torch, F, dev, params, vocab):
@@ -3373,10 +3647,12 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    name_limit = smi.stdout.strip().splitlines()[0]
+    print(name_limit, flush=True)
+    # the log keeps the power limit too (the output's head may be cut)
     log({"phase": "device", "torch": torch.__version__,
          "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
-         "clocks": clocks()})
+         "name_power_limit": name_limit, "clocks": clocks()})
 
     secs = _build.build_all()
     log({"phase": "build", "seconds": secs})
@@ -3412,6 +3688,10 @@ def main() -> int:
                      *params["layers"].values()]) / 2 ** 30})
     r, counts = phase_engine(torch, dev, params, spec.vocab_size)
     ok &= r
+    r, meth_counts, meth_decode = phase_engine_methods(torch, F, dev, params,
+                                                       spec.vocab_size)
+    ok &= r
+    ok &= phase_parity_methods(torch, dev, params, spec.vocab_size)
     r, _ = phase_decode_engine_masks(torch, F, dev, params, spec.vocab_size)
     ok &= r
     ok &= phase_parity(torch, dev, params, spec.vocab_size)
@@ -3462,7 +3742,8 @@ def main() -> int:
         kernel_entry(
             "flash_causal_attention", src + "flash_prefill.cu",
             "pyramidkv_tpu/kernels/flash_prefill.py:420",
-            sum(c["flash_causal_attention"] for c in counts.values()),
+            sum(c["flash_causal_attention"]
+                for c in [*counts.values(), *meth_counts.values()]),
             [recs["flash"]]),
     ]
     for method in ("snapkv", "pyramidkv", "fullkv"):
@@ -3472,6 +3753,14 @@ def main() -> int:
             f"decode_attention ({method}, G={g}, S={shapes})",
             src + "decode_attn.cu", "pyramidkv_tpu/kernels/decode_attn.py:69",
             counts[method]["decode_attention"], recs[method]))
+
+    kernels.append(kernel_entry(
+        "decode_attention (compression-stack runs, "
+        + ", ".join(f"G={r['H'] // r['Hk']} S={r['S']}"
+                    for r in meth_decode) + ")",
+        src + "decode_attn.cu", "pyramidkv_tpu/kernels/decode_attn.py:69",
+        sum(c["decode_attention"] for c in meth_counts.values()),
+        meth_decode))
 
     def qsum(kernel, runs=None):
         return sum(c[kernel] for run, c in qcounts.items()
@@ -3530,9 +3819,13 @@ def main() -> int:
         return sum(ccounts[r][kernel] for r in runs)
 
     h2o_runs = {"8k": ["(a) bf16 h2o 8k"], "32k": ["(b) int4 h2o 32k"]}
+    # the h2o gqa run of engine_methods: the 8k batch's shape
+    h2o_gqa = {kind: meth_counts["h2o gqa"][kind]
+               for kind in ("h2o_row_stats", "h2o_colsum")}
     for kind in ("h2o_row_stats", "h2o_colsum"):
         for rec in chunk_recs[kind]:
-            rec["layers"] = csum(kind, h2o_runs[rec["case"]])
+            rec["layers"] = csum(kind, h2o_runs[rec["case"]]) + (
+                h2o_gqa[kind] if rec["case"] == "8k" else 0)
     q_runs = ["(c) bf16 snapkv 8k chunk 2048", "(d) bf16 h2o 8k chunk 2048"]
     for rec in chunk_recs["q_start"]:  # each chunk index equally often
         rec["layers"] = csum("flash_causal_attention", q_runs) // (N // C8K)
@@ -3548,10 +3841,12 @@ def main() -> int:
     kernels += [
         kernel_entry("h2o_scores (stats)", src + "h2o_scores.cu",
                      h2o_tpu + "35", csum("h2o_row_stats", sum(
-                         h2o_runs.values(), [])), chunk_recs["h2o_row_stats"]),
+                         h2o_runs.values(), [])) + h2o_gqa["h2o_row_stats"],
+                     chunk_recs["h2o_row_stats"]),
         kernel_entry("h2o_scores (colsum)", src + "h2o_scores.cu",
                      h2o_tpu + "96", csum("h2o_colsum", sum(
-                         h2o_runs.values(), [])), chunk_recs["h2o_colsum"]),
+                         h2o_runs.values(), [])) + h2o_gqa["h2o_colsum"],
+                     chunk_recs["h2o_colsum"]),
         kernel_entry("flash_attention_partials", src + "flash_prefill.cu",
                      "pyramidkv_tpu/kernels/flash_prefill.py:601",
                      csum("flash_attention_partials", list(ccounts)),

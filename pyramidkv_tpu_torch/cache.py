@@ -12,8 +12,9 @@ decode loop, this one is updated IN PLACE: the decode append writes one
 slot of each layer's buffers, and :func:`decode_step` returns the same
 buffers with ``step`` advanced.  With a KIVI cache the prefill slots live
 in ``quant`` (one quantized region per layer, leaves stacked) and ``k``/``v``
-hold only the bf16 decode slots.  The ThinK field of the JAX cache is not
-ported yet (ROADMAP queue 1).
+hold only the bf16 decode slots.  With ThinK's narrow layout the
+pruned-region keys live in ``think`` at ``D_kept`` channels and ``k`` holds
+only the recent, window and decode slots.
 """
 
 from __future__ import annotations
@@ -26,6 +27,15 @@ import torch
 from .ops.quant import QuantizedKVRegion, region_leaves
 
 Stack = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
+
+class ThinKRegion(NamedTuple):
+    """ThinK's narrow key storage: the pruned-region slots' keys at
+    ``D_kept = D - int(D * pruning_ratio)`` channels.  V and the recent,
+    window and decode keys stay full width in the cache's buffers."""
+
+    k_pruned: torch.Tensor       #: [L, B, H, S_pruned, D_kept]
+    kept_channels: torch.Tensor  #: [L, B, H, D_kept] int32, ascending
 
 
 @dataclass
@@ -47,6 +57,10 @@ class KVCache:
     #: ``k``/``v`` then hold only the decode slots, while ``mask``/
     #: ``positions`` stay full length (prefill slots, then decode slots)
     quant: Optional[QuantizedKVRegion] = None
+    #: ThinK narrow layout: the pruned-region keys; ``k`` then holds only
+    #: the slots after them, while ``v``/``mask``/``positions`` stay full
+    #: length
+    think: Optional[ThinKRegion] = None
 
     @property
     def segmented(self) -> bool:
@@ -71,11 +85,13 @@ def _leaves(x: Stack):
 
 
 def cache_memory_bytes(cache: KVCache) -> int:
-    """Device bytes of the K/V buffers and the quantized region's codes,
-    scales and zeros (mask and positions excluded, as in the JAX package)."""
+    """Device bytes of the K/V buffers, the quantized region's codes,
+    scales and zeros and ThinK's narrow region (mask and positions
+    excluded, as in the JAX package)."""
+    think = list(cache.think) if cache.think is not None else []
     return sum(t.numel() * t.element_size()
                for t in _leaves(cache.k) + _leaves(cache.v)
-               + region_leaves(cache.quant))
+               + region_leaves(cache.quant) + think)
 
 
 def used_kv_tokens(cache: KVCache) -> int:

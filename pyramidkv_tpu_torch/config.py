@@ -4,8 +4,8 @@ The port keeps its own copy because importing the JAX package's module would
 run ``pyramidkv_tpu/__init__.py``, which imports JAX.  Field names, defaults,
 presets and validation are the same, so specs built for either package
 describe the same model, policy and engine.  Many fields select features
-not ported yet: the port raises for those that change results (methods,
-KV quantization, model families, sampling, speculation) and ignores the
+not ported yet: the port raises for those that change results (KVQuant
+and 1- or 3-bit KIVI, model families, sampling, speculation) and ignores the
 TPU tiling knobs (``prefill_block``, ``prefill_sub_k``,
 ``use_quant_fused_kernel``), which do not.  ``prefill_two_pass`` runs the
 two-pass flash kernels; ``use_quant_kernel`` / ``use_quant_tiled`` route

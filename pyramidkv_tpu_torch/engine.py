@@ -18,14 +18,17 @@ runs a shared prompt prefix's chunks once into a :class:`PrefixHandle`
 chunks the handle covers; :class:`PrefixRegistry` keeps handles by prefix,
 LRU.
 
-Ported: greedy decoding, ``fullkv`` / ``snapkv`` / ``pyramidkv`` / ``h2o`` /
-``minference`` (vertical-and-slash sparse prefill, fullkv cache), with bf16
+Ported: greedy decoding with every compression method of ``config.METHODS``
+(``policy.py``: the single-budget, pyramid, position, norm, random,
+head-budget, merging and ThinK methods, ``gqa_aggregate``, per-layer
+capacities; ``minference``'s vertical-and-slash sparse prefill), with bf16
 or quantized weights (``models/weights.py``: int8, packed int4 per channel
 or per group, fused or not), a bf16 or KIVI cache (``quant_method=
 "kivi"``: 8/4/2 bits, group or pa layout; KVQuant raises), monolithic or
-chunked prefill, prefix handles.  Sampling and speculative decoding raise
-``NotImplementedError`` (ROADMAP queue 1); serving (continuous batching,
-automatic prefix matching) is not ported.
+chunked prefill, prefix handles.  ``generate(rng_seed=...)`` seeds the
+random methods with JAX's bits (``prng.py``).  Sampling and speculative
+decoding raise ``NotImplementedError`` (ROADMAP queue 1); serving
+(continuous batching, automatic prefix matching) is not ported.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from . import prng
 from .cache import cache_memory_bytes
 from .config import CompressionSpec, EngineSpec, ModelSpec
 from .models import chunked_prefill as cp
@@ -292,7 +296,7 @@ class Engine:
         self.f32_quant = ((es.use_quant_kernel or es.use_quant_tiled)
                           and not es.use_quant_fused)
         self.stats = EngineStats()
-        self.plan_for(es.prefill_buckets[0])  # unported methods raise here
+        self.plan_for(es.prefill_buckets[0])  # unported options raise here
 
     def plan_for(self, bucket: int) -> PolicyPlan:
         return make_plan(self.comp_spec, self.model_spec.num_hidden_layers,
@@ -312,7 +316,8 @@ class Engine:
     def _run_chunked_prefill(self, bucket: int, tokens: torch.Tensor,
                              true_len: torch.Tensor,
                              prefix: Optional[PrefixHandle] = None,
-                             lens: Optional[Sequence[int]] = None):
+                             lens: Optional[Sequence[int]] = None,
+                             rng: Optional[torch.Tensor] = None):
         """Every chunk of the bucket, then the finish: (logits, cache).  H2O
         runs the chunks twice (the second pass accumulates its scores).
         With a ``prefix`` handle the carry starts from the handle
@@ -348,7 +353,7 @@ class Engine:
                     score_acc=score_acc)
         return cp.prefill_finish(p, spec, plan, state, window_q, hidden,
                                  true_len, attention_impl=impl,
-                                 h2o_raw_scores=acc)
+                                 h2o_raw_scores=acc, rng=rng)
 
     # -- prefix caching ----------------------------------------------------
 
@@ -500,12 +505,15 @@ class Engine:
         *,
         max_new_tokens: Optional[int] = None,
         eos_token_ids: Sequence[int] = (),
+        rng_seed: int = 0,
         prefix: Optional[PrefixHandle] = None,
     ) -> GenerationOutput:
         """Greedy generation for a batch of prompts (token ids).
 
         ``max_new_tokens`` must be <= ``engine_spec.max_new_tokens`` (the
         decode-slot allocation).  EOS is suppressed for the first token.
+        ``rng_seed``: the key ``prng.PRNGKey(rng_seed)`` whose per-layer
+        split drives random eviction and CAM's draws (JAX's bits).
         ``prefix``: a :meth:`precompute_prefix` handle; every prompt must
         start with its tokens, whose chunks' forward is then skipped."""
         es = self.engine_spec
@@ -523,16 +531,17 @@ class Engine:
             tokens[i, bucket - len(p):] = np.asarray(p, dtype=np.int64)
         tokens = torch.from_numpy(tokens).to(dev)
         true_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        rng = prng.PRNGKey(rng_seed, device=dev)
 
         t0 = time.perf_counter()
         if self.chunked_prefill_supported(bucket):
             logits, cache = self._run_chunked_prefill(
-                bucket, tokens, true_len, prefix=prefix, lens=lens)
+                bucket, tokens, true_len, prefix=prefix, lens=lens, rng=rng)
         else:
             logits, cache = llama.prefill(
                 self.params, self.model_spec, plan, tokens, true_len,
                 attention_impl=self.attention_impl,
-                prefill_two_pass=es.prefill_two_pass)
+                prefill_two_pass=es.prefill_two_pass, rng=rng)
         if eos_token_ids:
             # min_length = context + 1: at least one real token
             logits[:, list(eos_token_ids)] = float("-inf")

@@ -64,12 +64,18 @@ class ChunkState(NamedTuple):
 
 def supports_chunked(plan: PolicyPlan) -> bool:
     """True for the bf16 carry: the compressed methods, whose scoring reads
-    only the window queries (H2O through its second pass), and fullkv
-    without KIVI (fullkv + KIVI takes the quantized carry)."""
+    only the window queries (H2O through its second pass; ThinK's channel
+    scores read the last 32 query rows, so only with a window of 32 or
+    more), and fullkv without KIVI (fullkv + KIVI takes the quantized
+    carry).  MInference reads every query row."""
     spec = plan.spec
+    if spec.method == "think":
+        return plan.window >= 32
     if spec.method == "fullkv":
         return spec.quant_method is None
-    return spec.method in ("snapkv", "pyramidkv", "h2o")
+    return spec.method in ("snapkv", "pyramidkv", "adakv", "headkv",
+                           "streamingllm", "l2norm", "random", "cam",
+                           "h2o")
 
 
 def needs_score_pass(plan: PolicyPlan) -> bool:
@@ -183,34 +189,37 @@ def prefill_finish(
     *,
     attention_impl: str = "kernel",
     h2o_raw_scores: Optional[torch.Tensor] = None,
+    rng: Optional[torch.Tensor] = None,
 ):
     """Compress the accumulated carry into the slot cache.  Each layer
     rebuilds a bucket-length query buffer that is zero except at the window
     (``compress_layer`` reads only those rows; H2O reads its second pass's
     ``h2o_raw_scores`` instead), so the compression is that of the
-    monolithic prefill.  Returns (f32 logits [B, vocab], KVCache)."""
+    monolithic prefill.  ``rng``: as ``llama.prefill``'s.  Returns (f32
+    logits [B, vocab], KVCache)."""
     assert supports_chunked(plan), plan.spec.method
     assert plan.spec.method != "h2o" or h2o_raw_scores is not None
     n, w = plan.bucket_len, plan.window
     b, h, _, d = window_q.shape[1:]
-    keep = layer_contexts(plan, true_len)
+    ctxs = layer_contexts(plan, true_len, h, rng)
     tl = true_len.to(torch.int32)
-    regions, seg_stacks = [], []
+    regions, thinks, seg_stacks = [], [], []
     for start, stop, sub in plan.segment_plans():
         stack = None
         for li in range(start, stop):
             qfull = window_q.new_zeros((b, h, n, d))
             qfull[:, :, n - w:] = window_q[li]
             ckv = compress_layer(
-                sub, keep[li], qfull, state.k[li], state.v[li], true_len=tl,
+                sub, ctxs.layer(li), qfull, state.k[li], state.v[li],
+                true_len=tl,
                 attention_impl=attention_impl,
                 h2o_raw_scores=(None if h2o_raw_scores is None
                                 else h2o_raw_scores[li]))
             stack = llama.stack_layer(stack, ckv, li - start, stop - start,
-                                      sub, regions)
+                                      sub, regions, thinks, qfull, tl)
         seg_stacks.append(stack)
     logits = llama._logits(hidden_last, params, spec, attention_impl)
-    return logits, llama.assemble_cache(seg_stacks, tl, regions)
+    return logits, llama.assemble_cache(seg_stacks, tl, regions, thinks)
 
 
 # ---------------------------------------------------------------------------

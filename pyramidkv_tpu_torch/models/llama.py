@@ -13,6 +13,11 @@ package's argument of the same name: ``"kernel"`` calls the kernel wrappers
 ``"plain"`` calls the plain PyTorch functions — for attention and for the
 decode-sized weight matmuls of quantized params alike (``weights.mm``).
 ``attention_impl`` also picks H2O's scores (``policy.compress_layer``).
+ThinK's narrow layout splits each compacted layer at the end of prefill
+(``policy.think_split``: the pruned-region keys at ``D_kept`` channels in
+``cache.ThinKRegion``) and decodes through the plain
+``ops.attention.decode_attention_think`` (the JAX package runs it in XLA;
+no Pallas kernel computes it); every other decode takes the decode kernel.
 With ``method="minference"`` and a bucket of at least
 ``minference_dense_below`` tokens, each layer's prefill attention is the
 vertical-and-slash sparse attention of ``ops/sparse_prefill.py`` (its three
@@ -24,12 +29,12 @@ fused ``wqkv`` / ``w_gateup`` leaves of ``fuse_packed_matmuls``.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..cache import KVCache, LayerCacheView
+from ..cache import KVCache, LayerCacheView, ThinKRegion
 from ..config import ModelSpec
 from ..kernels import (decode_attention, flash_causal_attention,
                        quant_decode_attention, quant_decode_attention_tiled,
@@ -38,7 +43,8 @@ from ..kernels.quant_decode import split_plan
 from ..ops import attention as plain
 from ..ops import quant
 from ..ops import sparse_prefill as sp
-from ..policy import PolicyPlan, compress_layer, layer_contexts, stores_kv_heads
+from ..policy import (PolicyPlan, compress_layer, layer_contexts,
+                      stores_kv_heads, think_split)
 from .weights import QuantW, dq_codes, embed_lookup, kernel_mm, mm
 
 IMPLS = ("kernel", "plain")
@@ -196,6 +202,7 @@ def prefill(
     *,
     attention_impl: str = "kernel",
     prefill_two_pass: bool = False,
+    rng: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Run the prompt through the model, compressing each layer's KV.
 
@@ -203,8 +210,9 @@ def prefill(
     true_len: [B] real-token counts.  ``prefill_two_pass``: the dense flash
     attention runs the two-pass schedule (JAX ``llama.py:473/553``; the
     plain path and MInference's sparse attention ignore it, as in JAX).
-    Returns (f32 logits [B, vocab] of the last position, the compressed
-    KVCache).
+    ``rng``: the ``prng`` key whose per-layer split drives random eviction
+    and CAM (None: ``prng.PRNGKey(0)``).  Returns (f32 logits [B, vocab] of
+    the last position, the compressed KVCache).
     """
     check_ported(spec)
     if attention_impl not in IMPLS:
@@ -216,7 +224,7 @@ def prefill(
     inv_freq = rope_inv_freq(spec, dev)
     pad = (n - true_len).to(torch.int64)
     positions = torch.arange(n, device=dev)[None, :] - pad[:, None]  # [B, N]
-    keep = layer_contexts(plan, true_len)  # [L, B]
+    ctxs = layer_contexts(plan, true_len, spec.num_attention_heads, rng)
     eps = spec.rms_norm_eps
 
     hidden = embed_lookup(params["embed"], tokens.long(),
@@ -225,6 +233,7 @@ def prefill(
     sparse = cs.method == "minference" and n >= cs.minference_dense_below
     budgets = _minference_budgets(cs, dev) if sparse else None
     regions = []  # KIVI: each layer's quantized prefill region
+    thinks = []   # ThinK narrow: each layer's (k_pruned, kept_channels)
     seg_stacks = []
     for start, stop, sub in plan.segment_plans():
         stack = None  # [L_seg, ...] buffers of this segment's layers
@@ -248,13 +257,14 @@ def prefill(
                                  wts["wo"], attention_impl)
             hidden = hidden + _mlp(rms_norm(hidden, wts["mlp_norm"], eps),
                                    wts, attention_impl)
-            ckv = compress_layer(sub, keep[li], q, k, v, true_len=true_len,
+            ckv = compress_layer(sub, ctxs.layer(li), q, k, v,
+                                 true_len=true_len,
                                  attention_impl=attention_impl)
             stack = stack_layer(stack, ckv, li - start, stop - start, sub,
-                                regions)
+                                regions, thinks, q, true_len)
         seg_stacks.append(stack)
     logits = _logits(hidden[:, -1, :], params, spec, attention_impl)
-    return logits, assemble_cache(seg_stacks, true_len, regions)
+    return logits, assemble_cache(seg_stacks, true_len, regions, thinks)
 
 
 def _minference_budgets(cs, device):
@@ -292,13 +302,20 @@ def _sparse_attention(q, k, v, true_len, cs, budgets, li: int,
 
 
 def stack_layer(stack, ckv, i: int, layers: int, plan: PolicyPlan,
-                regions: list):
+                regions: list, thinks: list, q: torch.Tensor,
+                true_len: torch.Tensor):
     """Write one layer's compacted KV into slot ``i`` of its segment's
     ``[layers, ...]`` stack (allocated at the first layer).  With a KIVI
     plan the (immutable) compacted prefill slots are quantized now, so one
     layer's bf16 region is live at a time: the region goes to ``regions``
-    and the stack keeps only the bf16 decode slots."""
+    and the stack keeps only the bf16 decode slots.  With ThinK's narrow
+    layout the pruned-region keys (channel-gathered with the layer's
+    queries ``q``) go to ``thinks`` and the stack's K keeps the rest."""
     cs = plan.spec
+    if plan.think_narrow:
+        kp, kc, k_rest = think_split(ckv, q, plan, true_len)
+        thinks.append((kp, kc))
+        ckv = ckv._replace(k=k_rest)
     if cs.quant_method is not None:
         sp = plan.prefill_slots
         regions.append(quant.quantize_kv_region(
@@ -313,15 +330,18 @@ def stack_layer(stack, ckv, i: int, layers: int, plan: PolicyPlan,
 
 
 def assemble_cache(seg_stacks: list, true_len: torch.Tensor,
-                   regions: list = ()) -> KVCache:
+                   regions: list = (), thinks: list = ()) -> KVCache:
     """KVCache from per-segment ``[k, v, mask, positions]`` layer stacks
-    (and, for KIVI, the per-layer regions, stacked; quantized plans are
+    (and, for KIVI, the per-layer regions, stacked; for ThinK's narrow
+    layout the per-layer pruned keys; quantized and ThinK plans are
     uniform)."""
     if len(seg_stacks) == 1:
         k, v, m, p = seg_stacks[0]
+        think = (ThinKRegion(*(torch.stack(t) for t in zip(*thinks)))
+                 if thinks else None)
         return KVCache(k=k, v=v, mask=m, positions=p, true_len=true_len,
                        quant=quant.stack_regions(regions) if regions
-                       else None)
+                       else None, think=think)
     k, v, m, p = (tuple(s[j] for s in seg_stacks) for j in range(4))
     return KVCache(k=k, v=v, mask=m, positions=p, true_len=true_len)
 
@@ -404,6 +424,7 @@ def decode_step(
     pos = cache.current_position()  # [B]
     store_kv = stores_kv_heads(plan.spec)
     quantized = cache.quant is not None
+    think = cache.think is not None
     attend = (decode_attention if attention_impl == "kernel"
               else plain.decode_attention)
 
@@ -416,9 +437,12 @@ def decode_step(
                     cache.positions[si])
         else:
             bufs = (cache.k, cache.v, cache.mask, cache.positions)
-        slot = sub.prefill_slots + cache.step  # mask / positions
-        # a KIVI cache's k/v buffers hold only the decode slots
-        kv_slot = cache.step if quantized else slot
+        slot = sub.prefill_slots + cache.step  # mask / positions / V
+        # a KIVI cache's k/v buffers hold only the decode slots; a narrow
+        # ThinK cache's K starts after the pruned region
+        kv_slot = (cache.step if quantized
+                   else slot - sub.think_pruned_slots if think else slot)
+        v_slot = slot if think else kv_slot
         for i in range(stop - start):
             wts = _layer(params, start + i)
             x = rms_norm(hidden, wts["attn_norm"], eps)[:, None, :]
@@ -429,13 +453,19 @@ def decode_step(
                 k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
             layer = LayerCacheView(*(t[i] for t in bufs))
             layer.k[:, :, kv_slot] = k[:, :, 0]
-            layer.v[:, :, kv_slot] = v[:, :, 0]
+            layer.v[:, :, v_slot] = v[:, :, 0]
             layer.mask[:, :, slot] = True
             layer.positions[:, :, slot] = pos[:, None].to(torch.int32)
             if quantized:
                 attn = _region_attention(
                     q, quant.layer_region(cache.quant, start + i), layer,
                     sub, attention_impl, f32_quant)
+            elif think:
+                # no kernel: plain torch, as JAX leaves it to XLA
+                attn = plain.decode_attention_think(
+                    q, cache.think.k_pruned[start + i],
+                    cache.think.kept_channels[start + i], layer.k, layer.v,
+                    layer.mask)
             else:
                 attn = attend(q, layer.k, layer.v, layer.mask)
             hidden = hidden + mm(attn.reshape(b, -1), wts["wo"],

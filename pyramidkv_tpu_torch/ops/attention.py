@@ -9,6 +9,8 @@ version of ``flash_attention_partials`` (base-2 statistics), and
 :func:`flash_row_max_plain` / :func:`flash_pass_b_plain` the plain versions
 of the two passes of ``flash_causal_attention(two_pass=True)``.  The CPU path runs
 them; on the card they are the references the kernels are held against.
+:func:`decode_attention_think` (ThinK's narrow-layout decode) has no kernel
+on either side: both paths run it.
 
 Numerics follow the JAX versions: operands in the storage dtype with f32
 accumulation (done here by upcasting to f32 — a bf16 x bf16 product is exact
@@ -301,6 +303,35 @@ def decode_attention(
     probs = torch.softmax(logits, dim=-1).to(v_cache.dtype).float()
     out = torch.matmul(probs, v_cache.float())  # [B, Hk, G, D]
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention_think(
+    q: torch.Tensor,
+    k_pruned: torch.Tensor,
+    kept_channels: torch.Tensor,
+    k_rest: torch.Tensor,
+    v_cache: torch.Tensor,
+    mask: torch.Tensor,
+) -> torch.Tensor:
+    """ThinK's decode over the narrow key region: two logit blocks joined
+    before the softmax, the channel-gathered query against the pruned keys
+    and the full query against the full-width rest, both scaled by
+    1/sqrt(D) of the full head.  Plain torch, as the JAX package leaves it
+    to XLA (no Pallas kernel computes it).
+
+    q: [B, H, D]; k_pruned: [B, H, Sp, Dk]; kept_channels: [B, H, Dk];
+    k_rest: [B, H, Sr, D]; v_cache: [B, H, Sp + Sr, D]; mask: [B, H,
+    Sp + Sr].  Masked logits are float32.min.  Returns [B, H, D]."""
+    d = q.shape[-1]
+    qf = q.float()
+    q_kept = torch.gather(qf, 2, kept_channels.long())
+    lp = torch.matmul(q_kept[:, :, None], k_pruned.float().transpose(-1, -2))
+    lr = torch.matmul(qf[:, :, None], k_rest.float().transpose(-1, -2))
+    logits = torch.cat([lp, lr], dim=-1)[:, :, 0] * (1.0 / math.sqrt(d))
+    logits = logits.masked_fill(~mask, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v_cache.dtype).float()
+    out = torch.matmul(probs[:, :, None], v_cache.float())[:, :, 0]
+    return out.to(q.dtype)
 
 
 def decode_attention_partials(q: torch.Tensor, k_cache: torch.Tensor,

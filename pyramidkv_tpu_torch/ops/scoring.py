@@ -1,5 +1,6 @@
 """Key scoring (counterparts of ``pyramidkv_tpu/ops/scoring.py``'s
-``window_scores``, ``h2o_scores`` and ``h2o_partial_scores``).
+``window_scores``, ``h2o_scores``, ``h2o_partial_scores``, ``l2norm_scores``,
+``position_scores`` and ``random_scores``).
 
 Scorers take post-RoPE projections in a left-padded buffer of length N
 (real tokens at ``[N - true_len, N)``) and return one score per non-window
@@ -17,6 +18,7 @@ import math
 
 import torch
 
+from ..prng import uniform
 from .attention import _row_block
 from .pooling import pool1d
 
@@ -48,12 +50,14 @@ def window_scores(
     true_len: torch.Tensor,
     kernel_size: int,
     pooling: str,
+    aggregation: str = "sum",
 ) -> torch.Tensor:
     """SnapKV-family window score, ``[B, H, N - W]`` f32, -inf at padding.
 
     q: [B, H, N, D]; k: [B, Hk, N, D] with H % Hk == 0 — the grouped product
     gives the same per-query-head scores as scoring after repeat_kv, with
-    no repeated copy of K.
+    no repeated copy of K.  ``aggregation``: the W rows' softmax summed
+    (SnapKV, PyramidKV, CAM, ThinK) or averaged (AdaKV, HeadKV).
     """
     b, h, n, d = q.shape
     hk = k.shape[1]
@@ -65,10 +69,47 @@ def window_scores(
     colv = _column_valid(n, true_len)  # [B, N]
     logits = logits.masked_fill(~colv[:, None, None, :], _NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    s = probs[..., : n - w].sum(dim=2)
+    if aggregation == "sum":
+        s = probs[..., : n - w].sum(dim=2)
+    elif aggregation == "mean":
+        s = probs[..., : n - w].mean(dim=2)
+    else:
+        raise ValueError(f"unknown aggregation {aggregation!r}")
     past_valid = colv[:, None, : n - w]
     s = s.masked_fill(~past_valid, 0.0)  # zero padding so pooling edges match
     s = pool1d(s, kernel_size, pooling)
+    return s.masked_fill(~past_valid, _NEG_INF)
+
+
+def l2norm_scores(k: torch.Tensor, *, true_len: torch.Tensor) -> torch.Tensor:
+    """L2Norm: the negated f32 norm of every key, ``[B, Hk, N]`` (all
+    columns, no window), -inf at padding: the top-k keeps the keys of
+    lowest norm."""
+    n = k.shape[2]
+    norms = torch.linalg.vector_norm(k.float(), dim=-1)
+    return (-norms).masked_fill(~_column_valid(n, true_len)[:, None],
+                                _NEG_INF)
+
+
+def position_scores(shape_ref: torch.Tensor, *, window_size: int,
+                    true_len: torch.Tensor) -> torch.Tensor:
+    """StreamingLLM: the negated column index, ``[B, H, N - W]``, -inf at
+    padding, so the top-k keeps the earliest real tokens (the sinks)."""
+    b, h, n, _ = shape_ref.shape
+    w = window_size
+    s = -torch.arange(n - w, dtype=torch.float32, device=shape_ref.device)
+    past_valid = _column_valid(n, true_len)[:, None, : n - w]
+    return s.expand(b, h, n - w).masked_fill(~past_valid, _NEG_INF)
+
+
+def random_scores(key: torch.Tensor, shape_ref: torch.Tensor, *,
+                  window_size: int, true_len: torch.Tensor) -> torch.Tensor:
+    """Uniform-random eviction: ``jax.random.uniform(key, (B, H, N - W))``
+    computed by ``prng``, -inf at padding."""
+    b, h, n, _ = shape_ref.shape
+    w = window_size
+    s = uniform(key, (b, h, n - w))
+    past_valid = _column_valid(n, true_len)[:, None, : n - w]
     return s.masked_fill(~past_valid, _NEG_INF)
 
 

@@ -78,7 +78,8 @@ def test_unported_engine_options_raise(params):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(spec, comp, es, tp, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(spec, tcfg.CompressionSpec(method="cam", **COMP),
+        Engine(spec, tcfg.CompressionSpec(method="snapkv",
+                                          quant_method="kvquant", **COMP),
                tcfg.EngineSpec(**ENG), tp, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(tcfg.ModelSpec.tiny(sliding_window=32), comp,

@@ -135,7 +135,8 @@ def test_make_plan(method, layers, bucket, cap, window):
 
 
 def test_unported_method_raises():
-    spec = tcfg.CompressionSpec(method="streamingllm")
+    spec = tcfg.CompressionSpec(method="streamingllm",
+                                quant_method="kvquant")
     with pytest.raises(NotImplementedError, match="queue 1"):
         tpolicy.make_plan(spec, 4, 64, 8)
 
