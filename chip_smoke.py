@@ -123,7 +123,26 @@ Phases (any failure exits non-zero):
      kivi4-pa, int4, chunk 8192, a 24576-token quantized handle, on a
      misaligned (pad 1) and an aligned (pad 0) prompt), each with its launch
      counts held to the plan's and its first-token logits to its one-pass
-     or no-prefix twin's.
+     or no-prefix twin's;
+ 21. mistral_kernels (run with the kernel phases): the windowed modes
+     Mistral-7B's runs launch (window 4096) against their plain versions
+     at full width: flash over the 8k batch and the 32k prompt (timed
+     beside SDPA with the windowed mask), at q_start on each 8k chunk and
+     on a chunk whose pad and window edge share a key tile, the two-pass
+     kernels, partials on a self tile and on a history tile at its true
+     distance (rows wholly outside the window exact), the decode and pa
+     kernels on window-shaped masks at the 8k and 32k widths;
+ 22. engine_mistral: ``Engine.generate`` on ``ModelSpec.preset(
+     "mistral-7b")`` (32 layers, seeded random weights; Llama's are freed
+     first): the 8k batch for fullkv, snapkv, pyramidkv and h2o, the 32k
+     prompt with int4 weights for fullkv kivi4-pa and snapkv, chunked
+     snapkv (8k, C=2048) and the quantized carry (32k kivi4-pa, C=8192)
+     beside their monolithic twins, two-pass snapkv, a 6144-token prefix
+     handle and minference at 32k; launch counts and cache bytes held to
+     the plans;
+ 23. parity_mistral: depth-2 prefill and decode logits, kernels against
+     plain, for fullkv (the window-masked decode), snapkv, the chunked
+     kivi4-pa carry and two-pass.
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -415,17 +434,14 @@ def check_flash(torch, F, dev, b, h, hk, n, true_len, window, timed, seed,
             q, k, v, true_len=tl, sliding_window=window), reps=2)
         # library yardstick: SDPA with the equivalent boolean mask (K/V
         # repeated to the query heads outside the timed call)
-        kr = k.repeat_interleave(h // hk, dim=1)
-        vr = v.repeat_interleave(h // hk, dim=1)
-        col = torch.arange(n, device=dev)
-        pad = (n - tl.long())[:, None, None, None]
-        m = (col[None, None, None, :] <= col[None, None, :, None]) \
-            & (col[None, None, None, :] >= pad)
+        lib = masked_sdpa_inputs(torch, q, k, v, tl, 0, window)
         rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, kr, vr, attn_mask=m), reps=3)
-        del kr, vr, m
+            *lib[:3], attn_mask=lib[3]), reps=3)
+        del lib
         tls = np.asarray(true_len, np.float64)
-        pairs = float((tls * (tls + 1) / 2).sum())  # visible (row, col) pairs
+        # visible (row, col) pairs
+        rec["visible_pairs"] = pairs = visible_pairs(true_len, n, n, 0, 1,
+                                                     window)
         flops = 4.0 * D * h * pairs
         nbytes = (h * tls.sum() * D * 2 + 2 * hk * tls.sum() * D * 2
                   + b * h * n * D * 2 + b * 4)
@@ -1487,13 +1503,15 @@ def kv_cache_bytes(run) -> int:
 
 
 def region_inputs(torch, dev, b, hk, grp, s, nbits, gs, layout, t_len, seed,
-                  valid=0.9, k_chunk=None, masked_rows=None):
+                  valid=0.9, k_chunk=None, masked_rows=None, window=None):
     """(q, region, mask, tail) of a KIVI check: the region quantize_kv_region
     makes from random bf16 K (channel-scaled, as KIVI's keys are) and V,
     masks that are views of one longer array (as the engine passes them)
     with region row (0, 0) all masked and tail slot 0 always visible (the
     step's own slot).  ``masked_rows``: a byte-row range (r0, r1) masked on
-    every bit-plane of every region (a wholly masked split)."""
+    every bit-plane of every region (a wholly masked split).  ``window``:
+    a fullkv cache's masks under a sliding window (window_mask) instead of
+    random ones."""
     from pyramidkv_tpu_torch.ops import quant
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -1513,7 +1531,9 @@ def region_inputs(torch, dev, b, hk, grp, s, nbits, gs, layout, t_len, seed,
     del k, v
     tk, tv = (torch.randn((b, hk, t_len, D), generator=g, device=dev).to(
         torch.bfloat16) for _ in range(2))
-    full = torch.rand((b, hk, s + t_len + 40), generator=g, device=dev) < valid
+    full = (torch.rand((b, hk, s + t_len + 40), generator=g, device=dev)
+            < valid if window is None else
+            window_mask(torch, dev, b, hk, s, t_len + 40, t_len // 2, window))
     mask, tmask = full[:, :, :s], full[:, :, s:s + t_len]
     mask[0, 0] = False
     tmask[:, :, 0] = True
@@ -1525,7 +1545,8 @@ def region_inputs(torch, dev, b, hk, grp, s, nbits, gs, layout, t_len, seed,
 
 
 def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
-                 label, t_len, valid=0.9, k_chunk=None, masked_rows=None):
+                 label, t_len, valid=0.9, k_chunk=None, masked_rows=None,
+                 window=None):
     """One KIVI region kernel against its plain version on a region that
     the port's quantize_kv_region makes from random bf16 K (channel-scaled,
     as KIVI's keys are) and V, in both of its modes: the region's partials
@@ -1554,7 +1575,7 @@ def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
 
     q, reg, mask, tail = region_inputs(torch, dev, b, hk, grp, s, nbits, gs,
                                        layout, t_len, seed, valid, k_chunk,
-                                       masked_rows)
+                                       masked_rows, window)
     tk, tv, tmask = tail
     h = hk * grp
     got = kern(q, reg, mask, nbits=nbits)
@@ -1601,7 +1622,8 @@ def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
            "tail_tol": TAIL_TOL_TEXT[tol],
            "err_over_tol": ratio, "tol": REGION_TOL_TEXT[tol],
            "rms": float(ow.square().mean().sqrt()),
-           "masked_rows": masked_rows, "repeat_bitwise": repeat,
+           "masked_rows": masked_rows, "window": window,
+           "visible": float(mask.float().mean()), "repeat_bitwise": repeat,
            "all_masked_row": [float(got[1][0, 0]), float(got[2][0, 0])]}
     if timed:
         rec["ms"] = graph_ms(
@@ -2623,10 +2645,10 @@ def partials_ratio_exp2(torch, got, want):
             float(((gl - wl).abs() / wl)[live].max()), dead_ok)
 
 
-def masked_sdpa_inputs(torch, q, k, v, true_len, q_start):
+def masked_sdpa_inputs(torch, q, k, v, true_len, q_start, window=None):
     """SDPA's arguments for the same function (the yardstick): K/V
-    repeated to the query heads and the boolean mask, built outside the
-    timed call."""
+    repeated to the query heads and the boolean mask (with ``window``,
+    also q_start + r - c < window), built outside the timed call."""
     b, h, nq, _ = q.shape
     hk, n = k.shape[1], k.shape[2]
     rows = q_start + torch.arange(nq, device=q.device)
@@ -2634,28 +2656,32 @@ def masked_sdpa_inputs(torch, q, k, v, true_len, q_start):
     pad = (n - true_len.long())[:, None, None, None]
     mask = (col[None, None, None, :] <= rows[None, None, :, None]) \
         & (col[None, None, None, :] >= pad)
+    if window:
+        mask &= rows[None, None, :, None] - col[None, None, None, :] < window
     return (q, k.repeat_interleave(h // hk, dim=1),
             v.repeat_interleave(h // hk, dim=1), mask)
 
 
-def visible_pairs(true_len, n, nq, q_start, h):
+def visible_pairs(true_len, n, nq, q_start, h, window=None):
     """(query, key) pairs the attention reads: key c >= pad = n - t and
-    c <= q_start + r, summed over rows and heads."""
+    c <= q_start + r (and, with ``window``, c > q_start + r - window),
+    summed over rows and heads."""
     tot = 0
+    rows = np.arange(q_start, q_start + nq)
     for t in true_len:
-        pad = n - int(t)
-        for_rows = np.arange(q_start, q_start + nq)
-        tot += int(np.clip(np.minimum(for_rows, n - 1) - pad + 1, 0, None
-                           ).sum())
+        lo = np.full(nq, n - int(t))
+        if window:
+            lo = np.maximum(lo, rows - window + 1)
+        tot += int(np.clip(np.minimum(rows, n - 1) - lo + 1, 0, None).sum())
     return float(h * tot)
 
 
 def check_flash_chunk(torch, F, dev, b, hk, n, true_len, chunk, i, seed,
-                      buf, case=None, timed=True):
+                      buf, case=None, timed=True, window=None):
     """flash_causal_attention with q_start = i * chunk on chunk i of a
     prefill, its keys read in place from the bucket-long carry ``buf`` (k,
-    v [B, Hk, n, D]), against the plain version; rows past the pad; two
-    calls bitwise equal."""
+    v [B, Hk, n, D]), against the plain version (with ``window``, both
+    windowed); rows past the pad; two calls bitwise equal."""
     from pyramidkv_tpu_torch.kernels import flash_causal_attention
     from pyramidkv_tpu_torch.ops.attention import causal_prefill_attention
 
@@ -2664,9 +2690,10 @@ def check_flash_chunk(torch, F, dev, b, hk, n, true_len, chunk, i, seed,
     e = (i + 1) * chunk
     kh, vh = buf[0][:, :, :e], buf[1][:, :, :e]
     tl = torch.tensor(true_len, dtype=torch.int32, device=dev) - (n - e)
-    got = flash_causal_attention(q, kh, vh, tl, q_start=i * chunk)
-    again = flash_causal_attention(q, kh, vh, tl, q_start=i * chunk)
-    want = causal_prefill_attention(q, kh, vh, true_len=tl, q_start=i * chunk)
+    kw = dict(q_start=i * chunk, sliding_window=window)
+    got = flash_causal_attention(q, kh, vh, tl, **kw)
+    again = flash_causal_attention(q, kh, vh, tl, **kw)
+    want = causal_prefill_attention(q, kh, vh, true_len=tl, **kw)
     torch.cuda.synchronize()
     ratio = err = 0.0
     for bi, t in enumerate(true_len):
@@ -2679,6 +2706,7 @@ def check_flash_chunk(torch, F, dev, b, hk, n, true_len, chunk, i, seed,
     rec = {"check": "flash_causal_attention (q_start)",
            "case": case or f"8k batch chunk {i}", "B": b, "H": H, "Hk": hk,
            "N": e, "Nq": chunk, "q_start": i * chunk, "ldk": n,
+           "window": window,
            "true_len": list(true_len), "max_abs_err": err,
            "err_over_tol": ratio, "tol": TOL_TEXT,
            "bitwise_repeat": bool(torch.equal(got, again))}
@@ -2689,14 +2717,14 @@ def check_flash_chunk(torch, F, dev, b, hk, n, true_len, chunk, i, seed,
         log(rec)
         return ok, rec
     rec["ms"] = time_ms(torch, lambda: flash_causal_attention(
-        q, kh, vh, tl, q_start=i * chunk), reps=5)
+        q, kh, vh, tl, **kw), reps=5)
     rec["plain_ms"] = time_ms(torch, lambda: causal_prefill_attention(
-        q, kh, vh, true_len=tl, q_start=i * chunk), reps=1, warmup=0)
-    lib = masked_sdpa_inputs(torch, q, kh, vh, tl, i * chunk)
+        q, kh, vh, true_len=tl, **kw), reps=1, warmup=0)
+    lib = masked_sdpa_inputs(torch, q, kh, vh, tl, i * chunk, window)
     rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
         *lib[:3], attn_mask=lib[3]), reps=3)
     del lib
-    pairs = visible_pairs(true_len, n, chunk, i * chunk, H)
+    pairs = visible_pairs(true_len, n, chunk, i * chunk, H, window)
     nbytes = (q.numel() * 2 * 2 + 2 * b * hk * e * D * 2 + b * 4)
     rec["visible_pairs"] = pairs
     rec["bound_ms"], rec["bound_by"] = bound(4.0 * D * pairs, nbytes)
@@ -2705,11 +2733,12 @@ def check_flash_chunk(torch, F, dev, b, hk, n, true_len, chunk, i, seed,
 
 
 def check_partials(torch, F, dev, case, b, hk, c, tile_len, q_start, seed,
-                   timed=True):
+                   timed=True, window=None):
     """flash_attention_partials on one tile of a quantized-carry chunk:
-    ``q_start == 0`` the causal self tile, ``q_start == c`` a history tile
-    (every key visible); ``tile_len`` [B] the tile's valid keys; two calls
-    bitwise equal."""
+    ``q_start == 0`` the causal self tile, ``q_start >= c`` a history tile
+    q_start rows before its queries (every key visible, or with ``window``
+    those within it: rows past it have none); ``tile_len`` [B] the tile's
+    valid keys; two calls bitwise equal."""
     from pyramidkv_tpu_torch.kernels import flash_attention_partials
     from pyramidkv_tpu_torch.ops.attention import flash_partials_plain
 
@@ -2717,13 +2746,14 @@ def check_partials(torch, F, dev, case, b, hk, c, tile_len, q_start, seed,
     q, k, v = (_rand_bf16(torch, g, dev, b, n_h, c, D)
                for n_h in (H, hk, hk))
     tl = torch.tensor(tile_len, dtype=torch.int32, device=dev)
-    got = flash_attention_partials(q, k, v, tl, q_start=q_start)
-    again = flash_attention_partials(q, k, v, tl, q_start=q_start)
-    want = flash_partials_plain(q, k, v, tl, q_start=q_start)
+    kw = dict(q_start=q_start, sliding_window=window)
+    got = flash_attention_partials(q, k, v, tl, **kw)
+    again = flash_attention_partials(q, k, v, tl, **kw)
+    want = flash_partials_plain(q, k, v, tl, **kw)
     torch.cuda.synchronize()
     ratio, err, m_err, l_err, dead_ok = partials_ratio_exp2(torch, got, want)
     rec = {"check": "flash_attention_partials", "case": case, "B": b,
-           "H": H, "Hk": hk, "C": c, "q_start": q_start,
+           "H": H, "Hk": hk, "C": c, "q_start": q_start, "window": window,
            "tile_len": list(tile_len), "max_abs_err": err, "m_err": m_err,
            "l_rel_err": l_err, "err_over_tol": ratio,
            "dead_rows": int((want[2] == 0).sum()), "dead_rows_exact": dead_ok,
@@ -2737,14 +2767,14 @@ def check_partials(torch, F, dev, case, b, hk, c, tile_len, q_start, seed,
         log(rec)
         return ok, rec
     rec["ms"] = time_ms(torch, lambda: flash_attention_partials(
-        q, k, v, tl, q_start=q_start), reps=5)
+        q, k, v, tl, **kw), reps=5)
     rec["plain_ms"] = time_ms(torch, lambda: flash_partials_plain(
-        q, k, v, tl, q_start=q_start), reps=1, warmup=0)
-    lib = masked_sdpa_inputs(torch, q, k, v, tl, q_start)
+        q, k, v, tl, **kw), reps=1, warmup=0)
+    lib = masked_sdpa_inputs(torch, q, k, v, tl, q_start, window)
     rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
         *lib[:3], attn_mask=lib[3]), reps=3)
     del lib
-    pairs = visible_pairs(tile_len, c, c, q_start, H)
+    pairs = visible_pairs(tile_len, c, c, q_start, H, window)
     nbytes = (q.numel() * 2 + 2 * k.numel() * 2 + b * H * c * (D + 2) * 4)
     rec["visible_pairs"] = pairs
     rec["bound_ms"], rec["bound_by"] = bound(4.0 * D * pairs, nbytes)
@@ -2965,16 +2995,19 @@ def phase_two_pass_kernels(torch, F, dev):
 
 
 def chunk_run_spec(run):
-    """(CompressionSpec, bucket, max_new, chunk) of a CHUNK_RUNS run."""
+    """(CompressionSpec, bucket, max_new, chunk) of a CHUNK_RUNS or
+    MISTRAL_RUNS run."""
     from pyramidkv_tpu_torch.config import CompressionSpec
 
-    _, comp, size, chunk = CHUNK_RUNS[run]
+    _, comp, size, chunk = {**CHUNK_RUNS, **MISTRAL_RUNS}[run]
     bucket, max_new = (QN, QMAX_NEW) if size == "32k" else (N, MAX_NEW)
     return CompressionSpec(**comp), bucket, max_new, chunk
 
 
-def chunk_expected(run, plan, qp, steps, b):
-    """Kernel launches one generate of a CHUNK_RUNS run implies."""
+def chunk_expected(run, plan, qp, steps, b, window=None):
+    """Kernel launches one generate of a CHUNK_RUNS or MISTRAL_RUNS run
+    implies.  With a sliding ``window`` the quantized carry skips each
+    history tile wholly outside the window of its chunk's first row."""
     import torch
 
     from pyramidkv_tpu_torch.models import chunked_prefill as cp
@@ -2986,7 +3019,9 @@ def chunk_expected(run, plan, qp, steps, b):
     quant_carry = bool(chunk) and cp.supports_chunked_quant(plan, chunk)
     h2o = cs.method == "h2o"
     if quant_carry:
-        want["flash_attention_partials"] = LAYERS * (nc + nc * (nc - 1) // 2)
+        hist = sum(1 for j in range(nc) for hc in range(j)
+                   if window is None or (j - hc - 1) * chunk + 1 < window)
+        want["flash_attention_partials"] = LAYERS * (nc + hist)
     else:
         want["flash_causal_attention"] = LAYERS * nc * (2 if h2o and chunk
                                                         else 1)
@@ -3036,8 +3071,10 @@ def prefill_with(eng, bucket, tokens, tl, impl):
     try:
         if eng.chunked_prefill_supported(bucket):
             return eng._run_chunked_prefill(bucket, tokens, tl)
-        return llama.prefill(eng.params, eng.model_spec, eng.plan_for(bucket),
-                             tokens, tl, attention_impl=impl)
+        return llama.prefill(
+            eng.params, eng.model_spec, eng.plan_for(bucket), tokens, tl,
+            attention_impl=impl,
+            prefill_two_pass=eng.engine_spec.prefill_two_pass)
     finally:
         eng.attention_impl = "kernel"
 
@@ -3551,6 +3588,428 @@ def phase_engine_two_pass_prefix(torch, dev, params, q4, vocab):
     return ok, counts
 
 
+# ---------------------------------------------------------------------------
+# Mistral-7B: the uniform sliding window at full width
+# ---------------------------------------------------------------------------
+
+#: Mistral-7B's window (ModelSpec.preset("mistral-7b"): 32 layers, 32/8
+#: heads, D = 128, vocabulary 32000); its geometry is Llama-3-8B's, so
+#: plans, cache widths and kernel shapes are those of the Llama runs
+MISTRAL_W = 4096
+#: the Mistral runs, as CHUNK_RUNS: name -> (weights, CompressionSpec
+#: arguments, size, prefill_chunk).  engine_mistral runs the monolithic
+#: ones; engine_mistral_paths the chunked ones, beside two-pass, a prefix
+#: handle and MInference
+MISTRAL_KIVI4PA = dict(method="fullkv", quant_method="kivi", nbits=4,
+                       q_layout="pa", **QCOMP)
+MISTRAL_RUNS = {
+    "mistral bf16 fullkv 8k": ("bf16", dict(method="fullkv"), "8k", None),
+    "mistral bf16 snapkv 8k": ("bf16", dict(method="snapkv"), "8k", None),
+    "mistral bf16 pyramidkv 8k": ("bf16", dict(method="pyramidkv"), "8k",
+                                  None),
+    "mistral bf16 h2o 8k": ("bf16", dict(method="h2o"), "8k", None),
+    "mistral int4 fullkv kivi4-pa 32k": ("int4", MISTRAL_KIVI4PA, "32k",
+                                         None),
+    "mistral int4 snapkv 32k": ("int4", dict(method="snapkv", **QCOMP),
+                                "32k", None),
+    "mistral bf16 snapkv 8k chunk 2048": ("bf16", dict(method="snapkv"),
+                                          "8k", C8K),
+    "mistral int4 fullkv kivi4-pa 32k chunk 8192": ("int4", MISTRAL_KIVI4PA,
+                                                    "32k", C32K),
+}
+#: each chunked run's monolithic twin
+MISTRAL_TWINS = {
+    "mistral bf16 snapkv 8k chunk 2048": "mistral bf16 snapkv 8k",
+    "mistral int4 fullkv kivi4-pa 32k chunk 8192":
+        "mistral int4 fullkv kivi4-pa 32k"}
+MISTRAL_PARITY = ("mistral bf16 fullkv 8k", "mistral bf16 snapkv 8k",
+                  "mistral int4 fullkv kivi4-pa 32k chunk 8192",
+                  "mistral bf16 snapkv 8k two-pass")
+
+
+def window_mask(torch, dev, b, hk, s, t_len, written, window):
+    """A fullkv cache's visible slots under a sliding window, [B, Hk, s +
+    t_len] bool: the prefill region's s slots at positions 0.. (slot 0 the
+    left pad of a 32767-token prompt, hidden anyway), ``written`` of the
+    t_len decode slots filled, the step's token the last of them; the last
+    ``window`` positions visible.  Most leading slots are hidden, as the
+    decode step's mask is (models/llama.py::decode_step)."""
+    pos = s + written - 1
+    slots = torch.arange(s + t_len, device=dev)
+    vis = (slots > pos - window) & (slots <= pos)
+    return vis.expand(b, hk, -1).contiguous()
+
+
+def phase_mistral_kernels(torch, F, dev):
+    """The windowed modes Mistral's runs launch, each against its plain
+    version at full width (window 4096): flash over the 8k batch and
+    bench.py's 32k prompt (timed, with the window's visible pairs as the
+    bound and SDPA with the windowed bool mask); flash at q_start on each
+    chunk of the 8k batch's carry (C=2048) and on a chunk whose pad and
+    window edge fall in one 128-key tile; the two-pass kernels at 8k and
+    32k; flash_attention_partials on the 32k carry's self tile and on a
+    history tile at its true distance (q_start 8192: rows 4095.. see none
+    of its keys, exact), timed; the decode kernel on window-shaped masks
+    at the 8k batch's (S=8224) and the 32k (S=32896, timed) widths, and
+    the pa region kernel on them (the 8k batch, and the 32k chunked
+    carry's 4 K groups).  Every kernel called twice and held bitwise
+    equal.  Returns (ok, {row: [timed recs]})."""
+    ok, recs = True, {}
+    w = MISTRAL_W
+    r, recs["flash 8k"] = check_flash(torch, F, dev, B, H, HK, N, TRUE_LEN,
+                                      w, timed=True, seed=700,
+                                      case="8k batch, window 4096")
+    ok &= r
+    r, recs["flash 32k"] = check_flash(torch, F, dev, 1, H, HK, QN, (QTRUE,),
+                                       w, timed=True, seed=701,
+                                       case="32k, window 4096")
+    ok &= r
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(702)
+    buf = (_rand_bf16(torch, g, dev, B, HK, N, D),
+           _rand_bf16(torch, g, dev, B, HK, N, D))
+    for i in range(N // C8K):
+        r, _ = check_flash_chunk(torch, F, dev, B, HK, N, TRUE_LEN, C8K, i,
+                                 703 + i, buf, timed=False, window=w,
+                                 case=f"8k batch chunk {i}, window 4096")
+        ok &= r
+    # chunk 3 (q_start 6144): row 0's pad 2100 and its first row's window
+    # edge 2049 both in key tile 16 ([2048, 2176))
+    r, _ = check_flash_chunk(torch, F, dev, 2, HK, N, (N - 2100, N), C8K, 3,
+                             708, tuple(x[:2] for x in buf), timed=False,
+                             window=w, case="pad and window edge in one "
+                             "tile, chunk 3, window 4096")
+    ok &= r
+    del buf
+    torch.cuda.empty_cache()
+    for seed, (case, b, n, tls) in enumerate((
+            ("8k, window 4096", B, N, TRUE_LEN),
+            ("32k, window 4096", 1, QN, (QTRUE,))), start=710):
+        r, _ = check_two_pass(torch, F, dev, case, b, HK, n, tls, seed,
+                              window=w, timed=False)
+        ok &= r
+        torch.cuda.empty_cache()
+    recs["partials 32k"] = []
+    for seed, (case, q_start, tls) in enumerate((
+            ("32k self tile (chunk 1), window 4096", 0, (C32K,)),
+            ("32k history tile 0 at q_start 8192, window 4096", C32K,
+             tile_len((QTRUE,), QN, C32K, 0))), start=712):
+        r, rec = check_partials(torch, F, dev, case, 1, HK, C32K, tls,
+                                q_start, seed, window=w)
+        ok &= r and (q_start == 0 or rec["dead_rows"] > 0)
+        recs["partials 32k"].append(rec)
+        torch.cuda.empty_cache()
+    recs["decode"] = []
+    for seed, (case, b, s, t_len) in enumerate((
+            ("8k batch fullkv, window mask", B, N, MAX_NEW),
+            ("32k fullkv, window mask", 1, QN, QMAX_NEW)), start=714):
+        mask = window_mask(torch, dev, b, HK, s, t_len, t_len // 2, w)
+        r, rec = check_decode(torch, F, dev, b, H, HK, s + t_len, True, seed,
+                              case, mask=mask)
+        ok &= r
+        recs["decode"].append(rec)
+    for seed, (case, b, s, t_len, k_chunk) in enumerate((
+            ("8k batch fullkv kivi4-pa, window mask", B, N, MAX_NEW, None),
+            ("32k fullkv kivi4-pa chunk 8192, window mask", 1, QN, QMAX_NEW,
+             C32K)), start=716):
+        r, _ = check_region(torch, F, dev, "quant_fused_attention_pa", b, HK,
+                            H // HK, s, 4, 64, False, seed, case, t_len,
+                            k_chunk=k_chunk, window=w)
+        ok &= r
+        torch.cuda.empty_cache()
+    return ok, recs
+
+
+def mistral_kv_bytes(run, plan, b) -> int:
+    """kv_cache_bytes a Mistral run's plan implies: its bf16 K and V, the
+    chunked KIVI carry's layout, or the monolithic pa region's."""
+    cs, _, _, chunk = chunk_run_spec(run)
+    if cs.quant_method is None:
+        return methods_kv_bytes(plan, b)
+    return chunk_kv_bytes(run, b) if chunk else KV_BYTES_32K[cs.q_layout]
+
+
+def phase_engine_mistral(torch, dev, params, q4, vocab, runs):
+    """``Engine.generate`` on Mistral-7B (all 32 layers, seeded random
+    weights) for each of ``runs`` (MISTRAL_RUNS): the 8k batch with bf16
+    weights, bench.py's 32k prompt with int4 weights; every kernel's
+    launches held to what the plan implies (the quantized carry skipping
+    the history tiles wholly outside the window), kv_cache_bytes to the
+    layout's, prefill s and decode tok/s printed; a chunked run's prefill
+    logits printed beside its monolithic twin's (information, as
+    engine_h2o_chunked).  Returns (ok, {run: counts}, {run: rec})."""
+    from pyramidkv_tpu_torch.config import EngineSpec, ModelSpec
+    from pyramidkv_tpu_torch.engine import Engine
+    from pyramidkv_tpu_torch.models import llama
+
+    spec = ModelSpec.preset("mistral-7b")
+    p32 = [np.random.default_rng(0).integers(0, vocab, size=QTRUE).tolist()]
+    rng = np.random.default_rng(0)
+    p8 = [rng.integers(0, vocab, size=t).tolist() for t in TRUE_LEN]
+    ok, counts, out_recs = True, {}, {}
+    warm = set()
+    for run in runs:
+        wname, _, size, _ = MISTRAL_RUNS[run]
+        cs, bucket, max_new, chunk = chunk_run_spec(run)
+        prompts = p32 if size == "32k" else p8
+        qp = q4 if wname == "int4" else None
+        wts = qp if qp is not None else params
+        eng = Engine(spec, cs, EngineSpec(max_new_tokens=max_new,
+                                          prefill_buckets=(bucket,),
+                                          prefill_chunk=chunk),
+                     wts, device=dev)
+        if (wname, size) not in warm:  # the 32000-wide lm_head's shapes
+            eng.generate([p[:64] for p in prompts], max_new_tokens=2)
+            warm.add((wname, size))
+        torch.cuda.synchronize()
+        reset_counts()
+        out = eng.generate(prompts)
+        c = read_counts()
+        counts[run] = c
+        plan = eng.plan_for(bucket)
+        want = chunk_expected(run, plan, qp, out.decode_steps, len(prompts),
+                              window=MISTRAL_W)
+        want_bytes = mistral_kv_bytes(run, plan, len(prompts))
+        toks = [t for seq in out.tokens for t in seq]
+        good = (c == want and out.kv_cache_bytes == want_bytes
+                and out.decode_steps == max_new - 1
+                and eng.chunked_prefill_supported(bucket) == bool(chunk)
+                and all(0 <= t < vocab for t in toks)
+                and all(len(seq) >= 1 for seq in out.tokens))
+        rec = {"phase": "engine_mistral", "run": run, "weights": wname,
+               "method": cs.method, "window": MISTRAL_W,
+               "prefill_chunk": chunk, "prefill_s": out.prefill_seconds,
+               "decode_s": out.decode_seconds,
+               "decode_steps": out.decode_steps,
+               "decode_tok_per_s": (out.decode_steps * len(prompts)
+                                    / out.decode_seconds),
+               "kv_cache_bytes": out.kv_cache_bytes,
+               "expected_kv_cache_bytes": want_bytes,
+               "launches": {k: v for k, v in c.items() if v},
+               "expected_launches": {k: v for k, v in want.items() if v},
+               "first_tokens": out.tokens[0][:8]}
+        if chunk:
+            tokens, tl = bucket_tokens(torch, dev, prompts, bucket)
+            with torch.inference_mode():
+                lc, _ = prefill_with(eng, bucket, tokens, tl, "kernel")
+                lm, _ = llama.prefill(wts, spec, plan, tokens, tl)
+            twin = out_recs.get(MISTRAL_TWINS[run], {})
+            rec["vs_monolithic"] = {
+                **_logits_close(torch, lc, lm),
+                "monolithic_prefill_s": twin.get("prefill_s"),
+                "monolithic_first_tokens": twin.get("first_tokens")}
+            rec["vs_monolithic"].pop("ok")  # information, not a gate
+            del lc, lm
+        rec["ok"] = good
+        log(rec)
+        out_recs[run] = rec
+        ok &= good
+        del eng, out
+        torch.cuda.empty_cache()
+    return ok, counts, out_recs
+
+
+def phase_engine_mistral_more(torch, dev, params, q4, vocab, recs):
+    """The rest of Mistral's paths at full width: ``prefill_two_pass`` on
+    the 8k batch (snapkv; first-token logits held to the one-pass
+    prefill's, 2^-5 of the largest), a 6144-token prefix handle (longer
+    than the window) shared by 4 requests of 8000/7600/7000/6400 ids
+    (bf16 snapkv, chunk 2048; k0 = 3; logits held to the no-handle
+    chunked prefill's), and MInference on bench.py's 32k prompt with int4
+    weights (the sparse path, which ignores the window as JAX's does; the
+    decode masks fullkv's cache by the window).  Launch counts held to
+    the plan's.  Returns (ok, {run: counts})."""
+    from pyramidkv_tpu_torch.config import (CompressionSpec, EngineSpec,
+                                            ModelSpec)
+    from pyramidkv_tpu_torch.engine import Engine
+    from pyramidkv_tpu_torch.models import llama
+
+    spec = ModelSpec.preset("mistral-7b")
+    rng = np.random.default_rng(0)
+    p8 = [rng.integers(0, vocab, size=t).tolist() for t in TRUE_LEN]
+    p32 = [np.random.default_rng(0).integers(0, vocab, size=QTRUE).tolist()]
+    ok, counts = True, {}
+
+    def finish(run, eng, out, c, want, rec, good):
+        counts[run] = c
+        toks = [t for seq in out.tokens for t in seq]
+        good = (good and c == want and out.decode_steps > 0
+                and all(0 <= t < vocab for t in toks))
+        rec.update(phase="engine_mistral", run=run, window=MISTRAL_W,
+                   prefill_s=out.prefill_seconds,
+                   decode_s=out.decode_seconds,
+                   decode_steps=out.decode_steps,
+                   decode_tok_per_s=(out.decode_steps * len(out.tokens)
+                                     / out.decode_seconds),
+                   kv_cache_bytes=out.kv_cache_bytes,
+                   launches={k: v for k, v in c.items() if v},
+                   expected_launches={k: v for k, v in want.items() if v},
+                   first_tokens=out.tokens[0][:8], ok=good)
+        log(rec)
+        return good
+
+    def want_counts(**kw):
+        w = dict.fromkeys(_kernels(), 0)
+        w.update(kw)
+        return w
+
+    run = "mistral bf16 snapkv 8k two-pass"
+    eng = Engine(spec, CompressionSpec(method="snapkv"),
+                 EngineSpec(max_new_tokens=MAX_NEW, prefill_buckets=(N,),
+                            prefill_two_pass=True), params, device=dev)
+    reset_counts()
+    out = eng.generate(p8)
+    c = read_counts()
+    want = want_counts(flash_row_max=LAYERS, flash_pass_b=LAYERS,
+                       decode_attention=LAYERS * out.decode_steps)
+    tokens, tl = bucket_tokens(torch, dev, p8, N)
+    plan = eng.plan_for(N)
+    with torch.inference_mode():
+        l2, _ = llama.prefill(params, spec, plan, tokens, tl,
+                              prefill_two_pass=True)
+        l1, _ = llama.prefill(params, spec, plan, tokens, tl)
+    twin = _logits_close(torch, l2, l1)
+    want_bytes = methods_kv_bytes(plan, B)
+    ok &= finish(run, eng, out, c, want, {
+        "vs_one_pass": twin, "one_pass_prefill_s": recs[
+            "mistral bf16 snapkv 8k"]["prefill_s"],
+        "expected_kv_cache_bytes": want_bytes},
+        twin["ok"] and out.kv_cache_bytes == want_bytes)
+    del eng, out, l1, l2
+
+    run = "mistral bf16 snapkv 8k chunk 2048 prefix 6144"
+    eng = Engine(spec, CompressionSpec(method="snapkv"),
+                 EngineSpec(max_new_tokens=MAX_NEW, prefill_buckets=(N,),
+                            prefill_chunk=C8K), params, device=dev)
+    rng = np.random.default_rng(6)
+    prefix = rng.integers(0, vocab, size=PREFIX_8K).tolist()
+    prompts = [prefix + rng.integers(0, vocab, size=t - PREFIX_8K).tolist()
+               for t in PREFIX_LENS]
+    lens = [len(p) for p in prompts]
+    reset_counts()
+    handle, pre_s = _timed(torch, eng.precompute_prefix, prefix)
+    good = read_counts() == want_counts(
+        flash_causal_attention=LAYERS * (PREFIX_8K // C8K))
+    reset_counts()
+    out = eng.generate(prompts, prefix=handle)
+    c = read_counts()
+    k0 = eng._apply_prefix(N, len(prompts), handle, lens)[1]
+    want = want_counts(flash_causal_attention=LAYERS * (N // C8K - k0),
+                       decode_attention=LAYERS * out.decode_steps)
+    tokens, tl = bucket_tokens(torch, dev, prompts, N)
+    with torch.inference_mode():
+        (lp, _), _ = _timed(torch, eng._run_chunked_prefill, N, tokens, tl,
+                            prefix=handle, lens=lens)
+        (l0, _), plain_s = _timed(torch, eng._run_chunked_prefill, N,
+                                  tokens, tl)
+    twin = _logits_close(torch, lp, l0)
+    want_bytes = methods_kv_bytes(eng.plan_for(N), len(prompts))
+    ok &= finish(run, eng, out, c, want, {
+        "precompute_s": pre_s, "handle_bytes": handle.kv_bytes, "k0": k0,
+        "no_prefix_prefill_s": plain_s, "vs_no_prefix": twin,
+        "expected_kv_cache_bytes": want_bytes},
+        good and k0 == 3 and twin["ok"] and PREFIX_8K > MISTRAL_W
+        and out.kv_cache_bytes == want_bytes)
+    del eng, handle, out, lp, l0
+    torch.cuda.empty_cache()
+
+    run = "mistral int4 minference 32k"
+    cs, (bucket, max_new) = minf_spec("int4 minference 32k")
+    eng = Engine(spec, cs, EngineSpec(max_new_tokens=max_new,
+                                      prefill_buckets=(bucket,)),
+                 q4, device=dev)
+    reset_counts()
+    out = eng.generate(p32)
+    c = read_counts()
+    want = want_counts(vertical_attention_partials=LAYERS,
+                       slash_tile_attention=LAYERS,
+                       decode_attention=LAYERS * out.decode_steps,
+                       **expected_launches(q4, out.decode_steps, 1, bucket))
+    ok &= finish(run, eng, out, c, want, {
+        "kivi4pa_fullkv_prefill_s": recs[
+            "mistral int4 fullkv kivi4-pa 32k"]["prefill_s"],
+        "expected_kv_cache_bytes": KV_BYTES_FULLKV_32K},
+        out.kv_cache_bytes == KV_BYTES_FULLKV_32K
+        and out.decode_steps == max_new - 1)
+    del eng, out
+    torch.cuda.empty_cache()
+    return ok, counts
+
+
+def phase_parity_mistral(torch, dev, params, vocab, steps=4):
+    """Depth-2 Mistral logits, kernels against plain, on the same card:
+    the last-position prefill logits and ``steps`` decode steps (each path
+    on its own copy of the kernel path's cache, fed the same tokens, as
+    phase_parity_h2o_chunked) for fullkv (the decode masked by the
+    window), snapkv, the chunked kivi4-pa carry (int4, 32k) and the
+    two-pass prefill.  Limit: 2^-5 of the largest logit."""
+    from pyramidkv_tpu_torch.cache import KVCache
+    from pyramidkv_tpu_torch.config import (CompressionSpec, EngineSpec,
+                                            ModelSpec)
+    from pyramidkv_tpu_torch.engine import Engine
+    from pyramidkv_tpu_torch.models import llama
+
+    spec = ModelSpec.preset("mistral-7b", num_hidden_layers=2)
+    p2 = dict(params, layers={k: v[:2] for k, v in params["layers"].items()})
+    ok = True
+    for run in MISTRAL_PARITY:
+        two_pass = run.endswith("two-pass")
+        if two_pass:
+            wname, size, chunk = "bf16", "8k", None
+            cs, bucket, max_new = CompressionSpec(method="snapkv"), N, MAX_NEW
+        else:
+            wname, _, size, _ = MISTRAL_RUNS[run]
+            cs, bucket, max_new, chunk = chunk_run_spec(run)
+        wts = quantized(p2, "int4") if wname == "int4" else p2
+        eng = Engine(spec, cs, EngineSpec(max_new_tokens=max_new,
+                                          prefill_buckets=(bucket,),
+                                          prefill_chunk=chunk,
+                                          prefill_two_pass=two_pass),
+                     wts, device=dev)
+        rng = np.random.default_rng(1)
+        b, tls = (1, (QTRUE,)) if size == "32k" else (B, TRUE_LEN)
+        tokens = torch.from_numpy(
+            rng.integers(0, vocab, size=(b, bucket)).astype(np.int64)).to(dev)
+        tl = torch.tensor(tls, dtype=torch.int32, device=dev)
+        plan = eng.plan_for(bucket)
+        with torch.inference_mode():
+            lk, ck = prefill_with(eng, bucket, tokens, tl, "kernel")
+            lp, _ = prefill_with(eng, bucket, tokens, tl, "plain")
+            prefill_err = err = float((lk - lp).abs().max())
+            top = float(lp.abs().max())
+            same = bool((lk.argmax(-1) == lp.argmax(-1)).all())
+            cp_ = KVCache(k=ck.k.clone(), v=ck.v.clone(),
+                          mask=ck.mask.clone(),
+                          positions=ck.positions.clone(),
+                          true_len=ck.true_len, quant=ck.quant)
+            tok = lp.argmax(-1)
+            for _ in range(steps):
+                lk, ck = llama.decode_step(wts, spec, plan, ck, tok,
+                                           attention_impl="kernel")
+                lp, cp_ = llama.decode_step(wts, spec, plan, cp_, tok,
+                                            attention_impl="plain")
+                err = max(err, float((lk - lp).abs().max()))
+                top = max(top, float(lp.abs().max()))
+                same &= bool((lk.argmax(-1) == lp.argmax(-1)).all())
+                ok &= bool(torch.isfinite(lk).all())
+                tok = lp.argmax(-1)
+            # the decode window in force: valid slots the last step hid
+            pos = ck.current_position()[:, None, None] - 1
+            hidden = (int((ck.mask & (ck.positions <= pos - MISTRAL_W)).sum())
+                      if cs.method == "fullkv" else None)
+        torch.cuda.synchronize()
+        tol = 2.0 ** -5 * top
+        good = err <= tol and (hidden is None or hidden > 0)
+        log({"phase": "parity_mistral", "run": run, "depth": 2,
+             "decode_steps": steps, "prefill_max_abs_err": prefill_err,
+             "max_abs_err": err, "tol": tol, "same_argmax": same,
+             "slots_hidden_by_window": hidden, "ok": good})
+        ok &= good
+        del eng, ck, cp_, wts
+        torch.cuda.empty_cache()
+    return ok
+
+
 def kernel_entry(name, source, replaces, launches, recs):
     """One entry of the kernels line.  ``recs`` holds one timed check per
     shape the kernel runs at in these launches (pyramidkv: one per
@@ -3676,6 +4135,8 @@ def main() -> int:
     ok &= r
     r, tp_recs = phase_two_pass_kernels(torch, F, dev)
     ok &= r
+    r, mis_recs = phase_mistral_kernels(torch, F, dev)
+    ok &= r
 
     spec = ModelSpec.preset("llama3-8b")
     t0 = time.perf_counter()
@@ -3734,6 +4195,29 @@ def main() -> int:
     log({"phase": "bench_ratio", "snapkv_int4_tok_per_s":
          qtok_s["int4 snapkv"], "fullkv_int4_kivi4pa_tok_per_s": base,
          "ratio": qtok_s["int4 snapkv"] / base})
+
+    # Mistral-7B: the same geometry with a 4096-token sliding window
+    del params
+    torch.cuda.empty_cache()
+    mspec = ModelSpec.preset("mistral-7b")
+    t0 = time.perf_counter()
+    params = init_params(mspec, torch.Generator(device=dev).manual_seed(1),
+                         dev, torch.bfloat16)
+    q4 = quantized(params, "int4")
+    torch.cuda.synchronize()
+    log({"phase": "init_params_mistral",
+         "seconds": time.perf_counter() - t0,
+         "gib": tree_gib(params), "int4_gib": tree_gib(q4)})
+    r, mis_counts, mrecs = phase_engine_mistral(
+        torch, dev, params, q4, mspec.vocab_size, list(MISTRAL_RUNS))
+    ok &= r
+    r, more_counts = phase_engine_mistral_more(torch, dev, params, q4,
+                                               mspec.vocab_size, mrecs)
+    ok &= r
+    ok &= phase_parity_mistral(torch, dev, params, mspec.vocab_size)
+    mis_counts.update(more_counts)
+    del params, q4
+    torch.cuda.empty_cache()
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
@@ -3876,6 +4360,49 @@ def main() -> int:
             sum(tcounts[r][kind] for r in tp_runs), tp_recs[kind]))
     kernels[-2]["library_note"] = tp_recs["flash_row_max"][0][
         "library_note"]
+    # Mistral-7B's windowed launches (window 4096), each row's launches
+    # summed over the runs at its shape
+    def msum(kernel, runs):
+        return sum(mis_counts[r][kernel] for r in runs)
+
+    mono = [r for r, x in MISTRAL_RUNS.items() if not x[3]]
+    m8 = [r for r in mono if MISTRAL_RUNS[r][2] == "8k"]
+    m32 = [r for r in mono if MISTRAL_RUNS[r][2] == "32k"]
+    mpart = "mistral int4 fullkv kivi4-pa 32k chunk 8192"
+    self_tiles = LAYERS * (QN // C32K)
+    for rec in mis_recs["partials 32k"]:
+        rec["layers"] = (self_tiles if rec["q_start"] == 0 else
+                         mis_counts[mpart]["flash_attention_partials"]
+                         - self_tiles)
+    kernels += [
+        kernel_entry("flash_causal_attention (Mistral window 4096, 8k batch)",
+                     src + "flash_prefill.cu",
+                     "pyramidkv_tpu/kernels/flash_prefill.py:420",
+                     msum("flash_causal_attention", m8),
+                     [mis_recs["flash 8k"]]),
+        kernel_entry("flash_causal_attention (Mistral window 4096, B=1, "
+                     f"N={QN})", src + "flash_prefill.cu",
+                     "pyramidkv_tpu/kernels/flash_prefill.py:420",
+                     msum("flash_causal_attention", m32),
+                     [mis_recs["flash 32k"]]),
+        kernel_entry("flash_attention_partials (Mistral window 4096, 32k "
+                     "C=8192: self tiles, history tiles at q_start 8192)",
+                     src + "flash_prefill.cu",
+                     "pyramidkv_tpu/kernels/flash_prefill.py:601",
+                     mis_counts[mpart]["flash_attention_partials"],
+                     mis_recs["partials 32k"]),
+        kernel_entry("decode_attention (Mistral fullkv window masks, 8k "
+                     f"batch S={N + MAX_NEW})", src + "decode_attn.cu",
+                     "pyramidkv_tpu/kernels/decode_attn.py:69",
+                     mis_counts["mistral bf16 fullkv 8k"][
+                         "decode_attention"],
+                     mis_recs["decode"][:1]),
+        kernel_entry("decode_attention (Mistral minference window masks, "
+                     f"32k S={QN + QMAX_NEW})", src + "decode_attn.cu",
+                     "pyramidkv_tpu/kernels/decode_attn.py:69",
+                     mis_counts["mistral int4 minference 32k"][
+                         "decode_attention"],
+                     mis_recs["decode"][1:])]
     for k in kernels:  # one line per kernel
         log({"kernel": k["name"], **k})
     log({"phase": "device_end", "clocks": clocks()})

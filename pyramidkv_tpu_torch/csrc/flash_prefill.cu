@@ -750,12 +750,15 @@ extern "C" int pkv_flash_pass_b(const void* q, const void* k, const void* v,
 }
 
 // acc [B*H, Nq, D], m, l [B*H, Nq] f32; q_start 0 (causal self tile,
-// Nq == N) or >= N (all keys visible).
+// Nq == N) or >= N (every key precedes every query: a history tile q_start
+// rows before the queries, so a window > 0 hides the keys q_start + r - c
+// >= window; a tile outside the window of every row walks no key).
 extern "C" int pkv_flash_partials(const void* q, const void* k, const void* v,
                                   const void* true_len, void* acc, void* m,
                                   void* l, int B, int H, int Hk, int N, int Nq,
-                                  int q_start, float scale, void* stream) {
+                                  int q_start, int window, float scale,
+                                  void* stream) {
   return wg::launch<kPartials>(q, k, v, true_len, nullptr, acc, m, l,
-                               nullptr, B, H, Hk, N, N, Nq, q_start, 0, scale,
-                               stream);
+                               nullptr, B, H, Hk, N, N, Nq, q_start, window,
+                               scale, stream);
 }

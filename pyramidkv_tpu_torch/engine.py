@@ -18,7 +18,8 @@ runs a shared prompt prefix's chunks once into a :class:`PrefixHandle`
 chunks the handle covers; :class:`PrefixRegistry` keeps handles by prefix,
 LRU.
 
-Ported: greedy decoding with every compression method of ``config.METHODS``
+Ported: greedy decoding on Llama-family models and Mistral's uniform
+sliding window, with every compression method of ``config.METHODS``
 (``policy.py``: the single-budget, pyramid, position, norm, random,
 head-budget, merging and ThinK methods, ``gqa_aggregate``, per-layer
 capacities; ``minference``'s vertical-and-slash sparse prefill), with bf16

@@ -33,7 +33,7 @@ _REGION = [_P] * 14 + [_I] * 12 + [_F] + [_P] * 3 + [_I] * 2 + [_P] * 2
 ENTRY_POINTS = {
     "flash_prefill": [
         ("pkv_flash_prefill", [_P] * 5 + [_I] * 8 + [_F, _P]),
-        ("pkv_flash_partials", [_P] * 7 + [_I] * 6 + [_F, _P]),
+        ("pkv_flash_partials", [_P] * 7 + [_I] * 7 + [_F, _P]),
         ("pkv_flash_row_max", [_P] * 4 + [_I] * 8 + [_F, _P]),
         ("pkv_flash_pass_b", [_P] * 6 + [_I] * 8 + [_F, _P]),
     ],

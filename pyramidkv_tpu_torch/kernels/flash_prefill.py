@@ -190,16 +190,20 @@ def flash_attention_partials(
     true_len: torch.Tensor,
     *,
     q_start: int = 0,
+    sliding_window: Optional[int] = None,
 ):
     """Online-softmax partials of causal GQA attention, statistics in the
     BASE-2 domain (see ``ops.attention.flash_partials_plain``).
 
     q: [B, H, Nq, D]; k, v: [B, Hk, N, D]; true_len: [B] valid keys (at the
     right end of the tile).  ``q_start == 0`` (Nq == N): the causal self
-    tile; ``q_start >= N``: every key precedes every query.  Returns (acc
-    [B, H, Nq, D], m [B, H, Nq], l [B, H, Nq]) f32."""
+    tile; ``q_start >= N``: every key precedes every query, ``q_start``
+    rows before the first (a history tile at its true distance, so that
+    ``sliding_window`` hides the keys ``q_start + r - c >= W`` behind row
+    r).  Returns (acc [B, H, Nq, D], m [B, H, Nq], l [B, H, Nq]) f32."""
     if q.device.type == "cpu":
-        return flash_partials_plain(q, k, v, true_len, q_start=q_start)
+        return flash_partials_plain(q, k, v, true_len, q_start=q_start,
+                                    sliding_window=sliding_window)
     b, h, nq, d = q.shape
     hk, n = k.shape[1], k.shape[2]
     tl = _check(q, k, v, true_len,
@@ -212,7 +216,8 @@ def flash_attention_partials(
     err = lib.pkv_flash_partials(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), tl.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, hk, n, nq, q_start,
-        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+        int(sliding_window or 0), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_partials")
     flash_attention_partials.launches += 1
     return acc, m, l

@@ -20,7 +20,11 @@ Two carries, as in the JAX package:
   tile) and each earlier chunk dequantized one tile at a time, through
   ``flash_attention_partials`` merged in the base-2 domain
   (:func:`merge_exp2`); the plain path uses ``tile_attention_partials`` and
-  the natural-log merge, as the JAX package's XLA path does.  Packing is
+  the natural-log merge, as the JAX package's XLA path does.  Under a
+  sliding window a history tile is passed at its true distance
+  (``q_start = chunk_start - hc * C``), so the kernel's window test is
+  exact, and a tile outside the window of every row is skipped; JAX runs
+  the same function through its XLA tile masks.  Packing is
   chunk-local planar; :func:`prefill_finish_quant` repacks it region-global.
   With ``q_layout="pa"`` each chunk is one K scale group.
 
@@ -152,6 +156,8 @@ def prefill_chunk(
     # the attention derives the key pad from its own key length (extent)
     eff_len = true_len.to(torch.int32) - (n - extent)
     eps = spec.rms_norm_eps
+    # the attention's window (H2O's second-pass scores take none, as JAX's)
+    win = spec.sliding_window
     window_q = []
     for li in range(spec.num_hidden_layers):
         wts = llama._layer(params, li)
@@ -169,10 +175,12 @@ def prefill_chunk(
         vh = state.v[li, :, :, :extent]
         if attention_impl == "kernel":
             attn = flash_causal_attention(q, kh, vh, eff_len,
-                                          q_start=chunk_start)
+                                          q_start=chunk_start,
+                                          sliding_window=win)
         else:
             attn = plain.causal_prefill_attention(
-                q, kh, vh, true_len=eff_len, q_start=chunk_start)
+                q, kh, vh, true_len=eff_len, q_start=chunk_start,
+                sliding_window=win)
         hidden = _finish_layer(hidden, attn, wts, spec, attention_impl)
         window_q.append(q[:, :, c - w:])
     return torch.stack(window_q), hidden[:, -1, :]
@@ -317,6 +325,16 @@ def _history_tile(state: QuantChunkState, li: int, hc: int, c: int,
             vt[..., :dh].to(dtype).contiguous())
 
 
+def _window_mask(rows: torch.Tensor, cols: torch.Tensor,
+                 win: Optional[int]) -> torch.Tensor:
+    """[R, C] visibility of key columns ``cols`` to query rows ``rows``
+    (global columns): causal, and inside the sliding window when set."""
+    vis = cols[None, :] <= rows[:, None]
+    if win is not None:
+        vis &= (rows[:, None] - cols[None, :]) < win
+    return vis
+
+
 def prefill_chunk_quant(
     params: dict,
     spec: ModelSpec,
@@ -349,6 +367,13 @@ def prefill_chunk_quant(
     kernel = attention_impl == "kernel"
     act = hidden.dtype
     eps = spec.rms_norm_eps
+    win = spec.sliding_window
+    # the history chunks some row of this chunk sees: chunk hc's last key
+    # lies inside the window of this chunk's first row (JAX runs every tile
+    # under its mask; a tile outside every row's window adds m = -inf,
+    # l = 0, so skipping it gives the same result)
+    hist = [hc for hc in range(chunk_start // c)
+            if win is None or chunk_start - (hc * c + c - 1) < win]
     for li in range(spec.num_hidden_layers):
         wts = llama._layer(params, li)
         x = llama.rms_norm(hidden, wts["attn_norm"], eps)
@@ -358,20 +383,24 @@ def prefill_chunk_quant(
         v = v.contiguous()
         if kernel:
             tl_self = c - (pad - chunk_start).clamp(0, c)
-            parts = flash_attention_partials(q, k, v, tl_self, q_start=0)
+            parts = flash_attention_partials(q, k, v, tl_self, q_start=0,
+                                             sliding_window=win)
         else:
-            self_mask = (cols[None, :] <= cols[:, None])[None] \
-                & colv[:, None, :]
+            self_mask = _window_mask(cols, cols, win)[None] & colv[:, None, :]
             parts = plain.tile_attention_partials(q, k, v, self_mask)
-        for hc in range(chunk_start // c):
+        for hc in hist:
             k_t, v_t = _history_tile(state, li, hc, c, nbits, kg, vg, dh, act)
             if kernel:
+                # the tile at its true distance: its keys lie chunk_start -
+                # hc*c rows before this chunk's queries
                 tl_t = c - (pad - hc * c).clamp(0, c)
                 parts = merge_exp2(parts, flash_attention_partials(
-                    q, k_t, v_t, tl_t, q_start=c))
+                    q, k_t, v_t, tl_t, q_start=chunk_start - hc * c,
+                    sliding_window=win))
             else:
-                hmask = (hc * c + torch.arange(c, device=dev))[None, None, :] \
-                    >= pad[:, None, None]
+                hcols = hc * c + torch.arange(c, device=dev)
+                hmask = (_window_mask(cols, hcols, win)[None]
+                         & (hcols[None, None, :] >= pad[:, None, None]))
                 parts = plain.merge_partials_pair(
                     parts, plain.tile_attention_partials(q, k_t, v_t, hmask))
         acc, _, l = parts

@@ -22,6 +22,10 @@ With ``method="minference"`` and a bucket of at least
 ``minference_dense_below`` tokens, each layer's prefill attention is the
 vertical-and-slash sparse attention of ``ops/sparse_prefill.py`` (its three
 block-sparse kernels) instead of the dense flash kernel.
+A uniform ``sliding_window`` (Mistral) masks every dense prefill
+attention; decode masks it only for fullkv and minference, whose slots are
+positions (JAX ``llama.py:932-951``), and the sparse prefill ignores it,
+as JAX's does.
 Quantized params (``models/weights.py``) keep the JAX tree's names, plus the
 fused ``wqkv`` / ``w_gateup`` leaves of ``fuse_packed_matmuls``.
 """
@@ -51,16 +55,22 @@ IMPLS = ("kernel", "plain")
 
 
 def check_ported(spec: ModelSpec) -> None:
-    """Raise for the model features the port does not run yet."""
+    """Raise for the model features the port does not run yet.  A uniform
+    sliding window (Mistral: ``sliding_window`` set, ``layer_types`` None)
+    is ported; per-layer attention types are not."""
+    if spec.layer_types is not None and spec.sliding_window is not None:
+        raise NotImplementedError(
+            f"{spec.name}: per-layer sliding/full attention (Gemma-2's "
+            "layer_types) is not ported yet (ROADMAP queue 1 #5c)")
     if (spec.num_local_experts or spec.attention_bias or spec.post_block_norms
             or spec.rmsnorm_unit_offset or spec.scale_embeddings
-            or spec.sliding_window is not None or spec.hidden_act != "silu"
+            or spec.hidden_act != "silu"
             or spec.query_pre_attn_scalar is not None
             or spec.attn_logit_softcapping is not None
             or spec.final_logit_softcapping is not None):
         raise NotImplementedError(
-            f"{spec.name}: MoE, QKV biases, sliding windows and Gemma-2 "
-            "features are not ported yet (ROADMAP queue 1)")
+            f"{spec.name}: MoE, QKV biases and Gemma-2 features are not "
+            "ported yet (ROADMAP queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +240,10 @@ def prefill(
     hidden = embed_lookup(params["embed"], tokens.long(),
                           params["final_norm"].dtype)  # [B, N, Dm]
     cs = plan.spec
+    win = spec.sliding_window
+    # MInference's vertical-and-slash attention ignores a uniform window,
+    # as JAX's does (its pattern has no window semantics); below
+    # minference_dense_below the dense attention takes the window
     sparse = cs.method == "minference" and n >= cs.minference_dense_below
     budgets = _minference_budgets(cs, dev) if sparse else None
     regions = []  # KIVI: each layer's quantized prefill region
@@ -249,10 +263,11 @@ def prefill(
                                          attention_impl)
             elif attention_impl == "kernel":
                 attn = flash_causal_attention(q, k, v, true_len,
+                                              sliding_window=win,
                                               two_pass=prefill_two_pass)
             else:
-                attn = plain.causal_prefill_attention(q, k, v,
-                                                      true_len=true_len)
+                attn = plain.causal_prefill_attention(
+                    q, k, v, true_len=true_len, sliding_window=win)
             hidden = hidden + mm(attn.transpose(1, 2).reshape(b, n, -1),
                                  wts["wo"], attention_impl)
             hidden = hidden + _mlp(rms_norm(hidden, wts["mlp_norm"], eps),
@@ -371,16 +386,17 @@ def region_route(cs, bhk: int, w: int, device: torch.device,
 
 
 def _region_attention(q: torch.Tensor, reg, layer: LayerCacheView,
-                      plan: PolicyPlan, impl: str,
+                      visible: torch.Tensor, plan: PolicyPlan, impl: str,
                       f32_quant: bool = False) -> torch.Tensor:
     """One KIVI layer's decode attention over the quantized prefill region
-    and the bf16 decode slots (the tail): one region-kernel call
+    and the bf16 decode slots (the tail), ``visible`` [B, Hk, S] (a
+    contiguous mask over both; its region prefix and tail rows are the
+    views the kernels take): one region-kernel call
     (:func:`region_route`), which attends over the tail too and merges,
     or its plain version (region partials, tail partials in plain
     torch as the JAX package leaves them to XLA, merged).  Returns
     [B, H, D] in q's dtype."""
     cs, sp = plan.spec, plan.prefill_slots
-    visible = layer.mask
     tail = (layer.k, layer.v, visible[:, :, sp:])
     if impl == "kernel":
         b, hk, w = reg.k.codes.shape[:3]
@@ -423,6 +439,11 @@ def decode_step(
     inv_freq = rope_inv_freq(spec, token.device)
     pos = cache.current_position()  # [B]
     store_kv = stores_kv_heads(plan.spec)
+    # the window masks decode only where rows are positions (fullkv and
+    # minference keep every slot); a compressed cache attends all its
+    # kept keys, the reference's decode semantics (JAX llama.py:932-951)
+    win = (spec.sliding_window
+           if plan.spec.method in ("fullkv", "minference") else None)
     quantized = cache.quant is not None
     think = cache.think is not None
     attend = (decode_attention if attention_impl == "kernel"
@@ -456,10 +477,14 @@ def decode_step(
             layer.v[:, :, v_slot] = v[:, :, 0]
             layer.mask[:, :, slot] = True
             layer.positions[:, :, slot] = pos[:, None].to(torch.int32)
+            visible = layer.mask
+            if win is not None:  # a fresh contiguous mask, as the kernels take
+                visible = visible & (layer.positions
+                                     > (pos[:, None, None] - win))
             if quantized:
                 attn = _region_attention(
                     q, quant.layer_region(cache.quant, start + i), layer,
-                    sub, attention_impl, f32_quant)
+                    visible, sub, attention_impl, f32_quant)
             elif think:
                 # no kernel: plain torch, as JAX leaves it to XLA
                 attn = plain.decode_attention_think(
@@ -467,7 +492,7 @@ def decode_step(
                     cache.think.kept_channels[start + i], layer.k, layer.v,
                     layer.mask)
             else:
-                attn = attend(q, layer.k, layer.v, layer.mask)
+                attn = attend(q, layer.k, layer.v, visible)
             hidden = hidden + mm(attn.reshape(b, -1), wts["wo"],
                                  attention_impl)
             hidden = hidden + _mlp(rms_norm(hidden, wts["mlp_norm"], eps),

@@ -96,6 +96,7 @@ def flash_partials_plain(
     true_len: torch.Tensor,
     *,
     q_start: int = 0,
+    sliding_window: Optional[int] = None,
     block: int = 512,
 ):
     """Plain version of ``kernels/flash_prefill.py::flash_attention_partials``:
@@ -105,13 +106,15 @@ def flash_partials_plain(
     q: [B, H, Nq, D]; k, v: [B, Hk, N, D]; true_len: [B] (keys at columns
     < N - true_len are padding).  Queries sit at global columns [q_start,
     q_start + Nq): ``q_start == 0`` with Nq == N is the causal self tile,
-    ``q_start >= N`` an all-visible rectangle (every key precedes every
-    query).  q is scaled by log2(e)/sqrt(D) and rounded to q's dtype (the
-    JAX wrapper's fold), so logits s are base-2 and
-    ``m = max s``, ``l = sum exp2(s - m)``, ``acc = sum p v`` with p rounded
-    to v's dtype.  A row with no visible key has m = float32.min, l = 0,
-    acc = 0.  Returns (acc [B, H, Nq, D], m [B, H, Nq], l [B, H, Nq]) f32;
-    merge in base 2 (``models/chunked_prefill.py::merge_exp2``).
+    ``q_start >= N`` a rectangle whose keys all precede its queries (a
+    history tile at its true distance: with ``sliding_window`` a key is
+    visible only when ``q_start + r - c < sliding_window``).  q is scaled
+    by log2(e)/sqrt(D) and rounded to q's dtype (the JAX wrapper's fold),
+    so logits s are base-2 and ``m = max s``, ``l = sum exp2(s - m)``,
+    ``acc = sum p v`` with p rounded to v's dtype.  A row with no visible
+    key has m = float32.min, l = 0, acc = 0.  Returns (acc [B, H, Nq, D],
+    m [B, H, Nq], l [B, H, Nq]) f32; merge in base 2
+    (``models/chunked_prefill.py::merge_exp2``).
     """
     b, h, nq, d = q.shape
     hk, n = k.shape[1], k.shape[2]
@@ -132,7 +135,10 @@ def flash_partials_plain(
     l = torch.empty((b, hk, g, nq), **f32)
     for r0 in range(0, nq, block):
         rows = q_start + r0 + torch.arange(block, device=q.device)
-        mask = (col[None, :] <= rows[:, None])[None] & colv[:, None, :]
+        vis = col[None, :] <= rows[:, None]
+        if sliding_window is not None:
+            vis &= (rows[:, None] - col[None, :]) < sliding_window
+        mask = vis[None] & colv[:, None, :]
         s = torch.matmul(qr[:, :, :, r0:r0 + block].reshape(
             b, hk, g * block, d), kf).reshape(b, hk, g, block, n)
         s = s.masked_fill(~mask[:, None, None], _NEG_INF)

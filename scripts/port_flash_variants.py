@@ -177,8 +177,8 @@ def main() -> int:
                       m=m, l=l, n=n, q_start=q_start: lib.pkv_flash_partials(
                           q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           tl.data_ptr(), acc.data_ptr(), m.data_ptr(),
-                          l.data_ptr(), 1, cs.H, cs.HK, n, n, q_start, sc,
-                          stream)))
+                          l.data_ptr(), 1, cs.H, cs.HK, n, n, q_start, 0,
+                          sc, stream)))
     order = list(libs) + list(reversed(list(libs)))
     times = {}
     for label, out, call in cases:

@@ -105,6 +105,12 @@ Mutants:
   of each block's walk (the diagonal tile's second half);
 - ``row_max_no_window_mask``: pass A's edge units leave the window edge
   unmasked (targets the checks with a sliding window);
+- ``flash_no_window_mask`` (``csrc/flash_prefill.cu``): the wgmma
+  kernel's edge tiles leave the window edge unmasked (its walk still
+  starts at the window edge's tile; targets Mistral's windowed checks
+  whose rows the window cuts);
+- ``partials_no_window`` (``csrc/flash_prefill.cu``): the partials entry
+  drops its window argument (targets Mistral's windowed partials);
 - ``pass_b_skip_diagonal_tile`` (``csrc/flash_prefill.cu``): pass B (the
   wgmma kernel's pass-B entry) skips each q tile's last key tile (the
   diagonal);
@@ -192,6 +198,18 @@ def _pa(r):
 
 def _int4(r):
     return r["check"] in ("int4_matmul", "int4_matmul_dma")
+
+
+def _window_cut(r):
+    """Mistral's one-pass and partials checks whose rows the window cuts
+    (the 8k batch's chunks 0 and 1 hold rows below the window: no key is
+    outside it)."""
+    return (r["check"] in ("flash_causal_attention",
+                           "flash_causal_attention (q_start)",
+                           "flash_attention_partials")
+            and bool(r.get("window"))
+            and not r["case"].startswith(("8k batch chunk 0",
+                                          "8k batch chunk 1")))
 
 
 def _pad_in_tile(r):
@@ -345,6 +363,18 @@ MUTANTS = {
         lambda r: r["check"] == "flash_row_max" and r.get("window"),
         "          if (window > 0) ok = ok && r - c < window;\n",
         ""),
+    "flash_no_window_mask": (
+        "csrc/flash_prefill.cu", "phase_mistral_kernels", _window_cut,
+        "        if (window > 0) ok = ok && row - col < window;\n"
+        "        if (!ok) s[4 * j + e] = -INFINITY;",
+        "        if (!ok) s[4 * j + e] = -INFINITY;"),
+    "partials_no_window": (
+        "csrc/flash_prefill.cu", "phase_mistral_kernels",
+        lambda r: r["check"] == "flash_attention_partials",
+        "nullptr, B, H, Hk, N, N, Nq, q_start, window,\n"
+        "                               scale, stream);",
+        "nullptr, B, H, Hk, N, N, Nq, q_start, 0,\n"
+        "                               scale, stream);"),
     "pass_b_skip_diagonal_tile": (
         "csrc/flash_prefill.cu", "phase_two_pass_kernels", ("flash_pass_b",),
         "const int kt_last = hi / BK;",

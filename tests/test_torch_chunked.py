@@ -44,6 +44,7 @@ from pyramidkv_tpu_torch.models.convert import (params_from_numpy,
                                                 region_from_numpy)
 from pyramidkv_tpu_torch.ops import attention as plain
 from pyramidkv_tpu_torch.ops.quant import quant_region_attention_fused
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KTOL = 2e-5
 _NEG = float(np.finfo(np.float32).min)
@@ -281,6 +282,22 @@ QFMT = {"kivi8": (8, "group"), "kivi4": (4, "group"), "kivi8-pa": (8, "pa"),
         "kivi4-pa": (4, "pa")}
 
 
+@pytest.fixture(scope="module")
+def quant_engines(params):
+    """(JAX chunked engine, port chunked engine, port monolithic engine)
+    of a quantized-carry format, built once a module and shared by the
+    tests of that format: the JAX engine keeps its compiled chunk
+    functions."""
+    cache = {}
+
+    def get(fmt):
+        if fmt not in cache:
+            cache[fmt] = _quant_engines(params, fmt)
+        return cache[fmt]
+
+    return get
+
+
 def _quant_engines(params, fmt, chunk=64):
     nbits, layout = QFMT[fmt]
     comp = dict(method="fullkv", quant_method="kivi", nbits=nbits,
@@ -306,12 +323,12 @@ def _bucket(prompts):
 
 
 @pytest.mark.parametrize("fmt", list(QFMT))
-def test_quant_carry_layer0_bits(params, fmt):
+def test_quant_carry_layer0_bits(params, quant_engines, fmt):
     """Layer 0's K/V depend only on the embeddings, so the chunk-local
     codes repacked region-global equal the monolithic prefill's region bit
     for bit (group layout: every leaf; pa: V, while K takes one scale group
     per chunk), and its codes equal JAX's carry's."""
-    je, te, mono = _quant_engines(params, fmt)
+    je, te, mono = quant_engines(fmt)
     assert te.chunked_prefill_supported(256)
     tokens, tl_ = _bucket(_prompts())
     _, got = te._run_chunked_prefill(256, torch.from_numpy(tokens),
@@ -340,12 +357,12 @@ def test_quant_carry_layer0_bits(params, fmt):
 
 
 @pytest.mark.parametrize("fmt", list(QFMT))
-def test_quant_carry_generate_matches_jax_engine(params, fmt):
+def test_quant_carry_generate_matches_jax_engine(quant_engines, fmt):
     """Tokens, decode steps and cache bytes of the quantized carry against
     JAX's chunked engine (its group regions decode through its region
     kernel in interpret mode, as the port's do; pa through the fused XLA
     path, which the port's plain pa function mirrors)."""
-    je, te, _ = _quant_engines(params, fmt)
+    je, te, _ = quant_engines(fmt)
     prompts = _prompts()
     force = jl._FORCE_QUANT_KERNEL
     force[0] = QFMT[fmt][1] == "group"

@@ -23,6 +23,7 @@ import torch
 from pyramidkv_tpu.kernels.decode_attn import decode_attention_pallas
 from pyramidkv_tpu_torch.kernels import decode_attn, quant_decode
 from pyramidkv_tpu_torch.ops import attention as plain
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 2e-4
 CPU = torch.device("cpu")

@@ -17,6 +17,7 @@ from pyramidkv_tpu_torch import config as tcfg
 from pyramidkv_tpu_torch.engine import Engine
 from pyramidkv_tpu_torch.models.convert import params_from_numpy
 from pyramidkv_tpu_torch.models.weights import quantize_weights
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_traces.json")
 METHODS = ["fullkv", "snapkv", "pyramidkv"]
@@ -34,30 +35,40 @@ def params():
                                  device="cpu")
 
 
-def _engines(params, method):
-    jp, tp = params
-    je = JaxEngine(jcfg.ModelSpec.tiny(),
-                   jcfg.CompressionSpec(method=method, **COMP),
-                   jcfg.EngineSpec(**ENG), jp)
-    te = Engine(tcfg.ModelSpec.tiny(),
-                tcfg.CompressionSpec(method=method, **COMP),
-                tcfg.EngineSpec(**ENG), tp, device="cpu")
-    return je, te
+@pytest.fixture(scope="module")
+def engines(params):
+    """(JAX engine, port engine) per method, built once a module and
+    shared by the tests that run it."""
+    cache = {}
+
+    def get(method):
+        if method not in cache:
+            jp, tp = params
+            cache[method] = (
+                JaxEngine(jcfg.ModelSpec.tiny(),
+                          jcfg.CompressionSpec(method=method, **COMP),
+                          jcfg.EngineSpec(**ENG), jp),
+                Engine(tcfg.ModelSpec.tiny(),
+                       tcfg.CompressionSpec(method=method, **COMP),
+                       tcfg.EngineSpec(**ENG), tp, device="cpu"))
+        return cache[method]
+
+    return get
 
 
 @pytest.mark.parametrize("method", METHODS)
-def test_golden_trace(params, method):
+def test_golden_trace(engines, method):
     with open(GOLDEN) as f:
         golden = json.load(f)
-    _, te = _engines(params, method)
+    _, te = engines(method)
     assert te.generate([golden["_prompt"]]).tokens[0] == golden[method]
 
 
 @pytest.mark.parametrize("method", METHODS)
-def test_generate_matches_jax_engine(params, method):
+def test_generate_matches_jax_engine(engines, method):
     rng = np.random.default_rng(5)
     prompts = [rng.integers(1, 256, size=n).tolist() for n in (60, 37, 12)]
-    je, te = _engines(params, method)
+    je, te = engines(method)
     # an EOS id the model emits mid-sequence for the first prompt, so the
     # done / -1 / early-exit paths run
     eos = je.generate(prompts).tokens[0][2]
@@ -81,9 +92,13 @@ def test_unported_engine_options_raise(params):
         Engine(spec, tcfg.CompressionSpec(method="snapkv",
                                           quant_method="kvquant", **COMP),
                tcfg.EngineSpec(**ENG), tp, device="cpu")
+    # a uniform window is ported (tests/test_torch_mistral.py); Gemma-2's
+    # alternating sliding and full layers are not
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(tcfg.ModelSpec.tiny(sliding_window=32), comp,
-               tcfg.EngineSpec(**ENG), tp, device="cpu")
+        Engine(tcfg.ModelSpec.tiny(
+            sliding_window=32,
+            layer_types=("sliding_attention", "full_attention") * 2), comp,
+            tcfg.EngineSpec(**ENG), tp, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -125,17 +140,31 @@ def wide_params():
                           dtype=jnp.float32)
 
 
+@pytest.fixture(scope="module")
+def quant_trees(wide_params):
+    """Each QUANT format's fused JAX tree and its port twin, quantized and
+    converted once a module (shared by the fullkv and snapkv cases)."""
+    cache = {}
+
+    def get(quant):
+        if quant not in cache:
+            jq = jw.fuse_packed_matmuls(jw.quantize_weights(wide_params,
+                                                            **QUANT[quant]))
+            cache[quant] = jq, params_from_numpy(
+                jax.tree_util.tree_map(np.asarray, jq), device="cpu")
+        return cache[quant]
+
+    return get
+
+
 @pytest.mark.parametrize("method", ["fullkv", "snapkv"])
 @pytest.mark.parametrize("quant", list(QUANT))
-def test_quantized_generate_matches_jax_engine(wide_params, quant, method):
+def test_quantized_generate_matches_jax_engine(quant_trees, quant, method):
     """The JAX engine with its int4/int8 kernels forced on (interpret mode)
     against the port's CPU engine on the same quantized tree, fused as the
     runners fuse it: int4 with a padded int4 lm_head, int4 with 128-row
     groups and the int8 lm_head, int8."""
-    jq = jw.fuse_packed_matmuls(jw.quantize_weights(wide_params,
-                                                    **QUANT[quant]))
-    tq = params_from_numpy(jax.tree_util.tree_map(np.asarray, jq),
-                           device="cpu")
+    jq, tq = quant_trees(quant)
     comp = dict(method=method, **COMP)
     # The int8 kernels round x to bf16 (both packages), so an f32 difference
     # of ~1e-7 between the two flips a rounding now and then: one activation

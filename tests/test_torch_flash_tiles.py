@@ -48,6 +48,7 @@ from pyramidkv_tpu_torch.ops.attention import (causal_prefill_attention,
                                                flash_partials_plain,
                                                flash_pass_b_plain,
                                                flash_row_max_plain)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KTOL = 2e-5
 D = 128

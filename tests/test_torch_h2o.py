@@ -29,6 +29,7 @@ from pyramidkv_tpu_torch import kernels
 from pyramidkv_tpu_torch.engine import Engine
 from pyramidkv_tpu_torch.models.convert import params_from_numpy
 from pyramidkv_tpu_torch.ops import scoring
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-5, 1e-6
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_traces.json")

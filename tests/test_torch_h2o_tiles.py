@@ -37,6 +37,7 @@ from pyramidkv_tpu.kernels.h2o_scores import h2o_scores_pallas
 from pyramidkv_tpu_torch.kernels.h2o_scores import (BLOCK, h2o_tile_plan,
                                                     h2o_tiled_plain)
 from pyramidkv_tpu_torch.ops import scoring
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KTOL = 2e-5
 D = 128

@@ -29,6 +29,7 @@ from pyramidkv_tpu_torch.kernels.int4_matmul import (
     int8_matmul_plain,
     split_x3,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL4, TOL8 = 2e-5, 1e-4
 

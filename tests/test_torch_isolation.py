@@ -8,6 +8,7 @@ import sys
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

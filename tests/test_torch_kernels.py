@@ -19,6 +19,7 @@ from pyramidkv_tpu.kernels import flash_causal_attention as jax_flash
 from pyramidkv_tpu.kernels.decode_attn import decode_attention_pallas
 from pyramidkv_tpu_torch.kernels import decode_attention, flash_causal_attention
 from pyramidkv_tpu_torch.ops import attention as plain
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 2e-4
 

@@ -20,6 +20,7 @@ from pyramidkv_tpu_torch import config as tcfg
 from pyramidkv_tpu_torch.engine import Engine
 from pyramidkv_tpu_torch.models.convert import params_from_numpy
 from pyramidkv_tpu_torch.policy import PORTED_METHODS
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_traces.json")
 #: the golden-trace configuration (tests/test_golden_traces.py)

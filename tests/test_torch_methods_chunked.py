@@ -14,6 +14,7 @@ from pyramidkv_tpu.models import llama as jl
 from pyramidkv_tpu_torch import config as tcfg
 from pyramidkv_tpu_torch.engine import Engine
 from pyramidkv_tpu_torch.models.convert import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 #: the bf16-carry tests' configuration (tests/test_torch_chunked.py)
 COMP = dict(max_capacity_prompt=64, window_size=8)

@@ -28,6 +28,7 @@ from pyramidkv_tpu_torch.ops import merge as tmerge
 from pyramidkv_tpu_torch.ops import scoring as tscore
 from pyramidkv_tpu_torch.ops import selection as tsel
 from pyramidkv_tpu_torch.ops import think as tthink
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 

@@ -39,6 +39,7 @@ from pyramidkv_tpu_torch.kernels import block_sparse_prefill as tk
 from pyramidkv_tpu_torch.models.convert import params_from_numpy
 from pyramidkv_tpu_torch.ops import sparse_prefill as ts
 from pyramidkv_tpu_torch.policy import make_plan
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_traces.json")
 TOL = 2e-5

@@ -20,6 +20,7 @@ from pyramidkv_tpu_torch import policy as tpolicy
 from pyramidkv_tpu_torch.cache import cache_memory_bytes, used_kv_tokens
 from pyramidkv_tpu_torch.models import llama as tl
 from pyramidkv_tpu_torch.models.convert import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 BUCKET, DECODE_SLOTS = 64, 4

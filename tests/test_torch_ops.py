@@ -21,6 +21,7 @@ from pyramidkv_tpu_torch.models import llama as tllama
 from pyramidkv_tpu_torch.ops import pooling as tpool
 from pyramidkv_tpu_torch.ops import scoring as tscore
 from pyramidkv_tpu_torch.ops import selection as tsel
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SCORE_TOL = 1e-6
 

@@ -37,6 +37,7 @@ from pyramidkv_tpu_torch.kernels.quant_fused_decode import (
     PA_UNIT, PA_WARPS, pa_smem_bytes, pa_split_plain, pa_split_plan,
     pa_split_rows)
 from pyramidkv_tpu_torch.ops import quant as tq
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 NEG = float(np.finfo(np.float32).min)

@@ -25,6 +25,7 @@ from pyramidkv_tpu_torch.engine import Engine, PrefixHandle, PrefixRegistry
 from pyramidkv_tpu_torch.models import chunked_prefill as cp
 from pyramidkv_tpu_torch.models.convert import params_from_numpy
 from pyramidkv_tpu_torch.ops.quant import QuantizedTensor, dequantize
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BUCKET, CHUNK = 256, 64
 COMP = dict(max_capacity_prompt=64, window_size=8)

@@ -30,6 +30,7 @@ from pyramidkv_tpu_torch.models.convert import region_from_numpy
 from pyramidkv_tpu_torch.ops import attention as tatt
 from pyramidkv_tpu_torch.ops import quant as tq
 from pyramidkv_tpu_torch.policy import make_plan
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(a):

@@ -36,6 +36,7 @@ from pyramidkv_tpu.ops import quant as jq
 from pyramidkv_tpu_torch.kernels import quant_decode as qd
 from pyramidkv_tpu_torch.models.convert import region_from_numpy
 from pyramidkv_tpu_torch.ops import quant as tq
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 NEG = float(np.finfo(np.float32).min)

@@ -29,6 +29,7 @@ from pyramidkv_tpu_torch.kernels.flash_prefill import (BLOCK_Q, UNIT,
                                                       row_max_tiled_plain,
                                                       row_max_unit_plan)
 from pyramidkv_tpu_torch.ops.attention import flash_row_max_plain
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 D = 128
 NEG = float(np.finfo(np.float32).min)

@@ -39,6 +39,7 @@ from pyramidkv_tpu_torch.kernels import block_sparse_prefill as tk
 from pyramidkv_tpu_torch.ops import sparse_prefill as ts
 from test_torch_minference import _assert_partials_close
 from test_torch_sparse_tiles import _check_partials
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 #: the slash test's shape: GQA, 8 q-blocks of 8 k-tiles, budget 3
 B, H, HK, N, D, QB, KT, BUDGET = 1, 4, 2, 128, 16, 16, 16, 3

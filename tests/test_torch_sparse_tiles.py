@@ -39,6 +39,7 @@ from pyramidkv_tpu_torch.kernels.block_sparse_prefill import (
     slash_unit_plan, sort_vertical_columns, vertical_tile_plan,
     vertical_tiled_plain)
 from pyramidkv_tpu_torch.ops import sparse_prefill as sp
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KTOL = 2e-5
 D = 32

@@ -16,6 +16,7 @@ import pytest
 from pyramidkv_tpu_torch import config as tcfg
 from pyramidkv_tpu_torch.engine import Engine
 from pyramidkv_tpu_torch.models.convert import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "data",
                     "tiny_retrieval.npz")

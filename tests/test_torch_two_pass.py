@@ -28,6 +28,7 @@ from pyramidkv_tpu_torch.kernels import (flash_causal_attention,
                                          flash_pass_b, flash_row_max)
 from pyramidkv_tpu_torch.models import llama as tl
 from pyramidkv_tpu_torch.models.convert import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 _NEG = float(np.finfo(np.float32).min)

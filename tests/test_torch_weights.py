@@ -15,6 +15,7 @@ from pyramidkv_tpu.models import weights as jw
 from pyramidkv_tpu_torch.kernels import int4_matmul, int8_matmul
 from pyramidkv_tpu_torch.models import weights as tw
 from pyramidkv_tpu_torch.models.convert import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 #: span-128 widths (hidden 256): the layout every real weight has
 WIDE = dict(hidden_size=256, intermediate_size=512, num_attention_heads=8,
@@ -80,15 +81,15 @@ def wide_params():
 ], ids=["int8", "int4", "int4-g16", "int4-g128-lm4-pad", "int8-pad"])
 def test_quantize_weights_bit_equal_to_jax(wide_params, kw):
     jp, tp = wide_params
-    jq = jax.tree_util.tree_map(np.asarray, jw.quantize_weights(jp, **kw))
+    jqt = jw.quantize_weights(jp, **kw)  # quantized once, fused below
+    jq = jax.tree_util.tree_map(np.asarray, jqt)
     tq = tw.quantize_weights(tp, **kw)
     _tree_equal(jq, tq)
     # the bridge carries the quantized JAX tree as the same port tree
     _tree_equal(jq, params_from_numpy(jq, device="cpu"))
     if kw["nbits"] == 4:
         # fused leaves too (wqkv / w_gateup), with the unfused names gone
-        jf = jax.tree_util.tree_map(
-            np.asarray, jw.fuse_packed_matmuls(jw.quantize_weights(jp, **kw)))
+        jf = jax.tree_util.tree_map(np.asarray, jw.fuse_packed_matmuls(jqt))
         tf = tw.fuse_packed_matmuls(tq)
         assert {"wqkv", "w_gateup"} <= set(tf["layers"])
         _tree_equal(jf, tf)
