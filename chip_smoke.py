@@ -142,7 +142,31 @@ Phases (any failure exits non-zero):
      the plans;
  23. parity_mistral: depth-2 prefill and decode logits, kernels against
      plain, for fullkv (the window-masked decode), snapkv, the chunked
-     kivi4-pa carry and two-pass.
+     kivi4-pa carry and two-pass;
+ 24. qwen_kernels (run with the kernel phases): Qwen2.5-7B's shapes, 28
+     query heads on 4 KV heads (G = 7): the decode kernel's occupancy at
+     each instantiated group against the residency its split plan assumes,
+     the decode kernel at G = 7 on short shapes, several splits with a
+     wholly masked split and S no multiple of the tile, the 8k batch's and
+     32k fullkv widths (timed beside SDPA, and on the two-wave plan of two
+     blocks an SM); the KIVI group (kFold; kF32 on short shapes) and pa
+     kernels at G = 7 for 2-, 4- and 8-bit codes, and kivi4 at the 32k and
+     8k fullkv widths (timed); untimed, flash (one-pass, q_start,
+     two-pass), partials, H2O and the block-sparse kernels at 28 / 4 heads;
+     the int4 / g128 / int8 matmuls at Qwen's five decode widths, rows 1
+     and 8;
+ 25. engine_qwen: ``Engine.generate`` on ``ModelSpec.preset("qwen2.5-7b")``
+     (28 layers, seeded random weights with QKV biases; Mistral's are freed
+     first): the 8k batch for fullkv (G = 7 decode), snapkv, pyramidkv and
+     h2o, fullkv kivi4 group and kivi4-pa, the 32k prompt with int4
+     weights for fullkv kivi4-pa, fullkv kivi4 group, snapkv and
+     minference, and the chunked kivi4-pa carry (C=8192); launch counts,
+     the decode kernel's blocks (one wave of its
+     split plan) and cache bytes held to the plans (the engine_mistral
+     runs are held the same way);
+ 26. parity_qwen: depth-2 prefill and decode logits, kernels against
+     plain, for fullkv, snapkv, fullkv kivi4 group and kivi4-pa (the 8k
+     batch).
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -453,22 +477,26 @@ def check_flash(torch, F, dev, b, h, hk, n, true_len, window, timed, seed,
 
 
 def check_decode(torch, F, dev, b, h, hk, s, timed, seed, label, mask=None,
-                 masked_split=False):
+                 masked_split=False, residency=None):
     """The decode kernel against its plain version (and two calls against
     each other, bitwise) on random q, K, V.  ``mask``: the visibility to use
     (an engine cache's), else random at 70% with row (0, 0) masked
     everywhere (uniform average, as on the TPU; across several splits where
     the plan makes several) and, with ``masked_split``, split 1 of row
-    (0, 1) wholly masked."""
-    from pyramidkv_tpu_torch.kernels import decode_attention
+    (0, 1) wholly masked.  ``residency`` (timed): also time the kernel on
+    the plan made for that many blocks an SM (``residency_ms``), held to
+    the plain version too."""
+    from pyramidkv_tpu_torch.kernels import decode_attn
     from pyramidkv_tpu_torch.kernels.decode_attn import decode_split_plan
+
+    decode_attention = decode_attn.decode_attention
     from pyramidkv_tpu_torch.ops.attention import decode_attention as plain
 
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, h, D), generator=g, device=dev).to(torch.bfloat16)
     k = torch.randn((b, hk, s, D), generator=g, device=dev).to(torch.bfloat16)
     v = torch.randn((b, hk, s, D), generator=g, device=dev).to(torch.bfloat16)
-    nsplit, rows = decode_split_plan(dev, b * hk, s)
+    nsplit, rows = decode_split_plan(dev, b * hk, s, h // hk)
     if mask is None:
         mask = torch.rand((b, hk, s), generator=g, device=dev) < 0.7
         mask[0, 0] = False  # one all-masked row: uniform average, as on the TPU
@@ -508,6 +536,20 @@ def check_decode(torch, F, dev, b, h, hk, s, timed, seed, label, mask=None,
         flops = 4.0 * D * (h // hk) * valid
         nbytes = valid * D * 2 * 2 + b * hk * s + 2 * b * h * D * 2
         rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes)
+        if residency:
+            own = decode_attn.blocks_per_sm
+            decode_attn.blocks_per_sm = lambda g: residency
+            try:
+                alt = decode_attention(q, k, v, mask)
+                rec["residency"] = residency
+                rec["residency_plan"] = decode_split_plan(dev, b * hk, s,
+                                                          h // hk)
+                rec["residency_err_over_tol"] = err_over_tol(alt, want)
+                rec["residency_ms"] = graph_ms(
+                    torch, lambda: decode_attention(q, k, v, mask), reps=50)
+            finally:
+                decode_attn.blocks_per_sm = own
+            ratio = max(ratio, rec["residency_err_over_tol"])
     log(rec)
     ok = (ratio <= 1 and bool(torch.isfinite(got).all())
           and rec["bitwise_repeat"])
@@ -773,8 +815,9 @@ def _kernels():
 def reset_counts():
     for fn in _kernels().values():
         fn.launches = 0
-        if hasattr(fn, "kernels"):
-            fn.kernels = 0
+        for attr in ("kernels", "blocks"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
@@ -906,20 +949,21 @@ def method_plan(run):
     return make_plan(method_spec(run), LAYERS, N, MAX_NEW)
 
 
-def methods_kv_bytes(plan, b: int) -> int:
+def methods_kv_bytes(plan, b: int, h: int = H, hk: int = HK,
+                     layers: int = LAYERS) -> int:
     """The cache bytes a plan implies (bf16 K and V over each segment's
     slots; ThinK's narrow layout: K without the pruned slots, which live
     at D_kept channels beside their int32 channel indices)."""
     from pyramidkv_tpu_torch.policy import stores_kv_heads
 
     cs = plan.spec
-    hs = HK if stores_kv_heads(cs) else H
+    hs = hk if stores_kv_heads(cs) else h
     sp = plan.think_pruned_slots if plan.think_narrow else 0
     total = sum((stop - start) * b * hs * (2 * sub.total_slots - sp) * D * 2
                 for start, stop, sub in plan.segment_plans())
     if plan.think_narrow:
         dk = D - int(D * cs.pruning_ratio)
-        total += LAYERS * b * H * (sp * dk * 2 + dk * 4)
+        total += layers * b * h * (sp * dk * 2 + dk * 4)
     return total
 
 
@@ -1180,8 +1224,8 @@ def quantized(params, weights: str):
     return fuse_packed_matmuls(q) if QUANT[weights]["nbits"] == 4 else q
 
 
-def expected_launches(qp, steps: int, b: int, n: int, chunks: int = 1
-                      ) -> dict:
+def expected_launches(qp, steps: int, b: int, n: int, chunks: int = 1,
+                      layers: int = LAYERS) -> dict:
     """Matmul kernel launches one generate implies, from the plan: the
     routing rule of each quantized leaf at the prefill's b*n rows (layers,
     once per prefill chunk of n tokens) and b rows (the last position's
@@ -1198,8 +1242,8 @@ def expected_launches(qp, steps: int, b: int, n: int, chunks: int = 1
     for w in qp["layers"].values():
         if isinstance(w, QuantW):
             w0 = QuantW(w.codes[0], w.scale[0])
-            add(w0, b * n, LAYERS * chunks)
-            add(w0, b, LAYERS * steps)
+            add(w0, b * n, layers * chunks)
+            add(w0, b, layers * steps)
     add(qp["lm_head"], b, 1 + steps)
     return counts
 
@@ -1488,18 +1532,24 @@ def kv_shape(run):
 
 
 def kv_cache_bytes(run) -> int:
-    """kv_cache_bytes a KIVI run must report, from its layout: the region's
-    codes, scales and zeros plus the bf16 decode slots, 32 layers."""
-    _, method, nbits, layout, size, _ = KV_RUNS[run]
+    """kv_cache_bytes a KIVI run must report (see kivi_bytes)."""
+    _, _, nbits, layout, size, _ = KV_RUNS[run]
     _, b, hm, _, _, _, s_pad = kv_shape(run)
+    return kivi_bytes(b, hm, s_pad, nbits, layout,
+                      QMAX_NEW if size == "32k" else MAX_NEW)
+
+
+def kivi_bytes(b, hm, s_pad, nbits, layout, ds, layers=LAYERS) -> int:
+    """kv_cache_bytes of a monolithic KIVI cache, from its layout (group
+    size 64): each layer's region codes, scales and zeros over ``s_pad``
+    slots of ``hm`` stored heads, plus its ``ds`` bf16 decode slots."""
     per, g = 8 // nbits, 64
-    ds = QMAX_NEW if size == "32k" else MAX_NEW
     pa = layout == "pa"
     per_layer = (2 * b * hm * (s_pad // per) * D                      # codes
                  + 2 * b * hm * D * (1 if pa else s_pad // g) * 4     # K s/z
                  + 2 * b * hm * s_pad * (1 if pa else D // g) * 4     # V s/z
                  + 2 * b * hm * ds * D * 2)                           # bf16
-    return LAYERS * per_layer
+    return layers * per_layer
 
 
 def region_inputs(torch, dev, b, hk, grp, s, nbits, gs, layout, t_len, seed,
@@ -1991,7 +2041,7 @@ def check_sparse(torch, F, dev, case, seed):
     from pyramidkv_tpu_torch.ops import sparse_prefill as sp
 
     (b, h, hk, n, true_len, budgets, qb, kt, budget, shuffle, permute,
-     timed) = SPARSE_CASES[case]
+     timed) = {**SPARSE_CASES, **QWEN_SPARSE_CASES}[case]
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, h, n, D), generator=g, device=dev).to(torch.bfloat16)
     k = torch.randn((b, hk, n, D), generator=g, device=dev).to(torch.bfloat16)
@@ -2443,7 +2493,8 @@ def check_h2o(torch, dev, case, seed):
     from pyramidkv_tpu_torch import kernels
     from pyramidkv_tpu_torch.ops import scoring
 
-    b, h, hk, n, true_len, w, width, timed = H2O_CASES[case]
+    b, h, hk, n, true_len, w, width, timed = {**H2O_CASES,
+                                              **QWEN_H2O_CASES}[case]
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k = _rand_bf16(torch, g, dev, b, h, n, D), _rand_bf16(
         torch, g, dev, b, hk, n, D)
@@ -2677,7 +2728,7 @@ def visible_pairs(true_len, n, nq, q_start, h, window=None):
 
 
 def check_flash_chunk(torch, F, dev, b, hk, n, true_len, chunk, i, seed,
-                      buf, case=None, timed=True, window=None):
+                      buf, case=None, timed=True, window=None, h=H):
     """flash_causal_attention with q_start = i * chunk on chunk i of a
     prefill, its keys read in place from the bucket-long carry ``buf`` (k,
     v [B, Hk, n, D]), against the plain version (with ``window``, both
@@ -2686,7 +2737,7 @@ def check_flash_chunk(torch, F, dev, b, hk, n, true_len, chunk, i, seed,
     from pyramidkv_tpu_torch.ops.attention import causal_prefill_attention
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = _rand_bf16(torch, g, dev, b, H, chunk, D)
+    q = _rand_bf16(torch, g, dev, b, h, chunk, D)
     e = (i + 1) * chunk
     kh, vh = buf[0][:, :, :e], buf[1][:, :, :e]
     tl = torch.tensor(true_len, dtype=torch.int32, device=dev) - (n - e)
@@ -2704,7 +2755,7 @@ def check_flash_chunk(torch, F, dev, b, hk, n, true_len, chunk, i, seed,
         err = max(err, float((gb.float() - wb.float()).abs().max()))
         ratio = max(ratio, err_over_tol(gb, wb))
     rec = {"check": "flash_causal_attention (q_start)",
-           "case": case or f"8k batch chunk {i}", "B": b, "H": H, "Hk": hk,
+           "case": case or f"8k batch chunk {i}", "B": b, "H": h, "Hk": hk,
            "N": e, "Nq": chunk, "q_start": i * chunk, "ldk": n,
            "window": window,
            "true_len": list(true_len), "max_abs_err": err,
@@ -2724,7 +2775,7 @@ def check_flash_chunk(torch, F, dev, b, hk, n, true_len, chunk, i, seed,
     rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
         *lib[:3], attn_mask=lib[3]), reps=3)
     del lib
-    pairs = visible_pairs(true_len, n, chunk, i * chunk, H, window)
+    pairs = visible_pairs(true_len, n, chunk, i * chunk, h, window)
     nbytes = (q.numel() * 2 * 2 + 2 * b * hk * e * D * 2 + b * 4)
     rec["visible_pairs"] = pairs
     rec["bound_ms"], rec["bound_by"] = bound(4.0 * D * pairs, nbytes)
@@ -2733,7 +2784,7 @@ def check_flash_chunk(torch, F, dev, b, hk, n, true_len, chunk, i, seed,
 
 
 def check_partials(torch, F, dev, case, b, hk, c, tile_len, q_start, seed,
-                   timed=True, window=None):
+                   timed=True, window=None, h=H):
     """flash_attention_partials on one tile of a quantized-carry chunk:
     ``q_start == 0`` the causal self tile, ``q_start >= c`` a history tile
     q_start rows before its queries (every key visible, or with ``window``
@@ -2744,7 +2795,7 @@ def check_partials(torch, F, dev, case, b, hk, c, tile_len, q_start, seed,
 
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v = (_rand_bf16(torch, g, dev, b, n_h, c, D)
-               for n_h in (H, hk, hk))
+               for n_h in (h, hk, hk))
     tl = torch.tensor(tile_len, dtype=torch.int32, device=dev)
     kw = dict(q_start=q_start, sliding_window=window)
     got = flash_attention_partials(q, k, v, tl, **kw)
@@ -2753,7 +2804,7 @@ def check_partials(torch, F, dev, case, b, hk, c, tile_len, q_start, seed,
     torch.cuda.synchronize()
     ratio, err, m_err, l_err, dead_ok = partials_ratio_exp2(torch, got, want)
     rec = {"check": "flash_attention_partials", "case": case, "B": b,
-           "H": H, "Hk": hk, "C": c, "q_start": q_start, "window": window,
+           "H": h, "Hk": hk, "C": c, "q_start": q_start, "window": window,
            "tile_len": list(tile_len), "max_abs_err": err, "m_err": m_err,
            "l_rel_err": l_err, "err_over_tol": ratio,
            "dead_rows": int((want[2] == 0).sum()), "dead_rows_exact": dead_ok,
@@ -2774,8 +2825,8 @@ def check_partials(torch, F, dev, case, b, hk, c, tile_len, q_start, seed,
     rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
         *lib[:3], attn_mask=lib[3]), reps=3)
     del lib
-    pairs = visible_pairs(tile_len, c, c, q_start, H, window)
-    nbytes = (q.numel() * 2 + 2 * k.numel() * 2 + b * H * c * (D + 2) * 4)
+    pairs = visible_pairs(tile_len, c, c, q_start, h, window)
+    nbytes = (q.numel() * 2 + 2 * k.numel() * 2 + b * h * c * (D + 2) * 4)
     rec["visible_pairs"] = pairs
     rec["bound_ms"], rec["bound_by"] = bound(4.0 * D * pairs, nbytes)
     log(rec)
@@ -2859,7 +2910,7 @@ def phase_h2o_chunk_kernels(torch, F, dev):
 
 
 def check_two_pass(torch, F, dev, case, b, hk, n, true_len, seed,
-                   q_start=0, window=None, timed=True):
+                   q_start=0, window=None, timed=True, h=H):
     """The two-pass schedule's kernels against their plain versions on one
     shape (queries at global rows [q_start, n) of n keys, a sliding
     ``window`` if given): pass A's row maxes (called twice: bitwise equal);
@@ -2876,7 +2927,7 @@ def check_two_pass(torch, F, dev, case, b, hk, n, true_len, seed,
 
     nq = n - q_start
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = _rand_bf16(torch, g, dev, b, H, nq, D)
+    q = _rand_bf16(torch, g, dev, b, h, nq, D)
     k, v = (_rand_bf16(torch, g, dev, b, hk, n, D) for _ in range(2))
     tl = torch.tensor(true_len, dtype=torch.int32, device=dev)
     kw = dict(q_start=q_start, sliding_window=window)
@@ -2910,7 +2961,7 @@ def check_two_pass(torch, F, dev, case, b, hk, n, true_len, seed,
                        and (m_want[bi, :, :dead] == neg).all())
         dead_b &= bool((out_got[bi, :, :dead] == 0).all()
                        and (both[bi, :, :dead] == 0).all())
-    base = {"case": case, "B": b, "H": H, "Hk": hk, "G": H // hk, "N": n,
+    base = {"case": case, "B": b, "H": h, "Hk": hk, "G": h // hk, "N": n,
             "Nq": nq, "q_start": q_start, "window": window,
             "true_len": list(true_len), "dead_rows_exact": dead_a and dead_b,
             "layers": LAYERS}
@@ -2925,9 +2976,9 @@ def check_two_pass(torch, F, dev, case, b, hk, n, true_len, seed,
               composed_err_over_tol=both_ratio, repeat_bitwise=repeat,
               tol=TOL_TEXT + "; rows with no visible key exactly 0")
     if timed:
-        pairs = visible_pairs(true_len, n, nq, q_start, H)
+        pairs = visible_pairs(true_len, n, nq, q_start, h)
         qb, kb = q.numel() * 2, k.numel() * 2
-        mb, ob = b * H * nq * 4, q.numel() * 2
+        mb, ob = b * h * nq * 4, q.numel() * 2
         # one-pass kernel and masked SDPA: the same function in one call
         one_ms = time_ms(torch, lambda: flash_causal_attention(
             q, k, v, tl, **kw), reps=5)
@@ -2995,18 +3046,20 @@ def phase_two_pass_kernels(torch, F, dev):
 
 
 def chunk_run_spec(run):
-    """(CompressionSpec, bucket, max_new, chunk) of a CHUNK_RUNS or
-    MISTRAL_RUNS run."""
+    """(CompressionSpec, bucket, max_new, chunk) of a CHUNK_RUNS,
+    MISTRAL_RUNS or QWEN_RUNS run."""
     from pyramidkv_tpu_torch.config import CompressionSpec
 
-    _, comp, size, chunk = {**CHUNK_RUNS, **MISTRAL_RUNS}[run]
+    _, comp, size, chunk = {**CHUNK_RUNS, **MISTRAL_RUNS, **QWEN_RUNS}[run]
     bucket, max_new = (QN, QMAX_NEW) if size == "32k" else (N, MAX_NEW)
     return CompressionSpec(**comp), bucket, max_new, chunk
 
 
-def chunk_expected(run, plan, qp, steps, b, window=None):
-    """Kernel launches one generate of a CHUNK_RUNS or MISTRAL_RUNS run
-    implies.  With a sliding ``window`` the quantized carry skips each
+def chunk_expected(run, plan, qp, steps, b, window=None, layers=LAYERS,
+                   h=H, hk=HK):
+    """Kernel launches one generate of a CHUNK_RUNS, MISTRAL_RUNS or
+    QWEN_RUNS run implies (``layers`` layers of ``h`` query and ``hk`` KV
+    heads).  With a sliding ``window`` the quantized carry skips each
     history tile wholly outside the window of its chunk's first row."""
     import torch
 
@@ -3018,39 +3071,43 @@ def chunk_expected(run, plan, qp, steps, b, window=None):
     nc = bucket // chunk if chunk else 1
     quant_carry = bool(chunk) and cp.supports_chunked_quant(plan, chunk)
     h2o = cs.method == "h2o"
-    if quant_carry:
+    if cs.method == "minference" and bucket >= cs.minference_dense_below:
+        want["vertical_attention_partials"] = layers
+        want["slash_tile_attention"] = layers
+    elif quant_carry:
         hist = sum(1 for j in range(nc) for hc in range(j)
                    if window is None or (j - hc - 1) * chunk + 1 < window)
-        want["flash_attention_partials"] = LAYERS * (nc + hist)
+        want["flash_attention_partials"] = layers * (nc + hist)
     else:
-        want["flash_causal_attention"] = LAYERS * nc * (2 if h2o and chunk
+        want["flash_causal_attention"] = layers * nc * (2 if h2o and chunk
                                                         else 1)
     if h2o and not chunk:
-        want["h2o_row_stats"] = want["h2o_colsum"] = LAYERS
+        want["h2o_row_stats"] = want["h2o_colsum"] = layers
     if cs.quant_method is None:
-        want["decode_attention"] = LAYERS * steps
+        want["decode_attention"] = layers * steps
     else:
-        hk = HK if cs.method == "fullkv" else H
+        hm = hk if cs.method == "fullkv" else h
         per = 8 // cs.nbits
-        want[region_route(cs, b * hk, bucket // per,
-                          torch.device("cuda", 0)).__name__] = LAYERS * steps
+        want[region_route(cs, b * hm, bucket // per,
+                          torch.device("cuda", 0)).__name__] = layers * steps
     if qp is not None:
-        want.update(expected_launches(qp, steps, b, chunk or bucket, nc))
+        want.update(expected_launches(qp, steps, b, chunk or bucket, nc,
+                                      layers))
     return want
 
 
-def chunk_kv_bytes(run, b):
+def chunk_kv_bytes(run, b, layers=LAYERS, hk=HK):
     """kv_cache_bytes of a chunked fullkv KIVI run, from
     ``chunked_prefill.init_quant_state``'s shapes (K groups of the chunk
     under pa, of 64 slots under group; V per token under pa) plus the bf16
-    decode slots, 32 layers."""
+    decode slots, ``layers`` layers of ``hk`` KV heads."""
     cs, n, max_new, chunk = chunk_run_spec(run)
     per = 8 // cs.nbits
     kg, vg = (chunk, D) if cs.q_layout == "pa" else (64, 64)
-    return LAYERS * (2 * b * HK * (n // per) * D
-                     + 2 * b * HK * D * (n // kg) * 4
-                     + 2 * b * HK * n * (D // vg) * 4
-                     + 2 * b * HK * max_new * D * 2)
+    return layers * (2 * b * hk * (n // per) * D
+                     + 2 * b * hk * D * (n // kg) * 4
+                     + 2 * b * hk * n * (D // vg) * 4
+                     + 2 * b * hk * max_new * D * 2)
 
 
 def bucket_tokens(torch, dev, prompts, bucket):
@@ -3720,36 +3777,64 @@ def phase_mistral_kernels(torch, F, dev):
     return ok, recs
 
 
-def mistral_kv_bytes(run, plan, b) -> int:
-    """kv_cache_bytes a Mistral run's plan implies: its bf16 K and V, the
-    chunked KIVI carry's layout, or the monolithic pa region's."""
-    cs, _, _, chunk = chunk_run_spec(run)
+def model_kv_bytes(run, plan, b, m) -> int:
+    """kv_cache_bytes a MODELS[...] run's plan implies: its bf16 K and V,
+    the chunked KIVI carry's layout, or the monolithic region's (32k)."""
+    cs, bucket, max_new, chunk = chunk_run_spec(run)
     if cs.quant_method is None:
-        return methods_kv_bytes(plan, b)
-    return chunk_kv_bytes(run, b) if chunk else KV_BYTES_32K[cs.q_layout]
+        return methods_kv_bytes(plan, b, m["h"], m["hk"], m["layers"])
+    if chunk:
+        return chunk_kv_bytes(run, b, m["layers"], m["hk"])
+    return kivi_bytes(b, m["hk"], bucket, cs.nbits, cs.q_layout, max_new,
+                      m["layers"])
 
 
-def phase_engine_mistral(torch, dev, params, q4, vocab, runs):
-    """``Engine.generate`` on Mistral-7B (all 32 layers, seeded random
-    weights) for each of ``runs`` (MISTRAL_RUNS): the 8k batch with bf16
-    weights, bench.py's 32k prompt with int4 weights; every kernel's
-    launches held to what the plan implies (the quantized carry skipping
-    the history tiles wholly outside the window), kv_cache_bytes to the
-    layout's, prefill s and decode tok/s printed; a chunked run's prefill
-    logits printed beside its monolithic twin's (information, as
-    engine_h2o_chunked).  Returns (ok, {run: counts}, {run: rec})."""
+def decode_blocks(torch, dev, plan, b, m) -> tuple:
+    """(split-kernel blocks one decode step launches, the most blocks one
+    launch asks of a wave) under the decode kernel's split plan: per layer
+    B x stored heads x nsplit at the layer's cache width and group; a wave
+    is the card's SMs times the kernel's residency at that group."""
+    from pyramidkv_tpu_torch.kernels.decode_attn import (blocks_per_sm,
+                                                         decode_split_plan)
+    from pyramidkv_tpu_torch.policy import stores_kv_heads
+
+    hs = m["hk"] if stores_kv_heads(plan.spec) else m["h"]
+    g = m["h"] // hs
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    total, waves = 0, 0.0
+    for start, stop, sub in plan.segment_plans():
+        nsplit, _ = decode_split_plan(dev, b * hs, sub.total_slots, g)
+        total += (stop - start) * b * hs * nsplit
+        waves = max(waves, b * hs * nsplit / (sms * blocks_per_sm(g)))
+    return total, waves
+
+
+def phase_engine_model(torch, dev, model, params, q4, vocab, runs=None):
+    """``Engine.generate`` on MODELS[model] (all its layers, seeded random
+    weights) for each of ``runs`` (default: all of the model's): the 8k
+    batch with bf16 weights, bench.py's 32k prompt with int4 weights;
+    every kernel's launches held to what the plan implies (the quantized
+    carry skipping the history tiles wholly outside a window), the decode
+    kernel's blocks to its split plan's (one wave at the cache's group),
+    kv_cache_bytes to the layout's, prefill s and decode tok/s printed; a
+    chunked run's prefill logits printed beside its monolithic twin's
+    (information, as engine_h2o_chunked).  Returns (ok, {run: counts},
+    {run: rec})."""
     from pyramidkv_tpu_torch.config import EngineSpec, ModelSpec
     from pyramidkv_tpu_torch.engine import Engine
+    from pyramidkv_tpu_torch.kernels import decode_attention
     from pyramidkv_tpu_torch.models import llama
 
-    spec = ModelSpec.preset("mistral-7b")
+    m = MODELS[model]
+    spec = ModelSpec.preset(m["preset"])
     p32 = [np.random.default_rng(0).integers(0, vocab, size=QTRUE).tolist()]
     rng = np.random.default_rng(0)
     p8 = [rng.integers(0, vocab, size=t).tolist() for t in TRUE_LEN]
     ok, counts, out_recs = True, {}, {}
     warm = set()
-    for run in runs:
-        wname, _, size, _ = MISTRAL_RUNS[run]
+    for run in runs or list(m["runs"]):
+        t_run = time.perf_counter()
+        wname, _, size, _ = m["runs"][run]
         cs, bucket, max_new, chunk = chunk_run_spec(run)
         prompts = p32 if size == "32k" else p8
         qp = q4 if wname == "int4" else None
@@ -3758,26 +3843,31 @@ def phase_engine_mistral(torch, dev, params, q4, vocab, runs):
                                           prefill_buckets=(bucket,),
                                           prefill_chunk=chunk),
                      wts, device=dev)
-        if (wname, size) not in warm:  # the 32000-wide lm_head's shapes
+        if (wname, size) not in warm:  # the model's lm_head shapes
             eng.generate([p[:64] for p in prompts], max_new_tokens=2)
             warm.add((wname, size))
         torch.cuda.synchronize()
         reset_counts()
         out = eng.generate(prompts)
         c = read_counts()
+        blocks = decode_attention.blocks
         counts[run] = c
         plan = eng.plan_for(bucket)
         want = chunk_expected(run, plan, qp, out.decode_steps, len(prompts),
-                              window=MISTRAL_W)
-        want_bytes = mistral_kv_bytes(run, plan, len(prompts))
+                              window=m["window"], layers=m["layers"],
+                              h=m["h"], hk=m["hk"])
+        want_bytes = model_kv_bytes(run, plan, len(prompts), m)
+        per_step, waves = ((0, 0.0) if cs.quant_method else
+                           decode_blocks(torch, dev, plan, len(prompts), m))
         toks = [t for seq in out.tokens for t in seq]
         good = (c == want and out.kv_cache_bytes == want_bytes
+                and blocks == per_step * out.decode_steps and waves <= 1
                 and out.decode_steps == max_new - 1
                 and eng.chunked_prefill_supported(bucket) == bool(chunk)
                 and all(0 <= t < vocab for t in toks)
                 and all(len(seq) >= 1 for seq in out.tokens))
-        rec = {"phase": "engine_mistral", "run": run, "weights": wname,
-               "method": cs.method, "window": MISTRAL_W,
+        rec = {"phase": f"engine_{model}", "run": run, "weights": wname,
+               "method": cs.method, "window": m["window"],
                "prefill_chunk": chunk, "prefill_s": out.prefill_seconds,
                "decode_s": out.decode_seconds,
                "decode_steps": out.decode_steps,
@@ -3785,6 +3875,9 @@ def phase_engine_mistral(torch, dev, params, q4, vocab, runs):
                                     / out.decode_seconds),
                "kv_cache_bytes": out.kv_cache_bytes,
                "expected_kv_cache_bytes": want_bytes,
+               "decode_blocks": blocks,
+               "expected_decode_blocks": per_step * out.decode_steps,
+               "decode_waves": waves,
                "launches": {k: v for k, v in c.items() if v},
                "expected_launches": {k: v for k, v in want.items() if v},
                "first_tokens": out.tokens[0][:8]}
@@ -3793,7 +3886,7 @@ def phase_engine_mistral(torch, dev, params, q4, vocab, runs):
             with torch.inference_mode():
                 lc, _ = prefill_with(eng, bucket, tokens, tl, "kernel")
                 lm, _ = llama.prefill(wts, spec, plan, tokens, tl)
-            twin = out_recs.get(MISTRAL_TWINS[run], {})
+            twin = out_recs.get(m["twins"][run], {})
             rec["vs_monolithic"] = {
                 **_logits_close(torch, lc, lm),
                 "monolithic_prefill_s": twin.get("prefill_s"),
@@ -3801,6 +3894,7 @@ def phase_engine_mistral(torch, dev, params, q4, vocab, runs):
             rec["vs_monolithic"].pop("ok")  # information, not a gate
             del lc, lm
         rec["ok"] = good
+        rec["run_wall_s"] = time.perf_counter() - t_run
         log(rec)
         out_recs[run] = rec
         ok &= good
@@ -3936,29 +4030,34 @@ def phase_engine_mistral_more(torch, dev, params, q4, vocab, recs):
     return ok, counts
 
 
-def phase_parity_mistral(torch, dev, params, vocab, steps=4):
-    """Depth-2 Mistral logits, kernels against plain, on the same card:
-    the last-position prefill logits and ``steps`` decode steps (each path
-    on its own copy of the kernel path's cache, fed the same tokens, as
-    phase_parity_h2o_chunked) for fullkv (the decode masked by the
-    window), snapkv, the chunked kivi4-pa carry (int4, 32k) and the
-    two-pass prefill.  Limit: 2^-5 of the largest logit."""
+def phase_parity_model(torch, dev, model, params, vocab, steps=4):
+    """Depth-2 logits of MODELS[model], kernels against plain, on the same
+    card: the last-position prefill logits and ``steps`` decode steps (each
+    path on its own copy of the kernel path's cache, fed the same tokens, as
+    phase_parity_h2o_chunked) for each of the model's parity runs
+    (Mistral: fullkv with the decode masked by the window, snapkv, the
+    chunked kivi4-pa carry and two-pass; Qwen2.5-7B, with its QKV biases:
+    fullkv and snapkv at G = 7 and 1, fullkv kivi4 group and kivi4-pa).
+    Limit: 2^-5 of the largest logit."""
     from pyramidkv_tpu_torch.cache import KVCache
     from pyramidkv_tpu_torch.config import (CompressionSpec, EngineSpec,
                                             ModelSpec)
     from pyramidkv_tpu_torch.engine import Engine
     from pyramidkv_tpu_torch.models import llama
 
-    spec = ModelSpec.preset("mistral-7b", num_hidden_layers=2)
+    m = MODELS[model]
+    window = m["window"]
+    spec = ModelSpec.preset(m["preset"], num_hidden_layers=2)
     p2 = dict(params, layers={k: v[:2] for k, v in params["layers"].items()})
     ok = True
-    for run in MISTRAL_PARITY:
+    for run in m["parity"]:
+        t_run = time.perf_counter()
         two_pass = run.endswith("two-pass")
         if two_pass:
             wname, size, chunk = "bf16", "8k", None
             cs, bucket, max_new = CompressionSpec(method="snapkv"), N, MAX_NEW
         else:
-            wname, _, size, _ = MISTRAL_RUNS[run]
+            wname, _, size, _ = m["runs"][run]
             cs, bucket, max_new, chunk = chunk_run_spec(run)
         wts = quantized(p2, "int4") if wname == "int4" else p2
         eng = Engine(spec, cs, EngineSpec(max_new_tokens=max_new,
@@ -3995,19 +4094,247 @@ def phase_parity_mistral(torch, dev, params, vocab, steps=4):
                 tok = lp.argmax(-1)
             # the decode window in force: valid slots the last step hid
             pos = ck.current_position()[:, None, None] - 1
-            hidden = (int((ck.mask & (ck.positions <= pos - MISTRAL_W)).sum())
-                      if cs.method == "fullkv" else None)
+            hidden = (int((ck.mask & (ck.positions <= pos - window)).sum())
+                      if window and cs.method == "fullkv" else None)
         torch.cuda.synchronize()
         tol = 2.0 ** -5 * top
         good = err <= tol and (hidden is None or hidden > 0)
-        log({"phase": "parity_mistral", "run": run, "depth": 2,
+        log({"phase": f"parity_{model}", "run": run, "depth": 2,
              "decode_steps": steps, "prefill_max_abs_err": prefill_err,
              "max_abs_err": err, "tol": tol, "same_argmax": same,
-             "slots_hidden_by_window": hidden, "ok": good})
+             "slots_hidden_by_window": hidden,
+             "run_wall_s": time.perf_counter() - t_run, "ok": good})
         ok &= good
         del eng, ck, cp_, wts
         torch.cuda.empty_cache()
     return ok
+
+
+# ---------------------------------------------------------------------------
+# Qwen2.5-7B: QKV biases and GQA group 7
+# ---------------------------------------------------------------------------
+
+#: Qwen2.5-7B (JAX config.py:239-245): 28 layers, 28 query heads on 4 KV
+#: heads (G = 7), hidden 3584, intermediate 18944, vocabulary 152064
+QWEN_H, QWEN_HK, QWEN_LAYERS = 28, 4, 28
+QWEN_G = QWEN_H // QWEN_HK
+#: its decode matmuls: name -> (in, out); int4 fuses wqkv (3584 + 2 x 512)
+#: and w_gateup, and pads the lm_head to a multiple of 4096 (155648)
+QWEN_MM = {"wqkv": (3584, 4608), "wo": (3584, 3584),
+           "w_gateup": (3584, 37888), "w_down": (18944, 3584),
+           "lm_head4": (3584, 155648), "lm_head8": (3584, 152064)}
+#: (kernel, group size, [(shape, x dtype)]) at Qwen's five widths: the
+#: engine's int4 runs take the first; g128 and int8 (no Qwen run) are
+#: checked at the same widths
+QWEN_MM_CASES = [
+    ("int4_matmul", 0, [("wqkv", "bf16"), ("wo", "bf16"),
+                        ("w_gateup", "bf16"), ("w_down", "bf16"),
+                        ("lm_head4", "f32")]),
+    ("int4_matmul", 128, [("wqkv", "bf16"), ("wo", "bf16"),
+                          ("w_gateup", "bf16"), ("w_down", "bf16")]),
+    ("int8_matmul", 0, [("wqkv", "bf16"), ("wo", "bf16"),
+                        ("w_gateup", "bf16"), ("w_down", "bf16"),
+                        ("lm_head8", "f32")]),
+]
+#: H2O checks at G = 7 (H2O_CASES' tuple), untimed: a short 7 / 1 shape,
+#: the h2o run's 8k batch at 28 / 4 heads
+QWEN_H2O_CASES = {
+    "short qwen 7/1": (2, 7, 1, 384, (384, 150), 8, 100, False),
+    "qwen 8k": (B, QWEN_H, QWEN_HK, N, TRUE_LEN, 8, 2040, False),
+}
+#: block-sparse checks at G = 7 (SPARSE_CASES' tuple), untimed: a short
+#: 7 / 1 shape, the 32k minference run's at 28 / 4 heads (Qwen has no
+#: per-head pattern config: JAX's defaults 1000 / 200 apply)
+QWEN_SPARSE_CASES = {
+    "short qwen 7/1": (2, 7, 1, 1024, (1024, 300), (100, 50), 512, 256, 2,
+                       False, False, False),
+    "qwen 32k": (1, QWEN_H, QWEN_HK, QN, (QTRUE,), "default", 512, 256, 8,
+                 False, False, False),
+}
+QWEN_KIVI4PA = dict(method="fullkv", quant_method="kivi", nbits=4,
+                    q_layout="pa", **QCOMP)
+#: the Qwen runs, as MISTRAL_RUNS: name -> (weights, CompressionSpec
+#: arguments, size, prefill_chunk)
+QWEN_RUNS = {
+    "qwen bf16 fullkv 8k": ("bf16", dict(method="fullkv"), "8k", None),
+    "qwen bf16 snapkv 8k": ("bf16", dict(method="snapkv"), "8k", None),
+    "qwen bf16 pyramidkv 8k": ("bf16", dict(method="pyramidkv"), "8k", None),
+    "qwen bf16 h2o 8k": ("bf16", dict(method="h2o"), "8k", None),
+    "qwen int4 fullkv kivi4-pa 32k": ("int4", QWEN_KIVI4PA, "32k", None),
+    "qwen int4 fullkv kivi4 32k": ("int4", dict(QWEN_KIVI4PA,
+                                                q_layout="group"),
+                                   "32k", None),
+    "qwen int4 snapkv 32k": ("int4", dict(method="snapkv", **QCOMP), "32k",
+                             None),
+    "qwen int4 fullkv kivi4-pa 32k chunk 8192": ("int4", QWEN_KIVI4PA,
+                                                 "32k", C32K),
+    "qwen int4 minference 32k": ("int4", dict(method="minference"), "32k",
+                                 None),
+    "qwen bf16 fullkv kivi4 8k": ("bf16", dict(QWEN_KIVI4PA, q_layout="group"),
+                                  "8k", None),
+    "qwen bf16 fullkv kivi4-pa 8k": ("bf16", QWEN_KIVI4PA, "8k", None),
+}
+QWEN_TWINS = {"qwen int4 fullkv kivi4-pa 32k chunk 8192":
+              "qwen int4 fullkv kivi4-pa 32k"}
+#: depth 2 at the 8k batch: the plain path's 32k prefill at 28 / 4 heads
+#: takes ~75 s a run on an H100
+QWEN_PARITY = ("qwen bf16 fullkv 8k", "qwen bf16 snapkv 8k",
+               "qwen bf16 fullkv kivi4 8k", "qwen bf16 fullkv kivi4-pa 8k")
+#: the full-width models after Llama-3-8B: preset, runs, each chunked
+#: run's monolithic twin, the parity runs, the uniform sliding window and
+#: the geometry (layers, query heads, KV heads)
+MODELS = {
+    "mistral": dict(preset="mistral-7b", runs=MISTRAL_RUNS,
+                    twins=MISTRAL_TWINS, parity=MISTRAL_PARITY,
+                    window=MISTRAL_W, layers=LAYERS, h=H, hk=HK),
+    "qwen": dict(preset="qwen2.5-7b", runs=QWEN_RUNS, twins=QWEN_TWINS,
+                 parity=QWEN_PARITY, window=None, layers=QWEN_LAYERS,
+                 h=QWEN_H, hk=QWEN_HK),
+}
+
+
+def phase_qwen_kernels(torch, F, dev):
+    """Every kernel Qwen2.5-7B's runs launch, at its shapes (28 / 4 heads,
+    G = 7), against its plain version: the decode kernel's residency at
+    each instantiated group against the card's occupancy (the split plan's
+    one wave), then the kernel at G = 7 on short shapes, shapes of several
+    splits with a wholly masked split and S no multiple of the tile, and
+    the 8k batch's and 32k fullkv widths (timed, also on the two-wave plan
+    of two blocks an SM); the KIVI group kernel (kFold, and kF32 on short
+    shapes) and pa kernel at G = 7 for 2-, 4- and 8-bit codes on short
+    shapes, then kivi4 at the engine's 32k (monolithic and chunked) and 8k
+    fullkv widths, timed; untimed, the kernels with no new case at 28 / 4 heads:
+    flash one-pass at the 8k batch and 32k, at q_start and two-pass,
+    partials on the 32k carry's tiles, H2O and the block-sparse kernels;
+    the int4 / g128 / int8 matmuls at Qwen's five widths, rows 1 (int4
+    timed: the int4 runs' shapes) and 8.  Every kernel is called twice and
+    held bitwise equal where its check does so.  Returns (ok, {row: [timed
+    recs]})."""
+    from pyramidkv_tpu_torch.kernels import _build, decode_attn
+
+    ok, recs = True, {}
+    lib = _build.library("decode_attn")
+    for g in decode_attn.GROUPS:
+        occ = lib.pkv_decode_occupancy(g)
+        good = occ == decode_attn.blocks_per_sm(g)
+        log({"check": "decode_occupancy", "G": g, "blocks_per_sm": occ,
+             "plan_blocks_per_sm": decode_attn.blocks_per_sm(g),
+             "ok": good})
+        ok &= good
+    for i, (b, h, hk, s) in enumerate(((2, 7, 1, 37), (1, 14, 2, 300),
+                                       (2, QWEN_H, QWEN_HK, 4099),
+                                       (3, 7, 1, 1))):
+        r, _ = check_decode(torch, F, dev, b, h, hk, s, timed=False,
+                            seed=800 + i, label="short, G=7")
+        ok &= r
+    for i, (b, h, hk, s) in enumerate(((1, QWEN_H, QWEN_HK, 20000),
+                                       (2, 14, 2, 9001),
+                                       (1, QWEN_H, QWEN_HK, 70001),
+                                       (2, 14, 2, 2500))):
+        r, _ = check_decode(torch, F, dev, b, h, hk, s, timed=False,
+                            seed=810 + i, label="short splits, G=7",
+                            masked_split=True)
+        ok &= r
+    # the per-head methods' caches at 28 heads (G = 1), untimed
+    r, _ = check_decode(torch, F, dev, B, QWEN_H, QWEN_H, 2080, timed=False,
+                        seed=819, label="qwen snapkv 8k, G=1")
+    ok &= r
+    recs["decode"] = []
+    for seed, (case, b, s) in enumerate((
+            ("qwen fullkv 8k batch, G=7", B, N + MAX_NEW),
+            ("qwen fullkv 32k, G=7", 1, QN + QMAX_NEW)), start=820):
+        r, rec = check_decode(torch, F, dev, b, QWEN_H, QWEN_HK, s, True,
+                              seed, case, residency=2)
+        ok &= r
+        recs["decode"].append(rec)
+    # KIVI at G = 7: short shapes for each code width (kFold, kF32 whole
+    # and split, pa with one and with 4 K groups, a wholly masked split)
+    seed = 830
+    for nbits in (2, 4, 8):
+        for kind, b, hk, s, gs, t_len in (
+                ("quant_fused_attention_group", 2, 2, 1000, 64, 5),
+                ("quant_decode_attention", 1, 2, 600, 32, 37),
+                ("quant_decode_attention_tiled", 1, 4, 4900, 64, 6),
+                ("quant_fused_attention_pa", 2, 2, 1001, 64, 13)):
+            r, _ = check_region(torch, F, dev, kind, b, hk, QWEN_G, s, nbits,
+                                gs, False, seed, "short, G=7", t_len)
+            ok &= r
+            seed += 1
+    for kind, label, kw in (
+            ("quant_fused_attention_pa", "short, G=7, 4 K groups",
+             dict(k_chunk=256)),
+            ("quant_fused_attention_group", "short, G=7, a split masked",
+             dict(masked_rows=(128, 256)))):
+        r, _ = check_region(torch, F, dev, kind, 2, 4, QWEN_G, 2048, 4, 64,
+                            False, seed, label, 5, **kw)
+        ok &= r
+        seed += 1
+    for key, kind, b, s, t_len, k_chunk in (
+            ("group 32k", "quant_fused_attention_group", 1, QN, QMAX_NEW,
+             None),
+            ("pa 32k", "quant_fused_attention_pa", 1, QN, QMAX_NEW, None),
+            ("pa 32k chunk", "quant_fused_attention_pa", 1, QN, QMAX_NEW,
+             C32K),
+            ("group 8k", "quant_fused_attention_group", B, N, MAX_NEW, None),
+            ("pa 8k", "quant_fused_attention_pa", B, N, MAX_NEW, None)):
+        r, recs[key] = check_region(
+            torch, F, dev, kind, b, QWEN_HK, QWEN_G, s, 4, 64, True, seed,
+            f"qwen fullkv kivi4 {key}, G=7", t_len, k_chunk=k_chunk)
+        ok &= r
+        seed += 1
+        torch.cuda.empty_cache()
+    # flash, partials, H2O and the sparse kernels at 28 / 4 heads
+    for seed, (b, n, tls, case) in enumerate((
+            (B, N, TRUE_LEN, "qwen 8k batch"), (1, QN, (QTRUE,), "qwen 32k")),
+            start=850):
+        r, _ = check_flash(torch, F, dev, b, QWEN_H, QWEN_HK, n, tls, None,
+                           False, seed, case)
+        ok &= r
+        torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(852)
+    buf = (_rand_bf16(torch, g, dev, B, QWEN_HK, N, D),
+           _rand_bf16(torch, g, dev, B, QWEN_HK, N, D))
+    r, _ = check_flash_chunk(torch, F, dev, B, QWEN_HK, N, TRUE_LEN, C8K, 3,
+                             853, buf, case="qwen 8k batch chunk 3",
+                             timed=False, h=QWEN_H)
+    ok &= r
+    del buf
+    r, _ = check_two_pass(torch, F, dev, "qwen 8k", B, QWEN_HK, N, TRUE_LEN,
+                          854, timed=False, h=QWEN_H)
+    ok &= r
+    torch.cuda.empty_cache()
+    for seed, (case, q_start) in enumerate((
+            ("qwen 32k self tile (chunk 0)", 0),
+            ("qwen 32k history tile 0", C32K)), start=855):
+        r, _ = check_partials(torch, F, dev, case, 1, QWEN_HK, C32K,
+                              tile_len((QTRUE,), QN, C32K, 0), q_start,
+                              seed, timed=False, h=QWEN_H)
+        ok &= r
+        torch.cuda.empty_cache()
+    for seed, case in enumerate(QWEN_H2O_CASES, start=860):
+        ok &= check_h2o(torch, dev, case, seed)[0]
+        torch.cuda.empty_cache()
+    for seed, case in enumerate(QWEN_SPARSE_CASES, start=865):
+        ok &= check_sparse(torch, F, dev, case, seed)[0]
+        torch.cuda.empty_cache()
+    # the matmuls at Qwen's five widths
+    recs["int4_matmul"] = []
+    seed = 870
+    for kind, gs, shapes in QWEN_MM_CASES:
+        for shape, xdt in shapes:
+            i, o = QWEN_MM[shape]
+            on_path = kind == "int4_matmul" and not gs
+            for rows in (1, 8):
+                r, rec = check_mm(torch, dev, kind, i, o, rows, xdt,
+                                  on_path and rows == 1, seed,
+                                  "qwen " + shape, gs)
+                ok &= r
+                seed += 1
+                if on_path and rows == 1:
+                    rec["layers"] = 1 if shape.startswith("lm_head") \
+                        else QWEN_LAYERS
+                    recs["int4_matmul"].append(rec)
+    return ok, recs
 
 
 def kernel_entry(name, source, replaces, launches, recs):
@@ -4033,6 +4360,9 @@ def kernel_entry(name, source, replaces, launches, recs):
                           else mean("library_ms"))}
     if "bound_unit" in recs[0]:
         ent["bound_unit"] = recs[0]["bound_unit"]
+    if "residency_ms" in recs[0]:  # the decode kernel on another plan
+        ent["residency"] = recs[0]["residency"]
+        ent["residency_ms"] = mean("residency_ms")
     if len(recs) > 1:
         ent["shapes"] = [{k: r[k] for k in (
             "S", "case", "x", "layers", "tail", "Vs", "T", "max_abs_err",
@@ -4113,6 +4443,15 @@ def main() -> int:
          "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
          "name_power_limit": name_limit, "clocks": clocks()})
 
+    t_last = [time.perf_counter()]
+
+    def stamp(after):
+        """Where the run's time goes: seconds since the previous stamp."""
+        now = time.perf_counter()
+        log({"phase": "elapsed", "after": after,
+             "seconds": now - t_last[0]})
+        t_last[0] = now
+
     secs = _build.build_all()
     log({"phase": "build", "seconds": secs})
     # registers and spills of every kernel, and the compilers' warnings
@@ -4121,12 +4460,14 @@ def main() -> int:
             log({"library": name, **rec})
 
     ok, recs = phase_kernels(torch, F, dev)
+    stamp("build, flash kernels")
     r, drecs = phase_decode_kernels(torch, F, dev)
     ok &= r
     recs.update(drecs)
     qdecode = {m: drecs["32k " + m] for m in ("snapkv", "fullkv")}
     r, mm_recs, qflash = phase_mm_kernels(torch, F, dev)
     ok &= r
+    stamp("decode and matmul kernels")
     r, kv_recs = phase_kv_quant_kernels(torch, F, dev)
     ok &= r
     r, sparse_recs = phase_minference_kernels(torch, F, dev)
@@ -4137,6 +4478,10 @@ def main() -> int:
     ok &= r
     r, mis_recs = phase_mistral_kernels(torch, F, dev)
     ok &= r
+    stamp("kv_quant, minference, h2o_chunk, two_pass, mistral kernels")
+    r, qwen_recs = phase_qwen_kernels(torch, F, dev)
+    ok &= r
+    stamp("qwen kernels")
 
     spec = ModelSpec.preset("llama3-8b")
     t0 = time.perf_counter()
@@ -4158,6 +4503,7 @@ def main() -> int:
     ok &= phase_parity(torch, dev, params, spec.vocab_size)
     ok &= phase_profile(torch, dev, params, spec.vocab_size)
     ok &= phase_profile(torch, dev, params, spec.vocab_size, method="fullkv")
+    stamp("llama bf16 engine, methods, parity, profiles")
     r, qcounts, qtok_s, qprefill_s = phase_engine_quant(torch, dev, params,
                                                         spec.vocab_size)
     ok &= r
@@ -4167,6 +4513,7 @@ def main() -> int:
     ok &= phase_profile(torch, dev, q4, spec.vocab_size, weights="int4")
     ok &= phase_profile(torch, dev, q4, spec.vocab_size, method="fullkv",
                         weights="int4")
+    stamp("llama quantized engine, parity, profiles")
     r, kvcounts, kvtok_s = phase_engine_kv_quant(torch, dev, params, q4,
                                                  spec.vocab_size)
     ok &= r
@@ -4174,12 +4521,14 @@ def main() -> int:
     ok &= phase_profile(torch, dev, q4, spec.vocab_size, method="fullkv",
                         steps=2, weights="int4",
                         kv=dict(quant_method="kivi", nbits=4, q_layout="pa"))
+    stamp("llama kivi engine, parity, profile")
     r, mcounts = phase_engine_minference(torch, dev, params, q4,
                                          spec.vocab_size,
                                          qprefill_s["int4 fullkv"])
     ok &= r
     ok &= phase_parity_minference(torch, dev, params, spec.vocab_size)
     ok &= phase_profile_minference(torch, dev, q4, spec.vocab_size)
+    stamp("llama minference engine, parity, profile")
     r, ccounts, _ = phase_engine_h2o_chunked(torch, dev, params, q4,
                                              spec.vocab_size)
     ok &= r
@@ -4189,6 +4538,7 @@ def main() -> int:
                                               spec.vocab_size)
     ok &= r
     del q4
+    stamp("llama h2o, chunked, two-pass and prefix engines")
     # the port's counterpart of bench.py's number (information only: decode
     # is host-bound, see the profile phases)
     base = kvtok_s["int4 fullkv kivi4-pa 32k"]
@@ -4208,16 +4558,35 @@ def main() -> int:
     log({"phase": "init_params_mistral",
          "seconds": time.perf_counter() - t0,
          "gib": tree_gib(params), "int4_gib": tree_gib(q4)})
-    r, mis_counts, mrecs = phase_engine_mistral(
-        torch, dev, params, q4, mspec.vocab_size, list(MISTRAL_RUNS))
+    r, mis_counts, mrecs = phase_engine_model(
+        torch, dev, "mistral", params, q4, mspec.vocab_size)
     ok &= r
     r, more_counts = phase_engine_mistral_more(torch, dev, params, q4,
                                                mspec.vocab_size, mrecs)
     ok &= r
-    ok &= phase_parity_mistral(torch, dev, params, mspec.vocab_size)
+    ok &= phase_parity_model(torch, dev, "mistral", params, mspec.vocab_size)
     mis_counts.update(more_counts)
     del params, q4
     torch.cuda.empty_cache()
+    stamp("mistral engine and parity")
+
+    # Qwen2.5-7B: QKV biases, 28 query heads on 4 KV heads (G = 7)
+    qspec = ModelSpec.preset("qwen2.5-7b")
+    t0 = time.perf_counter()
+    params = init_params(qspec, torch.Generator(device=dev).manual_seed(2),
+                         dev, torch.bfloat16)
+    q4 = quantized(params, "int4")
+    torch.cuda.synchronize()
+    log({"phase": "init_params_qwen", "seconds": time.perf_counter() - t0,
+         "gib": tree_gib(params), "int4_gib": tree_gib(q4),
+         "bias_leaves": sorted(k for k in q4["layers"] if k.startswith("b"))})
+    r, qwen_counts, _ = phase_engine_model(torch, dev, "qwen", params, q4,
+                                           qspec.vocab_size)
+    ok &= r
+    ok &= phase_parity_model(torch, dev, "qwen", params, qspec.vocab_size)
+    del params, q4
+    torch.cuda.empty_cache()
+    stamp("qwen engine and parity")
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
@@ -4403,6 +4772,51 @@ def main() -> int:
                      mis_counts["mistral int4 minference 32k"][
                          "decode_attention"],
                      mis_recs["decode"][1:])]
+    # Qwen2.5-7B's launches (28 / 4 heads, G = 7), each row's launches
+    # summed over the runs at its shape
+    def qsum_runs(kernel, size=None):
+        return sum(c[kernel] for run, c in qwen_counts.items()
+                   if size in (None, QWEN_RUNS[run][2]))
+
+    qpart = "qwen int4 fullkv kivi4-pa 32k chunk 8192"
+    for key, run in (("pa 32k", "qwen int4 fullkv kivi4-pa 32k"),
+                     ("pa 32k chunk", qpart),
+                     ("pa 8k", "qwen bf16 fullkv kivi4-pa 8k")):
+        qwen_recs[key]["layers"] = qwen_counts[run][
+            "quant_fused_attention_pa"]
+    for key, run in (("group 32k", "qwen int4 fullkv kivi4 32k"),
+                     ("group 8k", "qwen bf16 fullkv kivi4 8k")):
+        qwen_recs[key]["layers"] = qwen_counts[run][
+            "quant_fused_attention_group"]
+    qline = "pyramidkv_tpu/kernels/"
+    kernels += [
+        kernel_entry("decode_attention (Qwen2.5-7B fullkv, G=7, 8k batch "
+                     f"S={N + MAX_NEW})", src + "decode_attn.cu",
+                     qline + "decode_attn.py:69",
+                     qwen_counts["qwen bf16 fullkv 8k"]["decode_attention"],
+                     qwen_recs["decode"][:1]),
+        kernel_entry("decode_attention (Qwen2.5-7B minference's fullkv cache, "
+                     f"G=7, 32k S={QN + QMAX_NEW})", src + "decode_attn.cu",
+                     qline + "decode_attn.py:69",
+                     qwen_counts["qwen int4 minference 32k"][
+                         "decode_attention"],
+                     qwen_recs["decode"][1:]),
+        kernel_entry("quant_fused_attention_group (Qwen2.5-7B fullkv kivi4, "
+                     "G=7, 32k and 8k batch)", src + "quant_decode.cu",
+                     "pyramidkv_tpu/ops/quant.py:408",
+                     qsum_runs("quant_fused_attention_group"),
+                     [qwen_recs["group 32k"], qwen_recs["group 8k"]]),
+        kernel_entry("quant_fused_attention_pa (Qwen2.5-7B fullkv kivi4-pa, "
+                     "G=7, 32k; chunk 8192, Gk=4; 8k batch)",
+                     src + "quant_fused_decode.cu",
+                     qline + "quant_fused_decode.py:145",
+                     qsum_runs("quant_fused_attention_pa"),
+                     [qwen_recs["pa 32k"], qwen_recs["pa 32k chunk"],
+                      qwen_recs["pa 8k"]]),
+        kernel_entry("int4_matmul (Qwen2.5-7B widths, 1 row)",
+                     src + "int4_matmul.cu", qline + "int4_matmul.py:286",
+                     qsum_runs("int4_matmul", "32k"),
+                     qwen_recs["int4_matmul"])]
     for k in kernels:  # one line per kernel
         log({"kernel": k["name"], **k})
     log({"phase": "device_end", "clocks": clocks()})

@@ -7,8 +7,8 @@
 // What it computes, for each batch row b and query head h = kvh * G + g:
 //   logits[s] = (q[b,h] . k[b,kvh,s]) / sqrt(D)   (f32), float32.min where
 //   mask[b,kvh,s] is false; out[b,h] = softmax(logits) @ v[b,kvh].
-// G = H / Hk is 1 for the per-query-head caches of snapkv/pyramidkv and 4
-// for fullkv's true-GQA cache on Llama-3-8B.  A row whose slots are all
+// G = H / Hk is 1 for the per-query-head caches of snapkv/pyramidkv, 4
+// for fullkv's true-GQA cache on Llama-3-8B and 7 on Qwen2.5-7B.  A row whose slots are all
 // masked averages every slot uniformly, exactly like the float32.min
 // convention of the TPU kernel.  S is unbounded: the TPU's 4096-slot cap was
 // a VMEM limit, and fullkv decodes over 8192 + decode slots.
@@ -19,7 +19,8 @@
 // What the design does about it:
 // - the slots are split across blocks, grid (B * Hk, nsplit), nsplit from
 //   the shapes alone (kernels/decode_attn.py::decode_split_plan: one wave
-//   of two blocks an SM, 256-2048 slots a split), so B * Hk = 8 regions at
+//   of the kernel's residency, two blocks an SM up to G = 4 and one above,
+//   64-2048 slots a split), so B * Hk = 8 regions at
 //   32k fill the card, and the host reads no device value (the step stays
 //   capturable in a CUDA graph);
 // - a block streams its split's K and V strips (contiguous [rows, D] bf16)
@@ -93,7 +94,8 @@ __host__ __device__ constexpr int smem_bytes(int ns, int G) {
 }
 
 // The query's 16 channels of this lane, [8c, 8c+8) and [64+8c, 64+8c+8):
-// f32 registers for G <= 4, bf16 pairs for G = 8 (128 f32 would not fit).
+// f32 registers for G <= 4, bf16 pairs for G = 7 and 8 (112-128 f32 would
+// not fit).
 template <int G>
 struct QReg {
   static constexpr bool PACKED = G > 4;
@@ -537,7 +539,30 @@ extern "C" int pkv_decode_attn(const void* q, const void* k, const void* v,
     case 1: return launch<1>(q, k, v, mask, out, ws_acc, ws_m, ws_l, BHk, S, nsplit, rows, scale2, st);
     case 2: return launch<2>(q, k, v, mask, out, ws_acc, ws_m, ws_l, BHk, S, nsplit, rows, scale2, st);
     case 4: return launch<4>(q, k, v, mask, out, ws_acc, ws_m, ws_l, BHk, S, nsplit, rows, scale2, st);
+    case 7: return launch<7>(q, k, v, mask, out, ws_acc, ws_m, ws_l, BHk, S, nsplit, rows, scale2, st);
     case 8: return launch<8>(q, k, v, mask, out, ws_acc, ws_m, ws_l, BHk, S, nsplit, rows, scale2, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Blocks of split_kernel<G> an SM holds with a full ring (the occupancy the
+// wrapper's split plan assumes, kernels/decode_attn.py::blocks_per_sm), or
+// a negative CUDA error code; 0 for an unsupported G.
+extern "C" int pkv_decode_occupancy(int G) {
+  int n = 0;
+  cudaError_t e = cudaSuccess;
+  const int smem = smem_bytes(STAGES, G);
+  auto occ = [&](auto kern) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, NT, smem);
+  };
+  switch (G) {
+    case 1: occ(split_kernel<1>); break;
+    case 2: occ(split_kernel<2>); break;
+    case 4: occ(split_kernel<4>); break;
+    case 7: occ(split_kernel<7>); break;
+    case 8: occ(split_kernel<8>); break;
+    default: return 0;
+  }
+  return e == cudaSuccess ? n : -(int)e;
 }

@@ -1473,7 +1473,7 @@ int launch_region(const Args& a, int BHk, int nsplit, const Tail& t,
   return (int)cudaGetLastError();
 }
 
-// Run the trailing statement with GG = G in {1, 2, 4, 8} and NB = NBITS in
+// Run the trailing statement with GG = G in {1, 2, 4, 7, 8} and NB = NBITS in
 // {2, 4, 8} as constants; other values return cudaErrorInvalidValue.
 #define PKVQ_DISPATCH(G_, NBITS_, ...)                                     \
   switch (G_ * 16 + NBITS_) {                                               \
@@ -1486,6 +1486,9 @@ int launch_region(const Args& a, int BHk, int nsplit, const Tail& t,
     case 4 * 16 + 2: { constexpr int GG = 4, NB = 2; __VA_ARGS__; } break;         \
     case 4 * 16 + 4: { constexpr int GG = 4, NB = 4; __VA_ARGS__; } break;         \
     case 4 * 16 + 8: { constexpr int GG = 4, NB = 8; __VA_ARGS__; } break;         \
+    case 7 * 16 + 2: { constexpr int GG = 7, NB = 2; __VA_ARGS__; } break;         \
+    case 7 * 16 + 4: { constexpr int GG = 7, NB = 4; __VA_ARGS__; } break;         \
+    case 7 * 16 + 8: { constexpr int GG = 7, NB = 8; __VA_ARGS__; } break;         \
     case 8 * 16 + 2: { constexpr int GG = 8, NB = 2; __VA_ARGS__; } break;         \
     case 8 * 16 + 4: { constexpr int GG = 8, NB = 4; __VA_ARGS__; } break;         \
     case 8 * 16 + 8: { constexpr int GG = 8, NB = 8; __VA_ARGS__; } break;         \

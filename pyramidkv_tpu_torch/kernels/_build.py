@@ -41,7 +41,8 @@ ENTRY_POINTS = {
         ("pkv_h2o_stats", [_P] * 5 + [_I] * 5 + [_P]),
         ("pkv_h2o_colsum", [_P] * 6 + [_I] * 5 + [_P]),
     ],
-    "decode_attn": [("pkv_decode_attn", [_P] * 8 + [_I] * 6 + [_F, _P])],
+    "decode_attn": [("pkv_decode_attn", [_P] * 8 + [_I] * 6 + [_F, _P]),
+                    ("pkv_decode_occupancy", [_I])],
     "int4_matmul": [
         ("pkv_int4_mm", [_P] * 5 + [_I] * 13 + [_P]),
         ("pkv_int4_map", [_P] * 2 + [_I] * 3),

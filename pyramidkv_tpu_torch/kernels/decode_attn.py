@@ -22,8 +22,8 @@ from . import _build
 from .quant_decode import _sm_count
 
 HEAD_DIM = 128
-#: GQA group sizes the kernel is instantiated for
-GROUPS = (1, 2, 4, 8)
+#: GQA group sizes the kernel is instantiated for (7: Qwen2.5-7B's 28 / 4)
+GROUPS = (1, 2, 4, 7, 8)
 #: slots a tile of the kernel's ring (its TILE); a split holds at most 32
 TILE = 64
 _MAX_TILES = 32
@@ -32,14 +32,22 @@ _MAX_TILES = 32
 MAX_CLUSTER = 4
 
 
-def decode_split_plan(device: torch.device, bhk: int, s: int):
-    """(nsplit, slots per split) for ``bhk`` regions of ``s`` slots on
-    ``device``: about 2 blocks per SM (the kernel's residency: one wave),
-    each split at most 32 64-slot tiles (the last split may be shorter).
-    Shapes only: the host reads no mask, so the decode step never waits on
-    the card."""
+def blocks_per_sm(g: int) -> int:
+    """Blocks of the kernel an SM holds at group ``g``: its
+    ``__launch_bounds__(NT, G <= 4 ? 2 : 1)`` (the query in f32 registers up
+    to G = 4, as packed bf16 pairs above).  ``chip_smoke.py`` holds it to
+    the card's occupancy of each instantiation (``pkv_decode_occupancy``)."""
+    return 2 if g <= 4 else 1
+
+
+def decode_split_plan(device: torch.device, bhk: int, s: int, g: int = 1):
+    """(nsplit, slots per split) for ``bhk`` regions of ``s`` slots and
+    ``g`` query heads a KV head on ``device``: one wave of the kernel's
+    residency (:func:`blocks_per_sm` blocks an SM), each split at most 32
+    64-slot tiles (the last split may be shorter).  Shapes only: the host
+    reads no mask, so the decode step never waits on the card."""
     tiles = -(-s // TILE)
-    want = max(1, 2 * _sm_count(device) // bhk)
+    want = max(1, blocks_per_sm(g) * _sm_count(device) // bhk)
     per = min(-(-tiles // want), _MAX_TILES)
     return -(-tiles // per), per * TILE
 
@@ -114,7 +122,7 @@ def decode_attention(
             or mask.device != q.device):
         raise ValueError("mask must be a contiguous bool tensor on q's device")
     out = torch.empty_like(q)
-    nsplit, rows = decode_split_plan(q.device, b * hk, s)
+    nsplit, rows = decode_split_plan(q.device, b * hk, s, h // hk)
     stream = torch.cuda.current_stream(q.device)
     if nsplit > MAX_CLUSTER:
         f32 = dict(dtype=torch.float32, device=q.device)
@@ -131,8 +139,11 @@ def decode_attention(
         1.0 / math.sqrt(d), stream.cuda_stream)
     _build.check(err, "decode_attn")
     decode_attention.launches += 1
+    decode_attention.blocks += b * hk * nsplit
     return out
 
 
-#: kernel launches since the last reset (CPU calls do not count)
+#: kernel launches since the last reset (CPU calls do not count), and the
+#: split kernel's blocks they ran (B * Hk * nsplit each: the plan's grid)
 decode_attention.launches = 0
+decode_attention.blocks = 0

@@ -47,7 +47,8 @@ from ..ops.quant import (QuantizedKVRegion, merge_tail,
 from . import _build
 
 HEAD_DIM = 128
-GROUPS = (1, 2, 4, 8)
+#: GQA group sizes the region kernels are instantiated for (7: Qwen2.5-7B)
+GROUPS = (1, 2, 4, 7, 8)
 NBITS = (2, 4, 8)
 #: an H100's SM count: split plans made for CPU tensors (where the wrappers
 #: run their plain versions) are the card's

@@ -86,9 +86,10 @@ def region_from_numpy(reg, *, device=None) -> QuantizedKVRegion:
 def init_params(spec: ModelSpec, generator: torch.Generator, device,
                 dtype: torch.dtype = torch.bfloat16) -> dict:
     """Random-normal params of the JAX ``init_params`` distribution (not its
-    bits): matmul weights ~ N(0, 1/fan_in), embed and lm_head ~ N(0, 0.02^2),
-    norms at 1.  Drawn in f32 one layer at a time on ``device`` (the
-    generator's device), then cast, so the f32 transient is one layer."""
+    bits): matmul weights ~ N(0, 1/fan_in), embed, lm_head and (with
+    ``attention_bias``) the QKV biases ~ N(0, 0.02^2), norms at 1.  Drawn
+    in f32 one layer at a time on ``device`` (the generator's device), then
+    cast, so the f32 transient is one layer."""
     from .llama import check_ported
 
     check_ported(spec)
@@ -112,6 +113,10 @@ def init_params(spec: ModelSpec, generator: torch.Generator, device,
         for i in range(L):
             w[i] = normal(shape, 1.0 / math.sqrt(shape[0]))
         layers[name] = w
+    if spec.attention_bias:
+        # Qwen2's QKV biases ~ N(0, 0.02^2), as JAX's init_params draws them
+        for name, width in (("bq", H * Dh), ("bk", KV * Dh), ("bv", KV * Dh)):
+            layers[name] = normal((L, width), 0.02)
     layers["attn_norm"] = torch.ones((L, Dm), dtype=dtype, device=device)
     layers["mlp_norm"] = torch.ones((L, Dm), dtype=dtype, device=device)
     params = {

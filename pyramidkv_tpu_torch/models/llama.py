@@ -22,6 +22,8 @@ With ``method="minference"`` and a bucket of at least
 ``minference_dense_below`` tokens, each layer's prefill attention is the
 vertical-and-slash sparse attention of ``ops/sparse_prefill.py`` (its three
 block-sparse kernels) instead of the dense flash kernel.
+Qwen2's QKV biases (``attention_bias``: ``bq`` / ``bk`` / ``bv`` leaves)
+are added to the projections in ``_qkv``, which every path runs.
 A uniform ``sliding_window`` (Mistral) masks every dense prefill
 attention; decode masks it only for fullkv and minference, whose slots are
 positions (JAX ``llama.py:932-951``), and the sparse prefill ignores it,
@@ -57,20 +59,25 @@ IMPLS = ("kernel", "plain")
 def check_ported(spec: ModelSpec) -> None:
     """Raise for the model features the port does not run yet.  A uniform
     sliding window (Mistral: ``sliding_window`` set, ``layer_types`` None)
-    is ported; per-layer attention types are not."""
+    and Qwen2's QKV biases (``attention_bias``) are ported; per-layer
+    attention types, Gemma-2's other features and MoE are not."""
     if spec.layer_types is not None and spec.sliding_window is not None:
         raise NotImplementedError(
             f"{spec.name}: per-layer sliding/full attention (Gemma-2's "
             "layer_types) is not ported yet (ROADMAP queue 1 #5c)")
-    if (spec.num_local_experts or spec.attention_bias or spec.post_block_norms
-            or spec.rmsnorm_unit_offset or spec.scale_embeddings
-            or spec.hidden_act != "silu"
+    if (spec.post_block_norms or spec.rmsnorm_unit_offset
+            or spec.scale_embeddings or spec.hidden_act != "silu"
             or spec.query_pre_attn_scalar is not None
             or spec.attn_logit_softcapping is not None
             or spec.final_logit_softcapping is not None):
         raise NotImplementedError(
-            f"{spec.name}: MoE, QKV biases and Gemma-2 features are not "
-            "ported yet (ROADMAP queue 1)")
+            f"{spec.name}: Gemma-2's softcaps, (1+w) and post-block norms, "
+            "scaled embeddings, GeGLU and query_pre_attn_scalar are not "
+            "ported yet (ROADMAP queue 1 #5c)")
+    if spec.num_local_experts:
+        raise NotImplementedError(
+            f"{spec.name}: Mixtral's MoE MLP is not ported yet (ROADMAP "
+            "queue 1 #5d)")
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +139,8 @@ def _repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
 def _qkv(x: torch.Tensor, wts: dict, spec: ModelSpec, impl: str
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: [B, T, Dm] -> q [B, H, T, Dh], k/v [B, KV, T, Dh].  A fused
-    ``wqkv`` leaf computes all three in one matmul and is split."""
+    ``wqkv`` leaf computes all three in one matmul and is split; ``bq`` /
+    ``bk`` / ``bv`` leaves (Qwen2) are added to the three."""
     b, t, _ = x.shape
     H, KV, Dh = spec.num_attention_heads, spec.num_key_value_heads, spec.head_dim
     if "wqkv" in wts:
@@ -140,6 +148,12 @@ def _qkv(x: torch.Tensor, wts: dict, spec: ModelSpec, impl: str
                               [H * Dh, KV * Dh, KV * Dh], dim=-1)
     else:
         q, k, v = (mm(x, wts[n], impl) for n in ("wq", "wk", "wv"))
+    if "bq" in wts:
+        # Qwen2's QKV biases, added after the split (the fused wqkv path
+        # composes) in the activation's dtype, as JAX's _qkv
+        q = q + wts["bq"].to(q.dtype)
+        k = k + wts["bk"].to(k.dtype)
+        v = v + wts["bv"].to(v.dtype)
     q = q.reshape(b, t, H, Dh).transpose(1, 2)
     k = k.reshape(b, t, KV, Dh).transpose(1, 2)
     v = v.reshape(b, t, KV, Dh).transpose(1, 2)

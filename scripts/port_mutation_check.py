@@ -153,6 +153,12 @@ Mutants:
   visible slot in a row masked everywhere attends over nothing instead of
   all its slots (tile skipping applied to that row: targets the random-mask
   checks, each of which masks one row everywhere).
+- ``decode_g7_reads_g8_rows`` (``csrc/decode_attn.cu``): at G = 7 the
+  split kernel reads each region's query heads at a stride of 8 rows, as
+  if G were 8 (checked by ``phase_qwen_kernels``; targets its G = 7 decode
+  checks, whose regions past the first read another region's heads);
+- ``pa_g7_reads_g8_rows`` (``csrc/quant_region.cuh``): the same fault in
+  the pa split kernel's folded queries (targets its G = 7 checks);
 - ``int4_cluster_drops_last_rank`` (``csrc/int4_matmul.cu``): rank 0 of
   the int4 kernel's cluster leaves the last rank's partial out of its sum
   (targets the int4 checks of more than one rank);
@@ -186,6 +192,8 @@ H2O = ("csrc/h2o_scores.cu", "phase_h2o_chunk_kernels")
 BSP = ("csrc/block_sparse_prefill.cu", "phase_minference_kernels")
 BSP_PY = ("kernels/block_sparse_prefill.py", "phase_minference_kernels")
 MM = ("csrc/int4_matmul.cu", "phase_mm_kernels")
+QWEN_DECODE = ("csrc/decode_attn.cu", "phase_qwen_kernels")
+QWEN_KIVI = ("csrc/quant_region.cuh", "phase_qwen_kernels")
 
 
 def _group(r):
@@ -443,6 +451,17 @@ MUTANTS = {
         *DECODE, lambda r: not r["case"].startswith("engine"),
         "    n = found ? 0 : ntiles;",
         "    n = 0;"),
+    "decode_g7_reads_g8_rows": (
+        *QWEN_DECODE, lambda r: (r["check"] == "decode_attention"
+                                 and r["H"] // r["Hk"] == 7),
+        "const __nv_bfloat16* qg = q + ((size_t)bk * G + g) * D;",
+        "const __nv_bfloat16* qg = q + (G == 7 ? ((size_t)bk * 8 + g) % "
+        "((size_t)gridDim.x * G) : (size_t)bk * G + g) * D;"),
+    "pa_g7_reads_g8_rows": (
+        *QWEN_KIVI, lambda r: _pa(r) and r["G"] == 7,
+        "qraw[g] = a.q[((size_t)bk * G + g) * D + tid];",
+        "qraw[g] = a.q[(G == 7 ? ((size_t)bk * 8 + g) % ((size_t)gridDim.x "
+        "* G) : (size_t)bk * G + g) * D + tid];"),
     "int4_cluster_drops_last_rank": (
         *MM, lambda r: _int4(r) and r["cluster"] > 1,
         "for (int r = 1; r < nrank; ++r) v += src[r * psz + e];",
@@ -484,7 +503,8 @@ cs.graph_ms = lambda torch, fn, reps: (fn(), 1.0)[1]
 getattr(cs, sys.argv[1])(torch, F, torch.device("cuda", 0))
 def finite(x):
     return x if x == x else float("inf")  # NaN: not a finite output
-print(json.dumps([{**{k: r.get(k) for k in ("check", "case", "S", "nsplit",
+print(json.dumps([{**{k: r.get(k) for k in ("check", "case", "H", "Hk", "G",
+                                            "S", "nsplit",
                                             "kernels_per_call", "nbits",
                                             "windows", "N", "W",
                                             "true_len", "k_groups",
