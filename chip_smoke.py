@@ -133,7 +133,8 @@ Phases (any failure exits non-zero):
      distance (rows wholly outside the window exact), the decode and pa
      kernels on window-shaped masks at the 8k and 32k widths;
  22. engine_mistral: ``Engine.generate`` on ``ModelSpec.preset(
-     "mistral-7b")`` (32 layers, seeded random weights; Llama's are freed
+     "mistral-7b")`` (its width, cut to 8 of its 32 layers, seeded random
+     weights; Llama's are freed
      first): the 8k batch for fullkv, snapkv, pyramidkv and h2o, the 32k
      prompt with int4 weights for fullkv kivi4-pa and snapkv, chunked
      snapkv (8k, C=2048) and the quantized carry (32k kivi4-pa, C=8192)
@@ -156,7 +157,8 @@ Phases (any failure exits non-zero):
      the int4 / g128 / int8 matmuls at Qwen's five decode widths, rows 1
      and 8;
  25. engine_qwen: ``Engine.generate`` on ``ModelSpec.preset("qwen2.5-7b")``
-     (28 layers, seeded random weights with QKV biases; Mistral's are freed
+     (its width, cut to 8 of its 28 layers, seeded random weights with QKV
+     biases; Mistral's are freed
      first): the 8k batch for fullkv (G = 7 decode), snapkv, pyramidkv and
      h2o, fullkv kivi4 group and kivi4-pa, the 32k prompt with int4
      weights for fullkv kivi4-pa, fullkv kivi4 group, snapkv and
@@ -166,7 +168,28 @@ Phases (any failure exits non-zero):
      runs are held the same way);
  26. parity_qwen: depth-2 prefill and decode logits, kernels against
      plain, for fullkv, snapkv, fullkv kivi4 group and kivi4-pa (the 8k
-     batch).
+     batch);
+ 27. gemma_kernels (after qwen_kernels): the flash and decode kernels at
+     Gemma-2-9B's head dim 256 with its scale 1/16 and attention logit cap
+     50 (q drawn large enough for the cap to bend the logits), against
+     their plain versions: short ragged shapes, then flash over the 8k
+     batch full and windowed (4096), at q_start on chunks 0-3 (C=2048),
+     partials on a self and a history tile, pass A and pass B, the decode
+     at G=1 (S=2080) and G=2 (fullkv, S=8224, full and window masks), each
+     twice and bitwise equal, timed beside SDPA on the uncapped function;
+     the decode kernel's residency at D = 256; the int4 matmuls at
+     Gemma-2's widths;
+ 28. engine_gemma: ``Engine.generate`` on ``ModelSpec.preset("gemma2-9b")``
+     (42 layers alternating sliding and full attention, random bf16
+     weights from seed 3, ~17.2 GiB; Qwen's are freed first) on the 8k
+     batch: fullkv, snapkv, pyramidkv, snapkv two-pass, snapkv chunked at
+     2048 (bf16 carry) and snapkv with int4 weights; launches, decode
+     blocks and cache bytes held to the plans;
+ 29. parity_gemma: depth-2 (one sliding, one full layer) prefill and
+     decode logits, kernels against plain, for fullkv and snapkv; and the
+     kernel path's prefill logits against the harness's own plain Gemma-2
+     forward (``gemma_reference_logits``, HF semantics without the port's
+     model code), within 2^-5 of the largest.
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -392,6 +415,28 @@ def bound(flops: float, nbytes: float, peak=PEAK_BF16_FLOPS) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def attn_bound(pairs: float, d: int, nbytes: float, softcap=None,
+               flops_per_pair=None) -> tuple:
+    """(least ms, what bounds it, {unit: ms}) of attention over ``pairs``
+    visible pairs at head dim ``d``: its products on the tensor cores
+    (``flops_per_pair``, default 4 d), its bytes, and under a logit cap its
+    MUFU work (an exp2 and a tanh a pair; without a cap the exp2 alone
+    never bounds it at D >= 128, so it is left out, as before)."""
+    t = {"tensor cores": (flops_per_pair or 4.0 * d) * pairs
+         / PEAK_BF16_FLOPS * 1e3,
+         "bytes": nbytes / PEAK_BYTES * 1e3}
+    if softcap is not None:
+        t["MUFU exp2 + tanh"] = 2.0 * pairs / PEAK_EXP2 * 1e3
+    unit = max(t, key=t.get)
+    return t[unit], ("bytes" if unit == "bytes" else "operations"), t
+
+
+#: the library column under a logit cap: no single eager PyTorch call
+#: computes the capped function, so SDPA's time on the uncapped one
+UNCAPPED_NOTE = ("SDPA on the uncapped function at the same shapes (no "
+                 "single eager PyTorch call computes the capped one)")
+
+
 def time_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     """Mean device ms per call over ``reps`` back-to-back calls."""
     for _ in range(warmup):
@@ -422,19 +467,24 @@ def graph_ms(torch, fn, reps: int) -> float:
 
 
 def check_flash(torch, F, dev, b, h, hk, n, true_len, window, timed, seed,
-                case):
+                case, d=D, scale=None, softcap=None, q_std=1.0):
+    """The one-pass flash kernel against its plain version (rows past the
+    pad; pad rows exactly 0; two calls bitwise equal) at head dim ``d``
+    with ``scale`` and ``softcap``; q drawn at ``q_std`` (larger logits,
+    where a cap bends them)."""
     from pyramidkv_tpu_torch.kernels import flash_causal_attention
     from pyramidkv_tpu_torch.ops.attention import causal_prefill_attention
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((b, h, n, D), generator=g, device=dev).to(torch.bfloat16)
-    k = torch.randn((b, hk, n, D), generator=g, device=dev).to(torch.bfloat16)
-    v = torch.randn((b, hk, n, D), generator=g, device=dev).to(torch.bfloat16)
+    q = (torch.randn((b, h, n, d), generator=g, device=dev)
+         * q_std).to(torch.bfloat16)
+    k = torch.randn((b, hk, n, d), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, hk, n, d), generator=g, device=dev).to(torch.bfloat16)
     tl = torch.tensor(true_len, dtype=torch.int32, device=dev)
-    got = flash_causal_attention(q, k, v, tl, sliding_window=window)
-    again = flash_causal_attention(q, k, v, tl, sliding_window=window)
-    want = causal_prefill_attention(q, k, v, true_len=tl,
-                                    sliding_window=window)
+    kw = dict(sliding_window=window, scale=scale, softcap=softcap)
+    got = flash_causal_attention(q, k, v, tl, **kw)
+    again = flash_causal_attention(q, k, v, tl, **kw)
+    want = causal_prefill_attention(q, k, v, true_len=tl, **kw)
     torch.cuda.synchronize()
     err = ratio = sq = 0.0
     for bi, t in enumerate(true_len):  # rows >= pad: JAX leaves pad rows open
@@ -442,34 +492,39 @@ def check_flash(torch, F, dev, b, h, hk, n, true_len, window, timed, seed,
         err = max(err, float((gb.float() - wb.float()).abs().max()))
         ratio = max(ratio, err_over_tol(gb, wb))
         sq += float(wb.float().square().sum())
-    rms = (sq / (h * sum(true_len) * D)) ** 0.5
+    rms = (sq / (h * sum(true_len) * d)) ** 0.5
     pad_rows_zero = all(
         bool((got[bi, :, :n - t] == 0).all()) for bi, t in enumerate(true_len))
     rec = {"check": "flash_causal_attention", "case": case, "B": b, "H": h,
-           "Hk": hk, "N": n, "true_len": list(true_len), "window": window,
+           "Hk": hk, "N": n, "D": d, "scale": scale, "softcap": softcap,
+           "true_len": list(true_len), "window": window,
            "max_abs_err": err, "err_over_tol": ratio, "tol": TOL_TEXT,
            "rms": rms, "pad_rows_zero": pad_rows_zero,
            "bitwise_repeat": bool(torch.equal(got, again))}
     del again
     if timed:
         rec["ms"] = time_ms(torch, lambda: flash_causal_attention(
-            q, k, v, tl, sliding_window=window), reps=10)
+            q, k, v, tl, **kw), reps=10)
         rec["plain_ms"] = time_ms(torch, lambda: causal_prefill_attention(
-            q, k, v, true_len=tl, sliding_window=window), reps=2)
+            q, k, v, true_len=tl, **kw), reps=2)
         # library yardstick: SDPA with the equivalent boolean mask (K/V
         # repeated to the query heads outside the timed call)
         lib = masked_sdpa_inputs(torch, q, k, v, tl, 0, window)
         rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            *lib[:3], attn_mask=lib[3]), reps=3)
+            *lib[:3], attn_mask=lib[3], scale=scale), reps=3)
+        if softcap is not None:
+            rec["library_note"] = UNCAPPED_NOTE
         del lib
         tls = np.asarray(true_len, np.float64)
         # visible (row, col) pairs
         rec["visible_pairs"] = pairs = visible_pairs(true_len, n, n, 0, 1,
                                                      window)
-        flops = 4.0 * D * h * pairs
-        nbytes = (h * tls.sum() * D * 2 + 2 * hk * tls.sum() * D * 2
-                  + b * h * n * D * 2 + b * 4)
-        rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes)
+        nbytes = (h * tls.sum() * d * 2 + 2 * hk * tls.sum() * d * 2
+                  + b * h * n * d * 2 + b * 4)
+        rec["bound_ms"], rec["bound_by"], units = attn_bound(
+            h * pairs, d, nbytes, softcap)
+        if softcap is not None:
+            rec["bound_units_ms"] = units
     log(rec)
     ok = (ratio <= 1 and pad_rows_zero and bool(torch.isfinite(got).all())
           and rec["bitwise_repeat"])
@@ -477,7 +532,8 @@ def check_flash(torch, F, dev, b, h, hk, n, true_len, window, timed, seed,
 
 
 def check_decode(torch, F, dev, b, h, hk, s, timed, seed, label, mask=None,
-                 masked_split=False, residency=None):
+                 masked_split=False, residency=None, d=D, scale=None,
+                 softcap=None, q_std=1.0):
     """The decode kernel against its plain version (and two calls against
     each other, bitwise) on random q, K, V.  ``mask``: the visibility to use
     (an engine cache's), else random at 70% with row (0, 0) masked
@@ -485,7 +541,8 @@ def check_decode(torch, F, dev, b, h, hk, s, timed, seed, label, mask=None,
     the plan makes several) and, with ``masked_split``, split 1 of row
     (0, 1) wholly masked.  ``residency`` (timed): also time the kernel on
     the plan made for that many blocks an SM (``residency_ms``), held to
-    the plain version too."""
+    the plain version too.  ``d``, ``scale``, ``softcap``, ``q_std``: as
+    check_flash's."""
     from pyramidkv_tpu_torch.kernels import decode_attn
     from pyramidkv_tpu_torch.kernels.decode_attn import decode_split_plan
 
@@ -493,60 +550,66 @@ def check_decode(torch, F, dev, b, h, hk, s, timed, seed, label, mask=None,
     from pyramidkv_tpu_torch.ops.attention import decode_attention as plain
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((b, h, D), generator=g, device=dev).to(torch.bfloat16)
-    k = torch.randn((b, hk, s, D), generator=g, device=dev).to(torch.bfloat16)
-    v = torch.randn((b, hk, s, D), generator=g, device=dev).to(torch.bfloat16)
-    nsplit, rows = decode_split_plan(dev, b * hk, s, h // hk)
+    q = (torch.randn((b, h, d), generator=g, device=dev)
+         * q_std).to(torch.bfloat16)
+    k = torch.randn((b, hk, s, d), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, hk, s, d), generator=g, device=dev).to(torch.bfloat16)
+    nsplit, rows = decode_split_plan(dev, b * hk, s, h // hk, d)
+    akw = dict(scale=scale, softcap=softcap)
     if mask is None:
         mask = torch.rand((b, hk, s), generator=g, device=dev) < 0.7
         mask[0, 0] = False  # one all-masked row: uniform average, as on the TPU
         if masked_split:
             assert nsplit > 2 and hk > 1, (nsplit, hk)
             mask[0, 1, rows:2 * rows] = False
-    got = decode_attention(q, k, v, mask)
-    want = plain(q, k, v, mask)
-    again = decode_attention(q, k, v, mask)
+    got = decode_attention(q, k, v, mask, **akw)
+    want = plain(q, k, v, mask, **akw)
+    again = decode_attention(q, k, v, mask, **akw)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     ratio = err_over_tol(got, want)
     rec = {"check": "decode_attention", "case": label, "B": b, "H": h,
-           "Hk": hk, "S": s, "nsplit": nsplit, "split_slots": rows,
+           "Hk": hk, "S": s, "D": d, "scale": scale, "softcap": softcap,
+           "nsplit": nsplit, "split_slots": rows,
            "visible": float(mask.float().mean()),
            "max_abs_err": err, "err_over_tol": ratio,
            "tol": TOL_TEXT, "rms": float(want.float().square().mean().sqrt()),
            "bitwise_repeat": bool(torch.equal(got, again))}
     if timed:
-        rec["ms"] = graph_ms(torch, lambda: decode_attention(q, k, v, mask),
-                             reps=50)
+        rec["ms"] = graph_ms(torch, lambda: decode_attention(
+            q, k, v, mask, **akw), reps=50)
         rec["host_ms"] = time_ms(torch, lambda: decode_attention(
-            q, k, v, mask), reps=50)
-        rec["plain_ms"] = graph_ms(torch, lambda: plain(q, k, v, mask),
-                                   reps=10)
+            q, k, v, mask, **akw), reps=50)
+        rec["plain_ms"] = graph_ms(torch, lambda: plain(q, k, v, mask,
+                                                        **akw), reps=10)
         kr = k.repeat_interleave(h // hk, dim=1)
         vr = v.repeat_interleave(h // hk, dim=1)
         mr = mask.repeat_interleave(h // hk, dim=1)[:, :, None, :]
         q4 = q[:, :, None, :]
         rec["library_ms"] = graph_ms(
             torch, lambda: F.scaled_dot_product_attention(
-                q4, kr, vr, attn_mask=mr), reps=50)
+                q4, kr, vr, attn_mask=mr, scale=scale), reps=50)
+        if softcap is not None:
+            rec["library_note"] = UNCAPPED_NOTE
         del kr, vr, mr
         # bytes: each visible K and V row once (the work this mask needs),
         # the mask, q and the output
         valid = float(mask.sum())
-        flops = 4.0 * D * (h // hk) * valid
-        nbytes = valid * D * 2 * 2 + b * hk * s + 2 * b * h * D * 2
+        flops = 4.0 * d * (h // hk) * valid
+        nbytes = valid * d * 2 * 2 + b * hk * s + 2 * b * h * d * 2
         rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes)
         if residency:
             own = decode_attn.blocks_per_sm
-            decode_attn.blocks_per_sm = lambda g: residency
+            decode_attn.blocks_per_sm = lambda g, d=D: residency
             try:
-                alt = decode_attention(q, k, v, mask)
+                alt = decode_attention(q, k, v, mask, **akw)
                 rec["residency"] = residency
                 rec["residency_plan"] = decode_split_plan(dev, b * hk, s,
-                                                          h // hk)
+                                                          h // hk, d)
                 rec["residency_err_over_tol"] = err_over_tol(alt, want)
                 rec["residency_ms"] = graph_ms(
-                    torch, lambda: decode_attention(q, k, v, mask), reps=50)
+                    torch, lambda: decode_attention(q, k, v, mask, **akw),
+                    reps=50)
             finally:
                 decode_attn.blocks_per_sm = own
             ratio = max(ratio, rec["residency_err_over_tol"])
@@ -950,7 +1013,7 @@ def method_plan(run):
 
 
 def methods_kv_bytes(plan, b: int, h: int = H, hk: int = HK,
-                     layers: int = LAYERS) -> int:
+                     layers: int = LAYERS, d: int = D) -> int:
     """The cache bytes a plan implies (bf16 K and V over each segment's
     slots; ThinK's narrow layout: K without the pruned slots, which live
     at D_kept channels beside their int32 channel indices)."""
@@ -959,10 +1022,10 @@ def methods_kv_bytes(plan, b: int, h: int = H, hk: int = HK,
     cs = plan.spec
     hs = hk if stores_kv_heads(cs) else h
     sp = plan.think_pruned_slots if plan.think_narrow else 0
-    total = sum((stop - start) * b * hs * (2 * sub.total_slots - sp) * D * 2
+    total = sum((stop - start) * b * hs * (2 * sub.total_slots - sp) * d * 2
                 for start, stop, sub in plan.segment_plans())
     if plan.think_narrow:
-        dk = D - int(D * cs.pruning_ratio)
+        dk = d - int(d * cs.pruning_ratio)
         total += layers * b * h * (sp * dk * 2 + dk * 4)
     return total
 
@@ -1244,7 +1307,8 @@ def expected_launches(qp, steps: int, b: int, n: int, chunks: int = 1,
             w0 = QuantW(w.codes[0], w.scale[0])
             add(w0, b * n, layers * chunks)
             add(w0, b, layers * steps)
-    add(qp["lm_head"], b, 1 + steps)
+    if "lm_head" in qp:  # a tied embedding's logits dequantize
+        add(qp["lm_head"], b, 1 + steps)
     return counts
 
 
@@ -2728,20 +2792,25 @@ def visible_pairs(true_len, n, nq, q_start, h, window=None):
 
 
 def check_flash_chunk(torch, F, dev, b, hk, n, true_len, chunk, i, seed,
-                      buf, case=None, timed=True, window=None, h=H):
+                      buf, case=None, timed=True, window=None, h=H,
+                      scale=None, softcap=None, q_std=1.0):
     """flash_causal_attention with q_start = i * chunk on chunk i of a
     prefill, its keys read in place from the bucket-long carry ``buf`` (k,
     v [B, Hk, n, D]), against the plain version (with ``window``, both
-    windowed); rows past the pad; two calls bitwise equal."""
+    windowed; ``scale``, ``softcap``, ``q_std`` as check_flash's); rows
+    past the pad; two calls bitwise equal."""
     from pyramidkv_tpu_torch.kernels import flash_causal_attention
     from pyramidkv_tpu_torch.ops.attention import causal_prefill_attention
 
+    d = buf[0].shape[-1]
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = _rand_bf16(torch, g, dev, b, h, chunk, D)
+    q = (_rand_bf16(torch, g, dev, b, h, chunk, d).float()
+         * q_std).to(torch.bfloat16)
     e = (i + 1) * chunk
     kh, vh = buf[0][:, :, :e], buf[1][:, :, :e]
     tl = torch.tensor(true_len, dtype=torch.int32, device=dev) - (n - e)
-    kw = dict(q_start=i * chunk, sliding_window=window)
+    kw = dict(q_start=i * chunk, sliding_window=window, scale=scale,
+              softcap=softcap)
     got = flash_causal_attention(q, kh, vh, tl, **kw)
     again = flash_causal_attention(q, kh, vh, tl, **kw)
     want = causal_prefill_attention(q, kh, vh, true_len=tl, **kw)
@@ -2757,7 +2826,7 @@ def check_flash_chunk(torch, F, dev, b, hk, n, true_len, chunk, i, seed,
     rec = {"check": "flash_causal_attention (q_start)",
            "case": case or f"8k batch chunk {i}", "B": b, "H": h, "Hk": hk,
            "N": e, "Nq": chunk, "q_start": i * chunk, "ldk": n,
-           "window": window,
+           "window": window, "D": d, "scale": scale, "softcap": softcap,
            "true_len": list(true_len), "max_abs_err": err,
            "err_over_tol": ratio, "tol": TOL_TEXT,
            "bitwise_repeat": bool(torch.equal(got, again))}
@@ -2773,31 +2842,40 @@ def check_flash_chunk(torch, F, dev, b, hk, n, true_len, chunk, i, seed,
         q, kh, vh, true_len=tl, **kw), reps=1, warmup=0)
     lib = masked_sdpa_inputs(torch, q, kh, vh, tl, i * chunk, window)
     rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        *lib[:3], attn_mask=lib[3]), reps=3)
+        *lib[:3], attn_mask=lib[3], scale=scale), reps=3)
+    if softcap is not None:
+        rec["library_note"] = UNCAPPED_NOTE
     del lib
     pairs = visible_pairs(true_len, n, chunk, i * chunk, h, window)
-    nbytes = (q.numel() * 2 * 2 + 2 * b * hk * e * D * 2 + b * 4)
+    nbytes = (q.numel() * 2 * 2 + 2 * b * hk * e * d * 2 + b * 4)
     rec["visible_pairs"] = pairs
-    rec["bound_ms"], rec["bound_by"] = bound(4.0 * D * pairs, nbytes)
+    rec["bound_ms"], rec["bound_by"], units = attn_bound(pairs, d, nbytes,
+                                                         softcap)
+    if softcap is not None:
+        rec["bound_units_ms"] = units
     log(rec)
     return ok, rec
 
 
 def check_partials(torch, F, dev, case, b, hk, c, tile_len, q_start, seed,
-                   timed=True, window=None, h=H):
+                   timed=True, window=None, h=H, d=D, scale=None,
+                   softcap=None, q_std=1.0):
     """flash_attention_partials on one tile of a quantized-carry chunk:
     ``q_start == 0`` the causal self tile, ``q_start >= c`` a history tile
     q_start rows before its queries (every key visible, or with ``window``
     those within it: rows past it have none); ``tile_len`` [B] the tile's
-    valid keys; two calls bitwise equal."""
+    valid keys; two calls bitwise equal.  ``d``, ``scale``, ``softcap``,
+    ``q_std`` as check_flash's."""
     from pyramidkv_tpu_torch.kernels import flash_attention_partials
     from pyramidkv_tpu_torch.ops.attention import flash_partials_plain
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v = (_rand_bf16(torch, g, dev, b, n_h, c, D)
+    q, k, v = (_rand_bf16(torch, g, dev, b, n_h, c, d)
                for n_h in (h, hk, hk))
+    q = (q.float() * q_std).to(torch.bfloat16)
     tl = torch.tensor(tile_len, dtype=torch.int32, device=dev)
-    kw = dict(q_start=q_start, sliding_window=window)
+    kw = dict(q_start=q_start, sliding_window=window, scale=scale,
+              softcap=softcap)
     got = flash_attention_partials(q, k, v, tl, **kw)
     again = flash_attention_partials(q, k, v, tl, **kw)
     want = flash_partials_plain(q, k, v, tl, **kw)
@@ -2805,6 +2883,7 @@ def check_partials(torch, F, dev, case, b, hk, c, tile_len, q_start, seed,
     ratio, err, m_err, l_err, dead_ok = partials_ratio_exp2(torch, got, want)
     rec = {"check": "flash_attention_partials", "case": case, "B": b,
            "H": h, "Hk": hk, "C": c, "q_start": q_start, "window": window,
+           "D": d, "scale": scale, "softcap": softcap,
            "tile_len": list(tile_len), "max_abs_err": err, "m_err": m_err,
            "l_rel_err": l_err, "err_over_tol": ratio,
            "dead_rows": int((want[2] == 0).sum()), "dead_rows_exact": dead_ok,
@@ -2823,12 +2902,17 @@ def check_partials(torch, F, dev, case, b, hk, c, tile_len, q_start, seed,
         q, k, v, tl, **kw), reps=1, warmup=0)
     lib = masked_sdpa_inputs(torch, q, k, v, tl, q_start, window)
     rec["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        *lib[:3], attn_mask=lib[3]), reps=3)
+        *lib[:3], attn_mask=lib[3], scale=scale), reps=3)
+    if softcap is not None:
+        rec["library_note"] = UNCAPPED_NOTE
     del lib
     pairs = visible_pairs(tile_len, c, c, q_start, h, window)
-    nbytes = (q.numel() * 2 + 2 * k.numel() * 2 + b * h * c * (D + 2) * 4)
+    nbytes = (q.numel() * 2 + 2 * k.numel() * 2 + b * h * c * (d + 2) * 4)
     rec["visible_pairs"] = pairs
-    rec["bound_ms"], rec["bound_by"] = bound(4.0 * D * pairs, nbytes)
+    rec["bound_ms"], rec["bound_by"], units = attn_bound(pairs, d, nbytes,
+                                                         softcap)
+    if softcap is not None:
+        rec["bound_units_ms"] = units
     log(rec)
     return ok, rec
 
@@ -2910,7 +2994,8 @@ def phase_h2o_chunk_kernels(torch, F, dev):
 
 
 def check_two_pass(torch, F, dev, case, b, hk, n, true_len, seed,
-                   q_start=0, window=None, timed=True, h=H):
+                   q_start=0, window=None, timed=True, h=H, d=D, scale=None,
+                   softcap=None, q_std=1.0):
     """The two-pass schedule's kernels against their plain versions on one
     shape (queries at global rows [q_start, n) of n keys, a sliding
     ``window`` if given): pass A's row maxes (called twice: bitwise equal);
@@ -2919,7 +3004,8 @@ def check_two_pass(torch, F, dev, case, b, hk, n, true_len, seed,
     against the plain composition.  Rows past the pad within their limits,
     rows with no visible key exact (m = float32.min, output 0; pass B's
     err_over_tol is infinite otherwise).  ``timed``: timed beside the
-    one-pass kernel and masked SDPA.  Returns (ok, {kernel: rec})."""
+    one-pass kernel and masked SDPA.  ``d``, ``scale``, ``softcap``,
+    ``q_std`` as check_flash's.  Returns (ok, {kernel: rec})."""
     from pyramidkv_tpu_torch.kernels import (flash_causal_attention,
                                              flash_pass_b, flash_row_max)
     from pyramidkv_tpu_torch.ops.attention import (flash_pass_b_plain,
@@ -2927,10 +3013,12 @@ def check_two_pass(torch, F, dev, case, b, hk, n, true_len, seed,
 
     nq = n - q_start
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = _rand_bf16(torch, g, dev, b, h, nq, D)
-    k, v = (_rand_bf16(torch, g, dev, b, hk, n, D) for _ in range(2))
+    q = (_rand_bf16(torch, g, dev, b, h, nq, d).float()
+         * q_std).to(torch.bfloat16)
+    k, v = (_rand_bf16(torch, g, dev, b, hk, n, d) for _ in range(2))
     tl = torch.tensor(true_len, dtype=torch.int32, device=dev)
-    kw = dict(q_start=q_start, sliding_window=window)
+    kw = dict(q_start=q_start, sliding_window=window, scale=scale,
+              softcap=softcap)
     m_got = flash_row_max(q, k, tl, **kw)
     m_again = flash_row_max(q, k, tl, **kw)
     m_want = flash_row_max_plain(q, k, tl, **kw)
@@ -2962,7 +3050,8 @@ def check_two_pass(torch, F, dev, case, b, hk, n, true_len, seed,
         dead_b &= bool((out_got[bi, :, :dead] == 0).all()
                        and (both[bi, :, :dead] == 0).all())
     base = {"case": case, "B": b, "H": h, "Hk": hk, "G": h // hk, "N": n,
-            "Nq": nq, "q_start": q_start, "window": window,
+            "Nq": nq, "q_start": q_start, "window": window, "D": d,
+            "scale": scale, "softcap": softcap,
             "true_len": list(true_len), "dead_rows_exact": dead_a and dead_b,
             "layers": LAYERS}
     ra = dict(base, check="flash_row_max", max_abs_err=m_err,
@@ -2976,34 +3065,38 @@ def check_two_pass(torch, F, dev, case, b, hk, n, true_len, seed,
               composed_err_over_tol=both_ratio, repeat_bitwise=repeat,
               tol=TOL_TEXT + "; rows with no visible key exactly 0")
     if timed:
-        pairs = visible_pairs(true_len, n, nq, q_start, h)
+        pairs = visible_pairs(true_len, n, nq, q_start, h, window)
         qb, kb = q.numel() * 2, k.numel() * 2
         mb, ob = b * h * nq * 4, q.numel() * 2
         # one-pass kernel and masked SDPA: the same function in one call
         one_ms = time_ms(torch, lambda: flash_causal_attention(
             q, k, v, tl, **kw), reps=5)
-        lib = masked_sdpa_inputs(torch, q, k, v, tl, q_start)
+        lib = masked_sdpa_inputs(torch, q, k, v, tl, q_start, window)
         sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            *lib[:3], attn_mask=lib[3]), reps=3)
+            *lib[:3], attn_mask=lib[3], scale=scale), reps=3)
         del lib
         for rec in (ra, rb):
             rec.update(visible_pairs=pairs, one_pass_ms=one_ms,
-                       sdpa_ms=sdpa_ms, schedule_bound_ms=bound(
-                           6.0 * D * pairs, qb + 2 * kb + mb + ob)[0])
+                       sdpa_ms=sdpa_ms, schedule_bound_ms=attn_bound(
+                           pairs, d, qb + 2 * kb + mb + ob, softcap,
+                           6.0 * d)[0])
         ra["ms"] = time_ms(torch, lambda: flash_row_max(q, k, tl, **kw),
                            reps=5)
         ra["plain_ms"] = time_ms(torch, lambda: flash_row_max_plain(
             q, k, tl, **kw), reps=1, warmup=0)
-        ra["bound_ms"], ra["bound_by"] = bound(2.0 * D * pairs,
+        # pass A caps each row's raw max once: no per-pair MUFU work
+        ra["bound_ms"], ra["bound_by"] = bound(2.0 * d * pairs,
                                                qb + kb + mb)
         rb["library_ms"] = sdpa_ms
+        if softcap is not None:
+            rb["library_note"] = UNCAPPED_NOTE
         rb["ms"] = time_ms(torch, lambda: flash_pass_b(
             q, k, v, m_want, tl, **kw), reps=5)
         rb["pass_b_over_one_pass"] = rb["ms"] / one_ms
         rb["plain_ms"] = time_ms(torch, lambda: flash_pass_b_plain(
             q, k, v, m_want, tl, **kw), reps=1, warmup=0)
-        rb["bound_ms"], rb["bound_by"] = bound(4.0 * D * pairs,
-                                               qb + 2 * kb + mb + ob)
+        rb["bound_ms"], rb["bound_by"], _ = attn_bound(
+            pairs, d, qb + 2 * kb + mb + ob, softcap)
     log(ra)
     log(rb)
     ok = (m_ratio <= 1 and out_ratio <= 1 and both_ratio <= 1 and dead_a
@@ -3047,10 +3140,11 @@ def phase_two_pass_kernels(torch, F, dev):
 
 def chunk_run_spec(run):
     """(CompressionSpec, bucket, max_new, chunk) of a CHUNK_RUNS,
-    MISTRAL_RUNS or QWEN_RUNS run."""
+    MISTRAL_RUNS, QWEN_RUNS or GEMMA_RUNS run."""
     from pyramidkv_tpu_torch.config import CompressionSpec
 
-    _, comp, size, chunk = {**CHUNK_RUNS, **MISTRAL_RUNS, **QWEN_RUNS}[run]
+    _, comp, size, chunk = {**CHUNK_RUNS, **MISTRAL_RUNS, **QWEN_RUNS,
+                            **GEMMA_RUNS}[run]
     bucket, max_new = (QN, QMAX_NEW) if size == "32k" else (N, MAX_NEW)
     return CompressionSpec(**comp), bucket, max_new, chunk
 
@@ -3653,6 +3747,11 @@ def phase_engine_two_pass_prefix(torch, dev, params, q4, vocab):
 #: heads, D = 128, vocabulary 32000); its geometry is Llama-3-8B's, so
 #: plans, cache widths and kernel shapes are those of the Llama runs
 MISTRAL_W = 4096
+#: the depth Mistral-7B's and Qwen2.5-7B's engine runs are cut to, so that
+#: the script with Gemma-2-9B's phases stays within the time it met before
+#: (their widths, shapes and checks are the full model's; every layer of a
+#: run is one more of the same launches)
+MISTRAL_DEPTH, QWEN_DEPTH = 8, 8
 #: the Mistral runs, as CHUNK_RUNS: name -> (weights, CompressionSpec
 #: arguments, size, prefill_chunk).  engine_mistral runs the monolithic
 #: ones; engine_mistral_paths the chunked ones, beside two-pass, a prefix
@@ -3782,7 +3881,8 @@ def model_kv_bytes(run, plan, b, m) -> int:
     the chunked KIVI carry's layout, or the monolithic region's (32k)."""
     cs, bucket, max_new, chunk = chunk_run_spec(run)
     if cs.quant_method is None:
-        return methods_kv_bytes(plan, b, m["h"], m["hk"], m["layers"])
+        return methods_kv_bytes(plan, b, m["h"], m["hk"], m["layers"],
+                                m["d"])
     if chunk:
         return chunk_kv_bytes(run, b, m["layers"], m["hk"])
     return kivi_bytes(b, m["hk"], bucket, cs.nbits, cs.q_layout, max_new,
@@ -3803,9 +3903,11 @@ def decode_blocks(torch, dev, plan, b, m) -> tuple:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     total, waves = 0, 0.0
     for start, stop, sub in plan.segment_plans():
-        nsplit, _ = decode_split_plan(dev, b * hs, sub.total_slots, g)
+        nsplit, _ = decode_split_plan(dev, b * hs, sub.total_slots, g,
+                                      m["d"])
         total += (stop - start) * b * hs * nsplit
-        waves = max(waves, b * hs * nsplit / (sms * blocks_per_sm(g)))
+        waves = max(waves, b * hs * nsplit
+                    / (sms * blocks_per_sm(g, m["d"])))
     return total, waves
 
 
@@ -3826,7 +3928,7 @@ def phase_engine_model(torch, dev, model, params, q4, vocab, runs=None):
     from pyramidkv_tpu_torch.models import llama
 
     m = MODELS[model]
-    spec = ModelSpec.preset(m["preset"])
+    spec = ModelSpec.preset(m["preset"], num_hidden_layers=m["layers"])
     p32 = [np.random.default_rng(0).integers(0, vocab, size=QTRUE).tolist()]
     rng = np.random.default_rng(0)
     p8 = [rng.integers(0, vocab, size=t).tolist() for t in TRUE_LEN]
@@ -3836,12 +3938,14 @@ def phase_engine_model(torch, dev, model, params, q4, vocab, runs=None):
         t_run = time.perf_counter()
         wname, _, size, _ = m["runs"][run]
         cs, bucket, max_new, chunk = chunk_run_spec(run)
+        two_pass = run.endswith("two-pass")
         prompts = p32 if size == "32k" else p8
         qp = q4 if wname == "int4" else None
         wts = qp if qp is not None else params
         eng = Engine(spec, cs, EngineSpec(max_new_tokens=max_new,
                                           prefill_buckets=(bucket,),
-                                          prefill_chunk=chunk),
+                                          prefill_chunk=chunk,
+                                          prefill_two_pass=two_pass),
                      wts, device=dev)
         if (wname, size) not in warm:  # the model's lm_head shapes
             eng.generate([p[:64] for p in prompts], max_new_tokens=2)
@@ -3856,6 +3960,10 @@ def phase_engine_model(torch, dev, model, params, q4, vocab, runs=None):
         want = chunk_expected(run, plan, qp, out.decode_steps, len(prompts),
                               window=m["window"], layers=m["layers"],
                               h=m["h"], hk=m["hk"])
+        if two_pass:  # pass A and pass B in place of the one-pass kernel
+            want["flash_row_max"] = want["flash_pass_b"] = want[
+                "flash_causal_attention"]
+            want["flash_causal_attention"] = 0
         want_bytes = model_kv_bytes(run, plan, len(prompts), m)
         per_step, waves = ((0, 0.0) if cs.quant_method else
                            decode_blocks(torch, dev, plan, len(prompts), m))
@@ -3868,7 +3976,8 @@ def phase_engine_model(torch, dev, model, params, q4, vocab, runs=None):
                 and all(len(seq) >= 1 for seq in out.tokens))
         rec = {"phase": f"engine_{model}", "run": run, "weights": wname,
                "method": cs.method, "window": m["window"],
-               "prefill_chunk": chunk, "prefill_s": out.prefill_seconds,
+               "prefill_chunk": chunk, "two_pass": two_pass,
+               "prefill_s": out.prefill_seconds,
                "decode_s": out.decode_seconds,
                "decode_steps": out.decode_steps,
                "decode_tok_per_s": (out.decode_steps * len(prompts)
@@ -3904,7 +4013,8 @@ def phase_engine_model(torch, dev, model, params, q4, vocab, runs=None):
 
 
 def phase_engine_mistral_more(torch, dev, params, q4, vocab, recs):
-    """The rest of Mistral's paths at full width: ``prefill_two_pass`` on
+    """The rest of Mistral's paths at full width (MISTRAL_DEPTH layers):
+    ``prefill_two_pass`` on
     the 8k batch (snapkv; first-token logits held to the one-pass
     prefill's, 2^-5 of the largest), a 6144-token prefix handle (longer
     than the window) shared by 4 requests of 8000/7600/7000/6400 ids
@@ -3918,7 +4028,8 @@ def phase_engine_mistral_more(torch, dev, params, q4, vocab, recs):
     from pyramidkv_tpu_torch.engine import Engine
     from pyramidkv_tpu_torch.models import llama
 
-    spec = ModelSpec.preset("mistral-7b")
+    ml = MISTRAL_DEPTH
+    spec = ModelSpec.preset("mistral-7b", num_hidden_layers=ml)
     rng = np.random.default_rng(0)
     p8 = [rng.integers(0, vocab, size=t).tolist() for t in TRUE_LEN]
     p32 = [np.random.default_rng(0).integers(0, vocab, size=QTRUE).tolist()]
@@ -3954,8 +4065,8 @@ def phase_engine_mistral_more(torch, dev, params, q4, vocab, recs):
     reset_counts()
     out = eng.generate(p8)
     c = read_counts()
-    want = want_counts(flash_row_max=LAYERS, flash_pass_b=LAYERS,
-                       decode_attention=LAYERS * out.decode_steps)
+    want = want_counts(flash_row_max=ml, flash_pass_b=ml,
+                       decode_attention=ml * out.decode_steps)
     tokens, tl = bucket_tokens(torch, dev, p8, N)
     plan = eng.plan_for(N)
     with torch.inference_mode():
@@ -3963,7 +4074,7 @@ def phase_engine_mistral_more(torch, dev, params, q4, vocab, recs):
                               prefill_two_pass=True)
         l1, _ = llama.prefill(params, spec, plan, tokens, tl)
     twin = _logits_close(torch, l2, l1)
-    want_bytes = methods_kv_bytes(plan, B)
+    want_bytes = methods_kv_bytes(plan, B, layers=ml)
     ok &= finish(run, eng, out, c, want, {
         "vs_one_pass": twin, "one_pass_prefill_s": recs[
             "mistral bf16 snapkv 8k"]["prefill_s"],
@@ -3983,13 +4094,13 @@ def phase_engine_mistral_more(torch, dev, params, q4, vocab, recs):
     reset_counts()
     handle, pre_s = _timed(torch, eng.precompute_prefix, prefix)
     good = read_counts() == want_counts(
-        flash_causal_attention=LAYERS * (PREFIX_8K // C8K))
+        flash_causal_attention=ml * (PREFIX_8K // C8K))
     reset_counts()
     out = eng.generate(prompts, prefix=handle)
     c = read_counts()
     k0 = eng._apply_prefix(N, len(prompts), handle, lens)[1]
-    want = want_counts(flash_causal_attention=LAYERS * (N // C8K - k0),
-                       decode_attention=LAYERS * out.decode_steps)
+    want = want_counts(flash_causal_attention=ml * (N // C8K - k0),
+                       decode_attention=ml * out.decode_steps)
     tokens, tl = bucket_tokens(torch, dev, prompts, N)
     with torch.inference_mode():
         (lp, _), _ = _timed(torch, eng._run_chunked_prefill, N, tokens, tl,
@@ -3997,7 +4108,7 @@ def phase_engine_mistral_more(torch, dev, params, q4, vocab, recs):
         (l0, _), plain_s = _timed(torch, eng._run_chunked_prefill, N,
                                   tokens, tl)
     twin = _logits_close(torch, lp, l0)
-    want_bytes = methods_kv_bytes(eng.plan_for(N), len(prompts))
+    want_bytes = methods_kv_bytes(eng.plan_for(N), len(prompts), layers=ml)
     ok &= finish(run, eng, out, c, want, {
         "precompute_s": pre_s, "handle_bytes": handle.kv_bytes, "k0": k0,
         "no_prefix_prefill_s": plain_s, "vs_no_prefix": twin,
@@ -4015,15 +4126,16 @@ def phase_engine_mistral_more(torch, dev, params, q4, vocab, recs):
     reset_counts()
     out = eng.generate(p32)
     c = read_counts()
-    want = want_counts(vertical_attention_partials=LAYERS,
-                       slash_tile_attention=LAYERS,
-                       decode_attention=LAYERS * out.decode_steps,
-                       **expected_launches(q4, out.decode_steps, 1, bucket))
+    want = want_counts(vertical_attention_partials=ml,
+                       slash_tile_attention=ml,
+                       decode_attention=ml * out.decode_steps,
+                       **expected_launches(q4, out.decode_steps, 1, bucket,
+                                           layers=ml))
     ok &= finish(run, eng, out, c, want, {
         "kivi4pa_fullkv_prefill_s": recs[
             "mistral int4 fullkv kivi4-pa 32k"]["prefill_s"],
-        "expected_kv_cache_bytes": KV_BYTES_FULLKV_32K},
-        out.kv_cache_bytes == KV_BYTES_FULLKV_32K
+        "expected_kv_cache_bytes": KV_BYTES_FULLKV_32K * ml // LAYERS},
+        out.kv_cache_bytes == KV_BYTES_FULLKV_32K * ml // LAYERS
         and out.decode_steps == max_new - 1)
     del eng, out
     torch.cuda.empty_cache()
@@ -4116,7 +4228,7 @@ def phase_parity_model(torch, dev, model, params, vocab, steps=4):
 
 #: Qwen2.5-7B (JAX config.py:239-245): 28 layers, 28 query heads on 4 KV
 #: heads (G = 7), hidden 3584, intermediate 18944, vocabulary 152064
-QWEN_H, QWEN_HK, QWEN_LAYERS = 28, 4, 28
+QWEN_H, QWEN_HK = 28, 4
 QWEN_G = QWEN_H // QWEN_HK
 #: its decode matmuls: name -> (in, out); int4 fuses wqkv (3584 + 2 x 512)
 #: and w_gateup, and pads the lm_head to a multiple of 4096 (155648)
@@ -4181,15 +4293,16 @@ QWEN_TWINS = {"qwen int4 fullkv kivi4-pa 32k chunk 8192":
 QWEN_PARITY = ("qwen bf16 fullkv 8k", "qwen bf16 snapkv 8k",
                "qwen bf16 fullkv kivi4 8k", "qwen bf16 fullkv kivi4-pa 8k")
 #: the full-width models after Llama-3-8B: preset, runs, each chunked
-#: run's monolithic twin, the parity runs, the uniform sliding window and
-#: the geometry (layers, query heads, KV heads)
+#: run's monolithic twin, the parity runs, the sliding window and the
+#: geometry (layers the engine runs take, query heads, KV heads, head dim)
 MODELS = {
     "mistral": dict(preset="mistral-7b", runs=MISTRAL_RUNS,
                     twins=MISTRAL_TWINS, parity=MISTRAL_PARITY,
-                    window=MISTRAL_W, layers=LAYERS, h=H, hk=HK),
+                    window=MISTRAL_W, layers=MISTRAL_DEPTH, h=H, hk=HK,
+                    d=D),
     "qwen": dict(preset="qwen2.5-7b", runs=QWEN_RUNS, twins=QWEN_TWINS,
-                 parity=QWEN_PARITY, window=None, layers=QWEN_LAYERS,
-                 h=QWEN_H, hk=QWEN_HK),
+                 parity=QWEN_PARITY, window=None, layers=QWEN_DEPTH,
+                 h=QWEN_H, hk=QWEN_HK, d=D),
 }
 
 
@@ -4215,7 +4328,7 @@ def phase_qwen_kernels(torch, F, dev):
     ok, recs = True, {}
     lib = _build.library("decode_attn")
     for g in decode_attn.GROUPS:
-        occ = lib.pkv_decode_occupancy(g)
+        occ = lib.pkv_decode_occupancy(g, D)
         good = occ == decode_attn.blocks_per_sm(g)
         log({"check": "decode_occupancy", "G": g, "blocks_per_sm": occ,
              "plan_blocks_per_sm": decode_attn.blocks_per_sm(g),
@@ -4332,9 +4445,302 @@ def phase_qwen_kernels(torch, F, dev):
                 seed += 1
                 if on_path and rows == 1:
                     rec["layers"] = 1 if shape.startswith("lm_head") \
-                        else QWEN_LAYERS
+                        else QWEN_DEPTH
                     recs["int4_matmul"].append(rec)
     return ok, recs
+
+# ---------------------------------------------------------------------------
+# Gemma-2-9B: the attention logit cap and head dim 256
+# ---------------------------------------------------------------------------
+
+#: Gemma-2-9B (JAX config.py:246-259): 42 layers alternating sliding (window
+#: 4096) and full attention, 16 query heads on 8 KV heads of D = 256, hidden
+#: 3584, vocabulary 256000, tied embeddings; attention scale 256^-0.5 and
+#: logit cap 50
+GEMMA_H, GEMMA_HK, GEMMA_D, GEMMA_LAYERS = 16, 8, 256, 42
+GEMMA_W = 4096
+GEMMA_SCALE, GEMMA_CAP = 256.0 ** -0.5, 50.0
+#: q drawn at this std in the kernel checks: logits of std 4 (scale 1/16,
+#: unit keys over 256 channels) reaching ~20, where the cap bends them
+#: (50 tanh(20 / 50) = 19.0), as it bends a real model's largest logits
+GEMMA_Q_STD = 4.0
+GEMMA_ATTN = dict(scale=GEMMA_SCALE, softcap=GEMMA_CAP, q_std=GEMMA_Q_STD)
+#: its decode matmuls (in, out): int4 fuses wqkv (16 + 2 x 8 heads of 256)
+#: and w_gateup; the tied embedding's int8 codes [256000, 3584] dequantize
+#: for the logits, and int8_matmul is held at that width too
+GEMMA_MM = {"wqkv": (3584, 8192), "wo": (4096, 3584),
+            "w_gateup": (3584, 28672), "w_down": (14336, 3584),
+            "head8": (3584, 256000)}
+#: the Gemma-2 runs, as MISTRAL_RUNS (a name ending in "two-pass" runs
+#: prefill_two_pass): the 8k batch, cap 2048 / window 8 / kernel 7
+GEMMA_RUNS = {
+    "gemma bf16 fullkv 8k": ("bf16", dict(method="fullkv"), "8k", None),
+    "gemma bf16 snapkv 8k": ("bf16", dict(method="snapkv"), "8k", None),
+    "gemma bf16 pyramidkv 8k": ("bf16", dict(method="pyramidkv"), "8k",
+                                None),
+    "gemma bf16 snapkv 8k two-pass": ("bf16", dict(method="snapkv"), "8k",
+                                      None),
+    "gemma bf16 snapkv 8k chunk 2048": ("bf16", dict(method="snapkv"), "8k",
+                                        C8K),
+    "gemma int4 snapkv 8k": ("int4", dict(method="snapkv"), "8k", None),
+}
+GEMMA_TWINS = {"gemma bf16 snapkv 8k chunk 2048": "gemma bf16 snapkv 8k"}
+GEMMA_PARITY = ("gemma bf16 fullkv 8k", "gemma bf16 snapkv 8k")
+MODELS["gemma"] = dict(preset="gemma2-9b", runs=GEMMA_RUNS,
+                       twins=GEMMA_TWINS, parity=GEMMA_PARITY,
+                       window=GEMMA_W, layers=GEMMA_LAYERS, h=GEMMA_H,
+                       hk=GEMMA_HK, d=GEMMA_D)
+
+
+def phase_gemma_kernels(torch, F, dev):
+    """Every kernel Gemma-2's runs launch, at its shapes (16 / 8 heads of
+    D = 256) with its scale 1/16 and cap 50, q at GEMMA_Q_STD, against its
+    plain version: the decode kernel's residency at D = 256 against the
+    card's occupancy; short ragged shapes first (flash one-pass and
+    two-pass, decode with several splits, a wholly masked split and a row
+    masked everywhere); then, timed, flash over the 8k batch full and with
+    the 4096 window, at q_start on chunks 0-3 (C=2048, the carry read in
+    place; chunk 3 also windowed, untimed), partials on a self tile and a
+    history tile, pass A and pass B over the 8k batch (windowed untimed),
+    the decode at G=1 (B=4, 16 heads, S=2080) and G=2 (fullkv, S=8224,
+    full and window masks); the int4 matmuls at Gemma-2's widths (rows 4,
+    the 8k batch's decode, timed; rows 1) and int8 at the tied head's.
+    Every kernel is called twice and held bitwise equal.  Returns (ok,
+    {row: rec or [recs]})."""
+    from pyramidkv_tpu_torch.kernels import _build, decode_attn
+    from pyramidkv_tpu_torch.kernels.int4_matmul import int8_tiles
+
+    ok, recs = True, {}
+    kw = dict(GEMMA_ATTN, d=GEMMA_D)
+    lib = _build.library("decode_attn")
+    for g in decode_attn.GROUPS_BY_DIM[GEMMA_D]:
+        occ = lib.pkv_decode_occupancy(g, GEMMA_D)
+        want = decode_attn.blocks_per_sm(g, GEMMA_D)
+        log({"check": "decode_occupancy", "G": g, "D": GEMMA_D,
+             "blocks_per_sm": occ, "plan_blocks_per_sm": want,
+             "ok": occ == want})
+        ok &= occ == want
+    # short, ragged shapes first
+    for i, args in enumerate(((2, 4, 2, 256, (256, 77), None),
+                              (2, 4, 4, 192, (150, 3), 50),
+                              (1, 16, 8, 128, (128,), None),
+                              (2, 16, 8, 448, (448, 200), 100))):
+        r, _ = check_flash(torch, F, dev, *args, timed=False, seed=900 + i,
+                           case="short ragged, D=256, cap 50", **kw)
+        ok &= r
+    for seed, (case, b, hk, n, tls, q_start, window) in enumerate((
+            ("short N=192, D=256", 2, 8, 192, (192, 70), 0, None),
+            ("short q_start 256, window 64, D=256", 2, 4, 448, (448, 300),
+             256, 64)), start=905):
+        r, _ = check_two_pass(torch, F, dev, case, b, hk, n, tls, seed,
+                              q_start, window, timed=False, h=2 * hk, **kw)
+        ok &= r
+    for i, (b, h, hk, s, split) in enumerate((
+            (2, 4, 4, 37, False), (2, 8, 4, 300, False),
+            (1, 16, 8, 4099, False), (3, 16, 16, 1, False),
+            (1, 4, 2, 20000, True), (2, 16, 16, 9001, True))):
+        r, _ = check_decode(torch, F, dev, b, h, hk, s, timed=False,
+                            seed=910 + i, label="short, D=256, cap 50",
+                            masked_split=split, **kw)
+        ok &= r
+    # the 8k batch
+    for key, window, seed in (("flash 8k", None, 920),
+                              ("flash 8k window", GEMMA_W, 921)):
+        r, recs[key] = check_flash(
+            torch, F, dev, B, GEMMA_H, GEMMA_HK, N, TRUE_LEN, window, True,
+            seed, f"gemma 8k batch{', window 4096' if window else ''}", **kw)
+        ok &= r
+        torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(922)
+    buf = (_rand_bf16(torch, g, dev, B, GEMMA_HK, N, GEMMA_D),
+           _rand_bf16(torch, g, dev, B, GEMMA_HK, N, GEMMA_D))
+    recs["q_start"] = []
+    for i in range(N // C8K):
+        r, rec = check_flash_chunk(torch, F, dev, B, GEMMA_HK, N, TRUE_LEN,
+                                   C8K, i, 923 + i, buf, h=GEMMA_H,
+                                   case=f"gemma 8k batch chunk {i}",
+                                   **GEMMA_ATTN)
+        ok &= r
+        recs["q_start"].append(rec)
+    r, _ = check_flash_chunk(torch, F, dev, B, GEMMA_HK, N, TRUE_LEN, C8K, 3,
+                             927, buf, timed=False, window=GEMMA_W,
+                             h=GEMMA_H, case="gemma 8k batch chunk 3, "
+                             "window 4096", **GEMMA_ATTN)
+    ok &= r
+    del buf
+    torch.cuda.empty_cache()
+    recs["partials"] = []
+    for seed, (case, q_start, tls) in enumerate((
+            ("gemma 8k self tile (chunk 3)", 0,
+             tile_len(TRUE_LEN, N, C8K, 3 * C8K)),
+            ("gemma 8k history tile 2 at q_start 2048", C8K,
+             tile_len(TRUE_LEN, N, C8K, 2 * C8K))), start=928):
+        r, rec = check_partials(torch, F, dev, case, B, GEMMA_HK, C8K, tls,
+                                q_start, seed, h=GEMMA_H, **kw)
+        ok &= r
+        recs["partials"].append(rec)
+        torch.cuda.empty_cache()
+    for seed, (case, window, timed) in enumerate((
+            ("gemma 8k", None, True), ("gemma 8k, window 4096", GEMMA_W,
+                                       False)), start=930):
+        r, got = check_two_pass(torch, F, dev, case, B, GEMMA_HK, N,
+                                TRUE_LEN, seed, window=window, timed=timed,
+                                h=GEMMA_H, **kw)
+        ok &= r
+        if timed:
+            recs["row_max"], recs["pass_b"] = (got["flash_row_max"],
+                                               got["flash_pass_b"])
+        torch.cuda.empty_cache()
+    r, recs["decode g1"] = check_decode(
+        torch, F, dev, B, GEMMA_H, GEMMA_H, 2080, True, 932,
+        "gemma snapkv 8k batch, G=1", **kw)
+    ok &= r
+    recs["decode g2"] = []
+    s, t_len = N, MAX_NEW
+    for seed, (case, window) in enumerate((
+            ("gemma fullkv 8k batch, G=2, full mask", s + t_len),
+            ("gemma fullkv 8k batch, G=2, window mask", GEMMA_W)),
+            start=933):
+        mask = window_mask(torch, dev, B, GEMMA_HK, s, t_len, t_len // 2,
+                           window)
+        r, rec = check_decode(torch, F, dev, B, GEMMA_H, GEMMA_HK,
+                              s + t_len, True, seed, case, mask=mask, **kw)
+        ok &= r
+        rec["layers"] = GEMMA_LAYERS // 2
+        recs["decode g2"].append(rec)
+    recs["int4_matmul"] = []
+    seed = 940
+    for shape in ("wqkv", "wo", "w_gateup", "w_down"):
+        i, o = GEMMA_MM[shape]
+        for rows in (B, 1):
+            r, rec = check_mm(torch, dev, "int4_matmul", i, o, rows, "bf16",
+                              rows == B, seed, "gemma " + shape)
+            ok &= r
+            seed += 1
+            if rows == B:
+                rec["layers"] = GEMMA_LAYERS
+                recs["int4_matmul"].append(rec)
+    i, o = GEMMA_MM["head8"]
+    if int8_tiles(i, o)[0]:
+        r, _ = check_mm(torch, dev, "int8_matmul", i, o, 1, "f32", False,
+                        seed, "gemma tied head")
+        ok &= r
+    else:
+        log({"check": "int8_matmul", "case": "gemma tied head",
+             "note": "not tiled by int8_tiles: the tied head dequantizes"})
+    return ok, recs
+
+
+def gemma_reference_logits(torch, params, spec, tokens, true_len):
+    """The harness's plain reference of a Gemma-2 prefill's last-position
+    logits, written from HF's modeling_gemma2 without the port's model
+    code: embeddings times sqrt(hidden) in the activation dtype; per layer
+    (1 + w) RMSNorms in f32, RoPE, attention over the visible keys (causal,
+    past the left pad, and within the window on sliding layers) with logits
+    cap * tanh(scale q.k / cap) and an f32 softmax, the post-attention
+    norm, GeGLU and the post-MLP norm; the final norm, the tied embedding
+    and the final cap.  The last layer attends for the last row only."""
+    dt = params["final_norm"].dtype
+    dev = tokens.device
+    b, n = tokens.shape
+    h, hk, d = (spec.num_attention_heads, spec.num_key_value_heads,
+                spec.head_dim)
+    eps, cap = spec.rms_norm_eps, spec.attn_logit_softcapping
+
+    def norm(x, w):
+        xf = x.float()
+        return (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+                * (1.0 + w.float())).to(dt)
+
+    pad = n - true_len.long()
+    col = torch.arange(n, device=dev)
+    pos = (col[None] - pad[:, None]).clamp(min=0).float()  # [B, N]
+    inv = 1.0 / spec.rope_theta ** (
+        torch.arange(0, d, 2, device=dev).float() / d)
+
+    def rope(x, p):  # x [B, heads, T, d], p [B, T]
+        ang = p[:, None, :, None] * inv
+        x1, x2 = x[..., :d // 2].float(), x[..., d // 2:].float()
+        return torch.cat([x1 * ang.cos() - x2 * ang.sin(),
+                          x2 * ang.cos() + x1 * ang.sin()], -1).to(dt)
+
+    x = params["embed"][tokens] * torch.tensor(spec.hidden_size ** 0.5,
+                                               dtype=dt, device=dev)
+    L = spec.num_hidden_layers
+    for li in range(L):
+        w = {k: v[li] for k, v in params["layers"].items()}
+        hn = norm(x, w["attn_norm"])
+        rows = torch.arange(n - 1 if li == L - 1 else 0, n, device=dev)
+        q = rope((hn[:, rows] @ w["wq"]).view(b, -1, h, d).transpose(1, 2),
+                 pos[:, rows])
+        k = rope((hn @ w["wk"]).view(b, n, hk, d).transpose(1, 2), pos)
+        v = (hn @ w["wv"]).view(b, n, hk, d).transpose(1, 2)
+        k = k.repeat_interleave(h // hk, 1).float()
+        v = v.repeat_interleave(h // hk, 1).float()
+        win = spec.sliding_window if spec.layer_is_sliding(li) else None
+        out = torch.empty((b, h, len(rows), d), dtype=dt, device=dev)
+        for r0 in range(0, len(rows), 512):
+            rr = rows[r0:r0 + 512]
+            s = torch.matmul(q[:, :, r0:r0 + 512].float(),
+                             k.transpose(-1, -2)) * spec.attn_scale
+            s = torch.tanh(s / cap) * cap
+            vis = ((col[None, None] <= rr[None, :, None])
+                   & (col[None, None] >= pad[:, None, None]))
+            if win:
+                vis &= rr[None, :, None] - col[None, None] < win
+            s = s.masked_fill(~vis[:, None], torch.finfo(torch.float32).min)
+            p = torch.softmax(s, -1).to(dt).float()
+            out[:, :, r0:r0 + 512] = torch.matmul(p, v).to(dt)
+            del s, p
+        a = out.transpose(1, 2).reshape(b, len(rows), h * d) @ w["wo"]
+        x = x[:, rows] + norm(a, w["attn_post_norm"])
+        hm = norm(x, w["mlp_norm"])
+        gate = torch.nn.functional.gelu((hm @ w["w_gate"]).float(),
+                                        approximate="tanh").to(dt)
+        x = x + norm((gate * (hm @ w["w_up"])) @ w["w_down"],
+                     w["mlp_post_norm"])
+    hn = norm(x[:, -1], params["final_norm"])
+    logits = (hn @ params["embed"].T).float()
+    fc = spec.final_logit_softcapping
+    return torch.tanh(logits / fc) * fc
+
+
+def phase_gemma_reference(torch, F, dev, params=None):
+    """Depth-2 Gemma-2 (one sliding and one full layer) at full width: the
+    port's prefill through the kernels against gemma_reference_logits on
+    the 8k batch (random ids, seed 1), the last-position logits within 2^-5
+    of the largest.  ``params``: Gemma-2 params whose first two layers are
+    used; None draws two layers from seed 3."""
+    from pyramidkv_tpu_torch.config import CompressionSpec, ModelSpec
+    from pyramidkv_tpu_torch.models import llama
+    from pyramidkv_tpu_torch.models.convert import init_params
+    from pyramidkv_tpu_torch.policy import make_plan
+
+    t0 = time.perf_counter()
+    spec = ModelSpec.preset("gemma2-9b", num_hidden_layers=2)
+    if params is None:
+        params = init_params(spec, torch.Generator(device=dev).manual_seed(3),
+                             dev, torch.bfloat16)
+    p2 = dict(params, layers={k: v[:2] for k, v in params["layers"].items()})
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(
+        0, spec.vocab_size, size=(B, N)).astype(np.int64)).to(dev)
+    tl = torch.tensor(TRUE_LEN, dtype=torch.int32, device=dev)
+    plan = make_plan(CompressionSpec(method="fullkv"), 2, N, MAX_NEW,
+                     **{"attn_" + k: v
+                        for k, v in llama.attn_args(spec).items()})
+    with torch.inference_mode():
+        got, _ = llama.prefill(p2, spec, plan, tokens, tl)
+        want = gemma_reference_logits(torch, p2, spec, tokens, tl)
+    err = float((got - want).abs().max())
+    tol = 2.0 ** -5 * float(want.abs().max())
+    rec = {"check": "gemma_reference", "case": "depth-2 8k batch prefill",
+           "max_abs_err": err, "tol": tol, "err_over_tol": err / tol,
+           "same_argmax": bool((got.argmax(-1) == want.argmax(-1)).all()),
+           "seconds": time.perf_counter() - t0}
+    rec["ok"] = bool(torch.isfinite(got).all()) and err <= tol
+    log({"phase": "parity_gemma", **rec})
+    return rec["ok"], rec
 
 
 def kernel_entry(name, source, replaces, launches, recs):
@@ -4482,6 +4888,9 @@ def main() -> int:
     r, qwen_recs = phase_qwen_kernels(torch, F, dev)
     ok &= r
     stamp("qwen kernels")
+    r, gemma_recs = phase_gemma_kernels(torch, F, dev)
+    ok &= r
+    stamp("gemma kernels")
 
     spec = ModelSpec.preset("llama3-8b")
     t0 = time.perf_counter()
@@ -4549,7 +4958,7 @@ def main() -> int:
     # Mistral-7B: the same geometry with a 4096-token sliding window
     del params
     torch.cuda.empty_cache()
-    mspec = ModelSpec.preset("mistral-7b")
+    mspec = ModelSpec.preset("mistral-7b", num_hidden_layers=MISTRAL_DEPTH)
     t0 = time.perf_counter()
     params = init_params(mspec, torch.Generator(device=dev).manual_seed(1),
                          dev, torch.bfloat16)
@@ -4571,7 +4980,7 @@ def main() -> int:
     stamp("mistral engine and parity")
 
     # Qwen2.5-7B: QKV biases, 28 query heads on 4 KV heads (G = 7)
-    qspec = ModelSpec.preset("qwen2.5-7b")
+    qspec = ModelSpec.preset("qwen2.5-7b", num_hidden_layers=QWEN_DEPTH)
     t0 = time.perf_counter()
     params = init_params(qspec, torch.Generator(device=dev).manual_seed(2),
                          dev, torch.bfloat16)
@@ -4587,6 +4996,27 @@ def main() -> int:
     del params, q4
     torch.cuda.empty_cache()
     stamp("qwen engine and parity")
+
+    # Gemma-2-9B: the logit caps, head dim 256, alternating windows
+    gspec = ModelSpec.preset("gemma2-9b")
+    t0 = time.perf_counter()
+    params = init_params(gspec, torch.Generator(device=dev).manual_seed(3),
+                         dev, torch.bfloat16)
+    q4 = quantized(params, "int4")
+    torch.cuda.synchronize()
+    log({"phase": "init_params_gemma", "seconds": time.perf_counter() - t0,
+         "gib": tree_gib(params), "int4_gib": tree_gib(q4),
+         "leaves": sorted(params["layers"])})
+    r, gemma_counts, _ = phase_engine_model(torch, dev, "gemma", params, q4,
+                                            gspec.vocab_size)
+    ok &= r
+    del q4
+    torch.cuda.empty_cache()
+    ok &= phase_parity_model(torch, dev, "gemma", params, gspec.vocab_size)
+    ok &= phase_gemma_reference(torch, F, dev, params)[0]
+    del params
+    torch.cuda.empty_cache()
+    stamp("gemma engine and parity")
     if not ok:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
@@ -4738,7 +5168,7 @@ def main() -> int:
     m8 = [r for r in mono if MISTRAL_RUNS[r][2] == "8k"]
     m32 = [r for r in mono if MISTRAL_RUNS[r][2] == "32k"]
     mpart = "mistral int4 fullkv kivi4-pa 32k chunk 8192"
-    self_tiles = LAYERS * (QN // C32K)
+    self_tiles = MISTRAL_DEPTH * (QN // C32K)
     for rec in mis_recs["partials 32k"]:
         rec["layers"] = (self_tiles if rec["q_start"] == 0 else
                          mis_counts[mpart]["flash_attention_partials"]
@@ -4817,6 +5247,51 @@ def main() -> int:
                      src + "int4_matmul.cu", qline + "int4_matmul.py:286",
                      qsum_runs("int4_matmul", "32k"),
                      qwen_recs["int4_matmul"])]
+    # Gemma-2-9B's launches (16 / 8 heads of D = 256, scale 1/16, cap 50),
+    # each row's launches summed over the runs at its shape
+    def gsum(kernel, runs=None):
+        return sum(c[kernel] for run, c in gemma_counts.items()
+                   if runs is None or run in runs)
+
+    gmono = [r for r, x in GEMMA_RUNS.items()
+             if not x[3] and not r.endswith("two-pass")]
+    gchunk = [r for r, x in GEMMA_RUNS.items() if x[3]]
+    g1 = [r for r in GEMMA_RUNS if "fullkv" not in r]
+    for rec in (gemma_recs["flash 8k"], gemma_recs["flash 8k window"]):
+        rec["layers"] = GEMMA_LAYERS // 2  # full and sliding layers
+    fp = "pyramidkv_tpu/kernels/flash_prefill.py:"
+    gemma_rows = [
+        kernel_entry("flash_causal_attention (Gemma-2-9B, D=256, cap 50, "
+                     "8k batch: full and window 4096 layers)",
+                     src + "flash_prefill.cu", fp + "420",
+                     gsum("flash_causal_attention", gmono),
+                     [gemma_recs["flash 8k"], gemma_recs["flash 8k window"]]),
+        kernel_entry("flash_causal_attention (q_start, Gemma-2-9B, D=256, "
+                     "cap 50, 8k batch C=2048)", src + "flash_prefill.cu",
+                     fp + "420", gsum("flash_causal_attention", gchunk),
+                     gemma_recs["q_start"]),
+        kernel_entry("flash_row_max (two_pass=True; Gemma-2-9B, D=256, cap "
+                     "50, 8k batch)", src + "flash_prefill.cu", fp + "209",
+                     gsum("flash_row_max"), [gemma_recs["row_max"]]),
+        kernel_entry("flash_pass_b (two_pass=True; Gemma-2-9B, D=256, cap "
+                     "50, 8k batch)", src + "flash_prefill.cu", fp + "258",
+                     gsum("flash_pass_b"), [gemma_recs["pass_b"]]),
+        kernel_entry("decode_attention (Gemma-2-9B per-head caches, D=256, "
+                     "cap 50, G=1, 8k batch S=2080)", src + "decode_attn.cu",
+                     qline + "decode_attn.py:69",
+                     gsum("decode_attention", g1), [gemma_recs["decode g1"]]),
+        kernel_entry("decode_attention (Gemma-2-9B fullkv, D=256, cap 50, "
+                     f"G=2, 8k batch S={N + MAX_NEW}: full and window masks)",
+                     src + "decode_attn.cu", qline + "decode_attn.py:69",
+                     gemma_counts["gemma bf16 fullkv 8k"]["decode_attention"],
+                     gemma_recs["decode g2"])]
+    for ent in gemma_rows:
+        if ent["library_ms"] is not None:
+            ent["library_note"] = UNCAPPED_NOTE
+    kernels += gemma_rows + [
+        kernel_entry("int4_matmul (Gemma-2-9B widths, 4 rows)",
+                     src + "int4_matmul.cu", qline + "int4_matmul.py:286",
+                     gsum("int4_matmul"), gemma_recs["int4_matmul"])]
     for k in kernels:  # one line per kernel
         log({"kernel": k["name"], **k})
     log({"phase": "device_end", "clocks": clocks()})

@@ -5,10 +5,15 @@
 // (Pallas TPU, body `_kernel`).
 //
 // What it computes, for each batch row b and query head h = kvh * G + g:
-//   logits[s] = (q[b,h] . k[b,kvh,s]) / sqrt(D)   (f32), float32.min where
-//   mask[b,kvh,s] is false; out[b,h] = softmax(logits) @ v[b,kvh].
+//   logits[s] = scale * (q[b,h] . k[b,kvh,s])   (f32; scale 1/sqrt(D) by
+//   default, Gemma-2's query_pre_attn_scalar^-0.5 else), capped to
+//   cap * tanh(logits[s] / cap) under a cap (Gemma-2's
+//   attn_logit_softcapping: the TPU package computes that decode in XLA,
+//   ops/attention.py::decode_attention), float32.min where mask[b,kvh,s]
+//   is false; out[b,h] = softmax(logits) @ v[b,kvh].  D = 128 or 256.
 // G = H / Hk is 1 for the per-query-head caches of snapkv/pyramidkv, 4
-// for fullkv's true-GQA cache on Llama-3-8B and 7 on Qwen2.5-7B.  A row whose slots are all
+// for fullkv's true-GQA cache on Llama-3-8B, 7 on Qwen2.5-7B and 2 on
+// Gemma-2-9B (D = 256).  A row whose slots are all
 // masked averages every slot uniformly, exactly like the float32.min
 // convention of the TPU kernel.  S is unbounded: the TPU's 4096-slot cap was
 // a VMEM limit, and fullkv decodes over 8192 + decode slots.
@@ -16,7 +21,8 @@
 // What bounds it on the H100: bytes.  Every visible K and V row is read once
 // and used for G <= 8 dot products, ~G/2 flop per byte, far below the ridge.
 //
-// What the design does about it:
+// What the design does about it (D = 256 doubles every byte count below: a
+// 3-stage ring of 192 KB, one block an SM):
 // - the slots are split across blocks, grid (B * Hk, nsplit), nsplit from
 //   the shapes alone (kernels/decode_attn.py::decode_split_plan: one wave
 //   of the kernel's residency, two blocks an SM up to G = 4 and one above,
@@ -32,13 +38,13 @@
 //   then gives per-32-slot visibility words, and later tiles with no
 //   visible slot are never copied: the engine's left pads and unwritten
 //   decode slots are contiguous masked runs;
-// - a warp takes 8 slots of each tile, 8 lanes a slot (16 of the 128
+// - a warp takes 8 slots of each tile, 8 lanes a slot (D / 8 of the
 //   channels each, the query's in registers): one 16-byte shared load per
-//   lane and half-row, a 3-step shuffle sum per query; P.V with 4 channels
-//   a lane, the probabilities kept in f32;
+//   lane and 64 channels, a 3-step shuffle sum per query; P.V with D / 32
+//   channels a lane, the probabilities kept in f32;
 // - the splits merge in a fixed order, with no atomics (two calls are
-//   bitwise equal): up to 4 splits of a region run as one thread-block
-//   cluster and block 0 reads the others' partials from their shared
+//   bitwise equal): up to 4 splits of a region (2 at D = 256) run as one
+//   thread-block cluster and block 0 reads the others' partials from their shared
 //   memory; more write f32 (acc, m, l) to a workspace that merge_kernel
 //   combines (clusters of 8 were slower on the card, and so was a merge in
 //   the last split to finish, through a counter); one split writes the
@@ -47,7 +53,8 @@
 // a row that has one contributes nothing (m = -inf); when the row has none
 // at all (the block scans the row's mask to find out), every split attends
 // over all its slots at logit float32.min, so the merge averages all S
-// slots.  Logits are kept in the base-2 domain (scale * log2(e)).
+// slots.  Logits are kept in the base-2 domain (scale * log2(e); under a
+// cap, cap * log2(e) after the tanh, tanh.approx.f32 on the MUFU).
 // Differences from the TPU kernel: the softmax is online, and the
 // probabilities stay f32 in the PV product instead of being rounded to V's
 // dtype first.
@@ -62,50 +69,64 @@
 
 namespace {
 
-constexpr int D = 128;
 constexpr int NT = 256;                   // threads a block
 constexpr int NWARPS = NT / 32;
 constexpr int TILE = 64;                  // slots a tile, 8 a warp (the
                                           // wrapper's plan assumes it)
 constexpr int HG = TILE / (NWARPS * 4);   // groups of 4 slots a warp
 constexpr int WPT = TILE / 32;            // visibility words a tile
-constexpr int STAGES = 3;                 // ring depth: two blocks an SM
-constexpr int MAX_CLUSTER = 4;            // splits merged in a cluster (as
-                                          // the wrapper's MAX_CLUSTER)
-constexpr int MAXS = 2048;                // slots a split at most
-constexpr int MAXT = MAXS / TILE;         // tiles a split at most
-constexpr int ROW_BYTES = D * 2;          // one bf16 K or V row
-constexpr int TILE_BYTES = TILE * ROW_BYTES;
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int STAGES = 3;                 // ring depth: 96 KB, two blocks
+                                          // an SM, at D = 128
+// Splits merged in a thread-block cluster at most (as the wrapper's
+// MAX_CLUSTER), more through a workspace and merge_kernel: 4 at D = 128; 2
+// at D = 256, whose blocks take a whole SM each, so clusters of 4 must find
+// 4 free SMs of one GPC and 32 of them did not fit one wave of 132 SMs
+// (Gemma-2's fullkv decode read 0.135 ms in clusters of 4, 0.099 in 5
+// splits through merge_kernel, on an H100).
+__host__ __device__ constexpr int max_cluster(int D) {
+  return D == 128 ? 4 : 2;
+}
 
-// Bytes of a ring of ns stages of K and V tiles, which afterwards holds the
-// warps' states (m, l [NWARPS][8 or fewer], acc [NWARPS][G][D]) and a
-// cluster split's partial (acc [G][D], m [G], l [G]), all f32.
-__host__ __device__ constexpr int ring_bytes(int ns, int G) {
-  return ns * 2 * TILE_BYTES > (2 * NWARPS * 8 + (NWARPS + 1) * G * D + 2 * G) * 4
-             ? ns * 2 * TILE_BYTES
+// Slots a split at most: 2048 at D = 128, 4096 at D = 256, where one block
+// an SM would otherwise cut Gemma-2's 8224 fullkv slots of 32 regions into
+// 5 splits of 2048 (160 blocks: two waves of 132 SMs) instead of 4 of 2112.
+__host__ __device__ constexpr int max_slots(int D) {
+  return D == 128 ? 2048 : 4096;
+}
+constexpr unsigned FULL = 0xffffffffu;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Bytes of a ring of ns stages of K and V tiles at head dim D, which
+// afterwards holds the warps' states (m, l [NWARPS][8 or fewer], acc
+// [NWARPS][G][D]) and a cluster split's partial (acc [G][D], m [G], l [G]),
+// all f32.
+__host__ __device__ constexpr int ring_bytes(int ns, int G, int D) {
+  return ns * 2 * TILE * D * 2 > (2 * NWARPS * 8 + (NWARPS + 1) * G * D + 2 * G) * 4
+             ? ns * 2 * TILE * D * 2
              : (2 * NWARPS * 8 + (NWARPS + 1) * G * D + 2 * G) * 4;
 }
 
 // Dynamic shared memory of a ring of ns stages: the ring, then the stages'
 // mbarriers.
-__host__ __device__ constexpr int smem_bytes(int ns, int G) {
-  return ring_bytes(ns, G) + 8 * ns;
+__host__ __device__ constexpr int smem_bytes(int ns, int G, int D) {
+  return ring_bytes(ns, G, D) + 8 * ns;
 }
+static_assert(smem_bytes(STAGES, 2, 256) <= 232448, "the ring at D = 256");
 
-// The query's 16 channels of this lane, [8c, 8c+8) and [64+8c, 64+8c+8):
-// f32 registers for G <= 4, bf16 pairs for G = 7 and 8 (112-128 f32 would
-// not fit).
-template <int G>
+// The query's D / 8 channels of this lane, [64u + 8c, 64u + 8c + 8) for each
+// 64 channels u: f32 registers for G <= 4, bf16 pairs for G = 7 and 8
+// (112-128 f32 would not fit).
+template <int G, int D>
 struct QReg {
   static constexpr bool PACKED = G > 4;
-  float f[PACKED ? 1 : G][16];
-  __nv_bfloat162 p[PACKED ? G : 1][8];
+  float f[PACKED ? 1 : G][D / 8];
+  __nv_bfloat162 p[PACKED ? G : 1][D / 16];
   __device__ __forceinline__ float2 pair(int g, int u) const {
     if constexpr (PACKED) return __bfloat1622float2(p[g][u]);
     else return make_float2(f[g][2 * u], f[g][2 * u + 1]);
   }
 };
+
 
 // grid (B * Hk, nsplit): block (bk, sp) attends over slots
 // [sp * rows, min(S, (sp + 1) * rows)) of region bk; rows is a multiple of
@@ -114,22 +135,33 @@ struct QReg {
 // workspace, for merge_kernel; or with `cluster` (the grid launched as
 // clusters of the nsplit blocks of a region) block 0 of the cluster merges
 // the splits' partials from the blocks' shared memory, in split order, and
-// writes the output.  ns: stages of the ring.
-template <int G>
-__global__ void __launch_bounds__(NT, G <= 4 ? 2 : 1)
+// writes the output.  ns: stages of the ring.  scale2 = scale * log2(e);
+// under a cap (CAP) the logit is cap * tanh(scale * x / cap) * log2(e), with
+// scale_cap = scale / cap and cap2 = cap * log2(e).
+// Blocks an SM holds: two up to G = 4 at D = 128 (the query in f32
+// registers, a 96 KB ring); one at G = 7 and 8 (packed pairs) and at
+// D = 256 (a 192 KB ring).
+template <int G, int D, bool CAP>
+__global__ void __launch_bounds__(NT, (D == 128 && G <= 4) ? 2 : 1)
 split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hk*G, D]
              const __nv_bfloat16* __restrict__ k,   // [B, Hk, S, D]
              const __nv_bfloat16* __restrict__ v,   // [B, Hk, S, D]
              const uint8_t* __restrict__ mask,      // [B, Hk, S]
              __nv_bfloat16* __restrict__ out,       // [B, Hk*G, D]
              float* __restrict__ ws_acc, float* __restrict__ ws_m,
-             float* __restrict__ ws_l, int S, int rows, float scale2, int ns,
-             int cluster) {
+             float* __restrict__ ws_l, int S, int rows, float scale2,
+             float scale_cap, float cap2, int ns, int cluster) {
+  constexpr int MAXS = max_slots(D);        // slots a split at most
+  constexpr int MAXT = MAXS / TILE;         // tiles a split at most
+  constexpr int ROW_BYTES = D * 2;          // one bf16 K or V row
+  constexpr int TILE_BYTES = TILE * ROW_BYTES;
+  constexpr int NCH = D / 64;               // 16-byte chunks a lane a row
+  constexpr int VCH = D / 32;               // channels a lane in P.V
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ uint32_t words[MAXS / 32];  // visibility bits, 32 slots a word
   __shared__ int list[MAXT];            // the tiles to attend over, in order
   __shared__ int nlist;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + ring_bytes(ns, G));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + ring_bytes(ns, G, D));
 
   const int bk = blockIdx.x, sp = blockIdx.y, nsplit = gridDim.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -162,17 +194,17 @@ split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hk*G, D]
 
   // the query's channels of this lane (loaded while the mask is read)
   const int j = lane >> 3, c = lane & 7;
-  QReg<G> qr;
+  QReg<G, D> qr;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     const __nv_bfloat16* qg = q + ((size_t)bk * G + g) * D;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
+    for (int half = 0; half < NCH; ++half) {
       const uint4 w = *reinterpret_cast<const uint4*>(qg + half * 64 + 8 * c);
       const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&w);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        if constexpr (QReg<G>::PACKED) {
+        if constexpr (QReg<G, D>::PACKED) {
           qr.p[g][half * 4 + u] = p2[u];
         } else {
           const float2 f = __bfloat1622float2(p2[u]);
@@ -242,12 +274,13 @@ split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hk*G, D]
     n = found ? 0 : ntiles;
   }
 
-  float m[G], l[G], acc[G][4];
+  float m[G], l[G], acc[G][VCH];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
-    acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
+#pragma unroll
+    for (int x = 0; x < VCH; ++x) acc[g][x] = 0.f;
   }
 
   for (int i = 0; i < n; ++i) {
@@ -270,24 +303,29 @@ split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hk*G, D]
 #pragma unroll
     for (int h = 0; h < HG; ++h) {
       const int r = warp * HG * 4 + h * 4 + j;
-      const uint4 k0 = *reinterpret_cast<const uint4*>(ks + r * ROW_BYTES + c * 16);
-      const uint4 k1 = *reinterpret_cast<const uint4*>(ks + r * ROW_BYTES + (c + 8) * 16);
-      const __nv_bfloat162* ka = reinterpret_cast<const __nv_bfloat162*>(&k0);
-      const __nv_bfloat162* kc = reinterpret_cast<const __nv_bfloat162*>(&k1);
       float dot[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) dot[g] = 0.f;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float2 fa = __bfloat1622float2(ka[u]);
-        const float2 fc = __bfloat1622float2(kc[u]);
+      for (int half = 0; half < NCH; half += 2) {
+        // channels [64 half + 8c, + 8) and the next 64 channels' likewise
+        const uint4 k0 = *reinterpret_cast<const uint4*>(ks + r * ROW_BYTES + (c + 8 * half) * 16);
+        const uint4 k1 = *reinterpret_cast<const uint4*>(ks + r * ROW_BYTES + (c + 8 * half + 8) * 16);
+        const __nv_bfloat162* ka = reinterpret_cast<const __nv_bfloat162*>(&k0);
+        const __nv_bfloat162* kc = reinterpret_cast<const __nv_bfloat162*>(&k1);
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float2 qa = qr.pair(g, u), qc = qr.pair(g, 4 + u);
-          dot[g] = fmaf(qa.x, fa.x, dot[g]);
-          dot[g] = fmaf(qa.y, fa.y, dot[g]);
-          dot[g] = fmaf(qc.x, fc.x, dot[g]);
-          dot[g] = fmaf(qc.y, fc.y, dot[g]);
+        for (int u = 0; u < 4; ++u) {
+          const float2 fa = __bfloat1622float2(ka[u]);
+          const float2 fc = __bfloat1622float2(kc[u]);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float2 qa = qr.pair(g, 4 * half + u);
+            const float2 qc = qr.pair(g, 4 * half + 4 + u);
+            dot[g] = fmaf(qa.x, fa.x, dot[g]);
+            dot[g] = fmaf(qa.y, fa.y, dot[g]);
+            dot[g] = fmaf(qc.x, fc.x, dot[g]);
+            dot[g] = fmaf(qc.y, fc.y, dot[g]);
+          }
         }
       }
       const bool in_row = r0 + r < s1;
@@ -299,7 +337,8 @@ split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hk*G, D]
         x += __shfl_xor_sync(FULL, x, 2);
         x += __shfl_xor_sync(FULL, x, 4);
         // past S: not a slot; masked: float32.min
-        sl[h][g] = !in_row ? -INFINITY : (vis ? x * scale2 : -FLT_MAX);
+        const float y = CAP ? tanh_approx(x * scale_cap) * cap2 : x * scale2;
+        sl[h][g] = !in_row ? -INFINITY : (vis ? y : -FLT_MAX);
       }
     }
 
@@ -326,30 +365,35 @@ split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hk*G, D]
         esum += e[h][g];
       }
       l[g] = fmaf(l[g], alpha, esum);
-      acc[g][0] *= alpha;
-      acc[g][1] *= alpha;
-      acc[g][2] *= alpha;
-      acc[g][3] *= alpha;
+#pragma unroll
+      for (int x = 0; x < VCH; ++x) acc[g][x] *= alpha;
       m[g] = mn;
     }
 
-    // P.V: this lane owns channels [4 lane, 4 lane + 4)
+    // P.V: this lane owns channels [VCH lane, VCH lane + VCH)
 #pragma unroll
     for (int h = 0; h < HG; ++h) {
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int r = warp * HG * 4 + h * 4 + jj;
         if (r0 + r >= s1) continue;  // the same for the whole warp
-        const uint2 vw = *reinterpret_cast<const uint2*>(vs + r * ROW_BYTES + lane * 8);
-        const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vw.x));
-        const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vw.y));
+        float vf[VCH];
+        const uint2* vw = reinterpret_cast<const uint2*>(vs + r * ROW_BYTES + lane * VCH * 2);
+#pragma unroll
+        for (int x = 0; x < VCH / 4; ++x) {
+          const uint2 w = vw[x];
+          const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.x));
+          const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.y));
+          vf[4 * x] = v01.x;
+          vf[4 * x + 1] = v01.y;
+          vf[4 * x + 2] = v23.x;
+          vf[4 * x + 3] = v23.y;
+        }
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float pj = __shfl_sync(FULL, e[h][g], jj * 8);
-          acc[g][0] = fmaf(pj, v01.x, acc[g][0]);
-          acc[g][1] = fmaf(pj, v01.y, acc[g][1]);
-          acc[g][2] = fmaf(pj, v23.x, acc[g][2]);
-          acc[g][3] = fmaf(pj, v23.y, acc[g][3]);
+#pragma unroll
+          for (int x = 0; x < VCH; ++x) acc[g][x] = fmaf(pj, vf[x], acc[g][x]);
         }
       }
     }
@@ -368,8 +412,10 @@ split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hk*G, D]
       wm[warp * G + g] = m[g];
       wl[warp * G + g] = lw;
     }
-    *reinterpret_cast<float4*>(&wacc[(warp * G + g) * D + lane * 4]) =
-        make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+#pragma unroll
+    for (int x = 0; x < VCH; x += 4)
+      *reinterpret_cast<float4*>(&wacc[(warp * G + g) * D + lane * VCH + x]) =
+          make_float4(acc[g][x], acc[g][x + 1], acc[g][x + 2], acc[g][x + 3]);
   }
   __syncthreads();
 
@@ -433,14 +479,16 @@ split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hk*G, D]
   cl.sync();
 }
 
-// Combine the nsplit partials of (bk, g): block (bk, g), 4 warps, a lane 4
-// channels; warp w sums splits w, w + 4, ... in order (8 loads in flight),
-// then the warps' sums add in warp order: the same order on every call.
-template <int G>
-__global__ void __launch_bounds__(D)
+// Combine the nsplit partials of (bk, g): block (bk, g), 4 warps, a lane
+// D / 32 channels; warp w sums splits w, w + 4, ... in order (8 loads in
+// flight), then the warps' sums add in warp order: the same order on every
+// call.
+template <int G, int D>
+__global__ void __launch_bounds__(128)
 merge_kernel(const float* __restrict__ ws_acc, const float* __restrict__ ws_m,
              const float* __restrict__ ws_l, int nsplit,
              __nv_bfloat16* __restrict__ out) {
+  constexpr int VCH = D / 32;
   __shared__ float red[4];
   __shared__ __align__(16) float wacc[4][D];
   __shared__ float wl[4];
@@ -448,53 +496,64 @@ merge_kernel(const float* __restrict__ ws_acc, const float* __restrict__ ws_m,
   const int warp = tid >> 5, lane = tid & 31;
   const size_t base = (size_t)bk * nsplit;
   float mx = -INFINITY;
-  for (int s = tid; s < nsplit; s += D) mx = fmaxf(mx, ws_m[(base + s) * G + g]);
+  for (int s = tid; s < nsplit; s += 128) mx = fmaxf(mx, ws_m[(base + s) * G + g]);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
   if (lane == 0) red[warp] = mx;
   __syncthreads();
   mx = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
   float lt = 0.f;
-  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 o[VCH / 4];
+#pragma unroll
+  for (int x = 0; x < VCH / 4; ++x) o[x] = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 8
   for (int s = warp; s < nsplit; s += 4) {
     const size_t row = (base + s) * G + g;
     const float m = ws_m[row];
     const float f = m == -INFINITY ? 0.f : exp2f(m - mx);
-    const float4 a = *reinterpret_cast<const float4*>(&ws_acc[row * D + lane * 4]);
     lt = fmaf(ws_l[row], f, lt);
-    o.x = fmaf(a.x, f, o.x);
-    o.y = fmaf(a.y, f, o.y);
-    o.z = fmaf(a.z, f, o.z);
-    o.w = fmaf(a.w, f, o.w);
+#pragma unroll
+    for (int x = 0; x < VCH / 4; ++x) {
+      const float4 a = *reinterpret_cast<const float4*>(&ws_acc[row * D + lane * VCH + 4 * x]);
+      o[x].x = fmaf(a.x, f, o[x].x);
+      o[x].y = fmaf(a.y, f, o[x].y);
+      o[x].z = fmaf(a.z, f, o[x].z);
+      o[x].w = fmaf(a.w, f, o[x].w);
+    }
   }
-  *reinterpret_cast<float4*>(&wacc[warp][lane * 4]) = o;
+#pragma unroll
+  for (int x = 0; x < VCH / 4; ++x)
+    *reinterpret_cast<float4*>(&wacc[warp][lane * VCH + 4 * x]) = o[x];
   if (lane == 0) wl[warp] = lt;
   __syncthreads();
   const float l = ((wl[0] + wl[1]) + wl[2]) + wl[3];
-  const float od = ((wacc[0][tid] + wacc[1][tid]) + wacc[2][tid]) + wacc[3][tid];
-  out[((size_t)bk * G + g) * D + tid] = __float2bfloat16(od / l);
+#pragma unroll
+  for (int d = tid; d < D; d += 128) {
+    const float od = ((wacc[0][d] + wacc[1][d]) + wacc[2][d]) + wacc[3][d];
+    out[((size_t)bk * G + g) * D + d] = __float2bfloat16(od / l);
+  }
 }
 
-template <int G>
+template <int G, int D, bool CAP>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            void* out, void* ws_acc, void* ws_m, void* ws_l, int BHk, int S,
-           int nsplit, int rows, float scale2, cudaStream_t stream) {
+           int nsplit, int rows, float scale, float cap,
+           cudaStream_t stream) {
   static bool smem_set = false;  // once a process, per instantiation
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        split_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes(STAGES, G));
+        split_kernel<G, D, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes(STAGES, G, D));
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
   const int ns = min(STAGES, (rows + TILE - 1) / TILE);  // no deeper than a split
-  // up to MAX_CLUSTER splits merge in a cluster, more in merge_kernel
-  const int cluster = nsplit > 1 && nsplit <= MAX_CLUSTER;
+  // up to max_cluster(D) splits merge in a cluster, more in merge_kernel
+  const int cluster = nsplit > 1 && nsplit <= max_cluster(D);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(BHk, nsplit);
   cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem_bytes(ns, G);
+  cfg.dynamicSmemBytes = smem_bytes(ns, G, D);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -504,64 +563,92 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t le = cudaLaunchKernelEx(
-      &cfg, split_kernel<G>, (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const uint8_t*)mask, (__nv_bfloat16*)out,
-      (float*)ws_acc, (float*)ws_m, (float*)ws_l, S, rows, scale2, ns,
+      &cfg, split_kernel<G, D, CAP>, (const __nv_bfloat16*)q,
+      (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (const uint8_t*)mask,
+      (__nv_bfloat16*)out, (float*)ws_acc, (float*)ws_m, (float*)ws_l, S,
+      rows, scale * LOG2E, CAP ? scale / cap : 0.f, cap * LOG2E, ns,
       cluster);
   if (le != cudaSuccess) return (int)le;
   const int err = (int)cudaGetLastError();
   if (err != 0 || nsplit == 1 || cluster) return err;
-  merge_kernel<G><<<dim3(BHk, G), D, 0, stream>>>(
+  merge_kernel<G, D><<<dim3(BHk, G), 128, 0, stream>>>(
       (const float*)ws_acc, (const float*)ws_m, (const float*)ws_l, nsplit,
       (__nv_bfloat16*)out);
   return (int)cudaGetLastError();
+}
+
+// The instantiation for the group and head dim: D = 128 at G in {1, 2, 4,
+// 7, 8}, D = 256 (Gemma-2) at G in {1, 2}; each with and without the cap.
+template <int G, int D>
+int launch_cap(const void* q, const void* k, const void* v, const void* mask,
+               void* out, void* ws_acc, void* ws_m, void* ws_l, int BHk,
+               int S, int nsplit, int rows, float scale, float cap,
+               cudaStream_t st) {
+  return cap > 0.f
+             ? launch<G, D, true>(q, k, v, mask, out, ws_acc, ws_m, ws_l, BHk,
+                                  S, nsplit, rows, scale, cap, st)
+             : launch<G, D, false>(q, k, v, mask, out, ws_acc, ws_m, ws_l,
+                                   BHk, S, nsplit, rows, scale, cap, st);
 }
 
 }  // namespace
 
 // q [B, H, D], k/v [B, Hk, S, D] bf16, mask [B, Hk, S] bool, out [B, H, D]
 // bf16; ws_acc [B*Hk*nsplit, G, D], ws_m/ws_l [B*Hk*nsplit, G] f32
-// (unused when nsplit = 1); rows: slots a split, a multiple of 64, at most 2048, with
-// (nsplit - 1) * rows < S <= nsplit * rows.  Returns a CUDA error code;
-// cudaErrorInvalidValue for an unsupported G or plan.
+// (unused when nsplit = 1); rows: slots a split, a multiple of 64, at most
+// max_slots(D), with (nsplit - 1) * rows < S <= nsplit * rows; scale: the softmax
+// scale; softcap: the logit cap, 0 for none.  Returns a CUDA error code;
+// cudaErrorInvalidValue for an unsupported D, G or plan.
 extern "C" int pkv_decode_attn(const void* q, const void* k, const void* v,
                                const void* mask, void* out, void* ws_acc,
                                void* ws_m, void* ws_l, int B, int H, int Hk,
-                               int S, int nsplit, int rows, float scale,
-                               void* stream) {
-  if (rows % TILE || rows > MAXT * TILE || nsplit < 1 ||
+                               int D, int S, int nsplit, int rows,
+                               float scale, float softcap, void* stream) {
+  if (rows % TILE || rows > max_slots(D) || nsplit < 1 ||
       (long long)(nsplit - 1) * rows >= S || (long long)nsplit * rows < S)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const float scale2 = scale * 1.4426950408889634f;  // base-2 logits
   const int BHk = B * Hk;
+#define PKV_DECODE_ARGS \
+  q, k, v, mask, out, ws_acc, ws_m, ws_l, BHk, S, nsplit, rows, scale, \
+      softcap, st
+  if (D == 256) {
+    switch (H / Hk) {
+      case 1: return launch_cap<1, 256>(PKV_DECODE_ARGS);
+      case 2: return launch_cap<2, 256>(PKV_DECODE_ARGS);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (D != 128) return (int)cudaErrorInvalidValue;
   switch (H / Hk) {
-    case 1: return launch<1>(q, k, v, mask, out, ws_acc, ws_m, ws_l, BHk, S, nsplit, rows, scale2, st);
-    case 2: return launch<2>(q, k, v, mask, out, ws_acc, ws_m, ws_l, BHk, S, nsplit, rows, scale2, st);
-    case 4: return launch<4>(q, k, v, mask, out, ws_acc, ws_m, ws_l, BHk, S, nsplit, rows, scale2, st);
-    case 7: return launch<7>(q, k, v, mask, out, ws_acc, ws_m, ws_l, BHk, S, nsplit, rows, scale2, st);
-    case 8: return launch<8>(q, k, v, mask, out, ws_acc, ws_m, ws_l, BHk, S, nsplit, rows, scale2, st);
+    case 1: return launch_cap<1, 128>(PKV_DECODE_ARGS);
+    case 2: return launch_cap<2, 128>(PKV_DECODE_ARGS);
+    case 4: return launch_cap<4, 128>(PKV_DECODE_ARGS);
+    case 7: return launch_cap<7, 128>(PKV_DECODE_ARGS);
+    case 8: return launch_cap<8, 128>(PKV_DECODE_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef PKV_DECODE_ARGS
 }
 
-// Blocks of split_kernel<G> an SM holds with a full ring (the occupancy the
-// wrapper's split plan assumes, kernels/decode_attn.py::blocks_per_sm), or
-// a negative CUDA error code; 0 for an unsupported G.
-extern "C" int pkv_decode_occupancy(int G) {
+// Blocks of split_kernel<G, D> an SM holds with a full ring (the occupancy
+// the wrapper's split plan assumes, kernels/decode_attn.py::blocks_per_sm),
+// or a negative CUDA error code; 0 for an unsupported (G, D).
+extern "C" int pkv_decode_occupancy(int G, int D) {
   int n = 0;
   cudaError_t e = cudaSuccess;
-  const int smem = smem_bytes(STAGES, G);
-  auto occ = [&](auto kern) {
+  auto occ = [&](auto kern, int smem) {
     e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, NT, smem);
   };
-  switch (G) {
-    case 1: occ(split_kernel<1>); break;
-    case 2: occ(split_kernel<2>); break;
-    case 4: occ(split_kernel<4>); break;
-    case 7: occ(split_kernel<7>); break;
-    case 8: occ(split_kernel<8>); break;
+  switch (D * 16 + G) {
+    case 128 * 16 + 1: occ(split_kernel<1, 128, false>, smem_bytes(STAGES, 1, 128)); break;
+    case 128 * 16 + 2: occ(split_kernel<2, 128, false>, smem_bytes(STAGES, 2, 128)); break;
+    case 128 * 16 + 4: occ(split_kernel<4, 128, false>, smem_bytes(STAGES, 4, 128)); break;
+    case 128 * 16 + 7: occ(split_kernel<7, 128, false>, smem_bytes(STAGES, 7, 128)); break;
+    case 128 * 16 + 8: occ(split_kernel<8, 128, false>, smem_bytes(STAGES, 8, 128)); break;
+    case 256 * 16 + 1: occ(split_kernel<1, 256, false>, smem_bytes(STAGES, 1, 256)); break;
+    case 256 * 16 + 2: occ(split_kernel<2, 256, false>, smem_bytes(STAGES, 2, 256)); break;
     default: return 0;
   }
   return e == cudaSuccess ? n : -(int)e;

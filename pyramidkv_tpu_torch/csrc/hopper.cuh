@@ -155,6 +155,24 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D[64 x 64] (+)= A B, A and B from shared memory (bf16, f32 accumulate)
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D[64 x 64] (+)= A B, A from registers (4 x bf16x2 a thread), B K-major in
 // shared memory (bf16, f32 accumulate)
 __device__ __forceinline__ void wgmma_rs64(float (&d)[32], uint32_t a0,
@@ -204,6 +222,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// tanh on the MUFU (one instruction; relative error about 2^-11): the
+// attention logit cap of Gemma-2, cap * tanh(s / cap)
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Warp specialisation: registers handed between warpgroups, and a barrier
 // over `count` threads (one warpgroup's) only.
 template <int N>
@@ -245,18 +271,19 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map of `planes` matrices of `rows` x 128 bf16 (a head dim of 128), `ld`
-// rows apart, in boxes of {64, box_rows, 1} (one 128-byte row of a box) with
-// 128-byte swizzle; rows >= `rows` read as zeros.
+// A map of `planes` matrices of `rows` x `cols` bf16 (the head dim: 128 by
+// default, 256 for Gemma-2), `ld` rows apart, in boxes of {64, box_rows, 1}
+// (one 128-byte row of a box) with 128-byte swizzle; rows >= `rows` read as
+// zeros.
 inline bool make_map(CUtensorMap* map, const void* base, int rows, int planes,
-                     int ld, int box_rows) {
-  constexpr int kCols = 128, kBox = 64;
+                     int ld, int box_rows, int cols = 128) {
+  constexpr int kBox = 64;
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)kCols, (cuuint64_t)rows,
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)planes};
-  const cuuint64_t strides[2] = {(cuuint64_t)kCols * 2,
-                                 (cuuint64_t)ld * kCols * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)ld * cols * 2};
   const cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),

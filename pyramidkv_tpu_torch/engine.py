@@ -18,8 +18,10 @@ runs a shared prompt prefix's chunks once into a :class:`PrefixHandle`
 chunks the handle covers; :class:`PrefixRegistry` keeps handles by prefix,
 LRU.
 
-Ported: greedy decoding on Llama-family models and Mistral's uniform
-sliding window, with every compression method of ``config.METHODS``
+Ported: greedy decoding on Llama-family models, Mistral's uniform sliding
+window, Qwen2's QKV biases and Gemma-2 (its alternating window, softcaps,
+head dim 256 and other features; on Gemma-2 H2O, MInference, ThinK and
+KIVI caches raise, ROADMAP queue 2A #5), with every compression method of ``config.METHODS``
 (``policy.py``: the single-budget, pyramid, position, norm, random,
 head-budget, merging and ThinK methods, ``gqa_aggregate``, per-layer
 capacities; ``minference``'s vertical-and-slash sparse prefill), with bf16
@@ -284,6 +286,7 @@ class Engine:
                 "the chunked dequantization scan (use_quant_scan) is not "
                 "ported (ROADMAP queue 1 #6)")
         llama.check_ported(model_spec)
+        llama.check_method_ported(model_spec, comp_spec)
         self.device = torch.device(device)
         self.model_spec = model_spec
         self.comp_spec = comp_spec
@@ -300,8 +303,12 @@ class Engine:
         self.plan_for(es.prefill_buckets[0])  # unported options raise here
 
     def plan_for(self, bucket: int) -> PolicyPlan:
+        # the scorers mirror the model's attention (Gemma-2's scale and
+        # cap; JAX engine.py:315-317)
+        akw = llama.attn_args(self.model_spec)
         return make_plan(self.comp_spec, self.model_spec.num_hidden_layers,
-                         bucket, self.engine_spec.max_new_tokens)
+                         bucket, self.engine_spec.max_new_tokens,
+                         attn_scale=akw["scale"], attn_softcap=akw["softcap"])
 
     def chunked_prefill_supported(self, bucket: int) -> bool:
         """True when ``generate`` prefills this bucket in chunks: a

@@ -32,17 +32,17 @@ _REGION = [_P] * 14 + [_I] * 12 + [_F] + [_P] * 3 + [_I] * 2 + [_P] * 2
 #: C signatures of each library's entry points: [(symbol, argtypes), ...]
 ENTRY_POINTS = {
     "flash_prefill": [
-        ("pkv_flash_prefill", [_P] * 5 + [_I] * 8 + [_F, _P]),
-        ("pkv_flash_partials", [_P] * 7 + [_I] * 7 + [_F, _P]),
-        ("pkv_flash_row_max", [_P] * 4 + [_I] * 8 + [_F, _P]),
-        ("pkv_flash_pass_b", [_P] * 6 + [_I] * 8 + [_F, _P]),
+        ("pkv_flash_prefill", [_P] * 5 + [_I] * 9 + [_F, _F, _P]),
+        ("pkv_flash_partials", [_P] * 7 + [_I] * 8 + [_F, _F, _P]),
+        ("pkv_flash_row_max", [_P] * 4 + [_I] * 9 + [_F, _F, _P]),
+        ("pkv_flash_pass_b", [_P] * 6 + [_I] * 9 + [_F, _F, _P]),
     ],
     "h2o_scores": [
         ("pkv_h2o_stats", [_P] * 5 + [_I] * 5 + [_P]),
         ("pkv_h2o_colsum", [_P] * 6 + [_I] * 5 + [_P]),
     ],
-    "decode_attn": [("pkv_decode_attn", [_P] * 8 + [_I] * 6 + [_F, _P]),
-                    ("pkv_decode_occupancy", [_I])],
+    "decode_attn": [("pkv_decode_attn", [_P] * 8 + [_I] * 7 + [_F, _F, _P]),
+                    ("pkv_decode_occupancy", [_I, _I])],
     "int4_matmul": [
         ("pkv_int4_mm", [_P] * 5 + [_I] * 13 + [_P]),
         ("pkv_int4_map", [_P] * 2 + [_I] * 3),

@@ -7,7 +7,10 @@ one-pass schedule and its two-pass schedule (``two_pass=True``: pass A
 ``flash_attention_partials``.  On a CUDA tensor each launches its
 hand-written sm_90a kernel; on a CPU tensor it runs the plain version
 (``ops.attention.causal_prefill_attention``, ``flash_row_max_plain``,
-``flash_pass_b_plain``, ``flash_partials_plain``).
+``flash_pass_b_plain``, ``flash_partials_plain``).  Every entry takes head
+dims 128 and 256 (Gemma-2), a softmax ``scale`` and a logit cap
+``softcap`` (Gemma-2's ``attn_logit_softcapping``: cap * tanh(s / cap)
+before the softmax, log2(e) applied after the tanh, as the TPU kernel does).
 
 :func:`flash_tile_plan` mirrors the key-tile plan of the one-pass,
 partials and pass-B kernel (``flash_wgmma_kernel``), and
@@ -24,17 +27,26 @@ from typing import Optional
 
 import torch
 
-from ..ops.attention import (causal_prefill_attention, flash_partials_plain,
-                             flash_pass_b_plain, flash_row_max_plain)
+from ..ops.attention import (cap_base2, causal_prefill_attention,
+                             flash_partials_plain, flash_pass_b_plain,
+                             flash_row_max_plain, q_fold)
 from . import _build
 
 #: the kernels' granularity: N and Nq are multiples of it
 TILE = 64
-HEAD_DIM = 128
+#: head dims the kernels are instantiated for (256: Gemma-2)
+HEAD_DIMS = (128, 256)
 #: q rows per block and keys per tile of the one-pass, partials and pass-B
-#: kernel (``csrc/flash_prefill.cu``, namespace ``wg``)
+#: kernel (``csrc/flash_prefill.cu``, namespace ``wg``) at D = 128
 BLOCK_Q = 128
 BLOCK_K = 128
+
+
+def block_k(d: int) -> int:
+    """Keys a tile of the one-pass, partials and pass-B kernel at head dim
+    ``d``: 128, or 64 at D = 256 (Q and two stages of 128-key K and V tiles
+    would need 321 KB of shared memory; 64-key tiles take 193 KB)."""
+    return 64 if d == 256 else BLOCK_K
 
 
 def _check(q, k, v, true_len, nq_ok: bool, ldk: int):
@@ -59,8 +71,8 @@ def _check(q, k, v, true_len, nq_ok: bool, ldk: int):
     if k.shape != (b, hk, n, d) or v.shape != k.shape or h % hk or not nq_ok:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    if d != HEAD_DIM or n % TILE or nq % TILE:
-        raise ValueError(f"kernel takes D == {HEAD_DIM} and N, Nq % {TILE} "
+    if d not in HEAD_DIMS or n % TILE or nq % TILE:
+        raise ValueError(f"kernel takes D in {HEAD_DIMS} and N, Nq % {TILE} "
                          f"== 0, got D={d} N={n} Nq={nq}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start 16-byte aligned (the copy "
@@ -91,14 +103,13 @@ def flash_causal_attention(
     [q_start, q_start + Nq) of the keys (a prefill chunk: q_start + Nq == N;
     the monolithic prefill: q_start = 0, Nq == N).  ``two_pass``: the TPU's
     two-pass schedule, :func:`flash_row_max` then :func:`flash_pass_b`.
-    Returns [B, H, Nq, D]; rows below the left pad are 0 on the card (no
-    visible key) and unspecified on the CPU path — callers never read them.
+    ``scale``: the softmax scale (default 1/sqrt(D)); ``softcap``: cap the
+    logits at cap * tanh(s / cap).  Returns [B, H, Nq, D]; rows below the
+    left pad are 0 on the card (no visible key) and unspecified on the CPU
+    path — callers never read them.
     """
-    if softcap is not None:
-        raise NotImplementedError(
-            "softcap is not ported yet (ROADMAP queue 2A #1; Gemma-2: queue "
-            "1 #5)")
-    kw = dict(sliding_window=sliding_window, scale=scale, q_start=q_start)
+    kw = dict(sliding_window=sliding_window, scale=scale, softcap=softcap,
+              q_start=q_start)
     if two_pass:
         return flash_pass_b(q, k, v, flash_row_max(q, k, true_len, **kw),
                             true_len, **kw)
@@ -112,7 +123,7 @@ def flash_causal_attention(
 
 
 def _launch(symbol, q, k, v, true_len, outs, *, sliding_window, scale,
-            q_start, m=None):
+            softcap, q_start, m=None):
     """Check the arguments of a normalised-attention entry point of
     ``csrc/flash_prefill.cu`` and launch ``symbol`` (pass A takes no v: it
     is given k's); returns its error code."""
@@ -124,33 +135,43 @@ def _launch(symbol, q, k, v, true_len, outs, *, sliding_window, scale,
                 q_start + nq == n or (q_start == 0 and nq == n), ldk)
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
     ins = [q.data_ptr(), k.data_ptr()]
+    cap = _cap_arg(softcap)
     if symbol != "pkv_flash_row_max":
         ins.append(v.data_ptr())
     ins.append(tl.data_ptr())
     if m is not None:
         ins.append(m.data_ptr())
     return getattr(_build.library("flash_prefill"), symbol)(
-        *ins, *(o.data_ptr() for o in outs), b, h, hk, n, ldk, nq, q_start,
-        int(sliding_window or 0), float(sc),
+        *ins, *(o.data_ptr() for o in outs), b, h, hk, d, n, ldk, nq, q_start,
+        int(sliding_window or 0), float(sc), cap,
         torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _cap_arg(softcap: Optional[float]) -> float:
+    """The C entries' cap argument: the cap, or 0 for none."""
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
+    return float(softcap or 0.0)
 
 
 def flash_row_max(q: torch.Tensor, k: torch.Tensor, true_len: torch.Tensor,
                   *, sliding_window: Optional[int] = None,
                   scale: Optional[float] = None,
+                  softcap: Optional[float] = None,
                   q_start: int = 0) -> torch.Tensor:
     """Pass A of the two-pass schedule (the TPU's ``_max_kernel``): each
-    query row's max base-2 logit over its visible keys.  Arguments as
-    :func:`flash_causal_attention`.  Returns m [B, H, Nq] f32 (float32.min
-    for a row with no visible key)."""
+    query row's max base-2 logit (capped under ``softcap``) over its
+    visible keys.  Arguments as :func:`flash_causal_attention`.  Returns m
+    [B, H, Nq] f32 (float32.min for a row with no visible key)."""
     if q.device.type == "cpu":
         return flash_row_max_plain(q, k, true_len,
                                    sliding_window=sliding_window,
-                                   scale=scale, q_start=q_start)
+                                   scale=scale, softcap=softcap,
+                                   q_start=q_start)
     m = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     err = _launch("pkv_flash_row_max", q, k, k, true_len, (m,),
                   sliding_window=sliding_window, scale=scale,
-                  q_start=q_start)
+                  softcap=softcap, q_start=q_start)
     _build.check(err, "flash_row_max")
     flash_row_max.launches += 1
     return m
@@ -160,6 +181,7 @@ def flash_pass_b(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  m: torch.Tensor, true_len: torch.Tensor, *,
                  sliding_window: Optional[int] = None,
                  scale: Optional[float] = None,
+                 softcap: Optional[float] = None,
                  q_start: int = 0) -> torch.Tensor:
     """Pass B of the two-pass schedule (the TPU's ``_kernel_pass_b``): the
     rescale-free accumulation against pass A's row maxes ``m`` [B, H, Nq]
@@ -169,7 +191,7 @@ def flash_pass_b(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_pass_b_plain(q, k, v, m, true_len,
                                   sliding_window=sliding_window, scale=scale,
-                                  q_start=q_start)
+                                  softcap=softcap, q_start=q_start)
     if (m.dtype != torch.float32 or tuple(m.shape) != tuple(q.shape[:3])
             or not m.is_contiguous() or m.device != q.device):
         raise ValueError(f"m must be contiguous float32 {tuple(q.shape[:3])} "
@@ -177,7 +199,7 @@ def flash_pass_b(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     err = _launch("pkv_flash_pass_b", q, k, v, true_len, (out,), m=m,
                   sliding_window=sliding_window, scale=scale,
-                  q_start=q_start)
+                  softcap=softcap, q_start=q_start)
     _build.check(err, "flash_pass_b")
     flash_pass_b.launches += 1
     return out
@@ -191,9 +213,12 @@ def flash_attention_partials(
     *,
     q_start: int = 0,
     sliding_window: Optional[int] = None,
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
 ):
     """Online-softmax partials of causal GQA attention, statistics in the
-    BASE-2 domain (see ``ops.attention.flash_partials_plain``).
+    BASE-2 domain (see ``ops.attention.flash_partials_plain``; ``scale``
+    and ``softcap`` as :func:`flash_causal_attention`'s).
 
     q: [B, H, Nq, D]; k, v: [B, Hk, N, D]; true_len: [B] valid keys (at the
     right end of the tile).  ``q_start == 0`` (Nq == N): the causal self
@@ -203,7 +228,8 @@ def flash_attention_partials(
     r).  Returns (acc [B, H, Nq, D], m [B, H, Nq], l [B, H, Nq]) f32."""
     if q.device.type == "cpu":
         return flash_partials_plain(q, k, v, true_len, q_start=q_start,
-                                    sliding_window=sliding_window)
+                                    sliding_window=sliding_window,
+                                    scale=scale, softcap=softcap)
     b, h, nq, d = q.shape
     hk, n = k.shape[1], k.shape[2]
     tl = _check(q, k, v, true_len,
@@ -215,30 +241,31 @@ def flash_attention_partials(
     lib = _build.library("flash_prefill")
     err = lib.pkv_flash_partials(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), tl.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, hk, n, nq, q_start,
-        int(sliding_window or 0), 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, hk, d, n, nq,
+        q_start, int(sliding_window or 0),
+        float(scale if scale is not None else 1.0 / math.sqrt(d)),
+        _cap_arg(softcap), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_partials")
     flash_attention_partials.launches += 1
     return acc, m, l
 
 
 def flash_tile_plan(n: int, nq: int, q_start: int, pad: int,
-                    window: Optional[int] = None):
-    """The key tiles each q tile of the one-pass, partials and pass-B kernel
-    visits.
+                    window: Optional[int] = None, bk: int = BLOCK_K):
+    """The key tiles of ``bk`` keys (:func:`block_k`) each q tile of the
+    one-pass, partials and pass-B kernel visits.
 
     Queries sit at global rows [q_start, q_start + nq) of n keys, the first
     ``pad`` of which are padding.  q tile t holds rows q_start + t *
-    BLOCK_Q up to the last real row; it visits the key tiles of BLOCK_K
-    keys from the one holding its pad or window edge (its first row's) to
+    BLOCK_Q up to the last real row; it visits the key tiles from the one
+    holding its pad or window edge (its first row's) to
     the one holding its causal edge (its last row's; none past n: a history
     tile, q_start >= n, sees every key).  A tile is interior when every
     (row, key) pair of the q tile's rows and the tile's keys is visible:
     past the pad, causal, below n and inside the window; the kernel masks
     only the others.  Returns one (range of key-tile indices, [interior
     flag per tile]) per q tile."""
-    bq, bk = BLOCK_Q, BLOCK_K
+    bq = BLOCK_Q
     plan = []
     for t in range(-(-nq // bq)):
         g0 = q_start + t * bq
@@ -255,16 +282,18 @@ def flash_tile_plan(n: int, nq: int, q_start: int, pad: int,
 def flash_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       true_len: torch.Tensor, *,
                       sliding_window: Optional[int] = None,
-                      scale: Optional[float] = None, q_start: int = 0,
+                      scale: Optional[float] = None,
+                      softcap: Optional[float] = None, q_start: int = 0,
                       partials: bool = False,
                       m_known: Optional[torch.Tensor] = None):
     """The schedule of the one-pass, partials and pass-B kernel
     (``flash_wgmma_kernel``) in plain PyTorch: each q tile walks its
-    :func:`flash_tile_plan`, masks only the tiles that are not interior,
-    and runs the base-2 online softmax tile by tile, with q scaled by
-    scale * log2(e) and rounded to q's dtype and each tile's P rounded to
-    v's dtype at the running max (as the kernel does in bf16; with f32
-    inputs nothing is rounded).  Arguments as
+    :func:`flash_tile_plan` (tiles of :func:`block_k` keys), masks only the
+    tiles that are not interior, and runs the base-2 online softmax tile by
+    tile, with q scaled by scale * log2(e) (by scale alone under
+    ``softcap``, each tile's logits then capped in base 2) and rounded to
+    q's dtype and each tile's P rounded to v's dtype at the running max (as
+    the kernel does in bf16; with f32 inputs nothing is rounded).  Arguments as
     :func:`flash_causal_attention`; ``partials``: return (acc, m, l) f32 as
     :func:`flash_attention_partials` does, else the output in q's dtype (0
     on rows with no visible key).  ``m_known`` [B, H, Nq]: pass B against
@@ -274,10 +303,8 @@ def flash_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, nq, d = q.shape
     hk, n = k.shape[1], k.shape[2]
     g = h // hk
-    bq, bk = BLOCK_Q, BLOCK_K
-    sc = (scale if scale is not None else 1.0 / math.sqrt(d)) * math.log2(
-        math.e)
-    qr = (q.float() * sc).to(q.dtype).float()
+    bq, bk = BLOCK_Q, block_k(d)
+    qr = q_fold(q, scale, softcap)
     kf, vf = k.float(), v.float()
     f32 = dict(dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, nq, d), **f32)
@@ -288,7 +315,7 @@ def flash_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_known.float().clamp_min(neg / 2)
     for bi in range(b):
         pad = n - int(true_len[bi])
-        plan = flash_tile_plan(n, nq, q_start, pad, sliding_window)
+        plan = flash_tile_plan(n, nq, q_start, pad, sliding_window, bk)
         for t, (tiles, interior) in enumerate(plan):
             r0, r1 = t * bq, min(t * bq + bq, nq)
             rows = q_start + torch.arange(r0, r1, device=q.device)[:, None]
@@ -298,7 +325,8 @@ def flash_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             at = acc[bi, :, r0:r1].reshape(hk, g, r1 - r0, d)
             for kt, inner in zip(tiles, interior):
                 c0, c1 = kt * bk, min(kt * bk + bk, n)
-                s = torch.matmul(qt, kf[bi, :, None, c0:c1].transpose(-1, -2))
+                s = cap_base2(torch.matmul(
+                    qt, kf[bi, :, None, c0:c1].transpose(-1, -2)), softcap)
                 if not inner:
                     cols = torch.arange(c0, c1, device=q.device)[None, :]
                     vis = (cols >= pad) & (cols <= rows)
@@ -361,19 +389,19 @@ def row_max_tiled_plain(q: torch.Tensor, k: torch.Tensor,
                         true_len: torch.Tensor, *,
                         sliding_window: Optional[int] = None,
                         scale: Optional[float] = None,
+                        softcap: Optional[float] = None,
                         q_start: int = 0) -> torch.Tensor:
     """Pass A's kernel schedule in plain PyTorch: each warpgroup's 64 rows
-    of bf16(q * scale * log2 e) (q's dtype; f32 is not rounded) walk their
-    :func:`row_max_unit_plan` units, the mask applied only to units that
-    are not interior, a running max per row.  Arguments as
-    :func:`flash_row_max`; returns m [B, H, Nq] f32, float32.min on a row
-    with no visible key."""
+    of bf16(q * scale * log2 e) (q * scale under ``softcap``; q's dtype,
+    f32 is not rounded) walk their :func:`row_max_unit_plan` units, the
+    mask applied only to units that are not interior, a running max per
+    row, capped at the end under ``softcap`` (the cap is monotonic).
+    Arguments as :func:`flash_row_max`; returns m [B, H, Nq] f32,
+    float32.min on a row with no visible key."""
     b, h, nq, d = q.shape
     hk, n = k.shape[1], k.shape[2]
     g = h // hk
-    sc = (scale if scale is not None else 1.0 / math.sqrt(d)) * math.log2(
-        math.e)
-    qr = (q.float() * sc).to(q.dtype).float()
+    qr = q_fold(q, scale, softcap)
     kf = k.float()
     m = torch.full((b, h, nq), -math.inf, dtype=torch.float32,
                    device=q.device)
@@ -402,7 +430,8 @@ def row_max_tiled_plain(q: torch.Tensor, k: torch.Tensor,
                             vis &= rows - cols < sliding_window
                         s = s.masked_fill(~vis, -math.inf)
                     mt.copy_(torch.maximum(mt, s.amax(-1)))
-    return torch.where(m == -math.inf, torch.finfo(torch.float32).min, m)
+    return torch.where(m == -math.inf, torch.finfo(torch.float32).min,
+                       cap_base2(m, softcap))
 
 
 #: kernel launches since the last reset (CPU calls do not count)

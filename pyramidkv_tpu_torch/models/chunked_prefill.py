@@ -51,7 +51,6 @@ from ..ops.quant import (QuantizedKVRegion, QuantizedTensor, _pack, _round_up,
 from ..ops.scoring import h2o_partial_scores
 from ..policy import PolicyPlan, compress_layer, layer_contexts
 from . import llama
-from .weights import embed_lookup, mm
 
 _NEG_INF = torch.finfo(torch.float32).min
 
@@ -111,18 +110,16 @@ def _chunk_inputs(params, spec, plan, tokens, true_len, chunk_start):
     pad = (n - true_len).to(torch.int64)
     cols = chunk_start + torch.arange(tokens.shape[1], device=dev)
     positions = cols[None, :] - pad[:, None]
-    hidden = embed_lookup(params["embed"], tokens.long(),
-                          params["final_norm"].dtype)
+    hidden = llama.embed(params, tokens, spec)
     return hidden, positions, llama.rope_inv_freq(spec, dev), pad
 
 
 def _finish_layer(hidden, attn, wts, spec, impl):
-    """The rest of a layer after attention [B, H, C, D]: wo, residual, MLP."""
+    """The rest of a layer after attention [B, H, C, D]
+    (``llama.block_tail``)."""
     b, c = hidden.shape[:2]
-    hidden = hidden + mm(attn.transpose(1, 2).reshape(b, c, -1), wts["wo"],
-                         impl)
-    return hidden + llama._mlp(
-        llama.rms_norm(hidden, wts["mlp_norm"], spec.rms_norm_eps), wts, impl)
+    return llama.block_tail(hidden, attn.transpose(1, 2).reshape(b, c, -1),
+                            wts, spec, impl)
 
 
 def prefill_chunk(
@@ -155,13 +152,13 @@ def prefill_chunk(
         params, spec, plan, tokens, true_len, chunk_start)
     # the attention derives the key pad from its own key length (extent)
     eff_len = true_len.to(torch.int32) - (n - extent)
-    eps = spec.rms_norm_eps
-    # the attention's window (H2O's second-pass scores take none, as JAX's)
-    win = spec.sliding_window
+    akw = llama.attn_args(spec)
     window_q = []
     for li in range(spec.num_hidden_layers):
         wts = llama._layer(params, li)
-        x = llama.rms_norm(hidden, wts["attn_norm"], eps)
+        # the layer's window (H2O's second-pass scores take none, as JAX's)
+        win = spec.layer_window(li)
+        x = llama._norm(hidden, wts["attn_norm"], spec)
         q, k, v = llama._qkv(x, wts, spec, attention_impl)
         q = llama.apply_rope(q, positions, inv_freq)
         k = llama.apply_rope(k, positions, inv_freq)
@@ -176,11 +173,11 @@ def prefill_chunk(
         if attention_impl == "kernel":
             attn = flash_causal_attention(q, kh, vh, eff_len,
                                           q_start=chunk_start,
-                                          sliding_window=win)
+                                          sliding_window=win, **akw)
         else:
             attn = plain.causal_prefill_attention(
                 q, kh, vh, true_len=eff_len, q_start=chunk_start,
-                sliding_window=win)
+                sliding_window=win, **akw)
         hidden = _finish_layer(hidden, attn, wts, spec, attention_impl)
         window_q.append(q[:, :, c - w:])
     return torch.stack(window_q), hidden[:, -1, :]
@@ -366,7 +363,6 @@ def prefill_chunk_quant(
     colv = cols[None, :] >= pad[:, None]  # [B, C]
     kernel = attention_impl == "kernel"
     act = hidden.dtype
-    eps = spec.rms_norm_eps
     win = spec.sliding_window
     # the history chunks some row of this chunk sees: chunk hc's last key
     # lies inside the window of this chunk's first row (JAX runs every tile
@@ -376,7 +372,7 @@ def prefill_chunk_quant(
             if win is None or chunk_start - (hc * c + c - 1) < win]
     for li in range(spec.num_hidden_layers):
         wts = llama._layer(params, li)
-        x = llama.rms_norm(hidden, wts["attn_norm"], eps)
+        x = llama._norm(hidden, wts["attn_norm"], spec)
         q, k, v = llama._qkv(x, wts, spec, attention_impl)
         q = llama.apply_rope(q, positions, inv_freq)
         k = llama.apply_rope(k, positions, inv_freq)

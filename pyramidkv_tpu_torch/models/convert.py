@@ -87,9 +87,11 @@ def init_params(spec: ModelSpec, generator: torch.Generator, device,
                 dtype: torch.dtype = torch.bfloat16) -> dict:
     """Random-normal params of the JAX ``init_params`` distribution (not its
     bits): matmul weights ~ N(0, 1/fan_in), embed, lm_head and (with
-    ``attention_bias``) the QKV biases ~ N(0, 0.02^2), norms at 1.  Drawn
-    in f32 one layer at a time on ``device`` (the generator's device), then
-    cast, so the f32 transient is one layer."""
+    ``attention_bias``) the QKV biases ~ N(0, 0.02^2), norms at 1 (at 0
+    under Gemma-2's (1 + w) form, with its ``attn_post_norm`` and
+    ``mlp_post_norm`` leaves; no lm_head when the embedding is tied).
+    Drawn in f32 one layer at a time on ``device`` (the generator's device),
+    then cast, so the f32 transient is one layer."""
     from .llama import check_ported
 
     check_ported(spec)
@@ -117,11 +119,16 @@ def init_params(spec: ModelSpec, generator: torch.Generator, device,
         # Qwen2's QKV biases ~ N(0, 0.02^2), as JAX's init_params draws them
         for name, width in (("bq", H * Dh), ("bk", KV * Dh), ("bv", KV * Dh)):
             layers[name] = normal((L, width), 0.02)
-    layers["attn_norm"] = torch.ones((L, Dm), dtype=dtype, device=device)
-    layers["mlp_norm"] = torch.ones((L, Dm), dtype=dtype, device=device)
+    # unit-offset RMSNorm ((1 + w), Gemma-2) zero-initialises its weights
+    norm1 = torch.zeros if spec.rmsnorm_unit_offset else torch.ones
+    norms = ["attn_norm", "mlp_norm"]
+    if spec.post_block_norms:
+        norms += ["attn_post_norm", "mlp_post_norm"]
+    for name in norms:
+        layers[name] = norm1((L, Dm), dtype=dtype, device=device)
     params = {
         "embed": normal((V, Dm), 0.02),
-        "final_norm": torch.ones((Dm,), dtype=dtype, device=device),
+        "final_norm": norm1((Dm,), dtype=dtype, device=device),
         "layers": layers,
     }
     if not spec.tie_word_embeddings:

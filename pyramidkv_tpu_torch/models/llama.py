@@ -24,10 +24,17 @@ vertical-and-slash sparse attention of ``ops/sparse_prefill.py`` (its three
 block-sparse kernels) instead of the dense flash kernel.
 Qwen2's QKV biases (``attention_bias``: ``bq`` / ``bk`` / ``bv`` leaves)
 are added to the projections in ``_qkv``, which every path runs.
-A uniform ``sliding_window`` (Mistral) masks every dense prefill
-attention; decode masks it only for fullkv and minference, whose slots are
-positions (JAX ``llama.py:932-951``), and the sparse prefill ignores it,
-as JAX's does.
+A ``sliding_window`` masks the dense prefill attention of every layer
+(Mistral) or of the sliding layers of ``layer_types`` (Gemma-2:
+``spec.layer_window``); decode masks it only for fullkv and minference,
+whose slots are positions (JAX ``llama.py:932-951``), and the sparse
+prefill ignores a uniform one, as JAX's does.  Gemma-2's other features
+follow JAX's ``llama.py``: (1 + w) RMSNorms in f32, embeddings times
+sqrt(hidden) rounded to the activation dtype, post-attention and post-MLP
+norms, GeGLU (``gelu_tanh``), the attention scale
+``query_pre_attn_scalar^-0.5`` and logit cap (``attn_args``, passed to the
+flash and decode kernels, the plain paths and the scorers), and the final
+logit cap.
 Quantized params (``models/weights.py``) keep the JAX tree's names, plus the
 fused ``wqkv`` / ``w_gateup`` leaves of ``fuse_packed_matmuls``.
 """
@@ -57,27 +64,59 @@ IMPLS = ("kernel", "plain")
 
 
 def check_ported(spec: ModelSpec) -> None:
-    """Raise for the model features the port does not run yet.  A uniform
-    sliding window (Mistral: ``sliding_window`` set, ``layer_types`` None)
-    and Qwen2's QKV biases (``attention_bias``) are ported; per-layer
-    attention types, Gemma-2's other features and MoE are not."""
-    if spec.layer_types is not None and spec.sliding_window is not None:
-        raise NotImplementedError(
-            f"{spec.name}: per-layer sliding/full attention (Gemma-2's "
-            "layer_types) is not ported yet (ROADMAP queue 1 #5c)")
-    if (spec.post_block_norms or spec.rmsnorm_unit_offset
-            or spec.scale_embeddings or spec.hidden_act != "silu"
-            or spec.query_pre_attn_scalar is not None
-            or spec.attn_logit_softcapping is not None
-            or spec.final_logit_softcapping is not None):
-        raise NotImplementedError(
-            f"{spec.name}: Gemma-2's softcaps, (1+w) and post-block norms, "
-            "scaled embeddings, GeGLU and query_pre_attn_scalar are not "
-            "ported yet (ROADMAP queue 1 #5c)")
+    """Raise for the model features the port does not run yet.  Mistral's
+    uniform sliding window, Qwen2's QKV biases and Gemma-2's features
+    (per-layer ``layer_types``, softcaps, (1 + w) and post-block norms,
+    scaled embeddings, GeGLU, ``query_pre_attn_scalar``) are ported;
+    Mixtral's MoE is not."""
+    if spec.hidden_act not in ("silu", "gelu_tanh"):
+        raise ValueError(f"{spec.name}: unknown hidden_act "
+                         f"{spec.hidden_act!r}")
     if spec.num_local_experts:
         raise NotImplementedError(
             f"{spec.name}: Mixtral's MoE MLP is not ported yet (ROADMAP "
             "queue 1 #5d)")
+
+
+#: what a model with an attention logit cap, a custom attention scale or
+#: alternating windows (Gemma-2) does not run yet:
+#: method or cache -> what the JAX package runs there that the port has
+#: not ported (ROADMAP queue 2A #5)
+_CAPPED_REFUSED = {
+    "h2o": "H2O's scores under the cap at D = 256 (XLA in JAX)",
+    "minference": "the block-sparse kernels with the cap at D = 256",
+    "think": "ThinK's narrow decode with the scale and the cap",
+}
+
+
+def check_method_ported(spec: ModelSpec, cs) -> None:
+    """Raise for a compression method or cache the port does not run on
+    ``spec`` yet: on a model with an attention logit cap, a custom scale or
+    alternating windows (Gemma-2), H2O, MInference, ThinK and KIVI caches
+    (ROADMAP queue 2A #5)."""
+    if (spec.attn_logit_softcapping is None
+            and spec.query_pre_attn_scalar is None
+            and not spec.mixed_sliding):
+        return
+    what = _CAPPED_REFUSED.get(cs.method)
+    if what is None and cs.quant_method is not None:
+        what = "the KIVI region kernels with the scale and the cap at D = 256"
+    if what is not None:
+        raise NotImplementedError(
+            f"{spec.name}: {cs.method}"
+            f"{' with a ' + cs.quant_method + ' cache' if cs.quant_method else ''}"
+            " on a model with an attention logit cap, a custom scale or "
+            f"alternating windows (Gemma-2) needs {what}, not ported yet "
+            "(ROADMAP queue 2A #5)")
+
+
+def attn_args(spec: ModelSpec) -> dict:
+    """The attention's ``scale`` and ``softcap`` (JAX ``llama.py:504-507``):
+    ``query_pre_attn_scalar^-0.5`` where set (else None: 1/sqrt(D)) and the
+    logit cap (None without one)."""
+    return dict(scale=(spec.attn_scale
+                       if spec.query_pre_attn_scalar is not None else None),
+                softcap=spec.attn_logit_softcapping)
 
 
 # ---------------------------------------------------------------------------
@@ -119,11 +158,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """Llama RMSNorm: normalise in f32, cast back, THEN scale by w."""
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
+             unit_offset: bool = False) -> torch.Tensor:
+    """Llama RMSNorm: normalise in f32, cast back, THEN scale by w.  With
+    ``unit_offset`` (Gemma2RMSNorm) multiply by (1 + w) in f32, then cast."""
     xf = x.float()
     normed = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    if unit_offset:
+        return (normed * (1.0 + w.float())).to(x.dtype)
     return normed.to(x.dtype) * w
+
+
+def _norm(x: torch.Tensor, w: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
+    """The spec's RMSNorm (Gemma-2's (1 + w) form where it says so)."""
+    return rms_norm(x, w, spec.rms_norm_eps, spec.rmsnorm_unit_offset)
+
+
+def embed(params: dict, tokens: torch.Tensor, spec: ModelSpec
+          ) -> torch.Tensor:
+    """The tokens' embedding rows in the activation dtype; Gemma-2 scales
+    them by sqrt(hidden) rounded to that dtype (JAX ``llama.py:499-503``)."""
+    dtype = params["final_norm"].dtype
+    hidden = embed_lookup(params["embed"], tokens.long(), dtype)
+    if spec.scale_embeddings:
+        hidden = hidden * torch.tensor(math.sqrt(spec.hidden_size),
+                                       dtype=dtype, device=hidden.device)
+    return hidden
 
 
 def _repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
@@ -160,22 +220,45 @@ def _qkv(x: torch.Tensor, wts: dict, spec: ModelSpec, impl: str
     return q, k, v
 
 
-def _mlp(x: torch.Tensor, wts: dict, impl: str) -> torch.Tensor:
-    """SwiGLU; the activation runs in f32 and is cast before the product."""
+def _mlp(x: torch.Tensor, wts: dict, impl: str,
+         hidden_act: str = "silu") -> torch.Tensor:
+    """SwiGLU, or GeGLU with ``gelu_tanh`` (Gemma-2's gelu_pytorch_tanh);
+    the activation runs in f32 and is cast before the product."""
     if "w_gateup" in wts:
         g, u = mm(x, wts["w_gateup"], impl).chunk(2, dim=-1)
     else:
         g, u = mm(x, wts["w_gate"], impl), mm(x, wts["w_up"], impl)
-    return mm(F.silu(g.float()).to(x.dtype) * u, wts["w_down"], impl)
+    act = (F.gelu(g.float(), approximate="tanh") if hidden_act == "gelu_tanh"
+           else F.silu(g.float()))
+    return mm(act.to(x.dtype) * u, wts["w_down"], impl)
+
+
+def block_tail(hidden: torch.Tensor, attn: torch.Tensor, wts: dict,
+               spec: ModelSpec, impl: str) -> torch.Tensor:
+    """The rest of a layer after its attention ``attn`` [..., H * Dh]: the
+    output projection, Gemma-2's post-attention norm, the residual, the
+    MLP (its post-MLP norm) and the residual."""
+    ao = mm(attn, wts["wo"], impl)
+    if spec.post_block_norms:
+        ao = _norm(ao, wts["attn_post_norm"], spec)
+    hidden = hidden + ao
+    mo = _mlp(_norm(hidden, wts["mlp_norm"], spec), wts, impl,
+              spec.hidden_act)
+    if spec.post_block_norms:
+        mo = _norm(mo, wts["mlp_post_norm"], spec)
+    return hidden + mo
 
 
 def _logits(hidden: torch.Tensor, params: dict, spec: ModelSpec,
             impl: str = "kernel") -> torch.Tensor:
     """f32 logits, sliced back to the true vocab when the lm_head was padded
-    (``quantize_weights(lm_head_pad_to=...)``; pad channels are all-zero)."""
+    (``quantize_weights(lm_head_pad_to=...)``; pad channels are all-zero),
+    capped at ``final_logit_softcapping`` (Gemma-2) where set."""
     out = _logits_wide(hidden, params, spec, impl)
-    return out[..., :spec.vocab_size] if out.shape[-1] != spec.vocab_size \
-        else out
+    if out.shape[-1] != spec.vocab_size:
+        out = out[..., :spec.vocab_size]
+    cap = spec.final_logit_softcapping
+    return out if cap is None else torch.tanh(out * (1.0 / cap)) * cap
 
 
 def _logits_wide(hidden: torch.Tensor, params: dict, spec: ModelSpec,
@@ -191,7 +274,7 @@ def _logits_wide(hidden: torch.Tensor, params: dict, spec: ModelSpec,
     a bf16 matmul with f32 accumulation whose output is rounded to bf16
     (2^-8 relative) before the cast — no f32 copy of the 128256 x 4096
     lm_head is ever made."""
-    h = rms_norm(hidden, params["final_norm"], spec.rms_norm_eps)
+    h = _norm(hidden, params["final_norm"], spec)
     tied = spec.tie_word_embeddings
     w = params["embed"] if tied else params["lm_head"]
     if isinstance(w, QuantW):
@@ -249,15 +332,15 @@ def prefill(
     pad = (n - true_len).to(torch.int64)
     positions = torch.arange(n, device=dev)[None, :] - pad[:, None]  # [B, N]
     ctxs = layer_contexts(plan, true_len, spec.num_attention_heads, rng)
-    eps = spec.rms_norm_eps
+    check_method_ported(spec, plan.spec)
+    akw = attn_args(spec)
 
-    hidden = embed_lookup(params["embed"], tokens.long(),
-                          params["final_norm"].dtype)  # [B, N, Dm]
+    hidden = embed(params, tokens, spec)  # [B, N, Dm]
     cs = plan.spec
-    win = spec.sliding_window
     # MInference's vertical-and-slash attention ignores a uniform window,
     # as JAX's does (its pattern has no window semantics); below
-    # minference_dense_below the dense attention takes the window
+    # minference_dense_below the dense attention takes the window, and so
+    # do the sliding layers of alternating ones (JAX llama.py:606-618)
     sparse = cs.method == "minference" and n >= cs.minference_dense_below
     budgets = _minference_budgets(cs, dev) if sparse else None
     regions = []  # KIVI: each layer's quantized prefill region
@@ -267,25 +350,25 @@ def prefill(
         stack = None  # [L_seg, ...] buffers of this segment's layers
         for li in range(start, stop):
             wts = _layer(params, li)
-            x = rms_norm(hidden, wts["attn_norm"], eps)
+            win = spec.layer_window(li)
+            x = _norm(hidden, wts["attn_norm"], spec)
             q, k, v = _qkv(x, wts, spec, attention_impl)
             q = apply_rope(q, positions, inv_freq)
             k = apply_rope(k, positions, inv_freq)
             v = v.contiguous()
-            if sparse:
+            if sparse and not (spec.mixed_sliding and win is not None):
                 attn = _sparse_attention(q, k, v, true_len, cs, budgets, li,
                                          attention_impl)
             elif attention_impl == "kernel":
                 attn = flash_causal_attention(q, k, v, true_len,
                                               sliding_window=win,
-                                              two_pass=prefill_two_pass)
+                                              two_pass=prefill_two_pass,
+                                              **akw)
             else:
                 attn = plain.causal_prefill_attention(
-                    q, k, v, true_len=true_len, sliding_window=win)
-            hidden = hidden + mm(attn.transpose(1, 2).reshape(b, n, -1),
-                                 wts["wo"], attention_impl)
-            hidden = hidden + _mlp(rms_norm(hidden, wts["mlp_norm"], eps),
-                                   wts, attention_impl)
+                    q, k, v, true_len=true_len, sliding_window=win, **akw)
+            hidden = block_tail(hidden, attn.transpose(1, 2).reshape(
+                b, n, -1), wts, spec, attention_impl)
             ckv = compress_layer(sub, ctxs.layer(li), q, k, v,
                                  true_len=true_len,
                                  attention_impl=attention_impl)
@@ -449,22 +532,22 @@ def decode_step(
         raise ValueError(f"attention_impl must be one of {IMPLS}")
     b = token.shape[0]
     groups = spec.num_query_groups
-    eps = spec.rms_norm_eps
     inv_freq = rope_inv_freq(spec, token.device)
     pos = cache.current_position()  # [B]
     store_kv = stores_kv_heads(plan.spec)
+    check_method_ported(spec, plan.spec)
+    akw = attn_args(spec)
     # the window masks decode only where rows are positions (fullkv and
-    # minference keep every slot); a compressed cache attends all its
-    # kept keys, the reference's decode semantics (JAX llama.py:932-951)
-    win = (spec.sliding_window
-           if plan.spec.method in ("fullkv", "minference") else None)
+    # minference keep every slot), each layer's own (Gemma-2's alternate);
+    # a compressed cache attends all its kept keys, the reference's decode
+    # semantics (JAX llama.py:932-951)
+    windowed = plan.spec.method in ("fullkv", "minference")
     quantized = cache.quant is not None
     think = cache.think is not None
     attend = (decode_attention if attention_impl == "kernel"
               else plain.decode_attention)
 
-    hidden = embed_lookup(params["embed"], token.long(),
-                          params["final_norm"].dtype)  # [B, Dm]
+    hidden = embed(params, token, spec)  # [B, Dm]
     segs = plan.segment_plans()
     for si, (start, stop, sub) in enumerate(segs):
         if cache.segmented:
@@ -480,7 +563,8 @@ def decode_step(
         v_slot = slot if think else kv_slot
         for i in range(stop - start):
             wts = _layer(params, start + i)
-            x = rms_norm(hidden, wts["attn_norm"], eps)[:, None, :]
+            win = spec.layer_window(start + i) if windowed else None
+            x = _norm(hidden, wts["attn_norm"], spec)[:, None, :]
             q, k, v = _qkv(x, wts, spec, attention_impl)  # [B, H/KV, 1, Dh]
             q = apply_rope(q, pos[:, None], inv_freq)[:, :, 0, :].contiguous()
             k = apply_rope(k, pos[:, None], inv_freq)
@@ -506,10 +590,8 @@ def decode_step(
                     cache.think.kept_channels[start + i], layer.k, layer.v,
                     layer.mask)
             else:
-                attn = attend(q, layer.k, layer.v, visible)
-            hidden = hidden + mm(attn.reshape(b, -1), wts["wo"],
-                                 attention_impl)
-            hidden = hidden + _mlp(rms_norm(hidden, wts["mlp_norm"], eps),
-                                   wts, attention_impl)
+                attn = attend(q, layer.k, layer.v, visible, **akw)
+            hidden = block_tail(hidden, attn.reshape(b, -1), wts, spec,
+                                attention_impl)
     cache.step += 1
     return _logits(hidden, params, spec, attention_impl), cache

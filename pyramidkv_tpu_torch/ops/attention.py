@@ -15,7 +15,10 @@ on either side: both paths run it.
 Numerics follow the JAX versions: operands in the storage dtype with f32
 accumulation (done here by upcasting to f32 — a bf16 x bf16 product is exact
 in f32, so this is the same sum), softmax in f32, probabilities rounded to
-V's dtype before the PV product.
+V's dtype before the PV product.  ``scale`` (default 1/sqrt(D)) and
+``softcap`` (Gemma-2's attention logit cap, cap * tanh(s / cap) of the
+scaled logit before the mask: JAX's ``_scale_softcap``) apply everywhere
+but ThinK's decode and the KIVI partials.
 """
 
 from __future__ import annotations
@@ -26,6 +29,37 @@ from typing import Optional
 import torch
 
 _NEG_INF = torch.finfo(torch.float32).min
+_LOG2E = math.log2(math.e)
+
+
+def scale_softcap(logits: torch.Tensor, scale: float,
+                  softcap: Optional[float]) -> torch.Tensor:
+    """Scale raw q . k logits, then (optionally) cap them: cap * tanh(s /
+    cap) (JAX ``ops/attention.py::_scale_softcap``; the mask comes after)."""
+    logits = logits * scale
+    if softcap is not None:
+        logits = torch.tanh(logits * (1.0 / softcap)) * softcap
+    return logits
+
+
+def q_fold(q: torch.Tensor, scale: Optional[float],
+           softcap: Optional[float]) -> torch.Tensor:
+    """The flash kernels' q fold in f32: q times scale * log2(e), or times
+    scale alone under a cap (log2(e) cannot pass the tanh: it applies after
+    it, :func:`cap_base2`), rounded to q's dtype (the JAX wrapper's)."""
+    sc = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if softcap is None:
+        sc *= _LOG2E
+    return (q.float() * sc).to(q.dtype).float()
+
+
+def cap_base2(s: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
+    """Base-2 logits from products of :func:`q_fold`'s q: unchanged without
+    a cap, else cap * tanh(s / cap) * log2(e) (JAX ``flash_prefill.py``'s
+    kernels, ``use_exp2`` with a softcap)."""
+    if softcap is None:
+        return s
+    return torch.tanh(s * (1.0 / softcap)) * (softcap * _LOG2E)
 
 
 def causal_prefill_attention(
@@ -37,6 +71,7 @@ def causal_prefill_attention(
     block: int = 512,
     sliding_window: Optional[int] = None,
     scale: Optional[float] = None,
+    softcap: Optional[float] = None,
     q_start: int = 0,
 ) -> torch.Tensor:
     """Blockwise causal self-attention over a left-padded buffer.
@@ -72,7 +107,8 @@ def causal_prefill_attention(
             causal &= (rows[:, None] - col[None, :]) < sliding_window
         mask = causal[None] & colv[:, None, :]  # [B, block, N]
         qb = qg[:, :, :, r0:r0 + block].float().reshape(b, hk, g * block, d)
-        logits = torch.matmul(qb, kf).reshape(b, hk, g, block, n) * scale
+        logits = scale_softcap(torch.matmul(qb, kf).reshape(
+            b, hk, g, block, n), scale, softcap)
         logits = logits.masked_fill(~mask[:, None, None], _NEG_INF)
         probs = torch.softmax(logits, dim=-1).to(v.dtype).float()
         ob = torch.matmul(probs.reshape(b, hk, g * block, n), vf)
@@ -97,6 +133,8 @@ def flash_partials_plain(
     *,
     q_start: int = 0,
     sliding_window: Optional[int] = None,
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
     block: int = 512,
 ):
     """Plain version of ``kernels/flash_prefill.py::flash_attention_partials``:
@@ -109,8 +147,10 @@ def flash_partials_plain(
     ``q_start >= N`` a rectangle whose keys all precede its queries (a
     history tile at its true distance: with ``sliding_window`` a key is
     visible only when ``q_start + r - c < sliding_window``).  q is scaled
-    by log2(e)/sqrt(D) and rounded to q's dtype (the JAX wrapper's fold),
-    so logits s are base-2 and ``m = max s``, ``l = sum exp2(s - m)``,
+    by log2(e) * scale (scale alone under ``softcap``, the products then
+    capped in base 2: :func:`q_fold`, :func:`cap_base2`) and rounded to
+    q's dtype (the JAX wrapper's fold), so logits s are base-2 and
+    ``m = max s``, ``l = sum exp2(s - m)``,
     ``acc = sum p v`` with p rounded to v's dtype.  A row with no visible
     key has m = float32.min, l = 0, acc = 0.  Returns (acc [B, H, Nq, D],
     m [B, H, Nq], l [B, H, Nq]) f32; merge in base 2
@@ -122,8 +162,7 @@ def flash_partials_plain(
         q_start, nq, n)
     g = h // hk
     block = _row_block(block, b * h * n, nq)
-    sc = math.log2(math.e) / math.sqrt(d)
-    qr = (q.float() * sc).to(q.dtype).float().reshape(b, hk, g, nq, d)
+    qr = q_fold(q, scale, softcap).reshape(b, hk, g, nq, d)
     pad = (n - true_len).to(torch.int64)
     col = torch.arange(n, device=q.device)
     colv = col[None, :] >= pad[:, None]  # [B, N]
@@ -139,8 +178,8 @@ def flash_partials_plain(
         if sliding_window is not None:
             vis &= (rows[:, None] - col[None, :]) < sliding_window
         mask = vis[None] & colv[:, None, :]
-        s = torch.matmul(qr[:, :, :, r0:r0 + block].reshape(
-            b, hk, g * block, d), kf).reshape(b, hk, g, block, n)
+        s = cap_base2(torch.matmul(qr[:, :, :, r0:r0 + block].reshape(
+            b, hk, g * block, d), kf).reshape(b, hk, g, block, n), softcap)
         s = s.masked_fill(~mask[:, None, None], _NEG_INF)
         mb = s.amax(dim=-1)
         p = torch.exp2(s - mb.clamp_min(_NEG_INF / 2)[..., None])
@@ -153,21 +192,20 @@ def flash_partials_plain(
             l.reshape(b, h, nq))
 
 
-def _base2_logit_blocks(q, k, true_len, sliding_window, scale, q_start,
-                        block):
+def _base2_logit_blocks(q, k, true_len, sliding_window, scale, softcap,
+                        q_start, block):
     """Yield (r0, rows, s) per query-row block of the TPU flash kernel's
     base-2 logits: ``s = bf16(q * scale * log2 e) . k`` in f32 (the
     wrapper's fold: log2(e) and the softmax scale multiply q in f32, rounded
-    to q's dtype), masked to float32.min outside the causal edge, the left
-    pad and the sliding window; s is [B, Hk, G, rows, N]."""
+    to q's dtype; under ``softcap`` q * scale, the product capped in base 2),
+    masked to float32.min outside the causal edge, the left pad and the
+    sliding window; s is [B, Hk, G, rows, N]."""
     b, h, nq, d = q.shape
     hk, n = k.shape[1], k.shape[2]
     assert q_start + nq == n or (q_start == 0 and nq == n), (q_start, nq, n)
     g = h // hk
     block = _row_block(block, b * h * n, nq)
-    sc = (scale if scale is not None else 1.0 / math.sqrt(d)) * math.log2(
-        math.e)
-    qr = (q.float() * sc).to(q.dtype).float().reshape(b, hk, g, nq, d)
+    qr = q_fold(q, scale, softcap).reshape(b, hk, g, nq, d)
     pad = (n - true_len).to(torch.int64)
     col = torch.arange(n, device=q.device)
     colv = col[None, :] >= pad[:, None]  # [B, N]
@@ -178,13 +216,14 @@ def _base2_logit_blocks(q, k, true_len, sliding_window, scale, q_start,
         if sliding_window is not None:
             vis &= (rows[:, None] - col[None, :]) < sliding_window
         mask = vis[None] & colv[:, None, :]  # [B, block, N]
-        s = torch.matmul(qr[:, :, :, r0:r0 + block].reshape(
-            b, hk, g * block, d), kf).reshape(b, hk, g, block, n)
+        s = cap_base2(torch.matmul(qr[:, :, :, r0:r0 + block].reshape(
+            b, hk, g * block, d), kf).reshape(b, hk, g, block, n), softcap)
         yield r0, block, s.masked_fill(~mask[:, None, None], _NEG_INF)
 
 
 def flash_row_max_plain(q, k, true_len, *, sliding_window=None, scale=None,
-                        q_start: int = 0, block: int = 512) -> torch.Tensor:
+                        softcap=None, q_start: int = 0,
+                        block: int = 512) -> torch.Tensor:
     """Pass A of the two-pass flash schedule (plain version of
     ``kernels/flash_prefill.py``'s row-max kernel; the TPU's ``_max_kernel``):
     the max over every visible key of each query row's base-2 logit
@@ -195,13 +234,13 @@ def flash_row_max_plain(q, k, true_len, *, sliding_window=None, scale=None,
     m = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
     mg = m.view(b, k.shape[1], h // k.shape[1], nq)
     for r0, rows, s in _base2_logit_blocks(q, k, true_len, sliding_window,
-                                           scale, q_start, block):
+                                           scale, softcap, q_start, block):
         mg[..., r0:r0 + rows] = s.amax(dim=-1)
     return m
 
 
 def flash_pass_b_plain(q, k, v, m, true_len, *, sliding_window=None,
-                       scale=None, q_start: int = 0,
+                       scale=None, softcap=None, q_start: int = 0,
                        block: int = 512) -> torch.Tensor:
     """Pass B of the two-pass flash schedule (plain version of
     ``kernels/flash_prefill.py``'s pass-B kernel; the TPU's
@@ -217,7 +256,7 @@ def flash_pass_b_plain(q, k, v, m, true_len, *, sliding_window=None,
     vf = v.float()
     out = torch.empty((b, hk, g, nq, d), dtype=q.dtype, device=q.device)
     for r0, rows, s in _base2_logit_blocks(q, k, true_len, sliding_window,
-                                           scale, q_start, block):
+                                           scale, softcap, q_start, block):
         p = torch.exp2(s - mg[..., r0:r0 + rows, None])
         l = p.sum(-1)
         acc = torch.matmul(p.to(v.dtype).float().reshape(b, hk, g * rows, -1),
@@ -291,6 +330,7 @@ def decode_attention(
     mask: torch.Tensor,
     *,
     scale: Optional[float] = None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Single-token attention against the slot cache.
 
@@ -304,7 +344,8 @@ def decode_attention(
     g = h // hk
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
     qg = q.float().reshape(b, hk, g, d)
-    logits = torch.matmul(qg, k_cache.float().transpose(-1, -2)) * sc
+    logits = scale_softcap(torch.matmul(qg, k_cache.float().transpose(-1, -2)),
+                           sc, softcap)
     logits = logits.masked_fill(~mask[:, :, None, :], _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v_cache.dtype).float()
     out = torch.matmul(probs, v_cache.float())  # [B, Hk, G, D]

@@ -15,11 +15,12 @@ version of ``kernels/h2o_scores.py``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from ..prng import uniform
-from .attention import _row_block
+from .attention import _row_block, scale_softcap
 from .pooling import pool1d
 
 _NEG_INF = float("-inf")
@@ -51,6 +52,8 @@ def window_scores(
     kernel_size: int,
     pooling: str,
     aggregation: str = "sum",
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """SnapKV-family window score, ``[B, H, N - W]`` f32, -inf at padding.
 
@@ -58,13 +61,17 @@ def window_scores(
     gives the same per-query-head scores as scoring after repeat_kv, with
     no repeated copy of K.  ``aggregation``: the W rows' softmax summed
     (SnapKV, PyramidKV, CAM, ThinK) or averaged (AdaKV, HeadKV).
+    ``scale`` (default 1/sqrt(D)) and ``softcap`` mirror the model's
+    attention (Gemma-2: the cap applies before the mask, JAX
+    ``ops/scoring.py:90-100``).
     """
     b, h, n, d = q.shape
     hk = k.shape[1]
     w = window_size
     qw = q[:, :, n - w:, :].float().reshape(b, hk, (h // hk) * w, d)
-    logits = torch.matmul(qw, k.float().transpose(-1, -2)).reshape(
-        b, h, w, n) * (1.0 / math.sqrt(d))
+    logits = scale_softcap(
+        torch.matmul(qw, k.float().transpose(-1, -2)).reshape(b, h, w, n),
+        scale if scale is not None else 1.0 / math.sqrt(d), softcap)
     logits = logits + _window_causal_bias(w, n, q.device)[None, None]
     colv = _column_valid(n, true_len)  # [B, N]
     logits = logits.masked_fill(~colv[:, None, None, :], _NEG_INF)

@@ -77,6 +77,11 @@ class PolicyPlan:
     #: contiguous layer runs with their own slot widths:
     #: ((start, stop, width), ...); one entry is the uniform layout
     segments: "Tuple[Tuple[int, int, int], ...]" = ()
+    #: the model's attention scale and logit cap (Gemma-2), which the
+    #: scorers mirror so that selection follows the model's attention
+    #: (JAX ``policy.py:59-60``); None: 1/sqrt(D), no cap
+    attn_scale: Optional[float] = None
+    attn_softcap: Optional[float] = None
 
     def __post_init__(self):
         if not self.segments:
@@ -174,6 +179,8 @@ def make_plan(
     num_layers: int,
     bucket_len: int,
     decode_slots: int,
+    attn_scale: Optional[float] = None,
+    attn_softcap: Optional[float] = None,
 ) -> PolicyPlan:
     _check_ported(spec)
     window = min(selection_window(spec), bucket_len)
@@ -198,7 +205,8 @@ def make_plan(
             segments = segs
     return PolicyPlan(spec=spec, num_layers=num_layers, bucket_len=bucket_len,
                       decode_slots=decode_slots, width=width, window=window,
-                      segments=segments)
+                      segments=segments, attn_scale=attn_scale,
+                      attn_softcap=attn_softcap)
 
 
 class LayerContext(NamedTuple):
@@ -426,10 +434,11 @@ def compress_layer(
             raw = score_fn(q, k, window_size=w, true_len=true_len)
         sel = topk_select(group_mean(raw), plan.width, ctx.keep_counts)
         return compact(sel)
+    akw = dict(scale=plan.attn_scale, softcap=plan.attn_softcap)
     if m in ("snapkv", "pyramidkv", "think"):
         scores = group_mean(window_scores(
             q, k, window_size=w, true_len=true_len,
-            kernel_size=spec.kernel_size, pooling=spec.pooling))
+            kernel_size=spec.kernel_size, pooling=spec.pooling, **akw))
         sel = topk_select(scores, plan.width, ctx.keep_counts)
         if spec.merge == "pivot":
             kr, vr = pivot_merge(rep(k), rep(v), sel, window_size=w,
@@ -446,7 +455,10 @@ def compress_layer(
         # window softmax itself
         qw = q[:, :, n - w:].float().reshape(b, hk, groups * w, d)
         logits = torch.matmul(qw, k.float().transpose(-1, -2)).reshape(
-            b, h, w, n) * (1.0 / math.sqrt(d))
+            b, h, w, n) * (plan.attn_scale if plan.attn_scale is not None
+                           else 1.0 / math.sqrt(d))
+        if plan.attn_softcap is not None:  # JAX policy.py:583-584
+            logits = torch.tanh(logits / plan.attn_softcap) * plan.attn_softcap
         logits = logits + _window_causal_bias(w, n, q.device)[None, None]
         colv = _column_valid(n, true_len)
         probs = torch.softmax(
@@ -464,7 +476,7 @@ def compress_layer(
         scores = group_mean(window_scores(
             q, k, window_size=w, true_len=true_len,
             kernel_size=spec.kernel_size, pooling=spec.pooling,
-            aggregation="mean"))
+            aggregation="mean", **akw))
         base = spec.max_capacity_prompt - spec.window_size
         if m == "adakv":
             alloc = adakv_allocate(

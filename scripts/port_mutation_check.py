@@ -117,6 +117,20 @@ Mutants:
 - ``pass_b_unclamped_max`` (``csrc/flash_prefill.cu``): pass B reads pass
   A's m without the float32.min / 2 clamp, so a row that is all padding
   (m = float32.min) takes p = 1 on its masked keys instead of 0;
+- ``gemma_flash_cap_skipped`` (``csrc/flash_prefill.cu``): the wgmma
+  kernel leaves Gemma-2's logits uncapped (base 2 still), targeting
+  ``phase_gemma_kernels``' capped one-pass, q_start, partials and pass-B
+  checks; ``gemma_flash_log2e_before_tanh``: log2(e) folded into q before
+  the tanh (the cap then applied in base 2 at cap, not cap * log2 e);
+  ``gemma_flash_v_first_half``: at D = 256 both 128-channel halves of O
+  read V's first 128 channels;
+- ``gemma_window_on_full_layer`` (``models/llama.py``): the prefill applies
+  the sliding window on Gemma-2's full-attention layers too, caught by
+  ``phase_gemma_reference`` (the port's depth-2 prefill against the
+  harness's own plain Gemma-2 forward);
+- ``gemma_decode_cap_skipped`` (``csrc/decode_attn.cu``): the decode
+  kernel leaves the logits uncapped (``phase_gemma_kernels``' capped
+  decode checks);
 - ``fold_skip_first_k_group`` (``csrc/quant_region.cuh``): the group
   kernel's kFold mode folds the query of each split's first staged K group
   on every bit-plane with 1 instead of the group's scale;
@@ -194,6 +208,7 @@ BSP_PY = ("kernels/block_sparse_prefill.py", "phase_minference_kernels")
 MM = ("csrc/int4_matmul.cu", "phase_mm_kernels")
 QWEN_DECODE = ("csrc/decode_attn.cu", "phase_qwen_kernels")
 QWEN_KIVI = ("csrc/quant_region.cuh", "phase_qwen_kernels")
+GEMMA_FLASH = ("csrc/flash_prefill.cu", "phase_gemma_kernels")
 
 
 def _group(r):
@@ -218,6 +233,15 @@ def _window_cut(r):
             and bool(r.get("window"))
             and not r["case"].startswith(("8k batch chunk 0",
                                           "8k batch chunk 1")))
+
+
+def _capped_flash(r):
+    """Gemma-2's capped one-pass, q_start, partials and pass-B flash checks
+    (the wgmma kernel's modes; pass A caps its maxes on its own)."""
+    return (r["check"] in ("flash_causal_attention",
+                           "flash_causal_attention (q_start)",
+                           "flash_attention_partials", "flash_pass_b")
+            and bool(r.get("softcap")))
 
 
 def _pad_in_tile(r):
@@ -379,10 +403,10 @@ MUTANTS = {
     "partials_no_window": (
         "csrc/flash_prefill.cu", "phase_mistral_kernels",
         lambda r: r["check"] == "flash_attention_partials",
-        "nullptr, B, H, Hk, N, N, Nq, q_start, window,\n"
-        "                               scale, stream);",
-        "nullptr, B, H, Hk, N, N, Nq, q_start, 0,\n"
-        "                               scale, stream);"),
+        "nullptr, B, H, Hk, D, N, N, Nq, q_start,\n"
+        "                                 window, scale",
+        "nullptr, B, H, Hk, D, N, N, Nq, q_start,\n"
+        "                                 0, scale"),
     "pass_b_skip_diagonal_tile": (
         "csrc/flash_prefill.cu", "phase_two_pass_kernels", ("flash_pass_b",),
         "const int kt_last = hi / BK;",
@@ -462,6 +486,29 @@ MUTANTS = {
         "qraw[g] = a.q[((size_t)bk * G + g) * D + tid];",
         "qraw[g] = a.q[(G == 7 ? ((size_t)bk * 8 + g) % ((size_t)gridDim.x "
         "* G) : (size_t)bk * G + g) * D + tid];"),
+    "gemma_flash_cap_skipped": (
+        *GEMMA_FLASH, _capped_flash,
+        "for (int i = 0; i < NS; ++i) s[i] = cap_logit(s[i], inv_cap, cap2);",
+        "for (int i = 0; i < NS; ++i) s[i] = s[i] * LOG2E;"),
+    "gemma_flash_log2e_before_tanh": (
+        *GEMMA_FLASH, _capped_flash,
+        ("const float scale_q = cap > 0.f ? scale : scale * LOG2E;",
+         "const float cap2 = cap * LOG2E;"),
+        ("const float scale_q = scale * LOG2E;",
+         "const float cap2 = cap;")),
+    "gemma_flash_v_first_half": (
+        *GEMMA_FLASH, _capped_flash,
+        "sw128_desc(v_addr + h * 2 * KV_BOX + kk * 16 * 128, KV_BOX,",
+        "sw128_desc(v_addr + kk * 16 * 128, KV_BOX,"),
+    "gemma_window_on_full_layer": (
+        "models/llama.py", "phase_gemma_reference", ("gemma_reference",),
+        "            win = spec.layer_window(li)\n",
+        "            win = spec.sliding_window\n"),
+    "gemma_decode_cap_skipped": (
+        "csrc/decode_attn.cu", "phase_gemma_kernels",
+        lambda r: r["check"] == "decode_attention" and r.get("softcap"),
+        "const float y = CAP ? tanh_approx(x * scale_cap) * cap2 : x * scale2;",
+        "const float y = x * scale2;"),
     "int4_cluster_drops_last_rank": (
         *MM, lambda r: _int4(r) and r["cluster"] > 1,
         "for (int r = 1; r < nrank; ++r) v += src[r * psz + e];",
@@ -510,7 +557,7 @@ print(json.dumps([{**{k: r.get(k) for k in ("check", "case", "H", "Hk", "G",
                                             "true_len", "k_groups",
                                             "window", "q_block", "rows",
                                             "group_size", "cluster",
-                                            "span")},
+                                            "span", "D", "softcap")},
                    "err_over_tol": finite(r["err_over_tol"])}
                   for r in recs if "err_over_tol" in r]))
 """

@@ -92,13 +92,16 @@ def test_unported_engine_options_raise(params):
         Engine(spec, tcfg.CompressionSpec(method="snapkv",
                                           quant_method="kvquant", **COMP),
                tcfg.EngineSpec(**ENG), tp, device="cpu")
-    # a uniform window is ported (tests/test_torch_mistral.py); Gemma-2's
-    # alternating sliding and full layers are not
+    # a uniform window and Gemma-2's alternating sliding and full layers
+    # are ported (tests/test_torch_mistral.py, test_torch_gemma2.py); H2O
+    # over alternating windows is not
+    alt = tcfg.ModelSpec.tiny(
+        sliding_window=32,
+        layer_types=("sliding_attention", "full_attention") * 2)
+    Engine(alt, comp, tcfg.EngineSpec(**ENG), tp, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(tcfg.ModelSpec.tiny(
-            sliding_window=32,
-            layer_types=("sliding_attention", "full_attention") * 2), comp,
-            tcfg.EngineSpec(**ENG), tp, device="cpu")
+        Engine(alt, tcfg.CompressionSpec(method="h2o", **COMP),
+               tcfg.EngineSpec(**ENG), tp, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -89,12 +89,28 @@ def test_cpu_tensors_take_plain_path_without_counting():
 
 
 def test_unported_flash_options_raise():
-    x = torch.zeros((1, 1, 64, 16))
-    with pytest.raises(NotImplementedError):
-        flash_causal_attention(x, x, x, torch.tensor([64]), softcap=50.0)
-    with pytest.raises(NotImplementedError):
-        flash_causal_attention(x[:, :, 8:], x, x, torch.tensor([64]),
-                               q_start=8, softcap=50.0)
+    """The flash wrapper takes Gemma-2's cap now (monolithic and at
+    q_start: on CPU tensors the plain capped attention, held to JAX's
+    kernel in test_torch_gemma2.py); a cap or a custom scale over a KIVI
+    region stays refused (ROADMAP queue 2A #2 and #5)."""
+    from pyramidkv_tpu_torch.kernels.quant_decode import check_unsupported
+
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(_normal(rng, 1, 2, 64, 16))
+               for _ in range(3))
+    tl = torch.tensor([64])
+    for kw in (dict(), dict(q_start=8)):
+        qq = q[:, :, kw.get("q_start", 0):]
+        got = flash_causal_attention(qq, k, v, tl, softcap=50.0, **kw)
+        want = plain.causal_prefill_attention(qq, k, v, true_len=tl,
+                                              softcap=50.0, **kw)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        uncapped = plain.causal_prefill_attention(qq, k, v, true_len=tl,
+                                                  **kw)
+        assert not torch.equal(got, uncapped)
+    for scale, cap in ((None, 50.0), (0.1, None)):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 2A"):
+            check_unsupported(scale, cap)
 
 
 def _bf16_err_over_tol(got, want):

@@ -232,18 +232,28 @@ def test_prefix_handle_longer_than_window(engines):
 
 
 def test_refusals(rig):
-    """Gemma-2's per-layer attention types stay refused, citing the
-    ROADMAP; a uniform window is accepted."""
+    """Per-layer attention types are ported: ``layer_types`` all sliding is
+    the uniform window (the same tokens), alternating ones run snapkv
+    (Gemma-2's layout; held to JAX in test_torch_gemma2.py), and on
+    alternating windows H2O, MInference, ThinK and KIVI caches stay
+    refused, citing the ROADMAP."""
     tp = rig[2]["f32"][1]
     comp = tcfg.CompressionSpec(method="snapkv", **COMP)
     es = tcfg.EngineSpec(max_new_tokens=8, prefill_buckets=(BUCKET,))
-    for types in (("sliding_attention", "full_attention") * 2,
-                  ("sliding_attention",) * 4):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #5c"):
-            Engine(tcfg.ModelSpec.tiny(sliding_window=WINDOW,
-                                       layer_types=types), comp, es, tp,
+    prompts = _prompts()
+    uniform = Engine(rig[1], comp, es, tp, device="cpu").generate(prompts)
+    same = Engine(tcfg.ModelSpec.tiny(sliding_window=WINDOW,
+                                      layer_types=("sliding_attention",) * 4),
+                  comp, es, tp, device="cpu").generate(prompts)
+    assert same.tokens == uniform.tokens
+    alt = tcfg.ModelSpec.tiny(sliding_window=WINDOW, layer_types=(
+        "sliding_attention", "full_attention") * 2)
+    Engine(alt, comp, es, tp, device="cpu")
+    for kw in (dict(method="h2o"), dict(method="minference"),
+               dict(method="think"), KIVI4):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 2A #5"):
+            Engine(alt, tcfg.CompressionSpec(**dict(COMP, **kw)), es, tp,
                    device="cpu")
-    Engine(rig[1], comp, es, tp, device="cpu")
 
 
 # ---------------------------------------------------------------------------

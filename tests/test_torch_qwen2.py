@@ -289,15 +289,24 @@ def test_init_params_draws_biases():
 
 
 def test_refusals():
-    """QKV biases are admitted; MoE and Gemma-2's features stay refused,
-    each citing its own ROADMAP item."""
+    """QKV biases are admitted, and so are Gemma-2's features since they
+    were ported; MoE stays refused, and on a capped model (or one with a
+    custom attention scale) H2O, MInference, ThinK and KIVI caches, each
+    citing its own ROADMAP item."""
     tl.check_ported(tcfg.ModelSpec.preset("qwen2.5-7b"))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #5d"):
         tl.check_ported(tcfg.ModelSpec.tiny(num_local_experts=4))
     for kw in (dict(attn_logit_softcapping=50.0), dict(hidden_act="gelu_tanh"),
                dict(post_block_norms=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #5c"):
-            tl.check_ported(tcfg.ModelSpec.tiny(**kw))
+        tl.check_ported(tcfg.ModelSpec.tiny(**kw))
+    for kw in (dict(attn_logit_softcapping=50.0),
+               dict(query_pre_attn_scalar=64.0)):
+        spec = tcfg.ModelSpec.tiny(**kw)
+        tl.check_method_ported(spec, tcfg.CompressionSpec(method="snapkv"))
+        for comp in (dict(method="h2o"), KIVI4):
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP queue 2A #5"):
+                tl.check_method_ported(spec, tcfg.CompressionSpec(**comp))
 
 
 # ---------------------------------------------------------------------------
