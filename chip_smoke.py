@@ -2090,10 +2090,14 @@ def list_prefix(torch, tv):
             < tv.sum(-1, keepdim=True)).contiguous()
 
 
-def check_sparse(torch, F, dev, case, seed):
+def check_sparse(torch, F, dev, case, seed, d=D, scale=None, softcap=None,
+                 q_std=1.0):
     """The three block-sparse kernels against their plain versions on one
-    SPARSE_CASES shape, on a pattern that the port's estimate_vertical_slash
-    makes from seeded random bf16 q/k (the same pattern for both sides);
+    SPARSE_CASES (or QWEN_ / GEMMA_SPARSE_CASES) shape at head dim ``d``
+    with ``scale`` and ``softcap`` (q drawn at ``q_std``), on a pattern that
+    the port's estimate_vertical_slash makes from seeded random bf16 q/k
+    (the same pattern for both sides, estimated with the same scale and
+    cap);
     db's plain version is the slash one over each list's valid prefix.
     Each kernel is called twice and held bitwise equal; db and grid are
     held bitwise equal to each other where the lists are valid-first (one
@@ -2105,13 +2109,16 @@ def check_sparse(torch, F, dev, case, seed):
     from pyramidkv_tpu_torch.ops import sparse_prefill as sp
 
     (b, h, hk, n, true_len, budgets, qb, kt, budget, shuffle, permute,
-     timed) = {**SPARSE_CASES, **QWEN_SPARSE_CASES}[case]
+     timed) = {**SPARSE_CASES, **QWEN_SPARSE_CASES,
+               **GEMMA_SPARSE_CASES}[case]
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((b, h, n, D), generator=g, device=dev).to(torch.bfloat16)
-    k = torch.randn((b, hk, n, D), generator=g, device=dev).to(torch.bfloat16)
-    v = torch.randn((b, hk, n, D), generator=g, device=dev).to(torch.bfloat16)
+    q = (torch.randn((b, h, n, d), generator=g, device=dev)
+         * q_std).to(torch.bfloat16)
+    k = torch.randn((b, hk, n, d), generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, hk, n, d), generator=g, device=dev).to(torch.bfloat16)
     tl = torch.tensor(true_len, dtype=torch.int32, device=dev)
-    pat = sp.estimate_vertical_slash(q, k, true_len=tl,
+    akw = dict(scale=scale, softcap=softcap)
+    pat = sp.estimate_vertical_slash(q, k, true_len=tl, **akw,
                                      **sparse_budgets(torch, dev, budgets))
     ti, tv = sp._slash_tile_selection(pat, n, qb, kt, budget)
     if permute:
@@ -2129,7 +2136,7 @@ def check_sparse(torch, F, dev, case, seed):
     vs, t = k_vert.shape[2], ti.shape[-1]
     vargs = (q, k_vert, v_vert, vcol, vvalid, tl)
     sargs = (q, k, v, ti, tv, pat.vert, tl)
-    skw = dict(q_block=qb, k_tile=kt)
+    skw = dict(q_block=qb, k_tile=kt, **akw)
 
     def db_plain(*args, **kw):  # the slash function over the prefix
         return sp.slash_tile_attention_plain(*args[:4], prefix, *args[5:],
@@ -2139,7 +2146,7 @@ def check_sparse(torch, F, dev, case, seed):
     # count for its slash walk)
     calls = {"vertical_attention_partials": (
                  kernels.vertical_attention_partials,
-                 sp.vertical_attention_partials_plain, vargs, {}, None),
+                 sp.vertical_attention_partials_plain, vargs, akw, None),
              "slash_tile_attention": (
                  kernels.slash_tile_attention, sp.slash_tile_attention_plain,
                  sargs, skw, tv),
@@ -2147,7 +2154,8 @@ def check_sparse(torch, F, dev, case, seed):
                  kernels.slash_tile_attention_db, db_plain, sargs, skw,
                  prefix)}
     ok, recs, outs = True, {}, {}
-    shape = {"case": case, "B": b, "H": h, "Hk": hk, "N": n,
+    shape = {"case": case, "B": b, "H": h, "Hk": hk, "N": n, "D": d,
+             "scale": scale, "softcap": softcap,
              "true_len": list(true_len), "Vs": vs, "T": t, "q_block": qb,
              "k_tile": kt, "shuffled": shuffle, "lists_permuted": permute,
              "valid_vertical": int(vvalid.sum()),
@@ -2189,14 +2197,19 @@ def check_sparse(torch, F, dev, case, seed):
                           + b * h * n + b * 4)
             rec["library_ms"] = time_ms(
                 torch, lambda: F.scaled_dot_product_attention(
-                    *lib, attn_mask=mask), reps=3)
+                    *lib, attn_mask=mask, scale=scale), reps=3)
+            if softcap is not None:
+                rec["library_note"] = UNCAPPED_NOTE
             del lib, mask
-            nbytes += b * h * n * (D + 2) * 4  # acc, m, l written
+            nbytes += b * h * n * (d + 2) * 4  # acc, m, l written
             rec["visible_pairs"] = pairs
-            rec["bound_ms"], rec["bound_by"] = bound(4.0 * D * pairs, nbytes)
+            rec["bound_ms"], rec["bound_by"], units = attn_bound(
+                pairs, d, nbytes, softcap)
+            if softcap is not None:
+                rec["bound_units_ms"] = units
         log(rec)
         ok &= (ratio <= 1 and all(bool(torch.isfinite(x).all()) for x in got)
-               and tuple(got[0].shape) == (b, h, n, D)
+               and tuple(got[0].shape) == (b, h, n, d)
                and rec["bitwise_repeat"])
         recs[name] = rec
         torch.cuda.empty_cache()
@@ -2534,36 +2547,40 @@ def h2o_pairs(n, true_len, h, w):
                      for t in true_len))
 
 
-def h2o_bound(pairs, nbytes):
+def h2o_bound(pairs, nbytes, d=D, softcap=None):
     """(least ms, "operations" or "bytes", unit, {unit: ms}) of one H2O
-    pass: its QK^T products on the tensor cores (2 D flops a pair), its one
-    exp2 a pair on the MUFU, its bytes."""
-    t = {"tensor cores": 2.0 * D * pairs / PEAK_BF16_FLOPS * 1e3,
-         "MUFU exp2": pairs / PEAK_EXP2 * 1e3,
+    pass: its QK^T products on the tensor cores (2 d flops a pair), its one
+    exp2 a pair on the MUFU (and a tanh under a cap), its bytes."""
+    t = {"tensor cores": 2.0 * d * pairs / PEAK_BF16_FLOPS * 1e3,
+         ("MUFU exp2" if softcap is None else "MUFU exp2 + tanh"):
+             (1.0 if softcap is None else 2.0) * pairs / PEAK_EXP2 * 1e3,
          "bytes": nbytes / PEAK_BYTES * 1e3}
     unit = max(t, key=t.get)
     return t[unit], ("bytes" if unit == "bytes" else "operations"), unit, t
 
 
-def check_h2o(torch, dev, case, seed):
+def check_h2o(torch, dev, case, seed, d=D, scale=None, softcap=None,
+              q_std=1.0):
     """The two H2O kernels against their plain versions on one H2O_CASES
-    shape: the stats kernel's (m, l) against ``ops.scoring.h2o_row_stats``,
-    the colsum kernel (fed the kernel's m, l) against
-    ``ops.scoring.h2o_colsum`` on the same m, l, and the two together
-    (``kernels.h2o_scores``) against the plain score the engine's plain path
-    takes (``ops.scoring.h2o_scores``), with the overlap of their top-k at
-    the engine's width; each kernel called twice, bitwise equal.  Returns
-    (ok, {"stats": rec, "colsum": rec})."""
+    (or QWEN_ / GEMMA_H2O_CASES) shape at head dim ``d`` with ``scale`` and
+    ``softcap``, q drawn at ``q_std``: the stats kernel's (m, l) against
+    ``ops.scoring.h2o_row_stats``, the colsum kernel (fed the kernel's m, l)
+    against ``ops.scoring.h2o_colsum`` on the same m, l, and the two
+    together (``kernels.h2o_scores``) against the plain score the engine's
+    plain path takes (``ops.scoring.h2o_scores``), with the overlap of
+    their top-k at the engine's width; each kernel called twice, bitwise
+    equal.  Returns (ok, {"stats": rec, "colsum": rec})."""
     from pyramidkv_tpu_torch import kernels
     from pyramidkv_tpu_torch.ops import scoring
 
-    b, h, hk, n, true_len, w, width, timed = {**H2O_CASES,
-                                              **QWEN_H2O_CASES}[case]
+    b, h, hk, n, true_len, w, width, timed = {
+        **H2O_CASES, **QWEN_H2O_CASES, **GEMMA_H2O_CASES}[case]
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, k = _rand_bf16(torch, g, dev, b, h, n, D), _rand_bf16(
-        torch, g, dev, b, hk, n, D)
+    q = (torch.randn((b, h, n, d), generator=g, device=dev)
+         * q_std).to(torch.bfloat16)
+    k = _rand_bf16(torch, g, dev, b, hk, n, d)
     tl = torch.tensor(true_len, dtype=torch.int32, device=dev)
-    kw = dict(window_size=w, true_len=tl)
+    kw = dict(window_size=w, true_len=tl, scale=scale, softcap=softcap)
     m, l = kernels.h2o_row_stats(q, k, **kw)
     m2, l2 = kernels.h2o_row_stats(q, k, **kw)
     pm, pl = scoring.h2o_row_stats(q, k, **kw)
@@ -2601,6 +2618,7 @@ def check_h2o(torch, dev, case, seed):
         top_g.reshape(-1, kk).cpu().numpy(),
         top_w.reshape(-1, kk).cpu().numpy())) / top_g.numel())
     shape = {"case": case, "B": b, "H": h, "Hk": hk, "N": n, "W": w,
+             "D": d, "scale": scale, "softcap": softcap,
              "true_len": list(true_len)}
     stats = {"check": "h2o_row_stats", **shape,
              "max_abs_err": float((m - pm).abs()[rows].max()),
@@ -2631,9 +2649,10 @@ def check_h2o(torch, dev, case, seed):
             rec["library_ms"] = None
             rec["visible_pairs"] = pairs
             (rec["bound_ms"], rec["bound_by"], rec["bound_unit"],
-             units) = h2o_bound(pairs, qk_bytes + extra)
+             units) = h2o_bound(pairs, qk_bytes + extra, d, softcap)
             rec["bound_ms_tensor_cores"] = units["tensor cores"]
-            rec["bound_ms_mufu"] = units["MUFU exp2"]
+            rec["bound_ms_mufu"] = [v for u, v in units.items()
+                                    if u.startswith("MUFU")][0]
         colsum["plain_scores_ms"] = time_ms(
             torch, lambda: scoring.h2o_scores(q, k, **kw), reps=1, warmup=0)
     log(stats)
@@ -2644,11 +2663,13 @@ def check_h2o(torch, dev, case, seed):
     return ok, {"stats": stats, "colsum": colsum}
 
 
-def h2o_scores_f64(torch, q, k, w, tl, rows=64):
-    """H2O scores in f64 from the kernels' inputs (q times log2(e)/sqrt(D)
-    rounded to bf16, as both kernels and the plain versions take it), each
-    row's probabilities divided by its l: the reference the picks are
+def h2o_scores_f64(torch, q, k, w, tl, rows=64, scale=None, softcap=None):
+    """H2O scores in f64 from the kernels' inputs (q times scale * log2(e),
+    or scale alone under a cap, rounded to bf16, as both kernels and the
+    plain versions take it; under a cap cap * tanh(s / cap) * log2(e)),
+    each row's probabilities divided by its l: the reference the picks are
     counted against.  -> [B, H, N - W] f64, -inf at padding columns."""
+    from pyramidkv_tpu_torch.kernels.h2o_scores import scaled_query
     from pyramidkv_tpu_torch.ops import scoring
 
     b, h, n, d = q.shape
@@ -2657,10 +2678,12 @@ def h2o_scores_f64(torch, q, k, w, tl, rows=64):
     acc = torch.zeros((b, h, n - w), dtype=torch.float64, device=q.device)
     kd = k.double().transpose(-1, -2)
     for r0 in range(0, n, rows):
-        qs = (q[:, :, r0:r0 + rows].float() * (math.log2(math.e)
-                                                / math.sqrt(d))).to(
-            q.dtype).double().reshape(b, hk, h // hk * rows, d)
-        s = torch.matmul(qs, kd).reshape(b, h, rows, n).masked_fill(
+        qs = scaled_query(q[:, :, r0:r0 + rows], scale, softcap).double(
+            ).reshape(b, hk, h // hk * rows, d)
+        s = torch.matmul(qs, kd).reshape(b, h, rows, n)
+        if softcap is not None:
+            s = torch.tanh(s / softcap) * (softcap * math.log2(math.e))
+        s = s.masked_fill(
             scoring._h2o_hidden(r0, rows, n, w, colv)[:, None], -math.inf)
         p = torch.exp2(s - s.amax(-1, keepdim=True))
         p = p / p.sum(-1, keepdim=True)  # padding rows: NaN, dropped below
@@ -2670,7 +2693,8 @@ def h2o_scores_f64(torch, q, k, w, tl, rows=64):
     return acc.masked_fill(~colv[:, None, :n - w], -math.inf)
 
 
-def h2o_colsum_folded(torch, q, k, m, l, w, tl, rows=512):
+def h2o_colsum_folded(torch, q, k, m, l, w, tl, rows=512, scale=None,
+                      softcap=None):
     """The plain colsum with the kernel's folded exponent: sum over the
     valid rows of exp2(s - (max(m, float32.min / 2) + log2(max(l,
     1e-30)))), f32, instead of exp2(s - m) / l."""
@@ -2682,15 +2706,17 @@ def h2o_colsum_folded(torch, q, k, m, l, w, tl, rows=512):
     acc = torch.zeros((b, h, n - w), dtype=torch.float32, device=q.device)
     off = (m.clamp_min(-3.4e38 / 2) + torch.log2(l.clamp_min(1e-30)))
     for r0 in range(0, n, rows):
-        s = scoring._h2o_logits2(q, k, r0, rows)[..., :n - w]
+        s = scoring._h2o_logits2(q, k, r0, rows, scale, softcap)[..., :n - w]
         p = torch.exp2(s - off[..., r0:r0 + rows, None])
         acc += p.masked_fill(~colv[:, None, r0:r0 + rows, None], 0.0).sum(2)
     return acc.masked_fill(~colv[:, None, :n - w], -math.inf)
 
 
-def count_h2o_picks(torch, dev, case, seeds=8):
+def count_h2o_picks(torch, dev, case, seeds=8, d=D, scale=None, softcap=None,
+                    q_std=1.0):
     """How far the H2O kernels' top-k picks stray from an f64 reference
-    (``h2o_scores_f64``) at an engine shape, over ``seeds`` random inputs,
+    (``h2o_scores_f64``) at an engine shape (head dim ``d``, ``scale``,
+    ``softcap``, q drawn at ``q_std``), over ``seeds`` random inputs,
     beside two plain f32 versions: one dividing by l (JAX's
     ``_colsum_kernel``, ``ops.scoring.h2o_scores``) and one with the
     kernel's folded exponent (``h2o_colsum_folded``).  For each: the picks
@@ -2700,17 +2726,20 @@ def count_h2o_picks(torch, dev, case, seeds=8):
     from pyramidkv_tpu_torch import kernels
     from pyramidkv_tpu_torch.ops import scoring
 
-    b, h, hk, n, true_len, w, width, _ = H2O_CASES[case]
+    b, h, hk, n, true_len, w, width, _ = {**H2O_CASES,
+                                          **GEMMA_H2O_CASES}[case]
     kk = min(width, n - w)
     tl = torch.tensor(true_len, dtype=torch.int32, device=dev)
-    kw = dict(window_size=w, true_len=tl)
+    akw = dict(scale=scale, softcap=softcap)
+    kw = dict(window_size=w, true_len=tl, **akw)
     out = {name: {"differing": 0, "max_rel_gap": 0.0}
            for name in ("kernels", "plain_divide", "plain_folded")}
     for seed in range(seeds):
         g = torch.Generator(device=dev).manual_seed(700 + seed)
-        q, k = _rand_bf16(torch, g, dev, b, h, n, D), _rand_bf16(
-            torch, g, dev, b, hk, n, D)
-        ref = h2o_scores_f64(torch, q, k, w, tl)
+        q = (torch.randn((b, h, n, d), generator=g, device=dev)
+             * q_std).to(torch.bfloat16)
+        k = _rand_bf16(torch, g, dev, b, hk, n, d)
+        ref = h2o_scores_f64(torch, q, k, w, tl, **akw)
         top_r = torch.topk(ref, kk, dim=-1).values
         kth = top_r[..., -1:]
         pm, pl = scoring.h2o_row_stats(q, k, **kw)
@@ -2718,7 +2747,7 @@ def count_h2o_picks(torch, dev, case, seeds=8):
                 ("kernels", kernels.h2o_scores(q, k, **kw)),
                 ("plain_divide", scoring.h2o_scores(q, k, **kw)),
                 ("plain_folded", h2o_colsum_folded(torch, q, k, pm, pl, w,
-                                                   tl))):
+                                                   tl, **akw))):
             pick = torch.topk(sc, kk, dim=-1).indices
             in_ref = torch.zeros_like(ref, dtype=torch.bool).scatter_(
                 -1, torch.topk(ref, kk, dim=-1).indices, True)
@@ -2731,6 +2760,7 @@ def count_h2o_picks(torch, dev, case, seeds=8):
         del q, k, ref
         torch.cuda.empty_cache()
     rec = {"check": "h2o_topk_picks", "case": case, "seeds": seeds,
+           "D": d, "scale": scale, "softcap": softcap,
            "picks": seeds * b * h * kk, "width": kk, **out}
     log(rec)
     return rec
@@ -3150,11 +3180,14 @@ def chunk_run_spec(run):
 
 
 def chunk_expected(run, plan, qp, steps, b, window=None, layers=LAYERS,
-                   h=H, hk=HK):
-    """Kernel launches one generate of a CHUNK_RUNS, MISTRAL_RUNS or
-    QWEN_RUNS run implies (``layers`` layers of ``h`` query and ``hk`` KV
-    heads).  With a sliding ``window`` the quantized carry skips each
-    history tile wholly outside the window of its chunk's first row."""
+                   h=H, hk=HK, full_layers=None):
+    """Kernel launches one generate of a CHUNK_RUNS, MISTRAL_RUNS, QWEN_RUNS
+    or GEMMA_RUNS run implies (``layers`` layers of ``h`` query and ``hk``
+    KV heads).  With a sliding ``window`` the quantized carry skips each
+    history tile wholly outside the window of its chunk's first row.
+    ``full_layers``: the layers without a window of alternating ones
+    (Gemma-2): MInference's sparse path runs there, the dense flash on the
+    sliding ones.  ThinK's narrow decode launches no decode kernel."""
     import torch
 
     from pyramidkv_tpu_torch.models import chunked_prefill as cp
@@ -3166,8 +3199,10 @@ def chunk_expected(run, plan, qp, steps, b, window=None, layers=LAYERS,
     quant_carry = bool(chunk) and cp.supports_chunked_quant(plan, chunk)
     h2o = cs.method == "h2o"
     if cs.method == "minference" and bucket >= cs.minference_dense_below:
-        want["vertical_attention_partials"] = layers
-        want["slash_tile_attention"] = layers
+        sparse = layers if full_layers is None else full_layers
+        want["vertical_attention_partials"] = sparse
+        want["slash_tile_attention"] = sparse
+        want["flash_causal_attention"] = layers - sparse
     elif quant_carry:
         hist = sum(1 for j in range(nc) for hc in range(j)
                    if window is None or (j - hc - 1) * chunk + 1 < window)
@@ -3178,7 +3213,7 @@ def chunk_expected(run, plan, qp, steps, b, window=None, layers=LAYERS,
     if h2o and not chunk:
         want["h2o_row_stats"] = want["h2o_colsum"] = layers
     if cs.quant_method is None:
-        want["decode_attention"] = layers * steps
+        want["decode_attention"] = 0 if plan.think_narrow else layers * steps
     else:
         hm = hk if cs.method == "fullkv" else h
         per = 8 // cs.nbits
@@ -3959,14 +3994,18 @@ def phase_engine_model(torch, dev, model, params, q4, vocab, runs=None):
         plan = eng.plan_for(bucket)
         want = chunk_expected(run, plan, qp, out.decode_steps, len(prompts),
                               window=m["window"], layers=m["layers"],
-                              h=m["h"], hk=m["hk"])
+                              h=m["h"], hk=m["hk"], full_layers=(
+                                  sum(spec.layer_window(li) is None
+                                      for li in range(m["layers"]))
+                                  if spec.mixed_sliding else None))
         if two_pass:  # pass A and pass B in place of the one-pass kernel
             want["flash_row_max"] = want["flash_pass_b"] = want[
                 "flash_causal_attention"]
             want["flash_causal_attention"] = 0
         want_bytes = model_kv_bytes(run, plan, len(prompts), m)
-        per_step, waves = ((0, 0.0) if cs.quant_method else
-                           decode_blocks(torch, dev, plan, len(prompts), m))
+        per_step, waves = ((0, 0.0) if cs.quant_method or plan.think_narrow
+                           else decode_blocks(torch, dev, plan, len(prompts),
+                                              m))
         toks = [t for seq in out.tokens for t in seq]
         good = (c == want and out.kv_cache_bytes == want_bytes
                 and blocks == per_step * out.decode_steps and waves <= 1
@@ -4483,9 +4522,54 @@ GEMMA_RUNS = {
     "gemma bf16 snapkv 8k chunk 2048": ("bf16", dict(method="snapkv"), "8k",
                                         C8K),
     "gemma int4 snapkv 8k": ("int4", dict(method="snapkv"), "8k", None),
+    # H2O, MInference (the sparse path on the full layers: Gemma-2's 8k
+    # context is below minference_dense_below's default) and ThinK
+    "gemma bf16 h2o 8k": ("bf16", dict(method="h2o"), "8k", None),
+    "gemma bf16 minference 8k": ("bf16", dict(method="minference",
+                                              minference_dense_below=0),
+                                 "8k", None),
+    "gemma bf16 think 8k": ("bf16", dict(method="think"), "8k", None),
+    "gemma bf16 h2o 8k chunk 2048": ("bf16", dict(method="h2o"), "8k", C8K),
 }
-GEMMA_TWINS = {"gemma bf16 snapkv 8k chunk 2048": "gemma bf16 snapkv 8k"}
-GEMMA_PARITY = ("gemma bf16 fullkv 8k", "gemma bf16 snapkv 8k")
+GEMMA_TWINS = {"gemma bf16 snapkv 8k chunk 2048": "gemma bf16 snapkv 8k",
+               "gemma bf16 h2o 8k chunk 2048": "gemma bf16 h2o 8k"}
+#: the H2O kernel checks at Gemma-2's shapes (16 / 8 heads of D = 256,
+#: scale 1/16, cap 50, q at GEMMA_Q_STD), as H2O_CASES: short ragged, a q
+#: tile of padding, N - W = 440 (tiles cut short by N), the W x W block
+#: across two tiles, then the 8k batch (timed)
+GEMMA_H2O_CASES = {
+    "short ragged, D=256": (2, GEMMA_H, GEMMA_HK, 384, (384, 150), 8, 100,
+                            False),
+    "edge: a q tile of padding, D=256": (1, GEMMA_H, GEMMA_HK, 640, (400,),
+                                         8, 100, False),
+    "edge: N - W = 440, D=256": (2, GEMMA_H, GEMMA_HK, 448, (448, 300), 8,
+                                 100, False),
+    "edge: W x W across two tiles, D=256": (1, GEMMA_H, GEMMA_HK, 512,
+                                            (500,), 200, 100, False),
+    "gemma 8k": (B, GEMMA_H, GEMMA_HK, N, TRUE_LEN, 8, 2040, True),
+}
+#: the block-sparse kernel checks at Gemma-2's shapes, as SPARSE_CASES:
+#: short ragged, 64-row q-blocks of 64-key tiles, N % 128 = 64 with 192-row
+#: q-blocks, shuffled vertical columns, a batch row of padding, lists not
+#: valid-first; then the 8k batch (timed; the engine's budgets)
+GEMMA_SPARSE_CASES = {
+    "short ragged, D=256": (2, GEMMA_H, GEMMA_HK, 1024, (1024, 37),
+                            (100, 50), 512, 256, 2, False, False, False),
+    "tiles 64, D=256": (1, 8, 2, 2048, (2000,), (150, 60), 64, 64, 6, False,
+                        False, False),
+    "N % 128 = 64, D=256": (2, 8, 2, 1344, (1344, 1000), (100, 50), 192,
+                            192, 3, False, False, False),
+    "shuffled vertical, D=256": (1, 8, 8, 2048, (1900,), (200, 60), 256,
+                                 128, 4, True, False, False),
+    "padded row, D=256": (2, GEMMA_H, GEMMA_HK, 1024, (1024, 0), (100, 50),
+                          512, 256, 2, False, False, False),
+    "lists not valid-first, D=256": (2, 8, 2, 1024, (1024, 700), (100, 50),
+                                     128, 64, 4, False, True, False),
+    "gemma 8k": (B, GEMMA_H, GEMMA_HK, N, TRUE_LEN, "default", 512, 256, 8,
+                 False, False, True),
+}
+GEMMA_PARITY = ("gemma bf16 fullkv 8k", "gemma bf16 snapkv 8k",
+                "gemma bf16 h2o 8k", "gemma bf16 minference 8k")
 MODELS["gemma"] = dict(preset="gemma2-9b", runs=GEMMA_RUNS,
                        twins=GEMMA_TWINS, parity=GEMMA_PARITY,
                        window=GEMMA_W, layers=GEMMA_LAYERS, h=GEMMA_H,
@@ -4495,7 +4579,9 @@ MODELS["gemma"] = dict(preset="gemma2-9b", runs=GEMMA_RUNS,
 def phase_gemma_kernels(torch, F, dev):
     """Every kernel Gemma-2's runs launch, at its shapes (16 / 8 heads of
     D = 256) with its scale 1/16 and cap 50, q at GEMMA_Q_STD, against its
-    plain version: the decode kernel's residency at D = 256 against the
+    plain version (the H2O and block-sparse kernels at GEMMA_H2O_CASES and
+    GEMMA_SPARSE_CASES, with a count of H2O's top-k picks at the 8k batch,
+    2 seeds): the decode kernel's residency at D = 256 against the
     card's occupancy; short ragged shapes first (flash one-pass and
     two-pass, decode with several splits, a wholly masked split and a row
     masked everywhere); then, timed, flash over the 8k batch full and with
@@ -4608,6 +4694,23 @@ def phase_gemma_kernels(torch, F, dev):
         ok &= r
         rec["layers"] = GEMMA_LAYERS // 2
         recs["decode g2"].append(rec)
+    # H2O's two kernels and the three block-sparse kernels at D = 256
+    # under the cap: the edge shapes, then the 8k batch (timed)
+    for seed, case in enumerate(GEMMA_H2O_CASES, start=950):
+        r, got = check_h2o(torch, dev, case, seed, **kw)
+        ok &= r
+        if GEMMA_H2O_CASES[case][-1]:
+            recs["h2o_row_stats"], recs["h2o_colsum"] = (got["stats"],
+                                                         got["colsum"])
+        torch.cuda.empty_cache()
+    recs["h2o picks"] = count_h2o_picks(torch, dev, "gemma 8k", seeds=2,
+                                        **kw)
+    for seed, case in enumerate(GEMMA_SPARSE_CASES, start=960):
+        r, got = check_sparse(torch, F, dev, case, seed, **kw)
+        ok &= r
+        if GEMMA_SPARSE_CASES[case][-1]:
+            recs.update(got)
+        torch.cuda.empty_cache()
     recs["int4_matmul"] = []
     seed = 940
     for shape in ("wqkv", "wo", "w_gateup", "w_down"):
@@ -5285,6 +5388,29 @@ def main() -> int:
                      src + "decode_attn.cu", qline + "decode_attn.py:69",
                      gemma_counts["gemma bf16 fullkv 8k"]["decode_attention"],
                      gemma_recs["decode g2"])]
+    # H2O and MInference on Gemma-2 (D = 256, cap 50): the H2O kernels on
+    # the monolithic h2o run, the block-sparse kernels on the minference
+    # run's full layers (db: no Gemma-2 run takes it; its row holds the
+    # kernel at the 8k batch all the same)
+    gmin = ["gemma bf16 minference 8k"]
+    h2o_tpu = "pyramidkv_tpu/kernels/h2o_scores.py:"
+    gemma_rows += [
+        kernel_entry("h2o_scores (stats; Gemma-2-9B, D=256, scale 1/16, cap "
+                     "50, 8k batch)", src + "h2o_scores.cu", h2o_tpu + "36",
+                     gsum("h2o_row_stats"), [gemma_recs["h2o_row_stats"]]),
+        kernel_entry("h2o_scores (colsum; Gemma-2-9B, D=256, scale 1/16, cap "
+                     "50, 8k batch)", src + "h2o_scores.cu", h2o_tpu + "95",
+                     gsum("h2o_colsum"), [gemma_recs["h2o_colsum"]])]
+    for ent in gemma_rows[-2:]:
+        ent["library_note"] = ("none: no single PyTorch call computes the "
+                               "column sums of a softmax")
+    for kind, line in (("slash_tile_attention", 120),
+                       ("slash_tile_attention_db", 376),
+                       ("vertical_attention_partials", 527)):
+        gemma_rows.append(kernel_entry(
+            f"{kind} (Gemma-2-9B, D=256, scale 1/16, cap 50, 8k batch)",
+            src + "block_sparse_prefill.cu", bsp_tpu + str(line),
+            gsum(kind, gmin), [gemma_recs[kind]]))
     for ent in gemma_rows:
         if ent["library_ms"] is not None:
             ent["library_note"] = UNCAPPED_NOTE

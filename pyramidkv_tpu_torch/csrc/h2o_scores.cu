@@ -1,12 +1,19 @@
 // H2O heavy-hitter scores in two passes (sm_90a).
 //
 // Replaces: pyramidkv_tpu/kernels/h2o_scores.py::h2o_scores_pallas (Pallas
-// TPU): pass 1 `_stats_kernel`, pass 2 `_colsum_kernel`.
+// TPU): pass 1 `_stats_kernel`, pass 2 `_colsum_kernel`; and, with a scale
+// and an attention logit cap (Gemma-2), the XLA scorer the TPU engine takes
+// there (pyramidkv_tpu/ops/scoring.py::h2o_scores).  Head dims 128 and 256,
+// each instantiated with and without the cap.
 //
 // What it computes, per (batch row b, query head h) with pad = N -
-// true_len[b] and the pre-scaled query qs = bf16(q * log2(e) / sqrt(D)) (the
-// TPU wrapper's `qr`, computed once a layer by the wrapper), logits
-// s[r, c] = qs[r] . k[c] in f32 and
+// true_len[b] and the pre-scaled query qs = bf16(q * scale * log2(e)) (the
+// TPU wrapper's `qr` at scale 1/sqrt(D), computed once a layer by the
+// wrapper), logits s[r, c] = qs[r] . k[c] in f32 (under a cap qs =
+// bf16(q * scale) and s = cap * tanh(qs[r] . k[c] / cap) * log2(e), the
+// tanh the MUFU's tanh.approx.f32, taken before any mask: a masked pair is
+// skipped, never pushed through the tanh, which would make it -cap and
+// count it) and
 //   visible(r, c) = r >= pad and c >= pad and
 //                   not (r >= N - W and c >= N - W and c > r)
 // (causal ONLY inside the trailing W x W block: the reference's quirk):
@@ -20,9 +27,10 @@
 //
 // What bounds it on the H100: operations, two kinds nearly equal.  Each
 // pass computes every visible logit (B * H * true_len^2 of them) at 2 * D
-// flops on the tensor cores (1/16 of an SM clock a logit at 4096 bf16 flops
-// a clock) and takes one exp2 of it on the MUFU (16 a clock per SM: 1/16 of
-// a clock too), against ~2 bytes of q or k per logit row and column.  A
+// flops on the tensor cores (1/16 of an SM clock a logit at D = 128 and
+// 4096 bf16 flops a clock, 1/8 at D = 256) and takes one exp2 of it on the
+// MUFU (16 a clock per SM: 1/16 of a clock too; a second, the tanh, under a
+// cap), against ~2 bytes of q or k per logit row and column.  A
 // design that runs the products and the exponentials one after the other
 // cannot come within 2x of the bound.
 //
@@ -31,13 +39,15 @@
 // - a block owns 128 rows of one (b, h): stats 128 queries, colsum 128 keys;
 //   two consumer warpgroups of 64 rows each and one producer warp (288
 //   threads).  A consumer holds its 64 rows (the A operand: stats the
-//   pre-scaled Q, colsum K) in 32 registers a thread for the whole walk,
+//   pre-scaled Q, colsum K) in D / 4 registers a thread for the whole walk
+//   (64 at D = 256, as pass A of flash_prefill.cu holds its Q),
 //   so the products read only B from shared memory (both operands from
 //   shared memory ran slower: 96 of the SM's 128 bytes a clock at the
 //   tensor cores' rate).  The producer's lane 0 copies 128-row tiles of
 //   the walked axis (stats: keys, colsum: pre-scaled queries) into a ring
-//   of STAGES through tensor maps {D, N, planes} with 128-byte swizzle
-//   (GQA: KV plane b * Hk + h / (H / Hk), no repeat_kv);
+//   of STAGES (4 at D = 128, 3 at D = 256: 192 KB) through tensor maps
+//   {D, N, planes} with 128-byte swizzle, a row D / 64 boxes (GQA: KV plane
+//   b * Hk + h / (H / Hk), no repeat_kv);
 // - a tile is walked as two units of 64 rows: S = A B^T of a unit is
 //   64 x 64 on wgmma m64n64k16 (A from registers, B K-major; stats: A = Q,
 //   B = K; colsum: A = K, B = Q, so S^T = K Q^T and a column sum of P is a
@@ -47,11 +57,15 @@
 //   u+2 is issued into u's accumulator, so the tensor cores and the MUFU
 //   work at once.  Two 64 x 128 accumulators and A do not fit the 168
 //   registers a thread of a 288-thread block gets (ptxas counts whole
-//   warpgroups) without spilling; two 64 x 64 ones and A take 151.  ptxas
+//   warpgroups) without spilling; two 64 x 64 ones and A take 151 at
+//   D = 128 (A is 64 more at D = 256).  ptxas
 //   keeps products in flight only through straight-line waits and while
 //   nothing but wgmma writes an accumulator: the walk peels its last two
 //   units, and stats masks a copy of S, never S itself (else ptxas
-//   serializes the products, C7515, or injects a full wait, C7517);
+//   serializes the products, C7515, or injects a full wait, C7517); under
+//   a cap stats takes each unit's row max over the raw logits and caps it
+//   once (tanh is monotonic), then caps each visible logit once for its
+//   exp2, so the cap adds one tanh a pair;
 // - stats walks every key tile from floor(pad / 128) to the end (no
 //   triangular cut: the statistic is non-causal outside the W x W block)
 //   and masks only edge tiles: the one holding the pad edge, one cut short
@@ -90,19 +104,35 @@
 
 namespace {
 
-constexpr int D = 128;            // head dim (the only one the kernels take)
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr int BR = 128;           // a block's rows: stats queries, colsum keys
 constexpr int BT = 128;           // rows of a tile of the walked axis
-constexpr int STAGES = 4;         // tiles in flight
 constexpr int NCONS = 256;        // two consumer warpgroups
 constexpr int NTHREADS = NCONS + 32;  // and one producer warp
 constexpr int BOX = 64;           // bf16 columns of one 128-byte swizzled box
 constexpr int HALF = 128 * 128;   // bytes of one box column of 128 rows
-constexpr int TILE_BYTES = 2 * HALF;  // 128 rows x D bf16 (both boxes)
 constexpr int WG_BYTES = 64 * 128;    // a warpgroup's 64 rows of one box
-// 1024 to align the swizzled boxes, the ring, and colsum's exponent offsets
-// (a float per row of each stage)
-constexpr int SMEM_BYTES = 1024 + STAGES * TILE_BYTES + STAGES * BT * 4;
+
+// The ring at head dim D: 4 stages of 128-row tiles at D = 128 (128 KB),
+// 3 at D = 256 (192 KB; 4 would need 256 KB).  1024 to align the swizzled
+// boxes, the ring, and colsum's exponent offsets (a float per row of each
+// stage).
+template <int D>
+struct Ring {
+  static constexpr int STAGES = D == 128 ? 4 : 3;
+  static constexpr int TILE_BYTES = (D / BOX) * HALF;  // 128 rows x D bf16
+  static constexpr int SMEM_BYTES =
+      1024 + STAGES * TILE_BYTES + STAGES * BT * 4;
+};
+static_assert(Ring<256>::SMEM_BYTES <= 232448, "the ring at D = 256");
+
+// A capped logit in the base-2 domain: cap * tanh(s / cap) * log2(e), with
+// inv_cap = 1 / cap and cap2 = cap * log2(e); s is the natural logit (q
+// scaled by `scale` alone).
+__device__ __forceinline__ float cap_logit(float s, float inv_cap,
+                                           float cap2) {
+  return tanh_approx(s * inv_cap) * cap2;
+}
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return reinterpret_cast<uint8_t*>(
@@ -121,9 +151,10 @@ __device__ __forceinline__ float ex2(float x) {
 
 // This thread's A fragments of a warpgroup's 64 rows of a [*, D] bf16
 // matrix: rows `row` and row + 8 (zeros from row `rows` on), for each of the
-// 8 steps of 16 along D columns 16 kk + 2 tig + {0, 1} and + 8 (wgmma's
-// register layout of A, the same as the warp-level MMA's).
-__device__ __forceinline__ void load_a(uint32_t (&f)[32],
+// D / 16 steps of 16 along D columns 16 kk + 2 tig + {0, 1} and + 8
+// (wgmma's register layout of A, the same as the warp-level MMA's).
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&f)[D / 4],
                                        const __nv_bfloat16* p, int row,
                                        int rows, int tig) {
 #pragma unroll
@@ -153,15 +184,18 @@ struct Walk {
   int nu;            // units: 2 ntiles
 };
 
-__device__ __forceinline__ void issue(const Walk& w, const uint32_t (&a)[32],
+template <int D>
+__device__ __forceinline__ void issue(const Walk& w,
+                                      const uint32_t (&a)[D / 4],
                                       float (&s)[32], int u) {
+  constexpr int STAGES = Ring<D>::STAGES;
   const int i = u >> 1, st = i % STAGES;
   if (!(u & 1)) mbar_wait(&w.full[st], (i / STAGES) & 1);
-  const uint32_t b = w.ring + st * TILE_BYTES + (u & 1) * WG_BYTES;
+  const uint32_t b = w.ring + st * Ring<D>::TILE_BYTES + (u & 1) * WG_BYTES;
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    // 8 steps of 16 along D, four 32-byte steps within each 64-column box
+    // D / 16 steps of 16 along D, four 32-byte steps within each box
     const uint32_t off = (kk >> 2) * HALF + (kk & 3) * 32;
     wgmma_rs64(s, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
                sw128_desc(b + off, 16, 1024), kk > 0);
@@ -183,20 +217,22 @@ __device__ __forceinline__ void land(float (&s)[32]) {
 // data (the last two units are peeled off): ptxas follows which product an
 // accumulator waits for only through straight-line waits, and injects a
 // full wait where it cannot.
-template <typename F>
-__device__ __forceinline__ void walk(const Walk& w, const uint32_t (&a)[32],
+template <int D, typename F>
+__device__ __forceinline__ void walk(const Walk& w,
+                                     const uint32_t (&a)[D / 4],
                                      F& process) {
+  constexpr int STAGES = Ring<D>::STAGES;
   float s0[32], s1[32];
-  issue(w, a, s0, 0);
-  issue(w, a, s1, 1);
+  issue<D>(w, a, s0, 0);
+  issue<D>(w, a, s1, 1);
   for (int u = 0; u < w.nu - 2; u += 2) {
     land<1>(s0);
     process(s0, u);
-    issue(w, a, s0, u + 2);
+    issue<D>(w, a, s0, u + 2);
     land<1>(s1);
     process(s1, u + 1);
     mbar_arrive(&w.empty[(u >> 1) % STAGES]);  // the tile is read
-    issue(w, a, s1, u + 3);
+    issue<D>(w, a, s1, u + 3);
   }
   land<1>(s0);
   process(s0, w.nu - 2);
@@ -239,29 +275,45 @@ __device__ __forceinline__ Place place(const int* tl, int B, int H,
 
 // 64 keys from c0 for this thread's two rows (i = 0: entries 4j, 4j+1, row
 // `row`; i = 1: 4j+2, 4j+3, row + 8), masked elementwise (to -inf) only on
-// an edge tile (EDGE): the online max and exp2-sum, base 2.  The
-// accumulator is only read: an instruction writing it between two products
-// makes ptxas serialize them.
-template <bool EDGE>
+// an edge tile (EDGE): the online max and exp2-sum, base 2.  Under a cap
+// (CAP) the unit's max is taken over the raw logits and capped once, and
+// each visible logit is capped for its exp2; a masked one is -inf, never
+// capped.  The accumulator is only read: an instruction writing it between
+// two products makes ptxas serialize them.
+template <bool EDGE, bool CAP>
 __device__ __forceinline__ void stats_unit(const float (&s)[32], float (&m)[2],
                                            float (&l)[2], int c0, int row,
-                                           int tig, int pad, int N, int W) {
-  auto at = [&](int j, int e) {
+                                           int tig, int pad, int N, int W,
+                                           float inv_cap, float cap2) {
+  auto hidden = [&](int j, int e) {
     const int r = row + ((e >> 1) << 3);
     const int c = c0 + j * 8 + tig * 2 + (e & 1);
     // c > r >= N - W puts the pair in the W x W block's causal part
-    return EDGE && (min(r, c) < pad || c >= N || (r >= N - W && c > r))
-               ? -INFINITY
-               : s[4 * j + e];
+    return EDGE && (min(r, c) < pad || c >= N || (r >= N - W && c > r));
+  };
+  // the raw logit, -inf where hidden
+  auto raw = [&](int j, int e) {
+    return hidden(j, e) ? -INFINITY : s[4 * j + e];
+  };
+  // the base-2 logit (capped under CAP), -inf where hidden
+  auto at = [&](int j, int e) {
+    if constexpr (CAP)
+      return hidden(j, e) ? -INFINITY
+                          : cap_logit(s[4 * j + e], inv_cap, cap2);
+    else
+      return raw(j, e);
   };
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float mx = -INFINITY;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      mx = fmaxf(mx, fmaxf(at(j, 2 * i), at(j, 2 * i + 1)));
+      mx = fmaxf(mx, fmaxf(raw(j, 2 * i), raw(j, 2 * i + 1)));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    if constexpr (CAP) {  // tanh is monotonic: the max of the capped logits
+      if (mx != -INFINITY) mx = cap_logit(mx, inv_cap, cap2);
+    }
     const float m_new = fmaxf(m[i], mx);
     // a row with nothing visible yet keeps l == 0
     const float m_use = (m_new == -INFINITY) ? 0.f : m_new;
@@ -284,15 +336,18 @@ __device__ __forceinline__ bool stats_edge(int c0, int r0, int r1, int pad,
   return r0 < pad || c0 < pad || c0 + BT > N || (rb <= r1 && c1 > rb);
 }
 
-// grid B * H * ceil(N / BR), NTHREADS threads, SMEM_BYTES of dynamic shared
-// memory.  Maps: qs {D, N, B*H}, k {D, N, B*Hk}, bf16, boxes {64, 128, 1};
-// m, l [B*H, N] f32.
+// grid B * H * ceil(N / BR), NTHREADS threads, Ring<D>::SMEM_BYTES of
+// dynamic shared memory.  Maps: qs {D, N, B*H}, k {D, N, B*Hk}, bf16, boxes
+// {64, 128, 1}; m, l [B*H, N] f32.  CAP: cap the logits at `cap`.
+template <int D, bool CAP>
 __global__ void __launch_bounds__(NTHREADS, 1)
 h2o_stats_kernel(const __nv_bfloat16* __restrict__ qs,
                  const __grid_constant__ CUtensorMap kmap,
                  const int* __restrict__ true_len, float* __restrict__ m_out,
                  float* __restrict__ l_out, int B, int H, int Hk, int N,
-                 int W) {
+                 int W, float cap) {
+  constexpr int STAGES = Ring<D>::STAGES;
+  constexpr int TILE_BYTES = Ring<D>::TILE_BYTES;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t k_full[STAGES], k_empty[STAGES];
   uint8_t* ring = align1024(smem_raw);  // [STAGES][2][BT][128 B]
@@ -333,8 +388,9 @@ h2o_stats_kernel(const __nv_bfloat16* __restrict__ qs,
         uint8_t* kd = ring + st * TILE_BYTES;
         const int row = (kt_first + i) * BT;
         mbar_expect(&k_full[st], TILE_BYTES);
-        tma_load_3d(kd, &kmap, 0, row, kv_row, &k_full[st]);
-        tma_load_3d(kd + HALF, &kmap, BOX, row, kv_row, &k_full[st]);
+        for (int x = 0; x < D / BOX; ++x)
+          tma_load_3d(kd + x * HALF, &kmap, x * BOX, row, kv_row,
+                      &k_full[st]);
       }
     }
     return;
@@ -347,17 +403,21 @@ h2o_stats_kernel(const __nv_bfloat16* __restrict__ qs,
   const int tig = lane & 3;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};  // per-thread partial row sums
+  // the cap in the base-2 domain (unused without one)
+  const float inv_cap = CAP ? 1.f / cap : 0.f;
+  const float cap2 = cap * LOG2E;
   auto process = [&](const float (&s)[32], int u) {
     const int c0 = (kt_first + (u >> 1)) * BT;
     const int cu = c0 + (u & 1) * 64;
     if (stats_edge(c0, r0, r1, pad, N, W))
-      stats_unit<true>(s, m, l, cu, row, tig, pad, N, W);
+      stats_unit<true, CAP>(s, m, l, cu, row, tig, pad, N, W, inv_cap, cap2);
     else
-      stats_unit<false>(s, m, l, cu, row, tig, pad, N, W);
+      stats_unit<false, CAP>(s, m, l, cu, row, tig, pad, N, W, inv_cap,
+                             cap2);
   };
-  uint32_t a[32];
-  load_a(a, qs + (size_t)bh * N * D, row, N, tig);
-  walk(Walk{smem_addr(ring), k_full, k_empty, 2 * ntiles}, a, process);
+  uint32_t a[D / 4];
+  load_a<D>(a, qs + (size_t)bh * N * D, row, N, tig);
+  walk<D>(Walk{smem_addr(ring), k_full, k_empty, 2 * ntiles}, a, process);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -401,16 +461,20 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
                    smem_addr(bar)), "r"(bytes) : "memory");
 }
 
-// grid B * H * ceil((N - W) / BR), NTHREADS threads, SMEM_BYTES of dynamic
-// shared memory.  Maps as the stats kernel's; m, l [B*H, N] f32 from it;
-// out [B*H, N - W] f32.
+// grid B * H * ceil((N - W) / BR), NTHREADS threads, Ring<D>::SMEM_BYTES
+// of dynamic shared memory.  Maps as the stats kernel's; m, l [B*H, N] f32
+// from it; out [B*H, N - W] f32.  CAP: cap the logits at `cap` (a hidden
+// row's offset float32.max still gives exp2 = 0).
+template <int D, bool CAP>
 __global__ void __launch_bounds__(NTHREADS, 1)
 h2o_colsum_kernel(const __grid_constant__ CUtensorMap qmap,
                   const __nv_bfloat16* __restrict__ k,
                   const int* __restrict__ true_len,
                   const float* __restrict__ m_in,
                   const float* __restrict__ l_in, float* __restrict__ out,
-                  int B, int H, int Hk, int N, int W) {
+                  int B, int H, int Hk, int N, int W, float cap) {
+  constexpr int STAGES = Ring<D>::STAGES;
+  constexpr int TILE_BYTES = Ring<D>::TILE_BYTES;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t q_full[STAGES], q_empty[STAGES];
   uint8_t* ring = align1024(smem_raw);  // [STAGES][2][BT][128 B]
@@ -459,8 +523,8 @@ h2o_colsum_kernel(const __grid_constant__ CUtensorMap qmap,
       if (lane == 0) {
         uint8_t* qd = ring + st * TILE_BYTES;
         mbar_expect_tx(&q_full[st], TILE_BYTES);
-        tma_load_3d(qd, &qmap, 0, t0, bh, &q_full[st]);
-        tma_load_3d(qd + HALF, &qmap, BOX, t0, bh, &q_full[st]);
+        for (int x = 0; x < D / BOX; ++x)
+          tma_load_3d(qd + x * HALF, &qmap, x * BOX, t0, bh, &q_full[st]);
       }
       // only the tile holding the pad edge or cut short by N masks rows
       const bool edge = t0 < pad || t0 + BT > N;
@@ -482,6 +546,16 @@ h2o_colsum_kernel(const __grid_constant__ CUtensorMap qmap,
   const int warp = tid >> 5, lane = tid & 31;
   const int tig = lane & 3;
   float cs[2] = {0.f, 0.f};
+  // the cap in the base-2 domain (unused without one)
+  const float inv_cap = CAP ? 1.f / cap : 0.f;
+  const float cap2 = cap * LOG2E;
+  // the base-2 logit: capped under CAP (the accumulator is only read)
+  auto lg = [&](float x) {
+    if constexpr (CAP)
+      return cap_logit(x, inv_cap, cap2);
+    else
+      return x;
+  };
   // this thread's two keys gain exp2(s - offset) over its 16 queries of the
   // unit (8j + 2 tig + {0, 1} from 64 (u % 2)), in a fixed order
   auto process = [&](const float (&s)[32], int u) {
@@ -490,14 +564,14 @@ h2o_colsum_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float2 o = *reinterpret_cast<const float2*>(off + j * 8);
-      cs[0] += ex2(s[4 * j] - o.x) + ex2(s[4 * j + 1] - o.y);
-      cs[1] += ex2(s[4 * j + 2] - o.x) + ex2(s[4 * j + 3] - o.y);
+      cs[0] += ex2(lg(s[4 * j]) - o.x) + ex2(lg(s[4 * j + 1]) - o.y);
+      cs[1] += ex2(lg(s[4 * j + 2]) - o.x) + ex2(lg(s[4 * j + 3]) - o.y);
     }
   };
   const int key = c0 + cw * 64 + warp * 16 + (lane >> 2);
-  uint32_t a[32];
-  load_a(a, k + (size_t)kv_row * N * D, key, N, tig);
-  walk(Walk{smem_addr(ring), q_full, q_empty, 2 * ntiles}, a, process);
+  uint32_t a[D / 4];
+  load_a<D>(a, k + (size_t)kv_row * N * D, key, N, tig);
+  walk<D>(Walk{smem_addr(ring), q_full, q_empty, 2 * ntiles}, a, process);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     cs[i] += __shfl_xor_sync(0xffffffffu, cs[i], 1);
@@ -508,44 +582,79 @@ h2o_colsum_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 template <typename Kernel>
-int set_smem(Kernel kernel, bool& done) {
+int set_smem(Kernel kernel, int bytes, bool& done) {
   if (done) return 0;
   const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   done = e == cudaSuccess;
   return (int)e;
 }
 
+template <int D, bool CAP>
+int stats(const void* qs, const void* k, const void* true_len, void* m,
+          void* l, int B, int H, int Hk, int N, int W, float cap,
+          void* stream) {
+  CUtensorMap km;
+  if (!make_map(&km, k, N, B * Hk, N, BT, D))
+    return (int)cudaErrorInvalidValue;
+  static bool attr = false;  // once a process, per instantiation
+  if (const int e = set_smem(h2o_stats_kernel<D, CAP>, Ring<D>::SMEM_BYTES,
+                             attr))
+    return e;
+  h2o_stats_kernel<D, CAP><<<B * H * ((N + BR - 1) / BR), NTHREADS,
+                             Ring<D>::SMEM_BYTES, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)qs, km, (const int*)true_len, (float*)m,
+      (float*)l, B, H, Hk, N, W, cap);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool CAP>
+int colsum(const void* qs, const void* k, const void* true_len,
+           const void* m, const void* l, void* out, int B, int H, int Hk,
+           int N, int W, float cap, void* stream) {
+  CUtensorMap qm;
+  if (!make_map(&qm, qs, N, B * H, N, BT, D))
+    return (int)cudaErrorInvalidValue;
+  static bool attr = false;
+  if (const int e = set_smem(h2o_colsum_kernel<D, CAP>, Ring<D>::SMEM_BYTES,
+                             attr))
+    return e;
+  h2o_colsum_kernel<D, CAP><<<B * H * ((N - W + BR - 1) / BR), NTHREADS,
+                              Ring<D>::SMEM_BYTES, (cudaStream_t)stream>>>(
+      qm, (const __nv_bfloat16*)k, (const int*)true_len, (const float*)m,
+      (const float*)l, (float*)out, B, H, Hk, N, W, cap);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// qs: the query times log2(e)/sqrt(D), rounded to bf16 [B*H, N, D]; k
-// [B*Hk, N, D] bf16; true_len [B] int32; m, l [B*H, N] f32 out.
+// The instantiation for head dim D (128 or 256) and the cap (cap > 0:
+// Gemma-2's attention logit cap; 0: none); cudaErrorInvalidValue for
+// another D.
+#define PKV_H2O_DISPATCH(fn, ...)                                        \
+  if (D == 128)                                                          \
+    return cap > 0.f ? fn<128, true>(__VA_ARGS__)                        \
+                     : fn<128, false>(__VA_ARGS__);                      \
+  if (D == 256)                                                          \
+    return cap > 0.f ? fn<256, true>(__VA_ARGS__)                        \
+                     : fn<256, false>(__VA_ARGS__);                      \
+  return (int)cudaErrorInvalidValue;
+
+// qs: the query times scale * log2(e) (scale alone under a cap), rounded to
+// bf16 [B*H, N, D]; k [B*Hk, N, D] bf16; true_len [B] int32; m, l [B*H, N]
+// f32 out.
 extern "C" int pkv_h2o_stats(const void* qs, const void* k,
                              const void* true_len, void* m, void* l, int B,
-                             int H, int Hk, int N, int W, void* stream) {
-  CUtensorMap km;
-  if (!make_map(&km, k, N, B * Hk, N, BT)) return (int)cudaErrorInvalidValue;
-  static bool attr = false;
-  if (const int e = set_smem(h2o_stats_kernel, attr)) return e;
-  h2o_stats_kernel<<<B * H * ((N + BR - 1) / BR), NTHREADS, SMEM_BYTES,
-                     (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)qs, km, (const int*)true_len, (float*)m,
-      (float*)l, B, H, Hk, N, W);
-  return (int)cudaGetLastError();
+                             int H, int Hk, int D, int N, int W, float cap,
+                             void* stream) {
+  PKV_H2O_DISPATCH(stats, qs, k, true_len, m, l, B, H, Hk, N, W, cap, stream)
 }
 
 // Arguments as pkv_h2o_stats's, m and l its output; out [B*H, N - W] f32.
 extern "C" int pkv_h2o_colsum(const void* qs, const void* k,
                               const void* true_len, const void* m,
                               const void* l, void* out, int B, int H, int Hk,
-                              int N, int W, void* stream) {
-  CUtensorMap qm;
-  if (!make_map(&qm, qs, N, B * H, N, BT)) return (int)cudaErrorInvalidValue;
-  static bool attr = false;
-  if (const int e = set_smem(h2o_colsum_kernel, attr)) return e;
-  h2o_colsum_kernel<<<B * H * ((N - W + BR - 1) / BR), NTHREADS, SMEM_BYTES,
-                      (cudaStream_t)stream>>>(
-      qm, (const __nv_bfloat16*)k, (const int*)true_len, (const float*)m,
-      (const float*)l, (float*)out, B, H, Hk, N, W);
-  return (int)cudaGetLastError();
+                              int D, int N, int W, float cap, void* stream) {
+  PKV_H2O_DISPATCH(colsum, qs, k, true_len, m, l, out, B, H, Hk, N, W, cap,
+                   stream)
 }

@@ -20,8 +20,9 @@ LRU.
 
 Ported: greedy decoding on Llama-family models, Mistral's uniform sliding
 window, Qwen2's QKV biases and Gemma-2 (its alternating window, softcaps,
-head dim 256 and other features; on Gemma-2 H2O, MInference, ThinK and
-KIVI caches raise, ROADMAP queue 2A #5), with every compression method of ``config.METHODS``
+head dim 256 and other features, H2O, MInference and ThinK included; on
+Gemma-2 KIVI caches raise, ROADMAP queue 2A #5c), with every compression
+method of ``config.METHODS``
 (``policy.py``: the single-budget, pyramid, position, norm, random,
 head-budget, merging and ThinK methods, ``gqa_aggregate``, per-layer
 capacities; ``minference``'s vertical-and-slash sparse prefill), with bf16

@@ -8,7 +8,11 @@ hand-written sm_90a kernel (``sp::sparse_wgmma_kernel``; both slash
 functions its slash walk); on a CPU tensor it runs the plain version
 (``ops/sparse_prefill.py``).  All three return online-softmax partials
 (acc [B,H,N,D] f32 unnormalised, m and l [B,H,N] f32, m in natural units);
-a row with nothing visible has m = float32.min and l = 0.
+a row with nothing visible has m = float32.min and l = 0.  Head dims 128
+and 256 (``s2::sparse256_kernel``: 64-key tiles, no producer warp), each
+with and without Gemma-2's attention logit cap (cap * tanh(s / cap) of the
+scaled logit once it lands, before any mask; the query is bf16(q * scale)
+either way, as the TPU wrappers fold it).
 
 The two slash functions differ only in which list entries count: every
 valid one (``slash_tile_attention``), or the first ``tile_valid.sum(-1)``
@@ -42,7 +46,8 @@ from . import _build
 #: the kernels' grain (rows of a consumer warpgroup, keys of a unit): N,
 #: q_block, k_tile and Vs are multiples of it
 TILE = 64
-HEAD_DIM = 128
+#: the head dims the kernels are built for
+HEAD_DIMS = (128, 256)
 #: q rows per block, keys per unit and keys per tile of the vertical and
 #: grid slash kernel (namespace ``sp``)
 BLOCK_Q = 128
@@ -61,13 +66,13 @@ def _check_operands(named, device) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _check_card(q: torch.Tensor, softcap) -> None:
+def _check_card(q: torch.Tensor, softcap) -> float:
+    """The C entries' cap (0 for none) of a call on the card."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if softcap is not None:
-        raise NotImplementedError(
-            "softcap (Gemma-2) is not ported to the block-sparse kernels yet "
-            "(ROADMAP queue 2A #2)")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
+    return float(softcap) if softcap is not None else 0.0
 
 
 def _outputs(q: torch.Tensor):
@@ -79,16 +84,16 @@ def _outputs(q: torch.Tensor):
 
 def _slash(q, k, v, tile_idx, tile_valid, vert, true_len, q_block,
            k_tile, scale, softcap):
-    _check_card(q, softcap)
+    cap = _check_card(q, softcap)
     b, h, n, d = q.shape
     hk = k.shape[1]
     if k.shape != (b, hk, n, d) or v.shape != k.shape or hk < 1 or h % hk:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    if (d != HEAD_DIM or n % TILE or q_block % TILE or k_tile % TILE
+    if (d not in HEAD_DIMS or n % TILE or q_block % TILE or k_tile % TILE
             or n % q_block or n % k_tile):
         raise ValueError(
-            f"kernel takes D == {HEAD_DIM}, N % {TILE} == 0 and q_block, "
+            f"kernel takes D in {HEAD_DIMS}, N % {TILE} == 0 and q_block, "
             f"k_tile multiples of {TILE} dividing N; got D={d} N={n} "
             f"q_block={q_block} k_tile={k_tile}")
     nq = n // q_block
@@ -115,8 +120,8 @@ def _slash(q, k, v, tile_idx, tile_valid, vert, true_len, q_block,
     err = lib.pkv_slash_tiles(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), tile_idx.data_ptr(),
         tile_valid.data_ptr(), vbits.data_ptr(), tl.data_ptr(),
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, hk, n, q_block,
-        k_tile, t, vbits.shape[-1], sc, stream)
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, hk, d, n, q_block,
+        k_tile, t, vbits.shape[-1], sc, cap, stream)
     _build.check(err, "slash_tiles")
     return acc, m, l
 
@@ -222,7 +227,7 @@ def vertical_attention_partials(
         return vertical_attention_partials_plain(
             q, k_vert, v_vert, vcol, vvalid, true_len, scale=scale,
             softcap=softcap)
-    _check_card(q, softcap)
+    cap = _check_card(q, softcap)
     b, h, n, d = q.shape
     vs = k_vert.shape[2]
     if (k_vert.shape != (b, h, vs, d) or v_vert.shape != k_vert.shape
@@ -231,9 +236,9 @@ def vertical_attention_partials(
                          f"{tuple(k_vert.shape)} v_vert {tuple(v_vert.shape)}"
                          f" vcol {tuple(vcol.shape)} vvalid "
                          f"{tuple(vvalid.shape)}")
-    if d != HEAD_DIM or n % TILE or vs % TILE or vs < 1:
-        raise ValueError(f"kernel takes D == {HEAD_DIM}, N and Vs multiples "
-                         f"of {TILE}; got D={d} N={n} Vs={vs}")
+    if d not in HEAD_DIMS or n % TILE or vs % TILE or vs < 1:
+        raise ValueError(f"kernel takes D in {HEAD_DIMS}, N and Vs "
+                         f"multiples of {TILE}; got D={d} N={n} Vs={vs}")
     bf = torch.bfloat16
     _check_operands((("q", q, bf), ("k_vert", k_vert, bf),
                      ("v_vert", v_vert, bf), ("vcol", vcol, torch.int32),
@@ -248,7 +253,7 @@ def vertical_attention_partials(
         q.data_ptr(), k_vert.data_ptr(), v_vert.data_ptr(), order.data_ptr(),
         keys.data_ptr(), counts.data_ptr(), k_sorted.data_ptr(),
         v_sorted.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(), b,
-        h, n, vs, keys.shape[-1], float(sc),
+        h, d, n, vs, keys.shape[-1], float(sc), cap,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "vertical_partials")
     vertical_attention_partials.launches += 1

@@ -9,9 +9,13 @@ its hand-written sm_90a kernel; on a CPU tensor it runs the plain version
 (``ops.scoring.h2o_row_stats``, ``h2o_colsum``, and for the whole score
 ``ops.scoring.h2o_scores``).
 
-Both kernels read the query pre-scaled: q times log2(e)/sqrt(D), rounded
-to bf16 (:func:`scaled_query`, the TPU wrapper's ``qr``).  Each wrapper
-computes it for itself; :func:`h2o_scores` once for both passes.
+Both kernels read the query pre-scaled: q times scale * log2(e), rounded
+to bf16 (:func:`scaled_query`, the TPU wrapper's ``qr``; scale defaults to
+1/sqrt(D)).  Under an attention logit cap (Gemma-2) q is scaled by
+``scale`` alone and each logit s becomes cap * tanh(s / cap) * log2(e) in
+the kernel before any mask (log2(e) cannot pass the tanh).  Each wrapper
+computes the scaled query for itself; :func:`h2o_scores` once for both
+passes.  Head dims 128 and 256.
 
 :func:`h2o_tile_plan` mirrors the tiles each kernel's blocks visit and
 which of them they mask, and :func:`h2o_tiled_plain` runs both kernels'
@@ -22,15 +26,18 @@ to the Pallas kernels).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from ..ops import scoring
+from ..ops.attention import cap_base2
 from . import _build
 
 #: the kernels' granularity: N is a multiple of it
 TILE = 64
-HEAD_DIM = 128
+#: the head dims the kernels are built for
+HEAD_DIMS = (128, 256)
 #: rows a block owns and rows of a tile of the walked axis (stats: queries,
 #: then keys; colsum: keys, then queries)
 BLOCK = 128
@@ -38,7 +45,7 @@ _NEG = torch.finfo(torch.float32).min
 _MAX = torch.finfo(torch.float32).max
 
 
-def _check(q, k, window_size, true_len):
+def _check(q, k, window_size, true_len, softcap=None):
     b, h, n, d = q.shape
     hk = k.shape[1]
     if q.device.type != "cuda":
@@ -50,9 +57,11 @@ def _check(q, k, window_size, true_len):
                              f"{q.device}")
     if k.shape != (b, hk, n, d) or h % hk:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)}")
-    if d != HEAD_DIM or n % TILE or not 0 <= window_size < n:
-        raise ValueError(f"kernel takes D == {HEAD_DIM}, N % {TILE} == 0 and "
-                         f"0 <= W < N; got D={d} N={n} W={window_size}")
+    if d not in HEAD_DIMS or n % TILE or not 0 <= window_size < n:
+        raise ValueError(f"kernel takes D in {HEAD_DIMS}, N % {TILE} == 0 "
+                         f"and 0 <= W < N; got D={d} N={n} W={window_size}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
     if any(t.data_ptr() % 16 for t in (q, k)):
         raise ValueError("q and k must start 16-byte aligned (the copy "
                          "engine's tensor maps)")
@@ -62,33 +71,44 @@ def _check(q, k, window_size, true_len):
     return tl
 
 
-def scaled_query(q: torch.Tensor) -> torch.Tensor:
-    """q times log2(e)/sqrt(D), rounded to q's dtype (an f32 product rounded
-    to nearest even: the TPU wrapper's ``qr``, the plain versions' logits'
-    query)."""
-    return q * (math.log2(math.e) / math.sqrt(q.shape[-1]))
+def scaled_query(q: torch.Tensor, scale: Optional[float] = None,
+                 softcap: Optional[float] = None) -> torch.Tensor:
+    """q times scale * log2(e) (scale defaults to 1/sqrt(D)), or times
+    scale alone under a cap, rounded to q's dtype: an f32 product rounded
+    to nearest even, the TPU wrapper's ``qr`` and the plain versions'
+    (``ops.attention.q_fold``).  The rounding is the kernels': Gemma-2-9B's
+    scale 1/16 is a power of two, so q * scale is exact in bf16 there; a
+    general scale rounds q once, where the XLA scorer scales the f32
+    logits instead (``ops.scoring.h2o_scores``)."""
+    d = q.shape[-1]
+    if softcap is not None:
+        return q * (scale if scale is not None else 1.0 / math.sqrt(d))
+    return q * (math.log2(math.e) / math.sqrt(d) if scale is None
+                else scale * math.log2(math.e))
 
 
-def _args(qs, k, window_size):
-    """The C entries' trailing arguments: B, H, Hk, N, W and the stream."""
-    b, h, n, _ = qs.shape
-    return (b, h, k.shape[1], n, window_size,
+def _args(qs, k, window_size, softcap):
+    """The C entries' trailing arguments: B, H, Hk, D, N, W, the cap (0 for
+    none) and the stream."""
+    b, h, n, d = qs.shape
+    return (b, h, k.shape[1], d, n, window_size,
+            float(softcap) if softcap is not None else 0.0,
             torch.cuda.current_stream(qs.device).cuda_stream)
 
 
-def _stats(qs, k, tl, window_size):
+def _stats(qs, k, tl, window_size, softcap):
     b, h, n, _ = qs.shape
     m = torch.empty((b, h, n), dtype=torch.float32, device=qs.device)
     l = torch.empty_like(m)
     err = _build.library("h2o_scores").pkv_h2o_stats(
         qs.data_ptr(), k.data_ptr(), tl.data_ptr(), m.data_ptr(),
-        l.data_ptr(), *_args(qs, k, window_size))
+        l.data_ptr(), *_args(qs, k, window_size, softcap))
     _build.check(err, "h2o_stats")
     h2o_row_stats.launches += 1
     return m, l
 
 
-def _colsum(qs, k, tl, m, l, window_size):
+def _colsum(qs, k, tl, m, l, window_size, softcap):
     b, h, n, _ = qs.shape
     for name, t in (("m", m), ("l", l)):
         if (t.dtype != torch.float32 or tuple(t.shape) != (b, h, n)
@@ -100,48 +120,57 @@ def _colsum(qs, k, tl, m, l, window_size):
                       device=qs.device)
     err = _build.library("h2o_scores").pkv_h2o_colsum(
         qs.data_ptr(), k.data_ptr(), tl.data_ptr(), m.data_ptr(),
-        l.data_ptr(), out.data_ptr(), *_args(qs, k, window_size))
+        l.data_ptr(), out.data_ptr(), *_args(qs, k, window_size, softcap))
     _build.check(err, "h2o_colsum")
     h2o_colsum.launches += 1
     return out
 
 
 def h2o_row_stats(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
-                  true_len: torch.Tensor):
+                  true_len: torch.Tensor, scale: Optional[float] = None,
+                  softcap: Optional[float] = None):
     """Pass 1: q [B, H, N, D], k [B, Hk, N, D] -> (m, l) [B, H, N] f32, the
     base-2 max and exp2-sum of each row's visible logits (padding rows on
     the card: m = float32.min, l = 0; pass 2 skips them)."""
     if q.device.type == "cpu":
         return scoring.h2o_row_stats(q, k, window_size=window_size,
-                                     true_len=true_len)
-    tl = _check(q, k, window_size, true_len)
-    return _stats(scaled_query(q), k, tl, window_size)
+                                     true_len=true_len, scale=scale,
+                                     softcap=softcap)
+    tl = _check(q, k, window_size, true_len, softcap)
+    return _stats(scaled_query(q, scale, softcap), k, tl, window_size,
+                  softcap)
 
 
 def h2o_colsum(q: torch.Tensor, k: torch.Tensor, m: torch.Tensor,
                l: torch.Tensor, *, window_size: int,
-               true_len: torch.Tensor) -> torch.Tensor:
+               true_len: torch.Tensor, scale: Optional[float] = None,
+               softcap: Optional[float] = None) -> torch.Tensor:
     """Pass 2: the column sums of exp2(s - m) / max(l, 1e-30) down the valid
     rows, [B, H, N - W] f32, -inf at padding columns."""
     if q.device.type == "cpu":
         return scoring.h2o_colsum(q, k, m, l, window_size=window_size,
-                                  true_len=true_len)
-    tl = _check(q, k, window_size, true_len)
-    return _colsum(scaled_query(q), k, tl, m, l, window_size)
+                                  true_len=true_len, scale=scale,
+                                  softcap=softcap)
+    tl = _check(q, k, window_size, true_len, softcap)
+    return _colsum(scaled_query(q, scale, softcap), k, tl, m, l, window_size,
+                   softcap)
 
 
 def h2o_scores(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
-               true_len: torch.Tensor) -> torch.Tensor:
+               true_len: torch.Tensor, scale: Optional[float] = None,
+               softcap: Optional[float] = None) -> torch.Tensor:
     """q [B, H, N, D], k [B, Hk, N, D] (H % Hk == 0, no repeat_kv) ->
     [B, H, N - W] f32 scores, -inf at padding columns (the contract of
-    ``ops.scoring.h2o_scores``, its plain version)."""
+    ``ops.scoring.h2o_scores``, its plain version, with the model's
+    ``scale`` and ``softcap``)."""
     if q.device.type == "cpu":
         return scoring.h2o_scores(q, k, window_size=window_size,
-                                  true_len=true_len)
-    tl = _check(q, k, window_size, true_len)
-    qs = scaled_query(q)
-    m, l = _stats(qs, k, tl, window_size)
-    return _colsum(qs, k, tl, m, l, window_size)
+                                  true_len=true_len, scale=scale,
+                                  softcap=softcap)
+    tl = _check(q, k, window_size, true_len, softcap)
+    qs = scaled_query(q, scale, softcap)
+    m, l = _stats(qs, k, tl, window_size, softcap)
+    return _colsum(qs, k, tl, m, l, window_size, softcap)
 
 
 def h2o_tile_plan(n: int, true_len: int, w: int, tile: int = BLOCK):
@@ -198,12 +227,15 @@ def h2o_tile_plan(n: int, true_len: int, w: int, tile: int = BLOCK):
 
 
 def h2o_tiled_plain(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
-                    true_len: torch.Tensor):
+                    true_len: torch.Tensor, scale: Optional[float] = None,
+                    softcap: Optional[float] = None):
     """Both kernels' schedule in plain PyTorch: q [B, H, N, D], k [B, Hk, N,
-    D] -> (m, l) [B, H, N] and the scores [B, H, N - W], f32.
+    D] -> (m, l) [B, H, N] and the scores [B, H, N - W], f32 (the same
+    schedule at D = 128 and 256).
 
-    The query is scaled by log2(e)/sqrt(D) and rounded to q's dtype (in f32
-    nothing is rounded); logits are f32 products.  Stats: each q tile of
+    The query is :func:`scaled_query`'s (in f32 nothing is rounded);
+    logits are f32 products, under a cap cap * tanh(s / cap) * log2(e)
+    before any mask (``ops.attention.cap_base2``).  Stats: each q tile of
     :func:`h2o_tile_plan` walks its key tiles, masks only the edge tiles
     (to -inf), and keeps the base-2 online max and exp2-sum 64 keys at a
     time (the kernel's units: a tile's two halves);
@@ -220,7 +252,7 @@ def h2o_tiled_plain(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
     g = h // hk
     w = window_size
     bt = BLOCK
-    qs = scaled_query(q).float()
+    qs = scaled_query(q, scale, softcap).float()
     kf = k.float()
     f32 = dict(dtype=torch.float32, device=q.device)
     m = torch.full((b, h, n), -math.inf, **f32)
@@ -239,8 +271,9 @@ def h2o_tiled_plain(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
                 # the tile's two 64-key units, the kernel's online steps
                 for c0 in range(kt * bt, min(kt * bt + bt, n), bt // 2):
                     c1 = min(c0 + bt // 2, n)
-                    s = torch.matmul(qb[:, :, r0:r1], kf[bi, :, None, c0:c1]
-                                     .transpose(-1, -2))
+                    s = cap_base2(torch.matmul(
+                        qb[:, :, r0:r1],
+                        kf[bi, :, None, c0:c1].transpose(-1, -2)), softcap)
                     if edge:
                         cols = torch.arange(c0, c1, device=q.device)[None, :]
                         hid = ((torch.minimum(rows, cols) < pad)
@@ -266,7 +299,8 @@ def h2o_tiled_plain(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
                 if edge:
                     r = torch.arange(t0, t0 + bt, device=q.device)
                     o[:, (r < pad) | (r >= n)] = _MAX
-                s = torch.matmul(kb, qb[:, :, t0:t1].transpose(-1, -2))
+                s = cap_base2(torch.matmul(
+                    kb, qb[:, :, t0:t1].transpose(-1, -2)), softcap)
                 s = torch.nn.functional.pad(s.reshape(h, c1 - c0, -1),
                                             (0, bt - (t1 - t0)))
                 p = torch.exp2(s - o[:, None, :]).reshape(h, c1 - c0, 16, 4,

@@ -160,7 +160,7 @@ def check_unsupported(scale, softcap) -> None:
     if scale is not None or softcap is not None:
         raise NotImplementedError(
             "a custom attention scale or a softcap over a KIVI region is not "
-            "ported yet (Gemma-2, ROADMAP queue 2A #2)")
+            "ported yet (Gemma-2, ROADMAP queue 2A #5c)")
 
 
 def _check_tail(tail, q: torch.Tensor, hk: int):

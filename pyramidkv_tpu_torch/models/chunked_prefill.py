@@ -167,7 +167,7 @@ def prefill_chunk(
         if score_acc is not None:
             score_acc[li] += h2o_partial_scores(
                 q, state.k[li], row_start=chunk_start, window_size=w,
-                true_len=true_len)
+                true_len=true_len, **akw)
         kh = state.k[li, :, :, :extent]
         vh = state.v[li, :, :, :extent]
         if attention_impl == "kernel":

@@ -33,8 +33,8 @@ follow JAX's ``llama.py``: (1 + w) RMSNorms in f32, embeddings times
 sqrt(hidden) rounded to the activation dtype, post-attention and post-MLP
 norms, GeGLU (``gelu_tanh``), the attention scale
 ``query_pre_attn_scalar^-0.5`` and logit cap (``attn_args``, passed to the
-flash and decode kernels, the plain paths and the scorers), and the final
-logit cap.
+flash, decode, H2O and block-sparse kernels, ThinK's decode, the plain
+paths and the scorers), and the final logit cap.
 Quantized params (``models/weights.py``) keep the JAX tree's names, plus the
 fused ``wqkv`` / ``w_gateup`` leaves of ``fuse_packed_matmuls``.
 """
@@ -78,36 +78,24 @@ def check_ported(spec: ModelSpec) -> None:
             "queue 1 #5d)")
 
 
-#: what a model with an attention logit cap, a custom attention scale or
-#: alternating windows (Gemma-2) does not run yet:
-#: method or cache -> what the JAX package runs there that the port has
-#: not ported (ROADMAP queue 2A #5)
-_CAPPED_REFUSED = {
-    "h2o": "H2O's scores under the cap at D = 256 (XLA in JAX)",
-    "minference": "the block-sparse kernels with the cap at D = 256",
-    "think": "ThinK's narrow decode with the scale and the cap",
-}
-
-
 def check_method_ported(spec: ModelSpec, cs) -> None:
-    """Raise for a compression method or cache the port does not run on
-    ``spec`` yet: on a model with an attention logit cap, a custom scale or
-    alternating windows (Gemma-2), H2O, MInference, ThinK and KIVI caches
-    (ROADMAP queue 2A #5)."""
+    """Raise for a cache the port does not run on ``spec`` yet: on a model
+    with an attention logit cap, a custom scale or alternating windows
+    (Gemma-2), KIVI caches (ROADMAP queue 2A #5c).  Every compression
+    method runs there, H2O, MInference and ThinK with the model's scale and
+    cap."""
     if (spec.attn_logit_softcapping is None
             and spec.query_pre_attn_scalar is None
             and not spec.mixed_sliding):
         return
-    what = _CAPPED_REFUSED.get(cs.method)
-    if what is None and cs.quant_method is not None:
-        what = "the KIVI region kernels with the scale and the cap at D = 256"
-    if what is not None:
+    if cs.quant_method is not None:
         raise NotImplementedError(
-            f"{spec.name}: {cs.method}"
-            f"{' with a ' + cs.quant_method + ' cache' if cs.quant_method else ''}"
-            " on a model with an attention logit cap, a custom scale or "
-            f"alternating windows (Gemma-2) needs {what}, not ported yet "
-            "(ROADMAP queue 2A #5)")
+            f"{spec.name}: {cs.method} with a {cs.quant_method} cache on a "
+            "model with an attention logit cap, a custom scale or "
+            "alternating windows (Gemma-2) needs the KIVI region kernels "
+            "with the scale and the cap at D = 256 and the quantized "
+            "carry's per-layer window, not ported yet (ROADMAP queue 2A "
+            "#5c)")
 
 
 def attn_args(spec: ModelSpec) -> dict:
@@ -358,7 +346,7 @@ def prefill(
             v = v.contiguous()
             if sparse and not (spec.mixed_sliding and win is not None):
                 attn = _sparse_attention(q, k, v, true_len, cs, budgets, li,
-                                         attention_impl)
+                                         attention_impl, akw)
             elif attention_impl == "kernel":
                 attn = flash_causal_attention(q, k, v, true_len,
                                               sliding_window=win,
@@ -394,11 +382,12 @@ def _minference_budgets(cs, device):
 
 
 def _sparse_attention(q, k, v, true_len, cs, budgets, li: int,
-                      impl: str) -> torch.Tensor:
+                      impl: str, akw: dict) -> torch.Tensor:
     """Layer ``li``'s MInference prefill attention: estimate the
     vertical-and-slash pattern from the post-RoPE q/k, then attend over it
     (the block-sparse kernels under ``impl="kernel"``, their plain versions
-    under ``"plain"``)."""
+    under ``"plain"``), both with the model's scale and cap ``akw``
+    (:func:`attn_args`; JAX ``llama.py:585-597``)."""
     cfg, mv, ms = budgets
     if cfg is None:
         vsz, ssz = cs.minference_vertical_size, cs.minference_slash_size
@@ -406,11 +395,11 @@ def _sparse_attention(q, k, v, true_len, cs, budgets, li: int,
         vsz, ssz = cfg[li, :, 0], cfg[li, :, 1]
     pattern = sp.estimate_vertical_slash(
         q, k, true_len=true_len, vertical_size=vsz, slash_size=ssz,
-        last_q=cs.minference_last_q, max_vertical=mv, max_slash=ms)
+        last_q=cs.minference_last_q, max_vertical=mv, max_slash=ms, **akw)
     return sp.sparse_prefill_attention(
         q, k, v, pattern, true_len=true_len,
         tile_budget=cs.minference_tile_budget,
-        slash_impl=cs.minference_slash_impl, impl=impl)
+        slash_impl=cs.minference_slash_impl, impl=impl, **akw)
 
 
 def stack_layer(stack, ckv, i: int, layers: int, plan: PolicyPlan,
@@ -588,7 +577,7 @@ def decode_step(
                 attn = plain.decode_attention_think(
                     q, cache.think.k_pruned[start + i],
                     cache.think.kept_channels[start + i], layer.k, layer.v,
-                    layer.mask)
+                    layer.mask, **akw)
             else:
                 attn = attend(q, layer.k, layer.v, visible, **akw)
             hidden = block_tail(hidden, attn.reshape(b, -1), wts, spec,

@@ -18,7 +18,7 @@ in f32, so this is the same sum), softmax in f32, probabilities rounded to
 V's dtype before the PV product.  ``scale`` (default 1/sqrt(D)) and
 ``softcap`` (Gemma-2's attention logit cap, cap * tanh(s / cap) of the
 scaled logit before the mask: JAX's ``_scale_softcap``) apply everywhere
-but ThinK's decode and the KIVI partials.
+but the KIVI partials.
 """
 
 from __future__ import annotations
@@ -359,12 +359,17 @@ def decode_attention_think(
     k_rest: torch.Tensor,
     v_cache: torch.Tensor,
     mask: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """ThinK's decode over the narrow key region: two logit blocks joined
     before the softmax, the channel-gathered query against the pruned keys
     and the full query against the full-width rest, both scaled by
-    1/sqrt(D) of the full head.  Plain torch, as the JAX package leaves it
-    to XLA (no Pallas kernel computes it).
+    ``scale`` (default 1/sqrt(D) of the full head) and capped under
+    ``softcap`` before the mask (JAX ``ops/attention.py:538``).  Plain
+    torch, as the JAX package leaves it to XLA (no Pallas kernel computes
+    it).
 
     q: [B, H, D]; k_pruned: [B, H, Sp, Dk]; kept_channels: [B, H, Dk];
     k_rest: [B, H, Sr, D]; v_cache: [B, H, Sp + Sr, D]; mask: [B, H,
@@ -374,7 +379,9 @@ def decode_attention_think(
     q_kept = torch.gather(qf, 2, kept_channels.long())
     lp = torch.matmul(q_kept[:, :, None], k_pruned.float().transpose(-1, -2))
     lr = torch.matmul(qf[:, :, None], k_rest.float().transpose(-1, -2))
-    logits = torch.cat([lp, lr], dim=-1)[:, :, 0] * (1.0 / math.sqrt(d))
+    logits = scale_softcap(torch.cat([lp, lr], dim=-1)[:, :, 0],
+                           scale if scale is not None
+                           else 1.0 / math.sqrt(d), softcap)
     logits = logits.masked_fill(~mask, _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v_cache.dtype).float()
     out = torch.matmul(probs[:, :, None], v_cache.float())[:, :, 0]

@@ -9,7 +9,9 @@ fixed-width top-k.  The last W queries attend every key with the causal
 mask applied ONLY inside the trailing W x W block (the reference's quirk),
 softmax in f32, summed over the W rows, then pooled.  H2O sums the same
 softmax over ALL query rows, unpooled; :func:`h2o_scores` is the plain
-version of ``kernels/h2o_scores.py``.
+version of ``kernels/h2o_scores.py``.  Every scorer that forms attention
+logits takes the model's ``scale`` (default 1/sqrt(D)) and ``softcap``
+(Gemma-2: cap * tanh(s / cap) of the scaled logit, masks after the cap).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Optional
 import torch
 
 from ..prng import uniform
-from .attention import _row_block, scale_softcap
+from .attention import _row_block, cap_base2, q_fold, scale_softcap
 from .pooling import pool1d
 
 _NEG_INF = float("-inf")
@@ -128,6 +130,8 @@ def h2o_partial_scores(
     window_size: int,
     true_len: torch.Tensor,
     block: int = 512,
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Column-sum contribution of the query rows [row_start, row_start + C)
     to the H2O statistic, given the FULL key buffer.
@@ -137,7 +141,9 @@ def h2o_partial_scores(
     so a row's contribution is final once the whole K buffer exists; the
     chunked prefill's second pass adds these per chunk.  q_rows: [B, H, C,
     D]; k: [B, Hk, n, D] (the grouped product: no repeat_kv copy).  Logits
-    are f32 products of the operands (bf16 x bf16 is exact in f32).
+    are f32 products of the operands (bf16 x bf16 is exact in f32), times
+    ``scale`` (default 1/sqrt(D)), capped under ``softcap`` before the
+    masks (JAX ``ops/scoring.py:118``).
     Returns the UNMASKED [B, H, n - W] f32 accumulator (padding rows add
     nothing; callers mask the padding columns once)."""
     b, h, c, d = q_rows.shape
@@ -151,11 +157,12 @@ def h2o_partial_scores(
     qg = q_rows.reshape(b, hk, g, c, d)
     col = torch.arange(n, device=k.device)
     acc = torch.zeros((b, hk, g, n - w), dtype=torch.float32, device=k.device)
+    sc = scale if scale is not None else 1.0 / math.sqrt(d)
     for r0 in range(0, c, block):
         r = row_start + r0 + torch.arange(block, device=k.device)
-        logits = torch.matmul(
+        logits = scale_softcap(torch.matmul(
             qg[:, :, :, r0:r0 + block].float().reshape(b, hk, g * block, d),
-            kf).reshape(b, hk, g, block, n) * (1.0 / math.sqrt(d))
+            kf).reshape(b, hk, g, block, n), sc, softcap)
         # causal only where both row and column lie in the last W block
         in_blk = (r[:, None] >= n - w) & (col[None, :] >= n - w)
         hide = (in_blk & (col[None, :] > r[:, None]))[None] | ~colv[:, None]
@@ -174,29 +181,35 @@ def h2o_scores(
     window_size: int,
     true_len: torch.Tensor,
     block: int = 512,
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """H2O heavy-hitter score, ``[B, H, N - W]`` f32, -inf at padding
     columns: the softmax of ALL query rows (causal only inside the trailing
     W x W block, padding rows and columns masked) summed down each
-    non-window column, unpooled.  q: [B, H, N, D]; k: [B, Hk, N, D]."""
+    non-window column, unpooled.  q: [B, H, N, D]; k: [B, Hk, N, D];
+    ``scale`` and ``softcap`` as :func:`h2o_partial_scores`'s."""
     n = q.shape[2]
     acc = h2o_partial_scores(q, k, row_start=0, window_size=window_size,
-                             true_len=true_len, block=block)
+                             true_len=true_len, block=block, scale=scale,
+                             softcap=softcap)
     past_valid = _column_valid(n, true_len)[:, None, :n - window_size]
     return acc.masked_fill(~past_valid, _NEG_INF)
 
 
-def _h2o_logits2(q, k, r0: int, rows: int):
+def _h2o_logits2(q, k, r0: int, rows: int, scale=None, softcap=None):
     """Base-2 logits of query rows [r0, r0 + rows) against every key, as
-    the H2O kernels form them: q times log2(e)/sqrt(D) rounded to q's
-    dtype, f32 products.  -> [B, H, rows, N]."""
+    the H2O kernels form them: q times scale * log2(e) (scale alone under
+    a cap) rounded to q's dtype (``attention.q_fold``), f32 products, then
+    under a cap cap * tanh(s / cap) * log2(e) (``attention.cap_base2``).
+    -> [B, H, rows, N]."""
     b, h, _, d = q.shape
     hk, n = k.shape[1], k.shape[2]
     g = h // hk
-    qs = (q[:, :, r0:r0 + rows].float() * (math.log2(math.e) / math.sqrt(d))
-          ).to(q.dtype).float().reshape(b, hk, g * rows, d)
-    return torch.matmul(qs, k.float().transpose(-1, -2)).reshape(
-        b, h, rows, n)
+    qs = q_fold(q[:, :, r0:r0 + rows], scale, softcap).reshape(
+        b, hk, g * rows, d)
+    return cap_base2(torch.matmul(qs, k.float().transpose(-1, -2)).reshape(
+        b, h, rows, n), softcap)
 
 
 def _h2o_hidden(r0: int, rows: int, n: int, w: int, colv: torch.Tensor):
@@ -210,17 +223,20 @@ def _h2o_hidden(r0: int, rows: int, n: int, w: int, colv: torch.Tensor):
 
 
 def h2o_row_stats(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
-                  true_len: torch.Tensor, block: int = 512):
+                  true_len: torch.Tensor, block: int = 512,
+                  scale: Optional[float] = None,
+                  softcap: Optional[float] = None):
     """Plain version of the H2O stats kernel (``kernels/h2o_scores.py``):
     per query row, m = max and l = sum of exp2(s - m) of its base-2 logits
-    over the visible keys.  -> (m, l) [B, H, N] f32."""
+    (:func:`_h2o_logits2`, the cap before the mask) over the visible keys.
+    -> (m, l) [B, H, N] f32."""
     b, h, n, _ = q.shape
     block = _row_block(block, b * h * n, n)
     colv = _column_valid(n, true_len)
     m = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     for r0 in range(0, n, block):
-        s = _h2o_logits2(q, k, r0, block).masked_fill(
+        s = _h2o_logits2(q, k, r0, block, scale, softcap).masked_fill(
             _h2o_hidden(r0, block, n, window_size, colv)[:, None],
             _NEG_INF)
         mb = s.amax(dim=-1)
@@ -231,7 +247,8 @@ def h2o_row_stats(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
 
 def h2o_colsum(q: torch.Tensor, k: torch.Tensor, m: torch.Tensor,
                l: torch.Tensor, *, window_size: int, true_len: torch.Tensor,
-               block: int = 512) -> torch.Tensor:
+               block: int = 512, scale: Optional[float] = None,
+               softcap: Optional[float] = None) -> torch.Tensor:
     """Plain version of the H2O colsum kernel: given the row statistics
     (m, l) [B, H, N], sum exp2(s - m) / max(l, 1e-30) down the valid rows
     of each non-window column.  -> [B, H, N - W] f32, -inf at padding
@@ -242,7 +259,7 @@ def h2o_colsum(q: torch.Tensor, k: torch.Tensor, m: torch.Tensor,
     colv = _column_valid(n, true_len)
     acc = torch.zeros((b, h, n - w), dtype=torch.float32, device=q.device)
     for r0 in range(0, n, block):
-        s = _h2o_logits2(q, k, r0, block)[..., :n - w]
+        s = _h2o_logits2(q, k, r0, block, scale, softcap)[..., :n - w]
         mr = m[..., r0:r0 + block, None].clamp_min(-3.4e38 / 2)
         inv = 1.0 / l[..., r0:r0 + block, None].clamp_min(1e-30)
         p = torch.exp2(s - mr) * inv

@@ -424,17 +424,19 @@ def compress_layer(
         scores = random_scores(ctx.rng, shape_ref, window_size=w,
                                true_len=true_len)
         return compact(topk_select(scores, plan.width, ctx.keep_counts))
+    akw = dict(scale=plan.attn_scale, softcap=plan.attn_softcap)
     if m == "h2o":
         if h2o_raw_scores is not None:
             past_valid = _column_valid(n, true_len)[:, None, :n - w]
             raw = h2o_raw_scores.masked_fill(~past_valid, float("-inf"))
         else:
+            # a capped or custom-scale model's scores too: JAX sends those
+            # to XLA (policy.py:539-546), the kernel computes that function
             score_fn = (h2o_kernel if attention_impl == "kernel"
                         else h2o_scores)
-            raw = score_fn(q, k, window_size=w, true_len=true_len)
+            raw = score_fn(q, k, window_size=w, true_len=true_len, **akw)
         sel = topk_select(group_mean(raw), plan.width, ctx.keep_counts)
         return compact(sel)
-    akw = dict(scale=plan.attn_scale, softcap=plan.attn_softcap)
     if m in ("snapkv", "pyramidkv", "think"):
         scores = group_mean(window_scores(
             q, k, window_size=w, true_len=true_len,

@@ -2,7 +2,8 @@
 """Mutation check of the port's KIVI region kernels, MInference's
 block-sparse prefill kernels and the db slash wrapper, the H2O kernels, the
 chunked prefill's flash kernels, the two-pass flash schedule, the split
-decode kernel and the int4 decode matmul kernel, on a CUDA card.
+decode kernel and the int4 decode matmul kernel (Gemma-2's head dim 256 and
+logit cap among them), on a CUDA card.
 
     python3 scripts/port_mutation_check.py [--only NAMES] [--log FILE]
 
@@ -131,6 +132,19 @@ Mutants:
 - ``gemma_decode_cap_skipped`` (``csrc/decode_attn.cu``): the decode
   kernel leaves the logits uncapped (``phase_gemma_kernels``' capped
   decode checks);
+- ``gemma_h2o_cap_skipped`` (``csrc/h2o_scores.cu``): both H2O kernels
+  leave Gemma-2's logits uncapped (base 2 still; ``phase_gemma_kernels``'
+  capped H2O checks); ``gemma_h2o_log2e_before_tanh``: log2(e) taken
+  before the tanh (cap * tanh(s log2(e) / cap));
+- ``gemma_slash_cap_skipped`` (``csrc/block_sparse_prefill.cu``): the
+  block-sparse kernels leave the logits uncapped (targets the capped
+  slash checks); ``gemma_sparse_mask_before_cap``: at D = 256 the masks
+  come before the cap, so a masked logit becomes -cap and counts (a row
+  that sees no key of the slash walk, as the first real rows whose only
+  keys are the vertical sinks, gets m = -cap, l > 0: targets the capped
+  slash checks); ``gemma_vertical_v_high_dropped``: at D = 256 the P V
+  product leaves V's second 128 channels out (targets the D = 256
+  vertical checks);
 - ``fold_skip_first_k_group`` (``csrc/quant_region.cuh``): the group
   kernel's kFold mode folds the query of each split's first staged K group
   on every bit-plane with 1 instead of the group's scale;
@@ -209,6 +223,15 @@ MM = ("csrc/int4_matmul.cu", "phase_mm_kernels")
 QWEN_DECODE = ("csrc/decode_attn.cu", "phase_qwen_kernels")
 QWEN_KIVI = ("csrc/quant_region.cuh", "phase_qwen_kernels")
 GEMMA_FLASH = ("csrc/flash_prefill.cu", "phase_gemma_kernels")
+GEMMA_BSP = ("csrc/block_sparse_prefill.cu", "phase_gemma_kernels")
+
+
+def _capped_h2o(r):
+    return r["check"] in ("h2o_row_stats", "h2o_colsum") and r.get("softcap")
+
+
+def _capped_slash(r):
+    return r["check"] == "slash_tile_attention" and r.get("softcap")
 
 
 def _group(r):
@@ -504,6 +527,31 @@ MUTANTS = {
         "models/llama.py", "phase_gemma_reference", ("gemma_reference",),
         "            win = spec.layer_window(li)\n",
         "            win = spec.sliding_window\n"),
+    "gemma_h2o_cap_skipped": (
+        "csrc/h2o_scores.cu", "phase_gemma_kernels", _capped_h2o,
+        "  return tanh_approx(s * inv_cap) * cap2;",
+        "  return s * LOG2E;"),
+    "gemma_h2o_log2e_before_tanh": (
+        "csrc/h2o_scores.cu", "phase_gemma_kernels",
+        lambda r: r["check"] == "h2o_row_stats" and r.get("softcap"),
+        "  return tanh_approx(s * inv_cap) * cap2;",
+        "  return tanh_approx(s * LOG2E * inv_cap) * (cap2 / LOG2E);"),
+    "gemma_slash_cap_skipped": (
+        *GEMMA_BSP, _capped_slash,
+        "    for (int i = 0; i < NS; ++i) s[i] = tanh_approx(s[i] * inv_cap) "
+        "* cap;",
+        "    for (int i = 0; i < NS; ++i) s[i] = s[i];"),
+    "gemma_sparse_mask_before_cap": (
+        *GEMMA_BSP, _capped_slash,
+        ("    sp::cap_tile<CAP>(s, inv_cap, a.cap);\n",
+         "    mbar_arrive(&k_empty[st]);\n    float alpha[2];\n"),
+        ("", "    sp::cap_tile<CAP>(s, inv_cap, a.cap);\n"
+         "    mbar_arrive(&k_empty[st]);\n    float alpha[2];\n")),
+    "gemma_vertical_v_high_dropped": (
+        *GEMMA_BSP, lambda r: (r["check"] == "vertical_attention_partials"
+                               and r.get("D") == 256),
+        "    for (int h = 0; h < 2; ++h)\n      wgmma_rs(o[h], p[4 * kk]",
+        "    for (int h = 0; h < 1; ++h)\n      wgmma_rs(o[h], p[4 * kk]"),
     "gemma_decode_cap_skipped": (
         "csrc/decode_attn.cu", "phase_gemma_kernels",
         lambda r: r["check"] == "decode_attention" and r.get("softcap"),
@@ -540,6 +588,8 @@ import chip_smoke as cs
 recs = []
 cs.log = recs.append
 cs.SPARSE_CASES = {k: v[:-1] + (False,) for k, v in cs.SPARSE_CASES.items()}
+cs.GEMMA_SPARSE_CASES = {k: v[:-1] + (False,)
+                         for k, v in cs.GEMMA_SPARSE_CASES.items()}
 # the H2O picks' count is a measurement, not a check: no mutant's verdict
 # reads it
 cs.count_h2o_picks = lambda *a, **kw: None

@@ -92,7 +92,7 @@ def test_unported_flash_options_raise():
     """The flash wrapper takes Gemma-2's cap now (monolithic and at
     q_start: on CPU tensors the plain capped attention, held to JAX's
     kernel in test_torch_gemma2.py); a cap or a custom scale over a KIVI
-    region stays refused (ROADMAP queue 2A #2 and #5)."""
+    region stays refused (ROADMAP queue 2A #5c)."""
     from pyramidkv_tpu_torch.kernels.quant_decode import check_unsupported
 
     rng = np.random.default_rng(7)

@@ -458,7 +458,8 @@ def test_plan_and_cache_layout_match_jax(params, bucket):
 @pytest.mark.cuda
 def test_cuda_block_sparse_kernels_match_plain_on_card():
     """The three CUDA kernels against their plain versions in bf16 at a
-    small shape (runs only where a card and nvcc are present;
+    small shape, the vertical one under a logit cap too (runs only where a
+    card and nvcc are present;
     ``chip_smoke.py`` covers the main-path shapes): acc / l within
     2^-6 |want| + 2^-5 rms(row), m within 2^-12 max(1, |m|), l within
     2^-10 l."""
@@ -481,6 +482,9 @@ def test_cuda_block_sparse_kernels_match_plain_on_card():
          (q, k, v, ti, tv, pat.vert, tl), dict(q_block=512, k_tile=256)),
         (tk.slash_tile_attention_db, ts.slash_tile_attention_plain,
          (q, k, v, ti, tv, pat.vert, tl), dict(q_block=512, k_tile=256)),
+        # an attention logit cap (Gemma-2's) is taken since it was ported
+        (tk.vertical_attention_partials, ts.vertical_attention_partials_plain,
+         (q, *kv_, pat.vert_idx, pat.vert_valid, tl), dict(softcap=8.0)),
     ]
     for kern, plain, args, kw in cases:
         before = kern.launches
@@ -494,5 +498,3 @@ def test_cuda_block_sparse_kernels_match_plain_on_card():
         assert bool(((got[1] - want[1]).abs()
                      <= 2.0 ** -12 * want[1].abs().clamp_min(1.0)).all())
         assert bool(((got[2] - want[2]).abs() <= 2.0 ** -10 * want[2]).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.vertical_attention_partials(*cases[0][2], softcap=8.0)

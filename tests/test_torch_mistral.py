@@ -234,8 +234,9 @@ def test_prefix_handle_longer_than_window(engines):
 def test_refusals(rig):
     """Per-layer attention types are ported: ``layer_types`` all sliding is
     the uniform window (the same tokens), alternating ones run snapkv
-    (Gemma-2's layout; held to JAX in test_torch_gemma2.py), and on
-    alternating windows H2O, MInference, ThinK and KIVI caches stay
+    (Gemma-2's layout; held to JAX in test_torch_gemma2.py), and so do
+    H2O, MInference and ThinK (held to JAX in
+    test_torch_gemma2_methods.py); on alternating windows KIVI caches stay
     refused, citing the ROADMAP."""
     tp = rig[2]["f32"][1]
     comp = tcfg.CompressionSpec(method="snapkv", **COMP)
@@ -250,10 +251,12 @@ def test_refusals(rig):
         "sliding_attention", "full_attention") * 2)
     Engine(alt, comp, es, tp, device="cpu")
     for kw in (dict(method="h2o"), dict(method="minference"),
-               dict(method="think"), KIVI4):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 2A #5"):
-            Engine(alt, tcfg.CompressionSpec(**dict(COMP, **kw)), es, tp,
-                   device="cpu")
+               dict(method="think")):
+        Engine(alt, tcfg.CompressionSpec(**dict(COMP, **kw)), es, tp,
+               device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2A #5c"):
+        Engine(alt, tcfg.CompressionSpec(**dict(COMP, **KIVI4)), es, tp,
+               device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -291,8 +291,8 @@ def test_init_params_draws_biases():
 def test_refusals():
     """QKV biases are admitted, and so are Gemma-2's features since they
     were ported; MoE stays refused, and on a capped model (or one with a
-    custom attention scale) H2O, MInference, ThinK and KIVI caches, each
-    citing its own ROADMAP item."""
+    custom attention scale) KIVI caches, each citing its own ROADMAP item
+    (H2O, MInference and ThinK run there since they were ported)."""
     tl.check_ported(tcfg.ModelSpec.preset("qwen2.5-7b"))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #5d"):
         tl.check_ported(tcfg.ModelSpec.tiny(num_local_experts=4))
@@ -302,11 +302,10 @@ def test_refusals():
     for kw in (dict(attn_logit_softcapping=50.0),
                dict(query_pre_attn_scalar=64.0)):
         spec = tcfg.ModelSpec.tiny(**kw)
-        tl.check_method_ported(spec, tcfg.CompressionSpec(method="snapkv"))
-        for comp in (dict(method="h2o"), KIVI4):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP queue 2A #5"):
-                tl.check_method_ported(spec, tcfg.CompressionSpec(**comp))
+        for method in ("snapkv", "h2o", "minference", "think"):
+            tl.check_method_ported(spec, tcfg.CompressionSpec(method=method))
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 2A #5c"):
+            tl.check_method_ported(spec, tcfg.CompressionSpec(**KIVI4))
 
 
 # ---------------------------------------------------------------------------
