@@ -177,19 +177,33 @@ Phases (any failure exits non-zero):
      partials on a self and a history tile, pass A and pass B, the decode
      at G=1 (S=2080) and G=2 (fullkv, S=8224, full and window masks), each
      twice and bitwise equal, timed beside SDPA on the uncapped function;
-     the decode kernel's residency at D = 256; the int4 matmuls at
-     Gemma-2's widths;
+     the decode kernel's residency at D = 256; the H2O and block-sparse
+     kernels; the KIVI region kernels (the group kernel in its f32, folded
+     and mm_bf16 modes on one split, a cluster and past MAX_CLUSTER splits
+     with the merge kernel, the pa split and finish kernels with one and 4
+     K groups; wholly masked splits, window masks, a scale that is no power
+     of two; each Gemma-2 KIVI run's region shape timed) and mm_bf16 at
+     Llama's D = 128; the int4 matmuls at Gemma-2's widths;
  28. engine_gemma: ``Engine.generate`` on ``ModelSpec.preset("gemma2-9b")``
      (42 layers alternating sliding and full attention, random bf16
      weights from seed 3, ~17.2 GiB; Qwen's are freed first) on the 8k
      batch: fullkv, snapkv, pyramidkv, snapkv two-pass, snapkv chunked at
-     2048 (bf16 carry) and snapkv with int4 weights; launches, decode
+     2048 (bf16 carry), snapkv with int4 weights, h2o (monolithic and
+     chunked), minference, think, and the KIVI caches: fullkv kivi4-pa,
+     snapkv kivi4 (group, the default route), fullkv kivi2 on the f32
+     route, fullkv kivi4 on the tiled route with PKV_QUANT_MM_BF16=1 (K
+     groups of 32) and fullkv kivi4 chunked at 2048 (the quantized carry,
+     each layer's own window); launches (mm_bf16 calls too), decode
      blocks and cache bytes held to the plans;
  29. parity_gemma: depth-2 (one sliding, one full layer) prefill and
-     decode logits, kernels against plain, for fullkv and snapkv; and the
-     kernel path's prefill logits against the harness's own plain Gemma-2
+     decode logits, kernels against plain, for fullkv, snapkv, h2o,
+     minference, kivi4-pa, snapkv kivi4 and the chunked kivi4 carry; and
+     the kernel path's prefill logits, monolithic and through a kivi8
+     quantized carry (chunk 2048), against the harness's own plain Gemma-2
      forward (``gemma_reference_logits``, HF semantics without the port's
      model code), within 2^-5 of the largest.
+The 32k engine runs keep bench.py's 128 decode slots but generate 32
+tokens each (``QGEN``).
 The line before the last lists every kernel as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -198,6 +212,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -235,6 +250,16 @@ MM_TOL_TEXT = {"bf16": "|err| <= 2^-7 |want| + 2^-14 rms(want's row)",
                "f32": "|err| <= 2^-14 rms(want's row)"}
 #: the quantized path: bench.py's configuration (bench.py:97-159)
 QN, QTRUE, QMAX_NEW = 32768, 32767, 128
+#: tokens the 32k engine runs generate: their caches keep QMAX_NEW decode
+#: slots (bench.py's 128, so cache bytes and kernel shapes are bench.py's),
+#: but each generate stops after QGEN tokens (a quarter of the decode time
+#: of the 17 such runs, which took ~110 s of the script before)
+QGEN = 32
+
+
+def gen_new(max_new: int) -> int:
+    """Tokens a run's timed generate takes: QGEN for the 32k runs."""
+    return QGEN if max_new == QMAX_NEW else max_new
 QCOMP = dict(max_capacity_prompt=128, window_size=8, kernel_size=7,
              pooling="maxpool")
 #: quantize_weights arguments of each weight format
@@ -878,13 +903,21 @@ def _kernels():
 def reset_counts():
     for fn in _kernels().values():
         fn.launches = 0
-        for attr in ("kernels", "blocks"):
+        for attr in ("kernels", "blocks", "mm_bf16"):
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
     return {k: fn.launches for k, fn in _kernels().items()}
+
+
+def read_mm_bf16() -> int:
+    """Calls of the f32 group wrappers in their mm_bf16 mode."""
+    from pyramidkv_tpu_torch import kernels
+
+    return sum(getattr(kernels, k).mm_bf16 for k in (
+        "quant_decode_attention", "quant_decode_attention_tiled"))
 
 
 def read_region_kernels() -> dict:
@@ -894,21 +927,22 @@ def read_region_kernels() -> dict:
     return {k: getattr(kernels, k).kernels for k in REGION_KERNELS}
 
 
-def region_plan_of(kind, dev, b, hk, w, nbits, kg):
+def region_plan_of(kind, dev, b, hk, w, nbits, kg, d=D):
     """(nsplit, CUDA kernels a call launches) of region kernel ``kind`` on
-    ``b * hk`` regions of ``w`` byte-rows: the group kernel's plan (one
-    split for the whole-region wrapper; one launch up to MAX_CLUSTER
-    splits, two beyond), the pa kernel's (split kernel and finish pass)."""
+    ``b * hk`` regions of ``w`` byte-rows at head dim ``d``: the group
+    kernel's plan (one split for the whole-region wrapper; one launch up to
+    MAX_CLUSTER splits, two beyond), the pa kernel's (split kernel and
+    finish pass)."""
     from pyramidkv_tpu_torch.kernels import quant_decode, quant_fused_decode
 
     if kind == "quant_fused_attention_pa":
         # K groups of kg slots: a plane holds whole ones (or one group)
         return (quant_fused_decode.pa_split_plan(
-            dev, b * hk, w, kg if kg <= w else 0)[0],
+            dev, b * hk, w, kg if kg <= w else 0, d)[0],
             quant_fused_decode.PA_KERNELS)
     nsplit = (1 if kind == "quant_decode_attention"
-              else quant_decode.split_plan(dev, b * hk, w, nbits, kg)[0])
-    return nsplit, quant_decode.region_kernels(nsplit)
+              else quant_decode.split_plan(dev, b * hk, w, nbits, kg, d)[0])
+    return nsplit, quant_decode.region_kernels(nsplit, d)
 
 
 def region_kernels_per_call(run) -> int:
@@ -1336,7 +1370,7 @@ def phase_engine_quant(torch, dev, params, vocab):
         eng.generate([prompt], max_new_tokens=2)  # warm-up
         torch.cuda.synchronize()
         reset_counts()
-        out = eng.generate([prompt])
+        out = eng.generate([prompt], max_new_tokens=QGEN)
         c = read_counts()
         want = expected_launches(qp, out.decode_steps, 1, QN)
         weights._INT4_KERNEL_DMA[0] = False
@@ -1348,8 +1382,8 @@ def phase_engine_quant(torch, dev, params, vocab):
         good = (c["flash_causal_attention"] == LAYERS
                 and c["decode_attention"] == LAYERS * out.decode_steps
                 and all(c[k] == want[k] for k in MM_KERNELS)
-                and out.decode_steps == QMAX_NEW - 1
-                and len(toks) == QMAX_NEW and all(0 <= t < vocab for t in toks)
+                and out.decode_steps == QGEN - 1
+                and len(toks) == QGEN and all(0 <= t < vocab for t in toks)
                 and eng.plan_for(QN).segments == qplan(method).segments)
         log({"phase": "engine_quant", "run": run, "weights": wname,
              "method": method, "dma": dma,
@@ -1603,21 +1637,24 @@ def kv_cache_bytes(run) -> int:
                       QMAX_NEW if size == "32k" else MAX_NEW)
 
 
-def kivi_bytes(b, hm, s_pad, nbits, layout, ds, layers=LAYERS) -> int:
+def kivi_bytes(b, hm, s_pad, nbits, layout, ds, layers=LAYERS, d=D,
+               g=64) -> int:
     """kv_cache_bytes of a monolithic KIVI cache, from its layout (group
-    size 64): each layer's region codes, scales and zeros over ``s_pad``
-    slots of ``hm`` stored heads, plus its ``ds`` bf16 decode slots."""
-    per, g = 8 // nbits, 64
+    size ``g`` dividing the head dim ``d``): each layer's region codes,
+    scales and zeros over ``s_pad`` slots of ``hm`` stored heads, plus its
+    ``ds`` bf16 decode slots."""
+    per = 8 // nbits
     pa = layout == "pa"
-    per_layer = (2 * b * hm * (s_pad // per) * D                      # codes
-                 + 2 * b * hm * D * (1 if pa else s_pad // g) * 4     # K s/z
-                 + 2 * b * hm * s_pad * (1 if pa else D // g) * 4     # V s/z
-                 + 2 * b * hm * ds * D * 2)                           # bf16
+    per_layer = (2 * b * hm * (s_pad // per) * d                      # codes
+                 + 2 * b * hm * d * (1 if pa else s_pad // g) * 4     # K s/z
+                 + 2 * b * hm * s_pad * (1 if pa else d // g) * 4     # V s/z
+                 + 2 * b * hm * ds * d * 2)                           # bf16
     return layers * per_layer
 
 
 def region_inputs(torch, dev, b, hk, grp, s, nbits, gs, layout, t_len, seed,
-                  valid=0.9, k_chunk=None, masked_rows=None, window=None):
+                  valid=0.9, k_chunk=None, masked_rows=None, window=None,
+                  d=D, q_std=1.0):
     """(q, region, mask, tail) of a KIVI check: the region quantize_kv_region
     makes from random bf16 K (channel-scaled, as KIVI's keys are) and V,
     masks that are views of one longer array (as the engine passes them)
@@ -1625,16 +1662,17 @@ def region_inputs(torch, dev, b, hk, grp, s, nbits, gs, layout, t_len, seed,
     step's own slot).  ``masked_rows``: a byte-row range (r0, r1) masked on
     every bit-plane of every region (a wholly masked split).  ``window``:
     a fullkv cache's masks under a sliding window (window_mask) instead of
-    random ones."""
+    random ones.  ``d``: the head dim; q drawn at ``q_std``."""
     from pyramidkv_tpu_torch.ops import quant
 
     g = torch.Generator(device=dev).manual_seed(seed)
     h = hk * grp
-    q = torch.randn((b, h, D), generator=g, device=dev).to(torch.bfloat16)
-    chan = torch.randn((D,), generator=g, device=dev).exp()
-    k = (torch.randn((b, hk, s, D), generator=g, device=dev) * chan).to(
+    q = (torch.randn((b, h, d), generator=g, device=dev) * q_std).to(
         torch.bfloat16)
-    v = torch.randn((b, hk, s, D), generator=g, device=dev).to(torch.bfloat16)
+    chan = torch.randn((d,), generator=g, device=dev).exp()
+    k = (torch.randn((b, hk, s, d), generator=g, device=dev) * chan).to(
+        torch.bfloat16)
+    v = torch.randn((b, hk, s, d), generator=g, device=dev).to(torch.bfloat16)
     reg = quant.quantize_kv_region(k, v, nbits=nbits, group_size=gs,
                                    layout=layout)
     if k_chunk:
@@ -1643,7 +1681,7 @@ def region_inputs(torch, dev, b, hk, grp, s, nbits, gs, layout, t_len, seed,
         reg = reg._replace(k=kq._replace(
             codes=kq.codes.transpose(-1, -2).contiguous()))
     del k, v
-    tk, tv = (torch.randn((b, hk, t_len, D), generator=g, device=dev).to(
+    tk, tv = (torch.randn((b, hk, t_len, d), generator=g, device=dev).to(
         torch.bfloat16) for _ in range(2))
     full = (torch.rand((b, hk, s + t_len + 40), generator=g, device=dev)
             < valid if window is None else
@@ -1660,7 +1698,8 @@ def region_inputs(torch, dev, b, hk, grp, s, nbits, gs, layout, t_len, seed,
 
 def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
                  label, t_len, valid=0.9, k_chunk=None, masked_rows=None,
-                 window=None):
+                 window=None, d=D, scale=None, softcap=None, q_std=1.0,
+                 mm_bf16=False):
     """One KIVI region kernel against its plain version on a region that
     the port's quantize_kv_region makes from random bf16 K (channel-scaled,
     as KIVI's keys are) and V, in both of its modes: the region's partials
@@ -1672,30 +1711,42 @@ def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
     ``k_chunk`` (pa): K scale groups of that many slots, as the chunked
     prefill's carry quantizes them (one per chunk); ``masked_rows``: a
     byte-row range masked everywhere (region_inputs).  The tail mode runs
-    twice and must repeat bit for bit."""
+    twice and must repeat bit for bit.  ``d``, ``scale``, ``softcap``,
+    ``q_std``: Gemma-2's head dim 256, scale and cap (q drawn large enough
+    for the cap to bend the logits); ``mm_bf16``: the f32 kernels' mode of
+    that name (its logits from the bf16-folded queries, as its plain
+    version's).  Under a cap the f32 kernels are held as the folded ones:
+    tanh.approx.f32 (relative error ~2^-11) against torch's tanh moves a
+    logit of 20 by ~0.01."""
     from pyramidkv_tpu_torch import kernels
     from pyramidkv_tpu_torch.kernels import quant_decode
     from pyramidkv_tpu_torch.ops import quant
 
     layout = "pa" if kind == "quant_fused_attention_pa" else "group"
-    tol = "folded" if kind.startswith("quant_fused") else "f32"
+    fold = kind.startswith("quant_fused")
+    tol = "folded" if fold or softcap is not None else "f32"
     kern = getattr(kernels, kind)
-    region_plain = (quant.quant_region_attention_fused if tol == "folded"
-                    else quant.quant_decode_attention_plain)
+    akw = dict(scale=scale, softcap=softcap)
+    kkw = dict(akw, mm_bf16=True) if mm_bf16 else akw
 
     def plain(q, reg, mask, nbits, tail=None):
-        return quant.merge_tail(region_plain(q, reg, mask, nbits=nbits), q,
-                                tail)
+        part = (quant.quant_region_attention_fused(q, reg, mask, nbits=nbits,
+                                                   **akw) if fold else
+                quant.quant_decode_attention_plain(q, reg, mask, nbits=nbits,
+                                                   **kkw))
+        return quant.merge_tail(part, q, tail, **akw)
 
     q, reg, mask, tail = region_inputs(torch, dev, b, hk, grp, s, nbits, gs,
                                        layout, t_len, seed, valid, k_chunk,
-                                       masked_rows, window)
+                                       masked_rows, window, d, q_std)
     tk, tv, tmask = tail
     h = hk * grp
-    got = kern(q, reg, mask, nbits=nbits)
+    before = getattr(kern, "mm_bf16", 0)
+    got = kern(q, reg, mask, nbits=nbits, **kkw)
     want = plain(q, reg, mask, nbits)
-    got_raw = kern(q, reg, mask, nbits=nbits, tail=tail)
-    again = kern(q, reg, mask, nbits=nbits, tail=tail)
+    got_raw = kern(q, reg, mask, nbits=nbits, tail=tail, **kkw)
+    again = kern(q, reg, mask, nbits=nbits, tail=tail, **kkw)
+    mode_ok = getattr(kern, "mm_bf16", 0) - before == (3 if mm_bf16 else 0)
     got_o = got_raw.float()
     want_o = plain(q, reg, mask, nbits, tail).float()
     torch.cuda.synchronize()
@@ -1713,15 +1764,16 @@ def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
     ratio = max(err_over_tol(og, ow, *REGION_TOL[tol]), m_ratio, l_ratio,
                 tail_ratio)
     w, s_pad, kg, _ = quant.region_geometry(reg, nbits)
-    nsplit, per_call = region_plan_of(kind, dev, b, hk, w, nbits, kg)
+    nsplit, per_call = region_plan_of(kind, dev, b, hk, w, nbits, kg, d)
     windows = None  # stagings of the K tables a split takes (group layout)
     if layout == "group":
         rows = w if nsplit == 1 else quant_decode.split_plan(
-            dev, b * hk, w, nbits, kg)[1]
+            dev, b * hk, w, nbits, kg, d)[1]
         windows = -(-rows // quant_decode.region_window(
-            grp, nbits, tol == "folded", rows, kg, reg.k.scale.shape[-2],
-            reg.v.codes.shape[-1], reg.v.scale.shape[-2], t_len))
+            grp, nbits, fold or mm_bf16, rows, kg, reg.k.scale.shape[-2],
+            reg.v.codes.shape[-1], reg.v.scale.shape[-2], t_len, d))
     rec = {"check": kind, "case": label, "B": b, "Hk": hk, "G": grp, "S": s,
+           "D": d, "scale": scale, "softcap": softcap, "mm_bf16": mm_bf16,
            "nsplit": nsplit, "kernels_per_call": per_call,
            "windows": windows,
            "S_pad": s_pad, "plane_width": w, "nbits": nbits,
@@ -1738,22 +1790,23 @@ def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
            "rms": float(ow.square().mean().sqrt()),
            "masked_rows": masked_rows, "window": window,
            "visible": float(mask.float().mean()), "repeat_bitwise": repeat,
+           "mode_launches_ok": mode_ok,
            "all_masked_row": [float(got[1][0, 0]), float(got[2][0, 0])]}
     if timed:
         rec["ms"] = graph_ms(
-            torch, lambda: kern(q, reg, mask, nbits=nbits, tail=tail),
+            torch, lambda: kern(q, reg, mask, nbits=nbits, tail=tail, **kkw),
             reps=50)
         rec["host_ms"] = time_ms(
-            torch, lambda: kern(q, reg, mask, nbits=nbits, tail=tail),
+            torch, lambda: kern(q, reg, mask, nbits=nbits, tail=tail, **kkw),
             reps=50)
         rec["partials_ms"] = graph_ms(
-            torch, lambda: kern(q, reg, mask, nbits=nbits), reps=50)
+            torch, lambda: kern(q, reg, mask, nbits=nbits, **kkw), reps=50)
         rec["plain_ms"] = graph_ms(
             torch, lambda: plain(q, reg, mask, nbits, tail), reps=3)
         # library yardstick: SDPA over the region dequantized to bf16
         # outside the timed call (it reads 4x-8x the code bytes), with the
-        # tail appended
-        kh, vh = quant.dequantize_kv_region(reg, num_slots=s, head_dim=D,
+        # tail appended (under a cap, on the uncapped function)
+        kh, vh = quant.dequantize_kv_region(reg, num_slots=s, head_dim=d,
                                             nbits=nbits, dtype=torch.bfloat16)
         kr = torch.cat([kh, tk], dim=2).repeat_interleave(grp, dim=1)
         vr = torch.cat([vh, tv], dim=2).repeat_interleave(grp, dim=1)
@@ -1762,7 +1815,9 @@ def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
         q4 = q[:, :, None, :]
         rec["library_ms"] = graph_ms(
             torch, lambda: F.scaled_dot_product_attention(
-                q4, kr, vr, attn_mask=mr), reps=50)
+                q4, kr, vr, attn_mask=mr, scale=scale), reps=50)
+        if softcap is not None:
+            rec["library_note"] = UNCAPPED_NOTE
         del kh, vh, kr, vr, mr
         nbytes = (sum(t.numel() * t.element_size()
                       for t in quant.region_leaves(reg))
@@ -1770,13 +1825,13 @@ def check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs, timed, seed,
                   + 2 * tk.numel() * 2 + tmask.numel() + q.numel() * 2)
         # f32 FMAs per element of K and of V: G dot products, plus the
         # dequantization (group layout); the tail's dot products
-        flops = (2.0 * b * hk * s_pad * D * (2 * grp + (0 if layout == "pa"
+        flops = (2.0 * b * hk * s_pad * d * (2 * grp + (0 if layout == "pa"
                                                         else 2))
-                 + 2.0 * b * h * t_len * D * 2)
+                 + 2.0 * b * h * t_len * d * 2)
         rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes,
                                                  PEAK_F32_FLOPS)
     log(rec)
-    ok = (ratio <= 1 and repeat and bool(torch.isfinite(og).all())
+    ok = (ratio <= 1 and repeat and mode_ok and bool(torch.isfinite(og).all())
           and bool(torch.isfinite(got_o).all())
           and rec["all_masked_row"] == [float(torch.finfo(torch.float32).min),
                                         0.0])
@@ -1894,7 +1949,8 @@ def phase_engine_kv_quant(torch, dev, params, q4, vocab):
         eng.generate(prompts, max_new_tokens=2)  # warm-up
         torch.cuda.synchronize()
         reset_counts()
-        out = eng.generate(prompts)
+        gen = gen_new(max_new)
+        out = eng.generate(prompts, max_new_tokens=gen)
         c = read_counts()
         counts[run] = c
         tok_s[run] = out.decode_steps * len(prompts) / out.decode_seconds
@@ -1908,7 +1964,7 @@ def phase_engine_kv_quant(torch, dev, params, q4, vocab):
                 and not any(c[k] for k in REGION_KERNELS if k != route)
                 and c["decode_attention"] == 0
                 and c["flash_causal_attention"] == LAYERS
-                and out.decode_steps == max_new - 1
+                and out.decode_steps == gen - 1
                 and out.kv_cache_bytes == want_bytes
                 and (size != "32k" or method != "fullkv"
                      or want_bytes == KV_BYTES_32K[layout])
@@ -1916,7 +1972,7 @@ def phase_engine_kv_quant(torch, dev, params, q4, vocab):
                 and eng.plan_for(bucket).segments == (
                     (0, LAYERS, eng.plan_for(bucket).width),)
                 and all(0 <= t < vocab for t in toks)
-                and all(len(seq) == max_new for seq in out.tokens))
+                and all(len(seq) == gen for seq in out.tokens))
         log({"phase": "engine_kv_quant", "run": run, "weights": wname,
              "method": method, "nbits": nbits, "layout": layout,
              "route": route, "region_kernels_per_layer_step": per_call,
@@ -2277,7 +2333,8 @@ def phase_engine_minference(torch, dev, params, q4, vocab, fullkv_prefill_s):
         eng.generate(prompts, max_new_tokens=2)  # warm-up
         torch.cuda.synchronize()
         reset_counts()
-        out = eng.generate(prompts)
+        gen = gen_new(max_new)
+        out = eng.generate(prompts, max_new_tokens=gen)
         c = read_counts()
         counts[run] = c
         slash = ("slash_tile_attention_db" if cs.minference_slash_impl == "db"
@@ -2294,11 +2351,11 @@ def phase_engine_minference(torch, dev, params, q4, vocab, fullkv_prefill_s):
                 and c["decode_attention"] == LAYERS * out.decode_steps
                 and all(c[k] == want_mm[k] for k in MM_KERNELS)
                 and not any(c[k] for k in REGION_KERNELS)
-                and out.decode_steps == max_new - 1
+                and out.decode_steps == gen - 1
                 and out.kv_cache_bytes == want_bytes
                 and (b > 1 or want_bytes == KV_BYTES_FULLKV_32K)
                 and all(0 <= t < vocab for t in toks)
-                and all(len(seq) == max_new for seq in out.tokens))
+                and all(len(seq) == gen for seq in out.tokens))
         log({"phase": "engine_minference", "run": run, "weights": wname,
              "slash_impl": cs.minference_slash_impl,
              "pattern_config": cs.minference_pattern_config is not None,
@@ -3173,21 +3230,32 @@ def chunk_run_spec(run):
     MISTRAL_RUNS, QWEN_RUNS or GEMMA_RUNS run."""
     from pyramidkv_tpu_torch.config import CompressionSpec
 
-    _, comp, size, chunk = {**CHUNK_RUNS, **MISTRAL_RUNS, **QWEN_RUNS,
-                            **GEMMA_RUNS}[run]
+    _, comp, size, chunk, *_ = {**CHUNK_RUNS, **MISTRAL_RUNS, **QWEN_RUNS,
+                                **GEMMA_RUNS}[run]
     bucket, max_new = (QN, QMAX_NEW) if size == "32k" else (N, MAX_NEW)
     return CompressionSpec(**comp), bucket, max_new, chunk
 
 
+def run_engine_kw(run) -> tuple:
+    """(EngineSpec arguments, environment) of a MODELS run: the fifth field
+    of its entry, if any (``env``: variables set for the run alone)."""
+    entry = {**CHUNK_RUNS, **MISTRAL_RUNS, **QWEN_RUNS, **GEMMA_RUNS}[run]
+    kw = dict(entry[4]) if len(entry) > 4 else {}
+    return kw, kw.pop("env", {})
+
+
 def chunk_expected(run, plan, qp, steps, b, window=None, layers=LAYERS,
-                   h=H, hk=HK, full_layers=None):
+                   h=H, hk=HK, full_layers=None, layer_windows=None, d=D):
     """Kernel launches one generate of a CHUNK_RUNS, MISTRAL_RUNS, QWEN_RUNS
     or GEMMA_RUNS run implies (``layers`` layers of ``h`` query and ``hk``
-    KV heads).  With a sliding ``window`` the quantized carry skips each
-    history tile wholly outside the window of its chunk's first row.
-    ``full_layers``: the layers without a window of alternating ones
+    KV heads of dim ``d``).  With a sliding ``window`` (or each layer's own,
+    ``layer_windows``: Gemma-2's full layers none) the quantized carry
+    skips each history tile wholly outside the window of its chunk's first
+    row.  ``full_layers``: the layers without a window of alternating ones
     (Gemma-2): MInference's sparse path runs there, the dense flash on the
-    sliding ones.  ThinK's narrow decode launches no decode kernel."""
+    sliding ones.  ThinK's narrow decode launches no decode kernel.  A
+    KIVI run's region calls take the route of its engine arguments (the
+    f32 one for ``use_quant_kernel`` / ``use_quant_tiled``)."""
     import torch
 
     from pyramidkv_tpu_torch.models import chunked_prefill as cp
@@ -3204,9 +3272,10 @@ def chunk_expected(run, plan, qp, steps, b, window=None, layers=LAYERS,
         want["slash_tile_attention"] = sparse
         want["flash_causal_attention"] = layers - sparse
     elif quant_carry:
-        hist = sum(1 for j in range(nc) for hc in range(j)
-                   if window is None or (j - hc - 1) * chunk + 1 < window)
-        want["flash_attention_partials"] = layers * (nc + hist)
+        wins = [window] * layers if layer_windows is None else layer_windows
+        hist = sum(1 for w in wins for j in range(nc) for hc in range(j)
+                   if w is None or (j - hc - 1) * chunk + 1 < w)
+        want["flash_attention_partials"] = layers * nc + hist
     else:
         want["flash_causal_attention"] = layers * nc * (2 if h2o and chunk
                                                         else 1)
@@ -3217,26 +3286,30 @@ def chunk_expected(run, plan, qp, steps, b, window=None, layers=LAYERS,
     else:
         hm = hk if cs.method == "fullkv" else h
         per = 8 // cs.nbits
-        want[region_route(cs, b * hm, bucket // per,
-                          torch.device("cuda", 0)).__name__] = layers * steps
+        unit = cs.q_group_size * per
+        s_pad = -(-plan.prefill_slots // unit) * unit
+        ekw = run_engine_kw(run)[0]
+        f32 = bool(ekw.get("use_quant_kernel") or ekw.get("use_quant_tiled"))
+        want[region_route(cs, b * hm, s_pad // per, torch.device("cuda", 0),
+                          f32, d).__name__] = layers * steps
     if qp is not None:
         want.update(expected_launches(qp, steps, b, chunk or bucket, nc,
                                       layers))
     return want
 
 
-def chunk_kv_bytes(run, b, layers=LAYERS, hk=HK):
+def chunk_kv_bytes(run, b, layers=LAYERS, hk=HK, d=D):
     """kv_cache_bytes of a chunked fullkv KIVI run, from
     ``chunked_prefill.init_quant_state``'s shapes (K groups of the chunk
     under pa, of 64 slots under group; V per token under pa) plus the bf16
-    decode slots, ``layers`` layers of ``hk`` KV heads."""
+    decode slots, ``layers`` layers of ``hk`` KV heads of dim ``d``."""
     cs, n, max_new, chunk = chunk_run_spec(run)
     per = 8 // cs.nbits
-    kg, vg = (chunk, D) if cs.q_layout == "pa" else (64, 64)
-    return layers * (2 * b * hk * (n // per) * D
-                     + 2 * b * hk * D * (n // kg) * 4
-                     + 2 * b * hk * n * (D // vg) * 4
-                     + 2 * b * hk * max_new * D * 2)
+    kg, vg = (chunk, d) if cs.q_layout == "pa" else (64, 64)
+    return layers * (2 * b * hk * (n // per) * d
+                     + 2 * b * hk * d * (n // kg) * 4
+                     + 2 * b * hk * n * (d // vg) * 4
+                     + 2 * b * hk * max_new * d * 2)
 
 
 def bucket_tokens(torch, dev, prompts, bucket):
@@ -3295,7 +3368,7 @@ def phase_engine_h2o_chunked(torch, dev, params, q4, vocab):
         # warm-up generate
         torch.cuda.synchronize()
         reset_counts()
-        out = eng.generate(prompts)
+        out = eng.generate(prompts, max_new_tokens=gen_new(max_new))
         c = read_counts()
         counts[run] = c
         prefill_s[run] = out.prefill_seconds
@@ -3304,7 +3377,7 @@ def phase_engine_h2o_chunked(torch, dev, params, q4, vocab):
         want_bytes = (chunk_kv_bytes(run, len(prompts))
                       if cs.quant_method else None)
         toks = [t for seq in out.tokens for t in seq]
-        good = (c == want and out.decode_steps == max_new - 1
+        good = (c == want and out.decode_steps == gen_new(max_new) - 1
                 and eng.chunked_prefill_supported(bucket) == bool(chunk)
                 and all(0 <= t < vocab for t in toks)
                 and all(len(seq) >= 1 for seq in out.tokens))
@@ -3637,7 +3710,7 @@ def phase_engine_two_pass_prefix(torch, dev, params, q4, vocab):
                                 prefill_two_pass=True), wts, device=dev)
         torch.cuda.synchronize()
         reset_counts()
-        out = eng.generate(prompts)
+        out = eng.generate(prompts, max_new_tokens=gen_new(max_new))
         c = read_counts()
         counts[run] = c
         want = want_counts(flash_row_max=LAYERS, flash_pass_b=LAYERS,
@@ -3658,7 +3731,7 @@ def phase_engine_two_pass_prefix(torch, dev, params, q4, vocab):
                "decode_steps": out.decode_steps,
                "kv_cache_bytes": out.kv_cache_bytes, "vs_one_pass": twin,
                "first_tokens": out.tokens[0][:8],
-               "_ok": (twin["ok"] and out.decode_steps == max_new - 1
+               "_ok": (twin["ok"] and out.decode_steps == gen_new(max_new) - 1
                        and all(0 <= t < vocab for t in toks))}
         ok &= check(run, c, want, rec)
         del eng, out, l1, l2
@@ -3725,7 +3798,7 @@ def phase_engine_two_pass_prefix(torch, dev, params, q4, vocab):
                           ("pad 0, aligned", p32 + [int(p32[-1])])):
         run = f"(j) int4 fullkv kivi4-pa 32k chunk 8192 prefix 24576, {label}"
         reset_counts()
-        out = eng.generate([prompt], prefix=handle)
+        out = eng.generate([prompt], prefix=handle, max_new_tokens=QGEN)
         c = read_counts()
         counts[run] = c
         k0 = eng._apply_prefix(QN, 1, handle, [len(prompt)])[1]
@@ -3765,7 +3838,7 @@ def phase_engine_two_pass_prefix(torch, dev, params, q4, vocab):
                "kv_cache_bytes": out.kv_cache_bytes, "vs_no_prefix": twin,
                "first_tokens": out.tokens[0][:8],
                "_ok": pre_ok and k0 == nh and twin["ok"]
-               and out.decode_steps == QMAX_NEW - 1}
+               and out.decode_steps == QGEN - 1}
         ok &= check(run, c, want, rec)
         del out, lp, l0
         torch.cuda.empty_cache()
@@ -3913,15 +3986,21 @@ def phase_mistral_kernels(torch, F, dev):
 
 def model_kv_bytes(run, plan, b, m) -> int:
     """kv_cache_bytes a MODELS[...] run's plan implies: its bf16 K and V,
-    the chunked KIVI carry's layout, or the monolithic region's (32k)."""
+    the chunked KIVI carry's layout, or the monolithic region's over the
+    plan's prefill slots (fullkv: the bucket) of the stored heads."""
+    from pyramidkv_tpu_torch.policy import stores_kv_heads
+
     cs, bucket, max_new, chunk = chunk_run_spec(run)
     if cs.quant_method is None:
         return methods_kv_bytes(plan, b, m["h"], m["hk"], m["layers"],
                                 m["d"])
     if chunk:
-        return chunk_kv_bytes(run, b, m["layers"], m["hk"])
-    return kivi_bytes(b, m["hk"], bucket, cs.nbits, cs.q_layout, max_new,
-                      m["layers"])
+        return chunk_kv_bytes(run, b, m["layers"], m["hk"], m["d"])
+    unit = cs.q_group_size * (8 // cs.nbits)
+    return kivi_bytes(b, m["hk"] if stores_kv_heads(cs) else m["h"],
+                      -(-plan.prefill_slots // unit) * unit, cs.nbits,
+                      cs.q_layout, max_new, m["layers"], m["d"],
+                      cs.q_group_size)
 
 
 def decode_blocks(torch, dev, plan, b, m) -> tuple:
@@ -3971,8 +4050,9 @@ def phase_engine_model(torch, dev, model, params, q4, vocab, runs=None):
     warm = set()
     for run in runs or list(m["runs"]):
         t_run = time.perf_counter()
-        wname, _, size, _ = m["runs"][run]
+        wname, _, size = m["runs"][run][:3]
         cs, bucket, max_new, chunk = chunk_run_spec(run)
+        ekw, env = run_engine_kw(run)
         two_pass = run.endswith("two-pass")
         prompts = p32 if size == "32k" else p8
         qp = q4 if wname == "int4" else None
@@ -3980,16 +4060,26 @@ def phase_engine_model(torch, dev, model, params, q4, vocab, runs=None):
         eng = Engine(spec, cs, EngineSpec(max_new_tokens=max_new,
                                           prefill_buckets=(bucket,),
                                           prefill_chunk=chunk,
-                                          prefill_two_pass=two_pass),
+                                          prefill_two_pass=two_pass, **ekw),
                      wts, device=dev)
-        if (wname, size) not in warm:  # the model's lm_head shapes
-            eng.generate([p[:64] for p in prompts], max_new_tokens=2)
-            warm.add((wname, size))
-        torch.cuda.synchronize()
-        reset_counts()
-        out = eng.generate(prompts)
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            if (wname, size) not in warm:  # the model's lm_head shapes
+                eng.generate([p[:64] for p in prompts], max_new_tokens=2)
+                warm.add((wname, size))
+            torch.cuda.synchronize()
+            reset_counts()
+            out = eng.generate(prompts, max_new_tokens=gen_new(max_new))
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
         c = read_counts()
         blocks = decode_attention.blocks
+        mm_calls = read_mm_bf16()
         counts[run] = c
         plan = eng.plan_for(bucket)
         want = chunk_expected(run, plan, qp, out.decode_steps, len(prompts),
@@ -3997,7 +4087,15 @@ def phase_engine_model(torch, dev, model, params, q4, vocab, runs=None):
                               h=m["h"], hk=m["hk"], full_layers=(
                                   sum(spec.layer_window(li) is None
                                       for li in range(m["layers"]))
-                                  if spec.mixed_sliding else None))
+                                  if spec.mixed_sliding else None),
+                              layer_windows=[spec.layer_window(li) for li in
+                                             range(m["layers"])],
+                              d=m["d"])
+        # the f32 route's mm_bf16 mode: every region call of the run where
+        # the switch is set (its regions qualify), none elsewhere
+        want_mm = (sum(want[k] for k in ("quant_decode_attention",
+                                         "quant_decode_attention_tiled"))
+                   if env.get("PKV_QUANT_MM_BF16") == "1" else 0)
         if two_pass:  # pass A and pass B in place of the one-pass kernel
             want["flash_row_max"] = want["flash_pass_b"] = want[
                 "flash_causal_attention"]
@@ -4008,14 +4106,18 @@ def phase_engine_model(torch, dev, model, params, q4, vocab, runs=None):
                                               m))
         toks = [t for seq in out.tokens for t in seq]
         good = (c == want and out.kv_cache_bytes == want_bytes
+                and want_bytes == m.get("bytes", {}).get(run, want_bytes)
+                and mm_calls == want_mm
                 and blocks == per_step * out.decode_steps and waves <= 1
-                and out.decode_steps == max_new - 1
+                and out.decode_steps == gen_new(max_new) - 1
                 and eng.chunked_prefill_supported(bucket) == bool(chunk)
                 and all(0 <= t < vocab for t in toks)
                 and all(len(seq) >= 1 for seq in out.tokens))
         rec = {"phase": f"engine_{model}", "run": run, "weights": wname,
                "method": cs.method, "window": m["window"],
                "prefill_chunk": chunk, "two_pass": two_pass,
+               "engine": ekw, "env": env, "mm_bf16_calls": mm_calls,
+               "expected_mm_bf16_calls": want_mm,
                "prefill_s": out.prefill_seconds,
                "decode_s": out.decode_seconds,
                "decode_steps": out.decode_steps,
@@ -4163,7 +4265,7 @@ def phase_engine_mistral_more(torch, dev, params, q4, vocab, recs):
                                       prefill_buckets=(bucket,)),
                  q4, device=dev)
     reset_counts()
-    out = eng.generate(p32)
+    out = eng.generate(p32, max_new_tokens=QGEN)
     c = read_counts()
     want = want_counts(vertical_attention_partials=ml,
                        slash_tile_attention=ml,
@@ -4175,7 +4277,7 @@ def phase_engine_mistral_more(torch, dev, params, q4, vocab, recs):
             "mistral int4 fullkv kivi4-pa 32k"]["prefill_s"],
         "expected_kv_cache_bytes": KV_BYTES_FULLKV_32K * ml // LAYERS},
         out.kv_cache_bytes == KV_BYTES_FULLKV_32K * ml // LAYERS
-        and out.decode_steps == max_new - 1)
+        and out.decode_steps == QGEN - 1)
     del eng, out
     torch.cuda.empty_cache()
     return ok, counts
@@ -4208,7 +4310,7 @@ def phase_parity_model(torch, dev, model, params, vocab, steps=4):
             wname, size, chunk = "bf16", "8k", None
             cs, bucket, max_new = CompressionSpec(method="snapkv"), N, MAX_NEW
         else:
-            wname, _, size, _ = m["runs"][run]
+            wname, _, size = m["runs"][run][:3]
             cs, bucket, max_new, chunk = chunk_run_spec(run)
         wts = quantized(p2, "int4") if wname == "int4" else p2
         eng = Engine(spec, cs, EngineSpec(max_new_tokens=max_new,
@@ -4504,6 +4606,7 @@ GEMMA_SCALE, GEMMA_CAP = 256.0 ** -0.5, 50.0
 #: (50 tanh(20 / 50) = 19.0), as it bends a real model's largest logits
 GEMMA_Q_STD = 4.0
 GEMMA_ATTN = dict(scale=GEMMA_SCALE, softcap=GEMMA_CAP, q_std=GEMMA_Q_STD)
+GEMMA_KIVI4 = dict(method="fullkv", quant_method="kivi", nbits=4)
 #: its decode matmuls (in, out): int4 fuses wqkv (16 + 2 x 8 heads of 256)
 #: and w_gateup; the tied embedding's int8 codes [256000, 3584] dequantize
 #: for the logits, and int8_matmul is held at that width too
@@ -4530,9 +4633,39 @@ GEMMA_RUNS = {
                                  "8k", None),
     "gemma bf16 think 8k": ("bf16", dict(method="think"), "8k", None),
     "gemma bf16 h2o 8k chunk 2048": ("bf16", dict(method="h2o"), "8k", C8K),
+    # KIVI caches: pa, the default group route (per-head caches,
+    # G = 1), the f32 route (use_quant_kernel; kivi2), its mm_bf16 mode
+    # (use_quant_tiled with PKV_QUANT_MM_BF16=1; K groups of 32 slots, so
+    # that the TPU tiled kernel's tile, 128 groups a plane = 8192 slots,
+    # divides the region, as the JAX engine needs before it takes the
+    # mode) and the quantized carry (chunk 2048, group layout); the fifth
+    # field: EngineSpec arguments and the environment of the run
+    "gemma bf16 fullkv 8k kivi4-pa": ("bf16", dict(GEMMA_KIVI4,
+                                                   q_layout="pa"), "8k",
+                                      None),
+    "gemma bf16 snapkv 8k kivi4": ("bf16", dict(GEMMA_KIVI4,
+                                                method="snapkv"), "8k",
+                                   None),
+    "gemma bf16 fullkv 8k kivi2 f32": ("bf16", dict(GEMMA_KIVI4, nbits=2),
+                                       "8k", None,
+                                       dict(use_quant_kernel=True)),
+    "gemma bf16 fullkv 8k kivi4 mm_bf16": (
+        "bf16", dict(GEMMA_KIVI4, q_group_size=32), "8k", None,
+        dict(use_quant_tiled=True, env={"PKV_QUANT_MM_BF16": "1"})),
+    "gemma bf16 fullkv 8k kivi4 chunk 2048": ("bf16", GEMMA_KIVI4, "8k",
+                                              C8K),
 }
 GEMMA_TWINS = {"gemma bf16 snapkv 8k chunk 2048": "gemma bf16 snapkv 8k",
-               "gemma bf16 h2o 8k chunk 2048": "gemma bf16 h2o 8k"}
+               "gemma bf16 h2o 8k chunk 2048": "gemma bf16 h2o 8k",
+               "gemma bf16 fullkv 8k kivi4 chunk 2048":
+                   "gemma bf16 fullkv 8k"}
+#: kv_cache_bytes of the chunked fullkv kivi4 group run, reckoned by hand
+#: from the layout: a region (B x Hk = 32 of them a layer) holds K and V
+#: codes 2 x 4096 x 256 bytes, K scales and zeros 2 x 256 x 128 f32 (a
+#: group of 64 slots) and V scales and zeros 2 x 8192 x 4 f32 (a group of
+#: 64 channels): 2,621,440 bytes; plus 2 x 32 decode slots of 256 bf16 a
+#: region; 42 layers
+GEMMA_KIVI4_BYTES = GEMMA_LAYERS * 32 * (2_621_440 + 2 * MAX_NEW * 256 * 2)
 #: the H2O kernel checks at Gemma-2's shapes (16 / 8 heads of D = 256,
 #: scale 1/16, cap 50, q at GEMMA_Q_STD), as H2O_CASES: short ragged, a q
 #: tile of padding, N - W = 440 (tiles cut short by N), the W x W block
@@ -4568,12 +4701,74 @@ GEMMA_SPARSE_CASES = {
     "gemma 8k": (B, GEMMA_H, GEMMA_HK, N, TRUE_LEN, "default", 512, 256, 8,
                  False, False, True),
 }
+#: the KIVI region kernels at Gemma-2's shapes (D = 256, scale 1/16, cap
+#: 50, q at GEMMA_Q_STD), untimed edge shapes: (kind, B, Hk, G, slots,
+#: nbits, group size, tail, check_region arguments): ragged regions for
+#: each group mode (the f32 ones also in mm_bf16), a wholly masked split
+#: (in a cluster, and past one with the merge kernel), the whole-region
+#: kernel's K tables staged in windows (K groups of 24 slots straddling
+#: items), the pa kernel's odd V rows, splits ending inside a unit, its
+#: 4 K groups (the chunked carry) and a wholly masked split at the 8k
+#: width (``masked_split``: that split of the kernel's plan masked on every
+#: plane)
+GEMMA_REGION_SHORT = [
+    *[(kind, b, hk, g, s, nb, gs, t, dict(mm_bf16=mm))
+      for kind, mms in (("quant_decode_attention", (False, True)),
+                        ("quant_decode_attention_tiled", (False, True)),
+                        ("quant_fused_attention_group", (False,)))
+      for mm in mms
+      for b, hk, g, s, nb, gs, t in ((2, 3, 2, 1000, 4, 64, 5),
+                                     (1, 4, 1, 40, 2, 16, 37),
+                                     (2, 2, 2, 300, 8, 32, 2))],
+    ("quant_fused_attention_group", B, GEMMA_HK, 2, N, 2, 64, MAX_NEW,
+     dict(masked_split=1)),
+    ("quant_decode_attention_tiled", B, GEMMA_HK, 2, N, 4, 32, MAX_NEW,
+     dict(masked_split=1, mm_bf16=True)),
+    ("quant_fused_attention_group", B, 16, 1, 2048, 4, 64, MAX_NEW,
+     dict(masked_split=1)),
+    ("quant_decode_attention", 1, 2, 2, 8800, 2, 24, 5, {}),
+    ("quant_fused_attention_pa", 2, 2, 2, 1001, 8, 5, 13, {}),
+    ("quant_fused_attention_pa", 1, 3, 2, 777, 2, 64, 1, {}),
+    ("quant_fused_attention_pa", 1, 2, 2, 1024, 2, 64, 37,
+     dict(k_chunk=256)),
+    ("quant_fused_attention_pa", 2, 3, 1, 1001, 4, 3, 1, {}),
+    ("quant_fused_attention_pa", B, GEMMA_HK, 2, N, 4, 64, MAX_NEW,
+     dict(k_chunk=C8K)),
+    ("quant_fused_attention_pa", B, GEMMA_HK, 2, N, 4, 64, MAX_NEW,
+     dict(masked_split=1)),
+    # a scale that is no power of two (the tiny Gemma-2's 32^-0.5; Gemma-2-
+    # 9B's 1/16 commutes with the bf16 rounding): the fold's order shows
+    *[("quant_fused_attention_group", 2, 3, 2, 1000, nb, 64, 5,
+       dict(scale=32.0 ** -0.5)) for nb in (4, 8)],
+]
+#: the region shapes Gemma-2's KIVI runs decode, timed: key -> (kind, B,
+#: Hk, G, slots, nbits, group size, check_region arguments); fullkv on the
+#: full layers' masks and on the sliding layers' (window 4096)
+GEMMA_REGION_CASES = {
+    **{f"{name} {mask}": (kind, B, GEMMA_HK, 2, N, nb, gs,
+                          dict(window=N + MAX_NEW if mask == "full"
+                               else GEMMA_W, mm_bf16=name == "mm_bf16"))
+       for name, kind, nb, gs in (
+           ("pa", "quant_fused_attention_pa", 4, 64),
+           ("group fullkv", "quant_fused_attention_group", 4, 64),
+           ("f32 kivi2", "quant_decode_attention_tiled", 2, 64),
+           ("mm_bf16", "quant_decode_attention_tiled", 4, 32))
+       for mask in ("full", "window")},
+    "group snapkv": ("quant_fused_attention_group", B, GEMMA_H, 1, 2048, 4,
+                     64, {}),
+    "whole snapkv": ("quant_decode_attention", B, GEMMA_H, 1, 2048, 4, 64,
+                     {}),
+}
 GEMMA_PARITY = ("gemma bf16 fullkv 8k", "gemma bf16 snapkv 8k",
-                "gemma bf16 h2o 8k", "gemma bf16 minference 8k")
+                "gemma bf16 h2o 8k", "gemma bf16 minference 8k",
+                "gemma bf16 fullkv 8k kivi4-pa", "gemma bf16 snapkv 8k kivi4",
+                "gemma bf16 fullkv 8k kivi4 chunk 2048")
 MODELS["gemma"] = dict(preset="gemma2-9b", runs=GEMMA_RUNS,
                        twins=GEMMA_TWINS, parity=GEMMA_PARITY,
                        window=GEMMA_W, layers=GEMMA_LAYERS, h=GEMMA_H,
-                       hk=GEMMA_HK, d=GEMMA_D)
+                       hk=GEMMA_HK, d=GEMMA_D,
+                       bytes={"gemma bf16 fullkv 8k kivi4 chunk 2048":
+                              GEMMA_KIVI4_BYTES})
 
 
 def phase_gemma_kernels(torch, F, dev):
@@ -4694,6 +4889,8 @@ def phase_gemma_kernels(torch, F, dev):
         ok &= r
         rec["layers"] = GEMMA_LAYERS // 2
         recs["decode g2"].append(rec)
+    r, recs["region"] = phase_gemma_region_kernels(torch, F, dev)
+    ok &= r
     # H2O's two kernels and the three block-sparse kernels at D = 256
     # under the cap: the edge shapes, then the 8k batch (timed)
     for seed, case in enumerate(GEMMA_H2O_CASES, start=950):
@@ -4731,6 +4928,60 @@ def phase_gemma_kernels(torch, F, dev):
     else:
         log({"check": "int8_matmul", "case": "gemma tied head",
              "note": "not tiled by int8_tiles: the tied head dequantizes"})
+    return ok, recs
+
+
+def split_rows(kind, dev, b, hk, s, nbits, gs, d, i):
+    """Byte-rows [r0, r1) of split ``i`` of region kernel ``kind``'s plan
+    for ``b * hk`` regions of ``s`` slots (K groups of ``gs`` slots)."""
+    from pyramidkv_tpu_torch.kernels import quant_decode, quant_fused_decode
+
+    per = 8 // nbits
+    w = -(-s // (gs * per)) * gs
+    if kind == "quant_fused_attention_pa":
+        _, rows = quant_fused_decode.pa_split_plan(dev, b * hk, w, 0, d)
+    else:
+        _, rows = quant_decode.split_plan(dev, b * hk, w, nbits, gs, d)
+    return i * rows, min(w, (i + 1) * rows)
+
+
+def phase_gemma_region_kernels(torch, F, dev):
+    """The KIVI region kernels at D = 256 under the cap (part of
+    gemma_kernels; the Gemma-2 KIVI mutants of
+    scripts/port_mutation_check.py run it alone): GEMMA_REGION_SHORT, then
+    GEMMA_REGION_CASES (timed); mm_bf16 at Llama's D = 128 too (its fullkv
+    kivi4 8k region, K groups of 32).  Returns (ok, {key: rec}); the D =
+    128 record under "mm_bf16 d128"."""
+    from pyramidkv_tpu_torch.kernels import _build
+
+    _build.build_all(["quant_decode", "quant_group_fused",
+                      "quant_decode_mm_bf16", "quant_fused_decode"])
+    ok, recs = True, {}
+    kw = dict(GEMMA_ATTN, d=GEMMA_D)
+    for seed, (kind, b, hk, grp, s, nbits, gs, t_len, extra) in enumerate(
+            GEMMA_REGION_SHORT, start=1000):
+        label = "gemma short, D=256, cap 50" + (
+            ", scale 32^-0.5" if "scale" in extra else "")
+        extra = dict(extra)
+        if "masked_split" in extra:
+            extra["masked_rows"] = split_rows(
+                kind, dev, b, hk, s, nbits, gs, GEMMA_D,
+                extra.pop("masked_split"))
+        r, _ = check_region(torch, F, dev, kind, b, hk, grp, s, nbits, gs,
+                            False, seed, label, t_len, **dict(kw, **extra))
+        ok &= r
+    for seed, (key, (kind, b, hk, grp, s, nbits, gs, extra)) in enumerate(
+            GEMMA_REGION_CASES.items(), start=1100):
+        r, recs[key] = check_region(torch, F, dev, kind, b, hk, grp, s,
+                                    nbits, gs, True, seed, "gemma " + key,
+                                    MAX_NEW, **extra, **kw)
+        ok &= r
+        torch.cuda.empty_cache()
+    r, recs["mm_bf16 d128"] = check_region(
+        torch, F, dev, "quant_decode_attention_tiled", B, HK, H // HK, N, 4,
+        32, True, 1150, "llama fullkv 8k kivi4, K groups of 32, mm_bf16",
+        MAX_NEW, mm_bf16=True)
+    ok &= r
     return ok, recs
 
 
@@ -4812,8 +5063,10 @@ def phase_gemma_reference(torch, F, dev, params=None):
     """Depth-2 Gemma-2 (one sliding and one full layer) at full width: the
     port's prefill through the kernels against gemma_reference_logits on
     the 8k batch (random ids, seed 1), the last-position logits within 2^-5
-    of the largest.  ``params``: Gemma-2 params whose first two layers are
-    used; None draws two layers from seed 3."""
+    of the largest; then the chunked prefill's quantized carry (fullkv
+    kivi8, chunk 2048: 8-bit codes keep it near the bf16 reference) against
+    the same reference and limit.  ``params``: Gemma-2 params whose first
+    two layers are used; None draws two layers from seed 3."""
     from pyramidkv_tpu_torch.config import CompressionSpec, ModelSpec
     from pyramidkv_tpu_torch.models import llama
     from pyramidkv_tpu_torch.models.convert import init_params
@@ -4843,7 +5096,27 @@ def phase_gemma_reference(torch, F, dev, params=None):
            "seconds": time.perf_counter() - t0}
     rec["ok"] = bool(torch.isfinite(got).all()) and err <= tol
     log({"phase": "parity_gemma", **rec})
-    return rec["ok"], rec
+    # the quantized carry (fullkv kivi8, chunk 2048) through the kernels
+    # against the same reference: its full layer attends every earlier
+    # chunk, its sliding one the chunks inside the window
+    from pyramidkv_tpu_torch.config import EngineSpec
+    from pyramidkv_tpu_torch.engine import Engine
+
+    eng = Engine(spec, CompressionSpec(method="fullkv", quant_method="kivi",
+                                       nbits=8),
+                 EngineSpec(max_new_tokens=MAX_NEW, prefill_buckets=(N,),
+                            prefill_chunk=C8K), p2, device=dev)
+    with torch.inference_mode():
+        got_c, _ = prefill_with(eng, N, tokens, tl, "kernel")
+    err_c = float((got_c - want).abs().max())
+    rec_c = {"check": "gemma_reference_carry",
+             "case": "depth-2 8k batch, quantized carry kivi8 chunk 2048",
+             "max_abs_err": err_c, "tol": tol, "err_over_tol": err_c / tol,
+             "same_argmax": bool((got_c.argmax(-1) == want.argmax(-1)).all()),
+             "ok": bool(torch.isfinite(got_c).all()) and err_c <= tol}
+    log({"phase": "parity_gemma", **rec_c})
+    del eng, got_c
+    return rec["ok"] and rec_c["ok"], rec
 
 
 def kernel_entry(name, source, replaces, launches, recs):
@@ -5179,9 +5452,10 @@ def main() -> int:
               "quant_decode_attention_tiled": "kernels/quant_decode.py:437",
               "quant_fused_attention_pa": "kernels/quant_fused_decode.py:145",
               "quant_fused_attention_group": "ops/quant.py:408"}
+    kv_src = {"quant_fused_attention_pa": "quant_fused_decode.cu",
+              "quant_fused_attention_group": "quant_group_fused.cu"}
     for kind in REGION_KERNELS:
-        src_file = ("quant_fused_decode.cu" if kind.endswith("_pa")
-                    else "quant_decode.cu")
+        src_file = kv_src.get(kind, "quant_decode.cu")
         kernels.append(kernel_entry(
             f"{kind} ({', '.join(r['case'] for r in kv_recs[kind])})",
             src + src_file, "pyramidkv_tpu/" + kv_tpu[kind],
@@ -5335,7 +5609,7 @@ def main() -> int:
                          "decode_attention"],
                      qwen_recs["decode"][1:]),
         kernel_entry("quant_fused_attention_group (Qwen2.5-7B fullkv kivi4, "
-                     "G=7, 32k and 8k batch)", src + "quant_decode.cu",
+                     "G=7, 32k and 8k batch)", src + "quant_group_fused.cu",
                      "pyramidkv_tpu/ops/quant.py:408",
                      qsum_runs("quant_fused_attention_group"),
                      [qwen_recs["group 32k"], qwen_recs["group 8k"]]),
@@ -5411,6 +5685,53 @@ def main() -> int:
             f"{kind} (Gemma-2-9B, D=256, scale 1/16, cap 50, 8k batch)",
             src + "block_sparse_prefill.cu", bsp_tpu + str(line),
             gsum(kind, gmin), [gemma_recs[kind]]))
+    # the KIVI runs (D = 256, cap 50): each shape's launches a step as its
+    # weight (fullkv: 21 full and 21 sliding layers)
+    gr = gemma_recs["region"]
+    for key, rec in gr.items():
+        rec["layers"] = GEMMA_LAYERS if "snapkv" in key else GEMMA_LAYERS // 2
+    gkv = "gemma bf16 fullkv 8k kivi"
+    gpart = gkv + "4 chunk 2048"
+    g_self = GEMMA_LAYERS * (N // C8K)
+    for rec in gemma_recs["partials"]:
+        rec["layers"] = (g_self if rec["q_start"] == 0 else
+                         gemma_counts[gpart]["flash_attention_partials"]
+                         - g_self)
+    gemma_rows += [
+        kernel_entry("quant_fused_attention_pa (Gemma-2-9B fullkv kivi4-pa, "
+                     "D=256, cap 50, 8k batch: full and window masks; the "
+                     "TPU engine's XLA route under a cap)",
+                     src + "quant_fused_decode.cu",
+                     qline + "quant_fused_decode.py:145",
+                     gsum("quant_fused_attention_pa"),
+                     [gr["pa full"], gr["pa window"]]),
+        kernel_entry("quant_fused_attention_group (Gemma-2-9B snapkv kivi4 "
+                     "G=1; fullkv kivi4 chunk 2048, G=2: full and window "
+                     "masks; D=256, cap 50)",
+                     src + "quant_group_fused.cu",
+                     "pyramidkv_tpu/ops/quant.py:408",
+                     gsum("quant_fused_attention_group"),
+                     [gr["group snapkv"], gr["group fullkv full"],
+                      gr["group fullkv window"]]),
+        kernel_entry("quant_decode_attention_tiled (Gemma-2-9B fullkv kivi2, "
+                     "f32 route, D=256, cap 50: full and window masks)",
+                     src + "quant_decode.cu", qline + "quant_decode.py:437",
+                     gemma_counts[gkv + "2 f32"][
+                         "quant_decode_attention_tiled"],
+                     [gr["f32 kivi2 full"], gr["f32 kivi2 window"]]),
+        kernel_entry("quant_decode_attention_tiled mm_bf16 (Gemma-2-9B "
+                     "fullkv kivi4, K groups of 32, D=256, cap 50: full and "
+                     "window masks)", src + "quant_decode_mm_bf16.cu",
+                     qline + "quant_decode.py:437",
+                     gemma_counts[gkv + "4 mm_bf16"][
+                         "quant_decode_attention_tiled"],
+                     [gr["mm_bf16 full"], gr["mm_bf16 window"]]),
+        kernel_entry("flash_attention_partials (Gemma-2-9B quantized carry, "
+                     "D=256, cap 50, 8k batch C=2048: self tiles, history "
+                     "tiles; full layers see every earlier chunk)",
+                     src + "flash_prefill.cu", fp + "601",
+                     gemma_counts[gpart]["flash_attention_partials"],
+                     gemma_recs["partials"])]
     for ent in gemma_rows:
         if ent["library_ms"] is not None:
             ent["library_note"] = UNCAPPED_NOTE

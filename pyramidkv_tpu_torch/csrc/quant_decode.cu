@@ -1,5 +1,7 @@
 // Decode kernels over a group-layout KIVI region (sm_90a).  The body is
-// quant_region.cuh's region_kernel.
+// quant_region.cuh's region_kernel; this file builds its kF32 mode,
+// quant_group_fused.cu its kFold mode and quant_decode_mm_bf16.cu its kMix
+// mode (three libraries, built in parallel).
 //
 // Replaces:
 //   pkv_quant_decode       pyramidkv_tpu/kernels/quant_decode.py::
@@ -7,12 +9,19 @@
 //                          TPU, body `_kernel`) on the one-split plan, and
 //                          quant_decode_attention_tiled (body
 //                          `_tiled_kernel`) on the split plan;
+//   pkv_quant_decode_mm_bf16  the same tiled kernel with mm_bf16
+//                          (`_tiled_kernel` :378-384: the folded query and
+//                          the codes in bf16 dots);
 //   pkv_quant_group_fused  the grouped branch of
 //                          pyramidkv_tpu/ops/quant.py::
 //                          quant_region_attention_fused (:495-515,
 //                          :549-569), which the TPU engine leaves to XLA:
 //                          its DEFAULT decode of a group-layout region
 //                          (models/llama.py:957-971).
+// At D = 256 under Gemma-2's logit cap the TPU engine runs the XLA
+// function (the default) or the tiled kernel (opt-in; its whole-region
+// kernel refuses a cap, models/llama.py:972-980), each with the scale and
+// the cap: the port runs every route here on the card.
 // The plan (kernels/quant_decode.py::split_plan: ~4 blocks per SM, from the
 // shapes alone) cuts each region's byte-rows into nsplit splits; not the
 // TPU's 8192-slot VMEM cap.
@@ -21,7 +30,8 @@
 // the region for the G query heads of each KV head (K groups along slots, V
 // groups along channels).  pkv_quant_decode (mode kF32, the TPU engine's
 // opt-in use_quant_kernel / use_quant_tiled route) dequantizes every K/V
-// element in f32 (code * scale + zero), f32 end to end.
+// element in f32 (code * scale + zero), f32 end to end;
+// pkv_quant_decode_mm_bf16 takes kFold's logits and kF32's P.V.
 // pkv_quant_group_fused (mode kFold, the default) rounds as the XLA
 // function does: the query folded with each slot's K group scale and
 // rounded to bf16, the K zero term in f32; the probability folded with each
@@ -57,19 +67,5 @@
 
 // C signature: PKVQ_PARAMS (quant_region.cuh); nsplit and rows_per_split
 // are the plan (one split: rows_per_split = W).  Returns a CUDA error code;
-// cudaErrorInvalidValue for an unsupported (G, nbits) or plan.
-extern "C" int pkv_quant_decode(PKVQ_PARAMS) {
-  const pkvq::Args a = pkvq::make_args(q, kc, ks, kz, vc, vs, vz, mask, acc, m, l,
-                                       W, S_pad, NG, Dp, NGV, mstride, n_valid,
-                                       rows_per_split, scale);
-  PKVQ_DISPATCH(G, nbits, return PKVQ_LAUNCH_REGION(pkvq::kF32, a));
-  return 0;
-}
-
-extern "C" int pkv_quant_group_fused(PKVQ_PARAMS) {
-  const pkvq::Args a = pkvq::make_args(q, kc, ks, kz, vc, vs, vz, mask, acc, m, l,
-                                       W, S_pad, NG, Dp, NGV, mstride, n_valid,
-                                       rows_per_split, scale);
-  PKVQ_DISPATCH(G, nbits, return PKVQ_LAUNCH_REGION(pkvq::kFold, a));
-  return 0;
-}
+// cudaErrorInvalidValue for an unsupported (D, cap, G, nbits) or plan.
+PKVQ_REGION_ENTRY(pkv_quant_decode, pkvq::kF32)

@@ -3,7 +3,11 @@
 //
 // Replaces: pyramidkv_tpu/kernels/quant_fused_decode.py::
 // quant_fused_attention_pa (Pallas TPU, body `_kernel`) with its adapter
-// `region_attention_fused_kernel`.
+// `region_attention_fused_kernel`.  Under Gemma-2's logit cap the TPU
+// engine does not run that kernel (`supports_fused_kernel` refuses a cap)
+// but pyramidkv_tpu/ops/quant.py::quant_region_attention_fused in XLA, with
+// the scale and the cap: at D = 256 capped this kernel is the CUDA
+// counterpart of that XLA route.
 //
 // What it computes: the (acc, m, l) partials of one-token attention over a
 // per-axis region (one K scale/zero per channel, or per channel and chunk
@@ -60,7 +64,8 @@ extern "C" int pkv_quant_fused_pa(PKVQ_PARAMS) {
     return (int)cudaErrorInvalidValue;
   const pkvq::Args a = pkvq::make_args(q, kc, ks, kz, vc, vs, vz, mask, acc,
                                        m, l, W, S_pad, NG, Dp, NGV, mstride,
-                                       n_valid, rows_per_split, scale);
-  PKVQ_DISPATCH(G, nbits, return PKVQ_LAUNCH_PA(a));
+                                       n_valid, rows_per_split, scale,
+                                       softcap);
+  PKVQ_DISPATCH(D, softcap > 0.f, G, nbits, return PKVQ_LAUNCH_PA(a));
   return 0;
 }

@@ -1,7 +1,14 @@
 // Shared body of the KIVI region decode kernels (sm_90a):
-// quant_decode.cu (group layout, any plan: f32 dequantization, or the
-// factored dequantization with bf16 folds) and quant_fused_decode.cu (pa
-// layout, split over slots).
+// quant_decode.cu, quant_group_fused.cu and quant_decode_mm_bf16.cu (group
+// layout, any plan: f32 dequantization, the factored dequantization with
+// bf16 folds, or the folded logits with the f32 dequantized P.V) and
+// quant_fused_decode.cu (pa layout, split over slots).
+//
+// Every kernel is a template on the head dim D and a logit cap CAP
+// (Gemma-2's cap * tanh(s / cap) on each logit after the K zero term, the
+// masks after it; tanh.approx.f32): D = 128 uncapped (Llama, Mistral,
+// Qwen2) for G in {1, 2, 4, 7, 8}, D = 256 capped (Gemma-2-9B) for G in
+// {1, 2}.  The attention scale is an argument.
 //
 // The region of one (batch row, KV head), as ops/quant.py::quantize_kv_region
 // lays it out (W = plane width in slots, PER = 8 / NBITS planes, S_pad = W *
@@ -44,7 +51,6 @@
 
 namespace pkvq {
 
-constexpr int D = 128;
 constexpr int NWARPS = 8;
 constexpr int CHUNK = 32;  // byte-rows per warp iteration (one per lane)
 constexpr float NEG = -FLT_MAX;
@@ -65,8 +71,10 @@ constexpr unsigned FULL = 0xffffffffu;
 //        and rounded to bf16 (q * scale * ks[d, group]), the K zero term
 //        q * scale . kz[:, group] in f32; per slot and lane, the
 //        probability folded with the V scale of the lane's channel group
-//        and rounded to bf16, the V zero term p * vz in f32.
-enum Mode { kF32 = 0, kPA = 1, kFold = 2 };
+//        and rounded to bf16, the V zero term p * vz in f32;
+// kMix   mm_bf16 (the TPU tiled kernel's bf16 dots): kFold's logits,
+//        kF32's P.V.
+enum Mode { kF32 = 0, kPA = 1, kFold = 2, kMix = 3 };
 
 struct Args {
   const __nv_bfloat16* q;  // [B, Hk * G, D]
@@ -83,6 +91,7 @@ struct Args {
   int W, NG, kg, Dp, NGV, vg, mstride, n_valid, rows_per_split;
   int win_rows;  // region_kernel: byte-rows a staging of the K tables covers
   float scale;
+  float softcap;  // the logit cap (read where the kernel's CAP is set)
 };
 
 // The bf16 decode-slot tail of one decode step (T = 0: none): K and V
@@ -108,6 +117,15 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
+}
+
+// The logit cap, cap * tanh(s / cap) (inv = 1 / cap), tanh on the MUFU
+// (one instruction; relative error about 2^-11), as the flash, decode and
+// H2O kernels cap.
+__device__ __forceinline__ float cap_logit(float s, float cap, float inv) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(s * inv));
+  return cap * y;
 }
 
 // ---------------------------------------------------------------------------
@@ -143,7 +161,7 @@ __device__ __forceinline__ void cp_async_wait() {
 //   shared memory), B the K codes of 8 byte-rows (n) along 16 channels (k);
 // - O += P Vc: A = P straight from S's accumulator layout (rows = heads,
 //   k = 16 byte-rows: two n-tiles of S), B the V codes of the 16 byte-rows
-//   along 8 channels a tile (16 tiles).
+//   along 8 channels a tile (D / 8 tiles).
 // Heads on M waste rows (3/4 at G = 4), but P never moves between lanes;
 // with slots on M the accumulator of S is the transpose of P V's B operand.
 // A code becomes bf16 by bit operations alone: its bits under 0x43 (bf16
@@ -156,12 +174,27 @@ __device__ __forceinline__ void cp_async_wait() {
 // ---------------------------------------------------------------------------
 
 constexpr int PA_WARPS = 4;     // warps a block
-constexpr int PA_BLOCKS = 2;    // blocks an SM (the plan's one wave)
 constexpr int PA_UNIT = 16;     // byte-rows a warp takes at a time
 constexpr int PA_STAGES = 3;    // units in flight a warp
-constexpr int PA_ROW = D + 16;  // padded bytes of a staged code row
-constexpr int FQ_QUADS = 33;    // 16-byte A fragments of a folded query
-                                // row (32 and a pad)
+
+// Blocks an SM (the plan's one wave): two at D = 128; one at D = 256,
+// whose rings take ~116 KB a block.
+template <int D>
+__host__ __device__ constexpr int pa_blocks() {
+  return D == 128 ? 2 : 1;
+}
+
+// Padded bytes of a staged code row.
+template <int D>
+__host__ __device__ constexpr int pa_row() {
+  return D + 16;
+}
+
+// 16-byte A fragments of a folded query row (D / 4 and a pad).
+template <int D>
+__host__ __device__ constexpr int fq_quads() {
+  return D / 4 + 1;
+}
 
 // The <= 4-bit fields of a code byte: nbits 2 and 4 one per bit-plane; 8
 // the low and the high nibble of its one plane.
@@ -170,20 +203,21 @@ __host__ __device__ constexpr int pa_fields() {
   return NBITS == 8 ? 2 : 8 / NBITS;
 }
 
-// One ring stage: K and V codes [PA_UNIT][PA_ROW], then the unit's V scales
-// and zeros [PER][PA_UNIT] f32 each.
-template <int NBITS>
+// One ring stage: K and V codes [PA_UNIT][pa_row], then the unit's V
+// scales and zeros [PER][PA_UNIT] f32 each.
+template <int NBITS, int D>
 __host__ __device__ constexpr int pa_stage_bytes() {
-  return 2 * PA_UNIT * PA_ROW + 2 * (8 / NBITS) * PA_UNIT * 4;
+  return 2 * PA_UNIT * pa_row<D>() + 2 * (8 / NBITS) * PA_UNIT * 4;
 }
 
 // Dynamic shared memory of a block: the warps' rings (their merge states
-// afterwards), the folded queries [fields][G][FQ_QUADS] A fragments and
+// afterwards), the folded queries [fields][G][fq_quads] A fragments and
 // the warps' sums of the K zero terms [PA_WARPS][PER][G] f32.
-template <int G, int NBITS>
+template <int G, int NBITS, int D>
 __host__ __device__ constexpr int pa_smem_bytes() {
-  return PA_WARPS * PA_STAGES * pa_stage_bytes<NBITS>() +
-         pa_fields<NBITS>() * G * FQ_QUADS * 16 + PA_WARPS * (8 / NBITS) * G * 4;
+  return PA_WARPS * PA_STAGES * pa_stage_bytes<NBITS, D>() +
+         pa_fields<NBITS>() * G * fq_quads<D>() * 16 +
+         PA_WARPS * (8 / NBITS) * G * 4;
 }
 
 // Two codes (bytes of `y` picked by `sel`, the other bytes 0x43) as bf16x2.
@@ -234,6 +268,21 @@ __device__ __forceinline__ void mma_g(float (&c)[4], const uint4& a,
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
+// The same product keeping rows 0-7 (the heads) alone: rows 8-15 of A are
+// zero, so their sums are scratch registers, not held across products (at
+// D = 256 the P V accumulators would otherwise take 128 registers)
+__device__ __forceinline__ void mma_g(float (&c)[2], const uint4& a,
+                                      uint32_t b0, uint32_t b1) {
+  float d2, d3;
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%10,%10};\n"
+      : "+f"(c[0]), "+f"(c[1]), "=f"(d2), "=f"(d3)
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1),
+        "f"(0.f));
+  (void)d2;
+  (void)d3;
+}
+
 // The byte-rows of split `sp` of a region: the splits tile each K group's
 // byte-rows (`seg` of them; the whole plane with one group), `rows` a split
 // (the last of each group shorter).
@@ -244,22 +293,28 @@ __device__ __forceinline__ int2 pa_split_rows(int sp, int rows, int seg,
   return make_int2(r0, min(min(r0 + rows, (sp / sps + 1) * seg), W));
 }
 
-// grid (B * Hk, nsplit), PA_WARPS warps, pa_smem_bytes<G, NBITS>() of
+// grid (B * Hk, nsplit), PA_WARPS warps, pa_smem_bytes<G, NBITS, D>() of
 // dynamic shared memory.  Block (bk, sp) attends over its split's byte-rows
 // (all PER planes) and writes its partials to workspace slot
 // bk * nsplit + sp.  The split's 16-row units go to the warps in turn (unit
 // u to warp u % PA_WARPS); each warp streams its own units through its own
 // ring of PA_STAGES stages (cp.async, no block barrier) and keeps its own
 // online softmax (e-domain; p = exp(s - m) at the warp's running max); the
-// warps merge in order at the end.
-template <int G, int NBITS>
-__global__ void __launch_bounds__(PA_WARPS * 32, PA_BLOCKS)
+// warps merge in order at the end.  A lane of an S tile covers D / 4
+// channels of its byte-row (D / 16 k steps of 4 channels each), a lane of
+// the P V tiles D / 8.
+template <int G, int NBITS, int D, bool CAP>
+__global__ void __launch_bounds__(PA_WARPS * 32, pa_blocks<D>())
 pa_split_kernel(Args a) {
   constexpr int PER = 8 / NBITS;
   constexpr int NF = pa_fields<NBITS>();
   constexpr int FB = NBITS < 4 ? NBITS : 4;  // bits of a field
   constexpr uint32_t M8 = ((1u << FB) - 1u) * 0x01010101u;
-  constexpr int STAGE = pa_stage_bytes<NBITS>();
+  constexpr int STAGE = pa_stage_bytes<NBITS, D>();
+  constexpr int ROW = pa_row<D>();
+  constexpr int FQ = fq_quads<D>();
+  constexpr int CPT = D / (PA_WARPS * 32);  // channels a thread folds
+  constexpr int NT = D / 8;                 // P V n-tiles
   extern __shared__ __align__(16) uint8_t smem[];
 
   const int bk = blockIdx.x, sp = blockIdx.y;
@@ -271,11 +326,11 @@ pa_split_kernel(Args a) {
   const int nunits = (row1 - row0 + PA_UNIT - 1) / PA_UNIT;
   const int nu = nunits > warp ? (nunits - warp + PA_WARPS - 1) / PA_WARPS : 0;
   uint8_t* ring = smem + warp * PA_STAGES * STAGE;
-  // the folded queries as A fragments {a0, 0, a2, 0}: quad (f G + g)
-  // FQ_QUADS + 8 tig + kk holds channels 32 tig + 4 kk + {0, 1} and {2, 3}
+  // the folded queries as A fragments {a0, 0, a2, 0}: quad (f G + g) FQ +
+  // (D / 16) tig + kk holds channels (D / 4) tig + 4 kk + {0, 1} and {2, 3}
   uint4* fq = reinterpret_cast<uint4*>(smem + PA_WARPS * PA_STAGES * STAGE);
   // the K zero terms' partial sums [PA_WARPS][PER][G]
-  float* zb = reinterpret_cast<float*>(fq + NF * G * FQ_QUADS);
+  float* zb = reinterpret_cast<float*>(fq + NF * G * FQ);
 
   const char* kcb = reinterpret_cast<const char*>(a.kc) + (size_t)bk * W * D;
   const char* vcb = reinterpret_cast<const char*>(a.vc) + (size_t)bk * W * Dp;
@@ -295,32 +350,32 @@ pa_split_kernel(Args a) {
       uint8_t* st = ring + (i % PA_STAGES) * STAGE;
       const int ur0 = row0 + (warp + i * PA_WARPS) * PA_UNIT;
       const int nr = min(PA_UNIT, row1 - ur0);
-      uint8_t* vd = st + PA_UNIT * PA_ROW;
+      uint8_t* vd = st + PA_UNIT * ROW;
 #pragma unroll
       for (int j = 0; j < PA_UNIT * (D / 16) / 32; ++j) {
-        const int c = lane + 32 * j, r = c >> 3, o = (c & 7) * 16;
+        const int c = lane + 32 * j, r = c / (D / 16), o = (c % (D / 16)) * 16;
         if (r < nr) {
-          cp_async16(st + r * PA_ROW + o, kcb + (size_t)(ur0 + r) * D + o);
+          cp_async16(st + r * ROW + o, kcb + (size_t)(ur0 + r) * D + o);
           if (vstep == 16)
-            cp_async16(vd + r * PA_ROW + o, vcb + (size_t)(ur0 + r) * Dp + o);
+            cp_async16(vd + r * ROW + o, vcb + (size_t)(ur0 + r) * Dp + o);
         }
       }
       if (vstep == 4) {
         for (int c = lane; c < nr * (D / 4); c += 32)
-          cp_async4(vd + (c >> 5) * PA_ROW + (c & 31) * 4,
-                    vcb + (size_t)(ur0 + (c >> 5)) * Dp + (c & 31) * 4);
+          cp_async4(vd + (c / (D / 4)) * ROW + (c % (D / 4)) * 4,
+                    vcb + (size_t)(ur0 + c / (D / 4)) * Dp + (c % (D / 4)) * 4);
       } else if (vstep == 1) {
         for (int c = lane; c < nr * (D / 4); c += 32) {
           const uint8_t* s = reinterpret_cast<const uint8_t*>(vcb) +
-                             (size_t)(ur0 + (c >> 5)) * Dp + (c & 31) * 4;
-          *reinterpret_cast<uint32_t*>(vd + (c >> 5) * PA_ROW + (c & 31) * 4) =
+                             (size_t)(ur0 + c / (D / 4)) * Dp + (c % (D / 4)) * 4;
+          *reinterpret_cast<uint32_t*>(vd + (c / (D / 4)) * ROW + (c % (D / 4)) * 4) =
               (uint32_t)s[0] | (uint32_t)s[1] << 8 | (uint32_t)s[2] << 16 |
               (uint32_t)s[3] << 24;
         }
       }
       // V scales, then zeros: [PER][PA_UNIT] each, slot r + p * W; piece
       // c = (z PER + p) PA_UNIT + r
-      float* sc = reinterpret_cast<float*>(st + 2 * PA_UNIT * PA_ROW);
+      float* sc = reinterpret_cast<float*>(st + 2 * PA_UNIT * ROW);
 #pragma unroll
       for (int j = 0; j < (2 * PER * PA_UNIT + 31) / 32; ++j) {
         const int c = lane + 32 * j;
@@ -336,45 +391,57 @@ pa_split_kernel(Args a) {
   // ks[d, group of plane p]) (times 16 for 8-bit codes' high nibble), the
   // group of plane p's slots in this split's byte-rows p * W / kg +
   // row0 / kg; and the K zero terms scale * (q . kz[:, group]), f32.  A
-  // thread takes one channel: its loads (G query values, PER scales and
-  // zeros) go out first, ahead of the ring's first copies in the memory
-  // system, and land while those are issued
-  static_assert(PA_WARPS * 32 == D, "the folds take a thread a channel");
+  // thread takes CPT channels (tid + 128 i): its loads (G query values, PER
+  // scales and zeros each) go out first, ahead of the ring's first copies in
+  // the memory system, and land while those are issued
   const int gpl = W / a.kg, gsp = row0 / a.kg;
-  __nv_bfloat16 qraw[G];
-  float ksd[PER], kzd[PER];
+  __nv_bfloat16 qraw[CPT][G];
+  float ksd[CPT][PER], kzd[CPT][PER];
 #pragma unroll
-  for (int g = 0; g < G; ++g) qraw[g] = a.q[((size_t)bk * G + g) * D + tid];
+  for (int i = 0; i < CPT; ++i) {
+    const int ch = tid + PA_WARPS * 32 * i;
 #pragma unroll
-  for (int p = 0; p < PER; ++p) {
-    const size_t o = ((size_t)bk * D + tid) * a.NG + p * gpl + gsp;
-    ksd[p] = a.ks[o];
-    kzd[p] = a.kz[o];
+    for (int g = 0; g < G; ++g) qraw[i][g] = a.q[((size_t)bk * G + g) * D + ch];
+#pragma unroll
+    for (int p = 0; p < PER; ++p) {
+      const size_t o = ((size_t)bk * D + ch) * a.NG + p * gpl + gsp;
+      ksd[i][p] = a.ks[o];
+      kzd[i][p] = a.kz[o];
+    }
   }
   for (int i = 0; i < PA_STAGES - 1; ++i) issue(i);
-  float qd[G];
+  float qd[CPT][G];
 #pragma unroll
-  for (int g = 0; g < G; ++g) qd[g] = __bfloat162float(qraw[g]) * a.scale;
+  for (int i = 0; i < CPT; ++i)
+#pragma unroll
+    for (int g = 0; g < G; ++g) qd[i][g] = __bfloat162float(qraw[i][g]) * a.scale;
   __nv_bfloat16* fqh = reinterpret_cast<__nv_bfloat16*>(fq);
-  // this channel's place in its quad (the zero beside it too)
-  const int fpos = ((tid >> 5) * 8 + ((tid >> 2) & 7)) * 8 + (tid & 1) +
-                   ((tid >> 1) & 1) * 4;
 #pragma unroll
-  for (int f = 0; f < NF; ++f)
+  for (int i = 0; i < CPT; ++i) {
+    // this channel's place in its quad (the zero beside it too)
+    const int ch = tid + PA_WARPS * 32 * i;
+    const int fpos = ((ch / (D / 4)) * (D / 16) + (ch % (D / 4)) / 4) * 8 +
+                     (ch & 1) + ((ch >> 1) & 1) * 4;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float x = bf16_round(qd[g] * ksd[NBITS == 8 ? 0 : f]);
-      __nv_bfloat16* q8 = fqh + (f * G + g) * FQ_QUADS * 8 + fpos;
-      q8[0] = __float2bfloat16(NBITS == 8 && f == 1 ? 16.f * x : x);
-      q8[2] = __float2bfloat16(0.f);
-    }
-  // the zero terms' sums: over each warp's 32 channels, then the warps in
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float x = bf16_round(qd[i][g] * ksd[i][NBITS == 8 ? 0 : f]);
+        __nv_bfloat16* q8 = fqh + (f * G + g) * FQ * 8 + fpos;
+        q8[0] = __float2bfloat16(NBITS == 8 && f == 1 ? 16.f * x : x);
+        q8[2] = __float2bfloat16(0.f);
+      }
+  }
+  // the zero terms' sums: over each warp's channels, then the warps in
   // order (after the barrier)
 #pragma unroll
   for (int p = 0; p < PER; ++p)
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      const float z = warp_sum(qd[g] * kzd[p]);
+      float z = qd[0][g] * kzd[0][p];
+#pragma unroll
+      for (int i = 1; i < CPT; ++i) z = fmaf(qd[i][g], kzd[i][p], z);
+      z = warp_sum(z);
       if (lane == 0) zb[(warp * PER + p) * G + g] = z;
     }
   __syncthreads();
@@ -384,12 +451,15 @@ pa_split_kernel(Args a) {
 
   // this lane: head gid (real where gid < G), byte-rows 8t + 2 tig + e of
   // a unit's two 8-row n-tiles; its P V accumulators hold head gid,
-  // channels 32 tig + nt and 32 tig + 16 + nt of tile nt
+  // channels (D / 4) tig + nt and (D / 4) tig + D / 8 + nt of tile nt
   const bool hv = gid < G;
   const uint8_t* mb = a.mask + (size_t)bk * a.mstride;
-  float o[16][4];
+  const float inv_cap = CAP ? 1.f / a.softcap : 0.f;
+  float o[NT][D == 128 ? 4 : 2];
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int x = 0; x < (D == 128 ? 4 : 2); ++x) o[nt][x] = 0.f;
   // ps: the bf16 P this lane fed P V (times the field weights), for the
   // 128 offset of code2_128
   float m = -INFINITY, l = 0.f, zv = 0.f, ps = 0.f;
@@ -434,25 +504,25 @@ pa_split_kernel(Args a) {
     load_vis(i + 1, vnext);
 
     // ---- S = Qf Kc^T, per plane: 16 heads x (2 n-tiles of 8 byte-rows);
-    // k step kk takes channels 32 tig + 4 kk + {0..3} of the lane's row
+    // k step kk takes channels (D / 4) tig + 4 kk + {0..3} of the lane's row
     float s[PER][2][4];
 #pragma unroll
     for (int p = 0; p < PER; ++p)
 #pragma unroll
       for (int t = 0; t < 2; ++t) s[p][t][0] = s[p][t][1] = s[p][t][2] = s[p][t][3] = 0.f;
-    uint4 kw[2][2];
+    uint4 kw[2][D / 64];
 #pragma unroll
     for (int t = 0; t < 2; ++t)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+      for (int h = 0; h < D / 64; ++h)
         kw[t][h] = *reinterpret_cast<const uint4*>(
-            st + (8 * t + gid) * PA_ROW + 32 * tig + 16 * h);
+            st + (8 * t + gid) * ROW + (D / 4) * tig + 16 * h);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       uint4 qa[NF];
 #pragma unroll
       for (int f = 0; f < NF; ++f)
-        qa[f] = hv ? fq[(f * G + gid) * FQ_QUADS + 8 * tig + kk]
+        qa[f] = hv ? fq[(f * G + gid) * FQ + (D / 16) * tig + kk]
                    : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
@@ -484,10 +554,13 @@ pa_split_kernel(Args a) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int r = ur0 + 8 * t + 2 * tig + e;
-          // past the split: not a slot; masked: float32.min
+          // past the split: not a slot; masked: float32.min (the cap, after
+          // the zero term, before the mask)
           const int x = 16 * p + 8 * t + 2 * tig + e;  // the slot's bit
+          float y = s[p][t][e] + zl[p];
+          if constexpr (CAP) y = cap_logit(y, a.softcap, inv_cap);
           sv[p][t][e] = r >= row1 ? -INFINITY
-                        : (vbits[x >> 5] >> (x & 31)) & 1u ? s[p][t][e] + zl[p]
+                        : (vbits[x >> 5] >> (x & 31)) & 1u ? y
                                                        : NEG;
           mx = fmaxf(mx, sv[p][t][e]);
         }
@@ -501,14 +574,14 @@ pa_split_kernel(Args a) {
     ps *= alpha;
     if (__any_sync(FULL, alpha != 1.f)) {  // a max moved: rescale
 #pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
+      for (int nt = 0; nt < NT; ++nt) {
         o[nt][0] *= alpha;
         o[nt][1] *= alpha;
       }
     }
     m = m_new;
     // p times the V scale (rounded to bf16 when packed), p times the V zero
-    const float* vsc = reinterpret_cast<const float*>(st + 2 * PA_UNIT * PA_ROW);
+    const float* vsc = reinterpret_cast<const float*>(st + 2 * PA_UNIT * ROW);
     float pv[PER][2][2];
 #pragma unroll
     for (int p = 0; p < PER; ++p)
@@ -531,14 +604,16 @@ pa_split_kernel(Args a) {
       }
 
     // ---- O += P Vc: B the V codes of byte-rows {2 tig, 2 tig + 1} (b0)
-    // and {8 + 2 tig, 9 + 2 tig} (b1), channel 16 gid + 4 u + e of tile
-    // nt = 4 u + e
-    uint4 vw[4];
+    // and {8 + 2 tig, 9 + 2 tig} (b1), channel (D / 8) gid + 4 u + e of
+    // tile nt = 4 u + e
+    uint4 vw[4][D / 128];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      vw[j] = *reinterpret_cast<const uint4*>(
-          st + PA_UNIT * PA_ROW + ((j >> 1) * 8 + 2 * tig + (j & 1)) * PA_ROW +
-          16 * gid);
+#pragma unroll
+      for (int h = 0; h < D / 128; ++h)
+        vw[j][h] = *reinterpret_cast<const uint4*>(
+            st + PA_UNIT * ROW + ((j >> 1) * 8 + 2 * tig + (j & 1)) * ROW +
+            (D / 8) * gid + 16 * h);
     uint4 pa[NF];  // A fragments of P, field f
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
@@ -549,11 +624,12 @@ pa_split_kernel(Args a) {
       ps += sum2(pa[f].x) + sum2(pa[f].z);
     }
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const uint32_t w0 = u == 0 ? vw[0].x : u == 1 ? vw[0].y : u == 2 ? vw[0].z : vw[0].w;
-      const uint32_t w1 = u == 0 ? vw[1].x : u == 1 ? vw[1].y : u == 2 ? vw[1].z : vw[1].w;
-      const uint32_t w2 = u == 0 ? vw[2].x : u == 1 ? vw[2].y : u == 2 ? vw[2].z : vw[2].w;
-      const uint32_t w3 = u == 0 ? vw[3].x : u == 1 ? vw[3].y : u == 2 ? vw[3].z : vw[3].w;
+    for (int u = 0; u < D / 32; ++u) {
+      const int h = u >> 2, k = u & 3;
+      const uint32_t w0 = k == 0 ? vw[0][h].x : k == 1 ? vw[0][h].y : k == 2 ? vw[0][h].z : vw[0][h].w;
+      const uint32_t w1 = k == 0 ? vw[1][h].x : k == 1 ? vw[1][h].y : k == 2 ? vw[1][h].z : vw[1][h].w;
+      const uint32_t w2 = k == 0 ? vw[2][h].x : k == 1 ? vw[2][h].y : k == 2 ? vw[2][h].z : vw[2][h].w;
+      const uint32_t w3 = k == 0 ? vw[3][h].x : k == 1 ? vw[3][h].y : k == 2 ? vw[3][h].z : vw[3][h].w;
       // rows 2 tig and 2 tig + 1 interleaved: channel bytes 0, 1 | 2, 3
       const uint32_t x00 = prmt(w0, w1, 0x5140), x01 = prmt(w0, w1, 0x7362);
       const uint32_t x10 = prmt(w2, w3, 0x5140), x11 = prmt(w2, w3, 0x7362);
@@ -589,11 +665,11 @@ pa_split_kernel(Args a) {
       wl[warp * G + gid] = l;
       wz[warp * G + gid] = zv;
     }
-    float* wa = wacc + (warp * G + gid) * D + 32 * tig;
+    float* wa = wacc + (warp * G + gid) * D + (D / 4) * tig;
 #pragma unroll
-    for (int nt = 0; nt < 16; ++nt) {
+    for (int nt = 0; nt < NT; ++nt) {
       wa[nt] = o[nt][0] - 128.f * ps;
-      wa[16 + nt] = o[nt][1] - 128.f * ps;
+      wa[NT + nt] = o[nt][1] - 128.f * ps;
     }
   }
   __syncthreads();
@@ -620,22 +696,26 @@ pa_split_kernel(Args a) {
 }
 
 // Merge the nsplit partials of each (bk, g) in split order into (acc, m, l);
-// with a tail, attend over it too (f32 logits of the bf16 q and K, as
-// ops/attention.py::decode_attention_partials), merge it after the splits
-// and write the normalised output out[bk * G + g] in bf16 instead.  Block
-// (bk, g), thread d: 4 warps.  Launched as a programmatic dependent of
-// pa_split_kernel: the tail (which reads nothing the split kernel writes)
-// runs first, then the block waits for the split kernel's partials.  In the
-// tail a warp takes 32-slot chunks (chunk c of warp w starts at slot 32 *
-// (w + 4c)), a lane one slot's logit, then 4 channels of P.V, every load of
-// a chunk in flight together.
-template <int G>
+// with a tail, attend over it too (f32 logits of the bf16 q and K, scaled,
+// then capped under CAP, as ops/attention.py::decode_attention_partials),
+// merge it after the splits and write the normalised output out[bk * G + g]
+// in bf16 instead.  Block (bk, g), thread d: D / 32 warps.  Launched as a
+// programmatic dependent of pa_split_kernel: the tail (which reads nothing
+// the split kernel writes) runs first, then the block waits for the split
+// kernel's partials.  In the tail a warp takes 32-slot chunks (chunk c of
+// warp w starts at slot 32 (w + TW c)), a lane one slot's logit, then D / 32
+// channels of P.V, the loads of a chunk in flight together (at D = 256 in
+// halves of K rows and of V rows).
+template <int G, int D, bool CAP>
 __global__ void __launch_bounds__(D) pa_finish_kernel(
     const float* __restrict__ wacc, const float* __restrict__ wm,
     const float* __restrict__ wl, int nsplit, const __nv_bfloat16* q, Tail t,
-    float scale, float* __restrict__ acc, float* __restrict__ m,
+    float scale, float softcap, float* __restrict__ acc, float* __restrict__ m,
     float* __restrict__ l, __nv_bfloat16* __restrict__ out) {
   constexpr int TW = D / 32;  // warps
+  constexpr int VL = D / 32;  // tail P.V channels a lane
+  constexpr int KB = 16;      // K row pieces (16 bytes) loaded together
+  constexpr int RB = 32 * 128 / D;  // V rows loaded together
   __shared__ __align__(16) float qs[D];
   __shared__ float tm[TW], tl[TW];
   __shared__ __align__(16) float ta[TW][D];
@@ -646,30 +726,37 @@ __global__ void __launch_bounds__(D) pa_finish_kernel(
     qs[d] = __bfloat162float(q[row * D + d]);
     __syncthreads();
     const __nv_bfloat16* kb = t.k + (size_t)bk * t.T * D;
-    const __nv_bfloat16* vb = t.v + (size_t)bk * t.T * D + lane * 4;
+    const __nv_bfloat16* vb = t.v + (size_t)bk * t.T * D + lane * VL;
     const uint8_t* tmb = t.mask + (size_t)bk * t.mstride;
-    float wmx = -INFINITY, wls = 0.f, wa[4] = {0.f, 0.f, 0.f, 0.f};
+    const float inv_cap = CAP ? 1.f / softcap : 0.f;
+    float wmx = -INFINITY, wls = 0.f, wa[VL];
+#pragma unroll
+    for (int k = 0; k < VL; ++k) wa[k] = 0.f;
     for (int c0 = warp * 32; c0 < t.T; c0 += TW * 32) {
       const int s = c0 + lane;
       float x = -INFINITY;  // not a visible slot
       if (s < t.T && tmb[s]) {
         const uint4* kr = reinterpret_cast<const uint4*>(kb + (size_t)s * D);
-        uint4 kw[D / 8];
-#pragma unroll
-        for (int i = 0; i < D / 8; ++i) kw[i] = kr[i];
         float dot = 0.f;
 #pragma unroll
-        for (int i = 0; i < D / 8; ++i) {
-          const uint32_t words[4] = {kw[i].x, kw[i].y, kw[i].z, kw[i].w};
+        for (int i0 = 0; i0 < D / 8; i0 += KB) {
+          uint4 kw[KB];
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float2 kf = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(&words[k]));
-            dot = fmaf(qs[i * 8 + 2 * k], kf.x, dot);
-            dot = fmaf(qs[i * 8 + 2 * k + 1], kf.y, dot);
+          for (int i = 0; i < KB; ++i) kw[i] = kr[i0 + i];
+#pragma unroll
+          for (int i = 0; i < KB; ++i) {
+            const uint32_t words[4] = {kw[i].x, kw[i].y, kw[i].z, kw[i].w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float2 kf = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(&words[k]));
+              dot = fmaf(qs[(i0 + i) * 8 + 2 * k], kf.x, dot);
+              dot = fmaf(qs[(i0 + i) * 8 + 2 * k + 1], kf.y, dot);
+            }
           }
         }
         x = dot * scale;
+        if constexpr (CAP) x = cap_logit(x, softcap, inv_cap);
       }
       const float cm = warp_max(x);
       if (cm == -INFINITY) continue;  // no visible slot in the chunk
@@ -678,22 +765,32 @@ __global__ void __launch_bounds__(D) pa_finish_kernel(
       const float p = x == -INFINITY ? 0.f : expf(x - mn);
       wls = fmaf(wls, alpha, warp_sum(p));
 #pragma unroll
-      for (int k = 0; k < 4; ++k) wa[k] *= alpha;
+      for (int k = 0; k < VL; ++k) wa[k] *= alpha;
       const int nrows = min(32, t.T - c0);
-      uint2 vw[32];
 #pragma unroll
-      for (int r = 0; r < 32; ++r)
-        vw[r] = r < nrows ? *reinterpret_cast<const uint2*>(vb + (size_t)(c0 + r) * D)
-                          : make_uint2(0u, 0u);
+      for (int r0 = 0; r0 < 32; r0 += RB) {
+        uint2 vw[RB][VL / 4];
 #pragma unroll
-      for (int r = 0; r < 32; ++r) {
-        const float pr = __shfl_sync(FULL, p, r);  // 0 past the tail
-        const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vw[r].x));
-        const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vw[r].y));
-        wa[0] = fmaf(pr, v01.x, wa[0]);
-        wa[1] = fmaf(pr, v01.y, wa[1]);
-        wa[2] = fmaf(pr, v23.x, wa[2]);
-        wa[3] = fmaf(pr, v23.y, wa[3]);
+        for (int r = 0; r < RB; ++r)
+#pragma unroll
+          for (int h = 0; h < VL / 4; ++h)
+            vw[r][h] = r0 + r < nrows
+                           ? *reinterpret_cast<const uint2*>(
+                                 vb + (size_t)(c0 + r0 + r) * D + 4 * h)
+                           : make_uint2(0u, 0u);
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const float pr = __shfl_sync(FULL, p, r0 + r);  // 0 past the tail
+#pragma unroll
+          for (int h = 0; h < VL / 4; ++h) {
+            const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vw[r][h].x));
+            const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vw[r][h].y));
+            wa[4 * h + 0] = fmaf(pr, v01.x, wa[4 * h + 0]);
+            wa[4 * h + 1] = fmaf(pr, v01.y, wa[4 * h + 1]);
+            wa[4 * h + 2] = fmaf(pr, v23.x, wa[4 * h + 2]);
+            wa[4 * h + 3] = fmaf(pr, v23.y, wa[4 * h + 3]);
+          }
+        }
       }
       wmx = mn;
     }
@@ -701,7 +798,10 @@ __global__ void __launch_bounds__(D) pa_finish_kernel(
       tm[warp] = wmx;
       tl[warp] = wls;
     }
-    *reinterpret_cast<float4*>(&ta[warp][lane * 4]) = make_float4(wa[0], wa[1], wa[2], wa[3]);
+#pragma unroll
+    for (int h = 0; h < VL / 4; ++h)
+      *reinterpret_cast<float4*>(&ta[warp][lane * VL + 4 * h]) =
+          make_float4(wa[4 * h], wa[4 * h + 1], wa[4 * h + 2], wa[4 * h + 3]);
   }
   // the split kernel's partials are complete and visible from here on
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -745,15 +845,15 @@ __global__ void __launch_bounds__(D) pa_finish_kernel(
 // The pa layout's launches: pa_split_kernel over grid (B * Hk, nsplit)
 // writes the partials to the workspace, pa_finish_kernel (a programmatic
 // dependent launch) merges them (and the tail).
-template <int G, int NBITS>
+template <int G, int NBITS, int D, bool CAP>
 int launch_pa(const Args& a, float* ws_acc, float* ws_m, float* ws_l, int BHk,
               int nsplit, const Tail& t, __nv_bfloat16* out, cudaStream_t st) {
-  constexpr int smem = pa_smem_bytes<G, NBITS>();
+  constexpr int smem = pa_smem_bytes<G, NBITS, D>();
   static bool attr = false;  // per instantiation
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        pa_split_kernel<G, NBITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        pa_split_kernel<G, NBITS, D, CAP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     attr = true;
   }
@@ -761,7 +861,8 @@ int launch_pa(const Args& a, float* ws_acc, float* ws_m, float* ws_l, int BHk,
   w.acc = ws_acc;
   w.m = ws_m;
   w.l = ws_l;
-  pa_split_kernel<G, NBITS><<<dim3(BHk, nsplit), PA_WARPS * 32, smem, st>>>(w);
+  pa_split_kernel<G, NBITS, D, CAP>
+      <<<dim3(BHk, nsplit), PA_WARPS * 32, smem, st>>>(w);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   cudaLaunchConfig_t cfg = {};
@@ -775,14 +876,15 @@ int launch_pa(const Args& a, float* ws_acc, float* ws_m, float* ws_l, int BHk,
   cfg.attrs = attr2;
   cfg.numAttrs = 1;
   const cudaError_t le = cudaLaunchKernelEx(
-      &cfg, pa_finish_kernel<G>, (const float*)ws_acc, (const float*)ws_m,
-      (const float*)ws_l, nsplit, a.q, t, a.scale, a.acc, a.m, a.l, out);
+      &cfg, pa_finish_kernel<G, D, CAP>, (const float*)ws_acc,
+      (const float*)ws_m, (const float*)ws_l, nsplit, a.q, t, a.scale,
+      a.softcap, a.acc, a.m, a.l, out);
   if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// The group layout (modes kF32 and kFold) on any plan: region_kernel.
+// The group layout (modes kF32, kFold and kMix) on any plan: region_kernel.
 //
 // grid (B * Hk, nsplit): block (bk, sp) attends over byte-rows
 // [sp * rows, min(W, (sp + 1) * rows)) of region bk (all PER planes) and
@@ -793,7 +895,7 @@ int launch_pa(const Args& a, float* ws_acc, float* ws_m, float* ws_l, int BHk,
 // (kernels/quant_decode.py::split_plan); the splits merge in split order,
 // with no atomics (two calls are bitwise equal):
 // - one split: the block writes the output (or the partials) itself;
-// - 2 to MAX_CLUSTER splits: the region's blocks run as one thread-block
+// - 2 to max_cluster(D) splits: the region's blocks run as one thread-block
 //   cluster, block 0 reads the others' partials from their shared memory
 //   and writes the output: one launch;
 // - more: each block writes its partial to the workspace and
@@ -803,9 +905,9 @@ int launch_pa(const Args& a, float* ws_acc, float* ws_m, float* ws_l, int BHk,
 //   copies, streams items: the split's region rows (32 K code rows, 32 V
 //   code rows and the rows' V scales and zeros on every plane), then its
 //   tail items (32 K and V rows each);
-// - a warp takes 4 rows of an item, 8 lanes a row (16 of the 128
-//   channels each); logits summed over the lanes by shuffles; P.V with 4
-//   channels a lane;
+// - a warp takes 4 rows of an item, 8 lanes a row (D / 8 channels each:
+//   16 at D = 128, 32 at D = 256); logits summed over the lanes by
+//   shuffles, then capped under CAP; P.V with D / 32 channels a lane;
 // - for the K groups a window of the split's byte-rows touches in each
 //   bit-plane (slot j + p * W: staged_groups per plane, ceil(rows / kg) + 1
 //   at most), the block stages in shared memory, channel-minor and padded
@@ -821,14 +923,23 @@ int launch_pa(const Args& a, float* ws_acc, float* ws_m, float* ws_l, int BHk,
 // Numbers as the plain versions: kF32 dequantizes each element in f32;
 // kFold folds bf16(q * scale * ks) per code and q * scale * kz in f32 per
 // K group, bf16(p * vs) and p * vz per V row and channel group (p at the
-// warp's running max).
+// warp's running max); kMix takes kFold's logits and kF32's P.V.
 constexpr int RROWS = 32;       // byte-rows a region item
 constexpr int TROWS = 32;       // slots a tail item
 constexpr int RSTAGES = 4;      // ring depth
-constexpr int MAX_CLUSTER = 4;  // splits merged in a cluster (as the
-                                // wrapper's MAX_CLUSTER)
+constexpr int MAX_CLUSTER = 4;  // splits merged in a cluster at D = 128
+                                // (as the wrapper's MAX_CLUSTER)
+
+// Splits merged in a cluster at head dim D: two at D = 256, where a block
+// fills an SM and clusters of 4 ran slower than the merge kernel (as the
+// wrapper's max_cluster).
+__host__ __device__ constexpr int max_cluster(int D) {
+  return D == 128 ? MAX_CLUSTER : 2;
+}
 constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may have
-constexpr int QROW = D + 4 * (D / 16);  // padded floats of one channel row
+
+// Padded floats of one channel row.
+__host__ __device__ constexpr int qrow(int D) { return D + 4 * (D / 16); }
 
 __host__ __device__ __forceinline__ int pad_d(int d) { return d + 4 * (d >> 4); }
 
@@ -844,9 +955,9 @@ __host__ __device__ inline int staged_groups(int rows, int kg, int NG) {
 struct Layout {
   int stage;  // one ring stage
   int ring;   // the ring (it holds the warps' states afterwards)
-  int qs;     // the query [G][QROW] f32 (kFold: times the scale)
-  int kt;     // staged K tables: kF32 ks, kz [cols][QROW]; kFold the folded
-              // query [cols][G][QROW] and zero terms [cols][G]
+  int qs;     // the query [G][qrow] f32 (kFold, kMix: times the scale)
+  int kt;     // staged K tables: kF32 ks, kz [cols][qrow]; kFold and kMix
+              // the folded query [cols][G][qrow] and zero terms [cols][G]
   int vis;    // region visibility words [PER][ceil(rows / 32)]
   int tw;     // tail visibility words [ntail], one per 32-slot item
   int tl;     // tail items with a visible slot, in order [ntail]
@@ -854,10 +965,11 @@ struct Layout {
 };
 
 // cols: the staged K columns (per * staged_groups of a window); rows: the
-// split's byte-rows.
-__host__ __device__ inline Layout region_layout(int G, int per, bool fold,
-                                                int cols, int Dp, int NGV,
-                                                int rows, int T) {
+// split's byte-rows; fold: the tables of the folded logits (kFold, kMix).
+__host__ __device__ inline Layout region_layout(int D, int G, int per,
+                                                bool fold, int cols, int Dp,
+                                                int NGV, int rows, int T) {
+  const int QROW = qrow(D);
   Layout L;
   const int region = RROWS * D + RROWS * Dp + 2 * per * RROWS * NGV * 4;
   const int tail = 2 * TROWS * D * 2;
@@ -880,11 +992,11 @@ __host__ __device__ inline Layout region_layout(int G, int per, bool fold,
 // Byte-rows a staging of the K tables covers for splits of `rows`: all of
 // them where their tables fit MAX_SMEM, else the most whole items that fit
 // (0 where not one item fits).
-inline int region_window(int G, int per, bool fold, int rows, int kg, int NG,
-                         int Dp, int NGV, int T) {
+inline int region_window(int D, int G, int per, bool fold, int rows, int kg,
+                         int NG, int Dp, int NGV, int T) {
   auto fits = [&](int win) {
-    return region_layout(G, per, fold, per * staged_groups(win, kg, NG), Dp,
-                         NGV, rows, T).total <= MAX_SMEM;
+    return region_layout(D, G, per, fold, per * staged_groups(win, kg, NG),
+                         Dp, NGV, rows, T).total <= MAX_SMEM;
   };
   if (fits(rows)) return rows;
   int win = (rows - 1) / RROWS * RROWS;
@@ -901,15 +1013,19 @@ __device__ __forceinline__ float f4(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-template <int G, int NBITS, int MODE>
+template <int G, int NBITS, int MODE, int D, bool CAP>
 __global__ void __launch_bounds__(NWARPS * 32)
 region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
               float* __restrict__ ws_acc, float* __restrict__ ws_m,
               float* __restrict__ ws_l) {
   static_assert(MODE != kPA, "the pa layout takes pa_split_kernel");
-  constexpr bool FOLD = MODE == kFold;
+  constexpr bool FOLD = MODE == kFold;   // P.V folded with the V scales
+  constexpr bool QFOLD = MODE != kF32;   // logits from the folded queries
   constexpr int PER = 8 / NBITS;
   constexpr uint32_t MASK = (1u << NBITS) - 1u;
+  constexpr int QROW = qrow(D);
+  constexpr int KW = D / 128;   // 16-byte K code loads a lane a row
+  constexpr int VPL = D / 32;   // P.V channels a lane
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int n_tail;
 
@@ -922,16 +1038,17 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
   const int ipw = (a.win_rows + RROWS - 1) / RROWS;
   const int gpp = staged_groups(a.win_rows, kg, NG);  // staged groups a plane
   const int cols = PER * gpp;
-  const Layout L = region_layout(G, PER, FOLD, cols, Dp, NGV, rows, t.T);
+  const Layout L = region_layout(D, G, PER, QFOLD, cols, Dp, NGV, rows, t.T);
   float* qs = reinterpret_cast<float*>(smem + L.qs);
   float* kt = reinterpret_cast<float*>(smem + L.kt);
-  float* zt = kt + cols * G * QROW;  // kFold: the zero terms [cols][G]
+  float* zt = kt + cols * G * QROW;  // kFold, kMix: the zero terms [cols][G]
   uint32_t* vwords = reinterpret_cast<uint32_t*>(smem + L.vis);
   uint32_t* twords = reinterpret_cast<uint32_t*>(smem + L.tw);
   int* tlist = reinterpret_cast<int*>(smem + L.tl);
   const int nw = (rows + 31) / 32;
   const int ntail = (t.T + TROWS - 1) / TROWS;
   const int nreg = (row1 - row0 + RROWS - 1) / RROWS;
+  const float inv_cap = CAP ? 1.f / a.softcap : 0.f;
 
   // the ring: item i goes to stage i % RSTAGES, one commit group an item
   const char* kcb = reinterpret_cast<const char*>(a.kc) + (size_t)bk * W * D;
@@ -974,11 +1091,12 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
   const int pre = min(nreg, RSTAGES - 1);
   for (int i = 0; i < pre; ++i) issue(i);
 
-  // the query (kF32: as it is; kFold: times the scale, as the plain qg)
+  // the query (kF32: as it is; kFold, kMix: times the scale, as the plain
+  // qg)
   const __nv_bfloat16* qg = a.q + (size_t)bk * G * D;
   for (int i = tid; i < G * D; i += NWARPS * 32) {
     const float x = __bfloat162float(qg[i]);
-    qs[(i / D) * QROW + pad_d(i % D)] = FOLD ? x * a.scale : x;
+    qs[(i / D) * QROW + pad_d(i % D)] = QFOLD ? x * a.scale : x;
   }
   // the staged K tables of the window from byte-row wrow0: column
   // c = p * gpp + u holds K group (wrow0 + p * W) / kg + u (groups past NG
@@ -992,7 +1110,7 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
       const int c = i % cols, d = i / cols;
       const int grp = col_group(c);
       const size_t o = (size_t)d * NG + grp;
-      if constexpr (FOLD) {
+      if constexpr (QFOLD) {
         const float ksv = grp < NG ? ksb[o] : 0.f;
 #pragma unroll
         for (int g = 0; g < G; ++g)
@@ -1003,7 +1121,7 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
         kt[(cols + c) * QROW + pad_d(d)] = grp < NG ? kzb[o] : 0.f;
       }
     }
-    if constexpr (FOLD) {
+    if constexpr (QFOLD) {
       // the K zero term of each staged group: scale * (q . kz), f32
       for (int c = warp; c < cols; c += NWARPS) {
         const int grp = col_group(c);
@@ -1063,14 +1181,15 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
   for (int i = pre; i < RSTAGES - 1; ++i) issue(i);
 
   const int j = lane >> 3, c = lane & 7;  // region: row 4 warp + j, channels
-                                          // [16 c, 16 c + 16)
-  const int vgrp = (lane * 4) / a.vg;     // this lane's V channel group
-  float m[G], lp[G], acc[G][4];
+                                          // [c D / 8, (c + 1) D / 8)
+  const int vgrp = (lane * VPL) / a.vg;   // this lane's V channel group
+  float m[G], lp[G], acc[G][VPL];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = -INFINITY;
     lp[g] = 0.f;
-    acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) acc[g][k] = 0.f;
   }
 
   for (int i = 0; i < n; ++i) {
@@ -1102,43 +1221,47 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
         for (int p = 0; p < PER; ++p)
 #pragma unroll
           for (int g = 0; g < G; ++g) dot[p][g] = 0.f;
-        const uint4 kw = *reinterpret_cast<const uint4*>(st + r * D + c * 16);
-        const uint32_t words[4] = {kw.x, kw.y, kw.z, kw.w};
 #pragma unroll
-        for (int w = 0; w < 4; ++w) {
-          const int d0 = pad_d(c * 16 + w * 4);
-          if constexpr (FOLD) {
-            // bf16(q * scale * ks) . code (the zero term after the sum)
+        for (int hh = 0; hh < KW; ++hh) {
+          const uint4 kw = *reinterpret_cast<const uint4*>(
+              st + r * D + c * 16 * KW + hh * 16);
+          const uint32_t words[4] = {kw.x, kw.y, kw.z, kw.w};
 #pragma unroll
-            for (int p = 0; p < PER; ++p) {
+          for (int w = 0; w < 4; ++w) {
+            const int d0 = pad_d(c * 16 * KW + hh * 16 + w * 4);
+            if constexpr (QFOLD) {
+              // bf16(q * scale * ks) . code (the zero term after the sum)
 #pragma unroll
-              for (int g = 0; g < G; ++g) {
-                const float4 qf = *reinterpret_cast<const float4*>(
-                    &kt[(col[p] * G + g) * QROW + d0]);
+              for (int p = 0; p < PER; ++p) {
 #pragma unroll
-                for (int k = 0; k < 4; ++k)
-                  dot[p][g] = fmaf(f4(qf, k),
-                                   code_f((words[w] >> (8 * k + p * NBITS)) & MASK),
-                                   dot[p][g]);
+                for (int g = 0; g < G; ++g) {
+                  const float4 qf = *reinterpret_cast<const float4*>(
+                      &kt[(col[p] * G + g) * QROW + d0]);
+#pragma unroll
+                  for (int k = 0; k < 4; ++k)
+                    dot[p][g] = fmaf(f4(qf, k),
+                                     code_f((words[w] >> (8 * k + p * NBITS)) & MASK),
+                                     dot[p][g]);
+                }
               }
-            }
-          } else {
-            float4 q4[G];
+            } else {
+              float4 q4[G];
 #pragma unroll
-            for (int g = 0; g < G; ++g)
-              q4[g] = *reinterpret_cast<const float4*>(&qs[g * QROW + d0]);
+              for (int g = 0; g < G; ++g)
+                q4[g] = *reinterpret_cast<const float4*>(&qs[g * QROW + d0]);
 #pragma unroll
-            for (int p = 0; p < PER; ++p) {
-              const float4 ks4 = *reinterpret_cast<const float4*>(&kt[col[p] * QROW + d0]);
-              const float4 kz4 =
-                  *reinterpret_cast<const float4*>(&kt[(cols + col[p]) * QROW + d0]);
+              for (int p = 0; p < PER; ++p) {
+                const float4 ks4 = *reinterpret_cast<const float4*>(&kt[col[p] * QROW + d0]);
+                const float4 kz4 =
+                    *reinterpret_cast<const float4*>(&kt[(cols + col[p]) * QROW + d0]);
 #pragma unroll
-              for (int k = 0; k < 4; ++k) {
-                // code * scale + zero, f32
-                const float kv = fmaf(code_f((words[w] >> (8 * k + p * NBITS)) & MASK),
-                                      f4(ks4, k), f4(kz4, k));
+                for (int k = 0; k < 4; ++k) {
+                  // code * scale + zero, f32
+                  const float kv = fmaf(code_f((words[w] >> (8 * k + p * NBITS)) & MASK),
+                                        f4(ks4, k), f4(kz4, k));
 #pragma unroll
-                for (int g = 0; g < G; ++g) dot[p][g] = fmaf(f4(q4[g], k), kv, dot[p][g]);
+                  for (int g = 0; g < G; ++g) dot[p][g] = fmaf(f4(q4[g], k), kv, dot[p][g]);
+                }
               }
             }
           }
@@ -1152,8 +1275,10 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
             x += __shfl_xor_sync(FULL, x, 1);
             x += __shfl_xor_sync(FULL, x, 2);
             x += __shfl_xor_sync(FULL, x, 4);
-            if constexpr (FOLD) x += zt[col[p] * G + g];
+            if constexpr (QFOLD) x += zt[col[p] * G + g];
             else x *= a.scale;
+            // the cap after the zero term, the masks after the cap
+            if constexpr (CAP) x = cap_logit(x, a.softcap, inv_cap);
             s[p][g] = !in ? -INFINITY : !valid ? NEG : x;
           }
         }
@@ -1181,30 +1306,33 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
           lsum += e[p][g];
         }
         lp[g] = fmaf(lp[g], alpha, lsum);
-        acc[g][0] *= alpha;
-        acc[g][1] *= alpha;
-        acc[g][2] *= alpha;
-        acc[g][3] *= alpha;
+#pragma unroll
+        for (int k = 0; k < VPL; ++k) acc[g][k] *= alpha;
         m[g] = mn;
       }
-      // P.V: this lane owns channels [4 lane, 4 lane + 4)
+      // P.V: this lane owns channels [VPL lane, VPL lane + VPL)
       const uint8_t* vst = st + RROWS * D;
       const float* vsc = reinterpret_cast<const float*>(st + vsoff);
 #pragma unroll
       for (int rr = 0; rr < 4; ++rr) {
         const int rv = warp * 4 + rr;
         if (r0 + rv >= row1) continue;  // the same for the whole warp
-        const uint32_t vw = *reinterpret_cast<const uint32_t*>(vst + rv * Dp + lane * 4);
+        uint32_t vw[VPL / 4];
+#pragma unroll
+        for (int h = 0; h < VPL / 4; ++h)
+          vw[h] = *reinterpret_cast<const uint32_t*>(vst + rv * Dp + lane * VPL + 4 * h);
 #pragma unroll
         for (int p = 0; p < PER; ++p) {
           const float sc = vsc[(p * RROWS + rv) * NGV + vgrp];
           const float zr = vsc[((PER + p) * RROWS + rv) * NGV + vgrp];
-          float vv[4];  // kF32: code * scale + zero; kFold: the code
+          float vv[VPL];  // kF32, kMix: code * scale + zero; kFold: the code
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float cv = code_f((vw >> (8 * k + p * NBITS)) & MASK);
-            vv[k] = FOLD ? cv : fmaf(cv, sc, zr);
-          }
+          for (int h = 0; h < VPL / 4; ++h)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float cv = code_f((vw[h] >> (8 * k + p * NBITS)) & MASK);
+              vv[4 * h + k] = FOLD ? cv : fmaf(cv, sc, zr);
+            }
 #pragma unroll
           for (int g = 0; g < G; ++g) {
             const float pj = __shfl_sync(FULL, e[p][g], rr * 8);
@@ -1212,10 +1340,10 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
               // bf16(p * vs) . code + p * vz (the group's zero term, f32)
               const float pf = bf16_round(pj * sc), pz = pj * zr;
 #pragma unroll
-              for (int k = 0; k < 4; ++k) acc[g][k] = fmaf(pf, vv[k], acc[g][k] + pz);
+              for (int k = 0; k < VPL; ++k) acc[g][k] = fmaf(pf, vv[k], acc[g][k] + pz);
             } else {
 #pragma unroll
-              for (int k = 0; k < 4; ++k) acc[g][k] = fmaf(pj, vv[k], acc[g][k]);
+              for (int k = 0; k < VPL; ++k) acc[g][k] = fmaf(pj, vv[k], acc[g][k]);
             }
           }
         }
@@ -1224,35 +1352,40 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
       // ---- tail slots: f32 logits of the bf16 q and K ----------------------
       const int h = tlist[sp + (i - nreg) * nsplit];
       const int r = warp * 4 + j;  // this lane's slot of the item
-      const uint4 k0 = *reinterpret_cast<const uint4*>(st + r * D * 2 + c * 16);
-      const uint4 k1 = *reinterpret_cast<const uint4*>(st + r * D * 2 + (c + 8) * 16);
-      const __nv_bfloat162* ka = reinterpret_cast<const __nv_bfloat162*>(&k0);
-      const __nv_bfloat162* kb2 = reinterpret_cast<const __nv_bfloat162*>(&k1);
+      // channels [8 c + 64 u, 8 c + 64 u + 8) for u < D / 64
+      uint4 kr[D / 64];
+#pragma unroll
+      for (int u = 0; u < D / 64; ++u)
+        kr[u] = *reinterpret_cast<const uint4*>(st + r * D * 2 + (c + 8 * u) * 16);
       const bool vis = (twords[h] >> r) & 1u;  // 0 past T
       float e[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        // channels [8 c, 8 c + 8) and [64 + 8 c, 64 + 8 c + 8)
-        const float4 qa0 = *reinterpret_cast<const float4*>(&qs[g * QROW + pad_d(8 * c)]);
-        const float4 qa1 = *reinterpret_cast<const float4*>(&qs[g * QROW + pad_d(8 * c + 4)]);
-        const float4 qc0 = *reinterpret_cast<const float4*>(&qs[g * QROW + pad_d(64 + 8 * c)]);
-        const float4 qc1 = *reinterpret_cast<const float4*>(&qs[g * QROW + pad_d(68 + 8 * c)]);
-        const float qa[8] = {qa0.x, qa0.y, qa0.z, qa0.w, qa1.x, qa1.y, qa1.z, qa1.w};
-        const float qc[8] = {qc0.x, qc0.y, qc0.z, qc0.w, qc1.x, qc1.y, qc1.z, qc1.w};
+        float qv[D / 64][8];
+#pragma unroll
+        for (int u = 0; u < D / 64; ++u) {
+          const float4 q0 = *reinterpret_cast<const float4*>(&qs[g * QROW + pad_d(64 * u + 8 * c)]);
+          const float4 q1 = *reinterpret_cast<const float4*>(&qs[g * QROW + pad_d(64 * u + 8 * c + 4)]);
+          qv[u][0] = q0.x; qv[u][1] = q0.y; qv[u][2] = q0.z; qv[u][3] = q0.w;
+          qv[u][4] = q1.x; qv[u][5] = q1.y; qv[u][6] = q1.z; qv[u][7] = q1.w;
+        }
         float x = 0.f;
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float2 fa = __bfloat1622float2(ka[u]);
-          const float2 fc = __bfloat1622float2(kb2[u]);
-          x = fmaf(qa[2 * u], fa.x, x);
-          x = fmaf(qa[2 * u + 1], fa.y, x);
-          x = fmaf(qc[2 * u], fc.x, x);
-          x = fmaf(qc[2 * u + 1], fc.y, x);
+        for (int k = 0; k < 4; ++k) {
+#pragma unroll
+          for (int u = 0; u < D / 64; ++u) {
+            const float2 f = __bfloat1622float2(
+                reinterpret_cast<const __nv_bfloat162*>(&kr[u])[k]);
+            x = fmaf(qv[u][2 * k], f.x, x);
+            x = fmaf(qv[u][2 * k + 1], f.y, x);
+          }
         }
         x += __shfl_xor_sync(FULL, x, 1);
         x += __shfl_xor_sync(FULL, x, 2);
         x += __shfl_xor_sync(FULL, x, 4);
-        e[g] = vis ? (FOLD ? x : x * a.scale) : -INFINITY;  // logit for now
+        if constexpr (!QFOLD) x *= a.scale;
+        if constexpr (CAP) x = cap_logit(x, a.softcap, inv_cap);
+        e[g] = vis ? x : -INFINITY;  // logit for now
       }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
@@ -1267,26 +1400,31 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
         const float alpha = expf(m[g] - mn);  // 0 while m = -inf or float32.min
         e[g] = e[g] == -INFINITY ? 0.f : expf(e[g] - mn);
         lp[g] = fmaf(lp[g], alpha, e[g]);
-        acc[g][0] *= alpha;
-        acc[g][1] *= alpha;
-        acc[g][2] *= alpha;
-        acc[g][3] *= alpha;
+#pragma unroll
+        for (int k = 0; k < VPL; ++k) acc[g][k] *= alpha;
         m[g] = mn;
       }
       const uint8_t* vst = st + TROWS * D * 2;
 #pragma unroll
       for (int rr = 0; rr < 4; ++rr) {
         if (!((twords[h] >> (warp * 4 + rr)) & 1u)) continue;  // warp-uniform
-        const uint2 vw = *reinterpret_cast<const uint2*>(vst + (warp * 4 + rr) * D * 2 + lane * 8);
-        const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vw.x));
-        const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vw.y));
+        float vf[VPL];
+#pragma unroll
+        for (int q = 0; q < VPL / 4; ++q) {
+          const uint2 vw = *reinterpret_cast<const uint2*>(
+              vst + (warp * 4 + rr) * D * 2 + lane * VPL * 2 + 8 * q);
+          const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vw.x));
+          const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vw.y));
+          vf[4 * q] = v01.x;
+          vf[4 * q + 1] = v01.y;
+          vf[4 * q + 2] = v23.x;
+          vf[4 * q + 3] = v23.y;
+        }
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float pj = __shfl_sync(FULL, e[g], rr * 8);
-          acc[g][0] = fmaf(pj, v01.x, acc[g][0]);
-          acc[g][1] = fmaf(pj, v01.y, acc[g][1]);
-          acc[g][2] = fmaf(pj, v23.x, acc[g][2]);
-          acc[g][3] = fmaf(pj, v23.y, acc[g][3]);
+#pragma unroll
+          for (int k = 0; k < VPL; ++k) acc[g][k] = fmaf(pj, vf[k], acc[g][k]);
         }
       }
     }
@@ -1309,8 +1447,11 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
       wm[warp * G + g] = m[g];
       wl[warp * G + g] = lw;
     }
-    *reinterpret_cast<float4*>(&wacc[(warp * G + g) * D + lane * 4]) =
-        make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+#pragma unroll
+    for (int h = 0; h < VPL / 4; ++h)
+      *reinterpret_cast<float4*>(&wacc[(warp * G + g) * D + lane * VPL + 4 * h]) =
+          make_float4(acc[g][4 * h], acc[g][4 * h + 1], acc[g][4 * h + 2],
+                      acc[g][4 * h + 3]);
   }
   __syncthreads();
 
@@ -1327,7 +1468,7 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
       }
     }
   };
-  const bool cluster = nsplit > 1 && nsplit <= MAX_CLUSTER;
+  const bool cluster = nsplit > 1 && nsplit <= max_cluster(D);
   for (int i = tid; i < G * D; i += NWARPS * 32) {
     const int g = i / D, d = i % D;
     float mx = -INFINITY;
@@ -1388,7 +1529,7 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
 // Combine the nsplit workspace partials of (bk, g) in split order: block
 // (bk, g), thread d.  With a tail (its share already in the partials), the
 // normalised bf16 output; else the merged partials.
-template <int G>
+template <int G, int D>
 __global__ void __launch_bounds__(D)
 region_merge_kernel(const float* __restrict__ ws_acc,
                     const float* __restrict__ ws_m,
@@ -1422,35 +1563,37 @@ region_merge_kernel(const float* __restrict__ ws_acc,
 
 // One group-layout region call: region_kernel over grid (B * Hk, nsplit)
 // with a.rows_per_split byte-rows a split, in clusters of the nsplit blocks
-// of a region when 1 < nsplit <= MAX_CLUSTER, else followed by
-// region_merge_kernel when nsplit > MAX_CLUSTER.
-template <int G, int NBITS, int MODE>
+// of a region when 1 < nsplit <= max_cluster(D), else followed by
+// region_merge_kernel when nsplit > max_cluster(D).
+template <int G, int NBITS, int MODE, int D, bool CAP>
 int launch_region(const Args& a, int BHk, int nsplit, const Tail& t,
                   __nv_bfloat16* out, float* ws_acc, float* ws_m, float* ws_l,
                   cudaStream_t st) {
   constexpr int PER = 8 / NBITS;
   const int rows = a.rows_per_split;
-  // the 16-byte copies: 4-byte V rows and channel groups, byte-row counts
-  // and split starts of a multiple of 4
-  if (a.Dp % 4 || a.W % 4 || a.vg % 4 || rows < 4 || rows % 4 || nsplit < 1 ||
-      (long long)(nsplit - 1) * rows >= a.W || (long long)nsplit * rows < a.W)
+  // the 16-byte copies: 4-byte V rows, channel groups of whole lanes
+  // (D / 32 channels each), byte-row counts and split starts of a multiple
+  // of 4
+  if (a.Dp % 4 || a.W % 4 || a.vg % (D / 32) || a.vg % 4 || rows < 4 ||
+      rows % 4 || nsplit < 1 || (long long)(nsplit - 1) * rows >= a.W ||
+      (long long)nsplit * rows < a.W)
     return (int)cudaErrorInvalidValue;
   Args w = a;
-  w.win_rows = region_window(G, PER, MODE == kFold, rows, a.kg, a.NG, a.Dp,
+  w.win_rows = region_window(D, G, PER, MODE != kF32, rows, a.kg, a.NG, a.Dp,
                              a.NGV, t.T);
   if (w.win_rows == 0) return (int)cudaErrorInvalidValue;
   const int cols = PER * staged_groups(w.win_rows, a.kg, a.NG);
-  const int smem = region_layout(G, PER, MODE == kFold, cols, a.Dp, a.NGV,
+  const int smem = region_layout(D, G, PER, MODE != kF32, cols, a.Dp, a.NGV,
                                  rows, t.T).total;
   static int smem_set = 48 * 1024;  // per instantiation
   if (smem > smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        region_kernel<G, NBITS, MODE>,
+        region_kernel<G, NBITS, MODE, D, CAP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     smem_set = smem;
   }
-  const bool cluster = nsplit > 1 && nsplit <= MAX_CLUSTER;
+  const bool cluster = nsplit > 1 && nsplit <= max_cluster(D);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(BHk, nsplit);
   cfg.blockDim = dim3(NWARPS * 32);
@@ -1463,75 +1606,97 @@ int launch_region(const Args& a, int BHk, int nsplit, const Tail& t,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t le = cudaLaunchKernelEx(&cfg, region_kernel<G, NBITS, MODE>,
-                                            w, t, out, ws_acc, ws_m, ws_l);
+  const cudaError_t le = cudaLaunchKernelEx(
+      &cfg, region_kernel<G, NBITS, MODE, D, CAP>, w, t, out, ws_acc, ws_m,
+      ws_l);
   if (le != cudaSuccess) return (int)le;
   const int err = (int)cudaGetLastError();
-  if (err != 0 || nsplit <= MAX_CLUSTER) return err;
-  region_merge_kernel<G><<<dim3(BHk, G), D, 0, st>>>(
+  if (err != 0 || nsplit <= max_cluster(D)) return err;
+  region_merge_kernel<G, D><<<dim3(BHk, G), D, 0, st>>>(
       ws_acc, ws_m, ws_l, nsplit, t.T > 0, a.acc, a.m, a.l, out);
   return (int)cudaGetLastError();
 }
 
-// Run the trailing statement with GG = G in {1, 2, 4, 7, 8} and NB = NBITS in
-// {2, 4, 8} as constants; other values return cudaErrorInvalidValue.
-#define PKVQ_DISPATCH(G_, NBITS_, ...)                                     \
-  switch (G_ * 16 + NBITS_) {                                               \
-    case 1 * 16 + 2: { constexpr int GG = 1, NB = 2; __VA_ARGS__; } break;         \
-    case 1 * 16 + 4: { constexpr int GG = 1, NB = 4; __VA_ARGS__; } break;         \
-    case 1 * 16 + 8: { constexpr int GG = 1, NB = 8; __VA_ARGS__; } break;         \
-    case 2 * 16 + 2: { constexpr int GG = 2, NB = 2; __VA_ARGS__; } break;         \
-    case 2 * 16 + 4: { constexpr int GG = 2, NB = 4; __VA_ARGS__; } break;         \
-    case 2 * 16 + 8: { constexpr int GG = 2, NB = 8; __VA_ARGS__; } break;         \
-    case 4 * 16 + 2: { constexpr int GG = 4, NB = 2; __VA_ARGS__; } break;         \
-    case 4 * 16 + 4: { constexpr int GG = 4, NB = 4; __VA_ARGS__; } break;         \
-    case 4 * 16 + 8: { constexpr int GG = 4, NB = 8; __VA_ARGS__; } break;         \
-    case 7 * 16 + 2: { constexpr int GG = 7, NB = 2; __VA_ARGS__; } break;         \
-    case 7 * 16 + 4: { constexpr int GG = 7, NB = 4; __VA_ARGS__; } break;         \
-    case 7 * 16 + 8: { constexpr int GG = 7, NB = 8; __VA_ARGS__; } break;         \
-    case 8 * 16 + 2: { constexpr int GG = 8, NB = 2; __VA_ARGS__; } break;         \
-    case 8 * 16 + 4: { constexpr int GG = 8, NB = 4; __VA_ARGS__; } break;         \
-    case 8 * 16 + 8: { constexpr int GG = 8, NB = 8; __VA_ARGS__; } break;         \
+// Run the trailing statement with DD = D, CC = CAP, GG = G and NB = NBITS as
+// constants, for the instantiated ones: D = 128 uncapped with G in
+// {1, 2, 4, 7, 8}, D = 256 capped with G in {1, 2}, NBITS in {2, 4, 8};
+// other values return cudaErrorInvalidValue.
+#define PKVQ_KEY(D_, CAP_, G_, NB_)                                         \
+  ((((D_) == 128 ? 1 : (D_) == 256 ? 2 : 0) * 2 + (CAP_)) * 16 + (G_)) * 16 + (NB_)
+#define PKVQ_CASE(D_, CAP_, G_, NB_, ...)                                   \
+  case PKVQ_KEY(D_, CAP_, G_, NB_): {                                       \
+    constexpr int DD = D_, GG = G_, NB = NB_;                               \
+    constexpr bool CC = CAP_;                                               \
+    __VA_ARGS__;                                                            \
+  } break;
+#define PKVQ_CASES_G(D_, CAP_, G_, ...)                                     \
+  PKVQ_CASE(D_, CAP_, G_, 2, __VA_ARGS__)                                   \
+  PKVQ_CASE(D_, CAP_, G_, 4, __VA_ARGS__)                                   \
+  PKVQ_CASE(D_, CAP_, G_, 8, __VA_ARGS__)
+#define PKVQ_DISPATCH(D_, CAP_, G_, NBITS_, ...)                            \
+  switch (PKVQ_KEY(D_, (CAP_) ? 1 : 0, G_, NBITS_)) {                       \
+    PKVQ_CASES_G(128, false, 1, __VA_ARGS__)                                \
+    PKVQ_CASES_G(128, false, 2, __VA_ARGS__)                                \
+    PKVQ_CASES_G(128, false, 4, __VA_ARGS__)                                \
+    PKVQ_CASES_G(128, false, 7, __VA_ARGS__)                                \
+    PKVQ_CASES_G(128, false, 8, __VA_ARGS__)                                \
+    PKVQ_CASES_G(256, true, 1, __VA_ARGS__)                                 \
+    PKVQ_CASES_G(256, true, 2, __VA_ARGS__)                                 \
     default: return (int)cudaErrorInvalidValue;                             \
   }
 
 // The C parameter list of the region entry points (quant_decode.cu,
-// quant_fused_decode.cu): q [B, Hk*G, D] bf16; kc, ks, kz, vc, vs, vz, mask
-// as above; acc [B, Hk*G, D], m, l [B, Hk*G] f32; ws_*: the workspace
-// ([B*Hk*nsplit, G, D] and [B*Hk*nsplit, G] f32; read only by the pa
-// kernel and by a group plan of more than MAX_CLUSTER splits); tk, tv,
-// tmask, T, tmstride: the bf16 decode tail (Tail; T = 0 for none); out
-// [B, Hk*G, D] bf16, written instead of (acc, m, l) when there is a tail.
+// quant_group_fused.cu, quant_decode_mm_bf16.cu, quant_fused_decode.cu):
+// q [B, Hk*G, D] bf16; kc, ks, kz, vc, vs, vz, mask as above; acc
+// [B, Hk*G, D], m, l [B, Hk*G] f32; ws_*: the workspace ([B*Hk*nsplit, G, D]
+// and [B*Hk*nsplit, G] f32; read only by the pa kernel and by a group plan
+// of more than MAX_CLUSTER splits); scale: the attention scale; softcap:
+// the logit cap, 0 for none; tk, tv, tmask, T, tmstride: the bf16 decode
+// tail (Tail; T = 0 for none); out [B, Hk*G, D] bf16, written instead of
+// (acc, m, l) when there is a tail.
 #define PKVQ_PARAMS                                                          \
   const void *q, const void *kc, const void *ks, const void *kz,             \
       const void *vc, const void *vs, const void *vz, const void *mask,      \
       void *acc, void *m, void *l, void *ws_acc, void *ws_m, void *ws_l,     \
-      int BHk, int G, int nbits, int W, int S_pad, int NG, int Dp, int NGV,  \
-      int mstride, int n_valid, int nsplit, int rows_per_split, float scale, \
-      const void *tk, const void *tv, const void *tmask, int T, int tmstride, \
-      void *out, void *stream
+      int BHk, int D, int G, int nbits, int W, int S_pad, int NG, int Dp,    \
+      int NGV, int mstride, int n_valid, int nsplit, int rows_per_split,     \
+      float scale, float softcap, const void *tk, const void *tv,            \
+      const void *tmask, int T, int tmstride, void *out, void *stream
 
 #define PKVQ_TAIL                                                             \
   pkvq::Tail{(const __nv_bfloat16*)tk, (const __nv_bfloat16*)tv,              \
              (const uint8_t*)tmask, T, tmstride}
 
-// launch_pa<GG, NB> / launch_region<GG, NB, MODE_> of the entry's arguments
-// (inside PKVQ_DISPATCH).
+// launch_pa<GG, NB, DD, CC> / launch_region<GG, NB, MODE_, DD, CC> of the
+// entry's arguments (inside PKVQ_DISPATCH).
 #define PKVQ_LAUNCH_PA(a_)                                                    \
-  pkvq::launch_pa<GG, NB>(a_, (float*)ws_acc, (float*)ws_m, (float*)ws_l,     \
-                          BHk, nsplit, PKVQ_TAIL, (__nv_bfloat16*)out,        \
-                          (cudaStream_t)stream)
+  pkvq::launch_pa<GG, NB, DD, CC>(a_, (float*)ws_acc, (float*)ws_m,           \
+                                  (float*)ws_l, BHk, nsplit, PKVQ_TAIL,       \
+                                  (__nv_bfloat16*)out, (cudaStream_t)stream)
 #define PKVQ_LAUNCH_REGION(MODE_, a_)                                         \
-  pkvq::launch_region<GG, NB, MODE_>(                                         \
+  pkvq::launch_region<GG, NB, MODE_, DD, CC>(                                 \
       a_, BHk, nsplit, PKVQ_TAIL, (__nv_bfloat16*)out, (float*)ws_acc,        \
       (float*)ws_m, (float*)ws_l, (cudaStream_t)stream)
+
+// A group-layout entry point running MODE_ (the body of quant_decode.cu,
+// quant_group_fused.cu and quant_decode_mm_bf16.cu).
+#define PKVQ_REGION_ENTRY(NAME_, MODE_)                                       \
+  extern "C" int NAME_(PKVQ_PARAMS) {                                         \
+    const pkvq::Args a = pkvq::make_args(q, kc, ks, kz, vc, vs, vz, mask,     \
+                                         acc, m, l, W, S_pad, NG, Dp, NGV,    \
+                                         mstride, n_valid, rows_per_split,    \
+                                         scale, softcap);                     \
+    PKVQ_DISPATCH(D, softcap > 0.f, G, nbits,                                 \
+                  return PKVQ_LAUNCH_REGION(MODE_, a));                       \
+    return 0;                                                                 \
+  }
 
 inline Args make_args(const void* q, const void* kc, const void* ks,
                       const void* kz, const void* vc, const void* vs,
                       const void* vz, const void* mask, void* acc, void* m,
                       void* l, int W, int S_pad, int NG, int Dp, int NGV,
                       int mstride, int n_valid, int rows_per_split,
-                      float scale) {
+                      float scale, float softcap) {
   Args a;
   a.q = (const __nv_bfloat16*)q;
   a.kc = (const int8_t*)kc;
@@ -1554,6 +1719,7 @@ inline Args make_args(const void* q, const void* kc, const void* ks,
   a.n_valid = n_valid;
   a.rows_per_split = a.win_rows = rows_per_split;
   a.scale = scale;
+  a.softcap = softcap;
   return a;
 }
 

@@ -20,18 +20,20 @@ LRU.
 
 Ported: greedy decoding on Llama-family models, Mistral's uniform sliding
 window, Qwen2's QKV biases and Gemma-2 (its alternating window, softcaps,
-head dim 256 and other features, H2O, MInference and ThinK included; on
-Gemma-2 KIVI caches raise, ROADMAP queue 2A #5c), with every compression
-method of ``config.METHODS``
+head dim 256 and other features; every cache below runs there, the KIVI
+region kernels and the quantized carry with its scale, cap and per-layer
+windows), with every compression method of ``config.METHODS``
 (``policy.py``: the single-budget, pyramid, position, norm, random,
 head-budget, merging and ThinK methods, ``gqa_aggregate``, per-layer
 capacities; ``minference``'s vertical-and-slash sparse prefill), with bf16
 or quantized weights (``models/weights.py``: int8, packed int4 per channel
 or per group, fused or not), a bf16 or KIVI cache (``quant_method=
-"kivi"``: 8/4/2 bits, group or pa layout; KVQuant raises), monolithic or
-chunked prefill, prefix handles.  ``generate(rng_seed=...)`` seeds the
-random methods with JAX's bits (``prng.py``).  Sampling and speculative
-decoding raise ``NotImplementedError`` (ROADMAP queue 1); serving
+"kivi"``: 8/4/2 bits, group or pa layout, the default factored route or
+the opt-in f32 one, with ``PKV_QUANT_MM_BF16=1`` on the tiled route the
+tiled kernel's ``mm_bf16`` where the JAX engine takes it; KVQuant raises),
+monolithic or chunked prefill, prefix handles.  ``generate(rng_seed=...)``
+seeds the random methods with JAX's bits (``prng.py``).  Sampling and
+speculative decoding raise ``NotImplementedError`` (ROADMAP queue 1); serving
 (continuous batching, automatic prefix matching) is not ported.
 """
 
@@ -287,7 +289,6 @@ class Engine:
                 "the chunked dequantization scan (use_quant_scan) is not "
                 "ported (ROADMAP queue 1 #6)")
         llama.check_ported(model_spec)
-        llama.check_method_ported(model_spec, comp_spec)
         self.device = torch.device(device)
         self.model_spec = model_spec
         self.comp_spec = comp_spec
@@ -297,7 +298,9 @@ class Engine:
         self.attention_impl = "kernel" if es.use_pallas else "plain"
         #: group-layout KIVI regions decode through the f32 kernels (JAX's
         #: opt-in counterfactuals) instead of the default factored
-        #: dequantization, as the JAX engine routes them
+        #: dequantization, as the JAX engine routes them; in the tiled
+        #: kernel's mm_bf16 mode where ``llama.region_mm_bf16`` says (per
+        #: region length, at decode)
         self.f32_quant = ((es.use_quant_kernel or es.use_quant_tiled)
                           and not es.use_quant_fused)
         self.stats = EngineStats()
@@ -564,10 +567,14 @@ class Engine:
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
         limit = min(max_new - 1, es.max_new_tokens)
         token, steps = first, 0
+        mm_bf16 = cache.quant is not None and llama.region_mm_bf16(
+            es, self.model_spec, self.comp_spec,
+            cache.quant.k.codes.shape[-2] * (8 // self.comp_spec.nbits))
         while steps < limit and not bool(done.all()):
             logits, cache = llama.decode_step(
                 self.params, self.model_spec, plan, cache, token,
-                attention_impl=self.attention_impl, f32_quant=self.f32_quant)
+                attention_impl=self.attention_impl, f32_quant=self.f32_quant,
+                mm_bf16=mm_bf16)
             nxt = logits.argmax(dim=-1)
             is_eos = (nxt[:, None] == eos[None, :]).any(dim=-1)
             # after EOS keep feeding the last token; its output slot is -1

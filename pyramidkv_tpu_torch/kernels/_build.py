@@ -28,7 +28,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #: the KIVI region kernels' shared signature (PKVQ_PARAMS in
 #: csrc/quant_region.cuh)
-_REGION = [_P] * 14 + [_I] * 12 + [_F] + [_P] * 3 + [_I] * 2 + [_P] * 2
+_REGION = [_P] * 14 + [_I] * 13 + [_F] * 2 + [_P] * 3 + [_I] * 2 + [_P] * 2
 #: C signatures of each library's entry points: [(symbol, argtypes), ...]
 ENTRY_POINTS = {
     "flash_prefill": [
@@ -48,8 +48,9 @@ ENTRY_POINTS = {
         ("pkv_int4_map", [_P] * 2 + [_I] * 3),
         ("pkv_int8_matmul", [_P] * 5 + [_I] * 8 + [_P]),
     ],
-    "quant_decode": [("pkv_quant_decode", _REGION),
-                     ("pkv_quant_group_fused", _REGION)],
+    "quant_decode": [("pkv_quant_decode", _REGION)],
+    "quant_group_fused": [("pkv_quant_group_fused", _REGION)],
+    "quant_decode_mm_bf16": [("pkv_quant_decode_mm_bf16", _REGION)],
     "quant_fused_decode": [("pkv_quant_fused_pa", _REGION)],
     "block_sparse_prefill": [
         ("pkv_slash_tiles", [_P] * 10 + [_I] * 9 + [_F, _F, _P]),

@@ -13,7 +13,15 @@ the probabilities with each channel-group's V scale).  Its plain version is
 the counterparts of ``pyramidkv_tpu/kernels/quant_decode.py``'s kernels of
 the same names, the JAX engine's opt-in ``use_quant_kernel`` /
 ``use_quant_tiled`` route: f32 dequantization, then f32 partials (plain
-version ``ops.quant.quant_decode_attention_plain``).
+version ``ops.quant.quant_decode_attention_plain``); with ``mm_bf16`` the
+tiled TPU kernel's mode of that name (the factored route's bf16-folded
+logits, the f32 dequantized P.V).
+
+Each takes the model's attention ``scale`` (default 1/sqrt(D)) and logit
+cap ``softcap`` (Gemma-2: on each logit after the K zero term, before the
+masks).  The CUDA kernel is instantiated at D = 128 without a cap (G in
+:data:`GROUPS`) and at D = 256 with one (G in (1, 2): Gemma-2-9B), as
+:data:`INSTANCES` says; the plain versions take any.
 
 All three launch one CUDA kernel (``region_kernel``) on a plan of splits
 (:func:`split_plan`, from the shapes alone; the whole-region wrapper takes
@@ -46,16 +54,25 @@ from ..ops.quant import (QuantizedKVRegion, merge_tail,
                          quant_region_attention_fused, region_geometry)
 from . import _build
 
-HEAD_DIM = 128
 #: GQA group sizes the region kernels are instantiated for (7: Qwen2.5-7B)
 GROUPS = (1, 2, 4, 7, 8)
+#: (head dim, capped) -> the group sizes instantiated there: D = 128
+#: uncapped (Llama, Mistral, Qwen2), D = 256 under a logit cap (Gemma-2-9B:
+#: per-head caches G = 1, fullkv G = 2); as PKVQ_DISPATCH in
+#: csrc/quant_region.cuh
+INSTANCES = {(128, False): GROUPS, (256, True): (1, 2)}
 NBITS = (2, 4, 8)
+#: the library and C entry point of each mode of the group kernel
+ENTRIES = {"f32": ("quant_decode", "pkv_quant_decode"),
+           "fold": ("quant_group_fused", "pkv_quant_group_fused"),
+           "mm_bf16": ("quant_decode_mm_bf16", "pkv_quant_decode_mm_bf16")}
 #: an H100's SM count: split plans made for CPU tensors (where the wrappers
 #: run their plain versions) are the card's
 H100_SMS = 132
 #: splits of a region the group kernel merges through a thread-block
-#: cluster in one launch (as MAX_CLUSTER in csrc/quant_region.cuh); more
-#: take a merge kernel after it
+#: cluster in one launch at D = 128 (as MAX_CLUSTER in
+#: csrc/quant_region.cuh; at D = 256 two: :func:`max_cluster`); more take a
+#: merge kernel after it
 MAX_CLUSTER = 4
 #: byte-rows an item of the group kernel's ring, slots a tail item
 ITEM_ROWS = 32
@@ -64,9 +81,14 @@ TAIL_ROWS = 32
 RING_STAGES = 4
 MAX_SMEM = 232448
 #: items a split takes at least, and staged K columns (bit-planes x K
-#: groups) at most, under :func:`split_plan`
+#: groups) at most under :func:`split_plan`: at D = 128 the tables of G = 8
+#: with V groups of 16 channels or more fit shared memory; at D = 256
+#: (``_MAX_COLS_256``) those of G <= 2 beside the 128 KB ring (226.7 KB at
+#: most with a tail of 256 slots).  Plans for other head dims (CPU tensors
+#: only: no kernel takes them) are D = 128's.
 _MIN_ITEMS = 4
 _MAX_COLS = 28
+_MAX_COLS_256 = 36
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,52 +106,71 @@ def staged_groups(rows: int, kg: int, ng: int) -> int:
     return min(ng, (rows + 2 * kg - 2) // kg)
 
 
-def split_plan(device: torch.device, bhk: int, w: int, nbits: int, kg: int):
+def max_cluster(d: int = 128) -> int:
+    """Splits the group kernel merges in a thread-block cluster at head dim
+    ``d`` (max_cluster in csrc/quant_region.cuh): MAX_CLUSTER at D = 128;
+    two at D = 256, where a block fills an SM and clusters of 4 ran 1.9x
+    slower than the merge kernel (PERF.md §6)."""
+    return 2 if d == 256 else MAX_CLUSTER
+
+
+def blocks_per_sm(d: int = 128) -> int:
+    """Blocks of the group kernel an SM holds at head dim ``d``: two at
+    D = 128; one at D = 256, whose ring of 32 KB tail stages alone takes
+    128 KB."""
+    return 1 if d == 256 else 2
+
+
+def split_plan(device: torch.device, bhk: int, w: int, nbits: int, kg: int,
+               d: int = 128):
     """(nsplit, byte-rows per split) of the group kernel for ``bhk``
-    regions of ``w`` byte-rows, ``nbits``-bit codes and K groups of ``kg``
-    slots, on ``device``, from the shapes alone: one wave of two blocks an
-    SM at most (the kernel's registers allow two), at least 4 ring items a
-    split, no more than MAX_CLUSTER splits where ``bhk * MAX_CLUSTER``
-    blocks already fill the card (one launch), and splits short enough
-    that their staged K columns (planes x groups) stay within 28 (shared
-    memory then holds them for G = 8 with V groups of 16 channels or
-    more).  Splits are whole items; one split takes all ``w`` rows."""
+    regions of ``w`` byte-rows, ``nbits``-bit codes, K groups of ``kg``
+    slots and head dim ``d``, on ``device``, from the shapes alone: one
+    wave of :func:`blocks_per_sm` blocks an SM at most, at least 4 ring
+    items a split, no more than :func:`max_cluster` splits where
+    ``bhk * max_cluster(d)`` blocks already fill the card (one launch), and
+    splits short enough that their staged K columns (planes x groups) stay
+    within ``_MAX_COLS`` (``_MAX_COLS_256`` at D = 256; shared memory then
+    holds them whole).  Splits
+    are whole items; one split takes all ``w`` rows."""
     per = 8 // nbits
     items = -(-w // ITEM_ROWS)
     sms = _sm_count(device)
-    want = max(1, min(items // _MIN_ITEMS, 2 * sms // bhk))
-    if bhk * MAX_CLUSTER >= sms:
-        want = min(want, MAX_CLUSTER)
-    if per * (w * per // kg) > _MAX_COLS:
-        # staged_groups(rows) <= _MAX_COLS / per  <=>  rows <= (that - 1) kg + 1
-        top = ((_MAX_COLS // per - 1) * kg + 1) // ITEM_ROWS * ITEM_ROWS
+    want = max(1, min(items // _MIN_ITEMS, blocks_per_sm(d) * sms // bhk))
+    if bhk * max_cluster(d) >= sms:
+        want = min(want, max_cluster(d))
+    cap = _MAX_COLS_256 if d == 256 else _MAX_COLS
+    if per * (w * per // kg) > cap:
+        # staged_groups(rows) <= cap / per  <=>  rows <= (that - 1) kg + 1
+        top = ((cap // per - 1) * kg + 1) // ITEM_ROWS * ITEM_ROWS
         want = max(want, -(-w // max(ITEM_ROWS, top)))
     rows = ITEM_ROWS * -(-items // want)
     nsplit = -(-w // rows)
     return (1, w) if nsplit == 1 else (nsplit, rows)
 
 
-def region_kernels(nsplit: int) -> int:
-    """CUDA kernels one group-region call launches: one up to MAX_CLUSTER
-    splits (one split, or a cluster merging them), two beyond (the split
-    kernel, then a merge kernel)."""
-    return 1 if nsplit <= MAX_CLUSTER else 2
+def region_kernels(nsplit: int, d: int = 128) -> int:
+    """CUDA kernels one group-region call launches at head dim ``d``: one
+    up to :func:`max_cluster` splits (one split, or a cluster merging
+    them), two beyond (the split kernel, then a merge kernel)."""
+    return 1 if nsplit <= max_cluster(d) else 2
 
 
 def region_smem_bytes(g: int, nbits: int, fold: bool, rows: int, kg: int,
                       ng: int, dp: int, ngv: int, t: int,
-                      win: int | None = None) -> int:
+                      win: int | None = None, d: int = 128) -> int:
     """Dynamic shared memory of one group-kernel block (region_layout in
-    csrc/quant_region.cuh) for splits of ``rows`` byte-rows whose K tables
-    are staged ``win`` byte-rows at a time (default: all ``rows``): the
-    ring, the query, the staged K tables, the region's and the tail's
-    visibility words and the tail's item list."""
+    csrc/quant_region.cuh) at head dim ``d`` for splits of ``rows``
+    byte-rows whose K tables are staged ``win`` byte-rows at a time
+    (default: all ``rows``): the ring, the query, the staged K tables
+    (``fold``: the folded queries of the kFold and mm_bf16 modes), the
+    region's and the tail's visibility words and the tail's item list."""
     per = 8 // nbits
-    qrow = HEAD_DIM + 4 * (HEAD_DIM // 16)
+    qrow = d + 4 * (d // 16)
     cols = per * staged_groups(rows if win is None else win, kg, ng)
-    region = ITEM_ROWS * (HEAD_DIM + dp) + 2 * per * ITEM_ROWS * ngv * 4
-    stage = -(-max(region, 2 * TAIL_ROWS * HEAD_DIM * 2) // 16) * 16
-    states = (2 * 8 * 8 + 9 * g * HEAD_DIM + 16) * 4
+    region = ITEM_ROWS * (d + dp) + 2 * per * ITEM_ROWS * ngv * 4
+    stage = -(-max(region, 2 * TAIL_ROWS * d * 2) // 16) * 16
+    states = (2 * 8 * 8 + 9 * g * d + 16) * 4
     ktab = cols * g * (qrow + 1) * 4 if fold else 2 * cols * qrow * 4
     ntail = -(-t // TAIL_ROWS)
     return (max(RING_STAGES * stage, states) + g * qrow * 4
@@ -138,7 +179,7 @@ def region_smem_bytes(g: int, nbits: int, fold: bool, rows: int, kg: int,
 
 @functools.lru_cache(maxsize=None)
 def region_window(g: int, nbits: int, fold: bool, rows: int, kg: int,
-                  ng: int, dp: int, ngv: int, t: int) -> int:
+                  ng: int, dp: int, ngv: int, t: int, d: int = 128) -> int:
     """Byte-rows one staging of the group kernel's K tables covers for
     splits of ``rows`` byte-rows (region_window in csrc/quant_region.cuh):
     all of them where their tables fit MAX_SMEM (every :func:`split_plan`
@@ -147,20 +188,13 @@ def region_window(g: int, nbits: int, fold: bool, rows: int, kg: int,
     where not one item fits."""
     def fits(win):
         return region_smem_bytes(g, nbits, fold, rows, kg, ng, dp, ngv, t,
-                                 win) <= MAX_SMEM
+                                 win, d) <= MAX_SMEM
     if fits(rows):
         return rows
     win = (rows - 1) // ITEM_ROWS * ITEM_ROWS
     while win > 0 and not fits(win):
         win -= ITEM_ROWS
     return win
-
-
-def check_unsupported(scale, softcap) -> None:
-    if scale is not None or softcap is not None:
-        raise NotImplementedError(
-            "a custom attention scale or a softcap over a KIVI region is not "
-            "ported yet (Gemma-2, ROADMAP queue 2A #5c)")
 
 
 def _check_tail(tail, q: torch.Tensor, hk: int):
@@ -187,13 +221,15 @@ def _check_tail(tail, q: torch.Tensor, hk: int):
 
 def launch_region(symbol: str, lib: str, q: torch.Tensor,
                   reg: QuantizedKVRegion, mask: torch.Tensor, nbits: int,
-                  plan, tail=None, workspace: bool = False):
+                  plan, tail=None, workspace: bool = False,
+                  scale=None, softcap=None):
     """Check the shapes, allocate the outputs (and the workspace) and
     launch ``symbol`` of ``csrc/<lib>.cu`` on ``plan`` = (nsplit, byte-rows
-    per split).  Returns (acc, m, l), or with ``tail`` the attention output
-    over region and tail, [B, H, D] in q's dtype.  ``workspace``: the
-    kernel writes the splits' partials to a workspace (the pa kernel, and
-    the group kernel beyond MAX_CLUSTER splits)."""
+    per split) with the attention ``scale`` (default 1/sqrt(D)) and logit
+    cap ``softcap``.  Returns (acc, m, l), or with ``tail`` the attention
+    output over region and tail, [B, H, D] in q's dtype.  ``workspace``:
+    the kernel writes the splits' partials to a workspace (the pa kernel,
+    and the group kernel beyond MAX_CLUSTER splits)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, h, d = q.shape
@@ -222,14 +258,19 @@ def launch_region(symbol: str, lib: str, q: torch.Tensor,
                          f"of a contiguous array, got {tuple(mask.shape)} "
                          f"strides {mask.stride()}")
     pa = symbol == "pkv_quant_fused_pa"
-    if (d != HEAD_DIM or h % hk or h // hk not in GROUPS or nbits not in NBITS
-            or (not pa and (vg % 4 or dp % 4 or w % 4))):
-        raise ValueError(f"kernel takes D == {HEAD_DIM}, H/Hk in {GROUPS}, "
+    capped = softcap is not None
+    if capped and not softcap > 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
+    if (h % hk or h // hk not in INSTANCES.get((d, capped), ())
+            or nbits not in NBITS
+            or (not pa and (vg % 4 or vg % (d // 32) or dp % 4 or w % 4))):
+        raise ValueError(f"kernel takes (D, capped) -> H/Hk in {INSTANCES}, "
                          f"nbits in {NBITS} and, over a group-layout region, "
-                         f"V groups and V rows of a multiple of 4 channels "
-                         f"or bytes and a multiple of 4 byte-rows; got D={d} "
-                         f"H/Hk={h / hk} nbits={nbits} V group {vg}, V row "
-                         f"{dp} bytes, {w} byte-rows")
+                         f"V groups of a multiple of 4 and of D / 32 "
+                         f"channels, V rows of a multiple of 4 bytes and a "
+                         f"multiple of 4 byte-rows; got D={d} capped="
+                         f"{capped} H/Hk={h / hk} nbits={nbits} V group "
+                         f"{vg}, V row {dp} bytes, {w} byte-rows")
     g = h // hk
     f32 = dict(dtype=torch.float32, device=q.device)
     if tail is None:
@@ -255,8 +296,9 @@ def launch_region(symbol: str, lib: str, q: torch.Tensor,
         q.data_ptr(), kc.data_ptr(), reg.k.scale.data_ptr(),
         reg.k.zero.data_ptr(), vc.data_ptr(), reg.v.scale.data_ptr(),
         reg.v.zero.data_ptr(), mask.data_ptr(), *outs[:3], *ws_ptrs, b * hk,
-        g, nbits, w, s_pad, ng, dp, ngv, mask.stride(1), n, nsplit, rows,
-        1.0 / math.sqrt(d), tk.data_ptr() if tk is not None else None,
+        d, g, nbits, w, s_pad, ng, dp, ngv, mask.stride(1), n, nsplit, rows,
+        scale if scale is not None else 1.0 / math.sqrt(d),
+        softcap if capped else 0.0, tk.data_ptr() if tk is not None else None,
         tv.data_ptr() if tv is not None else None,
         tm.data_ptr() if tm is not None else None, t_len, t_stride, outs[3],
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -268,26 +310,29 @@ def region_plan(q: torch.Tensor, reg: QuantizedKVRegion, nbits: int):
     """:func:`split_plan` of a region call's shapes."""
     b, hk, w = reg.k.codes.shape[:3]
     kg = region_geometry(reg, nbits)[2]
-    return split_plan(q.device, b * hk, w, nbits, kg)
+    return split_plan(q.device, b * hk, w, nbits, kg, q.shape[-1])
 
 
-def launch_group(symbol: str, q, reg, mask, nbits: int, plan, tail=None):
-    """Launch a group-layout entry point of ``csrc/quant_decode.cu`` on
+def launch_group(mode: str, q, reg, mask, nbits: int, plan, tail=None,
+                 scale=None, softcap=None):
+    """Launch the group kernel in ``mode`` (a key of :data:`ENTRIES`) on
     ``plan``; returns (result, CUDA kernels launched).  Raises where not
     even one ring item's K tables fit shared memory (:func:`region_window`:
     K groups of a few slots at G = 8)."""
     w, _, kg, _ = region_geometry(reg, nbits)
     if not region_window(
-            q.shape[1] // reg.k.codes.shape[1], nbits,
-            symbol == "pkv_quant_group_fused", plan[1], kg,
-            reg.k.scale.shape[-2], reg.v.codes.shape[-1],
-            reg.v.scale.shape[-2], 0 if tail is None else tail[0].shape[2]):
+            q.shape[1] // reg.k.codes.shape[1], nbits, mode != "f32",
+            plan[1], kg, reg.k.scale.shape[-2], reg.v.codes.shape[-1],
+            reg.v.scale.shape[-2], 0 if tail is None else tail[0].shape[2],
+            q.shape[-1]):
         raise ValueError(f"the K tables of one {ITEM_ROWS}-row item of a "
                          f"{w}-byte-row region (K groups of {kg} slots) "
                          f"exceed shared memory ({MAX_SMEM} bytes)")
-    kernels = region_kernels(plan[0])
-    return launch_region(symbol, "quant_decode", q, reg, mask, nbits, plan,
-                         tail=tail, workspace=kernels > 1), kernels
+    kernels = region_kernels(plan[0], q.shape[-1])
+    lib, symbol = ENTRIES[mode]
+    return launch_region(symbol, lib, q, reg, mask, nbits, plan, tail=tail,
+                         workspace=kernels > 1, scale=scale,
+                         softcap=softcap), kernels
 
 
 def _merge_parts(parts):
@@ -308,13 +353,15 @@ def _merge_parts(parts):
 
 def region_split_plain(q: torch.Tensor, reg: QuantizedKVRegion,
                        mask: torch.Tensor, *, nbits: int, plan, fold: bool,
-                       tail=None):
+                       tail=None, scale=None, softcap=None,
+                       mm_bf16: bool = False):
     """The group kernel's schedule in plain PyTorch, on ``plan`` =
     (nsplit, byte-rows per split): split s attends over byte-rows
     [s * rows, (s + 1) * rows) on every bit-plane (slot j + p * W) with
     the kernel's arithmetic (``fold``: ``ops.quant.
     quant_region_attention_fused``, its bf16 folds with p rounded at the
-    split's max; else f32 dequantization, ``quant_decode_attention_plain``)
+    split's max; else f32 dequantization, ``quant_decode_attention_plain``,
+    with ``mm_bf16`` its folded logits) under ``scale`` and ``softcap``,
     and over its share of the bf16 tail (the 32-slot items with a visible
     slot, item i of them to split i % nsplit); the splits' partials merge
     in split order.  Arguments and results as :func:`quant_decode_attention`
@@ -325,8 +372,15 @@ def region_split_plain(q: torch.Tensor, reg: QuantizedKVRegion,
     if rows < 1 or not (nsplit - 1) * rows < w <= nsplit * rows:
         raise ValueError(f"the plan must cover {w} byte-rows with non-empty "
                          f"splits, got {nsplit} x {rows}")
-    region = (quant_region_attention_fused if fold
-              else quant_decode_attention_plain)
+    akw = dict(scale=scale, softcap=softcap)
+
+    def region(q, reg, mask, nbits):
+        if fold:
+            return quant_region_attention_fused(q, reg, mask, nbits=nbits,
+                                                **akw)
+        return quant_decode_attention_plain(q, reg, mask, nbits=nbits,
+                                            mm_bf16=mm_bf16, **akw)
+
     split_of = (torch.arange(mask.shape[-1], device=q.device) % w) // rows
     if tail is not None:
         tk, tv, tm = tail
@@ -338,10 +392,10 @@ def region_split_plain(q: torch.Tensor, reg: QuantizedKVRegion,
         tail_of = share.repeat_interleave(TAIL_ROWS, -1)[..., :t]
     parts = []
     for s in range(nsplit):
-        part = region(q, reg, mask & (split_of == s), nbits=nbits)
+        part = region(q, reg, mask & (split_of == s), nbits)
         if tail is not None:
             part = _merge_parts([part, decode_attention_partials(
-                q, tk, tv, tm & (tail_of == s))])
+                q, tk, tv, tm & (tail_of == s), **akw)])
         parts.append(part)
     acc, m, l = _merge_parts(parts)
     if tail is None:
@@ -349,42 +403,56 @@ def region_split_plain(q: torch.Tensor, reg: QuantizedKVRegion,
     return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
+def _group_call(fn, mode: str, q, reg, mask, nbits, plan, tail, scale,
+                softcap, mm_bf16=False):
+    """One group-kernel wrapper call: on a CPU tensor the plain version
+    (``mode`` "fold": the factored function; else the f32 one, with
+    ``mm_bf16`` its folded logits), on a CUDA tensor the kernel on ``plan``
+    (a function of the shapes), counted on ``fn``."""
+    akw = dict(scale=scale, softcap=softcap)
+    if mm_bf16:
+        mode = "mm_bf16"
+    if q.device.type == "cpu":
+        part = (quant_region_attention_fused(q, reg, mask, nbits=nbits, **akw)
+                if mode == "fold" else
+                quant_decode_attention_plain(q, reg, mask, nbits=nbits,
+                                             mm_bf16=mm_bf16, **akw))
+        return merge_tail(part, q, tail, **akw)
+    out, kernels = launch_group(mode, q, reg, mask, nbits, plan(), tail,
+                                **akw)
+    fn.launches += 1
+    fn.kernels += kernels
+    fn.mm_bf16 += int(mm_bf16)
+    return out
+
+
 def quant_decode_attention(q: torch.Tensor, reg: QuantizedKVRegion,
                            mask: torch.Tensor, *, nbits: int, tail=None,
-                           scale=None, softcap=None):
+                           scale=None, softcap=None, mm_bf16: bool = False):
     """Whole-region kernel: one block per (batch row, KV head) covers the G
     query heads of the KV head and the whole region (the one-split plan).
     q: [B, H, D] -> (acc, m, l); with ``tail``, the step's bf16 decode slots
     (k, v [B, Hk, T, D], mask [B, Hk, T]), the layer's attention output over
     region and tail, [B, H, D] in q's dtype (the same launch attends over
-    the tail and merges)."""
-    check_unsupported(scale, softcap)
-    if q.device.type == "cpu":
-        return merge_tail(quant_decode_attention_plain(q, reg, mask,
-                                                       nbits=nbits), q, tail)
-    out, kernels = launch_group("pkv_quant_decode", q, reg, mask, nbits,
-                                (1, reg.k.codes.shape[2]), tail)
-    quant_decode_attention.launches += 1
-    quant_decode_attention.kernels += kernels
-    return out
+    the tail and merges).  ``scale`` (default 1/sqrt(D)) and ``softcap``
+    apply to region and tail alike; ``mm_bf16``: the tiled TPU kernel's
+    mode of that name (logits from bf16-folded queries)."""
+    return _group_call(quant_decode_attention, "f32", q, reg, mask, nbits,
+                       lambda: (1, reg.k.codes.shape[2]), tail, scale,
+                       softcap, mm_bf16)
 
 
 def quant_decode_attention_tiled(q: torch.Tensor, reg: QuantizedKVRegion,
                                  mask: torch.Tensor, *, nbits: int, tail=None,
-                                 scale=None, softcap=None):
+                                 scale=None, softcap=None,
+                                 mm_bf16: bool = False):
     """The same function with the slots split across blocks as
     :func:`split_plan` says (long regions), the splits merged in a cluster
     or by a merge kernel.  Arguments and results as
     :func:`quant_decode_attention`."""
-    check_unsupported(scale, softcap)
-    if q.device.type == "cpu":
-        return merge_tail(quant_decode_attention_plain(q, reg, mask,
-                                                       nbits=nbits), q, tail)
-    out, kernels = launch_group("pkv_quant_decode", q, reg, mask, nbits,
-                                region_plan(q, reg, nbits), tail)
-    quant_decode_attention_tiled.launches += 1
-    quant_decode_attention_tiled.kernels += kernels
-    return out
+    return _group_call(quant_decode_attention_tiled, "f32", q, reg, mask,
+                       nbits, lambda: region_plan(q, reg, nbits), tail,
+                       scale, softcap, mm_bf16)
 
 
 def quant_fused_attention_group(q: torch.Tensor, reg: QuantizedKVRegion,
@@ -394,20 +462,15 @@ def quant_fused_attention_group(q: torch.Tensor, reg: QuantizedKVRegion,
     (``ops.quant.quant_region_attention_fused``), over a group-layout
     region, on :func:`split_plan`'s plan.  Arguments and results as
     :func:`quant_decode_attention`."""
-    check_unsupported(scale, softcap)
-    if q.device.type == "cpu":
-        return merge_tail(quant_region_attention_fused(q, reg, mask,
-                                                       nbits=nbits), q, tail)
-    out, kernels = launch_group("pkv_quant_group_fused", q, reg, mask, nbits,
-                                region_plan(q, reg, nbits), tail)
-    quant_fused_attention_group.launches += 1
-    quant_fused_attention_group.kernels += kernels
-    return out
+    return _group_call(quant_fused_attention_group, "fold", q, reg, mask,
+                       nbits, lambda: region_plan(q, reg, nbits), tail,
+                       scale, softcap)
 
 
 #: wrapper calls that launched on the card since the last reset (CPU calls
-#: do not count), and the CUDA kernels those calls launched
+#: do not count), the CUDA kernels those calls launched, and the calls in
+#: the mm_bf16 mode
 for _fn in (quant_decode_attention, quant_decode_attention_tiled,
             quant_fused_attention_group):
-    _fn.launches = _fn.kernels = 0
+    _fn.launches = _fn.kernels = _fn.mm_bf16 = 0
 del _fn

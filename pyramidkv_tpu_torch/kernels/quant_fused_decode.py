@@ -14,7 +14,13 @@ over the bf16 decode tail); on a CPU
 tensor it runs the plain version (``ops.quant.quant_region_attention_fused``).
 :func:`pa_split_plain` runs the kernel's schedule in plain PyTorch (the CPU
 tests hold it to the plain version and to the Pallas kernel).  Arguments
-and results as ``kernels/quant_decode.py``.
+and results as ``kernels/quant_decode.py``: the model's ``scale`` and
+``softcap`` too, the kernel instantiated at D = 128 uncapped and at D = 256
+capped (``quant_decode.INSTANCES``).  Under Gemma-2's cap the JAX engine
+does not run its Pallas kernel (``supports_fused_kernel`` refuses a cap)
+but ``ops/quant.py::quant_region_attention_fused`` in XLA: there this
+kernel is the CUDA counterpart of that XLA route, as the group layout's
+factored kernel is of its grouped branch.
 """
 
 from __future__ import annotations
@@ -24,39 +30,54 @@ import torch
 from ..ops.attention import decode_attention_partials
 from ..ops.quant import (QuantizedKVRegion, merge_tail,
                          quant_region_attention_fused, region_geometry)
-from .quant_decode import (HEAD_DIM, _merge_parts, _sm_count,
-                           check_unsupported, launch_region)
+from .quant_decode import _merge_parts, _sm_count, launch_region
 
 
 #: CUDA kernels a call launches: the split kernel and its finish pass
 PA_KERNELS = 2
-#: warps of a split-kernel block, byte-rows a warp takes at a time (a unit),
-#: units in flight a warp, padded bytes of a staged code row and 16-byte A
-#: fragments of a folded query row (as PA_WARPS, PA_UNIT, PA_STAGES, PA_ROW
-#: and FQ_QUADS in csrc/quant_region.cuh)
+#: warps of a split-kernel block, byte-rows a warp takes at a time (a unit)
+#: and units in flight a warp (as PA_WARPS, PA_UNIT and PA_STAGES in
+#: csrc/quant_region.cuh)
 PA_WARPS = 4
 PA_UNIT = 16
 PA_STAGES = 3
-PA_ROW = HEAD_DIM + 16
-FQ_QUADS = 33
 
 
-def pa_split_plan(device: torch.device, bhk: int, w: int, seg: int = 0):
+def pa_row(d: int = 128) -> int:
+    """Padded bytes of a staged code row (pa_row in csrc/quant_region.cuh)."""
+    return d + 16
+
+
+def fq_quads(d: int = 128) -> int:
+    """16-byte A fragments of a folded query row: D / 4 and a pad
+    (fq_quads in csrc/quant_region.cuh)."""
+    return d // 4 + 1
+
+
+def pa_blocks(d: int = 128) -> int:
+    """Split-kernel blocks an SM holds (pa_blocks in csrc/quant_region.cuh):
+    two at D = 128, one at D = 256 (~116 KB of rings a block)."""
+    return 1 if d == 256 else 2
+
+
+def pa_split_plan(device: torch.device, bhk: int, w: int, seg: int = 0,
+                  d: int = 128):
     """(nsplit, byte-rows per split) of the pa kernel for ``bhk`` regions
     of ``w`` byte-rows whose K groups span ``seg`` byte-rows each (0: one
-    group, the whole plane), on ``device``, from the shapes alone.  The
-    splits tile each group's byte-rows (a split never crosses a group, so
-    it folds one query a plane); a split is whole quanta of PA_WARPS *
-    PA_UNIT byte-rows, the units going to the warps in turn, so each warp
-    of a split gets the same rows (the last split of a group may be
-    shorter); as many splits a group as one wave of two blocks an SM
-    holds."""
+    group, the whole plane), at head dim ``d``, on ``device``, from the
+    shapes alone.  The splits tile each group's byte-rows (a split never
+    crosses a group, so it folds one query a plane); a split is whole
+    quanta of PA_WARPS * PA_UNIT byte-rows, the units going to the warps in
+    turn, so each warp of a split gets the same rows (the last split of a
+    group may be shorter); as many splits a group as one wave of
+    :func:`pa_blocks` blocks an SM holds."""
     seg = seg or w
     if seg < 1 or w % seg:
         raise ValueError(f"K groups of {seg} byte-rows do not tile {w}")
     quantum = PA_WARPS * PA_UNIT
     quanta = -(-seg // quantum)
-    want = max(1, min(quanta, 2 * _sm_count(device) // (bhk * (w // seg))))
+    want = max(1, min(quanta, pa_blocks(d) * _sm_count(device)
+                      // (bhk * (w // seg))))
     rows = quantum * -(-quanta // want)
     return w // seg * -(-seg // rows), rows
 
@@ -69,15 +90,16 @@ def pa_split_rows(s: int, rows: int, seg: int, w: int):
     return r0, min(r0 + rows, (s // sps + 1) * seg, w)
 
 
-def pa_smem_bytes(g: int, nbits: int) -> int:
-    """Dynamic shared memory of one split-kernel block (pa_smem_bytes in
-    csrc/quant_region.cuh): the warps' rings (a stage: K and V codes of a
-    unit, its V scales and zeros), the folded queries (one per <= 4-bit
-    field of a code byte) and the warps' sums of the K zero terms."""
+def pa_smem_bytes(g: int, nbits: int, d: int = 128) -> int:
+    """Dynamic shared memory of one split-kernel block at head dim ``d``
+    (pa_smem_bytes in csrc/quant_region.cuh): the warps' rings (a stage: K
+    and V codes of a unit, its V scales and zeros), the folded queries (one
+    per <= 4-bit field of a code byte) and the warps' sums of the K zero
+    terms."""
     per = 8 // nbits
     fields = 2 if nbits == 8 else per
-    stage = 2 * PA_UNIT * PA_ROW + 2 * per * PA_UNIT * 4
-    return (PA_WARPS * PA_STAGES * stage + fields * g * FQ_QUADS * 16
+    stage = 2 * PA_UNIT * pa_row(d) + 2 * per * PA_UNIT * 4
+    return (PA_WARPS * PA_STAGES * stage + fields * g * fq_quads(d) * 16
             + PA_WARPS * per * g * 4)
 
 
@@ -97,23 +119,27 @@ def quant_fused_attention_pa(q: torch.Tensor, reg: QuantizedKVRegion,
     """q: [B, H, D]; ``reg`` one layer's pa-layout region; mask
     [B, Hk, n <= S_pad] -> (acc [B, H, D], m [B, H], l [B, H]) f32; with
     ``tail`` the layer's attention output over region and tail, [B, H, D]
-    in q's dtype (see ``quant_decode_attention``)."""
-    check_unsupported(scale, softcap)
+    in q's dtype; ``scale`` (default 1/sqrt(D)) and ``softcap`` on region
+    and tail (see ``quant_decode_attention``)."""
+    akw = dict(scale=scale, softcap=softcap)
     seg = _k_segment(reg, nbits)
     if q.device.type == "cpu":
         return merge_tail(quant_region_attention_fused(q, reg, mask,
-                                                       nbits=nbits), q, tail)
+                                                       nbits=nbits, **akw),
+                          q, tail, **akw)
     b, hk, w = reg.k.codes.shape[:3]
     out = launch_region("pkv_quant_fused_pa", "quant_fused_decode", q, reg,
-                        mask, nbits, pa_split_plan(q.device, b * hk, w, seg),
-                        tail=tail, workspace=True)
+                        mask, nbits,
+                        pa_split_plan(q.device, b * hk, w, seg, q.shape[-1]),
+                        tail=tail, workspace=True, **akw)
     quant_fused_attention_pa.launches += 1
     quant_fused_attention_pa.kernels += PA_KERNELS
     return out
 
 
 def pa_split_plain(q: torch.Tensor, reg: QuantizedKVRegion,
-                   mask: torch.Tensor, *, nbits: int, plan, tail=None):
+                   mask: torch.Tensor, *, nbits: int, plan, tail=None,
+                   scale=None, softcap=None):
     """The pa kernel's schedule in plain PyTorch, on ``plan`` = (nsplit,
     byte-rows per split) (:func:`pa_split_rows`): split s's 16-row units go
     to its PA_WARPS warps in turn; a warp takes its units in order, each
@@ -123,8 +149,10 @@ def pa_split_plain(q: torch.Tensor, reg: QuantizedKVRegion,
     scale rounded to bf16, p times the V zero summed apart); the warps merge
     in order (the zero sum added to every channel), then the splits in
     order (the finish pass), then the bf16 tail (f32, as
-    ``decode_attention_partials``) after them.  Arguments and results as
-    :func:`quant_fused_attention_pa`."""
+    ``decode_attention_partials``) after them.  The query is scaled by
+    ``scale`` (default 1/sqrt(D)) before the folds; each logit is capped
+    under ``softcap`` after the zero term, before the mask.  Arguments and
+    results as :func:`quant_fused_attention_pa`."""
     b, h, d = q.shape
     hk = reg.k.codes.shape[1]
     g = h // hk
@@ -137,7 +165,8 @@ def pa_split_plain(q: torch.Tensor, reg: QuantizedKVRegion,
                          f"{nsplit} x {rows}")
     neg = torch.finfo(torch.float32).min
     vis = torch.nn.functional.pad(mask, (0, s_pad - mask.shape[-1]))
-    qg = q.float().reshape(b, hk, g, d) * (1.0 / d ** 0.5)
+    qg = q.float().reshape(b, hk, g, d) * (scale if scale is not None
+                                           else 1.0 / d ** 0.5)
     ku = reg.k.codes.view(torch.uint8)
     vu = reg.v.codes.view(torch.uint8)[..., :d]
     mb = (1 << nbits) - 1
@@ -164,6 +193,8 @@ def pa_split_plain(q: torch.Tensor, reg: QuantizedKVRegion,
                     kc = ((ku[:, :, u0:u1] >> (p * nbits)) & mb).float()
                     x = torch.einsum("bkgd,bktd->bkgt", fq[p], kc)
                     x = x + zb[p][..., None]
+                    if softcap is not None:
+                        x = torch.tanh(x * (1.0 / softcap)) * softcap
                     sv.append(x.masked_fill(~vis[:, :, None, slots[p]], neg))
                 sv = torch.cat(sv, -1)                    # [B, Hk, G, T]
                 m_new = torch.maximum(m, sv.amax(-1))
@@ -186,7 +217,8 @@ def pa_split_plain(q: torch.Tensor, reg: QuantizedKVRegion,
     if tail is None:
         return part
     tk, tv, tm = tail
-    acc, m, l = _merge_parts([part, decode_attention_partials(q, tk, tv, tm)])
+    acc, m, l = _merge_parts([part, decode_attention_partials(
+        q, tk, tv, tm, scale=scale, softcap=softcap)])
     return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 

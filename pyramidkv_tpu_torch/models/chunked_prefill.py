@@ -20,13 +20,14 @@ Two carries, as in the JAX package:
   tile) and each earlier chunk dequantized one tile at a time, through
   ``flash_attention_partials`` merged in the base-2 domain
   (:func:`merge_exp2`); the plain path uses ``tile_attention_partials`` and
-  the natural-log merge, as the JAX package's XLA path does.  Under a
-  sliding window a history tile is passed at its true distance
-  (``q_start = chunk_start - hc * C``), so the kernel's window test is
-  exact, and a tile outside the window of every row is skipped; JAX runs
-  the same function through its XLA tile masks.  Packing is
-  chunk-local planar; :func:`prefill_finish_quant` repacks it region-global.
-  With ``q_layout="pa"`` each chunk is one K scale group.
+  the natural-log merge, as the JAX package's XLA path does; both with the
+  model's scale and cap.  Each layer takes its own window (Gemma-2's
+  sliding layers; its full layers none): under a window a history tile is
+  passed at its true distance (``q_start = chunk_start - hc * C``), so the
+  kernel's window test is exact, and a tile outside the window of every
+  row is skipped; JAX runs the same function through its XLA tile masks.
+  Packing is chunk-local planar; :func:`prefill_finish_quant` repacks it
+  region-global.  With ``q_layout="pa"`` each chunk is one K scale group.
 
 Methods outside :func:`supports_chunked` / :func:`supports_chunked_quant`
 (minference, and fullkv + KIVI where the chunk does not fit its groups)
@@ -347,8 +348,9 @@ def prefill_chunk_quant(
     bf16, each earlier chunk dequantized one tile at a time, merged online
     (under ``"kernel"`` through ``flash_attention_partials`` in base 2,
     under ``"plain"`` through ``tile_attention_partials`` in natural
-    units); then this chunk's K/V are quantized into the carry (in place).
-    Returns hidden_last [B, Dm]."""
+    units), with the model's scale and cap and each layer's own window
+    (JAX ``chunked_prefill.py:491-503``); then this chunk's K/V are
+    quantized into the carry (in place).  Returns hidden_last [B, Dm]."""
     cs = plan.spec
     nbits = cs.nbits
     per = 8 // nbits
@@ -363,14 +365,16 @@ def prefill_chunk_quant(
     colv = cols[None, :] >= pad[:, None]  # [B, C]
     kernel = attention_impl == "kernel"
     act = hidden.dtype
-    win = spec.sliding_window
-    # the history chunks some row of this chunk sees: chunk hc's last key
-    # lies inside the window of this chunk's first row (JAX runs every tile
-    # under its mask; a tile outside every row's window adds m = -inf,
-    # l = 0, so skipping it gives the same result)
-    hist = [hc for hc in range(chunk_start // c)
-            if win is None or chunk_start - (hc * c + c - 1) < win]
+    akw = llama.attn_args(spec)
     for li in range(spec.num_hidden_layers):
+        win = spec.layer_window(li)
+        # the history chunks some row of this chunk sees in this layer:
+        # chunk hc's last key lies inside the window of this chunk's first
+        # row (JAX runs every tile under its mask; a tile outside every
+        # row's window adds m = -inf, l = 0, so skipping it gives the same
+        # result)
+        hist = [hc for hc in range(chunk_start // c)
+                if win is None or chunk_start - (hc * c + c - 1) < win]
         wts = llama._layer(params, li)
         x = llama._norm(hidden, wts["attn_norm"], spec)
         q, k, v = llama._qkv(x, wts, spec, attention_impl)
@@ -380,10 +384,10 @@ def prefill_chunk_quant(
         if kernel:
             tl_self = c - (pad - chunk_start).clamp(0, c)
             parts = flash_attention_partials(q, k, v, tl_self, q_start=0,
-                                             sliding_window=win)
+                                             sliding_window=win, **akw)
         else:
             self_mask = _window_mask(cols, cols, win)[None] & colv[:, None, :]
-            parts = plain.tile_attention_partials(q, k, v, self_mask)
+            parts = plain.tile_attention_partials(q, k, v, self_mask, **akw)
         for hc in hist:
             k_t, v_t = _history_tile(state, li, hc, c, nbits, kg, vg, dh, act)
             if kernel:
@@ -392,13 +396,14 @@ def prefill_chunk_quant(
                 tl_t = c - (pad - hc * c).clamp(0, c)
                 parts = merge_exp2(parts, flash_attention_partials(
                     q, k_t, v_t, tl_t, q_start=chunk_start - hc * c,
-                    sliding_window=win))
+                    sliding_window=win, **akw))
             else:
                 hcols = hc * c + torch.arange(c, device=dev)
                 hmask = (_window_mask(cols, hcols, win)[None]
                          & (hcols[None, None, :] >= pad[:, None, None]))
                 parts = plain.merge_partials_pair(
-                    parts, plain.tile_attention_partials(q, k_t, v_t, hmask))
+                    parts, plain.tile_attention_partials(q, k_t, v_t, hmask,
+                                                         **akw))
         acc, _, l = parts
         attn = (acc / l.clamp_min(1e-30)[..., None]).to(act)
         hidden = _finish_layer(hidden, attn, wts, spec, attention_impl)

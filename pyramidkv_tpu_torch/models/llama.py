@@ -33,8 +33,8 @@ follow JAX's ``llama.py``: (1 + w) RMSNorms in f32, embeddings times
 sqrt(hidden) rounded to the activation dtype, post-attention and post-MLP
 norms, GeGLU (``gelu_tanh``), the attention scale
 ``query_pre_attn_scalar^-0.5`` and logit cap (``attn_args``, passed to the
-flash, decode, H2O and block-sparse kernels, ThinK's decode, the plain
-paths and the scorers), and the final logit cap.
+flash, decode, H2O, block-sparse and KIVI region kernels, ThinK's decode,
+the plain paths and the scorers), and the final logit cap.
 Quantized params (``models/weights.py``) keep the JAX tree's names, plus the
 fused ``wqkv`` / ``w_gateup`` leaves of ``fuse_packed_matmuls``.
 """
@@ -42,6 +42,7 @@ fused ``wqkv`` / ``w_gateup`` leaves of ``fuse_packed_matmuls``.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -76,26 +77,6 @@ def check_ported(spec: ModelSpec) -> None:
         raise NotImplementedError(
             f"{spec.name}: Mixtral's MoE MLP is not ported yet (ROADMAP "
             "queue 1 #5d)")
-
-
-def check_method_ported(spec: ModelSpec, cs) -> None:
-    """Raise for a cache the port does not run on ``spec`` yet: on a model
-    with an attention logit cap, a custom scale or alternating windows
-    (Gemma-2), KIVI caches (ROADMAP queue 2A #5c).  Every compression
-    method runs there, H2O, MInference and ThinK with the model's scale and
-    cap."""
-    if (spec.attn_logit_softcapping is None
-            and spec.query_pre_attn_scalar is None
-            and not spec.mixed_sliding):
-        return
-    if cs.quant_method is not None:
-        raise NotImplementedError(
-            f"{spec.name}: {cs.method} with a {cs.quant_method} cache on a "
-            "model with an attention logit cap, a custom scale or "
-            "alternating windows (Gemma-2) needs the KIVI region kernels "
-            "with the scale and the cap at D = 256 and the quantized "
-            "carry's per-layer window, not ported yet (ROADMAP queue 2A "
-            "#5c)")
 
 
 def attn_args(spec: ModelSpec) -> dict:
@@ -320,7 +301,6 @@ def prefill(
     pad = (n - true_len).to(torch.int64)
     positions = torch.arange(n, device=dev)[None, :] - pad[:, None]  # [B, N]
     ctxs = layer_contexts(plan, true_len, spec.num_attention_heads, rng)
-    check_method_ported(spec, plan.spec)
     akw = attn_args(spec)
 
     hidden = embed(params, tokens, spec)  # [B, N, Dm]
@@ -452,47 +432,90 @@ def assemble_cache(seg_stacks: list, true_len: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+#: JAX ``llama.py:766``: regions of more padded slots than this take the
+#: long-region branch, the only one where the JAX engine runs its tiled
+#: kernel (and with it ``mm_bf16``); lowered by tests, as JAX's
+QUANT_CHUNK_THRESHOLD = [4096]
+#: JAX ``kernels/quant_decode.py:48``: the whole-region kernel's largest
+#: region, in padded slots
+MAX_KERNEL_SLOTS = 8192
+#: test hook, JAX's ``_FORCE_QUANT_KERNEL`` for the tiled route: every
+#: long region counts as tile-aligned (JAX's interpret-mode tests take the
+#: tile gcd(S_pad, tile), ``llama.py:1082-1084``)
+FORCE_TILE_ALIGNED = [False]
+
+
+def region_mm_bf16(es, spec: ModelSpec, cs, s_pad: int) -> bool:
+    """Whether the JAX engine decodes a group region of ``s_pad`` padded
+    slots through its tiled kernel with ``mm_bf16`` (``llama.py:952-1102``):
+    ``PKV_QUANT_MM_BF16=1`` on the ``use_quant_tiled`` route of the kernels
+    (``use_pallas``; the factored default not forced by
+    ``use_quant_fused``), where the whole-region
+    kernel does not take the region (``use_quant_kernel`` over at most
+    MAX_KERNEL_SLOTS slots without a custom scale or cap), the region is
+    longer than QUANT_CHUNK_THRESHOLD and the tile (128 K groups a plane)
+    divides it.  Elsewhere the JAX engine runs f32 partials, as the port's
+    f32 route does."""
+    if (os.environ.get("PKV_QUANT_MM_BF16", "0") != "1"
+            or not (es.use_pallas and es.use_quant_tiled)
+            or es.use_quant_fused
+            or cs.quant_method != "kivi" or cs.q_layout != "group"):
+        return False
+    akw = attn_args(spec)
+    whole = (es.use_quant_kernel and s_pad <= MAX_KERNEL_SLOTS
+             and akw["scale"] is None and akw["softcap"] is None)
+    tile = 128 * cs.q_group_size * (8 // cs.nbits)
+    return (not whole and s_pad > QUANT_CHUNK_THRESHOLD[0]
+            and (s_pad % tile == 0 or FORCE_TILE_ALIGNED[0]))
+
+
 def region_route(cs, bhk: int, w: int, device: torch.device,
-                 f32_quant: bool = False):
+                 f32_quant: bool = False, d: int = 128):
     """The region kernel a KIVI layer of ``bhk`` regions of ``w`` byte-rows
-    decodes through on ``device``: pa regions through
+    at head dim ``d`` decodes through on ``device``: pa regions through
     ``quant_fused_attention_pa``; group regions through
     ``quant_fused_attention_group`` (JAX's default: the factored
     dequantization with bf16 folds), or with ``f32_quant`` (JAX's opt-in
     ``use_quant_kernel`` / ``use_quant_tiled``) through the f32 kernels:
     ``quant_decode_attention`` where the split plan (for the spec's nbits
     and K group size) gives one split, else
-    ``quant_decode_attention_tiled``."""
+    ``quant_decode_attention_tiled`` (either in its ``mm_bf16`` mode where
+    :func:`region_mm_bf16` says)."""
     if cs.q_layout == "pa":
         return quant_fused_attention_pa
     if not f32_quant:
         return quant_fused_attention_group
-    one = split_plan(device, bhk, w, cs.nbits, cs.q_group_size)[0] == 1
+    one = split_plan(device, bhk, w, cs.nbits, cs.q_group_size, d)[0] == 1
     return quant_decode_attention if one else quant_decode_attention_tiled
 
 
 def _region_attention(q: torch.Tensor, reg, layer: LayerCacheView,
                       visible: torch.Tensor, plan: PolicyPlan, impl: str,
-                      f32_quant: bool = False) -> torch.Tensor:
+                      akw: dict, f32_quant: bool = False,
+                      mm_bf16: bool = False) -> torch.Tensor:
     """One KIVI layer's decode attention over the quantized prefill region
     and the bf16 decode slots (the tail), ``visible`` [B, Hk, S] (a
     contiguous mask over both; its region prefix and tail rows are the
-    views the kernels take): one region-kernel call
-    (:func:`region_route`), which attends over the tail too and merges,
-    or its plain version (region partials, tail partials in plain
-    torch as the JAX package leaves them to XLA, merged).  Returns
-    [B, H, D] in q's dtype."""
+    views the kernels take), with the model's scale and cap ``akw``: one
+    region-kernel call (:func:`region_route`), which attends over the tail
+    too and merges, or its plain version (region partials, tail partials
+    in plain torch as the JAX package leaves them to XLA, merged).
+    ``mm_bf16`` (f32 route, group layout): the tiled TPU kernel's mode of
+    that name.  Returns [B, H, D] in q's dtype."""
     cs, sp = plan.spec, plan.prefill_slots
     tail = (layer.k, layer.v, visible[:, :, sp:])
+    f32 = f32_quant and cs.q_layout == "group"
+    mkw = dict(akw, mm_bf16=True) if f32 and mm_bf16 else akw
     if impl == "kernel":
         b, hk, w = reg.k.codes.shape[:3]
-        return region_route(cs, b * hk, w, q.device, f32_quant)(
-            q, reg, visible[:, :, :sp], nbits=cs.nbits, tail=tail)
-    plain_region = (quant.quant_decode_attention_plain
-                    if f32_quant and cs.q_layout == "group"
+        return region_route(cs, b * hk, w, q.device, f32_quant,
+                            q.shape[-1])(
+            q, reg, visible[:, :, :sp], nbits=cs.nbits, tail=tail, **mkw)
+    plain_region = (quant.quant_decode_attention_plain if f32
                     else quant.quant_region_attention_fused)
     return quant.merge_tail(
-        plain_region(q, reg, visible[:, :, :sp], nbits=cs.nbits), q, tail)
+        plain_region(q, reg, visible[:, :, :sp], nbits=cs.nbits, **mkw), q,
+        tail, **akw)
 
 
 def decode_step(
@@ -504,6 +527,7 @@ def decode_step(
     *,
     attention_impl: str = "kernel",
     f32_quant: bool = False,
+    mm_bf16: bool = False,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step against the compressed cache.
 
@@ -513,8 +537,9 @@ def decode_step(
     ``cache.step`` and returns the same buffers); with a KIVI cache, whose
     k/v buffers hold only the decode slots, into k/v slot ``step``.
     ``f32_quant``: group-layout KIVI regions decode through the f32
-    region kernels (:func:`region_route`).  Returns (f32 logits [B, vocab],
-    cache).
+    region kernels (:func:`region_route`), with ``mm_bf16`` in that mode
+    (:func:`region_mm_bf16` decides it for the engine).  Returns (f32
+    logits [B, vocab], cache).
     """
     check_ported(spec)
     if attention_impl not in IMPLS:
@@ -524,7 +549,6 @@ def decode_step(
     inv_freq = rope_inv_freq(spec, token.device)
     pos = cache.current_position()  # [B]
     store_kv = stores_kv_heads(plan.spec)
-    check_method_ported(spec, plan.spec)
     akw = attn_args(spec)
     # the window masks decode only where rows are positions (fullkv and
     # minference keep every slot), each layer's own (Gemma-2's alternate);
@@ -571,7 +595,7 @@ def decode_step(
             if quantized:
                 attn = _region_attention(
                     q, quant.layer_region(cache.quant, start + i), layer,
-                    visible, sub, attention_impl, f32_quant)
+                    visible, sub, attention_impl, akw, f32_quant, mm_bf16)
             elif think:
                 # no kernel: plain torch, as JAX leaves it to XLA
                 attn = plain.decode_attention_think(

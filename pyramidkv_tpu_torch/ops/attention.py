@@ -272,19 +272,22 @@ def tile_attention_partials(
     v_tile: torch.Tensor,
     mask: torch.Tensor,
     *,
+    scale: Optional[float] = None,
+    softcap: Optional[float] = None,
     q_block: int = 1024,
 ):
     """Natural-log online-softmax partials of a multi-row query block
     against one K/V tile (JAX ``ops/attention.py::tile_attention_partials``).
 
     q: [B, H, T, D]; k_tile, v_tile: [B, Hk, S, D]; mask: [B, T, S] or
-    [B, 1, S] visibility (causality and padding are the caller's).
-    Returns (acc [B, H, T, D], m [B, H, T], l [B, H, T]) f32; merge with
-    :func:`merge_partials_pair`."""
+    [B, 1, S] visibility (causality and padding are the caller's).  The
+    logits are scaled by ``scale`` (default 1/sqrt(D)) and capped under
+    ``softcap`` before the mask.  Returns (acc [B, H, T, D], m [B, H, T],
+    l [B, H, T]) f32; merge with :func:`merge_partials_pair`."""
     b, h, t, d = q.shape
     hk, s_len = k_tile.shape[1], k_tile.shape[2]
     g = h // hk
-    sc = 1.0 / math.sqrt(d)
+    sc = scale if scale is not None else 1.0 / math.sqrt(d)
     mask = mask.expand(b, t, s_len)
     kf = k_tile.float().transpose(-1, -2)
     vf = v_tile.float()
@@ -296,8 +299,8 @@ def tile_attention_partials(
     l = torch.empty((b, hk, g, t), **f32)
     for r0 in range(0, t, tb):
         mb = mask[:, None, None, r0:r0 + tb]
-        logits = torch.matmul(qf[:, :, :, r0:r0 + tb].reshape(
-            b, hk, g * tb, d), kf).reshape(b, hk, g, tb, s_len) * sc
+        logits = scale_softcap(torch.matmul(qf[:, :, :, r0:r0 + tb].reshape(
+            b, hk, g * tb, d), kf).reshape(b, hk, g, tb, s_len), sc, softcap)
         logits = logits.masked_fill(~mb, _NEG_INF)
         mx = logits.amax(dim=-1)
         p = torch.exp(logits - mx.clamp_min(_NEG_INF / 2)[..., None])
@@ -389,16 +392,20 @@ def decode_attention_think(
 
 
 def decode_attention_partials(q: torch.Tensor, k_cache: torch.Tensor,
-                              v_cache: torch.Tensor, mask: torch.Tensor):
+                              v_cache: torch.Tensor, mask: torch.Tensor, *,
+                              scale: Optional[float] = None,
+                              softcap: Optional[float] = None):
     """Online-softmax partials of single-token attention, in f32: (acc
     [B, H, D], m [B, H], l [B, H]) with out = acc / l after merging.
-    Shapes as :func:`decode_attention`.  ``m`` is the true max logit
-    (float32.min when every slot is masked, and then l = 0)."""
+    Shapes, ``scale`` and ``softcap`` as :func:`decode_attention` (the cap
+    before the mask).  ``m`` is the true max logit (float32.min when every
+    slot is masked, and then l = 0, never -cap)."""
     b, h, d = q.shape
     hk = k_cache.shape[1]
+    sc = scale if scale is not None else 1.0 / math.sqrt(d)
     qg = q.float().reshape(b, hk, h // hk, d)
-    logits = torch.matmul(qg, k_cache.float().transpose(-1, -2)) * (
-        1.0 / math.sqrt(d))
+    logits = scale_softcap(
+        torch.matmul(qg, k_cache.float().transpose(-1, -2)), sc, softcap)
     valid = mask[:, :, None, :]
     logits = logits.masked_fill(~valid, _NEG_INF)
     m = logits.amax(dim=-1)

@@ -167,57 +167,57 @@ def _pad_mask(mask: torch.Tensor, s_pad: int) -> torch.Tensor:
 
 
 def quant_decode_attention_plain(q: torch.Tensor, reg: QuantizedKVRegion,
-                                 mask: torch.Tensor, *, nbits: int):
-    """Plain version of the group-layout region kernels: f32
-    dequantization of the whole region, then f32 attention partials.
+                                 mask: torch.Tensor, *, nbits: int,
+                                 scale: Optional[float] = None,
+                                 softcap: Optional[float] = None,
+                                 mm_bf16: bool = False):
+    """Plain version of the group-layout region kernels' f32 route: f32
+    dequantization of the whole region, then f32 attention partials, the
+    logits scaled by ``scale`` (default 1/sqrt(D)) and capped under
+    ``softcap`` before the mask.  ``mm_bf16`` (JAX
+    ``kernels/quant_decode.py:378-384``, the tiled kernel's mode): the
+    logits are the factored ones of :func:`quant_region_attention_fused`
+    (bf16(q * scale * ks) . code in f32, plus the K zero term
+    q * scale . kz in f32), P.V the f32 dequantization.
 
     q: [B, H, D]; ``reg`` one layer's region; mask: [B, Hk, n] (n <= S_pad;
     slots beyond it are padding).  Returns (acc [B, H, D], m [B, H],
     l [B, H]) f32 with out = acc / l after merging."""
-    d = q.shape[-1]
+    b, h, d = q.shape
     _, s_pad, _, _ = region_geometry(reg, nbits)
     k, v = dequantize_kv_region(reg, num_slots=s_pad, head_dim=d,
                                 nbits=nbits)
-    return decode_attention_partials(q.float(), k, v, _pad_mask(mask, s_pad))
+    vis = _pad_mask(mask, s_pad)
+    if not mm_bf16:
+        return decode_attention_partials(q.float(), k, v, vis, scale=scale,
+                                         softcap=softcap)
+    m, pe, l = _softmax_stats(_folded_logits(q, reg, nbits, scale), vis,
+                              softcap)
+    acc = torch.matmul(pe, v)
+    return acc.reshape(b, h, d), m.reshape(b, h), l.reshape(b, h)
 
 
-def quant_region_attention_fused(q: torch.Tensor, reg: QuantizedKVRegion,
-                                 visible: torch.Tensor, *, nbits: int):
-    """Attention partials over a KIVI region without a dequantized copy
-    (JAX ``ops/quant.py::quant_region_attention_fused``; plain version of
-    ``kernels/quant_fused_decode.py`` and of
-    ``kernels/quant_decode.py::quant_fused_attention_group``).
-
-    The affine dequantization folds through the attention algebra: the K
-    scale into the query (rounded to bf16, as the JAX function feeds its
-    bf16 dot), the K zero into a logit bias q . kz (f32); the V scale into
-    the probabilities (rounded to bf16), the V zero into the sum
-    sum_t p_t vz_t (f32) added to the channels of its group.  Bit-planes are
-    separate slot spans whose logits concatenate in planar slot order.  K
-    may have Gk > 1 slot groups (the group layout, or the chunked prefill's
-    pa carry: one group per chunk), each plane holding whole groups: the
-    query then folds once per group and the zero term is a per-group bias.
-    V may have Gv > 1 channel groups (the group layout): the probabilities
-    then fold once per group.
-
-    q: [B, H, D]; visible: [B, Hk, n] (n <= S_pad).  Returns (acc [B, H, D],
-    m [B, H], l [B, H]) f32."""
+def _folded_logits(q: torch.Tensor, reg: QuantizedKVRegion, nbits: int,
+                   scale: Optional[float]) -> torch.Tensor:
+    """The factored logits of :func:`quant_region_attention_fused` (JAX
+    ``ops/quant.py:466-511``), [B, Hk, G, S_pad] f32 in planar slot order:
+    per bit-plane and K group, the query times the scale (default
+    1/sqrt(D)) folded with the group's K scale and rounded to bf16, dotted
+    with the raw codes in f32, plus the K zero term q * scale . kz (f32)."""
     b, h, d = q.shape
     hk = reg.k.codes.shape[1]
     g = h // hk
     per = 8 // nbits
-    w, s_pad, kg_sz, vg_sz = region_geometry(reg, nbits)
-    gk, gv = reg.k.scale.shape[-2], reg.v.scale.shape[-2]
+    w, s_pad, kg_sz, _ = region_geometry(reg, nbits)
+    gk = reg.k.scale.shape[-2]
     if gk > 1 and w % kg_sz:
         raise ValueError("quant_region_attention_fused takes K groups that "
                          "tile each bit-plane")
-    mask = _pad_mask(visible, s_pad)
-    qg = q.float().reshape(b, hk, g, d) * (1.0 / math.sqrt(d))
+    sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.float().reshape(b, hk, g, d) * sc
     ku = reg.k.codes.view(torch.uint8)
-    vu = reg.v.codes.view(torch.uint8)
     mb = (1 << nbits) - 1
     ks, kz = reg.k.scale[..., 0], reg.k.zero[..., 0]        # [B, Hk, D, Gk]
-    vs, vz = reg.v.scale[..., 0], reg.v.zero[..., 0]        # [B, Hk, S, Gv]
     planes = []
     for p in range(per):
         cp = ((ku >> (p * nbits)) & mb).float()             # [B, Hk, W, D]
@@ -235,13 +235,61 @@ def quant_region_attention_fused(q: torch.Tensor, reg: QuantizedKVRegion,
         s5 = torch.einsum("bkqdg,bkgtd->bkqgt", qs,
                           cp.reshape(b, hk, gpl, kg_sz, d))
         planes.append((s5 + z[..., None]).reshape(b, hk, g, w))
-    s = torch.cat(planes, dim=-1)
+    return torch.cat(planes, dim=-1)
+
+
+def _softmax_stats(s: torch.Tensor, mask: torch.Tensor,
+                   softcap: Optional[float]):
+    """(m, p, l) of logits ``s`` [B, Hk, G, S] under ``mask`` [B, Hk, S]:
+    the cap first (cap * tanh(s / cap), JAX ``ops/quant.py:523-524``),
+    then the mask (float32.min), p = exp(s - m) zero where masked; m stays
+    float32.min and l = 0 where no slot is visible, never -cap."""
+    if softcap is not None:
+        s = torch.tanh(s * (1.0 / softcap)) * softcap
     valid = mask[:, :, None, :]
     s = s.masked_fill(~valid, _NEG_INF)
     m = s.amax(dim=-1)
     pe = torch.exp(s - m.clamp_min(_NEG_INF / 2)[..., None]).masked_fill(
         ~valid, 0.0)
-    l = pe.sum(-1)
+    return m, pe, pe.sum(-1)
+
+
+def quant_region_attention_fused(q: torch.Tensor, reg: QuantizedKVRegion,
+                                 visible: torch.Tensor, *, nbits: int,
+                                 scale: Optional[float] = None,
+                                 softcap: Optional[float] = None):
+    """Attention partials over a KIVI region without a dequantized copy
+    (JAX ``ops/quant.py::quant_region_attention_fused``; plain version of
+    ``kernels/quant_fused_decode.py`` and of
+    ``kernels/quant_decode.py::quant_fused_attention_group``).
+
+    The affine dequantization folds through the attention algebra: the K
+    scale into the query (rounded to bf16, as the JAX function feeds its
+    bf16 dot), the K zero into a logit bias q . kz (f32); the V scale into
+    the probabilities (rounded to bf16), the V zero into the sum
+    sum_t p_t vz_t (f32) added to the channels of its group.  Bit-planes are
+    separate slot spans whose logits concatenate in planar slot order.  K
+    may have Gk > 1 slot groups (the group layout, or the chunked prefill's
+    pa carry: one group per chunk), each plane holding whole groups: the
+    query then folds once per group and the zero term is a per-group bias.
+    V may have Gv > 1 channel groups (the group layout): the probabilities
+    then fold once per group.  The query is scaled by ``scale`` (default
+    1/sqrt(D)) before the folds, and the logits capped under ``softcap``
+    after the zero term, before the mask (JAX :467, :523-526).
+
+    q: [B, H, D]; visible: [B, Hk, n] (n <= S_pad).  Returns (acc [B, H, D],
+    m [B, H], l [B, H]) f32."""
+    b, h, d = q.shape
+    hk = reg.k.codes.shape[1]
+    g = h // hk
+    per = 8 // nbits
+    w, s_pad, _, vg_sz = region_geometry(reg, nbits)
+    gv = reg.v.scale.shape[-2]
+    m, pe, l = _softmax_stats(_folded_logits(q, reg, nbits, scale),
+                              _pad_mask(visible, s_pad), softcap)
+    vu = reg.v.codes.view(torch.uint8)
+    mb = (1 << nbits) - 1
+    vs, vz = reg.v.scale[..., 0], reg.v.zero[..., 0]        # [B, Hk, S, Gv]
     dp = reg.v.codes.shape[-1]
     acc = torch.zeros((b, hk, g, dp), dtype=torch.float32, device=q.device)
     for p in range(per):
@@ -263,17 +311,21 @@ def quant_region_attention_fused(q: torch.Tensor, reg: QuantizedKVRegion,
     return (acc[..., :d].reshape(b, h, d), m.reshape(b, h), l.reshape(b, h))
 
 
-def merge_tail(part, q: torch.Tensor, tail):
+def merge_tail(part, q: torch.Tensor, tail, *,
+               scale: Optional[float] = None,
+               softcap: Optional[float] = None):
     """A KIVI layer's decode attention from its region's partials ``part``
     and the step's bf16 decode tail ``(k, v, mask)`` (k/v [B, Hk, T, D],
-    mask [B, Hk, T]): the tail's partials merged after the region's,
-    [B, H, D] in q's dtype.  The plain version of the region kernels' tail
-    pass; ``tail=None`` returns ``part`` as it is."""
+    mask [B, Hk, T]): the tail's partials (with ``scale`` and ``softcap``)
+    merged after the region's, [B, H, D] in q's dtype.  The plain version
+    of the region kernels' tail pass; ``tail=None`` returns ``part`` as it
+    is."""
     if tail is None:
         return part
     k, v, mask = tail
     return merge_attention_partials(
-        [part, decode_attention_partials(q, k, v, mask)]).to(q.dtype)
+        [part, decode_attention_partials(q, k, v, mask, scale=scale,
+                                         softcap=softcap)]).to(q.dtype)
 
 
 def stack_regions(regions) -> QuantizedKVRegion:

@@ -224,6 +224,7 @@ QWEN_DECODE = ("csrc/decode_attn.cu", "phase_qwen_kernels")
 QWEN_KIVI = ("csrc/quant_region.cuh", "phase_qwen_kernels")
 GEMMA_FLASH = ("csrc/flash_prefill.cu", "phase_gemma_kernels")
 GEMMA_BSP = ("csrc/block_sparse_prefill.cu", "phase_gemma_kernels")
+GEMMA_KIVI = ("csrc/quant_region.cuh", "phase_gemma_region_kernels")
 
 
 def _capped_h2o(r):
@@ -240,6 +241,14 @@ def _group(r):
 
 def _pa(r):
     return r["check"] == "quant_fused_attention_pa"
+
+
+def _capped_region(r):
+    """A KIVI region check at D = 256 under the cap."""
+    return r["check"] in (
+        "quant_decode_attention", "quant_decode_attention_tiled",
+        "quant_fused_attention_group", "quant_fused_attention_pa") and (
+        r.get("D") == 256 and bool(r.get("softcap")))
 
 
 def _int4(r):
@@ -294,8 +303,8 @@ MUTANTS = {
         "STAGE;"),
     "pa_plane_folds_next_group": (
         *KIVI, lambda r: _pa(r) and r["k_groups"] > 1,
-        "const size_t o = ((size_t)bk * D + tid) * a.NG + p * gpl + gsp;",
-        "const size_t o = ((size_t)bk * D + tid) * a.NG + ((p + 1) % PER) * "
+        "const size_t o = ((size_t)bk * D + ch) * a.NG + p * gpl + gsp;",
+        "const size_t o = ((size_t)bk * D + ch) * a.NG + ((p + 1) % PER) * "
         "gpl + gsp;"),
     "pa_merge_drops_last_split": (
         *KIVI, lambda r: _pa(r) and r["nsplit"] > 1,
@@ -444,9 +453,9 @@ MUTANTS = {
         "const float ksv = grp < NG ? (c % gpp == 0 ? 1.f : ksb[o]) : 0.f;"),
     "region_drop_plane": (
         *KIVI, _group,
-        "const float cv = code_f((vw >> (8 * k + p * NBITS)) & MASK);",
-        "const float cv = p == PER - 1 ? 0.f : code_f((vw >> (8 * k + p * "
-        "NBITS)) & MASK);"),
+        "const float cv = code_f((vw[h] >> (8 * k + p * NBITS)) & MASK);",
+        "const float cv = p == PER - 1 ? 0.f : code_f((vw[h] >> (8 * k + p "
+        "* NBITS)) & MASK);"),
     "region_unit_scale_first_k_group": (
         *KIVI, lambda r: r["check"] in ("quant_decode_attention",
                                         "quant_decode_attention_tiled"),
@@ -506,9 +515,9 @@ MUTANTS = {
         "((size_t)gridDim.x * G) : (size_t)bk * G + g) * D;"),
     "pa_g7_reads_g8_rows": (
         *QWEN_KIVI, lambda r: _pa(r) and r["G"] == 7,
-        "qraw[g] = a.q[((size_t)bk * G + g) * D + tid];",
-        "qraw[g] = a.q[(G == 7 ? ((size_t)bk * 8 + g) % ((size_t)gridDim.x "
-        "* G) : (size_t)bk * G + g) * D + tid];"),
+        "qraw[i][g] = a.q[((size_t)bk * G + g) * D + ch];",
+        "qraw[i][g] = a.q[(G == 7 ? ((size_t)bk * 8 + g) % ((size_t)gridDim.x"
+        " * G) : (size_t)bk * G + g) * D + ch];"),
     "gemma_flash_cap_skipped": (
         *GEMMA_FLASH, _capped_flash,
         "for (int i = 0; i < NS; ++i) s[i] = cap_logit(s[i], inv_cap, cap2);",
@@ -557,6 +566,61 @@ MUTANTS = {
         lambda r: r["check"] == "decode_attention" and r.get("softcap"),
         "const float y = CAP ? tanh_approx(x * scale_cap) * cap2 : x * scale2;",
         "const float y = x * scale2;"),
+    "gemma_kfold_cap_skipped": (
+        *GEMMA_KIVI, lambda r: _capped_region(r) and r["check"]
+        == "quant_fused_attention_group",
+        "            if constexpr (CAP) x = cap_logit(x, a.softcap, inv_cap);\n"
+        "            s[p][g] = ",
+        "            if constexpr (CAP && MODE != kFold)\n"
+        "              x = cap_logit(x, a.softcap, inv_cap);\n"
+        "            s[p][g] = "),
+    "gemma_kf32_cap_skipped": (
+        *GEMMA_KIVI, lambda r: (_capped_region(r) and not r["mm_bf16"]
+                                and r["check"] in (
+                                    "quant_decode_attention",
+                                    "quant_decode_attention_tiled")),
+        "            if constexpr (CAP) x = cap_logit(x, a.softcap, inv_cap);\n"
+        "            s[p][g] = ",
+        "            if constexpr (CAP && MODE != kF32)\n"
+        "              x = cap_logit(x, a.softcap, inv_cap);\n"
+        "            s[p][g] = "),
+    "gemma_pa_cap_skipped": (
+        *GEMMA_KIVI, lambda r: _capped_region(r) and _pa(r),
+        "          if constexpr (CAP) y = cap_logit(y, a.softcap, inv_cap);\n",
+        ""),
+    "gemma_region_mask_before_cap": (
+        *GEMMA_KIVI, lambda r: _capped_region(r) and _group(r),
+        "            if constexpr (CAP) x = cap_logit(x, a.softcap, inv_cap);\n"
+        "            s[p][g] = !in ? -INFINITY : !valid ? NEG : x;",
+        "            s[p][g] = !in ? -INFINITY : !valid ? NEG : x;\n"
+        "            if constexpr (CAP)\n"
+        "              if (in) s[p][g] = cap_logit(s[p][g], a.softcap, "
+        "inv_cap);"),
+    "gemma_fold_scale_after_bf16": (
+        *GEMMA_KIVI, lambda r: (_capped_region(r) and r["check"]
+                                == "quant_fused_attention_group"
+                                and r["scale"] != 1 / 16),
+        "              bf16_round(__bfloat162float(qg[g * D + d]) * a.scale * "
+        "ksv);",
+        "              bf16_round(__bfloat162float(qg[g * D + d]) * ksv) * "
+        "a.scale;"),
+    "gemma_region_v_high_dropped": (
+        *GEMMA_KIVI, lambda r: _capped_region(r) and _group(r),
+        "          vw[h] = *reinterpret_cast<const uint32_t*>(vst + rv * Dp + "
+        "lane * VPL + 4 * h);",
+        "          vw[h] = D == 256 && lane >= 16 ? 0u : "
+        "*reinterpret_cast<const uint32_t*>(vst + rv * Dp + lane * VPL + 4 "
+        "* h);"),
+    "gemma_pa_v_high_dropped": (
+        *GEMMA_KIVI, lambda r: _capped_region(r) and _pa(r),
+        "        vw[j][h] = *reinterpret_cast<const uint4*>(",
+        "        vw[j][h] = D == 256 && gid >= 4 ? make_uint4(0u, 0u, 0u, 0u) "
+        ": *reinterpret_cast<const uint4*>("),
+    "gemma_carry_window_every_layer": (
+        "models/chunked_prefill.py", "phase_gemma_reference",
+        ("gemma_reference_carry",),
+        "        win = spec.layer_window(li)\n        # the history",
+        "        win = spec.sliding_window\n        # the history"),
     "int4_cluster_drops_last_rank": (
         *MM, lambda r: _int4(r) and r["cluster"] > 1,
         "for (int r = 1; r < nrank; ++r) v += src[r * psz + e];",
@@ -607,7 +671,8 @@ print(json.dumps([{**{k: r.get(k) for k in ("check", "case", "H", "Hk", "G",
                                             "true_len", "k_groups",
                                             "window", "q_block", "rows",
                                             "group_size", "cluster",
-                                            "span", "D", "softcap")},
+                                            "span", "D", "softcap",
+                                            "scale", "mm_bf16")},
                    "err_over_tol": finite(r["err_over_tol"])}
                   for r in recs if "err_over_tol" in r]))
 """

@@ -94,18 +94,17 @@ def test_unported_engine_options_raise(params):
                tcfg.EngineSpec(**ENG), tp, device="cpu")
     # a uniform window and Gemma-2's alternating sliding and full layers
     # are ported (tests/test_torch_mistral.py, test_torch_gemma2.py), H2O
-    # over alternating windows too (test_torch_gemma2_methods.py); a KIVI
-    # cache over them is not
+    # over alternating windows too (test_torch_gemma2_methods.py), and a
+    # KIVI cache over them (test_torch_gemma2_kivi.py)
     alt = tcfg.ModelSpec.tiny(
         sliding_window=32,
         layer_types=("sliding_attention", "full_attention") * 2)
     Engine(alt, comp, tcfg.EngineSpec(**ENG), tp, device="cpu")
     Engine(alt, tcfg.CompressionSpec(method="h2o", **COMP),
            tcfg.EngineSpec(**ENG), tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(alt, tcfg.CompressionSpec(method="h2o", quant_method="kivi",
-                                         nbits=4, **COMP),
-               tcfg.EngineSpec(**ENG), tp, device="cpu")
+    Engine(alt, tcfg.CompressionSpec(method="h2o", quant_method="kivi",
+                                     nbits=4, **COMP),
+           tcfg.EngineSpec(**ENG), tp, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -21,8 +21,9 @@ model's logits.  f32 weights from JAX's ``init_params`` through numpy and
 - The port's prefill logits match HF's ``Gemma2ForCausalLM`` (eager) on
   ``tests/test_gemma2.py``'s configuration within its 2e-4, with the
   weights through JAX's ``load_params_from_hf`` and the numpy bridge.
-- KIVI caches on Gemma-2 raise, citing ROADMAP queue 2A #5c (H2O,
-  MInference and ThinK run there: ``test_torch_gemma2_methods.py``).
+- Every cache runs on Gemma-2 (H2O, MInference and ThinK:
+  ``test_torch_gemma2_methods.py``; KIVI: ``test_torch_gemma2_kivi.py``);
+  KVQuant and 1- or 3-bit KIVI stay refused there as everywhere.
 
 Kernel level, the plain versions the CPU runs with a scale and a cap at
 D = 16 and at Gemma-2-9B's D = 256, full and windowed, against JAX's on
@@ -215,18 +216,30 @@ def test_prefill_logits_match_hf(tmp_path):
 
 
 def test_refusals(rig):
-    """On Gemma-2 KIVI caches raise citing ROADMAP queue 2A #5c (H2O,
-    MInference and ThinK are admitted); the full-width preset passes
-    ``check_ported``; Mixtral's MoE stays refused."""
+    """On Gemma-2 every method and every KIVI cache (group and pa, 2/4/8
+    bits, the f32 route) is admitted since the KIVI region kernels took the
+    scale and the cap; what stays refused there is what is refused
+    everywhere: KVQuant's outliers and 1- or 3-bit KIVI (ROADMAP queue
+    1 #6).  The full-width preset passes ``check_ported``; Mixtral's MoE
+    stays refused."""
     _, ts, params = rig
     es = tcfg.EngineSpec(max_new_tokens=8, prefill_buckets=(BUCKET,))
-    for method in ("h2o", "minference", "think"):
-        tl.check_method_ported(ts, tcfg.CompressionSpec(method=method))
-    for comp in (dict(method="fullkv", quant_method="kivi", nbits=4),
+    for comp in (dict(method="h2o"), dict(method="minference"),
+                 dict(method="think"),
+                 dict(method="fullkv", quant_method="kivi", nbits=4),
                  dict(method="snapkv", quant_method="kivi", nbits=2,
                       q_layout="pa"),
                  dict(method="h2o", quant_method="kivi", nbits=8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 2A #5c"):
+        Engine(ts, tcfg.CompressionSpec(**dict(COMP, **comp)), es,
+               params["f32"][1], device="cpu")
+    Engine(ts, tcfg.CompressionSpec(**dict(COMP, method="fullkv",
+                                           quant_method="kivi", nbits=4)),
+           tcfg.EngineSpec(max_new_tokens=8, prefill_buckets=(BUCKET,),
+                           use_quant_kernel=True), params["f32"][1],
+           device="cpu")
+    for comp in (dict(method="snapkv", quant_method="kvquant"),
+                 dict(method="fullkv", quant_method="kivi", nbits=3)):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #6"):
             Engine(ts, tcfg.CompressionSpec(**dict(COMP, **comp)), es,
                    params["f32"][1], device="cpu")
     tl.check_ported(tcfg.ModelSpec.preset("gemma2-9b"))

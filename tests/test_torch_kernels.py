@@ -89,11 +89,15 @@ def test_cpu_tensors_take_plain_path_without_counting():
 
 
 def test_unported_flash_options_raise():
-    """The flash wrapper takes Gemma-2's cap now (monolithic and at
-    q_start: on CPU tensors the plain capped attention, held to JAX's
-    kernel in test_torch_gemma2.py); a cap or a custom scale over a KIVI
-    region stays refused (ROADMAP queue 2A #5c)."""
-    from pyramidkv_tpu_torch.kernels.quant_decode import check_unsupported
+    """The flash wrapper takes Gemma-2's cap (monolithic and at q_start: on
+    CPU tensors the plain capped attention, held to JAX's kernel in
+    test_torch_gemma2.py); so do the KIVI region wrappers since the cap and
+    a custom scale over a region were ported (on CPU tensors their plain
+    versions, held to JAX's in test_torch_gemma2_kivi.py): the scale and
+    the cap bend their results, exactly as the plain function's."""
+    from pyramidkv_tpu_torch.kernels import (quant_fused_attention_group,
+                                             quant_fused_attention_pa)
+    from pyramidkv_tpu_torch.ops import quant
 
     rng = np.random.default_rng(7)
     q, k, v = (torch.from_numpy(_normal(rng, 1, 2, 64, 16))
@@ -108,9 +112,19 @@ def test_unported_flash_options_raise():
         uncapped = plain.causal_prefill_attention(qq, k, v, true_len=tl,
                                                   **kw)
         assert not torch.equal(got, uncapped)
-    for scale, cap in ((None, 50.0), (0.1, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 2A"):
-            check_unsupported(scale, cap)
+    qd = torch.from_numpy(_normal(rng, 1, 4, 16)) * 8
+    mask = torch.ones((1, 2, 64), dtype=torch.bool)
+    akw = dict(scale=0.2, softcap=2.0)
+    for layout, fn in (("group", quant_fused_attention_group),
+                       ("pa", quant_fused_attention_pa)):
+        reg = quant.quantize_kv_region(k, v, nbits=4, group_size=16,
+                                       layout=layout)
+        got = fn(qd, reg, mask, nbits=4, **akw)
+        want = quant.quant_region_attention_fused(qd, reg, mask, nbits=4,
+                                                  **akw)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert not torch.equal(got[1], fn(qd, reg, mask, nbits=4)[1])
 
 
 def _bf16_err_over_tol(got, want):

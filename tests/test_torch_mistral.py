@@ -236,8 +236,9 @@ def test_refusals(rig):
     the uniform window (the same tokens), alternating ones run snapkv
     (Gemma-2's layout; held to JAX in test_torch_gemma2.py), and so do
     H2O, MInference and ThinK (held to JAX in
-    test_torch_gemma2_methods.py); on alternating windows KIVI caches stay
-    refused, citing the ROADMAP."""
+    test_torch_gemma2_methods.py) and, since the quantized carry took each
+    layer's window, KIVI caches (held to JAX in
+    test_torch_gemma2_kivi.py)."""
     tp = rig[2]["f32"][1]
     comp = tcfg.CompressionSpec(method="snapkv", **COMP)
     es = tcfg.EngineSpec(max_new_tokens=8, prefill_buckets=(BUCKET,))
@@ -254,9 +255,11 @@ def test_refusals(rig):
                dict(method="think")):
         Engine(alt, tcfg.CompressionSpec(**dict(COMP, **kw)), es, tp,
                device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2A #5c"):
-        Engine(alt, tcfg.CompressionSpec(**dict(COMP, **KIVI4)), es, tp,
-               device="cpu")
+    for layout in ("group", "pa"):
+        Engine(alt, tcfg.CompressionSpec(**dict(COMP, **KIVI4,
+                                                q_layout=layout)),
+               tcfg.EngineSpec(max_new_tokens=8, prefill_buckets=(BUCKET,),
+                               prefill_chunk=CHUNK), tp, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -300,9 +300,15 @@ def test_unported_quantization_raises():
                dict(quant_method="kivi", nbits=3)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_plan(tcfg.CompressionSpec(method="snapkv", **kw), 4, 64, 8)
+    # a logit cap is taken since the region kernels were ported under
+    # Gemma-2's (held to JAX in test_torch_gemma2_kivi.py): the wrapper on a
+    # CPU tensor is the plain function with the cap
     q, mask, _, treg = _case(4, 2, 128, 32, "group", 32, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quant_decode_attention(_t(q), treg, _t(mask), nbits=4, softcap=30.0)
+    got = quant_decode_attention(_t(q), treg, _t(mask), nbits=4, softcap=30.0)
+    want = tq.quant_decode_attention_plain(_t(q), treg, _t(mask), nbits=4,
+                                           softcap=30.0)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
     # the pa kernel takes per-token V with K groups that tile each plane
     # (a chunked prefill's region); a group region with two V channel
     # groups is not one

@@ -290,22 +290,31 @@ def test_init_params_draws_biases():
 
 def test_refusals():
     """QKV biases are admitted, and so are Gemma-2's features since they
-    were ported; MoE stays refused, and on a capped model (or one with a
-    custom attention scale) KIVI caches, each citing its own ROADMAP item
-    (H2O, MInference and ThinK run there since they were ported)."""
+    were ported; MoE stays refused, citing its ROADMAP item.  On a capped
+    model (or one with a custom attention scale) every method and KIVI
+    caches run since they were ported; what stays refused there is what is
+    refused everywhere (KVQuant's outliers, queue 1 #6)."""
     tl.check_ported(tcfg.ModelSpec.preset("qwen2.5-7b"))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #5d"):
         tl.check_ported(tcfg.ModelSpec.tiny(num_local_experts=4))
     for kw in (dict(attn_logit_softcapping=50.0), dict(hidden_act="gelu_tanh"),
                dict(post_block_norms=True)):
         tl.check_ported(tcfg.ModelSpec.tiny(**kw))
+    es = tcfg.EngineSpec(max_new_tokens=4, prefill_buckets=(64,))
     for kw in (dict(attn_logit_softcapping=50.0),
                dict(query_pre_attn_scalar=64.0)):
         spec = tcfg.ModelSpec.tiny(**kw)
-        for method in ("snapkv", "h2o", "minference", "think"):
-            tl.check_method_ported(spec, tcfg.CompressionSpec(method=method))
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 2A #5c"):
-            tl.check_method_ported(spec, tcfg.CompressionSpec(**KIVI4))
+        params = init_params(spec, torch.Generator().manual_seed(0), "cpu",
+                             torch.float32)
+        for comp in (dict(method="snapkv"), dict(method="h2o"),
+                     dict(method="minference"), dict(method="think"),
+                     KIVI4, dict(KIVI4, q_layout="pa")):
+            Engine(spec, tcfg.CompressionSpec(**comp), es, params,
+                   device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 #6"):
+            Engine(spec, tcfg.CompressionSpec(method="snapkv",
+                                              quant_method="kvquant"), es,
+                   params, device="cpu")
 
 
 # ---------------------------------------------------------------------------
