@@ -202,6 +202,20 @@ Phases (any failure exits non-zero):
      quantized carry (chunk 2048), against the harness's own plain Gemma-2
      forward (``gemma_reference_logits``, HF semantics without the port's
      model code), within 2^-5 of the largest.
+ 30. trained (after gemma_kernels): the trained tiny retrieval checkpoint
+     (``data/tiny_retrieval.npz``: 8 layers, 8 / 4 heads of D = 32, tied
+     embeddings) loaded by the port's numpy loader in bf16: the D = 32
+     flash (one pass), decode (G = 1, 2), H2O and folded KIVI group
+     kernels against their plain versions at the needle grid's shapes (B = 1
+     and the 30-prompt batch, N = 1024; all-masked KIVI rows exact) and the
+     refusals of the modes not ported at D = 32; the 16 configurations
+     pinned by ``tests/torch_trained_tokens.json`` (JAX's f32 CPU tokens)
+     through the kernels and the plain path, each kernel call held to its
+     plain version on the trained inputs, launches and cache bytes held,
+     token differences only at logit near-ties or after the paths' keep
+     sets differ; To check #1 (an f32 lm_head beside the port's) and #2
+     (keep-set agreement); the grid batch's answers on both paths; the
+     lm_head's f32 product timed at Llama-3-8B's and Gemma-2-9B's widths.
 The 32k engine runs keep bench.py's 128 decode slots but generate 32
 tokens each (``QGEN``).
 The line before the last lists every kernel as JSON; the last line is
@@ -224,6 +238,10 @@ import numpy as np
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+#: exp2 results a second: 16 a clock per SM (the MUFU throughput of compute
+#: capability 9.0 in the CUDA C Programming Guide's arithmetic-instruction
+#: table) x 132 SMs x 1.98 GHz (the H100 SXM's boost clock)
+PEAK_EXP2 = 16 * 132 * 1.98e9
 #: the main path's shapes: Llama-3-8B heads, bucket 8192, 4 requests
 B, H, HK, D, N, LAYERS = 4, 32, 8, 128, 8192, 32
 TRUE_LEN = (8000, 6000, 3000, 1000)
@@ -444,14 +462,14 @@ def attn_bound(pairs: float, d: int, nbytes: float, softcap=None,
                flops_per_pair=None) -> tuple:
     """(least ms, what bounds it, {unit: ms}) of attention over ``pairs``
     visible pairs at head dim ``d``: its products on the tensor cores
-    (``flops_per_pair``, default 4 d), its bytes, and under a logit cap its
-    MUFU work (an exp2 and a tanh a pair; without a cap the exp2 alone
-    never bounds it at D >= 128, so it is left out, as before)."""
+    (``flops_per_pair``, default 4 d), its bytes, and its MUFU work (an
+    exp2 a pair, and a tanh under a logit cap: at D = 32 one exp2 takes
+    longer than the pair's 4 d flops)."""
     t = {"tensor cores": (flops_per_pair or 4.0 * d) * pairs
          / PEAK_BF16_FLOPS * 1e3,
+         ("MUFU exp2" if softcap is None else "MUFU exp2 + tanh"):
+             (1.0 if softcap is None else 2.0) * pairs / PEAK_EXP2 * 1e3,
          "bytes": nbytes / PEAK_BYTES * 1e3}
-    if softcap is not None:
-        t["MUFU exp2 + tanh"] = 2.0 * pairs / PEAK_EXP2 * 1e3
     unit = max(t, key=t.get)
     return t[unit], ("bytes" if unit == "bytes" else "operations"), t
 
@@ -2519,10 +2537,6 @@ CHUNK_KERNELS = ("h2o_row_stats", "h2o_colsum", "flash_attention_partials")
 #: prefill chunks: the 8k batch's, and bench.py's 32k prompt's (the JAX
 #: scripts' ``--prefill_chunk 8192``)
 C8K, C32K = 2048, 8192
-#: exp2 results a second: 16 a clock per SM (the MUFU throughput of compute
-#: capability 9.0 in the CUDA C Programming Guide's arithmetic-instruction
-#: table) x 132 SMs x 1.98 GHz (the H100 SXM's boost clock)
-PEAK_EXP2 = 16 * 132 * 1.98e9
 #: H2O scores (sums of up to N probabilities, f32) against the plain
 #: version: the attention limit over each (b, h) row of N - W columns.  The
 #: kernel's logits use q * log2(e)/sqrt(D) rounded to bf16 (the TPU
@@ -5119,6 +5133,652 @@ def phase_gemma_reference(torch, F, dev, params=None):
     return rec["ok"] and rec_c["ok"], rec
 
 
+#: the trained tiny retrieval checkpoint (data/tiny_retrieval.npz: 8
+#: layers, 8 query heads on 4 KV heads of D = 32, hidden 256, tied
+#: embeddings): JAX's greedy tokens and kv_cache_bytes of ACCURACY.md's 16
+#: needle-grid configurations on one prompt (the CPU tests hold the pin to
+#: live JAX engines)
+TRAINED_PIN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "torch_trained_tokens.json")
+TRAINED_BUCKET, TRAINED_NEW, TRAINED_LAYERS, TRAINED_D = 1024, 16, 8, 32
+#: the grid batch: needle contexts x depths (ACCURACY.md's grid), B = 30
+TRAINED_CTX = (400, 650, 950)
+TRAINED_DEPTHS = 10
+#: the kernels the grid's paths launch at D = 32
+TRAINED_KERNELS = ("flash_causal_attention", "decode_attention",
+                   "h2o_row_stats", "h2o_colsum",
+                   "quant_fused_attention_group")
+#: the refusal the D = 32 modes not ported yet raise
+TRAINED_QUEUED = "ROADMAP queue 2A #4"
+#: a selection near-tie: a slot the two paths' prefill top-k keep
+#: differently lies within this share of the cut's plain score (2^-8: the
+#: least relative step between bf16 values, the precision of the q and k
+#: the scores come from)
+TRAINED_SELECT_TIE = 2.0 ** -8
+
+
+def trained_pin() -> dict:
+    with open(TRAINED_PIN) as f:
+        return json.load(f)
+
+
+def trained_batch(tok):
+    """The grid batch: one needle prompt per (context, depth), laid out as
+    the CPU tests' prompt (filler before, the needle, filler after, the
+    question), each from its own seed.  Returns (prompts, code words)."""
+    from pyramidkv_tpu_torch.train import data as tdata
+
+    prompts, codes = [], []
+    for ci, ctx in enumerate(TRAINED_CTX):
+        for di in range(TRAINED_DEPTHS):
+            depth = di / (TRAINED_DEPTHS - 1)
+            before = int(round(ctx * depth))
+            ids, cw = tdata.needle_prompt(tok, seed=1000 + 10 * ci + di,
+                                          before=before, after=ctx - before)
+            assert len(ids) <= TRAINED_BUCKET, len(ids)
+            prompts.append(ids)
+            codes.append(cw)
+    return prompts, codes
+
+
+def trained_comp(entry):
+    from pyramidkv_tpu_torch.config import CompressionSpec
+
+    return CompressionSpec(**entry["comp"])
+
+
+def trained_expected(comp, steps: int) -> dict:
+    """Launches of one B = 1 generate of the trained model: one flash a
+    layer; a decode (bf16 cache) or a region call (KIVI) a layer a decode
+    step; one H2O stats and one colsum a layer for h2o; nothing else."""
+    want = {k: 0 for k in _kernels()}
+    want["flash_causal_attention"] = TRAINED_LAYERS
+    step_kernel = ("quant_fused_attention_group"
+                   if comp.quant_method is not None else "decode_attention")
+    want[step_kernel] = TRAINED_LAYERS * steps
+    if comp.method == "h2o":
+        want["h2o_row_stats"] = want["h2o_colsum"] = TRAINED_LAYERS
+    return want
+
+
+def trained_decode_shapes(pin) -> list:
+    """(G, slots) of every decode-kernel call of the grid's bf16 caches,
+    from their plans: per-head caches (G = 1) of each segment's width,
+    fullkv's true-GQA cache (G = 2)."""
+    from pyramidkv_tpu_torch.policy import make_plan, stores_kv_heads
+
+    shapes = set()
+    for e in pin["configs"].values():
+        cs = trained_comp(e)
+        if cs.quant_method is not None:
+            continue
+        g = 2 if stores_kv_heads(cs) else 1
+        plan = make_plan(cs, TRAINED_LAYERS, TRAINED_BUCKET, TRAINED_NEW)
+        for _, _, sub in plan.segment_plans():
+            shapes.add((g, sub.total_slots))
+    return sorted(shapes)
+
+
+def phase_trained_kernels(torch, F, dev, pin, batch_lens):
+    """The D = 32 kernels against their plain versions at the needle grid's
+    shapes: flash over the pin prompt (B = 1) and the grid batch (B = 30,
+    N = 1024, left pads) and at short shapes (a window, a cap); the decode
+    kernel at every bf16 cache's (G, slots) at B = 1 and B = 30 and on a
+    plan of several splits with a wholly masked split; its residency at
+    D = 32; H2O stats and colsum at N = 1024 (window 8); the folded KIVI
+    group kernel at 8, 4 and 2 bits over 1024 slots and a 16-slot tail at
+    B = 1 and 30 and with a masked byte-row range (a row masked everywhere,
+    exact: m = float32.min, l = 0, in every check); and the refusals of the
+    modes not ported at D = 32.  Returns (ok, {name: [records]})."""
+    from pyramidkv_tpu_torch import kernels
+    from pyramidkv_tpu_torch.kernels import _build, decode_attn
+
+    d = TRAINED_D
+    ok = True
+    recs = {k: [] for k in ("flash", "decode", "h2o_row_stats", "h2o_colsum",
+                            "region")}
+    pin_len = (len(pin["prompt"]["ids"]),)
+    for args in ((2, 8, 4, 256, (256, 77), None), (2, 8, 4, 192, (150, 3), 50),
+                 (1, 8, 8, 128, (128,), None)):
+        r, _ = check_flash(torch, F, dev, *args, timed=False, seed=1,
+                           case="trained short", d=d)
+        ok &= r
+    r, _ = check_flash(torch, F, dev, 1, 8, 8, 128, (128,), None, timed=False,
+                       seed=2, case="trained short cap", d=d, softcap=5.0,
+                       q_std=4.0)
+    ok &= r
+    for b, tl, case in ((1, pin_len, "pin B=1"), (30, batch_lens, "grid B=30")):
+        r, rec = check_flash(torch, F, dev, b, 8, 4, TRAINED_BUCKET, tl, None,
+                             timed=True, seed=3 + b, case=case, d=d)
+        recs["flash"].append(rec)
+        ok &= r
+    seed = 40
+    for g, s in trained_decode_shapes(pin):
+        for b in (1, 30):
+            r, rec = check_decode(torch, F, dev, b, 8, 8 // g, s, timed=True,
+                                  seed=seed, label=f"G={g} S={s} B={b}", d=d)
+            rec["G"] = g
+            recs["decode"].append(rec)
+            ok &= r
+            seed += 1
+    r, _ = check_decode(torch, F, dev, 2, 8, 4, 9001, timed=False, seed=seed,
+                        label="short splits", masked_split=True, d=d)
+    ok &= r
+    lib = _build.library("decode_attn")
+    for g in (1, 2):
+        occ = lib.pkv_decode_occupancy(g, d)
+        good = occ == decode_attn.blocks_per_sm(g, d)
+        log({"check": "decode_occupancy", "D": d, "G": g,
+             "blocks_per_sm": occ,
+             "plan_blocks_per_sm": decode_attn.blocks_per_sm(g, d),
+             "ok": good})
+        ok &= good
+    H2O_CASES["trained pin B=1"] = (1, 8, 4, TRAINED_BUCKET, pin_len, 8, 56,
+                                    True)
+    H2O_CASES["trained grid B=30"] = (30, 8, 4, TRAINED_BUCKET, batch_lens, 8,
+                                      56, True)
+    H2O_CASES["trained short"] = (2, 8, 4, 320, (320, 100), 8, 56, False)
+    for i, case in enumerate(("trained short", "trained pin B=1",
+                              "trained grid B=30")):
+        r, rec = check_h2o(torch, dev, case, seed=60 + i, d=d)
+        ok &= r
+        if "ms" in rec["stats"]:
+            recs["h2o_row_stats"].append(rec["stats"])
+            recs["h2o_colsum"].append(rec["colsum"])
+    kind = "quant_fused_attention_group"
+    for nbits in (8, 4, 2):
+        for b in (1, 30):
+            r, rec = check_region(
+                torch, F, dev, kind, b, 4, 2, TRAINED_BUCKET, nbits, 64,
+                timed=True, seed=70 + nbits + b,
+                label=f"fullkv kivi{nbits} B={b}", t_len=TRAINED_NEW, d=d)
+            recs["region"].append(rec)
+            ok &= r
+        r, _ = check_region(torch, F, dev, kind, 1, 4, 2, TRAINED_BUCKET,
+                            nbits, 64, timed=False, seed=80 + nbits,
+                            label=f"kivi{nbits} masked rows", t_len=37,
+                            masked_rows=(32, 96), d=d)
+        ok &= r
+    # the modes not ported at D = 32 refuse it, naming the ROADMAP item
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (_rand_bf16(torch, g, dev, 1, n, 128, d) for n in (8, 4, 4))
+    tl = torch.tensor([128], dtype=torch.int32, device=dev)
+    refusals = {}
+    for name, fn in (
+            ("flash_attention_partials",
+             lambda: kernels.flash_attention_partials(q, k, v, tl)),
+            ("flash two-pass", lambda: kernels.flash_causal_attention(
+                q, k, v, tl, two_pass=True))):
+        try:
+            fn()
+            refusals[name] = "launched"
+        except ValueError as e:
+            refusals[name] = TRAINED_QUEUED in str(e)
+    from pyramidkv_tpu_torch.kernels import quant_decode
+
+    rq, reg, mask, tail = region_inputs(torch, dev, 1, 4, 2, 256, 4, 64,
+                                        "group", 16, 9, d=d)
+    try:
+        kernels.quant_decode_attention(rq, reg, mask, nbits=4, tail=tail)
+        refusals["quant_decode_attention (f32)"] = "launched"
+    except ValueError as e:
+        refusals["quant_decode_attention (f32)"] = TRAINED_QUEUED in str(e)
+    good = all(x is True for x in refusals.values()) and \
+        quant_decode.D32_QUEUED.endswith(f"({TRAINED_QUEUED})")
+    log({"check": "trained_refusals", "D": d, "refused": refusals,
+         "ok": good})
+    return ok & good, recs
+
+
+def phase_trained_kernel_checks(torch, F, dev):
+    """phase_trained_kernels alone (the D = 32 kernels against their plain
+    versions), with the pin's prompt and the grid batch's lengths, its four
+    libraries built together first: what ``scripts/port_mutation_check.py``
+    runs for its D = 32 mutants."""
+    from pyramidkv_tpu_torch.kernels import _build
+    from pyramidkv_tpu_torch.train import ToyTokenizer
+
+    _build.build_all(["flash_prefill", "decode_attn", "h2o_scores",
+                      "quant_group_fused"])
+    prompts = trained_batch(ToyTokenizer())[0]
+    return phase_trained_kernels(torch, F, dev, trained_pin(),
+                                 tuple(len(p) for p in prompts))
+
+
+def _keep_share(pk, pp) -> list:
+    """Per layer: the share of the plain path's kept prefill positions that
+    the kernel path kept too (sets per batch row and head)."""
+    segs_k = pk if isinstance(pk, tuple) else (pk,)
+    segs_p = pp if isinstance(pp, tuple) else (pp,)
+    out = []
+    for a, b in zip(segs_k, segs_p):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        for li in range(a.shape[0]):
+            hit = tot = 0
+            for bi in range(a.shape[1]):
+                for h in range(a.shape[2]):
+                    want = set(b[li, bi, h][b[li, bi, h] >= 0].tolist())
+                    got = set(a[li, bi, h][a[li, bi, h] >= 0].tolist())
+                    hit += len(want & got)
+                    tot += len(want)
+            out.append(hit / max(tot, 1))
+    return out
+
+
+def trained_steps(torch, dev, eng, prompt, impl, w32):
+    """Greedy decode of one prompt as ``generate`` runs it, through the
+    kernels or the plain path, capturing each step's logits: (tokens,
+    [top-2 gap], [f32-head argmax flips], [logits], prefill positions, the
+    bf16 K / V elements, [(scores, selection)] of each prefill top-k).
+    The f32 head: the final-normed hidden state times the tied embedding,
+    both in f32, beside the port's product (To check #1)."""
+    from pyramidkv_tpu_torch import policy, prng
+    from pyramidkv_tpu_torch.models import llama
+
+    spec, params = eng.model_spec, eng.params
+    plan = eng.plan_for(TRAINED_BUCKET)
+    seen = []
+    orig = llama._logits
+
+    def hooked(hidden, p_, s_, impl_="kernel"):
+        out = orig(hidden, p_, s_, impl_)
+        h = llama._norm(hidden, p_["final_norm"], s_)
+        seen.append((out, h.float() @ w32.T))
+        return out
+
+    picks = []
+    orig_topk = policy.topk_select
+
+    def topk(scores, width, keep_counts):
+        sel = orig_topk(scores, width, keep_counts)
+        picks.append((scores.float().clone(), sel))
+        return sel
+
+    tokens, tl = bucket_tokens(torch, dev, [prompt], TRAINED_BUCKET)
+    llama._logits = hooked
+    policy.topk_select = topk
+    try:
+        with torch.inference_mode():
+            logits, cache = llama.prefill(params, spec, plan, tokens, tl,
+                                          attention_impl=impl,
+                                          rng=prng.PRNGKey(0, device=dev))
+            pos = (tuple(x.clone() for x in cache.positions)
+                   if isinstance(cache.positions, tuple)
+                   else cache.positions.clone())
+            # the bf16 K / V buffers' elements (4 bytes each in the f32 pin)
+            kv_elems = sum(t.numel() for part in (cache.k, cache.v)
+                           for t in (part if isinstance(part, tuple)
+                                     else (part,)))
+            toks = []
+            for step in range(TRAINED_NEW):
+                tok = logits.argmax(-1)
+                toks.append(int(tok[0]))
+                if step == TRAINED_NEW - 1:
+                    break
+                logits, cache = llama.decode_step(
+                    params, spec, plan, cache, tok, attention_impl=impl,
+                    f32_quant=eng.f32_quant)
+    finally:
+        llama._logits = orig
+        policy.topk_select = orig_topk
+    gaps, flips, steps = [], 0, []
+    for out, wide in seen:
+        top = torch.topk(out[0].float(), 2).values
+        gaps.append(float(top[0] - top[1]))
+        flips += int(out[0].argmax() != wide[0].argmax())
+        steps.append(out[0].float())
+    return toks, gaps, flips, steps, pos, kv_elems, picks
+
+
+def selection_ties(picks_k, picks_p) -> dict:
+    """The slots the two paths' prefill top-k keep differently (To check
+    #2), and the largest distance of their plain scores from the plain
+    path's cut (the lowest kept plain score of that row), over
+    max(|cut|, 1e-30)."""
+    swapped, worst = 0, 0.0
+    for (_, sk), (sp_scores, sp) in zip(picks_k, picks_p):
+        ik, vk = sk.indices.cpu(), sk.valid.cpu()
+        ip, vp = sp.indices.cpu(), sp.valid.cpu()
+        sc = sp_scores.cpu()
+        for b in range(ip.shape[0]):
+            for h in range(ip.shape[1]):
+                kept_p = ip[b, h][vp[b, h]]
+                kept_k = set(ik[b, h][vk[b, h]].tolist())
+                if set(kept_p.tolist()) == kept_k or kept_p.numel() == 0:
+                    continue
+                cut = float(sc[b, h][kept_p].min())
+                for j in kept_k.symmetric_difference(kept_p.tolist()):
+                    swapped += 1
+                    worst = max(worst, abs(float(sc[b, h, j]) - cut)
+                                / max(abs(cut), 1e-30))
+    return {"swapped_slots": swapped, "worst_distance_from_cut": worst}
+
+
+def trained_teacher_forced(torch, dev, eng, prompt) -> dict:
+    """The kernels inside the trained model, each call held to its plain
+    version on the same inputs: a kernel prefill (each layer's flash output
+    against ``causal_prefill_attention``, rows past the pad; H2O's scores
+    against the plain path's scorer ``ops.scoring.h2o_scores``) and 15
+    kernel decode steps (each decode-kernel call against the plain decode,
+    each KIVI region call against its plain version and the plain tail),
+    err / limit (TOL_TEXT; the region's TAIL_TOL "folded"; H2O's scores
+    2^-6 |want| + 2^-14 rms(want's row)); beside them,
+    the prefill logits against a plain prefill's and 15 decode steps on two
+    copies of the kernel prefill's cache, one through the kernels and one
+    plain, fed the same tokens: each step's max |kernel - plain| logit over
+    2^-5 of the largest plain logit (information: the trained model's
+    attention logits of up to 3000 nats carry a last-bit difference far)."""
+    from pyramidkv_tpu_torch import policy, prng
+    from pyramidkv_tpu_torch.models import llama
+    from pyramidkv_tpu_torch.ops import attention as plain_attn
+    from pyramidkv_tpu_torch.ops import quant, scoring
+
+    spec, params = eng.model_spec, eng.params
+    plan = eng.plan_for(TRAINED_BUCKET)
+    tokens, tl = bucket_tokens(torch, dev, [prompt], TRAINED_BUCKET)
+    pad = TRAINED_BUCKET - len(prompt)
+    errs = {"flash": [], "decode": [], "region": [], "h2o": []}
+    saved = {n: getattr(llama, n) for n in (
+        "flash_causal_attention", "decode_attention",
+        "quant_fused_attention_group")}
+    saved_h2o = policy.h2o_kernel
+
+    def flash(q, k, v, true_len, **kw):
+        out = saved["flash_causal_attention"](q, k, v, true_len, **kw)
+        want = plain_attn.causal_prefill_attention(
+            q, k, v, true_len=true_len, **{
+                x: kw[x] for x in ("sliding_window", "scale", "softcap")})
+        errs["flash"].append(err_over_tol(out[:, :, pad:], want[:, :, pad:]))
+        return out
+
+    def decode(q, k, v, mask, **kw):
+        out = saved["decode_attention"](q, k, v, mask, **kw)
+        errs["decode"].append(err_over_tol(
+            out, plain_attn.decode_attention(q, k, v, mask, **kw)))
+        return out
+
+    def region(q, reg, mask, *, nbits, tail=None, **kw):
+        out = saved["quant_fused_attention_group"](q, reg, mask, nbits=nbits,
+                                                   tail=tail, **kw)
+        want = quant.merge_tail(quant.quant_region_attention_fused(
+            q, reg, mask, nbits=nbits, **kw), q, tail, **kw)
+        errs["region"].append(err_over_tol(out, want, *TAIL_TOL["folded"]))
+        return out
+
+    def h2o(q, k, **kw):
+        out = saved_h2o(q, k, **kw)
+        want = scoring.h2o_scores(q, k, **kw)
+        fin = torch.isfinite(want)
+        same = torch.equal(fin, torch.isfinite(out))
+        w0, o0 = want.masked_fill(~fin, 0.0), out.masked_fill(~fin, 0.0)
+        rms = (w0.square().sum(-1, keepdim=True)
+               / fin.sum(-1, keepdim=True).clamp_min(1)).sqrt()
+        # each column within 2^-6 of itself: the row term of TOL_TEXT would
+        # hide the small columns the top-k cut falls among
+        lim = (KERNEL_RTOL * w0.abs() + 2.0 ** -14 * rms).clamp_min(1e-30)
+        errs["h2o"].append(float(((o0 - w0).abs() / lim).max())
+                           if same else float("inf"))
+        return out
+
+    def over(x, y):
+        return float((x - y).abs().max()) / (2.0 ** -5 * float(
+            y.abs().max()))
+
+    llama.flash_causal_attention = flash
+    llama.decode_attention = decode
+    llama.quant_fused_attention_group = region
+    policy.h2o_kernel = h2o
+    try:
+        with torch.inference_mode():
+            lk, ck = llama.prefill(params, spec, plan, tokens, tl,
+                                   attention_impl="kernel",
+                                   rng=prng.PRNGKey(0, device=dev))
+            lp, _ = llama.prefill(params, spec, plan, tokens, tl,
+                                  attention_impl="plain",
+                                  rng=prng.PRNGKey(0, device=dev))
+            steps = [over(lk, lp)]
+            a, b = clone_cache(torch, ck), clone_cache(torch, ck)
+            tok = lp.argmax(-1)
+            for _ in range(TRAINED_NEW - 1):
+                la, a = llama.decode_step(params, spec, plan, a, tok,
+                                          attention_impl="kernel",
+                                          f32_quant=eng.f32_quant)
+                lb, b = llama.decode_step(params, spec, plan, b, tok,
+                                          attention_impl="plain",
+                                          f32_quant=eng.f32_quant)
+                steps.append(over(la, lb))
+                tok = lb.argmax(-1)
+    finally:
+        for n, fn in saved.items():
+            setattr(llama, n, fn)
+        policy.h2o_kernel = saved_h2o
+    return {"kernel_err_over_tol": {k: max(v) if v else None
+                                    for k, v in errs.items()},
+            "kernel_calls": {k: len(v) for k, v in errs.items()},
+            "logits_err_over_limit_by_step": steps}
+
+
+def _answer_scores(tok, outs, codes) -> tuple:
+    """(answers holding the needle's five code words in order, the mean
+    share of the five code words each answer holds)."""
+    from collections import Counter
+
+    hold, recall = 0, 0.0
+    for ids, cw in zip(outs, codes):
+        text = tok.decode(ids)
+        hold += " ".join(cw) in text
+        recall += sum((Counter(text.split()) & Counter(cw)).values()) / len(cw)
+    return hold, recall / len(outs)
+
+
+def logits_f32_timing(torch, dev) -> dict:
+    """The lm_head product at Llama-3-8B's and Gemma-2-9B's widths (random
+    bf16, rows 1 and 4): f32 output (``models.llama._mm_f32``, the port's)
+    against the bf16-rounded product cast to f32 (its earlier product),
+    device ms from a CUDA graph of 50 calls, and the largest difference."""
+    from pyramidkv_tpu_torch.models import llama
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for name, dm, v, tied in (("llama3-8b", 4096, 128256, False),
+                              ("gemma2-9b", 3584, 256000, True)):
+        w = (torch.randn((v, dm) if tied else (dm, v), generator=g,
+                         device=dev) * 0.02).to(torch.bfloat16)
+        wm = w.T if tied else w
+        for rows in (1, 4):
+            h = torch.randn((rows, dm), generator=g, device=dev).to(
+                torch.bfloat16)
+            new = llama._mm_f32(h, wm)
+            old = (h @ wm).float()
+            out[f"{name} rows {rows}"] = {
+                "f32_ms": graph_ms(torch, lambda: llama._mm_f32(h, wm), 50),
+                "bf16_rounded_ms": graph_ms(torch, lambda: (h @ wm).float(),
+                                            50),
+                "max_abs_diff": float((new - old).abs().max()),
+                "max_abs_logit": float(new.abs().max())}
+        del w, wm
+        torch.cuda.empty_cache()
+    log({"phase": "logits_f32", **out})
+    return out
+
+
+def phase_trained(torch, F, dev):
+    """The trained tiny retrieval checkpoint on the card (bf16 weights
+    from the port's own numpy loader): the D = 32 kernels at the grid's
+    shapes (phase_trained_kernels); for each of the 16 pinned grid
+    configurations a B = 1 ``generate`` through the kernels and one through
+    the plain path on the pin prompt, with the kernels' launches held to
+    trained_expected, kv_cache_bytes to the pin's at bf16, every kernel
+    call of a kernel prefill and 15 decode steps held to its plain version
+    on the same trained inputs (trained_teacher_forced), and the kernel
+    path's tokens to the plain path's: their first difference must come at
+    a step whose plain top-2 logit gap is within 2^-5 of the step's
+    largest logit (a logit near-tie), or after the two paths' prefill top-k
+    kept other slots that all lie within TRAINED_SELECT_TIE of the cut (a
+    selection near-tie, selection_ties: a last-bit difference of q or k
+    moves such a slot; logged for To check #2); agreement with JAX's f32
+    CPU tokens is logged; the greedy loop of each path again with each
+    step's logits:
+    the f32-head argmax flips (To check #1) and the per-layer keep-set
+    agreement of the two paths (To check #2); then the grid batch (3
+    contexts x 10 depths, B = 30) on both paths: answers holding the
+    needle's code words, prefill s and decode tok/s; last the lm_head's f32
+    product at 8B widths (logits_f32_timing).  Returns (ok, kernel records,
+    launches per kernel over the phase's kernel-path runs)."""
+    from pyramidkv_tpu_torch.config import EngineSpec
+    from pyramidkv_tpu_torch.engine import Engine
+    from pyramidkv_tpu_torch.train import ToyTokenizer, load_checkpoint
+    from pyramidkv_tpu_torch.train import data as tdata
+
+    t0 = time.perf_counter()
+    pin = trained_pin()
+    tok = ToyTokenizer()
+    prompt = pin["prompt"]["ids"]
+    own, _ = tdata.needle_prompt(tok, seed=pin["prompt"]["seed"])
+    prompts, codes = trained_batch(tok)
+    batch_lens = tuple(len(p) for p in prompts)
+    ok, krecs = phase_trained_kernels(torch, F, dev, pin, batch_lens)
+    spec, params = load_checkpoint(device=dev, dtype=torch.bfloat16)
+    w32 = params["embed"].float()
+    log({"phase": "trained_load", "spec": spec.name,
+         "layers": spec.num_hidden_layers, "heads": [
+             spec.num_attention_heads, spec.num_key_value_heads],
+         "head_dim": spec.head_dim, "tied": spec.tie_word_embeddings,
+         "pin_prompt_is_port_prompt": own == prompt,
+         "prompt_tokens": len(prompt)})
+    ok &= own == prompt and spec.head_dim == TRAINED_D
+    es = dict(max_new_tokens=TRAINED_NEW, prefill_buckets=(TRAINED_BUCKET,))
+    launches = {k: 0 for k in TRAINED_KERNELS}
+    flips = steps_seen = 0
+    summary = {}
+    for name, entry in pin["configs"].items():
+        cs = trained_comp(entry)
+        eng_k = Engine(spec, cs, EngineSpec(**es), params, device=dev)
+        eng_p = Engine(spec, cs, EngineSpec(use_pallas=False, **es), params,
+                       device=dev)
+        reset_counts()
+        out_k = eng_k.generate([prompt])
+        counts = read_counts()
+        out_p = eng_p.generate([prompt])
+        want_counts = trained_expected(cs, out_k.decode_steps)
+        a, b = out_k.tokens[0], out_p.tokens[0]
+        first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+        for k in TRAINED_KERNELS:
+            launches[k] += counts[k]
+        tk, gk, fk, lk, pk, kv_elems, sk = trained_steps(
+            torch, dev, eng_k, prompt, "kernel", w32)
+        tp, gp, fp, lp, pp, _, sp = trained_steps(torch, dev, eng_p, prompt,
+                                                  "plain", w32)
+        ties = selection_ties(sk, sp)
+        # the pin's bytes with the K / V buffers in bf16 (the pin's f32
+        # run holds them at 4 bytes; codes, scales and zeros are the same)
+        want_bytes = entry["kv_cache_bytes"] - 2 * kv_elems
+        # kernel against plain logits while the two histories agree
+        same_until = TRAINED_NEW if first is None else first + 1
+        flips += fk + fp
+        steps_seen += len(gk) + len(gp)
+        gap = lim = None
+        if first is not None:
+            gap = gp[first]
+            lim = 2.0 ** -5 * float(lp[first].abs().max())
+        tf = trained_teacher_forced(torch, dev, eng_k, prompt)
+        prefill_err = float((lk[0] - lp[0]).abs().max())
+        step_err = [float((x - y).abs().max()) / (2.0 ** -5 * float(
+            y.abs().max())) for x, y in zip(lk[:same_until],
+                                           lp[:same_until])]
+        keep = (None if cs.method == "fullkv" else _keep_share(pk, pp))
+        good = (counts == want_counts
+                and out_k.kv_cache_bytes == want_bytes
+                and out_p.kv_cache_bytes == want_bytes
+                and tk == a and tp == b
+                and (first is None or gap <= lim
+                     or (ties["swapped_slots"] > 0
+                         and ties["worst_distance_from_cut"]
+                         <= TRAINED_SELECT_TIE))
+                and all(x is None or x <= 1
+                        for x in tf["kernel_err_over_tol"].values())
+                and len(a) == TRAINED_NEW
+                and all(bool(torch.isfinite(x).all()) for x in lk))
+        rec = {"phase": "trained_pin", "run": name,
+               "kernel_tokens": a, "plain_tokens": b,
+               "jax_tokens": entry["tokens"],
+               "kernel_equals_plain": a == b,
+               "kernel_equals_jax": a == entry["tokens"],
+               "plain_equals_jax": b == entry["tokens"],
+               "first_kernel_plain_difference": first,
+               "plain_top2_gap_there": gap, "near_tie_limit": lim,
+               "first_kernel_jax_difference": next(
+                   (i for i, (x, y) in enumerate(zip(a, entry["tokens"]))
+                    if x != y), None),
+               "kv_cache_bytes": out_k.kv_cache_bytes,
+               "pin_kv_cache_bytes": entry["kv_cache_bytes"],
+               "pin_kv_cache_bytes_at_bf16": want_bytes,
+               "free_logits_err_over_limit_by_step": step_err,
+               "teacher_forced": tf,
+               "launches": {k: counts[k] for k in TRAINED_KERNELS},
+               "launches_ok": counts == want_counts,
+               "prefill_logits_max_abs_err": prefill_err,
+               "f32_head_flips": [fk, fp],
+               "min_plain_top2_gap": min(gp),
+               "keep_share_by_layer": keep,
+               "selection": ties,
+               "prefill_s": out_k.prefill_seconds,
+               "decode_tok_per_s": out_k.decode_steps
+               / max(out_k.decode_seconds, 1e-9),
+               "ok": good}
+        log(rec)
+        summary[name] = rec
+        ok &= good
+        del eng_k, eng_p
+    log({"phase": "trained_to_check", "f32_head_flips": flips,
+         "steps": steps_seen,
+         "kernel_equals_plain": sum(r["kernel_equals_plain"]
+                                    for r in summary.values()),
+         "kernel_equals_jax": sum(r["kernel_equals_jax"]
+                                  for r in summary.values()),
+         "plain_equals_jax": sum(r["plain_equals_jax"]
+                                 for r in summary.values()),
+         "configs": len(summary),
+         "min_keep_share": min((min(r["keep_share_by_layer"])
+                                for r in summary.values()
+                                if r["keep_share_by_layer"]), default=None)})
+    # the grid batch on both paths
+    for name, entry in pin["configs"].items():
+        cs = trained_comp(entry)
+        res = {}
+        for impl in ("kernel", "plain"):
+            eng = Engine(spec, cs, EngineSpec(use_pallas=impl == "kernel",
+                                              batch_size=len(prompts), **es),
+                         params, device=dev)
+            if impl == "kernel":
+                reset_counts()
+            out = eng.generate(prompts)
+            if impl == "kernel":
+                counts = read_counts()
+                for k in TRAINED_KERNELS:
+                    launches[k] += counts[k]
+            hold, recall = _answer_scores(tok, out.tokens, codes)
+            res[impl] = {"answers_holding_code": hold,
+                         "code_word_recall": recall,
+                         "prefill_s": out.prefill_seconds,
+                         "decode_tok_per_s": len(prompts) * out.decode_steps
+                         / max(out.decode_seconds, 1e-9),
+                         "tokens": out.tokens}
+            del eng
+        same = sum(x == y for x, y in zip(res["kernel"]["tokens"],
+                                          res["plain"]["tokens"]))
+        for impl in res:
+            del res[impl]["tokens"]
+        log({"phase": "trained_grid", "run": name, "B": len(prompts),
+             "contexts": list(TRAINED_CTX), "depths": TRAINED_DEPTHS,
+             "answers_equal_kernel_plain": same, **res})
+    logits_f32_timing(torch, dev)
+    log({"phase": "trained_done", "seconds": time.perf_counter() - t0,
+         "launches": launches})
+    return ok, krecs, launches
+
+
 def kernel_entry(name, source, replaces, launches, recs):
     """One entry of the kernels line.  ``recs`` holds one timed check per
     shape the kernel runs at in these launches (pyramidkv: one per
@@ -5267,6 +5927,9 @@ def main() -> int:
     r, gemma_recs = phase_gemma_kernels(torch, F, dev)
     ok &= r
     stamp("gemma kernels")
+    r, trained_recs, trained_launches = phase_trained(torch, F, dev)
+    ok &= r
+    stamp("trained checkpoint: D = 32 kernels, pin, grid batch")
 
     spec = ModelSpec.preset("llama3-8b")
     t0 = time.perf_counter()
@@ -5739,6 +6402,35 @@ def main() -> int:
         kernel_entry("int4_matmul (Gemma-2-9B widths, 4 rows)",
                      src + "int4_matmul.cu", qline + "int4_matmul.py:286",
                      gsum("int4_matmul"), gemma_recs["int4_matmul"])]
+    # the trained tiny retrieval checkpoint (D = 32): launches over the
+    # phase's kernel-path runs (16 pin generates and 16 grid batches)
+    tr = trained_recs
+    kernels += [
+        kernel_entry("flash_causal_attention (trained tiny retrieval, D=32, "
+                     "8 / 4 heads, N=1024: pin B=1, grid B=30)",
+                     src + "flash_prefill.cu", fp + "420",
+                     trained_launches["flash_causal_attention"], tr["flash"]),
+        kernel_entry("decode_attention (trained tiny retrieval, D=32: "
+                     + ", ".join(r["case"] for r in tr["decode"]) + ")",
+                     src + "decode_attn.cu", qline + "decode_attn.py:69",
+                     trained_launches["decode_attention"], tr["decode"]),
+        kernel_entry("h2o_scores (stats; trained tiny retrieval, D=32, "
+                     "N=1024, W=8: pin B=1, grid B=30)",
+                     src + "h2o_scores.cu", h2o_tpu + "36",
+                     trained_launches["h2o_row_stats"], tr["h2o_row_stats"]),
+        kernel_entry("h2o_scores (colsum; trained tiny retrieval, D=32, "
+                     "N=1024, W=8: pin B=1, grid B=30)",
+                     src + "h2o_scores.cu", h2o_tpu + "95",
+                     trained_launches["h2o_colsum"], tr["h2o_colsum"]),
+        kernel_entry("quant_fused_attention_group (trained tiny retrieval "
+                     "fullkv kivi8/4/2, D=32, G=2, V rows padded to 64: "
+                     "B=1 and B=30)", src + "quant_group_fused.cu",
+                     "pyramidkv_tpu/ops/quant.py:408",
+                     trained_launches["quant_fused_attention_group"],
+                     tr["region"])]
+    for ent in kernels[-3:-1]:
+        ent["library_note"] = ("none: no single PyTorch call computes the "
+                               "column sums of a softmax")
     for k in kernels:  # one line per kernel
         log({"kernel": k["name"], **k})
     log({"phase": "device_end", "clocks": clocks()})

@@ -10,7 +10,8 @@
 //   cap * tanh(logits[s] / cap) under a cap (Gemma-2's
 //   attn_logit_softcapping: the TPU package computes that decode in XLA,
 //   ops/attention.py::decode_attention), float32.min where mask[b,kvh,s]
-//   is false; out[b,h] = softmax(logits) @ v[b,kvh].  D = 128 or 256.
+//   is false; out[b,h] = softmax(logits) @ v[b,kvh].  D = 128 or 256, and
+//   32 (the trained tiny retrieval checkpoint, G = 1 and 2).
 // G = H / Hk is 1 for the per-query-head caches of snapkv/pyramidkv, 4
 // for fullkv's true-GQA cache on Llama-3-8B, 7 on Qwen2.5-7B and 2 on
 // Gemma-2-9B (D = 256).  A row whose slots are all
@@ -84,14 +85,15 @@ constexpr int STAGES = 3;                 // ring depth: 96 KB, two blocks
 // (Gemma-2's fullkv decode read 0.135 ms in clusters of 4, 0.099 in 5
 // splits through merge_kernel, on an H100).
 __host__ __device__ constexpr int max_cluster(int D) {
-  return D == 128 ? 4 : 2;
+  return D == 256 ? 2 : 4;
 }
 
-// Slots a split at most: 2048 at D = 128, 4096 at D = 256, where one block
-// an SM would otherwise cut Gemma-2's 8224 fullkv slots of 32 regions into
-// 5 splits of 2048 (160 blocks: two waves of 132 SMs) instead of 4 of 2112.
+// Slots a split at most: 2048 at D = 128 (and 32), 4096 at D = 256, where
+// one block an SM would otherwise cut Gemma-2's 8224 fullkv slots of 32
+// regions into 5 splits of 2048 (160 blocks: two waves of 132 SMs) instead
+// of 4 of 2112.
 __host__ __device__ constexpr int max_slots(int D) {
-  return D == 128 ? 2048 : 4096;
+  return D == 256 ? 4096 : 2048;
 }
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -114,8 +116,8 @@ __host__ __device__ constexpr int smem_bytes(int ns, int G, int D) {
 static_assert(smem_bytes(STAGES, 2, 256) <= 232448, "the ring at D = 256");
 
 // The query's D / 8 channels of this lane, [64u + 8c, 64u + 8c + 8) for each
-// 64 channels u: f32 registers for G <= 4, bf16 pairs for G = 7 and 8
-// (112-128 f32 would not fit).
+// 64 channels u (at D = 32 channels [4c, 4c + 4)): f32 registers for
+// G <= 4, bf16 pairs for G = 7 and 8 (112-128 f32 would not fit).
 template <int G, int D>
 struct QReg {
   static constexpr bool PACKED = G > 4;
@@ -140,9 +142,13 @@ struct QReg {
 // scale_cap = scale / cap and cap2 = cap * log2(e).
 // Blocks an SM holds: two up to G = 4 at D = 128 (the query in f32
 // registers, a 96 KB ring); one at G = 7 and 8 (packed pairs) and at
-// D = 256 (a 192 KB ring).
+// D = 256 (a 192 KB ring); five at D = 32 (a 24 KB ring, 48 registers).
+// At D = 32 a lane of a slot's 8 takes 4 channels (one 8-byte load) and a
+// lane of P.V one channel.
 template <int G, int D, bool CAP>
-__global__ void __launch_bounds__(NT, (D == 128 && G <= 4) ? 2 : 1)
+__global__ void __launch_bounds__(NT, (D == 128 && G <= 4) ? 2
+                                      : D == 32          ? 5
+                                                         : 1)
 split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hk*G, D]
              const __nv_bfloat16* __restrict__ k,   // [B, Hk, S, D]
              const __nv_bfloat16* __restrict__ v,   // [B, Hk, S, D]
@@ -198,6 +204,20 @@ split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hk*G, D]
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     const __nv_bfloat16* qg = q + ((size_t)bk * G + g) * D;
+    if constexpr (D == 32) {
+      const uint2 w = *reinterpret_cast<const uint2*>(qg + 4 * c);
+      const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if constexpr (QReg<G, D>::PACKED) {
+          qr.p[g][u] = p2[u];
+        } else {
+          const float2 f = __bfloat1622float2(p2[u]);
+          qr.f[g][2 * u] = f.x;
+          qr.f[g][2 * u + 1] = f.y;
+        }
+      }
+    }
 #pragma unroll
     for (int half = 0; half < NCH; ++half) {
       const uint4 w = *reinterpret_cast<const uint4*>(qg + half * 64 + 8 * c);
@@ -306,6 +326,20 @@ split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hk*G, D]
       float dot[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) dot[g] = 0.f;
+      if constexpr (D == 32) {  // channels [4c, 4c + 4)
+        const uint2 k0 = *reinterpret_cast<const uint2*>(ks + r * ROW_BYTES + c * 8);
+        const __nv_bfloat162* ka = reinterpret_cast<const __nv_bfloat162*>(&k0);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float2 fa = __bfloat1622float2(ka[u]);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float2 qa = qr.pair(g, u);
+            dot[g] = fmaf(qa.x, fa.x, dot[g]);
+            dot[g] = fmaf(qa.y, fa.y, dot[g]);
+          }
+        }
+      }
 #pragma unroll
       for (int half = 0; half < NCH; half += 2) {
         // channels [64 half + 8c, + 8) and the next 64 channels' likewise
@@ -378,6 +412,9 @@ split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hk*G, D]
         const int r = warp * HG * 4 + h * 4 + jj;
         if (r0 + r >= s1) continue;  // the same for the whole warp
         float vf[VCH];
+        if constexpr (VCH == 1)
+          vf[0] = __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+              vs + r * ROW_BYTES + lane * 2));
         const uint2* vw = reinterpret_cast<const uint2*>(vs + r * ROW_BYTES + lane * VCH * 2);
 #pragma unroll
         for (int x = 0; x < VCH / 4; ++x) {
@@ -412,10 +449,14 @@ split_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hk*G, D]
       wm[warp * G + g] = m[g];
       wl[warp * G + g] = lw;
     }
+    if constexpr (VCH == 1) {
+      wacc[(warp * G + g) * D + lane] = acc[g][0];
+    } else {
 #pragma unroll
-    for (int x = 0; x < VCH; x += 4)
-      *reinterpret_cast<float4*>(&wacc[(warp * G + g) * D + lane * VCH + x]) =
-          make_float4(acc[g][x], acc[g][x + 1], acc[g][x + 2], acc[g][x + 3]);
+      for (int x = 0; x < VCH; x += 4)
+        *reinterpret_cast<float4*>(&wacc[(warp * G + g) * D + lane * VCH + x]) =
+            make_float4(acc[g][x], acc[g][x + 1], acc[g][x + 2], acc[g][x + 3]);
+    }
   }
   __syncthreads();
 
@@ -503,6 +544,18 @@ merge_kernel(const float* __restrict__ ws_acc, const float* __restrict__ ws_m,
   __syncthreads();
   mx = fmaxf(fmaxf(red[0], red[1]), fmaxf(red[2], red[3]));
   float lt = 0.f;
+  if constexpr (VCH == 1) {  // D = 32: a lane one channel
+    float o1 = 0.f;
+#pragma unroll 8
+    for (int s = warp; s < nsplit; s += 4) {
+      const size_t row = (base + s) * G + g;
+      const float m = ws_m[row];
+      const float f = m == -INFINITY ? 0.f : exp2f(m - mx);
+      lt = fmaf(ws_l[row], f, lt);
+      o1 = fmaf(ws_acc[row * D + lane], f, o1);
+    }
+    wacc[warp][lane] = o1;
+  } else {
   float4 o[VCH / 4];
 #pragma unroll
   for (int x = 0; x < VCH / 4; ++x) o[x] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -524,6 +577,7 @@ merge_kernel(const float* __restrict__ ws_acc, const float* __restrict__ ws_m,
 #pragma unroll
   for (int x = 0; x < VCH / 4; ++x)
     *reinterpret_cast<float4*>(&wacc[warp][lane * VCH + 4 * x]) = o[x];
+  }
   if (lane == 0) wl[warp] = lt;
   __syncthreads();
   const float l = ((wl[0] + wl[1]) + wl[2]) + wl[3];
@@ -578,7 +632,8 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
 }
 
 // The instantiation for the group and head dim: D = 128 at G in {1, 2, 4,
-// 7, 8}, D = 256 (Gemma-2) at G in {1, 2}; each with and without the cap.
+// 7, 8}, D = 256 (Gemma-2) and D = 32 (the trained tiny retrieval
+// checkpoint) at G in {1, 2}; each with and without the cap.
 template <int G, int D>
 int launch_cap(const void* q, const void* k, const void* v, const void* mask,
                void* out, void* ws_acc, void* ws_m, void* ws_l, int BHk,
@@ -619,6 +674,13 @@ extern "C" int pkv_decode_attn(const void* q, const void* k, const void* v,
       default: return (int)cudaErrorInvalidValue;
     }
   }
+  if (D == 32) {
+    switch (H / Hk) {
+      case 1: return launch_cap<1, 32>(PKV_DECODE_ARGS);
+      case 2: return launch_cap<2, 32>(PKV_DECODE_ARGS);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   if (D != 128) return (int)cudaErrorInvalidValue;
   switch (H / Hk) {
     case 1: return launch_cap<1, 128>(PKV_DECODE_ARGS);
@@ -649,6 +711,8 @@ extern "C" int pkv_decode_occupancy(int G, int D) {
     case 128 * 16 + 8: occ(split_kernel<8, 128, false>, smem_bytes(STAGES, 8, 128)); break;
     case 256 * 16 + 1: occ(split_kernel<1, 256, false>, smem_bytes(STAGES, 1, 256)); break;
     case 256 * 16 + 2: occ(split_kernel<2, 256, false>, smem_bytes(STAGES, 2, 256)); break;
+    case 32 * 16 + 1: occ(split_kernel<1, 32, false>, smem_bytes(STAGES, 1, 32)); break;
+    case 32 * 16 + 2: occ(split_kernel<2, 32, false>, smem_bytes(STAGES, 2, 32)); break;
     default: return 0;
   }
   return e == cudaSuccess ? n : -(int)e;

@@ -8,7 +8,8 @@
 // `_kernel_pass_b`), sub_k=1, with any `q_start`, `scale` and `softcap`; and
 // flash_prefill.py::flash_attention_partials (body `_kernel_partials`).
 // Head dims 128 and 256 (Gemma-2), each instantiated with and without the
-// attention logit cap.
+// attention logit cap; the one-pass entry also at head dim 32 (the trained
+// tiny retrieval checkpoint: namespace d32, on mma.sync).
 //
 // What it computes, per batch row b with pad = N - true_len[b]: the Nq
 // queries sit at global columns [q_start, q_start + Nq) of the N keys, and
@@ -880,15 +881,253 @@ int dispatch(const void* q, const void* k, const void* v,
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// Head dim 32 (the trained tiny retrieval checkpoint): the one-pass kOut
+// entry on mma.sync.
+// ---------------------------------------------------------------------------
+//
+// A 32-channel row is 64 bytes, half a 128-byte swizzled box, so the wgmma
+// kernels' tensor maps and descriptors do not take it; this kernel is the
+// one-pass schedule on warp-wide mma.sync m16n8k16 instead:
+// - a block takes 128 query rows of one (b, h), 16 a warp (8 warps); the
+//   warp's Q fragments (q as it is: 2 k steps of 16 channels) stay in
+//   registers for the whole walk, and each f32 product is multiplied by
+//   scale * log2 e (scale alone under a cap) in f32.  The wgmma kernels'
+//   fold (q * scale * log2 e rounded to bf16, the TPU wrapper's) moves a
+//   logit by ~2^-9 of its size: the trained checkpoint's logits reach
+//   900-3000 nats, and the fold moved its attention outputs 8-29x past
+//   the limit against the plain version (PERF.md §6);
+// - the block walks the key tiles of 64 keys from its pad or window edge to
+//   its causal edge (flash_tile_plan with 64-key tiles); each tile's K rows
+//   (padded to 40 bf16 a row: the fragment loads hit 32 banks) and V
+//   transposed to [channel][key] (72 bf16 a row) are staged in shared
+//   memory by every thread, the next tile's 16 bytes of K and of V held in
+//   registers while the current tile is computed;
+// - S = Q K^T is 8 n-tiles x 2 k steps, P (rounded to bf16 at the running
+//   max, the C fragments of two n-tiles being one A fragment) times V is
+//   4 k steps x 4 n-tiles of 8 channels; a warp skips a tile wholly past
+//   its rows' causal edge or before the pad; every other pair is masked
+//   elementwise (the mask is the same function as the wgmma kernel's);
+// - online softmax in base 2 with l summed over the unrounded p, as the
+//   plain schedule (flash_tiled_plain at D = 32), reduced over the 4 lanes
+//   of a row at the end; a row with no visible key writes 0.
+namespace d32 {
+
+constexpr int D = 32;
+constexpr int NW = 8;            // warps a block, 16 q rows each
+constexpr int BQ = NW * 16;      // q rows a block
+constexpr int BK = 64;           // keys a tile
+constexpr int KROW = 40;         // bf16 a staged K row (32 + 8 pad)
+constexpr int VROW = 72;         // bf16 a staged V^T row (64 keys + 8 pad)
+
+template <bool CAP>
+__global__ void __launch_bounds__(NW * 32)
+flash32_kernel(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v,
+               const int* __restrict__ true_len,
+               __nv_bfloat16* __restrict__ out, int H, int Hk, int N, int ldk,
+               int Nq, int q_start, int window, float scale_q, float cap) {
+  __shared__ __align__(16) __nv_bfloat16 ks[BK * KROW];
+  __shared__ __align__(16) __nv_bfloat16 vt[D * VROW];
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int nqt = (Nq + BQ - 1) / BQ;
+  const int t = nqt - 1 - blockIdx.y;  // the heaviest q tiles first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int pad = N - true_len[b];
+  const int plane = b * Hk + h / (H / Hk);
+  const __nv_bfloat16* kb = k + (size_t)plane * ldk * D;
+  const __nv_bfloat16* vb = v + (size_t)plane * ldk * D;
+  const float inv_cap = CAP ? 1.f / cap : 0.f, cap2 = cap * LOG2E;
+
+  // the block's rows (global columns) and the key tiles it walks
+  const int g0 = q_start + t * BQ;
+  const int g1 = min(g0 + BQ, q_start + Nq) - 1;
+  const int lo_key = window > 0 ? max(pad, g0 - window + 1) : pad;
+  const int hi_key = min(g1, N - 1);
+  const int t_lo = lo_key / BK, t_hi = lo_key <= hi_key ? hi_key / BK : -1;
+
+  // this warp's 16 rows: r0 (local) and global R0; rows past Nq are idle
+  const int r0 = t * BQ + warp * 16;
+  const bool active = r0 < Nq;
+  const int R0 = q_start + r0;
+  const int rowA = R0 + gq, rowB = R0 + gq + 8;  // this thread's two rows
+
+  // Q fragments: ks-th 16 channels; a0/a1 rows gq / gq + 8, channels
+  // 16 kk + 2 tq + {0, 1}; a2/a3 the same 8 channels on
+  uint32_t qa[2][4];
+  {
+    const __nv_bfloat16* qr = q + ((size_t)bh * Nq + (active ? r0 : 0)) * D;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int rr = gq + (x & 1) * 8, cc = 16 * kk + 2 * tq + (x >> 1) * 8;
+        qa[kk][x] = active ? *reinterpret_cast<const uint32_t*>(
+                                 qr + (size_t)rr * D + cc)
+                           : 0u;
+      }
+    }
+  }
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) o[nt][x] = 0.f;
+
+  // the staging map: thread tid copies 16 bytes of K and of V, key tid / 4,
+  // channels 8 (tid % 4) + [0, 8)
+  const int sk = tid >> 2, sc = (tid & 3) * 8;
+  uint4 kreg = make_uint4(0, 0, 0, 0), vreg = make_uint4(0, 0, 0, 0);
+  auto fetch = [&](int kt) {
+    const size_t o_ = (size_t)(kt * BK + sk) * D + sc;
+    kreg = *reinterpret_cast<const uint4*>(kb + o_);
+    vreg = *reinterpret_cast<const uint4*>(vb + o_);
+  };
+  if (t_lo <= t_hi) fetch(t_lo);
+
+  for (int kt = t_lo; kt <= t_hi; ++kt) {
+    __syncthreads();  // every warp is done with the previous tile
+    *reinterpret_cast<uint4*>(&ks[sk * KROW + sc]) = kreg;
+    {
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&vreg);
+#pragma unroll
+      for (int x = 0; x < 8; ++x) vt[(sc + x) * VROW + sk] = e[x];
+    }
+    __syncthreads();
+    if (kt < t_hi) fetch(kt + 1);  // in flight while this tile is computed
+    const int c0 = kt * BK;
+    if (!active || c0 > R0 + 15 || c0 + BK <= pad) continue;
+
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) s[j][x] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const __nv_bfloat16* kr = &ks[(8 * j + gq) * KROW + 16 * kk + 2 * tq];
+        mma_bf16_16816(s[j], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
+                       *reinterpret_cast<const uint32_t*>(kr + 8));
+      }
+    }
+    // cap, mask, running max
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int c = c0 + 8 * j + 2 * tq + (x & 1);
+        const int R = x < 2 ? rowA : rowB;
+        float y = s[j][x] * scale_q;
+        if constexpr (CAP) y = tanh_approx(y * inv_cap) * cap2;
+        const bool vis = c >= pad && c <= R && R < q_start + Nq &&
+                         (window <= 0 || R - c < window);
+        y = vis ? y : -INFINITY;
+        s[j][x] = y;
+        mx[x >> 1] = fmaxf(mx[x >> 1], y);
+      }
+    }
+    float alpha[2], mu[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float mn = fmaxf(m[i], mx[i]);
+      mu[i] = mn == -INFINITY ? 0.f : mn;
+      alpha[i] = exp2f(m[i] - mu[i]);
+      m[i] = mn;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      o[nt][0] *= alpha[0];
+      o[nt][1] *= alpha[0];
+      o[nt][2] *= alpha[1];
+      o[nt][3] *= alpha[1];
+    }
+    // P (bf16) as A fragments: k step kk takes n-tiles 2 kk and 2 kk + 1
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        p[x] = exp2f(s[j][x] - mu[x >> 1]);
+        l[x >> 1] += p[x];
+      }
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const __nv_bfloat16* vr = &vt[(8 * nt + gq) * VROW + 16 * kk + 2 * tq];
+        mma_bf16_16816(o[nt], pa[kk], *reinterpret_cast<const uint32_t*>(vr),
+                       *reinterpret_cast<const uint32_t*>(vr + 8));
+      }
+    }
+  }
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  const float inv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f,
+                        l[1] > 0.f ? 1.f / l[1] : 0.f};
+  __nv_bfloat16* orow = out + ((size_t)bh * Nq + r0) * D;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int c = 8 * nt + 2 * tq;
+    *reinterpret_cast<uint32_t*>(orow + (size_t)gq * D + c) =
+        pack_bf16(o[nt][0] * inv[0], o[nt][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(orow + (size_t)(gq + 8) * D + c) =
+        pack_bf16(o[nt][2] * inv[1], o[nt][3] * inv[1]);
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, const void* true_len,
+           void* out, int B, int H, int Hk, int N, int ldk, int Nq,
+           int q_start, int window, float scale_q, float cap, void* stream) {
+  if (N % 64 || Nq % 64 || H % Hk || Nq < 1 || q_start < 0 || ldk < N)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(B * H, (Nq + BQ - 1) / BQ);
+  const auto st = (cudaStream_t)stream;
+  const auto* qp = (const __nv_bfloat16*)q;
+  const auto* kp = (const __nv_bfloat16*)k;
+  const auto* vp = (const __nv_bfloat16*)v;
+  if (cap > 0.f)
+    flash32_kernel<true><<<grid, NW * 32, 0, st>>>(
+        qp, kp, vp, (const int*)true_len, (__nv_bfloat16*)out, H, Hk, N, ldk,
+        Nq, q_start, window, scale_q, cap);
+  else
+    flash32_kernel<false><<<grid, NW * 32, 0, st>>>(
+        qp, kp, vp, (const int*)true_len, (__nv_bfloat16*)out, H, Hk, N, ldk,
+        Nq, q_start, window, scale_q, cap);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace d32
+
 }  // namespace
 
 // Every entry takes D = 128 or 256, a softmax scale and a logit cap (0 for
-// none); cudaErrorInvalidValue for another D.
+// none); pkv_flash_prefill also D = 32 (namespace d32); cudaErrorInvalidValue
+// for another D.
 extern "C" int pkv_flash_prefill(const void* q, const void* k, const void* v,
                                  const void* true_len, void* out, int B, int H,
                                  int Hk, int D, int N, int ldk, int Nq,
                                  int q_start, int window, float scale,
                                  float softcap, void* stream) {
+  if (D == 32)
+    return d32::launch(q, k, v, true_len, out, B, H, Hk, N, ldk, Nq, q_start,
+                       window, softcap > 0.f ? scale : scale * LOG2E, softcap,
+                       stream);
   return wg::dispatch<kOut>(q, k, v, true_len, out, nullptr, nullptr, nullptr,
                             nullptr, B, H, Hk, D, N, ldk, Nq, q_start, window,
                             scale, softcap, stream);

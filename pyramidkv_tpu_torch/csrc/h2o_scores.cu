@@ -4,7 +4,8 @@
 // TPU): pass 1 `_stats_kernel`, pass 2 `_colsum_kernel`; and, with a scale
 // and an attention logit cap (Gemma-2), the XLA scorer the TPU engine takes
 // there (pyramidkv_tpu/ops/scoring.py::h2o_scores).  Head dims 128 and 256,
-// each instantiated with and without the cap.
+// each instantiated with and without the cap; and head dim 32 (the trained
+// tiny retrieval checkpoint) on mma.sync, namespace d32 below.
 //
 // What it computes, per (batch row b, query head h) with pad = N -
 // true_len[b] and the pre-scaled query qs = bf16(q * scale * log2(e)) (the
@@ -626,11 +627,262 @@ int colsum(const void* qs, const void* k, const void* true_len,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Head dim 32 (the trained tiny retrieval checkpoint): both passes on
+// mma.sync.
+// ---------------------------------------------------------------------------
+//
+// A 32-channel row is 64 bytes, half a 128-byte swizzled box: the wgmma
+// walk above does not take it.  These two kernels compute the same
+// functions with warp-wide mma.sync m16n8k16:
+// - the query is read as it is (not folded with the scale into bf16, as
+//   the wgmma kernels read it): each f32 product is multiplied by `qscale`
+//   (scale * log2 e, or scale under a cap) in f32; the trained checkpoint's
+//   logits reach 900-3000 nats, where the fold's rounding moves them by
+//   several;
+// - a block owns 128 rows of one (b, h), 16 a warp (stats: queries,
+//   colsum: keys), the warp's A fragments (2 k steps of 16 channels) in
+//   registers for the whole walk; the walked axis (stats: keys from the
+//   pad's 64-row tile on, colsum: queries likewise) comes in 64-row tiles
+//   staged by every thread in shared memory (rows padded to 40 bf16), the
+//   next tile's 16 bytes a thread held in registers meanwhile; an 8 x 64
+//   S tile a warp is 8 n-tiles x 2 k steps;
+// - stats: each 64-key tile one online step (the wgmma kernel's units),
+//   every pair masked elementwise (padding, and the causal part of the
+//   trailing W x W block), the cap first; m and l reduced over a row's 4
+//   lanes;
+// - colsum: the exponent offsets m + log2(max(l, 1e-30)) of the tile's
+//   queries staged beside it (float32.max for padding rows); a thread sums
+//   exp2(s - offset) pairs first over its queries 8 j + 2 lane + {0, 1},
+//   in order across every tile, then over the 4 lanes of a key: the order
+//   h2o_tiled_plain mirrors.
+namespace d32 {
+
+constexpr int D = 32;
+constexpr int NW = 8;        // warps a block, 16 rows each
+constexpr int BR = NW * 16;  // a block's rows
+constexpr int BT = 64;       // rows of a tile of the walked axis
+constexpr int KROW = 40;     // bf16 a staged row (32 + 8 pad)
+
+// This thread's A fragments of 16 rows from `row0` of a [*, D] bf16 plane:
+// k step kk, a0/a1 rows lane/4 (+ 8), channels 16 kk + 2 (lane % 4) +
+// {0, 1}; a2/a3 those + 8; rows >= n read as zeros.
+__device__ __forceinline__ void load_a32(uint32_t (&a)[2][4],
+                                         const __nv_bfloat16* base, int row0,
+                                         int n, int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int r = row0 + gq + (x & 1) * 8, c = 16 * kk + 2 * tq + (x >> 1) * 8;
+      a[kk][x] = r < n ? *reinterpret_cast<const uint32_t*>(base + (size_t)r * D + c)
+                       : 0u;
+    }
+}
+
+// S = A B^T of the warp's 16 rows and the staged tile's 64 rows: s[j] the
+// C fragment of tile rows 8 j + [0, 8).
+__device__ __forceinline__ void tile_product(float (&s)[8][4],
+                                             const uint32_t (&a)[2][4],
+                                             const __nv_bfloat16* st,
+                                             int lane) {
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) s[j][x] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const __nv_bfloat16* r = st + (8 * j + gq) * KROW + 16 * kk + 2 * tq;
+      mma_bf16_16816(s[j], a[kk], *reinterpret_cast<const uint32_t*>(r),
+                     *reinterpret_cast<const uint32_t*>(r + 8));
+    }
+  }
+}
+
+// grid (B * H, ceil(N / 128)): block (bh, t) writes m, l of rows
+// [128 t, 128 t + 128).
+template <bool CAP>
+__global__ void __launch_bounds__(NW * 32)
+stats32_kernel(const __nv_bfloat16* __restrict__ qs,
+               const __nv_bfloat16* __restrict__ k,
+               const int* __restrict__ true_len, float* __restrict__ m_out,
+               float* __restrict__ l_out, int H, int Hk, int N, int W,
+               float cap, float qscale) {
+  __shared__ __align__(16) __nv_bfloat16 st[BT * KROW];
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int pad = N - true_len[b];
+  const __nv_bfloat16* kb = k + (size_t)(b * Hk + h / (H / Hk)) * N * D;
+  const float inv_cap = CAP ? 1.f / cap : 0.f, cap2 = cap * LOG2E;
+  const int r0 = blockIdx.y * BR + warp * 16;
+  const int rows[2] = {r0 + gq, r0 + gq + 8};
+  const int b0 = blockIdx.y * BR;
+  // a q tile made wholly of padding visits nothing
+  const int t_lo = pad / BT, t_hi = min(b0 + BR, N) - 1 >= pad ? (N - 1) / BT : -1;
+  uint32_t a[2][4];
+  load_a32(a, qs + (size_t)bh * N * D, r0, N, lane);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int sk = tid >> 2, sc = (tid & 3) * 8;
+  uint4 reg = make_uint4(0, 0, 0, 0);
+  if (t_lo <= t_hi) reg = *reinterpret_cast<const uint4*>(kb + (size_t)(t_lo * BT + sk) * D + sc);
+  const bool active = r0 < N && r0 + 15 >= pad;
+  for (int kt = t_lo; kt <= t_hi; ++kt) {
+    __syncthreads();
+    *reinterpret_cast<uint4*>(&st[sk * KROW + sc]) = reg;
+    __syncthreads();
+    if (kt < t_hi)
+      reg = *reinterpret_cast<const uint4*>(kb + (size_t)((kt + 1) * BT + sk) * D + sc);
+    if (!active) continue;
+    float s[8][4];
+    tile_product(s, a, st, lane);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int c = kt * BT + 8 * j + 2 * tq + (x & 1), r = rows[x >> 1];
+        float y = s[j][x] * qscale;
+        if constexpr (CAP) y = cap_logit(y, inv_cap, cap2);
+        const bool hid = min(r, c) < pad || (r >= N - W && c > r);
+        y = hid ? -INFINITY : y;
+        s[j][x] = y;
+        mx[x >> 1] = fmaxf(mx[x >> 1], y);
+      }
+    float mu[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float mn = fmaxf(m[i], mx[i]);
+      mu[i] = mn == -INFINITY ? 0.f : mn;
+      l[i] *= exp2f(m[i] - mu[i]);
+      m[i] = mn;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) l[x >> 1] += exp2f(s[j][x] - mu[x >> 1]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    if (tq == 0 && rows[i] < N) {
+      const size_t o = (size_t)bh * N + rows[i];
+      m_out[o] = m[i] == -INFINITY ? -FLT_MAX : m[i];
+      l_out[o] = m[i] == -INFINITY ? 0.f : l[i];
+    }
+  }
+}
+
+// grid (B * H, ceil((N - W) / 128)): block (bh, c) writes the scores of
+// keys [128 c, min(128 c + 128, N - W)).
+template <bool CAP>
+__global__ void __launch_bounds__(NW * 32)
+colsum32_kernel(const __nv_bfloat16* __restrict__ qs,
+                const __nv_bfloat16* __restrict__ k,
+                const int* __restrict__ true_len,
+                const float* __restrict__ m_in,
+                const float* __restrict__ l_in, float* __restrict__ out,
+                int H, int Hk, int N, int W, float cap, float qscale) {
+  __shared__ __align__(16) __nv_bfloat16 st[BT * KROW];
+  __shared__ float offs[BT];
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int pad = N - true_len[b];
+  const int nout = N - W;
+  const __nv_bfloat16* qb = qs + (size_t)bh * N * D;
+  const float* mb = m_in + (size_t)bh * N;
+  const float* lb = l_in + (size_t)bh * N;
+  float* ob = out + (size_t)bh * nout;
+  const float inv_cap = CAP ? 1.f / cap : 0.f, cap2 = cap * LOG2E;
+  const int c0 = blockIdx.y * BR;
+  const int key0 = c0 + warp * 16;
+  // a block of padding columns only visits nothing
+  const bool any = min(c0 + BR, nout) > pad;
+  const int t_lo = pad / BT, t_hi = any ? (N - 1) / BT : -1;
+  uint32_t a[2][4];
+  load_a32(a, k + (size_t)(b * Hk + h / (H / Hk)) * N * D, key0, N, lane);
+  float cs[2] = {0.f, 0.f};
+  const int sk = tid >> 2, sc = (tid & 3) * 8;
+  uint4 reg = make_uint4(0, 0, 0, 0);
+  float off = 0.f;
+  auto fetch = [&](int qt) {
+    reg = *reinterpret_cast<const uint4*>(qb + (size_t)(qt * BT + sk) * D + sc);
+    if (tid < BT) {
+      const int r = qt * BT + tid;
+      off = exp_offset(mb[r], lb[r], r < pad);
+    }
+  };
+  if (t_lo <= t_hi) fetch(t_lo);
+  const bool active = key0 < nout;
+  for (int qt = t_lo; qt <= t_hi; ++qt) {
+    __syncthreads();
+    *reinterpret_cast<uint4*>(&st[sk * KROW + sc]) = reg;
+    if (tid < BT) offs[tid] = off;
+    __syncthreads();
+    if (qt < t_hi) fetch(qt + 1);
+    if (!active) continue;
+    float s[8][4];
+    tile_product(s, a, st, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 o = *reinterpret_cast<const float2*>(&offs[8 * j + 2 * tq]);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float y0 = s[j][2 * i] * qscale, y1 = s[j][2 * i + 1] * qscale;
+        if constexpr (CAP) {
+          y0 = cap_logit(y0, inv_cap, cap2);
+          y1 = cap_logit(y1, inv_cap, cap2);
+        }
+        cs[i] += ex2(y0 - o.x) + ex2(y1 - o.y);
+      }
+    }
+  }
+  if (c0 >= nout) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    cs[i] += __shfl_xor_sync(0xffffffffu, cs[i], 1);
+    cs[i] += __shfl_xor_sync(0xffffffffu, cs[i], 2);
+    const int c = key0 + gq + 8 * i;
+    if (tq == 0 && c < nout) ob[c] = c >= pad ? cs[i] : -INFINITY;
+  }
+}
+
+template <bool CAP>
+int stats(const void* qs, const void* k, const void* true_len, void* m,
+          void* l, int B, int H, int Hk, int N, int W, float cap,
+          float qscale, void* stream) {
+  stats32_kernel<CAP><<<dim3(B * H, (N + BR - 1) / BR), NW * 32, 0,
+                        (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)qs, (const __nv_bfloat16*)k,
+      (const int*)true_len, (float*)m, (float*)l, H, Hk, N, W, cap, qscale);
+  return (int)cudaGetLastError();
+}
+
+template <bool CAP>
+int colsum(const void* qs, const void* k, const void* true_len,
+           const void* m, const void* l, void* out, int B, int H, int Hk,
+           int N, int W, float cap, float qscale, void* stream) {
+  colsum32_kernel<CAP><<<dim3(B * H, (N - W + BR - 1) / BR), NW * 32, 0,
+                         (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)qs, (const __nv_bfloat16*)k,
+      (const int*)true_len, (const float*)m, (const float*)l, (float*)out, H,
+      Hk, N, W, cap, qscale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace d32
+
 }  // namespace
 
 // The instantiation for head dim D (128 or 256) and the cap (cap > 0:
 // Gemma-2's attention logit cap; 0: none); cudaErrorInvalidValue for
-// another D.
+// another D (D = 32: namespace d32, in the entries).
 #define PKV_H2O_DISPATCH(fn, ...)                                        \
   if (D == 128)                                                          \
     return cap > 0.f ? fn<128, true>(__VA_ARGS__)                        \
@@ -641,12 +893,19 @@ int colsum(const void* qs, const void* k, const void* true_len,
   return (int)cudaErrorInvalidValue;
 
 // qs: the query times scale * log2(e) (scale alone under a cap), rounded to
-// bf16 [B*H, N, D]; k [B*Hk, N, D] bf16; true_len [B] int32; m, l [B*H, N]
+// bf16 [B*H, N, D] (at D = 32 the query as it is, each product multiplied
+// by qscale = scale * log2(e), or scale under a cap; qscale is not read at
+// D = 128 and 256); k [B*Hk, N, D] bf16; true_len [B] int32; m, l [B*H, N]
 // f32 out.
 extern "C" int pkv_h2o_stats(const void* qs, const void* k,
                              const void* true_len, void* m, void* l, int B,
                              int H, int Hk, int D, int N, int W, float cap,
-                             void* stream) {
+                             float qscale, void* stream) {
+  if (D == 32)
+    return cap > 0.f ? d32::stats<true>(qs, k, true_len, m, l, B, H, Hk, N,
+                                        W, cap, qscale, stream)
+                     : d32::stats<false>(qs, k, true_len, m, l, B, H, Hk, N,
+                                         W, cap, qscale, stream);
   PKV_H2O_DISPATCH(stats, qs, k, true_len, m, l, B, H, Hk, N, W, cap, stream)
 }
 
@@ -654,7 +913,13 @@ extern "C" int pkv_h2o_stats(const void* qs, const void* k,
 extern "C" int pkv_h2o_colsum(const void* qs, const void* k,
                               const void* true_len, const void* m,
                               const void* l, void* out, int B, int H, int Hk,
-                              int D, int N, int W, float cap, void* stream) {
+                              int D, int N, int W, float cap, float qscale,
+                              void* stream) {
+  if (D == 32)
+    return cap > 0.f ? d32::colsum<true>(qs, k, true_len, m, l, out, B, H, Hk,
+                                         N, W, cap, qscale, stream)
+                     : d32::colsum<false>(qs, k, true_len, m, l, out, B, H,
+                                          Hk, N, W, cap, qscale, stream);
   PKV_H2O_DISPATCH(colsum, qs, k, true_len, m, l, out, B, H, Hk, N, W, cap,
                    stream)
 }

@@ -222,6 +222,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// One warp-wide mma.sync m16n8k16 with bf16 A (16 x 16, row-major
+// fragments a[4]) and B (16 x 8, column-major b0, b1), f32 C += A B: the
+// head-dim-32 kernels' product (a 32-channel row is too narrow for the
+// 128-byte swizzled boxes the wgmma kernels read).  Fragments: a0 row
+// lane/4, columns 2 (lane%4) + {0, 1}; a1 row + 8; a2, a3 columns + 8; b0
+// rows 2 (lane%4) + {0, 1} of column lane/4, b1 rows + 8; c0, c1 row
+// lane/4, columns 2 (lane%4) + {0, 1}, c2, c3 row + 8.
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // tanh on the MUFU (one instruction; relative error about 2^-11): the
 // attention logit cap of Gemma-2, cap * tanh(s / cap)
 __device__ __forceinline__ float tanh_approx(float x) {

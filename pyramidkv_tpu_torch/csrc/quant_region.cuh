@@ -906,8 +906,11 @@ int launch_pa(const Args& a, float* ws_acc, float* ws_m, float* ws_l, int BHk,
 //   code rows and the rows' V scales and zeros on every plane), then its
 //   tail items (32 K and V rows each);
 // - a warp takes 4 rows of an item, 8 lanes a row (D / 8 channels each:
-//   16 at D = 128, 32 at D = 256); logits summed over the lanes by
-//   shuffles, then capped under CAP; P.V with D / 32 channels a lane;
+//   16 at D = 128, 32 at D = 256, 4 at D = 32, one 4-byte code load);
+//   logits summed over the lanes by shuffles, then capped under CAP; P.V
+//   with D / 32 channels a lane (one at D = 32, where the port's cache pads
+//   V's channels to the quantization group: the V code rows are Dp >= D
+//   bytes and a lane reads its channel's byte, the pad never);
 // - for the K groups a window of the split's byte-rows touches in each
 //   bit-plane (slot j + p * W: staged_groups per plane, ceil(rows / kg) + 1
 //   at most), the block stages in shared memory, channel-minor and padded
@@ -932,9 +935,9 @@ constexpr int MAX_CLUSTER = 4;  // splits merged in a cluster at D = 128
 
 // Splits merged in a cluster at head dim D: two at D = 256, where a block
 // fills an SM and clusters of 4 ran slower than the merge kernel (as the
-// wrapper's max_cluster).
+// wrapper's max_cluster); MAX_CLUSTER at D = 128 and 32.
 __host__ __device__ constexpr int max_cluster(int D) {
-  return D == 128 ? MAX_CLUSTER : 2;
+  return D == 256 ? 2 : MAX_CLUSTER;
 }
 constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may have
 
@@ -1221,14 +1224,24 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
         for (int p = 0; p < PER; ++p)
 #pragma unroll
           for (int g = 0; g < G; ++g) dot[p][g] = 0.f;
+        // D = 32: one 4-byte word of channels [4c, 4c + 4)
+        constexpr int KWN = D == 32 ? 1 : 4;  // 4-byte code words a load
 #pragma unroll
-        for (int hh = 0; hh < KW; ++hh) {
-          const uint4 kw = *reinterpret_cast<const uint4*>(
-              st + r * D + c * 16 * KW + hh * 16);
-          const uint32_t words[4] = {kw.x, kw.y, kw.z, kw.w};
+        for (int hh = 0; hh < (D == 32 ? 1 : KW); ++hh) {
+          uint32_t words[4];
+          if constexpr (D == 32) {
+            words[0] = *reinterpret_cast<const uint32_t*>(st + r * D + c * 4);
+          } else {
+            const uint4 kw = *reinterpret_cast<const uint4*>(
+                st + r * D + c * 16 * KW + hh * 16);
+            words[0] = kw.x;
+            words[1] = kw.y;
+            words[2] = kw.z;
+            words[3] = kw.w;
+          }
 #pragma unroll
-          for (int w = 0; w < 4; ++w) {
-            const int d0 = pad_d(c * 16 * KW + hh * 16 + w * 4);
+          for (int w = 0; w < KWN; ++w) {
+            const int d0 = pad_d(D == 32 ? c * 4 : c * 16 * KW + hh * 16 + w * 4);
             if constexpr (QFOLD) {
               // bf16(q * scale * ks) . code (the zero term after the sum)
 #pragma unroll
@@ -1317,19 +1330,25 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
       for (int rr = 0; rr < 4; ++rr) {
         const int rv = warp * 4 + rr;
         if (r0 + rv >= row1) continue;  // the same for the whole warp
-        uint32_t vw[VPL / 4];
+        // code words a lane, codes a word: one code (byte) at D = 32
+        constexpr int VW = VPL < 4 ? 1 : VPL / 4, VK = VPL < 4 ? VPL : 4;
+        uint32_t vw[VW];
+        if constexpr (VPL < 4) {
+          vw[0] = vst[rv * Dp + lane];
+        } else {
 #pragma unroll
-        for (int h = 0; h < VPL / 4; ++h)
-          vw[h] = *reinterpret_cast<const uint32_t*>(vst + rv * Dp + lane * VPL + 4 * h);
+          for (int h = 0; h < VW; ++h)
+            vw[h] = *reinterpret_cast<const uint32_t*>(vst + rv * Dp + lane * VPL + 4 * h);
+        }
 #pragma unroll
         for (int p = 0; p < PER; ++p) {
           const float sc = vsc[(p * RROWS + rv) * NGV + vgrp];
           const float zr = vsc[((PER + p) * RROWS + rv) * NGV + vgrp];
           float vv[VPL];  // kF32, kMix: code * scale + zero; kFold: the code
 #pragma unroll
-          for (int h = 0; h < VPL / 4; ++h)
+          for (int h = 0; h < VW; ++h)
 #pragma unroll
-            for (int k = 0; k < 4; ++k) {
+            for (int k = 0; k < VK; ++k) {
               const float cv = code_f((vw[h] >> (8 * k + p * NBITS)) & MASK);
               vv[4 * h + k] = FOLD ? cv : fmaf(cv, sc, zr);
             }
@@ -1352,8 +1371,14 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
       // ---- tail slots: f32 logits of the bf16 q and K ----------------------
       const int h = tlist[sp + (i - nreg) * nsplit];
       const int r = warp * 4 + j;  // this lane's slot of the item
-      // channels [8 c + 64 u, 8 c + 64 u + 8) for u < D / 64
-      uint4 kr[D / 64];
+      // channels [8 c + 64 u, 8 c + 64 u + 8) for u < D / 64 (at D = 32
+      // channels [4 c, 4 c + 4))
+      constexpr int KU = D == 32 ? 1 : D / 64;
+      uint4 kr[KU];
+      if constexpr (D == 32) {
+        const uint2 k2 = *reinterpret_cast<const uint2*>(st + r * D * 2 + c * 8);
+        kr[0] = make_uint4(k2.x, k2.y, 0u, 0u);
+      }
 #pragma unroll
       for (int u = 0; u < D / 64; ++u)
         kr[u] = *reinterpret_cast<const uint4*>(st + r * D * 2 + (c + 8 * u) * 16);
@@ -1361,7 +1386,7 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
       float e[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        float qv[D / 64][8];
+        float qv[KU][8];
 #pragma unroll
         for (int u = 0; u < D / 64; ++u) {
           const float4 q0 = *reinterpret_cast<const float4*>(&qs[g * QROW + pad_d(64 * u + 8 * c)]);
@@ -1370,6 +1395,16 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
           qv[u][4] = q1.x; qv[u][5] = q1.y; qv[u][6] = q1.z; qv[u][7] = q1.w;
         }
         float x = 0.f;
+        if constexpr (D == 32) {
+          const float4 q0 = *reinterpret_cast<const float4*>(&qs[g * QROW + pad_d(4 * c)]);
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const float2 f = __bfloat1622float2(
+                reinterpret_cast<const __nv_bfloat162*>(&kr[0])[k]);
+            x = fmaf(f4(q0, 2 * k), f.x, x);
+            x = fmaf(f4(q0, 2 * k + 1), f.y, x);
+          }
+        }
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
 #pragma unroll
@@ -1409,6 +1444,9 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
       for (int rr = 0; rr < 4; ++rr) {
         if (!((twords[h] >> (warp * 4 + rr)) & 1u)) continue;  // warp-uniform
         float vf[VPL];
+        if constexpr (VPL == 1)  // D = 32: this lane's channel
+          vf[0] = __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+              vst + (warp * 4 + rr) * D * 2 + lane * 2));
 #pragma unroll
         for (int q = 0; q < VPL / 4; ++q) {
           const uint2 vw = *reinterpret_cast<const uint2*>(
@@ -1447,6 +1485,7 @@ region_kernel(Args a, Tail t, __nv_bfloat16* __restrict__ out,
       wm[warp * G + g] = m[g];
       wl[warp * G + g] = lw;
     }
+    if constexpr (VPL == 1) wacc[(warp * G + g) * D + lane] = acc[g][0];
 #pragma unroll
     for (int h = 0; h < VPL / 4; ++h)
       *reinterpret_cast<float4*>(&wacc[(warp * G + g) * D + lane * VPL + 4 * h]) =
@@ -1617,6 +1656,29 @@ int launch_region(const Args& a, int BHk, int nsplit, const Tail& t,
   return (int)cudaGetLastError();
 }
 
+// The group kernel at head dim 32 (the trained tiny retrieval checkpoint's
+// fullkv KIVI cache: 8 / 4 heads, G = 2, no cap), instantiated in the
+// factored mode kFold alone for NBITS in {2, 4, 8}; the kF32 and kMix modes
+// at D = 32 are not ported yet (ROADMAP queue 2A #4) and return
+// cudaErrorInvalidValue, as any other G or a cap does.
+template <int MODE>
+int launch_region_d32(const Args& a, int G, int nbits, float softcap, int BHk,
+                      int nsplit, const Tail& t, __nv_bfloat16* out,
+                      float* ws_acc, float* ws_m, float* ws_l,
+                      cudaStream_t st) {
+  if constexpr (MODE == kFold) {
+    if (G == 2 && !(softcap > 0.f)) {
+      switch (nbits) {
+        case 2: return launch_region<2, 2, kFold, 32, false>(a, BHk, nsplit, t, out, ws_acc, ws_m, ws_l, st);
+        case 4: return launch_region<2, 4, kFold, 32, false>(a, BHk, nsplit, t, out, ws_acc, ws_m, ws_l, st);
+        case 8: return launch_region<2, 8, kFold, 32, false>(a, BHk, nsplit, t, out, ws_acc, ws_m, ws_l, st);
+        default: break;
+      }
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 // Run the trailing statement with DD = D, CC = CAP, GG = G and NB = NBITS as
 // constants, for the instantiated ones: D = 128 uncapped with G in
 // {1, 2, 4, 7, 8}, D = 256 capped with G in {1, 2}, NBITS in {2, 4, 8};
@@ -1679,13 +1741,18 @@ int launch_region(const Args& a, int BHk, int nsplit, const Tail& t,
       (float*)ws_m, (float*)ws_l, (cudaStream_t)stream)
 
 // A group-layout entry point running MODE_ (the body of quant_decode.cu,
-// quant_group_fused.cu and quant_decode_mm_bf16.cu).
+// quant_group_fused.cu and quant_decode_mm_bf16.cu); D = 32 through
+// launch_region_d32.
 #define PKVQ_REGION_ENTRY(NAME_, MODE_)                                       \
   extern "C" int NAME_(PKVQ_PARAMS) {                                         \
     const pkvq::Args a = pkvq::make_args(q, kc, ks, kz, vc, vs, vz, mask,     \
                                          acc, m, l, W, S_pad, NG, Dp, NGV,    \
                                          mstride, n_valid, rows_per_split,    \
                                          scale, softcap);                     \
+    if (D == 32)                                                              \
+      return pkvq::launch_region_d32<MODE_>(                                  \
+          a, G, nbits, softcap, BHk, nsplit, PKVQ_TAIL, (__nv_bfloat16*)out,  \
+          (float*)ws_acc, (float*)ws_m, (float*)ws_l, (cudaStream_t)stream);  \
     PKVQ_DISPATCH(D, softcap > 0.f, G, nbits,                                 \
                   return PKVQ_LAUNCH_REGION(MODE_, a));                       \
     return 0;                                                                 \

@@ -38,8 +38,8 @@ ENTRY_POINTS = {
         ("pkv_flash_pass_b", [_P] * 6 + [_I] * 9 + [_F, _F, _P]),
     ],
     "h2o_scores": [
-        ("pkv_h2o_stats", [_P] * 5 + [_I] * 6 + [_F, _P]),
-        ("pkv_h2o_colsum", [_P] * 6 + [_I] * 6 + [_F, _P]),
+        ("pkv_h2o_stats", [_P] * 5 + [_I] * 6 + [_F, _F, _P]),
+        ("pkv_h2o_colsum", [_P] * 6 + [_I] * 6 + [_F, _F, _P]),
     ],
     "decode_attn": [("pkv_decode_attn", [_P] * 8 + [_I] * 7 + [_F, _F, _P]),
                     ("pkv_decode_occupancy", [_I, _I])],

@@ -48,6 +48,9 @@ from . import _build
 TILE = 64
 #: the head dims the kernels are built for
 HEAD_DIMS = (128, 256)
+#: the refusal of head dim 32 (the trained tiny retrieval checkpoint)
+D32_QUEUED = ("the block-sparse kernels at D = 32 are not ported yet "
+              "(ROADMAP queue 2A #4)")
 #: q rows per block, keys per unit and keys per tile of the vertical and
 #: grid slash kernel (namespace ``sp``)
 BLOCK_Q = 128
@@ -90,6 +93,8 @@ def _slash(q, k, v, tile_idx, tile_valid, vert, true_len, q_block,
     if k.shape != (b, hk, n, d) or v.shape != k.shape or hk < 1 or h % hk:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
+    if d == 32:
+        raise ValueError(D32_QUEUED)
     if (d not in HEAD_DIMS or n % TILE or q_block % TILE or k_tile % TILE
             or n % q_block or n % k_tile):
         raise ValueError(
@@ -236,6 +241,8 @@ def vertical_attention_partials(
                          f"{tuple(k_vert.shape)} v_vert {tuple(v_vert.shape)}"
                          f" vcol {tuple(vcol.shape)} vvalid "
                          f"{tuple(vvalid.shape)}")
+    if d == 32:
+        raise ValueError(D32_QUEUED)
     if d not in HEAD_DIMS or n % TILE or vs % TILE or vs < 1:
         raise ValueError(f"kernel takes D in {HEAD_DIMS}, N and Vs "
                          f"multiples of {TILE}; got D={d} N={n} Vs={vs}")

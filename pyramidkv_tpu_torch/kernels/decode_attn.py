@@ -5,8 +5,9 @@ decode_attention_pallas`` — on the H100 it is the port's decode path for
 every cache size (the TPU kept it opt-in and capped at 4096 slots).  On a
 CUDA tensor it launches the hand-written sm_90a kernel, the slots split
 across blocks as :func:`decode_split_plan` says; on a CPU tensor it runs the
-plain version (``ops.attention.decode_attention``).  Head dims 128 and 256
-(Gemma-2), a softmax ``scale`` and a logit cap ``softcap`` (Gemma-2's: the
+plain version (``ops.attention.decode_attention``).  Head dims 128, 256
+(Gemma-2) and 32 (the trained tiny retrieval checkpoint), a softmax
+``scale`` and a logit cap ``softcap`` (Gemma-2's: the
 JAX package decodes a capped model in XLA, ``ops/attention.py::
 decode_attention``; here the kernel computes it too).
 :func:`decode_attention_split_plain` is the kernel's schedule in plain
@@ -30,26 +31,31 @@ HEAD_DIM = 128
 #: Qwen2.5-7B's 28 / 4)
 GROUPS = (1, 2, 4, 7, 8)
 #: head dim -> its instantiated groups (256: Gemma-2-9B's per-head caches,
-#: G = 1, and its 16 / 8 heads, G = 2)
-GROUPS_BY_DIM = {HEAD_DIM: GROUPS, 256: (1, 2)}
+#: G = 1, and its 16 / 8 heads, G = 2; 32: the trained tiny retrieval
+#: checkpoint's per-head caches and its 8 / 4 heads)
+GROUPS_BY_DIM = {HEAD_DIM: GROUPS, 256: (1, 2), 32: (1, 2)}
 #: slots a tile of the kernel's ring (its TILE); a split holds at most 32
-#: of them at D = 128 and 64 at D = 256 (the kernel's ``max_slots``: one
-#: block an SM would otherwise take two waves for Gemma-2's fullkv cache)
+#: of them at D = 128 and 32 and 64 at D = 256 (the kernel's ``max_slots``:
+#: one block an SM would otherwise take two waves for Gemma-2's fullkv
+#: cache)
 TILE = 64
-_MAX_TILES = {HEAD_DIM: 32, 256: 64}
+_MAX_TILES = {HEAD_DIM: 32, 256: 64, 32: 32}
 #: up to this many splits merge inside a thread-block cluster, by head dim
 #: (the kernel's ``max_cluster``: at D = 256 a block fills an SM and clusters
 #: of 4 did not all fit one wave); more go through a workspace and a merge
 #: kernel
-MAX_CLUSTER = {HEAD_DIM: 4, 256: 2}
+MAX_CLUSTER = {HEAD_DIM: 4, 256: 2, 32: 4}
 
 
 def blocks_per_sm(g: int, d: int = HEAD_DIM) -> int:
     """Blocks of the kernel an SM holds at group ``g`` and head dim ``d``:
-    its ``__launch_bounds__(NT, D == 128 && G <= 4 ? 2 : 1)`` (the query in
-    f32 registers up to G = 4, as packed bf16 pairs above; at D = 256 the
-    3-stage ring is 192 KB).  ``chip_smoke.py`` holds it to the card's
-    occupancy of each instantiation (``pkv_decode_occupancy``)."""
+    its ``__launch_bounds__`` (two at D = 128 up to G = 4, the query in f32
+    registers, as packed bf16 pairs above; one at D = 256, whose 3-stage
+    ring is 192 KB; five at D = 32, a 24 KB ring and 48 registers a
+    thread).  ``chip_smoke.py`` holds it to the card's occupancy of each
+    instantiation (``pkv_decode_occupancy``)."""
+    if d == 32:
+        return 5
     return 2 if d == HEAD_DIM and g <= 4 else 1
 
 

@@ -11,6 +11,12 @@ hand-written sm_90a kernel; on a CPU tensor it runs the plain version
 dims 128 and 256 (Gemma-2), a softmax ``scale`` and a logit cap
 ``softcap`` (Gemma-2's ``attn_logit_softcapping``: cap * tanh(s / cap)
 before the softmax, log2(e) applied after the tanh, as the TPU kernel does).
+The one-pass entry also takes head dim 32 (the trained tiny retrieval
+checkpoint, ``data/tiny_retrieval.npz``: an mma.sync kernel of 64-key
+tiles that scales each f32 product instead of folding the scale into a
+bf16 q, ``ops.attention.folds_q``); the partials and two-pass entries
+refuse it
+(ROADMAP queue 2A #4).
 
 :func:`flash_tile_plan` mirrors the key-tile plan of the one-pass,
 partials and pass-B kernel (``flash_wgmma_kernel``), and
@@ -29,13 +35,19 @@ import torch
 
 from ..ops.attention import (cap_base2, causal_prefill_attention,
                              flash_partials_plain, flash_pass_b_plain,
-                             flash_row_max_plain, q_fold)
+                             flash_row_max_plain, q_fold, q_scaled)
 from . import _build
 
 #: the kernels' granularity: N and Nq are multiples of it
 TILE = 64
-#: head dims the kernels are instantiated for (256: Gemma-2)
+#: head dims every entry is instantiated for (256: Gemma-2)
 HEAD_DIMS = (128, 256)
+#: head dims of the one-pass entry (32: the trained tiny retrieval
+#: checkpoint, ``csrc/flash_prefill.cu`` namespace d32)
+ONE_PASS_DIMS = (32, *HEAD_DIMS)
+#: the refusal of D = 32 by the entries not ported there yet
+D32_QUEUED = ("flash's partials, pass A and pass B at D = 32 are not ported "
+              "yet (ROADMAP queue 2A #4)")
 #: q rows per block and keys per tile of the one-pass, partials and pass-B
 #: kernel (``csrc/flash_prefill.cu``, namespace ``wg``) at D = 128
 BLOCK_Q = 128
@@ -45,14 +57,15 @@ BLOCK_K = 128
 def block_k(d: int) -> int:
     """Keys a tile of the one-pass, partials and pass-B kernel at head dim
     ``d``: 128, or 64 at D = 256 (Q and two stages of 128-key K and V tiles
-    would need 321 KB of shared memory; 64-key tiles take 193 KB)."""
-    return 64 if d == 256 else BLOCK_K
+    would need 321 KB of shared memory; 64-key tiles take 193 KB) and at
+    D = 32 (the mma.sync kernel: 8 n-tiles of S a warp)."""
+    return 64 if d in (32, 256) else BLOCK_K
 
 
-def _check(q, k, v, true_len, nq_ok: bool, ldk: int):
+def _check(q, k, v, true_len, nq_ok: bool, ldk: int, dims=HEAD_DIMS):
     """Shape/dtype/device checks shared by both wrappers; returns the
     true_len tensor the kernel reads.  k and v may be the first N rows of
-    a buffer of ``ldk`` rows per head."""
+    a buffer of ``ldk`` rows per head; ``dims``: the entry's head dims."""
     b, h, nq, d = q.shape
     hk, n = k.shape[1], k.shape[2]
     if q.device.type != "cuda":
@@ -71,8 +84,10 @@ def _check(q, k, v, true_len, nq_ok: bool, ldk: int):
     if k.shape != (b, hk, n, d) or v.shape != k.shape or h % hk or not nq_ok:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    if d not in HEAD_DIMS or n % TILE or nq % TILE:
-        raise ValueError(f"kernel takes D in {HEAD_DIMS} and N, Nq % {TILE} "
+    if d == 32 and d not in dims:
+        raise ValueError(D32_QUEUED)
+    if d not in dims or n % TILE or nq % TILE:
+        raise ValueError(f"kernel takes D in {dims} and N, Nq % {TILE} "
                          f"== 0, got D={d} N={n} Nq={nq}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start 16-byte aligned (the copy "
@@ -132,7 +147,8 @@ def _launch(symbol, q, k, v, true_len, outs, *, sliding_window, scale,
     # rows per head of the buffer k and v view (size-1 dims carry no stride)
     ldk = (k.stride(1) // d if hk > 1 else k.stride(0) // d if b > 1 else n)
     tl = _check(q, k, v, true_len,
-                q_start + nq == n or (q_start == 0 and nq == n), ldk)
+                q_start + nq == n or (q_start == 0 and nq == n), ldk,
+                ONE_PASS_DIMS if symbol == "pkv_flash_prefill" else HEAD_DIMS)
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
     ins = [q.data_ptr(), k.data_ptr()]
     cap = _cap_arg(softcap)
@@ -292,9 +308,11 @@ def flash_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tiles that are not interior, and runs the base-2 online softmax tile by
     tile, with q scaled by scale * log2(e) (by scale alone under
     ``softcap``, each tile's logits then capped in base 2) and rounded to
-    q's dtype and each tile's P rounded to v's dtype at the running max (as
-    the kernel does in bf16; with f32 inputs nothing is rounded).  Arguments as
-    :func:`flash_causal_attention`; ``partials``: return (acc, m, l) f32 as
+    q's dtype (at D = 32 q is kept and each f32 product scaled instead:
+    ``ops.attention.q_scaled``) and each tile's P rounded to v's dtype at
+    the running max (as the kernel does in bf16; with f32 inputs nothing is
+    rounded).  Arguments as :func:`flash_causal_attention`; ``partials``:
+    return (acc, m, l) f32 as
     :func:`flash_attention_partials` does, else the output in q's dtype (0
     on rows with no visible key).  ``m_known`` [B, H, Nq]: pass B against
     these row maxes (pass A's), clamped to float32.min / 2, edge tiles
@@ -304,7 +322,7 @@ def flash_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hk, n = k.shape[1], k.shape[2]
     g = h // hk
     bq, bk = BLOCK_Q, block_k(d)
-    qr = q_fold(q, scale, softcap)
+    qr, post = q_scaled(q, scale, softcap)
     kf, vf = k.float(), v.float()
     f32 = dict(dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, nq, d), **f32)
@@ -326,7 +344,8 @@ def flash_tiled_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             for kt, inner in zip(tiles, interior):
                 c0, c1 = kt * bk, min(kt * bk + bk, n)
                 s = cap_base2(torch.matmul(
-                    qt, kf[bi, :, None, c0:c1].transpose(-1, -2)), softcap)
+                    qt, kf[bi, :, None, c0:c1].transpose(-1, -2)) * post,
+                    softcap)
                 if not inner:
                     cols = torch.arange(c0, c1, device=q.device)[None, :]
                     vis = (cols >= pad) & (cols <= rows)

@@ -13,9 +13,14 @@ Both kernels read the query pre-scaled: q times scale * log2(e), rounded
 to bf16 (:func:`scaled_query`, the TPU wrapper's ``qr``; scale defaults to
 1/sqrt(D)).  Under an attention logit cap (Gemma-2) q is scaled by
 ``scale`` alone and each logit s becomes cap * tanh(s / cap) * log2(e) in
-the kernel before any mask (log2(e) cannot pass the tanh).  Each wrapper
-computes the scaled query for itself; :func:`h2o_scores` once for both
-passes.  Head dims 128 and 256.
+the kernel before any mask (log2(e) cannot pass the tanh).  At D = 32
+the kernels read q as it is and multiply each f32 product by that scale
+instead (``ops.attention.q_scaled``: the trained checkpoint's logits of up
+to 3000 nats lose several to the fold's rounding).  Each wrapper computes
+the kernels' query for itself (:func:`kernel_query`); :func:`h2o_scores`
+once for both passes.  Head dims 128 and 256 (the wgmma kernels), and 32
+(the trained tiny retrieval checkpoint: the mma.sync kernels of namespace
+``d32``).
 
 :func:`h2o_tile_plan` mirrors the tiles each kernel's blocks visit and
 which of them they mask, and :func:`h2o_tiled_plain` runs both kernels'
@@ -31,13 +36,14 @@ from typing import Optional
 import torch
 
 from ..ops import scoring
-from ..ops.attention import cap_base2
+from ..ops.attention import cap_base2, folds_q, product_scale, q_scaled
 from . import _build
 
 #: the kernels' granularity: N is a multiple of it
 TILE = 64
-#: the head dims the kernels are built for
-HEAD_DIMS = (128, 256)
+#: the head dims the kernels are built for (32: namespace ``d32`` of
+#: ``csrc/h2o_scores.cu``, the same plan in 64-row tiles)
+HEAD_DIMS = (32, 128, 256)
 #: rows a block owns and rows of a tile of the walked axis (stats: queries,
 #: then keys; colsum: keys, then queries)
 BLOCK = 128
@@ -87,28 +93,38 @@ def scaled_query(q: torch.Tensor, scale: Optional[float] = None,
                 else scale * math.log2(math.e))
 
 
-def _args(qs, k, window_size, softcap):
+def kernel_query(q: torch.Tensor, scale: Optional[float] = None,
+                 softcap: Optional[float] = None):
+    """(the query the kernels read, the f32 multiplier of their products):
+    :func:`scaled_query` and 1 at D = 128 and 256; at D = 32 q itself and
+    scale * log2(e) (scale alone under a cap)."""
+    if folds_q(q.shape[-1]):
+        return scaled_query(q, scale, softcap), 1.0
+    return q, product_scale(q.shape[-1], scale, softcap)
+
+
+def _args(qs, k, window_size, softcap, mult):
     """The C entries' trailing arguments: B, H, Hk, D, N, W, the cap (0 for
-    none) and the stream."""
+    none), the products' multiplier (read at D = 32) and the stream."""
     b, h, n, d = qs.shape
     return (b, h, k.shape[1], d, n, window_size,
-            float(softcap) if softcap is not None else 0.0,
+            float(softcap) if softcap is not None else 0.0, float(mult),
             torch.cuda.current_stream(qs.device).cuda_stream)
 
 
-def _stats(qs, k, tl, window_size, softcap):
+def _stats(qs, k, tl, window_size, softcap, mult):
     b, h, n, _ = qs.shape
     m = torch.empty((b, h, n), dtype=torch.float32, device=qs.device)
     l = torch.empty_like(m)
     err = _build.library("h2o_scores").pkv_h2o_stats(
         qs.data_ptr(), k.data_ptr(), tl.data_ptr(), m.data_ptr(),
-        l.data_ptr(), *_args(qs, k, window_size, softcap))
+        l.data_ptr(), *_args(qs, k, window_size, softcap, mult))
     _build.check(err, "h2o_stats")
     h2o_row_stats.launches += 1
     return m, l
 
 
-def _colsum(qs, k, tl, m, l, window_size, softcap):
+def _colsum(qs, k, tl, m, l, window_size, softcap, mult):
     b, h, n, _ = qs.shape
     for name, t in (("m", m), ("l", l)):
         if (t.dtype != torch.float32 or tuple(t.shape) != (b, h, n)
@@ -120,7 +136,8 @@ def _colsum(qs, k, tl, m, l, window_size, softcap):
                       device=qs.device)
     err = _build.library("h2o_scores").pkv_h2o_colsum(
         qs.data_ptr(), k.data_ptr(), tl.data_ptr(), m.data_ptr(),
-        l.data_ptr(), out.data_ptr(), *_args(qs, k, window_size, softcap))
+        l.data_ptr(), out.data_ptr(), *_args(qs, k, window_size, softcap,
+                                             mult))
     _build.check(err, "h2o_colsum")
     h2o_colsum.launches += 1
     return out
@@ -137,8 +154,8 @@ def h2o_row_stats(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
                                      true_len=true_len, scale=scale,
                                      softcap=softcap)
     tl = _check(q, k, window_size, true_len, softcap)
-    return _stats(scaled_query(q, scale, softcap), k, tl, window_size,
-                  softcap)
+    qs, mult = kernel_query(q, scale, softcap)
+    return _stats(qs, k, tl, window_size, softcap, mult)
 
 
 def h2o_colsum(q: torch.Tensor, k: torch.Tensor, m: torch.Tensor,
@@ -152,8 +169,8 @@ def h2o_colsum(q: torch.Tensor, k: torch.Tensor, m: torch.Tensor,
                                   true_len=true_len, scale=scale,
                                   softcap=softcap)
     tl = _check(q, k, window_size, true_len, softcap)
-    return _colsum(scaled_query(q, scale, softcap), k, tl, m, l, window_size,
-                   softcap)
+    qs, mult = kernel_query(q, scale, softcap)
+    return _colsum(qs, k, tl, m, l, window_size, softcap, mult)
 
 
 def h2o_scores(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
@@ -168,9 +185,9 @@ def h2o_scores(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
                                   true_len=true_len, scale=scale,
                                   softcap=softcap)
     tl = _check(q, k, window_size, true_len, softcap)
-    qs = scaled_query(q, scale, softcap)
-    m, l = _stats(qs, k, tl, window_size, softcap)
-    return _colsum(qs, k, tl, m, l, window_size, softcap)
+    qs, mult = kernel_query(q, scale, softcap)
+    m, l = _stats(qs, k, tl, window_size, softcap, mult)
+    return _colsum(qs, k, tl, m, l, window_size, softcap, mult)
 
 
 def h2o_tile_plan(n: int, true_len: int, w: int, tile: int = BLOCK):
@@ -231,9 +248,12 @@ def h2o_tiled_plain(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
                     softcap: Optional[float] = None):
     """Both kernels' schedule in plain PyTorch: q [B, H, N, D], k [B, Hk, N,
     D] -> (m, l) [B, H, N] and the scores [B, H, N - W], f32 (the same
-    schedule at D = 128 and 256).
+    schedule at D = 128 and 256, and at D = 32, whose kernels walk 64-row
+    tiles: the same 64-key online steps and the same per-lane order of the
+    column sums, a 64-row tile being 8 of the 16 query groups j).
 
-    The query is :func:`scaled_query`'s (in f32 nothing is rounded);
+    The query is :func:`scaled_query`'s (in f32 nothing is rounded; at
+    D = 32 q itself, each product scaled: ``ops.attention.q_scaled``);
     logits are f32 products, under a cap cap * tanh(s / cap) * log2(e)
     before any mask (``ops.attention.cap_base2``).  Stats: each q tile of
     :func:`h2o_tile_plan` walks its key tiles, masks only the edge tiles
@@ -252,7 +272,7 @@ def h2o_tiled_plain(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
     g = h // hk
     w = window_size
     bt = BLOCK
-    qs = scaled_query(q, scale, softcap).float()
+    qs, post = q_scaled(q, scale, softcap)
     kf = k.float()
     f32 = dict(dtype=torch.float32, device=q.device)
     m = torch.full((b, h, n), -math.inf, **f32)
@@ -273,7 +293,8 @@ def h2o_tiled_plain(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
                     c1 = min(c0 + bt // 2, n)
                     s = cap_base2(torch.matmul(
                         qb[:, :, r0:r1],
-                        kf[bi, :, None, c0:c1].transpose(-1, -2)), softcap)
+                        kf[bi, :, None, c0:c1].transpose(-1, -2)) * post,
+                        softcap)
                     if edge:
                         cols = torch.arange(c0, c1, device=q.device)[None, :]
                         hid = ((torch.minimum(rows, cols) < pad)
@@ -300,7 +321,7 @@ def h2o_tiled_plain(q: torch.Tensor, k: torch.Tensor, *, window_size: int,
                     r = torch.arange(t0, t0 + bt, device=q.device)
                     o[:, (r < pad) | (r >= n)] = _MAX
                 s = cap_base2(torch.matmul(
-                    kb, qb[:, :, t0:t1].transpose(-1, -2)), softcap)
+                    kb, qb[:, :, t0:t1].transpose(-1, -2)) * post, softcap)
                 s = torch.nn.functional.pad(s.reshape(h, c1 - c0, -1),
                                             (0, bt - (t1 - t0)))
                 p = torch.exp2(s - o[:, None, :]).reshape(h, c1 - c0, 16, 4,

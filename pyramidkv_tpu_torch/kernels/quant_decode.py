@@ -20,8 +20,11 @@ logits, the f32 dequantized P.V).
 Each takes the model's attention ``scale`` (default 1/sqrt(D)) and logit
 cap ``softcap`` (Gemma-2: on each logit after the K zero term, before the
 masks).  The CUDA kernel is instantiated at D = 128 without a cap (G in
-:data:`GROUPS`) and at D = 256 with one (G in (1, 2): Gemma-2-9B), as
-:data:`INSTANCES` says; the plain versions take any.
+:data:`GROUPS`), at D = 256 with one (G in (1, 2): Gemma-2-9B) and at
+D = 32 without one in the factored mode alone (G = 2: the trained tiny
+retrieval checkpoint's fullkv cache, whose V rows are padded to the
+quantization group, 64 bytes), as :data:`INSTANCES` says; the plain
+versions take any.
 
 All three launch one CUDA kernel (``region_kernel``) on a plan of splits
 (:func:`split_plan`, from the shapes alone; the whole-region wrapper takes
@@ -60,7 +63,10 @@ GROUPS = (1, 2, 4, 7, 8)
 #: uncapped (Llama, Mistral, Qwen2), D = 256 under a logit cap (Gemma-2-9B:
 #: per-head caches G = 1, fullkv G = 2); as PKVQ_DISPATCH in
 #: csrc/quant_region.cuh
-INSTANCES = {(128, False): GROUPS, (256, True): (1, 2)}
+INSTANCES = {(128, False): GROUPS, (256, True): (1, 2), (32, False): (2,)}
+#: the refusal of D = 32 by the modes and layout not ported there yet
+D32_QUEUED = ("the KIVI pa kernel and the f32 / mm_bf16 group modes at "
+              "D = 32 are not ported yet (ROADMAP queue 2A #4)")
 NBITS = (2, 4, 8)
 #: the library and C entry point of each mode of the group kernel
 ENTRIES = {"f32": ("quant_decode", "pkv_quant_decode"),
@@ -84,11 +90,15 @@ MAX_SMEM = 232448
 #: groups) at most under :func:`split_plan`: at D = 128 the tables of G = 8
 #: with V groups of 16 channels or more fit shared memory; at D = 256
 #: (``_MAX_COLS_256``) those of G <= 2 beside the 128 KB ring (226.7 KB at
-#: most with a tail of 256 slots).  Plans for other head dims (CPU tensors
-#: only: no kernel takes them) are D = 128's.
+#: most with a tail of 256 slots); at D = 32 (``_MAX_COLS_32``) those of
+#: G = 2 in the folded mode (328 bytes a column) beside the 16 KB ring
+#: within half an SM's shared memory (two blocks an SM: 84 KB of tables at
+#: 256 columns).  Plans for other head dims (CPU tensors only: no kernel
+#: takes them) are D = 128's.
 _MIN_ITEMS = 4
 _MAX_COLS = 28
 _MAX_COLS_256 = 36
+_MAX_COLS_32 = 256
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,7 +149,7 @@ def split_plan(device: torch.device, bhk: int, w: int, nbits: int, kg: int,
     want = max(1, min(items // _MIN_ITEMS, blocks_per_sm(d) * sms // bhk))
     if bhk * max_cluster(d) >= sms:
         want = min(want, max_cluster(d))
-    cap = _MAX_COLS_256 if d == 256 else _MAX_COLS
+    cap = {256: _MAX_COLS_256, 32: _MAX_COLS_32}.get(d, _MAX_COLS)
     if per * (w * per // kg) > cap:
         # staged_groups(rows) <= cap / per  <=>  rows <= (that - 1) kg + 1
         top = ((cap // per - 1) * kg + 1) // ITEM_ROWS * ITEM_ROWS
@@ -258,6 +268,8 @@ def launch_region(symbol: str, lib: str, q: torch.Tensor,
                          f"of a contiguous array, got {tuple(mask.shape)} "
                          f"strides {mask.stride()}")
     pa = symbol == "pkv_quant_fused_pa"
+    if d == 32 and symbol != "pkv_quant_group_fused":
+        raise ValueError(D32_QUEUED)
     capped = softcap is not None
     if capped and not softcap > 0:
         raise ValueError(f"softcap must be positive, got {softcap}")

@@ -230,6 +230,22 @@ def _logits(hidden: torch.Tensor, params: dict, spec: ModelSpec,
     return out if cap is None else torch.tanh(out * (1.0 / cap)) * cap
 
 
+def _mm_f32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """h [..., K] @ w [K, N] with f32 output, as JAX's ``dot_general(...,
+    preferred_element_type=f32)``: on the card a bf16 matmul with f32
+    accumulation written in f32 (``torch.mm(..., out_dtype=torch.float32)``;
+    no f32 copy of w is made); f32 inputs as they are; other dtypes on the
+    CPU through f32 copies (exact products, f32 sums)."""
+    if h.dtype == torch.float32 and w.dtype == torch.float32:
+        return h @ w
+    h2 = h.reshape(-1, h.shape[-1])
+    if h.device.type == "cuda":
+        out = torch.mm(h2, w, out_dtype=torch.float32)
+    else:
+        out = h2.float() @ w.float()
+    return out.reshape(*h.shape[:-1], w.shape[-1])
+
+
 def _logits_wide(hidden: torch.Tensor, params: dict, spec: ModelSpec,
                  impl: str) -> torch.Tensor:
     """f32 logits of the final-normed hidden state.
@@ -238,11 +254,13 @@ def _logits_wide(hidden: torch.Tensor, params: dict, spec: ModelSpec,
     (<= 384 rows) and an int8 one (<= 8 rows) go through their streaming
     kernels with f32 h, so the logits are f32 products; other rows, and a
     tied int8 embedding (codes [V, Dm], contracted on their last axis),
-    dequantize.  Products outside the kernels run in h's dtype: with f32
-    weights (the CPU tests) that is JAX's f32 product; with bf16 on the card
-    a bf16 matmul with f32 accumulation whose output is rounded to bf16
-    (2^-8 relative) before the cast — no f32 copy of the 128256 x 4096
-    lm_head is ever made."""
+    dequantize.  Products outside the kernels are f32 products of h's
+    dtype (:func:`_mm_f32`): with f32 weights (the CPU tests) JAX's f32
+    product; with bf16 on the card a bf16 matmul with f32 accumulation and
+    f32 output, as JAX's ``preferred_element_type`` gives (rounding the
+    output to bf16 first flipped 46 of 512 greedy tokens of the trained
+    checkpoint against an f32 head, PERF.md §6) — no f32 copy of the
+    128256 x 4096 lm_head is ever made."""
     h = _norm(hidden, params["final_norm"], spec)
     tied = spec.tie_word_embeddings
     w = params["embed"] if tied else params["lm_head"]
@@ -252,8 +270,8 @@ def _logits_wide(hidden: torch.Tensor, params: dict, spec: ModelSpec,
             if y is not None:
                 return y
         codes = w.codes.T.to(h.dtype) if tied else dq_codes(w, h.dtype)
-        return (h @ codes).float() * w.scale.float()
-    return (h @ (w.T if tied else w)).float()
+        return _mm_f32(h, codes) * w.scale.float()
+    return _mm_f32(h, w.T if tied else w)
 
 
 def _layer(params: dict, i: int) -> dict:

@@ -53,6 +53,36 @@ def q_fold(q: torch.Tensor, scale: Optional[float],
     return (q.float() * sc).to(q.dtype).float()
 
 
+def folds_q(d: int) -> bool:
+    """Whether the kernels at head dim ``d`` fold the scale (and log2 e)
+    into q rounded to q's dtype (:func:`q_fold`, the TPU wrapper's; D = 128
+    and 256), or read q as it is and scale each f32 product (D = 32: the
+    trained tiny retrieval checkpoint's logits reach 900-3000 nats, and the
+    fold's rounding moves them by several)."""
+    return d != 32
+
+
+def q_scaled(q: torch.Tensor, scale: Optional[float],
+             softcap: Optional[float]):
+    """(q as the kernels at its head dim multiply it, in f32; the f32
+    multiplier of each product): :func:`q_fold`'s q and 1 where they fold
+    (:func:`folds_q`), else q and scale * log2(e) (scale alone under a
+    cap, log2(e) after the tanh: :func:`cap_base2`)."""
+    d = q.shape[-1]
+    if folds_q(d):
+        return q_fold(q, scale, softcap), 1.0
+    return q.float(), product_scale(d, scale, softcap)
+
+
+def product_scale(d: int, scale: Optional[float],
+                  softcap: Optional[float]) -> float:
+    """The multiplier of a q . k product at head dim ``d`` into the base-2
+    domain: scale (default 1/sqrt(d)) times log2(e), or scale alone under
+    a cap (:func:`cap_base2` applies log2(e) after the tanh)."""
+    sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    return sc * (1.0 if softcap is not None else _LOG2E)
+
+
 def cap_base2(s: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
     """Base-2 logits from products of :func:`q_fold`'s q: unchanged without
     a cap, else cap * tanh(s / cap) * log2(e) (JAX ``flash_prefill.py``'s

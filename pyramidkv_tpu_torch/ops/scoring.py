@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from ..prng import uniform
-from .attention import _row_block, cap_base2, q_fold, scale_softcap
+from .attention import _row_block, cap_base2, q_scaled, scale_softcap
 from .pooling import pool1d
 
 _NEG_INF = float("-inf")
@@ -200,16 +200,17 @@ def h2o_scores(
 def _h2o_logits2(q, k, r0: int, rows: int, scale=None, softcap=None):
     """Base-2 logits of query rows [r0, r0 + rows) against every key, as
     the H2O kernels form them: q times scale * log2(e) (scale alone under
-    a cap) rounded to q's dtype (``attention.q_fold``), f32 products, then
+    a cap) rounded to q's dtype (``attention.q_fold``), f32 products (at
+    D = 32 q as it is, each product scaled: ``attention.q_scaled``), then
     under a cap cap * tanh(s / cap) * log2(e) (``attention.cap_base2``).
     -> [B, H, rows, N]."""
     b, h, _, d = q.shape
     hk, n = k.shape[1], k.shape[2]
     g = h // hk
-    qs = q_fold(q[:, :, r0:r0 + rows], scale, softcap).reshape(
-        b, hk, g * rows, d)
-    return cap_base2(torch.matmul(qs, k.float().transpose(-1, -2)).reshape(
-        b, h, rows, n), softcap)
+    qs, post = q_scaled(q[:, :, r0:r0 + rows], scale, softcap)
+    qs = qs.reshape(b, hk, g * rows, d)
+    return cap_base2((torch.matmul(qs, k.float().transpose(-1, -2))
+                      * post).reshape(b, h, rows, n), softcap)
 
 
 def _h2o_hidden(r0: int, rows: int, n: int, w: int, colv: torch.Tensor):

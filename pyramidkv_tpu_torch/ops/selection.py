@@ -272,11 +272,17 @@ def topk_select(
     Ties break toward the LOWER index, as ``jax.lax.top_k`` does
     (``torch.topk`` does not promise an order among ties, and maxpool
     scores tie exactly): a stable descending sort, cut at ``width``.
-    ``keep_counts`` is [B] (broadcast over heads) or [B, H].
+    Subnormal scores count as zero (:func:`_flush`): the JAX package's
+    scores reach ``lax.top_k`` through XLA arithmetic, which flushes them,
+    and a trained model's peaked attention leaves runs of exact zeros and
+    subnormals at the cut (the trained checkpoint's snapkv at cap 128 kept
+    other slots before).  ``keep_counts`` is [B] (broadcast over heads) or
+    [B, H].
     """
     c = scores.shape[-1]
     width = min(width, c)
-    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    vals, idx = torch.sort(_flush(scores), dim=-1, descending=True,
+                           stable=True)
     vals, idx = vals[..., :width], idx[..., :width]
     if keep_counts.dim() == 1:
         keep_counts = keep_counts[:, None]

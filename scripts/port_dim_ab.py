@@ -1,22 +1,22 @@
 #!/usr/bin/env python3
-"""The D = 128 flash and decode kernels of two builds, in turns, on one CUDA
-card: the package's sources against another directory's, whose C entry
-points may predate the head-dim and cap arguments.
+"""The D = 128 and D = 256 flash and decode kernels of two builds, in
+turns, on one CUDA card: the package's sources against another
+directory's.
 
     python3 scripts/port_dim_ab.py --other DIR [--log FILE]
 
 ``DIR`` holds another ``flash_prefill.cu``, ``decode_attn.cu`` and
 ``hopper.cuh`` (for example the parent commit's, from ``git show``).  Both
-builds use the package's nvcc flags.  DIR's entries are bound with the
-signatures before head dims and caps were arguments
-(``pkv_flash_prefill(q, k, v, true_len, out, B, H, Hk, N, ldk, Nq,
-q_start, window, scale, stream)`` and so on); the package's are called
-with D = 128 and no cap.  Every shape is a ``chip_smoke.py`` main-path shape of
-Llama-3-8B (32 / 8 heads): the one-pass kernel on the 8k batch and on
-bench.py's 32k prompt, at q_start on chunk 3 of the 8k batch (C=2048),
-partials on the 32k carry's self tile (C=8192), pass A and pass B on the
-8k batch, and the decode kernel at the 8k batch's snapkv (G=1, S=2080) and
-fullkv (G=4, S=8224) widths and at 32k fullkv (S=32896).  Inputs are random
+builds use the package's nvcc flags, and both are bound and called with
+the package's C signatures (``_build.ENTRY_POINTS``).  The shapes are
+``chip_smoke.py`` main-path shapes of Llama-3-8B (32 / 8 heads of D = 128,
+no cap): the one-pass kernel on the 8k batch and on bench.py's 32k prompt,
+at q_start on chunk 3 of the 8k batch (C=2048), partials on the 32k
+carry's self tile (C=8192), pass A and pass B on the 8k batch, and the
+decode kernel at the 8k batch's snapkv (G=1, S=2080) and fullkv (G=4,
+S=8224) widths and at 32k fullkv (S=32896); and Gemma-2-9B's (16 / 8 heads
+of D = 256, scale 1/16, cap 50): the one-pass kernel on the 8k batch, the
+decode kernel at G = 1, S = 2080 and G = 2, S = 8224.  Inputs are random
 bf16 from a seed; both builds get the same buffers and the outputs are
 compared bitwise.  Each shape is timed other, new, new, other (device ms a
 call: CUDA events over several calls for flash, a CUDA graph of 50 calls
@@ -38,20 +38,9 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: the C signatures before head dims and caps were arguments
-OLD_ABI = {
-    "pkv_flash_prefill": [_P] * 5 + [_I] * 8 + [_F, _P],
-    "pkv_flash_partials": [_P] * 7 + [_I] * 7 + [_F, _P],
-    "pkv_flash_row_max": [_P] * 4 + [_I] * 8 + [_F, _P],
-    "pkv_flash_pass_b": [_P] * 6 + [_I] * 8 + [_F, _P],
-    "pkv_decode_attn": [_P] * 8 + [_I] * 6 + [_F, _P],
-}
-
-
 def build(src_dir: str, name: str, out_dir: str):
     """``src_dir/name.cu`` built with the package's flags, its entries bound
-    with the older signatures."""
+    with the package's signatures."""
     from pyramidkv_tpu_torch.kernels import _build
 
     path = os.path.join(out_dir, f"lib{name}_other.so")
@@ -59,11 +48,10 @@ def build(src_dir: str, name: str, out_dir: str):
                     path, os.path.join(src_dir, f"{name}.cu")], check=True,
                    capture_output=True)
     lib = ctypes.CDLL(path)
-    for symbol, argtypes in OLD_ABI.items():
-        if hasattr(lib, symbol):
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+    for symbol, argtypes in _build.ENTRY_POINTS[name]:
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -108,10 +96,10 @@ def main() -> int:
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
     def flash_case(name, symbol, b, n, nq, q_start, tls, extra_in=(),
-                   outs=()):
-        """One flash entry: (call(lib, is_new), outputs)."""
-        q = rand(b, cs.H, nq, cs.D)
-        k, v = rand(b, cs.HK, n, cs.D), rand(b, cs.HK, n, cs.D)
+                   outs=(), d=cs.D, h=cs.H, hk=cs.HK, cap=0.0, scale=None):
+        """One flash entry: (call(lib), outputs)."""
+        q = rand(b, h, nq, d)
+        k, v = rand(b, hk, n, d), rand(b, hk, n, d)
         tl = torch.tensor(tls, dtype=torch.int32, device=dev)
         ins = [q.data_ptr(), k.data_ptr()]
         if symbol != "pkv_flash_row_max":
@@ -119,45 +107,36 @@ def main() -> int:
         ins.append(tl.data_ptr())
         ins += [x.data_ptr() for x in extra_in]
         ptrs = [o.data_ptr() for o in outs]
-        sc = 1.0 / math.sqrt(cs.D)
-        dims_old = [b, cs.H, cs.HK, n] + ([] if symbol == "pkv_flash_partials"
-                                           else [n]) + [nq, q_start, 0]
+        sc = scale or 1.0 / math.sqrt(d)
+        dims = [b, h, hk, d, n] + ([] if symbol == "pkv_flash_partials"
+                                   else [n]) + [nq, q_start, 0]
 
-        def call(lib, is_new):
-            fn = getattr(lib, symbol)
-            if is_new:
-                dims = dims_old[:3] + [cs.D] + dims_old[3:]
-                err = fn(*ins, *ptrs, *dims, sc, 0.0, stream())
-            else:
-                err = fn(*ins, *ptrs, *dims_old, sc, stream())
+        def call(lib):
+            err = getattr(lib, symbol)(*ins, *ptrs, *dims, sc, cap, stream())
             assert err == 0, (name, err)
         return call, (q, k, v, tl, *extra_in, *outs)
 
-    def decode_case(name, b, h, hk, s, seed):
+    def decode_case(name, b, h, hk, s, seed, d=cs.D, cap=0.0, scale=None):
         gg = torch.Generator(device=dev).manual_seed(seed)
-        q = torch.randn((b, h, cs.D), generator=gg, device=dev).to(
+        q = torch.randn((b, h, d), generator=gg, device=dev).to(
             torch.bfloat16)
-        k = torch.randn((b, hk, s, cs.D), generator=gg, device=dev).to(
+        k = torch.randn((b, hk, s, d), generator=gg, device=dev).to(
             torch.bfloat16)
-        v = torch.randn((b, hk, s, cs.D), generator=gg, device=dev).to(
+        v = torch.randn((b, hk, s, d), generator=gg, device=dev).to(
             torch.bfloat16)
         mask = torch.rand((b, hk, s), generator=gg, device=dev) < 0.9
-        nsplit, rows = decode_split_plan(dev, b * hk, s, h // hk)
+        nsplit, rows = decode_split_plan(dev, b * hk, s, h // hk, d)
         out = torch.empty_like(q)
         f32 = dict(dtype=torch.float32, device=dev)
-        ws = (torch.empty((b * hk * nsplit, h // hk, cs.D), **f32),
+        ws = (torch.empty((b * hk * nsplit, h // hk, d), **f32),
               torch.empty((b * hk * nsplit, h // hk), **f32),
               torch.empty((b * hk * nsplit, h // hk), **f32))
         ptrs = [x.data_ptr() for x in (q, k, v, mask, out, *ws)]
-        sc = 1.0 / math.sqrt(cs.D)
+        sc = scale or 1.0 / math.sqrt(d)
 
-        def call(lib, is_new):
-            if is_new:
-                err = lib.pkv_decode_attn(*ptrs, b, h, hk, cs.D, s, nsplit,
-                                          rows, sc, 0.0, stream())
-            else:
-                err = lib.pkv_decode_attn(*ptrs, b, h, hk, s, nsplit, rows,
-                                          sc, stream())
+        def call(lib):
+            err = lib.pkv_decode_attn(*ptrs, b, h, hk, d, s, nsplit, rows, sc,
+                                      cap, stream())
             assert err == 0, (name, err)
         return call, (q, k, v, mask, out, *ws), out
 
@@ -201,19 +180,33 @@ def main() -> int:
              qn + cs.QMAX_NEW))):
         call, keep, out = decode_case(name, b, h, hk, s, seed)
         cases.append((name, "decode_attn", call, keep, out, 0))
+    # Gemma-2-9B: D = 256 under the cap
+    gkw = dict(d=256, cap=50.0, scale=1.0 / 16)
+    og = torch.empty((cs.B, 16, n, 256), dtype=torch.bfloat16, device=dev)
+    cases.append(("flash one-pass 8k batch, Gemma-2 D=256 cap 50",
+                  "flash_prefill",
+                  *flash_case("gemma flash", "pkv_flash_prefill", cs.B, n, n,
+                              0, cs.TRUE_LEN, outs=(og,), h=16, hk=8, **gkw),
+                  og, 5))
+    for seed, (name, hk, s) in enumerate((
+            ("decode Gemma-2 per-head cache, D=256, G=1, S=2080", 16, 2080),
+            ("decode Gemma-2 fullkv, D=256, G=2, S=8224", 8,
+             n + cs.MAX_NEW)), start=10):
+        call, keep, out = decode_case(name, cs.B, 16, hk, s, seed, **gkw)
+        cases.append((name, "decode_attn", call, keep, out, 0))
 
     for name, lib_name, call, keep, out, reps in cases:
         def run(which):
             lib = new[lib_name] if which == "new" else other[lib_name]
-            fn = (lambda: call(lib, which == "new"))
+            fn = (lambda: call(lib))
             if reps:
                 return cs.time_ms(torch, fn, reps=reps)
             return cs.graph_ms(torch, fn, reps=50)
 
-        call(other[lib_name], False)
+        call(other[lib_name])
         torch.cuda.synchronize()
         want = out.clone()
-        call(new[lib_name], True)
+        call(new[lib_name])
         torch.cuda.synchronize()
         same = bool(torch.equal(out, want))
         t = {w: [] for w in ("other", "new")}

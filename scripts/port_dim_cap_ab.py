@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The H2O and block-sparse kernels' head dim 128, uncapped, against the
+"""The H2O and block-sparse kernels at head dims 128 and 256 against the
 parent commit's builds of ``csrc/h2o_scores.cu`` and
 ``csrc/block_sparse_prefill.cu``, on one CUDA card.
 
@@ -8,17 +8,19 @@ parent commit's builds of ``csrc/h2o_scores.cu`` and
 ``DIR`` holds the parent commit's two sources (``git show
 HEAD~1:pyramidkv_tpu_torch/csrc/h2o_scores.cu`` and
 ``.../block_sparse_prefill.cu``, written to a directory inside the
-repository; ``hopper.cuh`` is taken from the package).  Their C entries
-take no head dim and no cap.  The script builds them with the package's
-nvcc flags, then, on the inputs of ``chip_smoke.py``'s "8k" H2O case (B=4,
-32 / 8 heads of D = 128, true_len 8000/6000/3000/1000, W = 8) and its "8k"
-and "32k" MInference cases (the pattern ``estimate_vertical_slash`` makes
-from seeded random q/k), calls each C entry of both builds on the same
-prepared inputs (the scaled query, the packed vertical bits, the sorted
-columns: the wrappers' work, done once), compares the outputs bit for bit,
-and times both builds in turns (parent, package, package, parent: device
-ms a call, CUDA events over 3 calls for H2O and 10 for the block-sparse
-kernels).
+repository), and its ``hopper.cuh`` where it has one (else the package's
+is used).  Their C entries are bound and called with the package's
+signatures (``_build.ENTRY_POINTS``).  The script builds them with the
+package's nvcc flags, then, on the inputs of ``chip_smoke.py``'s "8k" H2O
+case (B=4, 32 / 8 heads of D = 128, true_len 8000/6000/3000/1000, W = 8),
+its "gemma 8k" case (16 / 8 heads of D = 256, scale 1/16, cap 50) and its
+"8k" and "32k" MInference cases (the pattern ``estimate_vertical_slash``
+makes from seeded random q/k), calls each C entry of both builds on the
+same prepared inputs (the kernels' query, the packed vertical bits, the
+sorted columns: the wrappers' work, done once), compares the outputs bit
+for bit, and times both builds in turns (parent, package, package, parent:
+device ms a call, CUDA events over 3 calls for H2O and 10 for the
+block-sparse kernels).
 
 Prints the card's name and power limit, then one JSON line per kernel and
 shape.
@@ -37,15 +39,8 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: the parent's C signatures: no head dim, no cap
-PARENT = {
-    "h2o_scores": [("pkv_h2o_stats", [_P] * 5 + [_I] * 5 + [_P]),
-                   ("pkv_h2o_colsum", [_P] * 6 + [_I] * 5 + [_P])],
-    "block_sparse_prefill": [
-        ("pkv_slash_tiles", [_P] * 10 + [_I] * 8 + [_F, _P]),
-        ("pkv_vertical_partials", [_P] * 11 + [_I] * 5 + [_F, _P])],
-}
+#: the libraries compared
+LIBS = ("h2o_scores", "block_sparse_prefill")
 
 
 def build_parent(src_dir: str, name: str, out_dir: str) -> ctypes.CDLL:
@@ -57,10 +52,11 @@ def build_parent(src_dir: str, name: str, out_dir: str) -> ctypes.CDLL:
     with open(src, "w") as f:
         f.write(text)
     lib = os.path.join(out_dir, f"lib{name}_parent.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC,
-                    "-o", lib, src], check=True, capture_output=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", src_dir, "-I",
+                    _build.CSRC, "-o", lib, src], check=True,
+                   capture_output=True)
     dll = ctypes.CDLL(lib)
-    for symbol, argtypes in PARENT[name]:
+    for symbol, argtypes in _build.ENTRY_POINTS[name]:
         fn = getattr(dll, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -79,7 +75,7 @@ def main() -> int:
     from pyramidkv_tpu_torch import kernels
     from pyramidkv_tpu_torch.kernels import _build
     from pyramidkv_tpu_torch.kernels import block_sparse_prefill as bsp
-    from pyramidkv_tpu_torch.kernels.h2o_scores import scaled_query
+    from pyramidkv_tpu_torch.kernels.h2o_scores import kernel_query
     from pyramidkv_tpu_torch.ops import sparse_prefill as sp
 
     if not torch.cuda.is_available():
@@ -100,8 +96,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     _build.build_all(["h2o_scores", "block_sparse_prefill"])
     with tempfile.TemporaryDirectory() as tmp:
-        par = {n: build_parent(args.parent, n, tmp) for n in PARENT}
-    lib_n = {n: _build.library(n) for n in PARENT}
+        par = {n: build_parent(args.parent, n, tmp) for n in LIBS}
+    lib_n = {n: _build.library(n) for n in LIBS}
 
     def stream():
         return torch.cuda.current_stream(dev).cuda_stream
@@ -113,60 +109,67 @@ def main() -> int:
         a.append(reps_fn(fp))
         return sum(a) / 2, sum(b) / 2
 
-    # H2O at the 8k batch
-    b, h, hk, n, true_len, w, _, _ = cs.H2O_CASES["8k"]
-    d = 128
-    g = torch.Generator(device=dev).manual_seed(0)
-    q = cs._rand_bf16(torch, g, dev, b, h, n, d)
-    k = cs._rand_bf16(torch, g, dev, b, hk, n, d)
-    tl = torch.tensor(true_len, dtype=torch.int32, device=dev)
-    qs = scaled_query(q)
-    f32 = dict(dtype=torch.float32, device=dev)
-
-    # the new entries take D and the cap (0: none) after Hk / W
-    def stats(new):
-        m, l = torch.empty((b, h, n), **f32), torch.empty((b, h, n), **f32)
-        lib = lib_n if new else par
-        tail = (b, h, hk, d, n, w, 0.0) if new else (b, h, hk, n, w)
-        assert lib["h2o_scores"].pkv_h2o_stats(
-            qs.data_ptr(), k.data_ptr(), tl.data_ptr(), m.data_ptr(),
-            l.data_ptr(), *tail, stream()) == 0
-        return m, l
-
-    m_p, l_p = stats(False)
-    m_n, l_n = stats(True)
-
-    def colsum(new):
-        o = torch.empty((b, h, n - w), **f32)
-        lib = lib_n if new else par
-        tail = (b, h, hk, d, n, w, 0.0) if new else (b, h, hk, n, w)
-        assert lib["h2o_scores"].pkv_h2o_colsum(
-            qs.data_ptr(), k.data_ptr(), tl.data_ptr(), m_p.data_ptr(),
-            l_p.data_ptr(), o.data_ptr(), *tail, stream()) == 0
-        return o
-
-    cs_p, cs_n = colsum(False), colsum(True)
-    # the package's wrappers give the same bits
-    kw = dict(window_size=w, true_len=tl)
-    wm, wl = kernels.h2o_row_stats(q, k, **kw)
-    wrap_same = (torch.equal(wm, m_n) and torch.equal(wl, l_n) and
-                 torch.equal(kernels.h2o_colsum(q, k, m_p, l_p, **kw), cs_n))
-    torch.cuda.synchronize()
     ev = lambda fn: cs.time_ms(torch, fn, reps=3)  # noqa: E731
-    for name, same, fp, fn in (
-            ("h2o_row_stats", torch.equal(m_p, m_n) and torch.equal(l_p, l_n),
-             lambda: stats(False), lambda: stats(True)),
-            ("h2o_colsum", torch.equal(cs_p, cs_n), lambda: colsum(False),
-             lambda: colsum(True))):
-        ms_p, ms_n = turns(fp, fn, ev)
-        log({"kernel": name, "case": "8k", "D": d, "bitwise_equal": same,
-             "wrapper_bitwise_equal": wrap_same, "parent_ms": ms_p,
-             "ms": ms_n, "ratio": ms_n / ms_p})
-    del q, k, qs, m_p, l_p, m_n, l_n, cs_p, cs_n
-    torch.cuda.empty_cache()
+    f32 = dict(dtype=torch.float32, device=dev)
+    # H2O at the 8k batch: Llama-3-8B's D = 128, Gemma-2-9B's D = 256 capped
+    for case, d, scale, cap, q_std in (
+            ("8k", 128, None, None, 1.0),
+            ("gemma 8k", cs.GEMMA_D, cs.GEMMA_SCALE, cs.GEMMA_CAP,
+             cs.GEMMA_Q_STD)):
+        b, h, hk, n, true_len, w, _, _ = {**cs.H2O_CASES,
+                                          **cs.GEMMA_H2O_CASES}[case]
+        g = torch.Generator(device=dev).manual_seed(0)
+        q = (cs._rand_bf16(torch, g, dev, b, h, n, d).float() * q_std).to(
+            torch.bfloat16)
+        k = cs._rand_bf16(torch, g, dev, b, hk, n, d)
+        tl = torch.tensor(true_len, dtype=torch.int32, device=dev)
+        qs, mult = kernel_query(q, scale, cap)
+        tail = (b, h, hk, d, n, w, cap or 0.0, mult)
 
-    # the block-sparse kernels at the 8k and 32k MInference shapes
+        def stats(new):
+            m = torch.empty((b, h, n), **f32)
+            l = torch.empty((b, h, n), **f32)
+            lib = (lib_n if new else par)["h2o_scores"]
+            assert lib.pkv_h2o_stats(
+                qs.data_ptr(), k.data_ptr(), tl.data_ptr(), m.data_ptr(),
+                l.data_ptr(), *tail, stream()) == 0
+            return m, l
+
+        m_p, l_p = stats(False)
+        m_n, l_n = stats(True)
+
+        def colsum(new):
+            o = torch.empty((b, h, n - w), **f32)
+            lib = (lib_n if new else par)["h2o_scores"]
+            assert lib.pkv_h2o_colsum(
+                qs.data_ptr(), k.data_ptr(), tl.data_ptr(), m_p.data_ptr(),
+                l_p.data_ptr(), o.data_ptr(), *tail, stream()) == 0
+            return o
+
+        cs_p, cs_n = colsum(False), colsum(True)
+        # the package's wrappers give the same bits
+        kw = dict(window_size=w, true_len=tl, scale=scale, softcap=cap)
+        wm, wl = kernels.h2o_row_stats(q, k, **kw)
+        wrap_same = (torch.equal(wm, m_n) and torch.equal(wl, l_n) and
+                     torch.equal(kernels.h2o_colsum(q, k, m_p, l_p, **kw),
+                                 cs_n))
+        torch.cuda.synchronize()
+        for name, same, fp, fn in (
+                ("h2o_row_stats",
+                 torch.equal(m_p, m_n) and torch.equal(l_p, l_n),
+                 lambda: stats(False), lambda: stats(True)),
+                ("h2o_colsum", torch.equal(cs_p, cs_n),
+                 lambda: colsum(False), lambda: colsum(True))):
+            ms_p, ms_n = turns(fp, fn, ev)
+            log({"kernel": name, "case": case, "D": d, "softcap": cap,
+                 "bitwise_equal": same, "wrapper_bitwise_equal": wrap_same,
+                 "parent_ms": ms_p, "ms": ms_n, "ratio": ms_n / ms_p})
+        del q, k, qs, m_p, l_p, m_n, l_n, cs_p, cs_n, wm, wl
+        torch.cuda.empty_cache()
+
+    # the block-sparse kernels at the 8k and 32k MInference shapes, D = 128
     ev10 = lambda fn: cs.time_ms(torch, fn, reps=10)  # noqa: E731
+    d = 128
     for seed, case in enumerate(("8k", "32k")):
         (b, h, hk, n, true_len, budgets, qb, kt, budget, _, _,
          _) = cs.SPARSE_CASES[case]
@@ -197,25 +200,23 @@ def main() -> int:
         def slash(new):
             acc, m, l = outs()
             lib = (lib_n if new else par)["block_sparse_prefill"]
-            mid = (b, h, hk, d, n) if new else (b, h, hk, n)
-            tail = (sc, 0.0) if new else (sc,)
             assert lib.pkv_slash_tiles(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), ti.data_ptr(),
                 tv.data_ptr(), vbits.data_ptr(), tl.data_ptr(),
-                acc.data_ptr(), m.data_ptr(), l.data_ptr(), *mid, qb, kt,
-                ti.shape[-1], vbits.shape[-1], *tail, stream()) == 0
+                acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, hk, d, n,
+                qb, kt, ti.shape[-1], vbits.shape[-1], sc, 0.0,
+                stream()) == 0
             return acc, m, l
 
         def vert(new):
             acc, m, l = outs()
             lib = (lib_n if new else par)["block_sparse_prefill"]
-            mid = (b, h, d, n) if new else (b, h, n)
-            tail = (sc, 0.0) if new else (sc,)
             assert lib.pkv_vertical_partials(
                 q.data_ptr(), kv.data_ptr(), vv.data_ptr(), order.data_ptr(),
                 keys.data_ptr(), counts.data_ptr(), ks.data_ptr(),
                 vs_.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-                *mid, kv.shape[2], keys.shape[-1], *tail, stream()) == 0
+                b, h, d, n, kv.shape[2], keys.shape[-1], sc, 0.0,
+                stream()) == 0
             return acc, m, l
 
         for name, fn in (("slash_tile_attention", slash),

@@ -7,8 +7,9 @@ logit cap among them), on a CUDA card.
 
     python3 scripts/port_mutation_check.py [--only NAMES] [--log FILE]
 
-Copies ``pyramidkv_tpu_torch``, ``chip_smoke.py`` and
-``configs/minference`` into a temporary directory once per mutant, breaks
+Copies ``pyramidkv_tpu_torch``, ``chip_smoke.py``, ``configs/minference``
+and the trained grid's pin (``tests/torch_trained_tokens.json``) into a
+temporary directory once per mutant, breaks
 one file of the package there (a CUDA source, or a kernel wrapper's
 Python), and runs the ``chip_smoke`` phase that checks it against the
 broken kernels (each copy builds its own libraries; every check runs
@@ -17,7 +18,12 @@ shape (the checks whose case is not a short one) of the checks it
 targets; the script prints, per mutant, the smallest ``err_over_tol`` over
 those and over the short checks (where a mutant may not bite: a region too
 short for warp 1), and exits non-zero if a mutant was not caught.
-Mutants:
+Mutants (the ``d32_`` ones break the head-dim-32 kernels of the trained
+checkpoint, checked by ``phase_trained_kernel_checks``: flash skipping the
+diagonal tile or the last 8 channels of P V, H2O stats without the W x W
+block's causal mask, colsum reading one row's offset for a pair, decode
+lanes reading the first 4 chunks' channels only, the KIVI group kernel's
+V byte of lane % 16 and its tail K from lane 0's channels):
 
 - ``drop_plane`` (``csrc/quant_region.cuh``): the pa layout's split kernel
   reads the V codes of its last <= 4-bit field as 0 (the last bit-plane;
@@ -225,6 +231,12 @@ QWEN_KIVI = ("csrc/quant_region.cuh", "phase_qwen_kernels")
 GEMMA_FLASH = ("csrc/flash_prefill.cu", "phase_gemma_kernels")
 GEMMA_BSP = ("csrc/block_sparse_prefill.cu", "phase_gemma_kernels")
 GEMMA_KIVI = ("csrc/quant_region.cuh", "phase_gemma_region_kernels")
+D32 = "phase_trained_kernel_checks"
+
+
+def _d32(check):
+    """The D = 32 checks of one kernel (the trained checkpoint's)."""
+    return lambda r: r["check"] == check and r.get("D") == 32
 
 
 def _capped_h2o(r):
@@ -637,6 +649,38 @@ MUTANTS = {
         *MM, lambda r: _int4(r) and r["span"] == 1,
         "return span == 1 ? 2 * j + nib :",
         "return span == 1 ? 2 * j + 1 - nib :"),
+    "d32_flash_skips_diagonal_tile": (
+        "csrc/flash_prefill.cu", D32, _d32("flash_causal_attention"),
+        "  for (int kt = t_lo; kt <= t_hi; ++kt) {\n    __syncthreads();  // "
+        "every warp is done with the previous tile",
+        "  for (int kt = t_lo; kt < t_hi; ++kt) {\n    __syncthreads();  // "
+        "every warp is done with the previous tile"),
+    "d32_flash_drops_last_channels": (
+        "csrc/flash_prefill.cu", D32, _d32("flash_causal_attention"),
+        "#pragma unroll\n      for (int nt = 0; nt < 4; ++nt) {\n        "
+        "const __nv_bfloat16* vr",
+        "#pragma unroll\n      for (int nt = 0; nt < 3; ++nt) {\n        "
+        "const __nv_bfloat16* vr"),
+    "d32_h2o_stats_no_window_block": (
+        "csrc/h2o_scores.cu", D32, _d32("h2o_row_stats"),
+        "const bool hid = min(r, c) < pad || (r >= N - W && c > r);",
+        "const bool hid = min(r, c) < pad;"),
+    "d32_h2o_colsum_one_offset": (
+        "csrc/h2o_scores.cu", D32, _d32("h2o_colsum"),
+        "cs[i] += ex2(y0 - o.x) + ex2(y1 - o.y);",
+        "cs[i] += ex2(y0 - o.x) + ex2(y1 - o.x);"),
+    "d32_decode_lanes_read_one_chunk": (
+        "csrc/decode_attn.cu", D32, _d32("decode_attention"),
+        "reinterpret_cast<const uint2*>(ks + r * ROW_BYTES + c * 8);",
+        "reinterpret_cast<const uint2*>(ks + r * ROW_BYTES + (c & 3) * 8);"),
+    "d32_region_v_byte_of_lane_mod_16": (
+        "csrc/quant_region.cuh", D32, _d32("quant_fused_attention_group"),
+        "vw[0] = vst[rv * Dp + lane];",
+        "vw[0] = vst[rv * Dp + (lane & 15)];"),
+    "d32_region_tail_k_of_lane_0": (
+        "csrc/quant_region.cuh", D32, _d32("quant_fused_attention_group"),
+        "reinterpret_cast<const uint2*>(st + r * D * 2 + c * 8);",
+        "reinterpret_cast<const uint2*>(st + r * D * 2);"),
     "int4_drops_last_stage": (
         *MM, _int4,
         "const int nks = (min(a.ks,",
@@ -710,6 +754,10 @@ def main() -> int:
             # the minference checks read the per-head pattern config
             shutil.copytree(os.path.join(ROOT, "configs", "minference"),
                             os.path.join(tmp, "configs", "minference"))
+            # the D = 32 checks take the trained grid's pinned prompt
+            os.makedirs(os.path.join(tmp, "tests"))
+            shutil.copy(os.path.join(ROOT, "tests", "torch_trained_tokens.json"),
+                        os.path.join(tmp, "tests"))
             with open(os.path.join(tmp, PKG, source), "w") as f:
                 f.write(texts[name])
             res = subprocess.run([sys.executable, "-c", _RUN, phase],

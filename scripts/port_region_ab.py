@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
-"""The KIVI region kernels' head dim 128, uncapped, against the parent
-commit's builds of ``csrc/quant_decode.cu`` and ``csrc/quant_fused_decode.cu``
-(with its ``quant_region.cuh``), on one CUDA card.
+"""The KIVI region kernels at head dims 128 and 256 against the parent
+commit's builds of ``csrc/quant_decode.cu``, ``csrc/quant_group_fused.cu``
+and ``csrc/quant_fused_decode.cu`` (with its ``quant_region.cuh``), on one
+CUDA card.
 
     python3 scripts/port_region_ab.py --parent DIR [--log FILE]
 
-``DIR`` holds the parent commit's three sources (``git show
-HEAD~1:pyramidkv_tpu_torch/csrc/quant_region.cuh``, ``.../quant_decode.cu``
-and ``.../quant_fused_decode.cu``, written to a directory inside the
-repository).  Their C entries take no head dim and no cap, and the parent's
-``quant_decode.cu`` holds both group modes (f32 and folded).  The script
+``DIR`` holds the parent commit's four sources (``git show
+HEAD~1:pyramidkv_tpu_torch/csrc/quant_region.cuh``, ``.../quant_decode.cu``,
+``.../quant_group_fused.cu`` and ``.../quant_fused_decode.cu``, written to a
+directory inside the repository), and its ``hopper.cuh`` where it has one
+(else the package's is used).  Each library holds one mode (the f32 and
+the folded group modes, the pa kernel), and the parent's entries are bound
+and called with the package's signature (``_build._REGION``).  The script
 builds them with the package's nvcc flags, then, on the region shapes of
 ``chip_smoke.py``'s KIVI runs (``KV_RUNS``: the 32k fullkv and snapkv
 regions and the 8k batch's, group and pa, kivi4 and kivi2) plus the
-chunked carry's 4 K groups and Qwen2.5-7B's G = 7, calls each group mode
-and the pa kernel of both builds with the step's bf16 tail on the same
-inputs and plan, compares the outputs bit for bit, and times both builds
-in turns (parent, package, package, parent: device ms a call from a CUDA
-graph of 50 calls).
+chunked carry's 4 K groups, Qwen2.5-7B's G = 7 and Gemma-2-9B's capped
+D = 256 group and pa regions (the 8k batch's snapkv kivi4 width, G = 1;
+fullkv kivi4-pa, G = 2; scale 1/16, cap 50), calls each group mode and
+the pa kernel of both builds with the step's bf16 tail on the same inputs
+and plan, compares the outputs bit for bit, and times both builds in turns
+(parent, package, package, parent: device ms a call from a CUDA graph of
+50 calls).
 
 Prints the card's name and power limit, then one JSON line per kernel and
 shape.
@@ -37,19 +42,14 @@ import tempfile
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: the parent's C signature (PKVQ_PARAMS without D and softcap)
-_OLD = [_P] * 14 + [_I] * 12 + [_F] + [_P] * 3 + [_I] * 2 + [_P] * 2
-PARENT = {"quant_decode": ["pkv_quant_decode", "pkv_quant_group_fused"],
-          "quant_fused_decode": ["pkv_quant_fused_pa"]}
-#: (package library, symbol) -> the parent's symbol
-MODES = {("quant_decode", "pkv_quant_decode"): "pkv_quant_decode",
-         ("quant_group_fused", "pkv_quant_group_fused"):
-             "pkv_quant_group_fused",
-         ("quant_fused_decode", "pkv_quant_fused_pa"): "pkv_quant_fused_pa"}
+#: (library, symbol) of each mode, in the parent and the package alike
+MODES = (("quant_decode", "pkv_quant_decode"),
+         ("quant_group_fused", "pkv_quant_group_fused"),
+         ("quant_fused_decode", "pkv_quant_fused_pa"))
 
 
-def build_parent(src_dir: str, name: str, out_dir: str) -> ctypes.CDLL:
+def build_parent(src_dir: str, name: str, symbol: str,
+                 out_dir: str) -> ctypes.CDLL:
     from pyramidkv_tpu_torch.kernels import _build
 
     for f in (f"{name}.cu", "quant_region.cuh"):
@@ -57,14 +57,18 @@ def build_parent(src_dir: str, name: str, out_dir: str) -> ctypes.CDLL:
                 open(os.path.join(out_dir, f), "w") as dst:
             dst.write(src.read())
     lib = os.path.join(out_dir, f"lib{name}_parent.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
-                    os.path.join(out_dir, f"{name}.cu")], check=True,
-                   capture_output=True)
+    # the parent's namespace renamed: the launch templates' static flags
+    # (the kernels' shared-memory attribute set once) are unique symbols
+    # process-wide, so with one name the package's build would take the
+    # parent's flag and never set its own kernels' attribute
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Dpkvq=pkvq_parent",
+                    "-I", src_dir, "-I", _build.CSRC, "-o", lib,
+                    os.path.join(out_dir, f"{name}.cu")],
+                   check=True, capture_output=True)
     dll = ctypes.CDLL(lib)
-    for symbol in PARENT[name]:
-        fn = getattr(dll, symbol)
-        fn.argtypes = _OLD
-        fn.restype = ctypes.c_int
+    fn = getattr(dll, symbol)
+    fn.argtypes = _build._REGION
+    fn.restype = ctypes.c_int
     return dll
 
 
@@ -101,10 +105,11 @@ def main() -> int:
     _build.build_all(["quant_decode", "quant_group_fused",
                       "quant_fused_decode"])
     with tempfile.TemporaryDirectory() as tmp:
-        par = {n: build_parent(args.parent, n, tmp) for n in PARENT}
+        par = {n: build_parent(args.parent, n, sym, tmp) for n, sym in MODES}
     f32 = dict(dtype=torch.float32, device=dev)
 
-    def call(lib, symbol, new, q, reg, mask, nbits, plan, tail):
+    def call(lib, symbol, new, q, reg, mask, nbits, plan, tail, cap=0.0,
+             scale=None):
         """One region call with the tail: the layer's bf16 output."""
         b, h, d = q.shape
         kc, vc = reg.k.codes, reg.v.codes
@@ -119,9 +124,8 @@ def main() -> int:
               torch.empty((b * hk * nsplit, g), **f32))
         tk, tv, tm = tail
         res = torch.empty_like(q)
-        mid = [b * hk] + ([d] if new else []) + [
-            g, nbits, w, s_pad, ng, dp, ngv, mask.stride(1), mask.shape[-1],
-            nsplit, rows, 1.0 / math.sqrt(d)] + ([0.0] if new else [])
+        mid = [b * hk, d, g, nbits, w, s_pad, ng, dp, ngv, mask.stride(1),
+               mask.shape[-1], nsplit, rows, scale or 1.0 / math.sqrt(d), cap]
         fn = getattr(_build.library(lib) if new else par[lib], symbol)
         err = fn(q.data_ptr(), kc.data_ptr(), reg.k.scale.data_ptr(),
                  reg.k.zero.data_ptr(), vc.data_ptr(), reg.v.scale.data_ptr(),
@@ -153,35 +157,41 @@ def main() -> int:
                 cs.H // cs.HK, cs.QN, 4, cs.QMAX_NEW, 8192),
                ("qwen fullkv kivi4 8k width", "group", cs.B, 4, 7, cs.N, 4,
                 cs.MAX_NEW, None)]
-    for seed, (label, layout, b, hk, grp, s, nbits, t_len, k_chunk) in \
+    shapes = [(*x, 128) for x in shapes]
+    # Gemma-2-9B's capped D = 256 regions
+    shapes += [("gemma snapkv kivi4 8k width, D=256", "group", cs.B, 16, 1,
+                2048, 4, cs.MAX_NEW, None, 256),
+               ("gemma fullkv kivi4-pa 8k width, D=256", "pa", cs.B, 8, 2,
+                cs.N, 4, cs.MAX_NEW, None, 256)]
+    for seed, (label, layout, b, hk, grp, s, nbits, t_len, k_chunk, d) in \
             enumerate(shapes, start=1):
+        akw = dict(cap=50.0, scale=1.0 / 16) if d == 256 else {}
         q, reg, mask, tail = cs.region_inputs(
             torch, dev, b, hk, grp, s, nbits, 64, layout, t_len, seed,
-            k_chunk=k_chunk)
+            k_chunk=k_chunk, d=d, q_std=4.0 if d == 256 else 1.0)
         w, _, kg, _ = quant.region_geometry(reg, nbits)
-        for (lib, symbol), psym in MODES.items():
+        for lib, symbol in MODES:
             if (layout == "pa") != (lib == "quant_fused_decode"):
                 continue
             if layout == "pa":
                 plan = qfd.pa_split_plan(dev, b * hk, w,
-                                         kg if kg <= w else 0)
-                plib = "quant_fused_decode"
+                                         kg if kg <= w else 0, d)
             else:
-                plan = qd.split_plan(dev, b * hk, w, nbits, kg)
-                plib = "quant_decode"
+                plan = qd.split_plan(dev, b * hk, w, nbits, kg, d)
 
-            def fp(plib=plib, psym=psym, plan=plan):
-                return call(plib, psym, False, q, reg, mask, nbits, plan,
-                            tail)
+            def fp(lib=lib, symbol=symbol, plan=plan):
+                return call(lib, symbol, False, q, reg, mask, nbits, plan,
+                            tail, **akw)
 
             def fn(lib=lib, symbol=symbol, plan=plan):
                 return call(lib, symbol, True, q, reg, mask, nbits, plan,
-                            tail)
+                            tail, **akw)
 
             same = torch.equal(fp(), fn())
             ms_p, ms_n = turns(fp, fn)
             log({"kernel": symbol, "case": label, "layout": layout, "B": b,
-                 "Hk": hk, "G": grp, "S": s, "nbits": nbits, "tail": t_len,
+                 "Hk": hk, "G": grp, "S": s, "D": d, "nbits": nbits,
+                 "tail": t_len,
                  "plan": list(plan), "bitwise_equal": same,
                  "parent_ms": ms_p, "ms": ms_n, "ratio": ms_n / ms_p})
         del q, reg, mask, tail

@@ -24,6 +24,9 @@ bad = sorted(n for n in new if n == "jax" or n.startswith("jax.")
              or n == "pyramidkv_tpu" or n.startswith("pyramidkv_tpu."))
 assert not bad, bad
 assert "pyramidkv_tpu_torch.engine" in new
+# the trained checkpoint's tokenizer, needle helpers and loader too
+for m in ("train", "train.tokenizer", "train.data", "train.checkpoint"):
+    assert "pyramidkv_tpu_torch." + m in new, m
 print("ok")
 """
 
@@ -45,3 +48,14 @@ def test_engine_needs_a_card_unless_asked_for_cpu():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(ModelSpec.tiny(), CompressionSpec(), EngineSpec(), {})
+
+
+def test_trained_loader_needs_a_card_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from pyramidkv_tpu_torch.train import load_checkpoint
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_checkpoint()
+    spec, params = load_checkpoint(device="cpu")
+    assert spec.head_dim == 32 and params["embed"].device.type == "cpu"
